@@ -10,35 +10,65 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
-2. Build: both kernels from ``src/repro_torch/kernels/csrc`` with one
+2. Build: all four kernels from ``src/repro_torch/kernels/csrc`` with one
    ``nvcc`` each, started together; prints the ``-Xptxas -v`` report.
-3. Kernels against their plain PyTorch versions, bit for bit, at the main
-   path's shapes (LCP at prompts [64, 1024] x ledgers [64, 128, 1024] and
-   at a width that is not a multiple of 32; the bidding round at (64, 128),
-   (1024, 128) and (64, 16), with ties), each timed with CUDA events.
-4. Router lockstep: two ``IEMASRouter``s over the 128-agent ``SCALE_128``
-   fleet (one hub, warm starts, settlement ledger), one on the card with
-   the kernels and one on the CPU with the plain versions, route the same
-   seeded coqa_like + quac_like closed loop (batches of <= 64, >= 300
-   requests) served on the port's analytic engines.  Decisions, accounts
-   and the ledger head must be identical, and the kernel launch counters
-   must grow on every batch.  Prints route_batch latency, throughput, the
-   ledger tile's host-to-device copy time and bid rounds per solve.
-5. Each kernel against its plain version again, and timed, at the inputs
-   of every call the main path made to it in phase 4 (recorded there);
-   then the card line, the JSON line of kernel records and the device line
-   last.
+3. The router's kernels against their plain PyTorch versions, bit for bit,
+   at the router path's shapes (LCP at prompts [64, 1024] x ledgers
+   [64, 128, 1024] and at a width that is not a multiple of 32; the
+   bidding round at (64, 128), (1024, 128) and (64, 16), with ties), each
+   timed with CUDA events.
+4. Router lockstep (the router's main path): two ``IEMASRouter``s over the
+   128-agent ``SCALE_128`` fleet (one hub, warm starts, settlement ledger),
+   one on the card with the kernels and one on the CPU with the plain
+   versions, route the same seeded coqa_like + quac_like closed loop
+   (batches of <= 64, >= 300 requests) served on the port's analytic
+   engines.  Decisions, accounts and the ledger head must be identical, and
+   the kernel launch counters must grow on every batch.  Prints
+   route_batch latency, throughput, the ledger tile's host-to-device copy
+   time and bid rounds per solve.
+5. Each router kernel against its plain version again, and timed, at the
+   inputs of every call the main path made to it in phase 4.
+6. The attention kernels against their plain versions (2e-5 in float32,
+   3e-2 in bfloat16) at synthetic full-width qwen3-8b shapes: prefill
+   buckets 128 and 512, decode at M = 1024 under a random mask; each timed
+   beside its plain version and PyTorch's ``scaled_dot_product_attention``
+   (the yardstick only: the port never calls it).
+7. Serving-engine lockstep: qwen3-8b at full width, 2 layers, float32
+   (TF32 off), the same weights on the card and on the CPU; two dialogues
+   of three turns (fresh, extend, identical, LRU evictions with
+   ``cache_slots=1``) must give identical tokens, cache hits and modes,
+   and last-token logits within 2e-3 of their max.
+8. The serving slice (the engine's main path): one qwen3-8b
+   ``AgentEngine`` at full width in bf16 (36 layers, ``max_len`` 1024)
+   serves multi-turn quac_like / coqa_like requests (fresh prefill, extend
+   with a cache hit, an identical repeat); prints TTFT, decode time per
+   token, tokens/s and cache hits per mode; ``flash_attention`` must launch
+   36 times per fresh prefill and ``decode_attention`` 36 times per decode
+   step, no-op steps included.  Then both attention kernels against their
+   plain versions, and timed, at a sample of the inputs phase 8 gave them.
+9. Router to real engines (the quickstart chain at full width): the CUDA
+   router routes turn 1 and then turn 2 of two dialogues over two
+   full-width qwen3-8b engines (phase 8's and one more, each seeded as the
+   reference's cluster seeds its agents), fed back through
+   ``on_complete``; every request is served, logits are finite, and a turn
+   2 that returns to its turn-1 agent hits the cache.  Then the card line,
+   the JSON line of kernel records and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
 import sys
 import time
+import zlib
+from collections import Counter
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -47,11 +77,17 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # same, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # same, bf16 on the tensor cores (dense)
 N_AGENTS = 128
 MIN_REQUESTS = 300
 BIG = 3.4028234663852886e38 / 4    # float32 max / 4, the no-bid price
-# the per-kernel figures of the JSON line that phase 5 measures
+# the per-kernel figures of the JSON line that phases 5 and 8 measure
 MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's
+ENGINE_LOGIT_TOL = 2e-3            # tests/test_models.py's
+ARCH = "qwen3-8b"
+MAX_LEN = 1024
+SLICE_AGENT = "agent-0"            # phase 8's engine serves as it in phase 9
 
 
 def check(ok: bool, what: str) -> None:
@@ -155,11 +191,12 @@ def bid_work(W, ask, ask2, active, eps) -> tuple[int, int]:
     return nbytes, 3 * m * rows
 
 
-def roofline(nbytes: int, ops: int) -> tuple[float, str]:
+def roofline(nbytes: int, ops: int,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     """The least time in ms for this work, and what bounds it: bytes over
-    the HBM rate or operations over the float32 rate."""
+    the HBM rate or operations over the peak rate of their type."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -285,30 +322,46 @@ class ClosedLoop:
         self.ready = back + self.ready
 
 
+def shape_key(args) -> tuple:
+    import torch
+
+    return tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+
+
 class Recorder:
-    """Stands in for an op of `repro_torch.kernels.ops` during the main
+    """Stands in for an op of `repro_torch.kernels.ops` during a main
     path's run.  It passes every call on to the op unchanged and keeps the
-    inputs of each call made on the card, so that phase 5 can check and
-    time the kernel at the main path's own inputs.  The router makes fresh
-    input tensors for every call and never writes them afterwards, so a
-    reference is enough.  The op's launch count is untouched by this."""
+    inputs (args, kwargs) of calls made on the card, so that a later phase
+    can check and time the kernel at the main path's own inputs: all of
+    them, or the first ``per_shape`` of each shape signature, counting
+    every call per shape (``count``) so that a sample can be weighted by
+    how often the main path made it.  Nothing writes an op's inputs after
+    the call (the router makes fresh tensors per call; the model's caches
+    are functional), so references are enough.  The op's launch count is
+    untouched by this."""
 
-    def __init__(self, op):
+    def __init__(self, op, per_shape: int | None = None):
         self.op = op
+        self.per_shape = per_shape
         self.calls = []
+        self.count = Counter()
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         if args[0].is_cuda:
-            self.calls.append(args)
-        return self.op(*args)
+            key = shape_key(args)
+            self.count[key] += 1
+            if self.per_shape is None or self.count[key] <= self.per_shape:
+                self.calls.append((args, kwargs))
+        return self.op(*args, **kwargs)
 
 
 @contextmanager
-def recording(ops, names):
+def recording(ops, names, per_shape: int | None = None):
     """Replace each named op of module ``ops`` by a Recorder, and put the
     op back afterwards."""
     ops_before = {name: getattr(ops, f"{name}_op") for name in names}
-    recorders = {name: Recorder(op) for name, op in ops_before.items()}
+    recorders = {name: Recorder(op, per_shape)
+                 for name, op in ops_before.items()}
     for name, rec in recorders.items():
         setattr(ops, f"{name}_op", rec)
     try:
@@ -431,28 +484,490 @@ def replay(calls, kernel, plain, work, iters: int, plain_iters: int) -> dict:
     bit for bit, then each timed over the whole recorded sequence.  Times
     and the bound are per call, averaged over the calls; the bound counts
     the bytes and operations each call's own data needs."""
-    import torch
-
     check(bool(calls), "no kernel call was recorded on the main path")
     err, nbytes, nops = 0.0, 0, 0
-    for args in calls:
-        got, want = kernel(*args), plain(*args)
-        if isinstance(got, torch.Tensor):
+    for args, kw in calls:
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        if not isinstance(got, tuple):
             got, want = (got,), (want,)
         err = max(err, *(exact_diff(g, w) for g, w in zip(got, want)))
         b, o = work(args, got)
         nbytes, nops = nbytes + b, nops + o
     check(err == 0.0, f"{kernel.__name__} != plain at a main-path input")
-    ms = cuda_time_ms(lambda: [kernel(*a) for a in calls], iters, 1)
-    plain_ms = cuda_time_ms(lambda: [plain(*a) for a in calls],
+    ms = cuda_time_ms(lambda: [kernel(*a, **kw) for a, kw in calls], iters, 1)
+    plain_ms = cuda_time_ms(lambda: [plain(*a, **kw) for a, kw in calls],
                             plain_iters, 1)
     bound, by = roofline(nbytes / len(calls), nops / len(calls))
-    shapes = sorted({tuple(tuple(a.shape) for a in args
-                           if isinstance(a, torch.Tensor))[:2]
-                     for args in calls})
+    shapes = sorted({shape_key(args)[:2] for args, _ in calls})
     return {"calls": len(calls), "shapes": shapes, "max_abs_err": err,
             "ms": ms / len(calls), "plain_ms": plain_ms / len(calls),
             "bound_ms": bound, "bound_by": by}
+
+
+# ------------------------------------------------------- attention, 6 --
+def ops_rate(dtype) -> float:
+    """Peak operations per second for inputs of ``dtype``."""
+    import torch
+
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
+def flash_work(q, k, v, *, causal=True, window=0) -> tuple[int, int]:
+    """(bytes, operations) one prefill-attention call needs: q, k and v
+    read once and o written once; a multiply-add for QK^T and one for PV
+    on every (query, key) pair the masks leave."""
+    import torch
+
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    pairs = b * int(mask.sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return nbytes, 4 * h * d * pairs
+
+
+def decode_work(q, k_cache, v_cache, valid) -> tuple[int, int]:
+    """(bytes, operations) one decode-attention call needs: q, the mask,
+    the K and V rows of the valid slots only (nothing else decides the
+    output), o written once; QK^T and PV multiply-adds per valid slot."""
+    b, h, d = q.shape
+    hkv = k_cache.shape[2]
+    nvalid = int(valid.sum())
+    es = q.element_size()
+    nbytes = 2 * q.numel() * es + 2 * nvalid * hkv * d * es + valid.numel()
+    return nbytes, 4 * h * d * nvalid
+
+
+def sdpa_flash(q, k, v, *, causal=True, window=0):
+    """PyTorch's one call for the same function (the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = ((kpos <= qpos) | (not causal)) & ((qpos - kpos) < window)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=True)
+    return out.transpose(1, 2)
+
+
+def sdpa_decode(q, k_cache, v_cache, valid):
+    """PyTorch's one call for the same function (the yardstick)."""
+    import torch.nn.functional as F
+
+    out = F.scaled_dot_product_attention(
+        q[:, :, None, :], k_cache.transpose(1, 2), v_cache.transpose(1, 2),
+        attn_mask=valid[:, None, None, :], enable_gqa=True)
+    return out[:, :, 0]
+
+
+def attn_err(got, want, what: str) -> float:
+    """Max abs error of ``got`` against ``want``, checked against the
+    reference's tolerance for their dtype."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = ATTN_TOL[str(got.dtype).removeprefix("torch.")]
+    check(err < tol, f"{what}: max abs error {err} >= {tol}")
+    return err
+
+
+def attn_figures(kernel, plain, library, work, args, kw, iters=50) -> dict:
+    """One call's kernel, plain and library times (CUDA events) and bound,
+    after checking the kernel and the library against the plain version."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    err = attn_err(got, want, f"{kernel.__name__} {shape_key(args)}")
+    attn_err(library(*args, **kw), want, f"library {shape_key(args)}")
+    bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
+    return {"max_abs_err": err,
+            "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
+            "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 10, 2),
+            "library_ms": cuda_time_ms(lambda: library(*args, **kw), iters,
+                                       5),
+            "bound_ms": bound, "bound_by": by}
+
+
+def print_attn(name, shape, f) -> None:
+    print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}, kernel "
+          f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, SDPA "
+          f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.6f} ms "
+          f"({f['bound_by']})")
+
+
+def phase_attention(dev) -> None:
+    """Both attention kernels against their plain versions at synthetic
+    full-width qwen3-8b shapes, in float32 and bf16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    cfg = get_config(ARCH)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(6)
+
+    def normal(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (128, 512):
+            args = (normal((1, s, h, d), dtype), normal((1, s, hkv, d), dtype),
+                    normal((1, s, hkv, d), dtype))
+            f = attn_figures(flash_attention_cuda, flash_attention_plain,
+                             sdpa_flash, flash_work, args, {})
+            print_attn(f"flash_attention {dtype}", shape_key(args), f)
+        valid = rng.random((1, MAX_LEN)) < 0.6
+        valid[:, 0] = True
+        args = (normal((1, h, d), dtype), normal((1, MAX_LEN, hkv, d), dtype),
+                normal((1, MAX_LEN, hkv, d), dtype),
+                torch.from_numpy(valid).to(dev))
+        f = attn_figures(decode_attention_cuda, decode_attention_plain,
+                         sdpa_decode, decode_work, args, {})
+        print_attn(f"decode_attention {dtype}", shape_key(args), f)
+
+
+def replay_attention(rec, kernel, plain, library, work) -> dict:
+    """The kernel against its plain version at every sampled main-path
+    input, each timed alone; per-call figures weighted by how many calls of
+    the sample's shape the main path made, so they are means per call of
+    the main path."""
+    check(bool(rec.calls), f"no {kernel.__name__} call was recorded")
+    sampled = Counter(shape_key(args) for args, _ in rec.calls)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    err, weight, by = 0.0, 0.0, Counter()
+    for args, kw in rec.calls:
+        key = shape_key(args)
+        w = rec.count[key] / sampled[key]
+        f = attn_figures(kernel, plain, library, work, args, kw, iters=20)
+        err = max(err, f["max_abs_err"])
+        for k in total:
+            total[k] += w * f[k]
+        by[f["bound_by"]] += w
+        weight += w
+        print_attn(f"{kernel.__name__} x{rec.count[key]}", key[:2], f)
+    return {"calls": sum(rec.count.values()), "sampled": len(rec.calls),
+            "max_abs_err": err, "bound_by": by.most_common(1)[0][0],
+            **{k: v / weight for k, v in total.items()}}
+
+
+# ------------------------------------------------------------ engines --
+def mode_of(res, prev_prompt) -> str:
+    """The engine's serving mode for a result, from its cache accounting
+    and the session's stored prompt before the call (the engine's rule)."""
+    if res.n_hit == 0:
+        return "fresh"
+    if res.n_hit == res.n_prompt:
+        return ("identical" if prev_prompt is not None
+                and len(prev_prompt) == res.n_prompt else "extend-noop")
+    return "extend"
+
+
+def rel_logit_err(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+def session_logits(engine, did):
+    """Logits of one uncommitted decode step on a stored session's cache
+    (the stored cache is left as it was)."""
+    import torch
+
+    sess = engine.sessions[did]
+    tok = torch.tensor([int(sess.prompt[-1])], dtype=torch.int32,
+                       device=engine.device)
+    with torch.no_grad():
+        logits, _ = engine.model.decode_step(engine.params, sess.cache, tok)
+    return logits
+
+
+def phase_engine_lockstep(dev) -> None:
+    """A CUDA engine and a CPU engine on the same weights (full width, two
+    layers, float32) serve the same two dialogues in lockstep."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+    from repro_torch.serving.workload import WorkloadSpec, generate
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32")
+    kw = {"max_len": MAX_LEN, "max_new_tokens": 4, "cache_slots": 1}
+    gpu = AgentEngine(cfg, seed=7, device=dev, **kw)
+    cpu = AgentEngine(cfg, device="cpu",
+                      params=copy.deepcopy(gpu.params).cpu(), **kw)
+    scripts = generate(WorkloadSpec("coqa_like", 2, seed=7))
+    history = {s.dialogue_id: np.zeros(0, np.int32) for s in scripts}
+    plan = [(0, 0), (0, 1), (0, None), (1, 0), (1, 1), (0, 2)]
+    modes, worst, flash_launches = [], 0.0, 0
+    for i, (d, t) in enumerate(plan):
+        did = scripts[d].dialogue_id
+        prev = gpu.sessions.get(did)
+        prev = None if prev is None else prev.prompt
+        prompt = prev if t is None else np.concatenate(
+            [history[did], scripts[d].turns[t]]).astype(np.int32)
+        before = ops.launch_counts()["flash_attention"]
+        a = gpu.serve(did, prompt, now=float(i))
+        flash_launches += ops.launch_counts()["flash_attention"] - before
+        b = cpu.serve(did, prompt, now=float(i))
+        check(np.array_equal(a.output_tokens, b.output_tokens)
+              and (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt),
+              f"CUDA and CPU engines diverged at step {i} ({did}): "
+              f"{a.output_tokens} / {b.output_tokens}, hits {a.n_hit} / "
+              f"{b.n_hit}")
+        mode = mode_of(a, prev)
+        check(mode == mode_of(b, prev), "engine modes diverged")
+        err = rel_logit_err(session_logits(gpu, did), session_logits(cpu, did))
+        check(err < ENGINE_LOGIT_TOL, f"last-token logits differ by {err} "
+              f"at step {i}")
+        worst = max(worst, err)
+        modes.append(mode)
+        history[did] = np.concatenate([prompt, a.output_tokens])
+    check(gpu.evictions == cpu.evictions > 0, "no eviction, or a different "
+          "count")
+    check({"fresh", "extend", "identical"} <= set(modes),
+          f"modes not all covered: {modes}")
+    check(flash_launches == cfg.n_layers * modes.count("fresh"),
+          f"the CUDA engine launched flash_attention {flash_launches} times "
+          f"for modes {modes}")
+    print(f"    {len(plan)} requests, modes {modes}, evictions "
+          f"{gpu.evictions}: identical tokens and cache hits, last-token "
+          f"logits within {worst:.2e} of their max (limit "
+          f"{ENGINE_LOGIT_TOL})")
+
+
+def slice_requests():
+    """Multi-turn requests for the full-width slice: two quac_like and one
+    coqa_like dialogue, turns interleaved, then an identical repeat."""
+    from repro_torch.serving.workload import WorkloadSpec, generate
+
+    quac = generate(WorkloadSpec("quac_like", 2, seed=8))
+    coqa = generate(WorkloadSpec("coqa_like", 1, seed=8))
+    plan = [(quac[0], 0), (quac[1], 0), (coqa[0], 0), (quac[0], 1),
+            (coqa[0], 1), (quac[1], 1), (quac[0], 2), (coqa[0], None)]
+    return plan
+
+
+def phase_slice(dev, seed: int):
+    """One full-width bf16 engine serves the slice's requests; returns the
+    engine, the launch counts of the run and the recorded kernel calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine, _bucket
+
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = AgentEngine(cfg, seed=seed, device=dev, max_len=MAX_LEN,
+                         max_new_tokens=8, cache_slots=12)
+    torch.cuda.synchronize()
+    print(f"    {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; "
+          f"{sum(p.numel() for p in engine.params.parameters()) / 1e9:.3f} B "
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    engine.warmup()
+    history, rows, fresh, noops, steps = {}, [], 0, 0, 0
+    with recording(ops, ("flash_attention", "decode_attention"),
+                   per_shape=2) as rec:
+        ops.reset_launch_counts()          # the engine's main path starts
+        for i, (script, t) in enumerate(slice_requests()):
+            did = script.dialogue_id
+            prev = engine.sessions.get(did)
+            prev = None if prev is None else prev.prompt
+            prompt = prev if t is None else np.concatenate(
+                [history.get(did, np.zeros(0, np.int32)),
+                 script.turns[t]]).astype(np.int32)
+            check(len(prompt) + engine.max_new <= MAX_LEN,
+                  "a dialogue outgrew max_len")
+            res = engine.serve(did, prompt, now=float(i))
+            mode = mode_of(res, prev)
+            fresh += mode == "fresh"
+            noops += mode in ("identical", "extend-noop")
+            steps += res.n_gen
+            rows.append((mode, res))
+            history[did] = np.concatenate([prompt, res.output_tokens])
+        counts = ops.launch_counts()       # ... and ends here
+    layers = cfg.n_layers
+    check(counts["flash_attention"] == layers * fresh,
+          f"flash_attention launched {counts['flash_attention']} times for "
+          f"{fresh} fresh prefills of {layers} layers")
+    check(counts["decode_attention"] == layers * (steps + noops),
+          f"decode_attention launched {counts['decode_attention']} times for "
+          f"{steps} decode steps and {noops} no-op steps of {layers} layers")
+    check({"fresh", "extend", "identical"} <= {m for m, _ in rows},
+          f"modes not all covered: {[m for m, _ in rows]}")
+    for mode in ("fresh", "extend", "identical"):
+        got = [r for m, r in rows if m == mode]
+        ttft = [r.ttft * 1e3 for r in got]
+        dec_s = sum(r.total_time - r.ttft for r in got)
+        ntok = sum(r.n_gen for r in got)
+        check(all(r.n_hit > 0 for r in got) == (mode != "fresh"),
+              f"cache hits do not fit mode {mode}")
+        print(f"    {mode:9s} x{len(got)}: TTFT mean {statistics.mean(ttft):.2f}"
+              f" ms (min {min(ttft):.2f}, max {max(ttft):.2f}), decode "
+              f"{dec_s / ntok * 1e3:.2f} ms/token, {ntok / dec_s:.1f} tokens/s"
+              f", hits {sum(r.n_hit for r in got)}/"
+              f"{sum(r.n_prompt for r in got)} prompt tokens")
+    # what comes out: finite logits of the right shape, and the greedy
+    # token of a direct prefill (padded as the engine pads) equals what the
+    # engine generated first
+    script, t = slice_requests()[0]
+    prompt = np.asarray(script.turns[t], np.int32)
+    pad = np.zeros((1, _bucket(len(prompt))), np.int32)
+    pad[0, :len(prompt)] = prompt
+    with torch.no_grad():
+        logits, _ = engine.model.prefill(engine.params, {
+            "tokens": torch.from_numpy(pad).to(dev),
+            "lens": torch.tensor([len(prompt)], dtype=torch.int32,
+                                 device=dev),
+            "max_len": MAX_LEN})
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits are not "
+          "finite values of shape [1, vocab]")
+    check(int(logits.argmax(-1)[0]) == int(rows[0][1].output_tokens[0]),
+          "a direct prefill's greedy token differs from the engine's")
+    print(f"    launches {counts} for {fresh} fresh prefills, {steps} decode "
+          f"steps and {noops} no-op steps; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    # where a step's time goes: host clock against the device's kernel
+    # time from a profiler trace (outside the counted run)
+    batch = {"tokens": torch.from_numpy(pad).to(dev),
+             "lens": torch.tensor([len(prompt)], dtype=torch.int32,
+                                  device=dev), "max_len": MAX_LEN}
+    cache = engine.sessions[script.dialogue_id].cache
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for what, fn, n in (
+                (f"prefill of {pad.shape[1]} tokens",
+                 lambda: engine.model.prefill(engine.params, batch), 2),
+                ("decode step", lambda: engine.model.decode_step(
+                    engine.params, cache, tok), 8)):
+            print(f"    {what}: " + device_share(fn, n))
+    return engine, counts, rec
+
+
+def device_share(fn, steps: int) -> str:
+    """Host ms per call of ``fn`` and the device's busy share over
+    ``steps`` calls, from a ``torch.profiler`` trace (the sum of CUDA
+    kernel times over the host clock), with the kernels that take most of
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    if busy_ms == 0.0:
+        return (f"host {wall_ms:.2f} ms per call; device time not measured "
+                "(the trace holds no kernel)")
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    return (f"host {wall_ms:.2f} ms per call, device kernels {busy_ms:.2f} "
+            f"ms ({busy_ms / wall_ms:.1%} busy); top: " + "; ".join(
+                f"{e.key[:60]} {e.device_time_total / 1e3 / steps:.3f} ms "
+                f"x{e.count // steps}" for e in top))
+
+
+def phase_router_engines(dev, engine0) -> None:
+    """The quickstart chain at full width: the CUDA router over two
+    full-width engines, turn 1 then turn 2 of two dialogues."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.iemas_cluster import (RouterConfig, agent_infos,
+                                                   agent_profiles,
+                                                   make_router)
+    from repro_torch.core.mechanism import CompletionObs, Request
+    from repro_torch.serving.engine import AgentEngine
+
+    profiles = agent_profiles(2)
+    engines = {}
+    for prof in profiles:
+        if prof.agent_id == SLICE_AGENT:   # phase 8's engine, same seed
+            engine = engine0
+            engine.sessions.clear()
+        else:
+            engine = AgentEngine(get_config(ARCH),
+                                 seed=agent_seed(prof.agent_id), device=dev,
+                                 max_len=MAX_LEN, max_new_tokens=8)
+        engine.speed = prof.speed
+        engine.cache_slots = prof.cache_slots
+        engines[prof.agent_id] = engine
+    router = make_router(agent_infos(profiles), RouterConfig(), device=dev,
+                         predictor_kw={"warm_n": 2})
+    rng = np.random.default_rng(9)
+    dialogues = {f"session-{j}": rng.integers(1, 250, n).astype(np.int32)
+                 for j, n in enumerate((40, 64))}
+    first = {}
+    for turn in (0, 1):
+        reqs = [Request(f"r{turn}-{did}", did, toks, turn=turn,
+                        domain="dialogue", max_new_tokens=8)
+                for did, toks in dialogues.items()]
+        decisions = router.route_batch(reqs, {})
+        check(all(d.agent_id is not None for d in decisions),
+              f"turn {turn + 1}: a request was not matched")
+        for d in decisions:
+            req = d.request
+            engine = engines[d.agent_id]
+            aff = router.ledger.affinity(d.agent_id, req.dialogue_id,
+                                         req.tokens)
+            res = engine.serve(req.dialogue_id, req.tokens)
+            check(bool(torch.isfinite(session_logits(
+                engine, req.dialogue_id)).all()), "logits are not finite")
+            router.on_complete(req.request_id, CompletionObs(
+                res.ttft, res.n_prompt, res.n_hit, res.n_gen, 0.7))
+            if turn == 0:
+                first[req.dialogue_id] = d.agent_id
+                dialogues[req.dialogue_id] = np.concatenate(
+                    [req.tokens, res.output_tokens,
+                     rng.integers(1, 250, 8).astype(np.int32)])
+                print(f"    turn 1 {req.dialogue_id} -> {d.agent_id}, "
+                      f"payment {d.payment:.4f}, TTFT {res.ttft * 1e3:.1f} ms, "
+                      f"hit {res.n_hit}/{res.n_prompt}")
+            else:
+                same = d.agent_id == first[req.dialogue_id]
+                check(not same or res.n_hit > 0, f"turn 2 of "
+                      f"{req.dialogue_id} returned to its agent but missed "
+                      "the cache")
+                print(f"    turn 2 {req.dialogue_id} -> {d.agent_id} "
+                      f"(same agent as turn 1: {same}), affinity o_ij "
+                      f"{aff:.3f}, TTFT {res.ttft * 1e3:.1f} ms, hit "
+                      f"{res.n_hit}/{res.n_prompt}")
+    print(f"    accounts {dict(router.accounts)}")
+
+
+def agent_seed(agent_id: str) -> int:
+    """The engine seed the reference's cluster gives an agent."""
+    return zlib.crc32(agent_id.encode()) % (2**31)
 
 
 def percentile(sorted_ms, q: float) -> float:
@@ -472,6 +987,14 @@ def main() -> int:
     from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                                   lcp_affinity_plain)
 
+    # float32 products in full float32 (the engine lockstep of phase 7)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -487,7 +1010,7 @@ def main() -> int:
             if "ptxas" in line:
                 print(f"    {name}: {line.strip()}")
 
-    print("[3] kernels against their plain versions")
+    print("[3] router kernels against their plain versions")
     phase_kernels(dev)
 
     print("[4] router lockstep, CUDA vs CPU, SCALE_128 fleet")
@@ -511,19 +1034,19 @@ def main() -> int:
           f"{run['bid_rounds_per_solve']:.1f}")
 
     calls = run["calls"]
-    lmat = calls["lcp_affinity"][-1][1].cpu()   # the last batch's tile
-    copy = []
+    lmat = calls["lcp_affinity"][-1][0][1].cpu()  # the last batch's tile
+    copy_ms = []
     for _ in range(10):
         torch.cuda.synchronize()
         t = time.perf_counter()
         lmat.to(dev)
         torch.cuda.synchronize()
-        copy.append((time.perf_counter() - t) * 1e3)
+        copy_ms.append((time.perf_counter() - t) * 1e3)
     print(f"    ledger tile {tuple(lmat.shape)} int32 "
           f"({lmat.numel() * 4 / 2**20:.1f} MiB) host->device copy: median "
-          f"{statistics.median(copy):.3f} ms")
+          f"{statistics.median(copy_ms):.3f} ms")
 
-    print("[5] kernels at the inputs of every main-path call")
+    print("[5] router kernels at the inputs of every main-path call")
     lcp = replay(calls["lcp_affinity"], lcp_affinity_cuda, lcp_affinity_plain,
                  lambda args, out: lcp_work(*args, out[0]), 50, 10)
     bid = replay(calls["auction_bid"], auction_bid_cuda, auction_bid_plain,
@@ -532,6 +1055,40 @@ def main() -> int:
         print(f"    {name} over {r['calls']} calls {r['shapes']}: bit-exact, "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.7f} ms ({r['bound_by']}) per call")
+
+    print("[6] attention kernels against their plain versions, synthetic "
+          f"full-width {ARCH} shapes")
+    phase_attention(dev)
+
+    print(f"[7] serving-engine lockstep, CUDA vs CPU, {ARCH} full width, 2 "
+          "layers, float32")
+    phase_engine_lockstep(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[8] the serving slice: {ARCH} AgentEngine at full width on the "
+          "card")
+    engine, engine_counts, attn_rec = phase_slice(dev,
+                                                  agent_seed(SLICE_AGENT))
+    print("    the attention kernels at the inputs of phase 8 (up to 2 calls "
+          "of each shape, weighted by the calls made)")
+    flash = replay_attention(attn_rec["flash_attention"],
+                             flash_attention_cuda, flash_attention_plain,
+                             sdpa_flash, flash_work)
+    dec = replay_attention(attn_rec["decode_attention"],
+                           decode_attention_cuda, decode_attention_plain,
+                           sdpa_decode, decode_work)
+    for name, r in (("flash_attention", flash), ("decode_attention", dec)):
+        print(f"    {name} per main-path call ({r['calls']} calls, "
+              f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
+              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA"
+              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
+    del attn_rec
+
+    print("[9] router to real engines: the CUDA router over two full-width "
+          f"{ARCH} engines")
+    phase_router_engines(dev, engine)
 
     kernels = [
         {"name": "lcp_affinity", "route": "cuda",
@@ -546,6 +1103,18 @@ def main() -> int:
          "launches": counts["auction_bid"],
          **{k: bid[k] for k in MEASURED},
          "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:65",
+         "launches": engine_counts["flash_attention"],
+         **{k: flash[k] for k in MEASURED},
+         "library_ms": flash["library_ms"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:43",
+         "launches": engine_counts["decode_attention"],
+         **{k: dec[k] for k in MEASURED},
+         "library_ms": dec["library_ms"]},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

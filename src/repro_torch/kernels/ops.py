@@ -12,14 +12,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.auction_bid import auction_bid_cuda, auction_bid_plain
+from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                  decode_attention_plain)
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                               lcp_affinity_plain)
 
-__all__ = ["auction_bid_op", "lcp_affinity_op", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["auction_bid_op", "decode_attention_op", "flash_attention_op",
+           "lcp_affinity_op", "launch_counts", "reset_launch_counts"]
 
 
-_LAUNCHES = {"auction_bid": 0, "lcp_affinity": 0}
+_LAUNCHES = {"auction_bid": 0, "lcp_affinity": 0, "flash_attention": 0,
+             "decode_attention": 0}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -47,6 +52,26 @@ def lcp_affinity_op(prompts, ledgers):
         _LAUNCHES["lcp_affinity"] += 1
         return out
     return lcp_affinity_plain(prompts, ledgers)
+
+
+def flash_attention_op(q, k, v, *, causal=True, window=0):
+    """Causal / sliding-window GQA attention: q [B, Sq, H, d], k/v
+    [B, Sk, Hkv, d] -> [B, Sq, H, d]; see `kernels/flash_attention.py`."""
+    if _route(q) == "cuda":
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _LAUNCHES["flash_attention"] += 1
+        return out
+    return flash_attention_plain(q, k, v, causal=causal, window=window)
+
+
+def decode_attention_op(q, k_cache, v_cache, valid):
+    """One-token attention: q [B, H, d] against caches [B, M, Hkv, d] under
+    valid [B, M] -> [B, H, d]; see `kernels/decode_attention.py`."""
+    if _route(q) == "cuda":
+        out = decode_attention_cuda(q, k_cache, v_cache, valid)
+        _LAUNCHES["decode_attention"] += 1
+        return out
+    return decode_attention_plain(q, k_cache, v_cache, valid)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,14 +1,20 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the oracles).
 
 Each function computes exactly what its hand-written CUDA kernel computes,
-with plain tensor ops in the reference's op order, so the two agree bit for
-bit: the tests hold these against the JAX package's oracles
-(`repro.kernels.ref`) on the CPU, and `chip_smoke.py` holds each kernel
-against them on the card.  `kernels/ops.py` uses them for CPU tensors only.
+with plain tensor ops in the reference's op order: the LCP and bidding
+kernels agree with them bit for bit, the attention kernels within the
+reference's tolerances (their sums run in another order).  The tests hold
+these against the JAX package's oracles (`repro.kernels.ref`) on the CPU,
+and `chip_smoke.py` holds each kernel against them on the card.
+`kernels/ops.py` uses them for CPU tensors only.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
 
 
 # ---------------- LCP ----------------
@@ -69,3 +75,45 @@ def auction_bid_ref(W, ask, ask2, active, eps):
                            torch.arange(n, dtype=torch.int32, device=dev),
                            "amin", include_self=True)
     return best, winner[:m], wants
+
+
+# ---------------- attention ----------------
+
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: [B, Sq, H, d], k/v: [B, Sk, Hkv, d] -> [B, Sq, H, d] in q's dtype.
+
+    GQA by head grouping (query head h reads KV head h // (H / Hkv)); the
+    scores, softmax and PV product run in float32.  A key is masked (-1e30)
+    above the diagonal when ``causal`` and ``window`` or more positions
+    behind the query when ``window`` > 0.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    s = s * (scale or 1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, valid):
+    """q: [B, H, d]; caches: [B, M, Hkv, d]; valid: [B, M] bool -> [B, H, d]
+    in q's dtype, float32 inside; an invalid slot scores -1e30."""
+    b, h, d = q.shape
+    hkv = k_cache.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    s = torch.einsum("bkgd,bmkd->bkgm", qg, k_cache.float())
+    s = s / math.sqrt(d)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
+    return o.reshape(b, h, d).to(q.dtype)

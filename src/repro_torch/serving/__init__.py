@@ -1,1 +1,2 @@
-"""Workload generators and the analytic serving engine of the port."""
+"""Workload generators, the real serving engine (`engine.AgentEngine`) and
+the analytic serving engine of the port."""

@@ -27,6 +27,7 @@ import numpy as np
 
 from repro_torch.configs.iemas_cluster import MODEL_CLASSES
 from repro_torch.core.affinity import lcp_length
+from repro_torch.serving.engine import ServeResult
 
 # model constants (see module docstring): per-layer fixed prefill cost,
 # per-step decode dispatch cost, effective prefill / decode FLOP rates
@@ -40,18 +41,6 @@ def class_flops_per_token(model_class: str) -> float:
     """Per-token forward FLOPs of one reduced model class (attn + MLP)."""
     n_layers, d_model, _n_heads, d_ff, _scale = MODEL_CLASSES[model_class]
     return float(n_layers * (8 * d_model**2 + 4 * d_model * d_ff))
-
-
-@dataclass
-class ServeResult:
-    """Outcome of one request: tokens, timings, cache accounting."""
-
-    output_tokens: np.ndarray
-    ttft: float               # seconds (scaled by agent speed)
-    total_time: float
-    n_prompt: int
-    n_hit: int
-    n_gen: int
 
 
 @dataclass

@@ -10,10 +10,13 @@ PORT_TESTS = Path(__file__).parent
 
 TIER1_MODULES = {
     "test_torch_affinity_predictor",
+    "test_torch_attention",
     "test_torch_budget",
     "test_torch_cuda",
+    "test_torch_engine",
     "test_torch_isolation",
     "test_torch_kernels_ref",
+    "test_torch_models",
     "test_torch_router",
     "test_torch_solver",
 }

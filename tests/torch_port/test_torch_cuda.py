@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain versions at the main
-path's shapes, and a short CUDA-vs-CPU router lockstep.  These need an
-NVIDIA GPU (and ``nvcc`` to build the kernels); where none is present they
-skip, deciding inside the fixture."""
+paths' shapes, a short CUDA-vs-CPU router lockstep and a reduced CUDA-vs-CPU
+serving-engine lockstep.  These need an NVIDIA GPU (and ``nvcc`` to build
+the kernels); where none is present they skip, deciding inside the
+fixture.  Attention tolerances are the reference's: 2e-5 in float32, 3e-2
+in bfloat16."""
 import numpy as np
 import pytest
 
@@ -10,11 +12,16 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.auction_bid import (auction_bid_cuda,  # noqa: E402
                                              auction_bid_plain)
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention_cuda, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,  # noqa: E402
                                               lcp_affinity_plain)
 
 pytestmark = pytest.mark.cuda
 BIG = np.float32(np.finfo(np.float32).max / 4)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
 @pytest.fixture
@@ -85,7 +92,9 @@ def test_ops_count_kernel_launches(dev):
     ops.auction_bid_op(*bid_inputs(8, 4, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, "cpu"))      # plain: uncounted
-    assert ops.launch_counts() == {"auction_bid": 1, "lcp_affinity": 1}
+    assert ops.launch_counts() == {"auction_bid": 1, "lcp_affinity": 1,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
 
 
 def test_cuda_router_matches_cpu_router(dev):
@@ -116,3 +125,76 @@ def test_cuda_router_matches_cpu_router(dev):
     assert gpu.settlement.head == cpu.settlement.head
     counts = ops.launch_counts()
     assert counts["lcp_affinity"] == 4 and counts["auction_bid"] > 0
+
+
+def _normal(shape, dtype, dev, rng):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) \
+        .to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,h,hkv,d,causal,win", [
+    (2, 64, 4, 2, 32, True, 0), (1, 100, 4, 4, 16, True, 0),
+    (2, 128, 8, 2, 64, True, 48), (1, 37, 2, 1, 32, False, 0),
+    (1, 100, 4, 4, 72, True, 0),
+    (1, 16, 32, 8, 128, True, 0), (1, 128, 32, 8, 128, True, 0),
+    (1, 512, 32, 8, 128, True, 0), (1, 1024, 32, 8, 128, True, 0)])
+def test_flash_kernel_matches_plain(dev, b, sq, h, hkv, d, causal, win,
+                                    dtype):
+    rng = np.random.default_rng(sq + d)
+    q = _normal((b, sq, h, d), dtype, dev, rng)
+    k = _normal((b, sq, hkv, d), dtype, dev, rng)
+    v = _normal((b, sq, hkv, d), dtype, dev, rng)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=win)
+    want = flash_attention_plain(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,d,m", [
+    (2, 4, 2, 32, 100), (1, 8, 8, 64, 257), (3, 6, 2, 16, 48),
+    (1, 32, 8, 128, 1024), (1, 4, 4, 72, 1024)])
+def test_decode_kernel_matches_plain(dev, b, h, hkv, d, m, dtype):
+    rng = np.random.default_rng(m + d)
+    q = _normal((b, h, d), dtype, dev, rng)
+    kc = _normal((b, m, hkv, d), dtype, dev, rng)
+    vc = _normal((b, m, hkv, d), dtype, dev, rng)
+    valid = rng.random((b, m)) < 0.7
+    valid[:, 0] = True
+    valid = torch.from_numpy(valid).to(dev)
+    got = decode_attention_cuda(q, kc, vc, valid)
+    want = decode_attention_plain(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+def test_cuda_engine_matches_cpu_engine(dev):
+    """Reduced qwen3-8b in float32: the same weights on the card (kernels)
+    and on the CPU (plain versions) give the same greedy tokens and cache
+    accounting, and the card's run goes through both kernels."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import AgentEngine
+
+    cfg = get_config("qwen3-8b").scaled(dtype="float32")
+    kw = {"max_len": 128, "max_new_tokens": 4, "cache_slots": 2}
+    gpu = AgentEngine(cfg, seed=0, device=dev, **kw)
+    cpu = AgentEngine(cfg, device="cpu",
+                      params=copy.deepcopy(gpu.params).cpu(), **kw)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(1, 255, 40).astype(np.int32)
+    ops.reset_launch_counts()
+    for did in ("a", "a", "a", "b", "c"):
+        a, b = (e.serve(did, prompt) for e in (gpu, cpu))
+        np.testing.assert_array_equal(a.output_tokens, b.output_tokens)
+        assert (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt)
+        prompt = np.concatenate([prompt, a.output_tokens,
+                                 rng.integers(1, 255, 5).astype(np.int32)])
+    assert gpu.evictions == cpu.evictions == 1
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == cfg.n_layers * 3     # a, b, c fresh
+    assert counts["decode_attention"] == cfg.n_layers * 5 * 4
