@@ -10,7 +10,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
-2. Build: all four kernels from ``src/repro_torch/kernels/csrc`` with one
+2. Build: all six kernels from ``src/repro_torch/kernels/csrc`` with one
    ``nvcc`` each, started together; prints the ``-Xptxas -v`` report.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
    at the router path's shapes (LCP at prompts [64, 1024] x ledgers
@@ -29,10 +29,12 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 5. Each router kernel against its plain version again, and timed, at the
    inputs of every call the main path made to it in phase 4.
 6. The attention kernels against their plain versions (2e-5 in float32,
-   3e-2 in bfloat16) at synthetic full-width qwen3-8b shapes: prefill
-   buckets 128 and 512, decode at M = 1024 under a random mask; each timed
-   beside its plain version and PyTorch's ``scaled_dot_product_attention``
-   (the yardstick only: the port never calls it).
+   3e-2 in bfloat16) at synthetic full-width shapes: qwen3-8b's layers
+   (prefill buckets 128 and 512) and zamba2-7b's shared block (32 / 32
+   heads of 112; prompts of 61 and 512), decode at M = 1024 under a random
+   mask; each timed beside its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (the yardstick only: the port never
+   calls it).
 7. Serving-engine lockstep: qwen3-8b at full width, 2 layers, float32
    (TF32 off), the same weights on the card and on the CPU; two dialogues
    of three turns (fresh, extend, identical, LRU evictions with
@@ -51,8 +53,42 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    full-width qwen3-8b engines (phase 8's and one more, each seeded as the
    reference's cluster seeds its agents), fed back through
    ``on_complete``; every request is served, logits are finite, and a turn
-   2 that returns to its turn-1 agent hits the cache.  Then the card line,
-   the JSON line of kernel records and the device line last.
+   2 that returns to its turn-1 agent hits the cache.
+10. The scan kernels against their plain versions at synthetic full-width
+    shapes: WKV6 at rwkv6-3b's 40 heads of 64, SSD at zamba2-7b's 112
+    heads of 64 (state 64); S = 61 and 512; float32 and bf16; zero and
+    stored initial states.  Float32 within 1e-3; a bf16 output within one
+    bf16 rounding (|got - want| <= 2^-7·|want| + 1e-3) and the float32
+    state within 1e-3.  Each timed beside its plain version, with its
+    bound.
+11. Recurrent engine lockstep, CUDA vs CPU, float32 (TF32 off), the same
+    weights: rwkv6-3b at full width and 2 layers (fresh, exact extension,
+    the no-op repeat, a non-extension, LRU evictions), zamba2-7b at full
+    width with 3 layers and ``attn_every=2`` (fresh, repeat,
+    non-extension; an exact extension raises in both, as the reference's
+    engine does).  Identical tokens, hits and modes; last-token logits
+    within 2e-3 of their max; launch counts as below.
+12. The rwkv6-3b slice: one ``AgentEngine`` at full width in bf16 (32
+    layers, d_model 2560, 40 heads of 64) serves phase 8's multi-turn plan
+    (fresh, extends with a hit, the no-op repeat); ``wkv6`` must launch 32
+    times per fresh prefill or extend, the attention kernels never.  Then
+    the kernel against its plain version at a sample of its main-path
+    inputs, and timed.
+13. The zamba2-7b slice: one ``AgentEngine`` at full width in bf16 (81
+    Mamba-2 layers in 13 groups of 6 and a tail of 3, 112 SSD heads of
+    64, a shared block of 32 heads of 112) serves first turns, no-op
+    repeats and later turns that omit the answer (fresh); ``ssd`` must
+    launch 81 times and ``flash_attention`` 13 times per fresh prefill,
+    ``decode_attention`` 13 times per decode or no-op step.  Phases 12 and
+    13 print TTFT, decode time per token, tokens/s and hits per mode, hold
+    a direct prefill's greedy token against the engine's first, and read
+    one prefill and one decode step with the profiler.
+14. Mixed fleet: the CUDA router over phase 8's qwen3-8b engine and phase
+    12's rwkv6-3b engine, ``AgentInfo.recurrent`` taken from the engines,
+    routes two two-turn dialogues; every request is served, and a turn 2
+    that returns to the rwkv agent as an exact extension hits the cache.
+    Then the card line, the JSON line of the six kernels' records and the
+    device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -86,6 +122,8 @@ MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's
 ENGINE_LOGIT_TOL = 2e-3            # tests/test_models.py's
 ARCH = "qwen3-8b"
+RWKV = "rwkv6-3b"
+ZAMBA = "zamba2-7b"
 MAX_LEN = 1024
 SLICE_AGENT = "agent-0"            # phase 8's engine serves as it in phase 9
 
@@ -598,40 +636,51 @@ def attn_figures(kernel, plain, library, work, args, kw, iters=50) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
-def print_attn(name, shape, f) -> None:
+def print_figures(name, shape, f) -> None:
+    lib = ("" if f["library_ms"] is None
+           else f", library {f['library_ms']:.4f} ms")
     print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}, kernel "
-          f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, SDPA "
-          f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.6f} ms "
-          f"({f['bound_by']})")
+          f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms{lib}, bound "
+          f"{f['bound_ms']:.6f} ms ({f['bound_by']})")
 
 
 def phase_attention(dev) -> None:
     """Both attention kernels against their plain versions at synthetic
-    full-width qwen3-8b shapes, in float32 and bf16."""
+    full-width shapes, in float32 and bf16: qwen3-8b's layers (32 query / 8
+    KV heads of 128) and zamba2-7b's shared block (32 / 32 heads of 112)."""
+    from repro_torch.configs import get_config
+
+    for arch, lengths in ((ARCH, (128, 512)), (ZAMBA, (61, 512))):
+        cfg = get_config(arch)
+        print(f"    {arch}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads "
+              f"of {cfg.hd}")
+        attention_shapes(dev, cfg.n_heads, cfg.n_kv_heads, cfg.hd, lengths)
+
+
+def attention_shapes(dev, h, hkv, d, lengths) -> None:
+    """Flash attention at each prompt length and decode attention at
+    M = MAX_LEN under a random mask, for one head layout."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                       decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
 
-    cfg = get_config(ARCH)
-    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(6 + d)
 
     def normal(shape, dtype):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).to(dtype)
 
     for dtype in (torch.float32, torch.bfloat16):
-        for s in (128, 512):
+        for s in lengths:
             args = (normal((1, s, h, d), dtype), normal((1, s, hkv, d), dtype),
                     normal((1, s, hkv, d), dtype))
             f = attn_figures(flash_attention_cuda, flash_attention_plain,
                              sdpa_flash, flash_work, args, {})
-            print_attn(f"flash_attention {dtype}", shape_key(args), f)
+            print_figures(f"flash_attention {dtype}", shape_key(args), f)
         valid = rng.random((1, MAX_LEN)) < 0.6
         valid[:, 0] = True
         args = (normal((1, h, d), dtype), normal((1, MAX_LEN, hkv, d), dtype),
@@ -639,31 +688,38 @@ def phase_attention(dev) -> None:
                 torch.from_numpy(valid).to(dev))
         f = attn_figures(decode_attention_cuda, decode_attention_plain,
                          sdpa_decode, decode_work, args, {})
-        print_attn(f"decode_attention {dtype}", shape_key(args), f)
+        print_figures(f"decode_attention {dtype}", shape_key(args), f)
 
 
-def replay_attention(rec, kernel, plain, library, work) -> dict:
+def replay_sampled(rec, name: str, figures) -> dict:
     """The kernel against its plain version at every sampled main-path
-    input, each timed alone; per-call figures weighted by how many calls of
-    the sample's shape the main path made, so they are means per call of
-    the main path."""
-    check(bool(rec.calls), f"no {kernel.__name__} call was recorded")
+    input, each timed alone (``figures(args, kw)``); per-call figures
+    weighted by how many calls of the sample's shape the main path made, so
+    they are means per call of the main path."""
+    check(bool(rec.calls), f"no {name} call was recorded")
     sampled = Counter(shape_key(args) for args, _ in rec.calls)
-    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    total = dict.fromkeys(keys, 0.0)
     err, weight, by = 0.0, 0.0, Counter()
     for args, kw in rec.calls:
         key = shape_key(args)
         w = rec.count[key] / sampled[key]
-        f = attn_figures(kernel, plain, library, work, args, kw, iters=20)
+        f = figures(args, kw)
         err = max(err, f["max_abs_err"])
-        for k in total:
-            total[k] += w * f[k]
+        for k in keys:
+            total[k] = None if f[k] is None else total[k] + w * f[k]
         by[f["bound_by"]] += w
         weight += w
-        print_attn(f"{kernel.__name__} x{rec.count[key]}", key[:2], f)
+        print_figures(f"{name} x{rec.count[key]}", key[:2], f)
     return {"calls": sum(rec.count.values()), "sampled": len(rec.calls),
             "max_abs_err": err, "bound_by": by.most_common(1)[0][0],
-            **{k: v / weight for k, v in total.items()}}
+            **{k: None if v is None else v / weight
+               for k, v in total.items()}}
+
+
+def replay_attention(rec, kernel, plain, library, work) -> dict:
+    return replay_sampled(rec, kernel.__name__, lambda args, kw: attn_figures(
+        kernel, plain, library, work, args, kw, iters=20))
 
 
 # ------------------------------------------------------------ engines --
@@ -813,20 +869,7 @@ def phase_slice(dev, seed: int):
     check(counts["decode_attention"] == layers * (steps + noops),
           f"decode_attention launched {counts['decode_attention']} times for "
           f"{steps} decode steps and {noops} no-op steps of {layers} layers")
-    check({"fresh", "extend", "identical"} <= {m for m, _ in rows},
-          f"modes not all covered: {[m for m, _ in rows]}")
-    for mode in ("fresh", "extend", "identical"):
-        got = [r for m, r in rows if m == mode]
-        ttft = [r.ttft * 1e3 for r in got]
-        dec_s = sum(r.total_time - r.ttft for r in got)
-        ntok = sum(r.n_gen for r in got)
-        check(all(r.n_hit > 0 for r in got) == (mode != "fresh"),
-              f"cache hits do not fit mode {mode}")
-        print(f"    {mode:9s} x{len(got)}: TTFT mean {statistics.mean(ttft):.2f}"
-              f" ms (min {min(ttft):.2f}, max {max(ttft):.2f}), decode "
-              f"{dec_s / ntok * 1e3:.2f} ms/token, {ntok / dec_s:.1f} tokens/s"
-              f", hits {sum(r.n_hit for r in got)}/"
-              f"{sum(r.n_prompt for r in got)} prompt tokens")
+    print_modes(rows, ("fresh", "extend", "identical"))
     # what comes out: finite logits of the right shape, and the greedy
     # token of a direct prefill (padded as the engine pads) equals what the
     # engine generated first
@@ -863,6 +906,25 @@ def phase_slice(dev, seed: int):
                     engine.params, cache, tok), 8)):
             print(f"    {what}: " + device_share(fn, n))
     return engine, counts, rec
+
+
+def print_modes(rows, modes) -> None:
+    """Per serving mode: TTFT, decode time per token, tokens/s and cache
+    hits of the (mode, ServeResult) rows; every mode must occur."""
+    check(set(modes) <= {m for m, _ in rows},
+          f"modes not all covered: {[m for m, _ in rows]}")
+    for mode in modes:
+        got = [r for m, r in rows if m == mode]
+        ttft = [r.ttft * 1e3 for r in got]
+        dec_s = sum(r.total_time - r.ttft for r in got)
+        ntok = sum(r.n_gen for r in got)
+        check(all(r.n_hit > 0 for r in got) == (mode != "fresh"),
+              f"cache hits do not fit mode {mode}")
+        print(f"    {mode:9s} x{len(got)}: TTFT mean {statistics.mean(ttft):.2f}"
+              f" ms (min {min(ttft):.2f}, max {max(ttft):.2f}), decode "
+              f"{dec_s / ntok * 1e3:.2f} ms/token, {ntok / dec_s:.1f} tokens/s"
+              f", hits {sum(r.n_hit for r in got)}/"
+              f"{sum(r.n_prompt for r in got)} prompt tokens")
 
 
 def device_share(fn, steps: int) -> str:
@@ -962,6 +1024,415 @@ def phase_router_engines(dev, engine0) -> None:
                       f"(same agent as turn 1: {same}), affinity o_ij "
                       f"{aff:.3f}, TTFT {res.ttft * 1e3:.1f} ms, hit "
                       f"{res.n_hit}/{res.n_prompt}")
+    print(f"    accounts {dict(router.accounts)}")
+
+
+# ---------------------------------------------- recurrent scans, 10 --
+SCAN_TOL = 1e-3                    # tests/test_kernels.py's, float32
+CHUNK = 16
+
+
+def scan_err(got, want, what: str) -> float:
+    """Max abs error of a kernel's (output, state) against its plain
+    version's: float32 within 1e-3; a bf16 output within one bf16 rounding
+    of the plain one (|got - want| <= 2^-7·|want| + 1e-3: both round
+    float32 sums that differ in their last bits) and the float32 state
+    within 1e-3."""
+    import torch
+
+    (go, gs), (wo, ws) = got, want
+    diff = (go.float() - wo.float()).abs()
+    if go.dtype == torch.bfloat16:
+        ok = bool((diff <= 2.0 ** -7 * wo.float().abs() + SCAN_TOL).all())
+    else:
+        ok = float(diff.max()) < SCAN_TOL
+    serr = float((gs - ws).abs().max())
+    check(ok and serr < SCAN_TOL and go.dtype == wo.dtype,
+          f"{what}: output error {float(diff.max())}, state error {serr}")
+    return max(float(diff.max()), serr)
+
+
+def wkv6_work(r, k, v, log_w, u, s0=None) -> tuple[int, int]:
+    """(bytes, operations) one WKV6 call needs: r, k, v, log_w, u and the
+    initial state (when one is given) read once, o and the final state
+    written once; per (batch·head, chunk of 16 tokens): the inter-chunk
+    and state-update products (2·16·dk·dv each), the intra-chunk matrix
+    over its s < t pairs (a multiply-add and an exp per channel: 4
+    operations), its product with v over s <= t, and the decays of r and k
+    (an exp and a multiply each), counting an exp as one operation."""
+    b, s, h, dk = r.shape
+    n = -(-s // CHUNK)
+    es = r.element_size()
+    state = 4 * b * h * dk * dk
+    nbytes = (4 * r.numel() * es + 4 * log_w.numel() + 4 * u.numel()
+              + (0 if s0 is None else state) + state)
+    c = CHUNK
+    per = 4 * c * dk * dk + c * (c + 1) * dk + 2 * c * (c - 1) * dk \
+        + 4 * c * dk
+    return nbytes, b * h * n * per
+
+
+def ssd_work(x, bmat, cmat, dt, a_log, d_skip, s0=None) -> tuple[int, int]:
+    """(bytes, operations) one SSD call needs: x, B, C (once: the heads
+    share them), dt, a_log, D and the initial state (when one is given)
+    read once, y and the final state written once; per chunk of 16: C·Bᵀ
+    over s <= t once for all heads, and per head the decay-weighted mix
+    with x, the inter-chunk C·Sᵀ and the state update (2·16·hd·ds each),
+    the exps, the skip."""
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
+    n = -(-s // CHUNK)
+    es = x.element_size()
+    state = 4 * b * h * hd * ds
+    nbytes = (2 * x.numel() * es + 2 * bmat.numel() * es + 4 * dt.numel()
+              + 8 * h + (0 if s0 is None else state) + state)
+    c = CHUNK
+    shared = c * (c + 1) * ds
+    per_head = 4 * c * hd * ds + c * (c + 1) * hd + 3 * c * (c + 1) // 2 \
+        + 4 * c * hd + 3 * c
+    return nbytes, b * n * (shared + h * per_head)
+
+
+def scan_figures(kernel, plain, work, args, kw, iters=50) -> dict:
+    """One call's kernel and plain times (CUDA events) and bound, after
+    checking the kernel against the plain version.  No one PyTorch call
+    computes either scan: ``library_ms`` is None."""
+    err = scan_err(kernel(*args, **kw), plain(*args, **kw),
+                   f"{kernel.__name__} {shape_key(args)}")
+    bound, by = roofline(*work(*args, **kw))       # float32 math
+    return {"max_abs_err": err,
+            "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
+            "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 5, 1),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def phase_scans(dev) -> None:
+    """Both scan kernels against their plain versions at synthetic
+    full-width shapes: WKV6 at rwkv6-3b's 40 heads of 64, SSD at
+    zamba2-7b's 112 heads of 64 with a state of 64; S = 61 (a ragged last
+    chunk) and 512; float32 and bf16; zero and stored initial states."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    rng = np.random.default_rng(10)
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) * scale).to(dev).to(dtype)
+
+    rw, zb = get_config(RWKV), get_config(ZAMBA)
+    h, dk = rw.ssm_heads, rw.ssm_state
+    zh, ds = zb.ssm_heads, zb.ssm_state
+    hd = 2 * zb.d_model // zh
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (61, 512):
+            for stored in (False, True):
+                lw = torch.from_numpy(np.clip(-np.exp(rng.standard_normal(
+                    (1, s, h, dk))), -4.0, -1e-3).astype(np.float32)).to(dev)
+                args = (normal((1, s, h, dk), dtype),
+                        normal((1, s, h, dk), dtype),
+                        normal((1, s, h, dk), dtype), lw, normal((h, dk)),
+                        normal((1, h, dk, dk)) if stored else None)
+                f = scan_figures(wkv6_cuda, wkv6_plain, wkv6_work, args, {})
+                print_figures(f"wkv6 {dtype} s0={'stored' if stored else 0}",
+                              shape_key(args)[:1], f)
+                dt = torch.from_numpy((np.abs(rng.standard_normal(
+                    (1, s, zh))) * 0.5).astype(np.float32)).to(dev)
+                args = (normal((1, s, zh, hd), dtype),
+                        normal((1, s, ds), dtype), normal((1, s, ds), dtype),
+                        dt, normal((zh,), scale=0.3), normal((zh,)),
+                        normal((1, zh, hd, ds)) if stored else None)
+                f = scan_figures(ssd_cuda, ssd_plain, ssd_work, args, {})
+                print_figures(f"ssd {dtype} s0={'stored' if stored else 0}",
+                              shape_key(args)[:1], f)
+
+
+def replay_scan(rec, kernel, plain, work) -> dict:
+    return replay_sampled(rec, kernel.__name__, lambda args, kw: scan_figures(
+        kernel, plain, work, args, kw, iters=20))
+
+
+# -------------------------------------------- recurrent engines, 11-14 --
+def serve_mode(res) -> str:
+    """A recurrent engine's mode from its cache accounting: fresh (no hit),
+    no-op (the whole stored prompt again), or extend."""
+    if res.n_hit == 0:
+        return "fresh"
+    return "no-op" if res.n_hit == res.n_prompt else "extend"
+
+
+def recurrent_gates(cfg, counts, fresh, extends, steps, noops) -> None:
+    """The launches a recurrent engine's main path must make: WKV6 once per
+    layer per fresh prefill or extend with new tokens (rwkv); SSD once per
+    Mamba-2 layer per fresh prefill, flash attention once per group per
+    fresh prefill and decode attention once per group per decode or no-op
+    step (zamba); nothing else."""
+    if cfg.ssm_kind == "rwkv6":
+        want = {"wkv6": cfg.n_layers * (fresh + extends), "ssd": 0,
+                "flash_attention": 0, "decode_attention": 0}
+    else:
+        groups = cfg.n_layers // cfg.attn_every
+        want = {"wkv6": 0, "ssd": cfg.n_layers * fresh,
+                "flash_attention": groups * fresh,
+                "decode_attention": groups * (steps + noops)}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{cfg.name}: launches {got}, expected {want} for "
+          f"{fresh} fresh prefills, {extends} extends, {steps} decode and "
+          f"{noops} no-op steps")
+
+
+def phase_recurrent_lockstep(dev) -> None:
+    """A CUDA and a CPU engine on the same weights (full width, cut depth,
+    float32) serve the CPU engine tests' plans in lockstep: rwkv6-3b at 2
+    layers (fresh, exact extension, the no-op repeat, a non-extension, LRU
+    evictions at cache_slots=1); zamba2-7b at 3 layers with attn_every=2
+    (one group of two Mamba-2 layers, the shared block, a tail of one:
+    fresh, repeat, non-extension, and an exact extension that raises in
+    both, as the reference's does)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    rng = np.random.default_rng(11)
+    new = lambda n: rng.integers(1, 250, n).astype(np.int32)  # noqa: E731
+    build = {"fresh": lambda src: new(40),
+             "extend": lambda src: np.concatenate([src, new(9)]),
+             "repeat": lambda src: src,
+             "other": lambda src: np.concatenate([src[:20], new(7)])}
+    cases = [
+        (dataclasses.replace(get_config(RWKV), n_layers=2, dtype="float32"),
+         1, [("a", "fresh"), ("a", "extend"), ("a", "repeat"),
+             ("a", "other"), ("a", "extend"), ("b", "fresh"),
+             ("a", "extend")]),
+        (dataclasses.replace(get_config(ZAMBA), n_layers=3, attn_every=2,
+                             dtype="float32"),
+         2, [("a", "fresh"), ("a", "repeat"), ("a", "other"), ("b", "fresh"),
+             ("a", "repeat"), ("a", "extend")]),
+    ]
+    for cfg, slots, plan in cases:
+        kw = {"max_len": MAX_LEN, "max_new_tokens": 4, "cache_slots": slots}
+        gpu = AgentEngine(cfg, seed=11, device=dev, **kw)
+        cpu = AgentEngine(cfg, device="cpu",
+                          params=copy.deepcopy(gpu.params).cpu(), **kw)
+        stored, modes, worst, raised = {}, [], 0.0, 0
+        launched = Counter()
+        for i, (did, how) in enumerate(plan):
+            prompt = build[how](stored.get(did))
+            before = ops.launch_counts()
+            try:
+                a = gpu.serve(did, prompt, now=float(i))
+            except NotImplementedError:
+                a = None
+            launched.update({k: v - before[k]
+                             for k, v in ops.launch_counts().items()})
+            try:
+                b = cpu.serve(did, prompt, now=float(i))
+            except NotImplementedError:
+                b = None
+            check((a is None) == (b is None), f"{cfg.name}: only one engine "
+                  f"raised at step {i}")
+            if a is None:
+                check(cfg.attn_every and how == "extend", f"{cfg.name}: "
+                      f"step {i} ({how}) raised")
+                raised += 1
+                continue
+            check(np.array_equal(a.output_tokens, b.output_tokens)
+                  and (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt),
+                  f"{cfg.name}: CUDA and CPU engines diverged at step {i}: "
+                  f"{a.output_tokens} / {b.output_tokens}, hits {a.n_hit} / "
+                  f"{b.n_hit}")
+            err = rel_logit_err(session_logits(gpu, did),
+                                session_logits(cpu, did))
+            check(err < ENGINE_LOGIT_TOL, f"{cfg.name}: last-token logits "
+                  f"differ by {err} at step {i}")
+            worst = max(worst, err)
+            modes.append(serve_mode(a))
+            stored[did] = gpu.sessions[did].prompt
+        check(gpu.evictions == cpu.evictions, "eviction counts differ")
+        want_modes = ({"fresh", "extend", "no-op"} if cfg.ssm_kind == "rwkv6"
+                      else {"fresh", "no-op"})
+        check(set(modes) == want_modes, f"{cfg.name}: modes {modes}")
+        steps = kw["max_new_tokens"] * len(modes)
+        recurrent_gates(cfg, launched, modes.count("fresh"),
+                        modes.count("extend"), steps, modes.count("no-op"))
+        print(f"    {cfg.name} ({cfg.n_layers} layers): modes {modes}"
+              f"{', 1 exact extension raised in both' if raised else ''}, "
+              f"evictions {gpu.evictions}: identical tokens and cache hits, "
+              f"last-token logits within {worst:.2e} of their max (limit "
+              f"{ENGINE_LOGIT_TOL}); launches {dict(launched)}")
+        del gpu, cpu
+        gc.collect()
+
+
+def rwkv_requests():
+    """phase 8's multi-turn plan: each later turn extends the stored prompt
+    (previous prompt + answer + the new turn), then the repeat of a stored
+    prompt (the no-op)."""
+    return [(script.dialogue_id, t, True) for script, t in slice_requests()]
+
+
+def zamba_requests():
+    """What the reference serves for zamba2: first turns, repeats of the
+    stored prompt (no-op), and later turns whose prompt omits the answer
+    (not an exact extension, so a fresh prefill)."""
+    plan = slice_requests()
+    first = [(script.dialogue_id, 0, True) for script, t in plan if t == 0]
+    (d0, _, _), (d1, _, _), (d2, _, _) = first
+    return [first[0], first[1], (d0, None, True), first[2], (d0, 1, False),
+            (d1, None, True), (d2, 1, False), (d2, None, True)]
+
+
+def phase_recurrent_slice(dev, arch: str, seed: int, requests, record):
+    """One full-width bf16 engine of a recurrent family serves
+    ``requests`` ((dialogue, turn or None for the repeat, whether the
+    prompt carries the previous answers)); returns the engine, the launch
+    counts of the run and the recorded calls of the ``record`` ops."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    cfg = get_config(arch)
+    scripts = {s.dialogue_id: s for s, _ in slice_requests()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = AgentEngine(cfg, seed=seed, device=dev, max_len=MAX_LEN,
+                         max_new_tokens=8, cache_slots=12)
+    torch.cuda.synchronize()
+    print(f"    {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.ssm_heads} {cfg.ssm_kind} heads, state {cfg.ssm_state}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{sum(p.numel() for p in engine.params.parameters()) / 1e9:.3f} B "
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # zamba2 cannot extend (the reference's gap): warm prefills only
+    engine.warmup(extend_buckets=() if cfg.attn_every else (16, 32, 64))
+    history, rows = {}, []
+    with recording(ops, record, per_shape=2) as rec:
+        ops.reset_launch_counts()          # the engine's main path starts
+        for i, (did, t, answers) in enumerate(requests):
+            turns = scripts[did].turns
+            if t is None:
+                prompt = engine.sessions[did].prompt
+            elif answers:
+                prompt = np.concatenate([history.get(did, np.zeros(
+                    0, np.int32)), turns[t]]).astype(np.int32)
+            else:
+                prompt = np.concatenate(turns[:t + 1]).astype(np.int32)
+            check(len(prompt) + engine.max_new <= MAX_LEN,
+                  "a dialogue outgrew max_len")
+            res = engine.serve(did, prompt, now=float(i))
+            rows.append((serve_mode(res), res))
+            history[did] = np.concatenate([prompt, res.output_tokens])
+        counts = ops.launch_counts()       # ... and ends here
+    modes = [m for m, _ in rows]
+    steps = sum(r.n_gen for _, r in rows)
+    recurrent_gates(cfg, counts, modes.count("fresh"), modes.count("extend"),
+                    steps, modes.count("no-op"))
+    print_modes(rows, ("fresh", "extend", "no-op") if cfg.ssm_kind == "rwkv6"
+                else ("fresh", "no-op"))
+    # what comes out: finite logits of the right shape, and the greedy
+    # token of a direct exact-length prefill equals the engine's first
+    did, t, _ = requests[0]
+    batch = {"tokens": torch.from_numpy(np.asarray(
+        scripts[did].turns[t], np.int32)[None]).to(dev), "max_len": MAX_LEN}
+    with torch.no_grad():
+        logits, _ = engine.model.prefill(engine.params, batch)
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "prefill logits are not "
+          "finite values of shape [1, vocab]")
+    check(int(logits.argmax(-1)[0]) == int(rows[0][1].output_tokens[0]),
+          "a direct prefill's greedy token differs from the engine's")
+    print(f"    launches {counts} for modes {modes} and {steps} decode "
+          f"steps; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    cache = engine.sessions[did].cache
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for what, fn, n in (
+                (f"prefill of {batch['tokens'].shape[1]} tokens",
+                 lambda: engine.model.prefill(engine.params, batch), 2),
+                ("decode step", lambda: engine.model.decode_step(
+                    engine.params, cache, tok), 8)):
+            print(f"    {what}: " + device_share(fn, n))
+    return engine, counts, rec
+
+
+def phase_mixed_fleet(dev, qwen_engine, rwkv_engine) -> None:
+    """The CUDA router over a mixed fleet: phase 8's qwen3-8b engine and
+    phase 12's rwkv6-3b engine, with ``AgentInfo.recurrent`` taken from
+    each engine (as the reference's cluster does), so the exact-extension
+    mask reaches the Eq.-4 affinity on the card; two dialogues, two turns
+    each, turn 2 extending turn 1's prompt and answer."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.iemas_cluster import (RouterConfig, agent_infos,
+                                                   agent_profiles,
+                                                   make_router)
+    from repro_torch.core.mechanism import CompletionObs, Request
+
+    profiles = agent_profiles(2)
+    engines = dict(zip((p.agent_id for p in profiles),
+                       (rwkv_engine, qwen_engine)))
+    for prof in profiles:
+        engine = engines[prof.agent_id]
+        engine.sessions.clear()
+        engine.speed = prof.speed
+        engine.cache_slots = prof.cache_slots
+    infos = [dataclasses.replace(i, recurrent=engines[i.agent_id].recurrent)
+             for i in agent_infos(profiles)]
+    check([i.recurrent for i in infos] == [True, False],
+          "the fleet is not one attention and one recurrent agent")
+    router = make_router(infos, RouterConfig(), device=dev,
+                         predictor_kw={"warm_n": 2})
+    rng = np.random.default_rng(14)
+    dialogues = {f"mixed-{j}": rng.integers(1, 250, n).astype(np.int32)
+                 for j, n in enumerate((48, 72))}
+    first, served = {}, 0
+    for turn in (0, 1):
+        reqs = [Request(f"m{turn}-{did}", did, toks, turn=turn,
+                        domain="dialogue", max_new_tokens=8)
+                for did, toks in dialogues.items()]
+        decisions = router.route_batch(reqs, {})
+        check(all(d.agent_id is not None for d in decisions),
+              f"turn {turn + 1}: a request was not matched")
+        for d in decisions:
+            req = d.request
+            engine = engines[d.agent_id]
+            aff = {aid: router.ledger.affinity(
+                aid, req.dialogue_id, req.tokens,
+                extension_only=engines[aid].recurrent) for aid in engines}
+            res = engine.serve(req.dialogue_id, req.tokens)
+            served += 1
+            check(bool(torch.isfinite(session_logits(
+                engine, req.dialogue_id)).all()), "logits are not finite")
+            router.on_complete(req.request_id, CompletionObs(
+                res.ttft, res.n_prompt, res.n_hit, res.n_gen, 0.7))
+            kind = "rwkv6-3b" if engine.recurrent else "qwen3-8b"
+            if turn == 0:
+                first[req.dialogue_id] = d.agent_id
+                dialogues[req.dialogue_id] = np.concatenate(
+                    [req.tokens, res.output_tokens,
+                     rng.integers(1, 250, 8).astype(np.int32)])
+            elif d.agent_id == first[req.dialogue_id] and engine.recurrent:
+                check(res.n_hit > 0, f"turn 2 of {req.dialogue_id} returned "
+                      "to the rwkv agent as an exact extension but missed "
+                      "the cache")
+            print(f"    turn {turn + 1} {req.dialogue_id} -> {d.agent_id} "
+                  f"({kind}), affinities o_ij " + ", ".join(
+                      f"{a} {v:.3f}" for a, v in aff.items())
+                  + f", TTFT {res.ttft * 1e3:.1f} ms, hit "
+                  f"{res.n_hit}/{res.n_prompt}")
+    check(served == 4, "not every request was served")
     print(f"    accounts {dict(router.accounts)}")
 
 
@@ -1089,6 +1560,53 @@ def main() -> int:
     print("[9] router to real engines: the CUDA router over two full-width "
           f"{ARCH} engines")
     phase_router_engines(dev, engine)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    print("[10] scan kernels against their plain versions, synthetic "
+          f"full-width {RWKV} / {ZAMBA} shapes")
+    phase_scans(dev)
+
+    print(f"[11] recurrent engine lockstep, CUDA vs CPU, {RWKV} and {ZAMBA} "
+          "at full width and cut depth, float32")
+    phase_recurrent_lockstep(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[12] the {RWKV} slice: AgentEngine at full width on the card")
+    rwkv, rwkv_counts, rec = phase_recurrent_slice(
+        dev, RWKV, agent_seed("agent-1"), rwkv_requests(),
+        ("wkv6",))
+    print("    the wkv6 kernel at the inputs of phase 12 (up to 2 calls of "
+          "each shape, weighted by the calls made)")
+    wkv6 = replay_scan(rec["wkv6"], wkv6_cuda, wkv6_plain, wkv6_work)
+    del rec
+
+    print(f"[13] the {ZAMBA} slice: AgentEngine at full width on the card")
+    zamba, zamba_counts, rec = phase_recurrent_slice(
+        dev, ZAMBA, agent_seed("agent-2"), zamba_requests(),
+        ("ssd",))
+    print("    the ssd kernel at the inputs of phase 13 (up to 2 calls of "
+          "each shape, weighted by the calls made)")
+    ssd = replay_scan(rec["ssd"], ssd_cuda, ssd_plain, ssd_work)
+    del rec, zamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, r in (("wkv6", wkv6), ("ssd", ssd)):
+        print(f"    {name} per main-path call ({r['calls']} calls, "
+              f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
+              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+    print(f"[14] mixed fleet: the CUDA router over the {ARCH} engine of "
+          f"phase 8 and the {RWKV} engine of phase 12")
+    phase_mixed_fleet(dev, engine, rwkv)
+    del rwkv, engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
     kernels = [
         {"name": "lcp_affinity", "route": "cuda",
@@ -1115,6 +1633,18 @@ def main() -> int:
          "launches": engine_counts["decode_attention"],
          **{k: dec[k] for k in MEASURED},
          "library_ms": dec["library_ms"]},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/wkv6.py:72",
+         "launches": rwkv_counts["wkv6"],
+         **{k: wkv6[k] for k in MEASURED},
+         "library_ms": None},
+        {"name": "ssd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd.cu",
+         "replaces": "src/repro/kernels/ssd.py:70",
+         "launches": zamba_counts["ssd"],
+         **{k: ssd[k] for k in MEASURED},
+         "library_ms": None},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

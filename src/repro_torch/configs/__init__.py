@@ -2,15 +2,18 @@
 
 ``get_config("<arch-id>")`` returns a model configuration; the registry
 lists only the architectures the port can build (`repro_torch.models`):
-the dense GQA family, ``qwen3-8b``.  The reference's other architectures
-arrive with the slices that port their families.
+``qwen3-8b`` (the dense GQA family), ``rwkv6-3b`` (RWKV-6) and
+``zamba2-7b`` (the Mamba-2 hybrid with a shared attention block).  The
+reference's other architectures arrive with the slices that port their
+families.
 """
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_8b
+from repro_torch.configs import qwen3_8b, rwkv6_3b, zamba2_7b
 from repro_torch.configs.base import ModelConfig, param_counts
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (qwen3_8b,)}
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (qwen3_8b, rwkv6_3b, zamba2_7b)}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -18,13 +18,16 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                               lcp_affinity_plain)
+from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
 __all__ = ["auction_bid_op", "decode_attention_op", "flash_attention_op",
-           "lcp_affinity_op", "launch_counts", "reset_launch_counts"]
+           "lcp_affinity_op", "launch_counts", "reset_launch_counts",
+           "ssd_op", "wkv6_op"]
 
 
 _LAUNCHES = {"auction_bid": 0, "lcp_affinity": 0, "flash_attention": 0,
-             "decode_attention": 0}
+             "decode_attention": 0, "wkv6": 0, "ssd": 0}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -72,6 +75,28 @@ def decode_attention_op(q, k_cache, v_cache, valid):
         _LAUNCHES["decode_attention"] += 1
         return out
     return decode_attention_plain(q, k_cache, v_cache, valid)
+
+
+def wkv6_op(r, k, v, log_w, u, s0=None):
+    """The RWKV-6 recurrence from state s0 (None: zeros): r, k, v, log_w
+    [B, S, H, dk], u [H, dk] -> (o [B, S, H, dk], sT [B, H, dk, dk]); see
+    `kernels/wkv6.py`."""
+    if _route(r) == "cuda":
+        out = wkv6_cuda(r, k, v, log_w, u, s0)
+        _LAUNCHES["wkv6"] += 1
+        return out
+    return wkv6_plain(r, k, v, log_w, u, s0)
+
+
+def ssd_op(x, bmat, cmat, dt, a_log, d_skip, s0=None):
+    """The Mamba-2 SSD scan from state s0 (None: zeros): x [B, S, H, hd],
+    bmat/cmat [B, S, ds], dt [B, S, H], a_log/d_skip [H] -> (y [B, S, H,
+    hd], sT [B, H, hd, ds]); see `kernels/ssd.py`."""
+    if _route(x) == "cuda":
+        out = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0)
+        _LAUNCHES["ssd"] += 1
+        return out
+    return ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,12 +1,15 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the oracles).
 
-Each function computes exactly what its hand-written CUDA kernel computes,
-with plain tensor ops in the reference's op order: the LCP and bidding
-kernels agree with them bit for bit, the attention kernels within the
-reference's tolerances (their sums run in another order).  The tests hold
-these against the JAX package's oracles (`repro.kernels.ref`) on the CPU,
-and `chip_smoke.py` holds each kernel against them on the card.
-`kernels/ops.py` uses them for CPU tensors only.
+Each of the first four functions computes exactly what its hand-written
+CUDA kernel computes, with plain tensor ops in the reference's op order:
+the LCP and bidding kernels agree with them bit for bit, the attention
+kernels within the reference's tolerances (their sums run in another
+order).  The tests hold these against the JAX package's oracles
+(`repro.kernels.ref`) on the CPU, `chip_smoke.py` holds each kernel
+against them on the card, and `kernels/ops.py` uses them for CPU tensors
+only.  `wkv6_ref` and `ssd_ref` are the stepwise recurrences: the oracles
+of the chunked plain versions in `kernels/wkv6.py` and `kernels/ssd.py`,
+which are what the scan kernels and the CPU path compute.
 """
 from __future__ import annotations
 
@@ -117,3 +120,51 @@ def decode_attention_ref(q, k_cache, v_cache, valid):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgm,bmkd->bkgd", p, v_cache.float())
     return o.reshape(b, h, d).to(q.dtype)
+
+
+# ---------------- WKV6 (stepwise recurrence) ----------------
+
+def wkv6_ref(r, k, v, log_w, u, s0):
+    """r, k, v, log_w: [B, S, H, dk] (dv == dk); u: [H, dk]; s0: [B, H, dk,
+    dv] -> (o [B, S, H, dv], sT [B, H, dk, dv]), all float32.
+
+    o_t = r_t @ (S_{t-1} + (u*k_t)^T v_t);  S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    with w_t = exp(log_w_t): one token at a time, the kernels' oracle.
+    """
+    r, k, v, log_w = (t.float() for t in (r, k, v, log_w))
+    u = u.float()
+    state = s0.float()
+    outs = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhd,bhv->bhdv", k[:, t], v[:, t])
+        outs.append(torch.einsum("bhd,bhdv->bhv", r[:, t],
+                                 state + u[None, :, :, None] * kv))
+        state = state * torch.exp(log_w[:, t])[..., None] + kv
+    o = torch.stack(outs, dim=1) if outs else torch.zeros_like(r)
+    return o, state
+
+
+# ---------------- SSD / Mamba2 (stepwise recurrence) ----------------
+
+def ssd_ref(x, bmat, cmat, dt, a_log, d_skip, s0):
+    """x: [B, S, H, hd]; bmat, cmat: [B, S, ds]; dt: [B, S, H]; a_log,
+    d_skip: [H]; s0: [B, H, hd, ds] -> (y [B, S, H, hd], sT [B, H, hd, ds]),
+    all float32.
+
+    S_t = a_t S_{t-1} + dt_t (x_t outer B_t);  y_t = S_t @ C_t + D * x_t
+    with a_t = exp(-exp(a_log) * dt_t): one token at a time, the kernels'
+    oracle.
+    """
+    x, bmat, cmat, dt = (t.float() for t in (x, bmat, cmat, dt))
+    neg_a = -torch.exp(a_log.float())
+    d_skip = d_skip.float()
+    state = s0.float()
+    outs = []
+    for t in range(x.shape[1]):
+        a = torch.exp(neg_a[None] * dt[:, t])                      # [B, H]
+        state = state * a[..., None, None] + torch.einsum(
+            "bh,bhd,bn->bhdn", dt[:, t], x[:, t], bmat[:, t])
+        y = torch.einsum("bhdn,bn->bhd", state, cmat[:, t])
+        outs.append(y + d_skip[None, :, None] * x[:, t])
+    y = torch.stack(outs, dim=1) if outs else torch.zeros_like(x)
+    return y, state

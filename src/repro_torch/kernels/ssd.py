@@ -1,0 +1,134 @@
+"""Mamba-2 SSD scan in chunks of 16 tokens, from an initial state.
+
+Every Mamba-2 layer of a fresh prefill runs this once
+(`models/ssm.py::ssd_chunked`).  On the card it is the hand-written kernel
+in ``csrc/ssd.cu`` (one block per (batch·head, 16 rows of the state), the
+float32 state slice in shared memory, B and C read once per block from
+their head-shared rows, the chunks walked in a loop inside the block);
+``ssd_plain`` is the same function in plain PyTorch, the chunked form of
+the reference's ``models/ssm.ssd_chunked``, used for CPU tensors and as the
+kernel's oracle (itself held against the stepwise
+`kernels/ref.py::ssd_ref`).  With a zero initial state both compute what
+the TPU kernel ``repro/kernels/ssd.py::ssd`` computes.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.wkv6 import CHUNK, _pad_chunks
+
+__all__ = ["ssd_cuda", "ssd_plain"]
+
+MAX_STATE = 64
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0=None):
+    """x: [B, S, H, hd] (float32 or bfloat16); bmat, cmat: [B, S, ds] of
+    x's dtype, shared by the heads; dt: [B, S, H] float32 (after the
+    softplus); a_log, d_skip: [H]; s0: [B, H, hd, ds] float32 or None
+    (zeros) -> (y [B, S, H, hd] in x's dtype, sT [B, H, hd, ds] float32).
+
+    Per chunk of 16 tokens, in float32 and in the reference's op order: the
+    intra-chunk term (C·Bᵀ ∘ exp(p_t - p_s) ∘ dt_s)·x over s <= t (every
+    exponent <= 0, masked pairs exactly 0), the inter-chunk term
+    exp(p)·(C·Sᵀ), the state update, then the skip D·x.  The decay is per
+    head: la = -exp(a_log)·dt.  A ragged last chunk is padded with dt = 0
+    and zero x, B, C: the identity.
+    """
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
+    c = CHUNK
+    pad = (-s) % c
+    n = (s + pad) // c
+    xf = _pad_chunks(x.float(), pad)
+    dtf = _pad_chunks(dt.float(), pad)
+    la = -torch.exp(a_log.float())[None, None, :] * dtf          # [B, S', H]
+    xc = xf.reshape(b, n, c, h, hd).permute(1, 0, 3, 2, 4)       # [n,B,H,C,hd]
+    dtc = dtf.reshape(b, n, c, h).permute(1, 0, 3, 2)            # [n,B,H,C]
+    lac = la.reshape(b, n, c, h).permute(1, 0, 3, 2)
+    bc = _pad_chunks(bmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1)
+    cc = _pad_chunks(cmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1)
+    state = (torch.zeros((b, h, hd, ds), dtype=torch.float32,
+                         device=x.device) if s0 is None else s0.float())
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    outs = []
+    for i in range(n):
+        xx, dtt, lat, bb, cm = xc[i], dtc[i], lac[i], bc[i], cc[i]
+        p = torch.cumsum(lat, dim=-1)                            # [B, H, C]
+        cb = torch.einsum("btn,bsn->bts", cm, bb)                # [B, C, C]
+        dec = torch.exp(torch.where(
+            tri, p[:, :, :, None] - p[:, :, None, :], -torch.inf))
+        m = cb[:, None] * dec * dtt[:, :, None, :]
+        y = torch.einsum("bhts,bhsd->bhtd", m, xx)
+        y = y + torch.einsum("bhdn,btn->bhtd", state, cm) \
+            * torch.exp(p)[..., None]
+        w = torch.exp(p[:, :, -1:] - p) * dtt                    # [B, H, C]
+        state = state * torch.exp(p[:, :, -1])[..., None, None] \
+            + torch.einsum("bhsd,bsn->bhdn", xx * w[..., None], bb)
+        outs.append(y)
+    y = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n * c, h, hd)
+    y = y + d_skip.float()[None, None, :, None] * xf
+    return y[:, :s].to(x.dtype), state
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("ssd")
+    fn = lib.ssd_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _P]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
+    """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
+    one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
+    d_skip and s0 float32; ds <= 64), launched on the current stream.
+    Raises on any other input and on a failed launch."""
+    dev = x.device
+    tensors = (x, bmat, cmat, dt, a_log, d_skip) + (() if s0 is None
+                                                     else (s0,))
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("ssd_cuda takes CUDA tensors on one device")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
+        raise TypeError("ssd_cuda takes x, bmat, cmat all float32 or all "
+                        "bfloat16")
+    if any(t.dtype != torch.float32 for t in (dt, a_log, d_skip)) \
+            or (s0 is not None and s0.dtype != torch.float32):
+        raise TypeError("ssd_cuda takes dt, a_log, d_skip and s0 in float32")
+    if x.dim() != 4:
+        raise ValueError(f"x {tuple(x.shape)} is not [B, S, H, hd]")
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1] if bmat.dim() == 3 else -1
+    if bmat.shape != cmat.shape or tuple(bmat.shape) != (b, s, ds) \
+            or tuple(dt.shape) != (b, s, h) or tuple(a_log.shape) != (h,) \
+            or tuple(d_skip.shape) != (h,):
+        raise ValueError(f"shapes x {tuple(x.shape)}, B {tuple(bmat.shape)},"
+                         f" C {tuple(cmat.shape)}, dt {tuple(dt.shape)}, "
+                         f"a_log {tuple(a_log.shape)}, D "
+                         f"{tuple(d_skip.shape)} do not fit")
+    if not 0 < ds <= MAX_STATE or hd <= 0:
+        raise ValueError(f"state size {ds} is not in 1..{MAX_STATE}")
+    if s0 is None:
+        s0 = torch.zeros((b, h, hd, ds), dtype=torch.float32, device=dev)
+    elif tuple(s0.shape) != (b, h, hd, ds):
+        raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, hd, ds]")
+    if not all(t.is_contiguous()
+               for t in (x, bmat, cmat, dt, a_log, d_skip, s0)):
+        raise ValueError("ssd_cuda takes contiguous tensors")
+    y = torch.empty_like(x)
+    s_t = torch.empty_like(s0)
+    err = _lib().ssd_launch(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), d_skip.data_ptr(), s0.data_ptr(), y.data_ptr(),
+        s_t.data_ptr(), b, s, h, hd, ds, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+    return y, s_t

@@ -1,0 +1,137 @@
+"""RWKV-6 (WKV6) recurrence in chunks of 16 tokens, from an initial state.
+
+Every RWKV-6 layer of a fresh prefill or an extend runs this once
+(`models/ssm.py::wkv6_chunked`).  On the card it is the hand-written kernel
+in ``csrc/wkv6.cu`` (one block per (batch·head, 16 columns of the state),
+the float32 state slice in shared memory, the chunks walked in a loop
+inside the block); ``wkv6_plain`` is the same function in plain PyTorch,
+the chunked form of the reference's ``models/ssm.wkv6_chunked``, used for
+CPU tensors and as the kernel's oracle (itself held against the stepwise
+`kernels/ref.py::wkv6_ref`).  With a zero initial state both compute what
+the TPU kernel ``repro/kernels/wkv6.py::wkv6`` computes; with a stored
+state, what the reference's model runs for an extend.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+__all__ = ["CHUNK", "wkv6_cuda", "wkv6_plain"]
+
+CHUNK = 16
+MAX_HEAD_DIM = 64
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _pad_chunks(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero rows appended along dim 1 (the sequence)."""
+    if not pad:
+        return x
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+
+
+def wkv6_plain(r, k, v, log_w, u, s0=None):
+    """r, k, v: [B, S, H, dk] (float32 or bfloat16, dv == dk); log_w: [B, S,
+    H, dk] float32 (log of the decay, <= 0); u: [H, dk]; s0: [B, H, dk, dk]
+    float32 or None (zeros) -> (o [B, S, H, dk] in r's dtype, sT [B, H, dk,
+    dk] float32).
+
+    Per chunk of 16 tokens, in float32 and in the reference's op order: the
+    inter-chunk term (r·exp(p_shift)) @ S, the intra-chunk decay matrix per
+    channel (strict lower triangle, every exponent <= 0, masked pairs
+    exactly 0), the bonus diagonal r·(u∘k), and the state update.  A ragged
+    last chunk is padded with log_w = 0 and zero r, k, v: the identity.
+    """
+    b, s, h, dk = r.shape
+    c = CHUNK
+    pad = (-s) % c
+    n = (s + pad) // c
+
+    def chunks(t):                                   # -> [n, B, H, C, dk]
+        t = _pad_chunks(t.float(), pad)
+        return t.reshape(b, n, c, h, dk).permute(1, 0, 3, 2, 4)
+
+    rc, kc, vc, lwc = chunks(r), chunks(k), chunks(v), chunks(log_w)
+    uf = u.float()
+    state = (torch.zeros((b, h, dk, dk), dtype=torch.float32,
+                         device=r.device) if s0 is None else s0.float())
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
+                     diagonal=-1)[:, :, None]       # s < t
+    eye = torch.eye(c, dtype=torch.float32, device=r.device)
+    outs = []
+    for i in range(n):
+        rr, kk, vv, lw = rc[i], kc[i], vc[i], lwc[i]
+        p = torch.cumsum(lw, dim=2)                  # inclusive
+        p_shift = p - lw                             # exclusive
+        o = torch.einsum("bhtd,bhdv->bhtv", rr * torch.exp(p_shift), state)
+        dec = torch.exp(torch.where(
+            tri, p_shift[:, :, :, None, :] - p[:, :, None, :, :],
+            -torch.inf))                             # [B, H, C(t), C(s), dk]
+        a = (rr[:, :, :, None, :] * kk[:, :, None, :, :] * dec).sum(-1)
+        diag = (rr * uf[None, :, None, :] * kk).sum(-1)
+        a = a + diag[..., None] * eye
+        o = o + torch.einsum("bhts,bhsv->bhtv", a, vv)
+        p_last = p[:, :, -1:, :]
+        k_dec = kk * torch.exp(p_last - p)
+        state = state * torch.exp(p_last[:, :, 0, :])[..., None] \
+            + torch.einsum("bhsd,bhsv->bhdv", k_dec, vv)
+        outs.append(o)
+    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n * c, h, dk)
+    return o[:, :s].to(r.dtype), state
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("wkv6")
+    fn = lib.wkv6_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def wkv6_cuda(r, k, v, log_w, u, s0=None):
+    """The kernel: ``wkv6_plain``'s function on contiguous CUDA tensors of
+    one device (r, k, v all float32 or all bfloat16; log_w, u and s0
+    float32; dk <= 64), launched on the current stream.  Raises on any
+    other input and on a failed launch."""
+    dev = r.device
+    tensors = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("wkv6_cuda takes CUDA tensors on one device")
+    if r.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError("wkv6_cuda takes r, k, v all float32 or all "
+                        "bfloat16")
+    if log_w.dtype != torch.float32 or u.dtype != torch.float32 \
+            or (s0 is not None and s0.dtype != torch.float32):
+        raise TypeError("wkv6_cuda takes log_w, u and s0 in float32")
+    if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape \
+            or log_w.shape != r.shape:
+        raise ValueError(f"r, k, v, log_w must share one [B, S, H, dk] "
+                         f"shape, got {tuple(r.shape)} / {tuple(k.shape)} / "
+                         f"{tuple(v.shape)} / {tuple(log_w.shape)}")
+    b, s, h, dk = r.shape
+    if not 0 < dk <= MAX_HEAD_DIM:
+        raise ValueError(f"head size {dk} is not in 1..{MAX_HEAD_DIM}")
+    if tuple(u.shape) != (h, dk):
+        raise ValueError(f"u {tuple(u.shape)} is not [H, dk] = {(h, dk)}")
+    if s0 is None:
+        s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=dev)
+    elif tuple(s0.shape) != (b, h, dk, dk):
+        raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, dk, dk]")
+    if not all(t.is_contiguous() for t in (r, k, v, log_w, u, s0)):
+        raise ValueError("wkv6_cuda takes contiguous tensors")
+    o = torch.empty_like(r)
+    s_t = torch.empty_like(s0)
+    err = _lib().wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_t.data_ptr(), b, s, h,
+        dk, int(r.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+    return o, s_t

@@ -15,16 +15,14 @@ from torch import nn
 
 class ParamTree(nn.Module):
     """Nested frozen parameters: a dict becomes a child tree, a list a
-    ``ModuleList`` of trees (one per layer), a tensor a parameter."""
+    ``ModuleList`` of trees (one per layer; a list of lists, such as
+    zamba2's groups of layers, nests), a tensor a parameter."""
 
     def __init__(self, tree: dict):
         super().__init__()
         for name, value in tree.items():
-            if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
-            elif isinstance(value, (list, tuple)):
-                self.add_module(name, nn.ModuleList(ParamTree(t)
-                                                    for t in value))
+            if isinstance(value, (dict, list, tuple)):
+                self.add_module(name, _module(value))
             else:
                 self.register_parameter(
                     name, nn.Parameter(value, requires_grad=False))
@@ -34,6 +32,12 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def _module(value) -> nn.Module:
+    if isinstance(value, dict):
+        return ParamTree(value)
+    return nn.ModuleList(_module(t) for t in value)
 
 
 def normal_init(shape, fan_in: int, dtype, *, generator: torch.Generator,
@@ -51,6 +55,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     rms = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return ((xf * rms) * weight.float()).to(x.dtype)
+
+
+def group_norm_heads(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, n_heads: int,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """Per-head group norm over [..., n_heads*head_dim] (the RWKV-6 output
+    norm), in float32, cast back to x's dtype."""
+    shape = x.shape
+    xf = x.float().reshape(*shape[:-1], n_heads, shape[-1] // n_heads)
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(shape)
+    return (xf * weight.float() + bias.float()).to(x.dtype)
 
 
 # ---------------- RoPE ----------------

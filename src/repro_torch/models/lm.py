@@ -1,5 +1,7 @@
-"""Decoder-only language model of the dense GQA family (the reference's
-`repro.models.lm`, ``family == "attn"`` with one dense stack).
+"""Decoder-only language models of three families (the reference's
+`repro.models.lm`): ``attn`` (the dense GQA decoder, one dense stack),
+``rwkv`` (RWKV-6) and ``zamba`` (Mamba-2 layers in groups, each followed by
+one shared attention block).
 
 * The reference stacks homogeneous layers (leading dim L) and drives them
   with ``lax.scan`` / ``fori_loop``; here each stack is a ``ModuleList`` of
@@ -8,11 +10,17 @@
   at a time instead of the stack.
 * ``extend`` is the multi-turn entry point the serving engine uses for
   KV-prefix reuse, the physical substrate of the paper's affinity o_ij.
-* Caches are dicts ``{"pos": [B] int32, "slot_pos": [B, M] int32,
-  "stack0": {"k": [L x [B, M, Hkv, hd]], "v": [...]}}``; every function
-  returns a new cache and leaves the one it was given as it was.
-* RWKV-6, zamba2, MoE stacks, MLA and patch inputs raise
-  ``NotImplementedError`` naming the slice that ports them.
+* Caches hold per-layer lists of tensors in place of the reference's
+  stacked ``[L, ...]`` arrays: ``{"pos": [B] int32, "slot_pos": [B, M]
+  int32, "stack0": {"k": [L x [B, M, Hkv, hd]], "v": [...]}}`` for attn;
+  per-layer state tuples for rwkv and zamba (see `_build_rwkv`,
+  `_build_zamba`).  Every function returns a new cache and leaves the one
+  it was given as it was.
+* For the recurrent families the parallel forms run from a stored state,
+  so rwkv's ``extend`` is a prefill of the new tokens from the cache;
+  zamba's ``extend`` raises, as the reference's does.
+* MoE stacks, MLA and patch inputs raise ``NotImplementedError`` naming
+  the slice that ports them.
 """
 from __future__ import annotations
 
@@ -41,14 +49,16 @@ def _make_stacks(cfg) -> list[StackSpec]:
     return [StackSpec(cfg.n_layers, "dense", cfg.d_ff)]
 
 
-def _check_family(cfg) -> None:
+def _family(cfg) -> str:
+    """The reference's family switch: rwkv, zamba (Mamba-2 + shared
+    attention) or attn (the dense GQA decoder)."""
     if cfg.ssm_kind == "rwkv6":
-        raise NotImplementedError(f"{cfg.name}: the RWKV-6 family (wkv6) "
-                                  "waits for the rwkv6-3b slice")
-    if cfg.attn_every or cfg.ssm_kind:
-        raise NotImplementedError(f"{cfg.name}: the Mamba-2 hybrid (ssd) "
-                                  "waits for the zamba2-7b slice")
-    if cfg.attn_kind != "gqa":
+        return "rwkv"
+    return "zamba" if cfg.attn_every else "attn"
+
+
+def _check_family(cfg) -> None:
+    if _family(cfg) != "rwkv" and cfg.attn_kind != "gqa":
         raise NotImplementedError(f"{cfg.name}: attention kind "
                                   f"{cfg.attn_kind!r} (MLA) waits for its "
                                   "family slice")
@@ -59,6 +69,11 @@ def _check_family(cfg) -> None:
 
 def build_lm(cfg):
     _check_family(cfg)
+    family = _family(cfg)
+    if family == "rwkv":
+        return _build_rwkv(cfg)
+    if family == "zamba":
+        return _build_zamba(cfg)
     dtype = getattr(torch, cfg.dtype)
     stacks = _make_stacks(cfg)
     window = cfg.sliding_window
@@ -68,14 +83,7 @@ def build_lm(cfg):
         """Parameters drawn from ``generator`` on its device (float32 draws
         cast to the config's dtype).  A torch generator gives other numbers
         than the reference's ``jax.random`` key of the same seed."""
-        params = {
-            "embed": normal_init((cfg.vocab_size, cfg.d_model), cfg.d_model,
-                                 dtype, generator=generator),
-            "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
-                                     device=generator.device),
-            "lm_head": normal_init((cfg.d_model, cfg.vocab_size),
-                                   cfg.d_model, dtype, generator=generator),
-        }
+        params = _embed_and_head(cfg, dtype, generator)
         for i, spec in enumerate(stacks):
             sub = dataclasses.replace(cfg, d_ff=spec.d_ff)
             params[f"stack{i}"] = [
@@ -83,14 +91,6 @@ def build_lm(cfg):
                                     ffn_kind=spec.ffn_kind)
                 for _ in range(spec.n_layers)]
         return ParamTree(params)
-
-    def _head(params, x):
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return x @ params["lm_head"]
-
-    def _last(x, lens):
-        rows = torch.arange(x.shape[0], device=x.device)
-        return x[rows, (lens - 1).clamp(min=0).long()]
 
     # ---------------- parallel forward (fresh prefill) ----------------
     def forward(params, batch, *, collect: bool):
@@ -125,16 +125,11 @@ def build_lm(cfg):
     def prefill(params, batch):
         """batch: tokens [B, S] (+ lens [B] for right-padded prompts, +
         max_len).  Returns (last-token logits [B, V], cache)."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        lens = batch.get("lens")
-        if lens is None:
-            lens = torch.full((b,), s, dtype=torch.int32,
-                              device=tokens.device)
-        max_len = int(batch.get("max_len", s))
+        lens = _lens(batch)
+        max_len = int(batch.get("max_len", batch["tokens"].shape[1]))
         x, parts = forward(params, batch, collect=True)
-        logits = _head(params, _last(x, lens))
-        cache = {"pos": lens.to(torch.int32)}
+        logits = _lm_head(params, _last(x, lens), cfg)
+        cache = {"pos": lens}
         for i, _spec in enumerate(stacks):
             ks, vs = [], []
             for k_l, v_l in parts[f"stack{i}"]:
@@ -166,7 +161,7 @@ def build_lm(cfg):
             new_cache[f"stack{i}"] = {"k": ks, "v": vs}
         new_cache["slot_pos"] = sp_out
         new_cache["pos"] = pos + 1
-        return _head(params, x), new_cache
+        return _lm_head(params, x, cfg), new_cache
 
     # ---------------- multi-turn extend (serving KV reuse) -------------
     def extend(params, cache, tokens, lens_new):
@@ -192,7 +187,7 @@ def build_lm(cfg):
             new_cache[f"stack{i}"] = {"k": ks, "v": vs}
         new_cache["slot_pos"] = sp_out
         new_cache["pos"] = pos0 + lens_new
-        return _head(params, _last(x, lens_new)), new_cache
+        return _lm_head(params, _last(x, lens_new), cfg), new_cache
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
@@ -204,3 +199,236 @@ def _block_ffn(p_l, y, cfg, ffn_kind):
         raise NotImplementedError("MoE FFN waits for the MoE slice")
     h = rms_norm(y, p_l["ln2"], cfg.norm_eps)
     return y + ffn_apply(p_l["mlp"], h)
+
+
+# ---------------- shared by the families ----------------
+
+def _embed_and_head(cfg, dtype, generator: torch.Generator) -> dict:
+    return {
+        "embed": normal_init((cfg.vocab_size, cfg.d_model), cfg.d_model,
+                             dtype, generator=generator),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dtype,
+                                 device=generator.device),
+        "lm_head": normal_init((cfg.d_model, cfg.vocab_size), cfg.d_model,
+                               dtype, generator=generator),
+    }
+
+
+def _lm_head(params, x, cfg):
+    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+
+
+def _last(x, lens):
+    """Each sequence's row at its last valid position: x [B, S, D]."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, (lens - 1).clamp(min=0).long()]
+
+
+def _lens(batch) -> torch.Tensor:
+    tokens = batch["tokens"]
+    lens = batch.get("lens")
+    if lens is None:
+        lens = torch.full((tokens.shape[0],), tokens.shape[1],
+                          dtype=torch.int32, device=tokens.device)
+    return lens.to(torch.int32)
+
+
+# ---------------- RWKV-6 (attention-free, O(1) state) ----------------
+
+def _rwkv_zero_state(cfg, b: int, dtype, device) -> list:
+    """One (shift_t [B, D], wkv [B, H, hd, hd] float32, shift_c [B, D])
+    per layer."""
+    h, hd, d = cfg.ssm_heads, cfg.ssm_state, cfg.d_model
+    return [(torch.zeros((b, d), dtype=dtype, device=device),
+             torch.zeros((b, h, hd, hd), dtype=torch.float32, device=device),
+             torch.zeros((b, d), dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
+def _build_rwkv(cfg):
+    """The reference's ``family == "rwkv"``.  A cache is ``{"pos": [B]
+    int32, "states": [per layer (shift_t, wkv, shift_c)]}``; the parallel
+    form runs from a stored state, so an extend is a prefill of the new
+    tokens from the cache (exact-extension semantics)."""
+    dtype = getattr(torch, cfg.dtype)
+
+    def init(generator: torch.Generator) -> ParamTree:
+        params = _embed_and_head(cfg, dtype, generator)
+        params["layers"] = [blk.rwkv_block_init(cfg, dtype,
+                                                generator=generator)
+                            for _ in range(cfg.n_layers)]
+        return ParamTree(params)
+
+    def forward(params, batch, *, collect: bool, init_state=None):
+        """Returns (x_final [B, S, D], {"states": [per layer]} or {})."""
+        x = params["embed"][batch["tokens"].long()]
+        states = init_state if init_state is not None else _rwkv_zero_state(
+            cfg, x.shape[0], x.dtype, x.device)
+        new = []
+        for p_l, st in zip(params["layers"], states):
+            x, st = blk.rwkv_block_parallel(p_l, x, cfg, state=st)
+            new.append(st)
+        return x, ({"states": new} if collect else {})
+
+    def init_cache(b: int, max_len: int, device) -> dict:
+        return {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
+                "states": _rwkv_zero_state(cfg, b, dtype, device)}
+
+    def prefill(params, batch):
+        """batch: exact-length tokens [B, S] (+ lens, max_len, unused by the
+        state).  Returns (last-token logits [B, V], cache)."""
+        lens = _lens(batch)
+        x, parts = forward(params, batch, collect=True)
+        return (_lm_head(params, _last(x, lens), cfg),
+                {"pos": lens, "states": parts["states"]})
+
+    def decode_step(params, cache, tokens):
+        x = params["embed"][tokens.long()]
+        new = []
+        for p_l, st in zip(params["layers"], cache["states"]):
+            x, st = blk.rwkv_block_step(p_l, x, cfg, st)
+            new.append(st)
+        return _lm_head(params, x, cfg), {"pos": cache["pos"] + 1,
+                                          "states": new}
+
+    def extend(params, cache, tokens, lens_new):
+        """The new tokens [B, Sn] run in parallel from the stored state."""
+        x, parts = forward(params, {"tokens": tokens}, collect=True,
+                           init_state=cache["states"])
+        return (_lm_head(params, _last(x, lens_new), cfg),
+                {"pos": cache["pos"] + lens_new, "states": parts["states"]})
+
+    return {"init": init, "forward": forward, "prefill": prefill,
+            "decode_step": decode_step, "extend": extend,
+            "init_cache": init_cache, "family": "rwkv"}
+
+
+# ---------------- zamba2 (Mamba-2 + one shared attention block) ---------
+
+def _zamba_groups(cfg) -> tuple[int, int, int]:
+    """(groups, Mamba-2 layers per group, tail layers): the shared block
+    runs after each group, not after the tail."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.attn_every, cfg.n_layers - g * cfg.attn_every
+
+
+def _zamba_zero_state(cfg, b: int, dtype, device) -> dict:
+    """{"groups": [[(conv [B, 3, 2D], ssm [B, H, hd, ds] float32) per
+    layer] per group], "tail": [per tail layer]}."""
+    g, per, tail = _zamba_groups(cfg)
+    di, h, ds = 2 * cfg.d_model, cfg.ssm_heads, cfg.ssm_state
+
+    def layer():
+        return (torch.zeros((b, 3, di), dtype=dtype, device=device),
+                torch.zeros((b, h, di // h, ds), dtype=torch.float32,
+                            device=device))
+
+    return {"groups": [[layer() for _ in range(per)] for _ in range(g)],
+            "tail": [layer() for _ in range(tail)]}
+
+
+def _build_zamba(cfg):
+    """The reference's ``family == "zamba"``: 13 × [6 Mamba-2 layers + the
+    shared block] + 3 for zamba2-7b.  A cache is ``{"pos", "slot_pos"
+    [B, M], "mamba": _zamba_zero_state's layout, "attn_k"/"attn_v": [per
+    group [B, M, Hkv, hd]]}``.  As in the reference, ``extend`` raises."""
+    dtype = getattr(torch, cfg.dtype)
+    g, per, tail = _zamba_groups(cfg)
+
+    def init(generator: torch.Generator) -> ParamTree:
+        params = _embed_and_head(cfg, dtype, generator)
+        mamba = lambda: blk.mamba_block_init(  # noqa: E731
+            cfg, dtype, generator=generator)
+        params["groups"] = [[mamba() for _ in range(per)] for _ in range(g)]
+        if tail:
+            params["tail"] = [mamba() for _ in range(tail)]
+        params["shared"] = blk.shared_attn_init(cfg, dtype,
+                                                generator=generator,
+                                                n_groups=g)
+        return ParamTree(params)
+
+    def _mamba_run(layers, x, states, step: bool):
+        fn = blk.mamba_block_step if step else blk.mamba_block_parallel
+        new = []
+        for p_l, st in zip(layers, states):
+            x, st = fn(p_l, x, cfg, st)
+            new.append(st)
+        return x, new
+
+    def forward(params, batch, *, collect: bool, init_state=None):
+        """Returns (x_final [B, S, D], {"mamba": states, "kv": [per group
+        (k, v)]} or {})."""
+        x = params["embed"][batch["tokens"].long()]
+        st = init_state if init_state is not None else _zamba_zero_state(
+            cfg, x.shape[0], x.dtype, x.device)
+        groups, kvs = [], []
+        for gi in range(g):
+            x, ms = _mamba_run(params["groups"][gi], x, st["groups"][gi],
+                               step=False)
+            x, kv = blk.shared_attn_parallel(
+                params["shared"], params["shared"]["lora"][gi], x, cfg)
+            groups.append(ms)
+            kvs.append(kv)
+        x, tail_st = _mamba_run(params["tail"] if tail else [], x,
+                                st["tail"], step=False)
+        if not collect:
+            return x, {}
+        return x, {"mamba": {"groups": groups, "tail": tail_st}, "kv": kvs}
+
+    def init_cache(b: int, max_len: int, device) -> dict:
+        shape = (b, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
+                "slot_pos": torch.full((b, max_len), -1, dtype=torch.int32,
+                                       device=device),
+                "mamba": _zamba_zero_state(cfg, b, dtype, device),
+                "attn_k": [torch.zeros(shape, dtype=dtype, device=device)
+                           for _ in range(g)],
+                "attn_v": [torch.zeros(shape, dtype=dtype, device=device)
+                           for _ in range(g)]}
+
+    def prefill(params, batch):
+        """batch: exact-length tokens [B, S] (+ lens, + max_len: the shared
+        block's cache length).  Returns (last-token logits [B, V], cache)."""
+        s = batch["tokens"].shape[1]
+        lens = _lens(batch)
+        max_len = int(batch.get("max_len", s))
+        x, parts = forward(params, batch, collect=True)
+        cache = {"pos": lens, "mamba": parts["mamba"], "attn_k": [],
+                 "attn_v": []}
+        for k, v in parts["kv"]:
+            kc, vc, sp = attn.prefill_cache_layout(k, v, lens, max_len)
+            cache["attn_k"].append(kc)
+            cache["attn_v"].append(vc)
+            cache["slot_pos"] = sp
+        return _lm_head(params, _last(x, lens), cfg), cache
+
+    def decode_step(params, cache, tokens):
+        x = params["embed"][tokens.long()]
+        pos = cache["pos"]
+        groups, ks, vs = [], [], []
+        sp = cache["slot_pos"]
+        for gi in range(g):
+            x, ms = _mamba_run(params["groups"][gi], x,
+                               cache["mamba"]["groups"][gi], step=True)
+            cl = {"k": cache["attn_k"][gi], "v": cache["attn_v"][gi],
+                  "slot_pos": cache["slot_pos"], "pos": pos}
+            x, nc = blk.shared_attn_decode(
+                params["shared"], params["shared"]["lora"][gi], x, cl, cfg)
+            groups.append(ms)
+            ks.append(nc["k"])
+            vs.append(nc["v"])
+            sp = nc["slot_pos"]
+        x, tail_st = _mamba_run(params["tail"] if tail else [], x,
+                                cache["mamba"]["tail"], step=True)
+        return _lm_head(params, x, cfg), {
+            "pos": pos + 1, "slot_pos": sp, "attn_k": ks, "attn_v": vs,
+            "mamba": {"groups": groups, "tail": tail_st}}
+
+    def extend(params, cache, tokens, lens_new):
+        # the reference's own gap, reproduced: its engine has no fallback
+        raise NotImplementedError(
+            "zamba2 extend: use prefill from scratch (engine falls back)")
+
+    return {"init": init, "forward": forward, "prefill": prefill,
+            "decode_step": decode_step, "extend": extend,
+            "init_cache": init_cache, "family": "zamba"}

@@ -10,7 +10,8 @@ from repro_torch.configs.base import ModelConfig
 class Model(NamedTuple):
     config: ModelConfig
     init: Callable          # (generator) -> params (a ParamTree)
-    forward: Callable       # (params, batch, *, collect) -> (x, parts)
+    forward: Callable       # (params, batch, *, collect[, init_state])
+                            # -> (x, parts)
     prefill: Callable       # (params, batch) -> (logits [B, V], cache)
     decode_step: Callable   # (params, cache, tokens [B]) -> (logits, cache)
     extend: Callable        # (params, cache, tokens [B, Sn], lens_new) -> ...

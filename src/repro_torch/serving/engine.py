@@ -1,22 +1,26 @@
 """Per-agent inference engine: real prefill / extend / decode with KV reuse.
 
 The port of the reference's `repro.serving.engine`.  An engine runs one
-dense GQA model (`repro_torch.models`) on its ``device`` (default
-``"cuda"``: the flash- and decode-attention kernels; ``"cpu"``: their plain
-versions), keeps per-dialogue caches (LRU over ``cache_slots`` sessions,
-the paper's constrained-memory regime) and measures:
+model of the port (`repro_torch.models`: the dense GQA family, RWKV-6 or
+zamba2) on its ``device`` (default ``"cuda"``: the hand-written kernels;
+``"cpu"``: their plain versions), keeps per-dialogue caches (LRU over
+``cache_slots`` sessions, the paper's constrained-memory regime) and
+measures:
 
   * TTFT    — host seconds of the prefill / extend path, ending in a
               ``torch.cuda.synchronize()`` on a card, scaled by the agent's
               hardware ``speed``;
   * n_hit   — exactly how many prompt tokens were served from cache
-              (whole-prefix reuse, truncated to the LCP);
+              (whole-prefix reuse truncated to the LCP for attention;
+              exact extension of the stored prompt for the recurrent
+              families, whose state cannot be truncated);
   * n_gen   — generated tokens (greedy).
 
 Routing with affinity -> more cached tokens -> less prefill -> lower TTFT
-and cost: the paper's causal chain, physically.  Prompt lengths are
-bucketed to powers of two, as in the reference (there to bound jit
-retraces; here they fix the kernels' shapes).
+and cost: the paper's causal chain, physically.  Attention prompt lengths
+are bucketed to powers of two, as in the reference (there to bound jit
+retraces; here they fix the kernels' shapes); a recurrent state cannot
+mask padding, so recurrent prompts and extends run at their exact length.
 
 Caches are never written in place: the model's functions return new cache
 tensors (`models/attention.py`), truncation builds a new dict, so forking
@@ -90,7 +94,7 @@ class AgentEngine:
         self.max_len = max_len
         self.max_new = max_new_tokens
         self.sessions: dict[str, SessionCache] = {}
-        self.recurrent = False      # the dense family; recurrent ones later
+        self.recurrent = self.model.family in ("rwkv", "zamba")
         self.evictions = 0
 
     def _sync(self) -> None:
@@ -127,10 +131,13 @@ class AgentEngine:
             del self.sessions[victim]
             self.evictions += 1
 
-    @staticmethod
-    def _truncate_attn_cache(cache: dict, keep: int) -> dict:
-        """A new cache dict with positions >= keep invalidated; the stored
-        one is left as it was."""
+    def _truncate(self, cache: dict, keep: int) -> dict:
+        """The cache to extend from: for attention a new cache dict with
+        positions >= keep invalidated (the stored one is left as it was); a
+        recurrent state as it is (its hit is always the whole stored
+        prompt)."""
+        if self.recurrent:
+            return cache
         new = dict(cache)
         sp = cache["slot_pos"]
         new["slot_pos"] = torch.where(sp < keep, sp, -1)
@@ -139,8 +146,12 @@ class AgentEngine:
 
     def _session_hit(self, prompt: np.ndarray, sess: SessionCache) -> int:
         """Cached prompt tokens this session would grant: attention reuses
-        any common prefix."""
-        return lcp_length(prompt, sess.prompt)
+        any common prefix; a recurrent state only an exact extension of the
+        session's full prompt."""
+        l = lcp_length(prompt, sess.prompt)
+        if self.recurrent:
+            return l if l == len(sess.prompt) else 0
+        return l
 
     def _pick_session(self, dialogue_id: str, prompt: np.ndarray, parents):
         """Best cache candidate among the session's own entry and its DAG
@@ -177,7 +188,12 @@ class AgentEngine:
         mode = "fresh"
         if sess is not None:
             l = lcp_length(prompt, sess.prompt)
-            if l == n_prompt and l == len(sess.prompt):
+            if self.recurrent:
+                # an exact extension, or a repeat of the whole stored
+                # prompt (n_hit == n_prompt: the no-op decode below)
+                if l == len(sess.prompt):
+                    n_hit, mode = l, "extend"
+            elif l == n_prompt and l == len(sess.prompt):
                 n_hit, mode = l, "identical"
             elif l > 0:
                 n_hit, mode = l, "extend"
@@ -190,18 +206,16 @@ class AgentEngine:
             logits, _ = self._decode_noop(cache)
         elif mode == "extend" and n_hit < n_prompt:
             suffix = prompt[n_hit:]
-            pad = np.zeros(_bucket(len(suffix)), np.int32)
-            pad[: len(suffix)] = suffix
-            cache = self._truncate_attn_cache(sess.cache, n_hit)
+            pad = self._pad(suffix)
+            cache = self._truncate(sess.cache, n_hit)
             logits, cache = self.model.extend(
                 self.params, cache, self._tokens(pad[None]),
                 self._tokens(np.array([len(suffix)])))
         elif mode == "extend":
-            cache = self._truncate_attn_cache(sess.cache, n_hit)
+            cache = self._truncate(sess.cache, n_hit)
             logits, _ = self._decode_noop(cache)
         else:
-            pad = np.zeros(_bucket(n_prompt), np.int32)
-            pad[:n_prompt] = prompt
+            pad = self._pad(prompt)
             batch = {"tokens": self._tokens(pad[None]),
                      "lens": self._tokens(np.array([n_prompt])),
                      "max_len": self.max_len}
@@ -231,6 +245,15 @@ class AgentEngine:
         total = (t_end - t0) / self.speed
         return ServeResult(gen, ttft, total, n_prompt, min(n_hit, n_prompt),
                            len(gen))
+
+    def _pad(self, tokens: np.ndarray) -> np.ndarray:
+        """Right-padded to a power-of-two bucket for attention; exact
+        length for a recurrent state, which cannot mask padding."""
+        if self.recurrent:
+            return tokens
+        pad = np.zeros(_bucket(len(tokens)), np.int32)
+        pad[: len(tokens)] = tokens
+        return pad
 
     def _decode_noop(self, cache):
         """Logits for the 'everything cached' path: one decode step on the

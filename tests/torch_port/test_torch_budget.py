@@ -17,8 +17,10 @@ TIER1_MODULES = {
     "test_torch_isolation",
     "test_torch_kernels_ref",
     "test_torch_models",
+    "test_torch_recurrent",
     "test_torch_router",
     "test_torch_solver",
+    "test_torch_ssm",
 }
 
 SLOW_RE = re.compile(r"^pytestmark\s*=.*pytest\.mark\.slow", re.MULTILINE)

@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels against their plain versions at the main
-paths' shapes, a short CUDA-vs-CPU router lockstep and a reduced CUDA-vs-CPU
-serving-engine lockstep.  These need an NVIDIA GPU (and ``nvcc`` to build
-the kernels); where none is present they skip, deciding inside the
-fixture.  Attention tolerances are the reference's: 2e-5 in float32, 3e-2
-in bfloat16."""
+paths' shapes, a short CUDA-vs-CPU router lockstep and reduced CUDA-vs-CPU
+serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
+(and ``nvcc`` to build the kernels); where none is present they skip,
+deciding inside the fixture.  Attention tolerances are the reference's:
+2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
+reference's); in bfloat16 the output within one bf16 rounding of the plain
+version's (|got - want| <= 2^-7·|want| + 1e-3: both round float32 sums
+that differ in their last bits) and the float32 state within 1e-3."""
 import numpy as np
 import pytest
 
@@ -18,6 +21,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,  # noqa: E402
                                               lcp_affinity_plain)
+from repro_torch.kernels.ssd import ssd_cuda, ssd_plain  # noqa: E402
+from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 BIG = np.float32(np.finfo(np.float32).max / 4)
@@ -92,9 +97,13 @@ def test_ops_count_kernel_launches(dev):
     ops.auction_bid_op(*bid_inputs(8, 4, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, "cpu"))      # plain: uncounted
+    ops.wkv6_op(*wkv6_inputs(1, 20, 2, 16, torch.float32, True, dev, 0))
+    ops.ssd_op(*ssd_inputs(1, 20, 2, 16, 8, torch.float32, False, dev, 0))
+    ops.wkv6_op(*wkv6_inputs(1, 20, 2, 16, torch.float32, True, "cpu", 0))
     assert ops.launch_counts() == {"auction_bid": 1, "lcp_affinity": 1,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "wkv6": 1,
+                                   "ssd": 1}
 
 
 def test_cuda_router_matches_cpu_router(dev):
@@ -138,7 +147,8 @@ def _normal(shape, dtype, dev, rng):
     (2, 128, 8, 2, 64, True, 48), (1, 37, 2, 1, 32, False, 0),
     (1, 100, 4, 4, 72, True, 0),
     (1, 16, 32, 8, 128, True, 0), (1, 128, 32, 8, 128, True, 0),
-    (1, 512, 32, 8, 128, True, 0), (1, 1024, 32, 8, 128, True, 0)])
+    (1, 512, 32, 8, 128, True, 0), (1, 1024, 32, 8, 128, True, 0),
+    (1, 61, 32, 32, 112, True, 0), (1, 512, 32, 32, 112, True, 0)])
 def test_flash_kernel_matches_plain(dev, b, sq, h, hkv, d, causal, win,
                                     dtype):
     rng = np.random.default_rng(sq + d)
@@ -155,7 +165,7 @@ def test_flash_kernel_matches_plain(dev, b, sq, h, hkv, d, causal, win,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,d,m", [
     (2, 4, 2, 32, 100), (1, 8, 8, 64, 257), (3, 6, 2, 16, 48),
-    (1, 32, 8, 128, 1024), (1, 4, 4, 72, 1024)])
+    (1, 32, 8, 128, 1024), (1, 4, 4, 72, 1024), (1, 32, 32, 112, 1024)])
 def test_decode_kernel_matches_plain(dev, b, h, hkv, d, m, dtype):
     rng = np.random.default_rng(m + d)
     q = _normal((b, h, d), dtype, dev, rng)
@@ -198,3 +208,103 @@ def test_cuda_engine_matches_cpu_engine(dev):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == cfg.n_layers * 3     # a, b, c fresh
     assert counts["decode_attention"] == cfg.n_layers * 5 * 4
+
+
+def assert_scan_close(got, want):
+    """(output, state) of a kernel against its plain version: float32
+    within 1e-3; a bf16 output within one bf16 rounding (module doc)."""
+    (go, gs), (wo, ws) = got, want
+    assert go.dtype == wo.dtype and gs.dtype == torch.float32
+    err = (go.float() - wo.float()).abs()
+    if go.dtype == torch.bfloat16:
+        assert bool((err <= 2.0 ** -7 * wo.float().abs() + 1e-3).all())
+    else:
+        assert float(err.max()) < 1e-3
+    assert float((gs - ws).abs().max()) < 1e-3
+
+
+def wkv6_inputs(b, s, h, dk, dtype, state, dev, seed):
+    rng = np.random.default_rng(seed)
+    r, k, v = (_normal((b, s, h, dk), dtype, dev, rng) for _ in range(3))
+    lw = np.clip(-np.exp(rng.standard_normal((b, s, h, dk))), -4.0, -1e-3)
+    u = _normal((h, dk), torch.float32, dev, rng)
+    s0 = _normal((b, h, dk, dk), torch.float32, dev, rng) if state else None
+    return (r, k, v, torch.from_numpy(lw.astype(np.float32)).to(dev), u, s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("b,s,h,dk", [
+    (2, 48, 3, 16), (1, 35, 2, 32), (2, 16, 1, 8), (1, 37, 4, 24),
+    (1, 61, 40, 64), (1, 512, 40, 64)])
+def test_wkv6_kernel_matches_plain(dev, b, s, h, dk, state, dtype):
+    args = wkv6_inputs(b, s, h, dk, dtype, state, dev, s + dk)
+    got = wkv6_cuda(*args)
+    want = wkv6_plain(*args)
+    torch.cuda.synchronize()
+    assert_scan_close(got, want)
+
+
+def ssd_inputs(b, s, h, hd, ds, dtype, state, dev, seed):
+    rng = np.random.default_rng(seed)
+    x = _normal((b, s, h, hd), dtype, dev, rng)
+    bm = _normal((b, s, ds), dtype, dev, rng)
+    cm = _normal((b, s, ds), dtype, dev, rng)
+    dt = np.abs(rng.standard_normal((b, s, h))).astype(np.float32) * 0.5
+    a_log = _normal((h,), torch.float32, dev, rng) * 0.3
+    dsk = _normal((h,), torch.float32, dev, rng)
+    s0 = _normal((b, h, hd, ds), torch.float32, dev, rng) if state else None
+    return (x, bm, cm, torch.from_numpy(dt).to(dev), a_log, dsk, s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("b,s,h,hd,ds", [
+    (2, 48, 3, 16, 8), (1, 37, 2, 32, 16), (1, 35, 4, 24, 40),
+    (1, 61, 112, 64, 64), (1, 512, 112, 64, 64)])
+def test_ssd_kernel_matches_plain(dev, b, s, h, hd, ds, state, dtype):
+    args = ssd_inputs(b, s, h, hd, ds, dtype, state, dev, s + hd)
+    got = ssd_cuda(*args)
+    want = ssd_plain(*args)
+    torch.cuda.synchronize()
+    assert_scan_close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_cuda_recurrent_engine_matches_cpu_engine(dev, arch):
+    """Reduced recurrent engines in float32: the card's (kernels) and the
+    CPU's (plain versions) give the same tokens and hits, through fresh
+    prefills, the no-op repeat and, for rwkv, exact extensions."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import AgentEngine
+
+    cfg = get_config(arch).scaled(dtype="float32")
+    kw = {"max_len": 128, "max_new_tokens": 4, "cache_slots": 2}
+    gpu = AgentEngine(cfg, seed=0, device=dev, **kw)
+    cpu = AgentEngine(cfg, device="cpu",
+                      params=copy.deepcopy(gpu.params).cpu(), **kw)
+    rng = np.random.default_rng(0)
+    new = lambda n: rng.integers(1, 255, n).astype(np.int32)  # noqa: E731
+    plan = (["extend", "repeat", "extend"] if arch == "rwkv6-3b"
+            else ["repeat", "other", "repeat"])
+    prompt = new(37)
+    ops.reset_launch_counts()
+    for step in ["fresh"] + plan:
+        if step != "fresh":
+            full = gpu.sessions["a"].prompt
+            prompt = {"extend": lambda: np.concatenate([full, new(5)]),
+                      "repeat": lambda: full,
+                      "other": lambda: np.concatenate([full[:20], new(9)])
+                      }[step]()
+        a, b = (e.serve("a", prompt) for e in (gpu, cpu))
+        np.testing.assert_array_equal(a.output_tokens, b.output_tokens)
+        assert (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt)
+        assert (a.n_hit == 0) == (step in ("fresh", "other"))
+    counts = ops.launch_counts()
+    if arch == "rwkv6-3b":
+        assert counts["wkv6"] == cfg.n_layers * 3           # 1 fresh, 2 extend
+    else:
+        assert counts["ssd"] == cfg.n_layers * 2            # 2 fresh
+        assert counts["flash_attention"] == cfg.n_layers // cfg.attn_every * 2

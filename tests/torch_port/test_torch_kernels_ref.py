@@ -58,7 +58,8 @@ def test_lcp_plain_matches_reference_oracle_and_pallas(seed):
     assert np.array_equal(via_op.numpy(), want)
     assert ops.launch_counts() == {"auction_bid": 0, "lcp_affinity": 0,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "wkv6": 0,
+                                   "ssd": 0}
 
 
 def test_lcp_plain_edge_widths():

@@ -196,11 +196,10 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_families_raise():
-    """The registry lists only what the port builds; other families name
-    the slice that ports them."""
+    """The registry lists only what the port builds (dense GQA, RWKV-6,
+    zamba2); the other families name the slice that ports them."""
     base = get_config("qwen3-8b").scaled(dtype="float32")
-    for over in ({"ssm_kind": "rwkv6"}, {"attn_every": 2, "ssm_kind": "mamba2"},
-                 {"n_experts": 4, "top_k": 2}, {"attn_kind": "mla"},
+    for over in ({"n_experts": 4, "top_k": 2}, {"attn_kind": "mla"},
                  {"enc_layers": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             build_model(dataclasses.replace(base, **over))
