@@ -11,7 +11,10 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
 2. Build: all six kernels from ``src/repro_torch/kernels/csrc`` with one
-   ``nvcc`` each, started together; prints the ``-Xptxas -v`` report.
+   ``nvcc`` each, started together; prints each kernel instance's
+   registers, static shared memory and spills from ``-Xptxas -v``, and the
+   count of tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of
+   every instance of the bf16 flash kernel (``cuobjdump -sass``): 0 fails.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
    at the router path's shapes (LCP at prompts [64, 1024] x ledgers
    [64, 128, 1024] and at a width that is not a multiple of 32; the
@@ -27,7 +30,14 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    route_batch latency, throughput, the ledger tile's host-to-device copy
    time and bid rounds per solve.
 5. Each router kernel against its plain version again, and timed, at the
-   inputs of every call the main path made to it in phase 4.
+   inputs of every call the main path made to it in phase 4.  Every
+   kernel's figures (here and in phases 6, 8, 10, 12, 13) give two times
+   per call: ``ms``, CUDA events around back-to-back wrapper calls, and
+   ``device_ms``, the CUDA time of the op's kernels in a ``torch.profiler``
+   trace over the op's calls (after three traces that lack the op's
+   kernels, CUDA events with the host queued ahead; the JSON line's
+   ``device_ms_from`` says which); where the first is much larger, the
+   wrapper (host), not the kernel body, bounds the op.
 6. The attention kernels against their plain versions (2e-5 in float32,
    3e-2 in bfloat16) at synthetic full-width shapes: qwen3-8b's layers
    (prefill buckets 128 and 512) and zamba2-7b's shared block (32 / 32
@@ -99,6 +109,8 @@ import copy
 import dataclasses
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,7 +130,8 @@ N_AGENTS = 128
 MIN_REQUESTS = 300
 BIG = 3.4028234663852886e38 / 4    # float32 max / 4, the no-bid price
 # the per-kernel figures of the JSON line that phases 5 and 8 measure
-MEASURED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+MEASURED = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's
 ENGINE_LOGIT_TOL = 2e-3            # tests/test_models.py's
 ARCH = "qwen3-8b"
@@ -156,6 +169,146 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+# what each op launches on the device once per call: its hand-written
+# kernels (by name stem) and, for auction_bid, the memset of its keys
+OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
+              "auction_bid": ("Memset", "bid_rows", "bid_decode"),
+              "flash_attention": ("flash_",),
+              "decode_attention": ("decode_split_kernel",
+                                   "decode_combine_kernel"),
+              "wkv6": ("wkv6_kernel",), "ssd": ("ssd_kernel",)}
+
+
+PROFILE_TRIES = 3                  # traces of one op before events
+DEVICE_MS_FROM: dict[str, set] = {}   # op -> {"profiler", "events"}
+
+
+def profiled_kernel_means(fn, op: str) -> dict[str, float]:
+    """Mean CUDA microseconds of each of ``op``'s kernels (by stem) in one
+    ``torch.profiler`` trace of ``fn``; a kernel the trace lacks is absent.
+    Means, not totals over the calls: after long traces the profiler drops
+    some kernel records (each recorded time stays right), and an empty
+    trace taken first absorbs records of earlier work that arrive late."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, count = Counter(), Counter()
+    for e in prof.key_averages():
+        stem = next((k for k in OP_KERNELS[op] if k in e.key), None)
+        if e.device_type == DeviceType.CUDA and stem and e.count:
+            total[stem] += e.device_time_total
+            count[stem] += e.count
+    return {k: total[k] / count[k] for k in count}
+
+
+def queued_event_ms(calls) -> float:
+    """Device milliseconds of all ``calls`` (zero-argument callables),
+    timed with CUDA events while the device is held in a spin
+    (``torch.cuda._sleep``) long enough for the host to queue each group of
+    calls first, so no host time falls between the events.  Groups of 128
+    calls stay inside the driver's launch queue.  Counts every kernel a
+    call launches, the wrapper's allocations' fills included."""
+    import torch
+
+    total = 0.0
+    for i in range(0, len(calls), 128):
+        group = calls[i:i + 128]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for c in group:
+            c()
+        host_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(max(host_s, 1e-3) * 4e9))   # >= 2x at 2 GHz
+        start.record()
+        for c in group:
+            c()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total
+
+
+def device_ms(calls, op: str) -> float:
+    """Device milliseconds per call of ``op`` (a key of OP_KERNELS) over
+    ``calls`` (zero-argument callables, each one call of the op): the mean
+    CUDA time of each of the op's kernels in a ``torch.profiler`` trace,
+    summed over the kernels one call launches.  The profiler sometimes
+    hands back a trace without the op's kernels after long traces of other
+    work; after ``PROFILE_TRIES`` such traces the time comes from CUDA
+    events with the host run ahead (``queued_event_ms``).  The source of
+    every figure is kept in ``DEVICE_MS_FROM`` and printed."""
+    check(bool(calls), f"no {op} call to time")
+    seen: dict[str, float] = {}
+    for _ in range(PROFILE_TRIES):
+        seen = profiled_kernel_means(lambda: [c() for c in calls], op)
+        if set(seen) == set(OP_KERNELS[op]):
+            DEVICE_MS_FROM.setdefault(op, set()).add("profiler")
+            return sum(seen.values()) / 1e3
+    print(f"    {op}: {PROFILE_TRIES} profiler traces lacked a kernel "
+          f"(last {seen}); its device time comes from CUDA events")
+    DEVICE_MS_FROM.setdefault(op, set()).add("events")
+    return queued_event_ms(calls) / len(calls)
+
+
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program: on the PATH or under /usr/local/cuda/bin."""
+    found = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
+    check(Path(found).exists(), f"{name} not found")
+    return found
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel instance of an ``nvcc -Xptxas -v`` log: its
+    (demangled) name, registers, static shared memory and spill bytes."""
+    rows, fn, spill = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn, spill = m.group(1), ""
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = f"spills {m.group(1)}/{m.group(2)} B (store/load)"
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((fn, f"{m.group(1)} registers, "
+                         f"{smem.group(1) if smem else 0} B static smem, "
+                         f"{spill}"))
+            fn = None
+    names = subprocess.run([cuda_tool("cu++filt")], input="\n".join(
+        n for n, _ in rows), capture_output=True, text=True,
+        timeout=60).stdout.splitlines() if rows else []
+    return [f"{(names[i] if i < len(names) else n)[:90]}: {r}"
+            for i, (n, r) in enumerate(rows)]
+
+
+def tensor_core_counts(lib: Path, kernel: str) -> dict[str, int]:
+    """``HMMA``/``HGMMA`` instructions per function of shared library
+    ``lib`` whose (mangled) name holds ``kernel``, from its SASS."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"\bHG?MMA\b", line):
+            counts[fn] += 1
+    return counts
 
 
 # ---------------------------------------------------------------- inputs --
@@ -533,12 +686,16 @@ def replay(calls, kernel, plain, work, iters: int, plain_iters: int) -> dict:
         nbytes, nops = nbytes + b, nops + o
     check(err == 0.0, f"{kernel.__name__} != plain at a main-path input")
     ms = cuda_time_ms(lambda: [kernel(*a, **kw) for a, kw in calls], iters, 1)
+    dev_ms = device_ms([lambda a=a, kw=kw: kernel(*a, **kw)
+                        for a, kw in calls],
+                       kernel.__name__.removesuffix("_cuda"))
     plain_ms = cuda_time_ms(lambda: [plain(*a, **kw) for a, kw in calls],
                             plain_iters, 1)
     bound, by = roofline(nbytes / len(calls), nops / len(calls))
     shapes = sorted({shape_key(args)[:2] for args, _ in calls})
     return {"calls": len(calls), "shapes": shapes, "max_abs_err": err,
-            "ms": ms / len(calls), "plain_ms": plain_ms / len(calls),
+            "ms": ms / len(calls), "device_ms": dev_ms,
+            "plain_ms": plain_ms / len(calls),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -630,6 +787,9 @@ def attn_figures(kernel, plain, library, work, args, kw, iters=50) -> dict:
     bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
     return {"max_abs_err": err,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
+            "device_ms": device_ms(
+                [lambda: kernel(*args, **kw)] * iters,
+                kernel.__name__.removesuffix("_cuda")),
             "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 10, 2),
             "library_ms": cuda_time_ms(lambda: library(*args, **kw), iters,
                                        5),
@@ -640,8 +800,9 @@ def print_figures(name, shape, f) -> None:
     lib = ("" if f["library_ms"] is None
            else f", library {f['library_ms']:.4f} ms")
     print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}, kernel "
-          f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms{lib}, bound "
-          f"{f['bound_ms']:.6f} ms ({f['bound_by']})")
+          f"{f['ms']:.4f} ms (device {f['device_ms']:.4f}), plain "
+          f"{f['plain_ms']:.4f} ms{lib}, bound {f['bound_ms']:.6f} ms "
+          f"({f['bound_by']})")
 
 
 def phase_attention(dev) -> None:
@@ -698,7 +859,7 @@ def replay_sampled(rec, name: str, figures) -> dict:
     they are means per call of the main path."""
     check(bool(rec.calls), f"no {name} call was recorded")
     sampled = Counter(shape_key(args) for args, _ in rec.calls)
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     total = dict.fromkeys(keys, 0.0)
     err, weight, by = 0.0, 0.0, Counter()
     for args, kw in rec.calls:
@@ -1102,6 +1263,9 @@ def scan_figures(kernel, plain, work, args, kw, iters=50) -> dict:
     bound, by = roofline(*work(*args, **kw))       # float32 math
     return {"max_abs_err": err,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
+            "device_ms": device_ms(
+                [lambda: kernel(*args, **kw)] * iters,
+                kernel.__name__.removesuffix("_cuda")),
             "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 5, 1),
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
@@ -1477,9 +1641,18 @@ def main() -> int:
     print(f"[2] built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(reports.items()):
-        for line in log.splitlines():
-            if "ptxas" in line:
-                print(f"    {name}: {line.strip()}")
+        for line in ptxas_report(log):
+            print(f"    {name}: {line}")
+    hmma = tensor_core_counts(build.library_path("flash_attention"),
+                              "flash_tc_kernel")
+    label = {n: re.sub(r".*flash_tc_kernelILi(\d+)E.*", r"DP=\1", n)
+             for n in hmma}
+    print("    tensor-core instructions (HMMA/HGMMA) in the SASS of the bf16 "
+          "flash kernel: " + ", ".join(f"{label[n]} {c}" for n, c in
+                                       sorted(hmma.items())))
+    check(bool(hmma) and min(hmma.values()) > 0,
+          f"an instance of the bf16 flash kernel has no tensor-core "
+          f"instruction: {hmma}")
 
     print("[3] router kernels against their plain versions")
     phase_kernels(dev)
@@ -1524,8 +1697,9 @@ def main() -> int:
                  lambda args, out: bid_work(*args), 5, 2)
     for name, r in (("lcp_affinity", lcp), ("auction_bid", bid)):
         print(f"    {name} over {r['calls']} calls {r['shapes']}: bit-exact, "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.7f} ms ({r['bound_by']}) per call")
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms "
+              f"({r['bound_by']}) per call")
 
     print("[6] attention kernels against their plain versions, synthetic "
           f"full-width {ARCH} shapes")
@@ -1552,9 +1726,9 @@ def main() -> int:
     for name, r in (("flash_attention", flash), ("decode_attention", dec)):
         print(f"    {name} per main-path call ({r['calls']} calls, "
               f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
-              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA"
-              f" {r['library_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})")
+              f" kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms,"
+              f" bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     del attn_rec
 
     print("[9] router to real engines: the CUDA router over two full-width "
@@ -1598,8 +1772,9 @@ def main() -> int:
     for name, r in (("wkv6", wkv6), ("ssd", ssd)):
         print(f"    {name} per main-path call ({r['calls']} calls, "
               f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
-              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+              f" kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']})")
 
     print(f"[14] mixed fleet: the CUDA router over the {ARCH} engine of "
           f"phase 8 and the {RWKV} engine of phase 12")
@@ -1646,6 +1821,8 @@ def main() -> int:
          **{k: ssd[k] for k in MEASURED},
          "library_ms": None},
     ]
+    for row in kernels:     # where each op's device figures came from
+        row["device_ms_from"] = "+".join(sorted(DEVICE_MS_FROM[row["name"]]))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,17 @@
 Every decode step of the serving engine runs this once per layer
 (`models/attention.py::attend_decode`), with the validity mask built from
 the cache's ``slot_pos`` on the device.  On the card it is the two
-hand-written kernels in ``csrc/decode_attention.cu``: per-piece float32
-(max, sum-exp, weighted V) partials over 64-slot pieces of the cache, then
-a log-sum-exp combine.  ``decode_attention_plain`` is the same function in
-plain PyTorch (`kernels/ref.py::decode_attention_ref`), used for CPU
-tensors and as the kernels' oracle.
+hand-written kernels in ``csrc/decode_attention.cu``: float32 (max,
+sum-exp, weighted V) partials over contiguous slot ranges of the cache
+(`split_plan`: about one wave of blocks), skipping ranges that hold no
+valid slot, then a log-sum-exp combine.  ``decode_attention_plain`` is the
+same function in plain PyTorch (`kernels/ref.py::decode_attention_ref`),
+used for CPU tensors and as the kernels' oracle.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -26,16 +28,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 MAX_HEAD_DIM = 128
 MAX_GROUP = 16
+TILE = 32            # slots per staged tile: a split is whole tiles
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(m: int, bhkv: int, sms: int = H100_SMS) -> tuple[int, int]:
+    """(slots per split, splits) for a cache of ``m`` slots read by
+    ``bhkv`` (batch, KV head) pairs on a card of ``sms`` SMs: split ``i``
+    covers slots [i·chunk, min((i + 1)·chunk, m)), whole tiles of TILE
+    slots, and bhkv·splits blocks make about one wave (at most ``sms``,
+    unless bhkv alone exceeds it)."""
+    tiles = -(-m // TILE)
+    want = max(1, min(sms // bhkv, tiles))
+    chunk = -(-tiles // want) * TILE
+    return chunk, -(-m // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("decode_attention")
     fn = lib.decode_attention_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _I, _P]
     fn.restype = ctypes.c_int
-    lib.decode_attention_piece.argtypes = []
-    lib.decode_attention_piece.restype = ctypes.c_int
     return lib
 
 
@@ -76,20 +96,18 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{(b, m)}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, valid)):
         raise ValueError("decode_attention_cuda takes contiguous tensors")
-    lib = _lib()
-    pieces = -(-m // lib.decode_attention_piece())
-    g = h // hkv
-    m_part = torch.empty((b * hkv, pieces, g), dtype=torch.float32,
-                         device=dev)
-    l_part = torch.empty_like(m_part)
-    acc_part = torch.empty((b * hkv, pieces, g, d), dtype=torch.float32,
-                           device=dev)
+    chunk, splits = split_plan(m, b * hkv, _sms(dev.index))
+    # one scratch tensor: m_part and l_part [b·hkv, splits, G], then
+    # acc_part [b·hkv, splits, G, d], all float32
+    n_part = b * hkv * splits * (h // hkv)
+    scratch = torch.empty(n_part * (2 + d), dtype=torch.float32, device=dev)
+    ptr = scratch.data_ptr()
     out = torch.empty_like(q)
-    err = lib.decode_attention_launch(
+    err = _lib().decode_attention_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        valid.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-        acc_part.data_ptr(), out.data_ptr(), b, h, hkv, m, d,
-        1.0 / math.sqrt(d), int(q.dtype == torch.bfloat16),
+        valid.data_ptr(), ptr, ptr + 4 * n_part, ptr + 8 * n_part,
+        out.data_ptr(), b, h, hkv, m, d, chunk, 1.0 / math.sqrt(d),
+        int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "

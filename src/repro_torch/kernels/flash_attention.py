@@ -2,9 +2,11 @@
 
 Every fresh prefill of the serving engine runs this once per layer
 (`models/attention.py::attend_parallel`).  On the card it is the
-hand-written kernel in ``csrc/flash_attention.cu`` (one block per
-(batch·head, 32-row query tile), float32 online softmax over shared-memory
-key tiles, tiles above the diagonal skipped); ``flash_attention_plain`` is
+hand-written ``csrc/flash_attention.cu``: bf16 inputs run on the tensor
+cores (`mma.sync` over 64 x 64 tiles fed by a `cp.async` ring, float32
+online softmax, P rounded to bf16 for P·V), float32 inputs on the CUDA
+cores (float32 throughout); tiles above the diagonal or behind the window
+are skipped.  ``flash_attention_plain`` is
 the same function in plain PyTorch (`kernels/ref.py::attention_ref`), used
 for CPU tensors and as the kernel's oracle.  Like the TPU kernel it masks
 only keys at or past ``Sk`` (with the causal and window masks): a caller
@@ -69,6 +71,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("a sliding window needs Sq <= Sk")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
+    if q.dtype == torch.bfloat16:     # the tensor-core kernel's 16-byte copies
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     out = torch.empty_like(q)
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,

@@ -148,7 +148,11 @@ def _normal(shape, dtype, dev, rng):
     (1, 100, 4, 4, 72, True, 0),
     (1, 16, 32, 8, 128, True, 0), (1, 128, 32, 8, 128, True, 0),
     (1, 512, 32, 8, 128, True, 0), (1, 1024, 32, 8, 128, True, 0),
-    (1, 61, 32, 32, 112, True, 0), (1, 512, 32, 32, 112, True, 0)])
+    (1, 61, 32, 32, 112, True, 0), (1, 512, 32, 32, 112, True, 0),
+    (1, 314, 32, 32, 112, True, 0), (1, 1000, 32, 8, 128, True, 0),
+    (1, 200, 8, 2, 64, True, 40), (1, 200, 4, 2, 64, False, 0),
+    (2, 130, 8, 4, 128, True, 0), (1, 90, 4, 2, 20, True, 0),
+    (2, 70, 4, 1, 100, True, 24)])
 def test_flash_kernel_matches_plain(dev, b, sq, h, hkv, d, causal, win,
                                     dtype):
     rng = np.random.default_rng(sq + d)
@@ -163,9 +167,28 @@ def test_flash_kernel_matches_plain(dev, b, sq, h, hkv, d, causal, win,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,causal,win", [
+    (70, 200, True, 0), (70, 200, False, 0), (200, 70, True, 0),
+    (100, 300, True, 50)])
+def test_flash_kernel_matches_plain_when_sq_differs_from_sk(dev, sq, sk,
+                                                           causal, win,
+                                                           dtype):
+    rng = np.random.default_rng(sq + sk)
+    q = _normal((1, sq, 8, 128), dtype, dev, rng)
+    k = _normal((1, sk, 2, 128), dtype, dev, rng)
+    v = _normal((1, sk, 2, 128), dtype, dev, rng)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=win)
+    want = flash_attention_plain(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,hkv,d,m", [
     (2, 4, 2, 32, 100), (1, 8, 8, 64, 257), (3, 6, 2, 16, 48),
-    (1, 32, 8, 128, 1024), (1, 4, 4, 72, 1024), (1, 32, 32, 112, 1024)])
+    (1, 32, 8, 128, 1024), (1, 4, 4, 72, 1024), (1, 32, 32, 112, 1024),
+    (1, 32, 8, 128, 1000), (1, 16, 1, 128, 1024), (2, 32, 2, 64, 300),
+    (1, 4, 2, 20, 70)])
 def test_decode_kernel_matches_plain(dev, b, h, hkv, d, m, dtype):
     rng = np.random.default_rng(m + d)
     q = _normal((b, h, d), dtype, dev, rng)
@@ -179,6 +202,44 @@ def test_decode_kernel_matches_plain(dev, b, h, hkv, d, m, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,d,m,lens", [
+    (1, 32, 8, 128, 1024, (600,)), (1, 32, 32, 112, 1024, (314,)),
+    (2, 4, 2, 32, 1000, (1, 999)), (1, 16, 1, 64, 1024, (33,))])
+def test_decode_kernel_valid_prefix(dev, b, h, hkv, d, m, lens, dtype):
+    """The engine's pattern: the valid slots of a contiguous cache are a
+    prefix, so most split ranges hold none and are skipped."""
+    rng = np.random.default_rng(m + d + lens[0])
+    q = _normal((b, h, d), dtype, dev, rng)
+    kc = _normal((b, m, hkv, d), dtype, dev, rng)
+    vc = _normal((b, m, hkv, d), dtype, dev, rng)
+    valid = torch.arange(m, device=dev)[None, :] < torch.tensor(
+        lens, device=dev)[:, None]
+    got = decode_attention_cuda(q, kc, vc, valid)
+    want = decode_attention_plain(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_row_without_valid_slot(dev, dtype):
+    """A row with no valid slot gets a uniform softmax over all M slots, as
+    the plain version does: the mean of V of its KV head."""
+    rng = np.random.default_rng(3)
+    b, h, hkv, d, m = 2, 32, 8, 128, 1024
+    q = _normal((b, h, d), dtype, dev, rng)
+    kc = _normal((b, m, hkv, d), dtype, dev, rng)
+    vc = _normal((b, m, hkv, d), dtype, dev, rng)
+    valid = torch.zeros((b, m), dtype=torch.bool, device=dev)
+    valid[0, :100] = True                        # row 1 has none
+    got = decode_attention_cuda(q, kc, vc, valid)
+    want = decode_attention_plain(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    mean_v = vc[1].float().mean(0).repeat_interleave(h // hkv, dim=0)
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+    assert float((got[1].float() - mean_v).abs().max()) < ATTN_TOL[dtype]
 
 
 def test_cuda_engine_matches_cpu_engine(dev):
