@@ -14,7 +14,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    ``nvcc`` each, started together; prints each kernel instance's
    registers, static shared memory and spills from ``-Xptxas -v``, and the
    count of tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of
-   every instance of the bf16 flash kernel (``cuobjdump -sass``): 0 fails.
+   every instance of the bf16 flash kernel and of both passes of each scan
+   (``wkv6_intra_kernel``, ``wkv6_state_kernel``, ``ssd_intra_kernel``,
+   ``ssd_state_kernel``, bf16 and float32; ``cuobjdump -sass``): 0 fails.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
    at the router path's shapes (LCP at prompts [64, 1024] x ledgers
    [64, 128, 1024] and at a width that is not a multiple of 32; the
@@ -67,10 +69,12 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 10. The scan kernels against their plain versions at synthetic full-width
     shapes: WKV6 at rwkv6-3b's 40 heads of 64, SSD at zamba2-7b's 112
     heads of 64 (state 64); S = 61 and 512; float32 and bf16; zero and
-    stored initial states.  Float32 within 1e-3; a bf16 output within one
-    bf16 rounding (|got - want| <= 2^-7·|want| + 1e-3) and the float32
-    state within 1e-3.  Each timed beside its plain version, with its
-    bound.
+    stored initial states; and, in both dtypes at S = 512 from a stored
+    state, decays far past the usual clip (log_w down to -50, dt up to
+    20), whose output must stay finite.  Float32 within 1e-3; a bf16 output
+    within one bf16 rounding (|got - want| <= 2^-7·|want| + 1e-3) and the
+    float32 state within 1e-3.  Each timed beside its plain version, with
+    its bound.
 11. Recurrent engine lockstep, CUDA vs CPU, float32 (TF32 off), the same
     weights: rwkv6-3b at full width and 2 layers (fresh, exact extension,
     the no-op repeat, a non-extension, LRU evictions), zamba2-7b at full
@@ -178,7 +182,8 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
               "flash_attention": ("flash_",),
               "decode_attention": ("decode_split_kernel",
                                    "decode_combine_kernel"),
-              "wkv6": ("wkv6_kernel",), "ssd": ("ssd_kernel",)}
+              "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
+              "ssd": ("ssd_intra_kernel", "ssd_state_kernel")}
 
 
 PROFILE_TRIES = 3                  # traces of one op before events
@@ -1274,7 +1279,8 @@ def phase_scans(dev) -> None:
     """Both scan kernels against their plain versions at synthetic
     full-width shapes: WKV6 at rwkv6-3b's 40 heads of 64, SSD at
     zamba2-7b's 112 heads of 64 with a state of 64; S = 61 (a ragged last
-    chunk) and 512; float32 and bf16; zero and stored initial states."""
+    chunk) and 512; float32 and bf16; zero and stored initial states; then
+    strong decays (log_w down to -50, dt up to 20) at S = 512."""
     import numpy as np
     import torch
 
@@ -1313,6 +1319,32 @@ def phase_scans(dev) -> None:
                 f = scan_figures(ssd_cuda, ssd_plain, ssd_work, args, {})
                 print_figures(f"ssd {dtype} s0={'stored' if stored else 0}",
                               shape_key(args)[:1], f)
+    for dtype in (torch.float32, torch.bfloat16):   # strong decays
+        s = 512
+        lw = torch.from_numpy(np.clip(-np.exp(rng.standard_normal(
+            (1, s, h, dk)) * 2.0 + 1.0), -50.0, -1e-3).astype(np.float32))
+        args = (normal((1, s, h, dk), dtype), normal((1, s, h, dk), dtype),
+                normal((1, s, h, dk), dtype), lw.to(dev), normal((h, dk)),
+                normal((1, h, dk, dk)))
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in wkv6_cuda(*args)), "wkv6: strong decays")
+        f = scan_figures(wkv6_cuda, wkv6_plain, wkv6_work, args, {})
+        print_figures(f"wkv6 {dtype} log_w to {float(lw.min()):.1f}",
+                      shape_key(args)[:1], f)
+        # x / 20 keeps dt·x of order one: with dt up to 20 and x ~ N(0, 1)
+        # y reaches ~2e3, where float32 sums (the plain version's too,
+        # 8e-3 from float64) cannot meet an absolute 1e-3
+        dt = torch.from_numpy(np.minimum(np.abs(rng.standard_normal(
+            (1, s, zh))) * 10.0, 20.0).astype(np.float32)).to(dev)
+        args = (normal((1, s, zh, hd), dtype, 0.05),
+                normal((1, s, ds), dtype),
+                normal((1, s, ds), dtype), dt, normal((zh,), scale=0.3),
+                normal((zh,)), normal((1, zh, hd, ds)))
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in ssd_cuda(*args)), "ssd: strong decays")
+        f = scan_figures(ssd_cuda, ssd_plain, ssd_work, args, {})
+        print_figures(f"ssd {dtype} dt to {float(dt.max()):.1f}",
+                      shape_key(args)[:1], f)
 
 
 def replay_scan(rec, kernel, plain, work) -> dict:
@@ -1653,6 +1685,18 @@ def main() -> int:
     check(bool(hmma) and min(hmma.values()) > 0,
           f"an instance of the bf16 flash kernel has no tensor-core "
           f"instruction: {hmma}")
+    for name in ("wkv6", "ssd"):
+        hmma = tensor_core_counts(build.library_path(name), f"{name}_")
+        label = {n: re.sub(r".*\d((?:ssd|wkv6)_\w+?_kernel)I"
+                           r"(13__nv_bfloat16|f)E.*", r"\1<\2>",
+                           n).replace("13__nv_", "")
+                 for n in hmma}
+        print(f"    tensor-core instructions in the SASS of the {name} "
+              "kernels: " + ", ".join(f"{label[n]} {c}" for n, c in
+                                      sorted(hmma.items())))
+        check(len(hmma) == 4 and min(hmma.values()) > 0,
+              f"an instance of the {name} kernels has no tensor-core "
+              f"instruction: {hmma}")
 
     print("[3] router kernels against their plain versions")
     phase_kernels(dev)

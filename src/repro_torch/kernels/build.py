@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C launch function, so it compiles in
-seconds without PyTorch's headers.  Libraries go to ``build/repro_torch/``
-at the repository root, named by a digest of their source, so a changed
+seconds without PyTorch's headers; shared device code sits in
+``csrc/*.cuh``.  Libraries go to ``build/repro_torch/`` at the repository
+root, named by a digest of their source and the headers, so a changed
 source rebuilds and an unchanged one is reused within a checkout.  A missing
 ``nvcc`` or a failed build raises: nothing falls back to a plain version.
 """
@@ -38,7 +39,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of kernel ``name`` is built."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,18 +2,20 @@
 
 Every Mamba-2 layer of a fresh prefill runs this once
 (`models/ssm.py::ssd_chunked`).  On the card it is the hand-written kernel
-in ``csrc/ssd.cu`` (one block per (batch·head, 16 rows of the state), the
-float32 state slice in shared memory, B and C read once per block from
-their head-shared rows, the chunks walked in a loop inside the block);
-``ssd_plain`` is the same function in plain PyTorch, the chunked form of
-the reference's ``models/ssm.ssd_chunked``, used for CPU tensors and as the
-kernel's oracle (itself held against the stepwise
-`kernels/ref.py::ssd_ref`).  With a zero initial state both compute what
-the TPU kernel ``repro/kernels/ssd.py::ssd`` computes.
+pair in ``csrc/ssd.cu``: a chunk-parallel pass (C·Bᵀ once per block of
+heads, the decays, the intra-chunk term M·x + D·x on the tensor cores) into
+a float32 scratch buffer, then a serial pass, a block per (batch·head,
+64 state rows), that keeps the float32 state in registers and does only
+the two products that need it; ``ssd_plain`` is the same function in plain
+PyTorch, the chunked form of the reference's ``models/ssm.ssd_chunked``,
+used for CPU tensors and as the kernel's oracle (itself held against the
+stepwise `kernels/ref.py::ssd_ref`).  With a zero initial state both
+compute what the TPU kernel ``repro/kernels/ssd.py::ssd`` computes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,20 +78,29 @@ def ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     return y[:, :s].to(x.dtype), state
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd")
     fn = lib.ssd_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _I, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [_P]
     fn.restype = ctypes.c_int
+    lib.ssd_scratch_floats.argtypes = [_I] * 4
+    lib.ssd_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(*shape) -> int:
+    """Floats of float32 scratch the two passes share, per call shape."""
+    return _lib().ssd_scratch_floats(*shape)
 
 
 def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
     one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
-    d_skip and s0 float32; ds <= 64), launched on the current stream.
-    Raises on any other input and on a failed launch."""
+    d_skip and s0 float32; ds <= 64), launched on the current stream as
+    two kernels (no zero state is filled when s0 is None).  Raises on any
+    other input and on a failed launch."""
     dev = x.device
     tensors = (x, bmat, cmat, dt, a_log, d_skip) + (() if s0 is None
                                                      else (s0,))
@@ -115,20 +126,25 @@ def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
                          f"{tuple(d_skip.shape)} do not fit")
     if not 0 < ds <= MAX_STATE or hd <= 0:
         raise ValueError(f"state size {ds} is not in 1..{MAX_STATE}")
-    if s0 is None:
-        s0 = torch.zeros((b, h, hd, ds), dtype=torch.float32, device=dev)
-    elif tuple(s0.shape) != (b, h, hd, ds):
+    if s0 is not None and tuple(s0.shape) != (b, h, hd, ds):
         raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, hd, ds]")
-    if not all(t.is_contiguous()
-               for t in (x, bmat, cmat, dt, a_log, d_skip, s0)):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_cuda takes contiguous tensors")
+    lib = _lib()
     y = torch.empty_like(x)
-    s_t = torch.empty_like(s0)
-    err = _lib().ssd_launch(
+    s_t = torch.empty((b, h, hd, ds), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_scratch_floats(b, s, h, hd),
+                          dtype=torch.float32, device=dev)
+    bf16 = x.dtype == torch.bfloat16
+    vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0
+    vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
+        and cmat.data_ptr() % 16 == 0
+    err = lib.ssd_launch(
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), d_skip.data_ptr(), s0.data_ptr(), y.data_ptr(),
-        s_t.data_ptr(), b, s, h, hd, ds, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        a_log.data_ptr(), d_skip.data_ptr(),
+        None if s0 is None else s0.data_ptr(), scratch.data_ptr(),
+        y.data_ptr(), s_t.data_ptr(), b, s, h, hd, ds, int(bf16),
+        int(vec_x), int(vec_bc), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     return y, s_t

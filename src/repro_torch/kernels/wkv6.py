@@ -2,18 +2,21 @@
 
 Every RWKV-6 layer of a fresh prefill or an extend runs this once
 (`models/ssm.py::wkv6_chunked`).  On the card it is the hand-written kernel
-in ``csrc/wkv6.cu`` (one block per (batch·head, 16 columns of the state),
-the float32 state slice in shared memory, the chunks walked in a loop
-inside the block); ``wkv6_plain`` is the same function in plain PyTorch,
-the chunked form of the reference's ``models/ssm.wkv6_chunked``, used for
-CPU tensors and as the kernel's oracle (itself held against the stepwise
-`kernels/ref.py::wkv6_ref`).  With a zero initial state both compute what
-the TPU kernel ``repro/kernels/wkv6.py::wkv6`` computes; with a stored
-state, what the reference's model runs for an extend.
+pair in ``csrc/wkv6.cu``: a chunk-parallel pass (the per-channel decays,
+the intra-chunk matrix A once per head, A·v on the tensor cores) into a
+float32 scratch buffer, then a serial pass, a block per batch·head, that
+keeps the float32 state in registers and does only the two products that
+need it; ``wkv6_plain`` is the same function in plain
+PyTorch, the chunked form of the reference's ``models/ssm.wkv6_chunked``,
+used for CPU tensors and as the kernel's oracle (itself held against the
+stepwise `kernels/ref.py::wkv6_ref`).  With a zero initial state both
+compute what the TPU kernel ``repro/kernels/wkv6.py::wkv6`` computes; with
+a stored state, what the reference's model runs for an extend.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -85,19 +88,29 @@ def wkv6_plain(r, k, v, log_w, u, s0=None):
     return o[:, :s].to(r.dtype), state
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("wkv6")
     fn = lib.wkv6_launch
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     fn.restype = ctypes.c_int
+    lib.wkv6_scratch_floats.argtypes = [_I] * 5
+    lib.wkv6_scratch_floats.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(*shape) -> int:
+    """Floats of float32 scratch the two passes share, per call shape."""
+    return _lib().wkv6_scratch_floats(*shape)
 
 
 def wkv6_cuda(r, k, v, log_w, u, s0=None):
     """The kernel: ``wkv6_plain``'s function on contiguous CUDA tensors of
     one device (r, k, v all float32 or all bfloat16; log_w, u and s0
-    float32; dk <= 64), launched on the current stream.  Raises on any
-    other input and on a failed launch."""
+    float32; dk <= 64), launched on the current stream as two kernels (no
+    zero state is filled when s0 is None).  Raises on any other input and
+    on a failed launch."""
     dev = r.device
     tensors = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -119,19 +132,22 @@ def wkv6_cuda(r, k, v, log_w, u, s0=None):
         raise ValueError(f"head size {dk} is not in 1..{MAX_HEAD_DIM}")
     if tuple(u.shape) != (h, dk):
         raise ValueError(f"u {tuple(u.shape)} is not [H, dk] = {(h, dk)}")
-    if s0 is None:
-        s0 = torch.zeros((b, h, dk, dk), dtype=torch.float32, device=dev)
-    elif tuple(s0.shape) != (b, h, dk, dk):
+    if s0 is not None and tuple(s0.shape) != (b, h, dk, dk):
         raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, dk, dk]")
-    if not all(t.is_contiguous() for t in (r, k, v, log_w, u, s0)):
+    if not all(t.is_contiguous() for t in tensors):
         raise ValueError("wkv6_cuda takes contiguous tensors")
+    lib = _lib()
     o = torch.empty_like(r)
-    s_t = torch.empty_like(s0)
-    err = _lib().wkv6_launch(
+    s_t = torch.empty((b, h, dk, dk), dtype=torch.float32, device=dev)
+    bf16 = r.dtype == torch.bfloat16
+    scratch = torch.empty(_scratch_floats(b, s, h, dk, int(bf16)),
+                          dtype=torch.float32, device=dev)
+    vec = bf16 and dk % 8 == 0 and v.data_ptr() % 16 == 0
+    err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_t.data_ptr(), b, s, h,
-        dk, int(r.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        u.data_ptr(), None if s0 is None else s0.data_ptr(),
+        scratch.data_ptr(), o.data_ptr(), s_t.data_ptr(), b, s, h, dk,
+        int(bf16), int(vec), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     return o, s_t

@@ -19,6 +19,7 @@ TIER1_MODULES = {
     "test_torch_models",
     "test_torch_recurrent",
     "test_torch_router",
+    "test_torch_scan_design",
     "test_torch_solver",
     "test_torch_ssm",
 }

@@ -331,6 +331,51 @@ def test_ssd_kernel_matches_plain(dev, b, s, h, hd, ds, state, dtype):
     assert_scan_close(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [16, 17, 64, 65])
+def test_scan_kernels_at_chunk_boundaries(dev, s, dtype):
+    """Lengths that end exactly on a chunk of 16 and one token past it."""
+    args = wkv6_inputs(1, s, 4, 64, dtype, True, dev, s)
+    assert_scan_close(wkv6_cuda(*args), wkv6_plain(*args))
+    args = ssd_inputs(1, s, 4, 64, 64, dtype, True, dev, s)
+    assert_scan_close(ssd_cuda(*args), ssd_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_start_from_zero_without_a_state(dev, dtype):
+    """s0=None (no buffer filled) gives what an explicit zero state
+    gives, bit for bit."""
+    args = wkv6_inputs(1, 37, 4, 64, dtype, False, dev, 1)
+    zero = torch.zeros((1, 4, 64, 64), dtype=torch.float32, device=dev)
+    for got, want in zip(wkv6_cuda(*args[:5], None),
+                         wkv6_cuda(*args[:5], zero)):
+        assert torch.equal(got, want)
+    args = ssd_inputs(1, 37, 4, 64, 64, dtype, False, dev, 2)
+    for got, want in zip(ssd_cuda(*args[:6], None),
+                         ssd_cuda(*args[:6], zero)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_stay_finite_under_strong_decays(dev, dtype):
+    """Decays far past the usual clip: log_w down to -50, dt up to 20."""
+    rng = np.random.default_rng(5)
+    args = list(wkv6_inputs(1, 70, 4, 64, dtype, True, dev, 3))
+    args[3] = torch.from_numpy(np.clip(-np.exp(
+        rng.standard_normal((1, 70, 4, 64)) * 2.0 + 1.0), -50.0,
+        -1e-3).astype(np.float32)).to(dev)
+    got = wkv6_cuda(*args)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in got)
+    assert_scan_close(got, wkv6_plain(*args))
+    args = list(ssd_inputs(1, 70, 4, 64, 64, dtype, True, dev, 4))
+    args[0] = args[0] * 0.05    # dt·x of order one, as in chip_smoke.py
+    args[3] = torch.from_numpy(np.minimum(np.abs(rng.standard_normal(
+        (1, 70, 4))) * 10.0, 20.0).astype(np.float32)).to(dev)
+    got = ssd_cuda(*args)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in got)
+    assert_scan_close(got, ssd_plain(*args))
+
+
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
 def test_cuda_recurrent_engine_matches_cpu_engine(dev, arch):
     """Reduced recurrent engines in float32: the card's (kernels) and the
