@@ -10,29 +10,45 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
-2. Build: all six kernels from ``src/repro_torch/kernels/csrc`` with one
-   ``nvcc`` each, started together; prints each kernel instance's
-   registers, static shared memory and spills from ``-Xptxas -v``, and the
-   count of tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of
-   every instance of the bf16 flash kernel and of both passes of each scan
-   (``wkv6_intra_kernel``, ``wkv6_state_kernel``, ``ssd_intra_kernel``,
-   ``ssd_state_kernel``, bf16 and float32; ``cuobjdump -sass``): 0 fails.
+2. Build: all six kernel libraries from ``src/repro_torch/kernels/csrc``
+   with one ``nvcc`` each, started together; prints each kernel instance's
+   registers, static shared memory and spills from ``-Xptxas -v``
+   (``auction_solve_kernel`` and ``lcp_gather_kernel`` must be among them),
+   and the count of tensor-core instructions (``HMMA``/``HGMMA``) in the
+   SASS of every instance of the bf16 flash kernel and of both passes of
+   each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
+   ``ssd_intra_kernel``, ``ssd_state_kernel``, bf16 and float32;
+   ``cuobjdump -sass``): 0 fails.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
-   at the router path's shapes (LCP at prompts [64, 1024] x ledgers
-   [64, 128, 1024] and at a width that is not a multiple of 32; the
-   bidding round at (64, 128), (1024, 128) and (64, 16), with ties), each
-   timed with CUDA events.
-4. Router lockstep (the router's main path): two ``IEMASRouter``s over the
-   128-agent ``SCALE_128`` fleet (one hub, warm starts, settlement ledger),
-   one on the card with the kernels and one on the CPU with the plain
-   versions, route the same seeded coqa_like + quac_like closed loop
-   (batches of <= 64, >= 300 requests) served on the port's analytic
-   engines.  Decisions, accounts and the ledger head must be identical, and
-   the kernel launch counters must grow on every batch.  Prints
-   route_batch latency, throughput, the ledger tile's host-to-device copy
-   time and bid rounds per solve.
+   at the router path's shapes: LCP at prompts [64, 1024] x ledgers
+   [64, 128, 1024] and at a width that is not a multiple of 32; the row
+   gather at prompts [64, 1024] against a 300-row arena whose rows many
+   pairs share, at width 1000 and with prompts wider than the arena; the
+   bidding round at (64, 128), (1024, 128) and (64, 16), with ties; the
+   staged solve (``auction_solve``, against the host-driven staged market
+   on host copies: unit prices, assignment and rounds) on a 64 x 128 x 12
+   market cold and warm, 8 uneven hub markets in one launch, a warm market
+   whose budget trips, tied weights, and a market whose W does not fit in
+   shared memory.  Each timed with CUDA events.
+4. Router lockstep (the router's main path), twice: at one hub and at the
+   ``SCALE_128`` preset's 8 hubs, spill on.  Two ``IEMASRouter``s over the
+   128-agent fleet (warm starts, settlement ledger), one on the card with
+   the kernels and one on the CPU with the plain versions, route the same
+   seeded coqa_like + quac_like closed loop (batches of <= 64, >= 300
+   requests) served on the port's analytic engines.  Decisions, accounts,
+   the ledger head and every solve's bid rounds must be identical;
+   ``lcp_gather`` must launch once per batch, ``auction_bid`` and
+   ``lcp_affinity`` never, and ``auction_solve`` once per solve (a
+   ``solve_batch`` call, a single or spill solve, a cold re-solve).  Prints
+   route_batch latency, throughput, ms per router phase, the host time of
+   the solve calls and of the Clarke payments, bid rounds per solve and
+   the ledger bytes sent per batch.
 5. Each router kernel against its plain version again, and timed, at the
-   inputs of every call the main path made to it in phase 4.  Every
+   inputs of every call the main path made to it in phase 4
+   (``auction_solve``, ``lcp_gather``); the one-round ``auction_bid`` and
+   the dense-tile ``lcp_affinity``, which the main path no longer
+   launches, at the same data (the bidding rounds of the plain replay of
+   those solves, the gathers' dense tiles).  Every
    kernel's figures (here and in phases 6, 8, 10, 12, 13) give two times
    per call: ``ms``, CUDA events around back-to-back wrapper calls, and
    ``device_ms``, the CUDA time of the op's kernels in a ``torch.profiler``
@@ -101,8 +117,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     12's rwkv6-3b engine, ``AgentInfo.recurrent`` taken from the engines,
     routes two two-turn dialogues; every request is served, and a turn 2
     that returns to the rwkv agent as an exact extension hits the cache.
-    Then the card line, the JSON line of the six kernels' records and the
-    device line last.
+    Then the card line, the JSON line of the eight kernels' records (the
+    six TPU kernels' counterparts and the router's two redesigned entries)
+    and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -178,7 +195,9 @@ def cuda_time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 # what each op launches on the device once per call: its hand-written
 # kernels (by name stem) and, for auction_bid, the memset of its keys
 OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
+              "lcp_gather": ("lcp_gather_kernel",),
               "auction_bid": ("Memset", "bid_rows", "bid_decode"),
+              "auction_solve": ("auction_solve_kernel",),
               "flash_attention": ("flash_",),
               "decode_attention": ("decode_split_kernel",
                                    "decode_combine_kernel"),
@@ -358,6 +377,73 @@ def bid_inputs(n, m, seed, dev):
     return (*tensors, np.float32(rng.uniform(1e-4, 0.5)))
 
 
+def solve_market(n, m, cmax, seed, *, warm=False, tie=False,
+                 cap=200_000):
+    """One seeded column market for ``auction_solve`` (host arrays): W
+    [n, m], counts [m] (agent 0 at cmax, some agents without units), a
+    zero start grid (cold, ε₀ = wmax/5) or seeded unit prices (warm, ε₀ =
+    wmax/125), under round cap ``cap``; ``tie`` repeats columns and rows so
+    profits, bids and offers tie."""
+    import numpy as np
+
+    from repro_torch.core.solvers.dense_common import float32_eps_final
+
+    rng = np.random.default_rng(seed)
+    W = np.maximum(rng.uniform(-1, 4, (n, m)), 0.0).astype(np.float32)
+    if tie:
+        W[:, 1::2] = W[:, 0::2][:, : m // 2]
+        W[1::2] = W[0::2][: n // 2]
+    counts = rng.integers(0, cmax + 1, m).astype(np.int32)
+    counts[0] = cmax
+    wmax = float(W[:, counts > 0].max())
+    eps_f = float32_eps_final(wmax, np.float32)
+    p0 = np.zeros((m, cmax), np.float32)
+    eps0 = max(wmax / 5.0, eps_f)
+    if warm:
+        p0 = (rng.uniform(0, 3, (m, cmax))
+              * (np.arange(cmax)[None, :] < counts[:, None])).astype(
+                  np.float32)
+        eps0 = max(wmax / 125.0, eps_f)
+    return W, counts, p0, eps0, eps_f, 5.0, cap
+
+
+def gather_inputs(n, m, lp, la, rows_in_arena, seed, dev):
+    """Prompts [n, lp] against an arena [rows_in_arena, la] whose rows are
+    shared by many (request, agent) pairs (recycled), row 0 all padding;
+    each prompt starts with one of its rows, so prefixes run long."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    arena = np.full((rows_in_arena, la), -2, np.int32)
+    for r in range(1, rows_in_arena):
+        k = int(rng.integers(0, la + 1))
+        arena[r, :k] = rng.integers(1, 4, k)
+    rows = rng.integers(0, rows_in_arena, (n, m)).astype(np.int32)
+    rows[:, 0] = 0
+    prompts = np.full((n, lp), -1, np.int32)
+    for j in range(n):
+        k = int(rng.integers(lp // 4, lp + 1))
+        prompts[j, :k] = rng.integers(1, 4, k)
+        src = arena[rows[j, 1], :min(k, la)]
+        prompts[j, :len(src)] = np.where(src >= 0, src, prompts[j, :len(src)])
+    return tuple(torch.from_numpy(x).to(dev) for x in (prompts, arena, rows))
+
+
+def dense_tile(prompts, arena, rows):
+    """The dense [n, m, lp] ledger tile of a gather call (what the gather
+    reads in place): ``arena[rows]`` cut or padded (-2) to the prompt
+    width."""
+    import torch
+
+    lp = prompts.shape[1]
+    tile = arena[rows.long()][:, :, :lp]
+    if tile.shape[2] < lp:
+        tile = torch.cat([tile, tile.new_full(
+            (*tile.shape[:2], lp - tile.shape[2]), -2)], dim=-1)
+    return prompts, tile.contiguous()
+
+
 # ---------------------------------------------------------------- bounds --
 def lcp_work(prompts, ledgers, lcp) -> tuple[int, int]:
     """(bytes, operations) this data needs: each pair's ledger tokens up
@@ -385,6 +471,27 @@ def bid_work(W, ask, ask2, active, eps) -> tuple[int, int]:
     nbytes = (4 * m * rows + 4 * m + 4 * int(torch.unique(k1).numel()) + n
               + 4 * m + 4 * m + n)
     return nbytes, 3 * m * rows
+
+
+def gather_work(prompts, arena, rows, lcp) -> tuple[int, int]:
+    """(bytes, operations) this data needs: each pair's arena tokens up to
+    its first mismatch (none past the arena's width), its row index, each
+    prompt's tokens up to the furthest such point over its pairs, the
+    [n, m] int32 output; one comparison per arena token read."""
+    lp, la = prompts.shape[1], arena.shape[1]
+    need = (lcp.long() + 1).clamp(max=min(lp, la))
+    reach = (lcp.long() + 1).clamp(max=lp).amax(dim=1)
+    nbytes = 4 * (int(need.sum()) + int(reach.sum()) + 2 * lcp.numel())
+    return nbytes, int(need.sum())
+
+
+def solve_bytes(meta) -> int:
+    """Bytes one ``auction_solve`` call must move: every market's W,
+    counts, start grid and ε values read once, its unit-price grid,
+    agent_of, unit_of and rounds written once."""
+    n, m, cmax = (meta[:, k].astype(int) for k in range(3))
+    return int((4 * n * m + 4 * m + 4 * m * cmax + 12).sum()
+               + (4 * m * cmax + 8 * n + 4).sum())
 
 
 def roofline(nbytes: int, ops: int,
@@ -429,6 +536,24 @@ def phase_kernels(dev) -> dict:
         print(f"lcp_affinity [64,{length}]x[64,{N_AGENTS},{length}]: "
               f"bit-exact, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound:.7f} ms ({by})")
+    from repro_torch.kernels.lcp_affinity import (lcp_gather_cuda,
+                                                  lcp_gather_plain)
+
+    # prompts [64, 1024] against 128 agents' rows of a 300-row arena
+    # (rows recycled across pairs), at a width that is not a multiple of
+    # 32, and with prompts wider than the arena
+    for lp, la in ((1024, 1024), (1000, 1024), (1100, 1024)):
+        args = gather_inputs(64, N_AGENTS, lp, la, 300, lp + la, dev)
+        got = lcp_gather_cuda(*args)
+        err = exact_diff(got, lcp_gather_plain(*args))
+        check(err == 0.0, f"lcp_gather kernel != plain at lp={lp}, la={la}")
+        ms = cuda_time_ms(lambda: lcp_gather_cuda(*args))
+        plain_ms = cuda_time_ms(lambda: lcp_gather_plain(*args), 20, 3)
+        bound, by = roofline(*gather_work(*args, got))
+        print(f"lcp_gather [64,{lp}] x arena [300,{la}] rows [64,{N_AGENTS}]"
+              f": bit-exact (longest prefix {int(got.max())}), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.7f} ms "
+              f"({by}), {4 * lp} B dynamic smem")
     for n, m in ((64, N_AGENTS), (1024, N_AGENTS), (64, 16)):
         args = bid_inputs(n, m, n + m, dev)
         got = auction_bid_cuda(*args)
@@ -441,6 +566,64 @@ def phase_kernels(dev) -> dict:
         print(f"auction_bid ({n}, {m}) synthetic: bit-exact, kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.7f} ms "
               f"({by})")
+
+
+def solve_case(label, markets, dev) -> list[int]:
+    """``auction_solve`` on ``markets`` (host tuples, one launch) against
+    its plain version on the host, bit for bit (unit prices, agent_of,
+    unit_of and rounds); returns the rounds per market."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.auction_bid import (auction_solve_cuda,
+                                                 auction_solve_plain,
+                                                 auction_solve_plan,
+                                                 pack_markets,
+                                                 unpack_solution)
+
+    fbuf, ibuf, meta = pack_markets(markets)
+    fdev = torch.from_numpy(fbuf).to(dev)
+    idev = torch.from_numpy(ibuf).to(dev)
+    got = auction_solve_cuda(fdev, idev, meta).cpu()
+    t = time.perf_counter()
+    want = auction_solve_plain(torch.from_numpy(fbuf),
+                               torch.from_numpy(ibuf), meta)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(torch.equal(got, want), f"auction_solve kernel != plain ({label})")
+    rounds = [r[3] for r in unpack_solution(want.numpy(), meta)]
+    ms = cuda_time_ms(lambda: auction_solve_cuda(fdev, idev, meta), 20, 3)
+    shared_w, smem = auction_solve_plan(meta)
+    print(f"auction_solve {label}: bit-exact (prices, assignment, rounds "
+          f"{rounds}), kernel {ms:.4f} ms ({ms / max(1, max(rounds)) * 1e3:.2f}"
+          f" us per round of the longest market), plain (host) "
+          f"{plain_ms:.1f} ms; W in {'shared' if shared_w else 'global'} "
+          f"memory, {smem} B dynamic smem per block, "
+          f"{len(markets)} block(s)")
+    return rounds
+
+
+def phase_solve_kernels(dev) -> None:
+    """The staged-solve kernel against the host-driven staged market on
+    synthetic markets at the router's shapes: one hub (64 requests, 128
+    agents, 12 units), cold and warm; SCALE_128's 8 hub markets of uneven
+    size in one launch; a warm market whose budget trips; tied weights; a
+    market whose W does not fit in shared memory."""
+    solve_case("(64, 128, cmax 12) cold", [solve_market(64, N_AGENTS, 12, 0)],
+               dev)
+    solve_case("(64, 128, cmax 12) warm",
+               [solve_market(64, N_AGENTS, 12, 1, warm=True)], dev)
+    hubs = [(8, 16, 8), (3, 16, 3), (12, 16, 12), (1, 16, 1), (20, 16, 12),
+            (9, 15, 5), (16, 17, 12), (5, 16, 2)]
+    solve_case("8 uneven hubs", [solve_market(n, m, c, 10 + h)
+                                 for h, (n, m, c) in enumerate(hubs)], dev)
+    rounds = solve_case("warm, budget 20",
+                        [solve_market(64, N_AGENTS, 12, 2, warm=True,
+                                      cap=20)], dev)
+    check(rounds == [20], f"the warm market did not trip its budget: {rounds}")
+    solve_case("tied weights", [solve_market(64, N_AGENTS, 12, 3, tie=True)],
+               dev)
+    solve_case("(200, 400, cmax 12), W past shared memory",
+               [solve_market(200, 400, 12, 4)], dev)
 
 
 class ClosedLoop:
@@ -533,12 +716,16 @@ class Recorder:
     every call per shape (``count``) so that a sample can be weighted by
     how often the main path made it.  Nothing writes an op's inputs after
     the call (the router makes fresh tensors per call; the model's caches
-    are functional), so references are enough.  The op's launch count is
-    untouched by this."""
+    are functional), so references are enough, except for the router's
+    ledger arena, which the router updates in place between batches: with
+    ``copy`` the tensors are cloned.  The op's launch count is untouched by
+    this."""
 
-    def __init__(self, op, per_shape: int | None = None):
+    def __init__(self, op, per_shape: int | None = None,
+                 copy: bool = False):
         self.op = op
         self.per_shape = per_shape
+        self.copy = copy
         self.calls = []
         self.count = Counter()
 
@@ -547,16 +734,20 @@ class Recorder:
             key = shape_key(args)
             self.count[key] += 1
             if self.per_shape is None or self.count[key] <= self.per_shape:
-                self.calls.append((args, kwargs))
+                kept = args
+                if self.copy:      # an input the caller updates later
+                    kept = tuple(a.clone() if hasattr(a, "clone") else a
+                                 for a in args)
+                self.calls.append((kept, kwargs))
         return self.op(*args, **kwargs)
 
 
 @contextmanager
-def recording(ops, names, per_shape: int | None = None):
+def recording(ops, names, per_shape: int | None = None, copy: bool = False):
     """Replace each named op of module ``ops`` by a Recorder, and put the
     op back afterwards."""
     ops_before = {name: getattr(ops, f"{name}_op") for name in names}
-    recorders = {name: Recorder(op, per_shape)
+    recorders = {name: Recorder(op, per_shape, copy)
                  for name, op in ops_before.items()}
     for name, rec in recorders.items():
         setattr(ops, f"{name}_op", rec)
@@ -602,41 +793,111 @@ def same_decisions(a_list, b_list) -> bool:
     return True
 
 
-def phase_router(dev, cpu="cpu") -> dict:
-    """CUDA router vs CPU router in lockstep over the closed loop; returns
-    the run's figures and the inputs of every kernel call it made."""
+class SolveTally:
+    """While active, counts the routers' Phase-2 solves: calls of the
+    ``cuda`` backend's ``solve_batch`` and ``solve`` on the card and the
+    cold re-solves of its tripped warm attempts (each may launch
+    ``auction_solve`` once), and keeps the round counts of every
+    ``auction_solve`` call, per device, as the solves return them.  It also
+    keeps the host seconds spent in ``solve_markets`` (packing, the call,
+    the copy back) and in the Clarke payments, so a phase's time can be
+    split between them."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core.solvers import dense_common, dense_torch
+        from repro_torch.core.solvers.cuda_backend import CudaBackend
+
+        self.batch_calls = self.single_calls = self.resolves = 0
+        self.rounds = []        # (device type, [rounds per market]) per call
+        self.solve_s = self.pay_s = 0.0
+        self._saved = (dense_torch.solve_markets, CudaBackend.solve,
+                       CudaBackend.solve_batch,
+                       dense_common.dense_clarke_payments)
+        solve_markets, solve, solve_batch, payments = self._saved
+
+        def markets(mk, device):
+            t = time.perf_counter()
+            out = solve_markets(mk, device)
+            self.solve_s += time.perf_counter() - t
+            self.rounds.append((torch.device(device).type,
+                                [r[3] for r in out]))
+            return out
+
+        def pay(*args):
+            t = time.perf_counter()
+            out = payments(*args)
+            self.pay_s += time.perf_counter() - t
+            return out
+
+        def one(backend, *args, device="cuda", **kw):
+            res = solve(backend, *args, device=device, **kw)
+            if torch.device(device).type == "cuda":
+                self.single_calls += 1
+                self.resolves += bool(res.solver_stats["warm_fallback"])
+            return res
+
+        def batch(backend, *args, device="cuda", **kw):
+            if torch.device(device).type == "cuda":
+                self.batch_calls += 1
+            return solve_batch(backend, *args, device=device, **kw)
+
+        dense_torch.solve_markets = markets
+        CudaBackend.solve, CudaBackend.solve_batch = one, batch
+        dense_common.dense_clarke_payments = pay
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.solvers import dense_common, dense_torch
+        from repro_torch.core.solvers.cuda_backend import CudaBackend
+
+        (dense_torch.solve_markets, CudaBackend.solve,
+         CudaBackend.solve_batch,
+         dense_common.dense_clarke_payments) = self._saved
+
+
+def phase_router(dev, n_hubs: int, cpu="cpu") -> dict:
+    """CUDA router vs CPU router in lockstep over the closed loop on the
+    SCALE_128 fleet cut into ``n_hubs`` hubs (spill on); returns the run's
+    figures and the inputs of every kernel call it made."""
     import torch
 
-    from repro_torch.configs.iemas_cluster import (SCALE_128, RouterConfig,
-                                                   agent_infos,
+    from repro_torch.configs.iemas_cluster import (SCALE_128, agent_infos,
                                                    agent_profiles,
                                                    make_router)
     from repro_torch.kernels import ops
 
     profiles = agent_profiles(SCALE_128.n_agents)
     infos = agent_infos(profiles)
-    cfg = RouterConfig(solver=SCALE_128.solver, n_hubs=1,
-                       warm_start=SCALE_128.warm_start, audit_ledger=True)
+    cfg = dataclasses.replace(SCALE_128.router_config(), n_hubs=n_hubs,
+                              audit_ledger=True)
     gpu = make_router(infos, cfg, device=dev)
     ref = make_router(infos, cfg, device=cpu)
+    check(len(gpu.hubs) == n_hubs, f"{len(gpu.hubs)} hubs, not {n_hubs}")
     gpu.profiler = PhaseClock()
     loop = ClosedLoop(profiles, SCALE_128.batch_cap,
                       SCALE_128.max_new_tokens, seed=0)
-    lat, ref_lat, routed, bid_launches, batches_with_edge = [], [], 0, 0, 0
-    with recording(ops, ("auction_bid", "lcp_affinity")) as rec:
+    lat, ref_lat, routed, solve_s, pay_s = [], [], 0, 0.0, 0.0
+    with recording(ops, ("auction_solve", "lcp_gather"), copy=True) as rec, \
+            SolveTally() as tally:
         ops.reset_launch_counts()          # the main path's run starts here
         while routed < MIN_REQUESTS or len(lat) < 5:
             reqs = loop.next_batch()
             check(bool(reqs), "closed loop ran dry before enough requests")
             before = ops.launch_counts()
+            solves_before = len(tally.rounds)
             telemetry = {"router_inflight": len(reqs), "router_rps": 2.0}
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             t0 = time.perf_counter()
+            host0 = (tally.solve_s, tally.pay_s)
             got = gpu.route_batch(reqs, telemetry)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
+            solve_s += tally.solve_s - host0[0]
+            pay_s += tally.pay_s - host0[1]
             after = ops.launch_counts()
             t0 = time.perf_counter()
             want = ref.route_batch(
@@ -646,16 +907,14 @@ def phase_router(dev, cpu="cpu") -> dict:
             ref_lat.append(time.perf_counter() - t0)
             check(same_decisions(got, want), "CUDA and CPU routers decided "
                   f"differently at batch {len(lat)}")
-            edge = any(d.agent_id is not None for d in got)
+            solved = tally.rounds[solves_before:]
+            check([r for d, r in solved if d == dev.type]
+                  == [r for d, r in solved if d == "cpu"],
+                  f"bid rounds differ between the kernel and the CPU "
+                  f"router's solver at batch {len(lat)}: {solved}")
             if dev.type == "cuda":
-                check(after["lcp_affinity"] == before["lcp_affinity"] + 1,
-                      "lcp_affinity kernel did not launch once per batch")
-                check(not edge
-                      or after["auction_bid"] > before["auction_bid"],
-                      "auction_bid kernel did not launch on a batch with an "
-                      "edge")
-            bid_launches += after["auction_bid"] - before["auction_bid"]
-            batches_with_edge += edge
+                check(after["lcp_gather"] == before["lcp_gather"] + 1,
+                      "lcp_gather kernel did not launch once per batch")
             routed += len(reqs)
             loop.complete(got, [gpu, ref])
             check(gpu.accounts == ref.accounts, "accounts diverged")
@@ -664,15 +923,60 @@ def phase_router(dev, cpu="cpu") -> dict:
         counts = ops.launch_counts()       # ... and ends here
     gpu.settlement.audit(gpu.accounts)
     check(gpu.accounts["matched"] > 0, "nothing was matched")
+    card_rounds = [r for d, rs in tally.rounds if d == dev.type for r in rs]
+    launches = sum(d == dev.type for d, _ in tally.rounds)
+    if dev.type == "cuda":
+        check(counts["auction_bid"] == 0 and counts["lcp_affinity"] == 0,
+              f"a replaced kernel launched on the main path: {counts}")
+        check(counts["auction_solve"] == launches > 0,
+              f"auction_solve launched {counts['auction_solve']} times for "
+              f"{launches} solves on the card")
+        check(launches <= tally.batch_calls + tally.single_calls
+              + tally.resolves, "auction_solve launched more than once per "
+              "solve_batch call, spill or single solve and cold re-solve")
     ms = sorted(x * 1e3 for x in lat)
     return {"counts": counts, "route_ms": ms, "routed": routed,
             "cpu_route_ms": sorted(x * 1e3 for x in ref_lat),
             "phase_ms": {k: v / len(lat)
                          for k, v in gpu.profiler.ms.items()},
+            "solve_ms": solve_s * 1e3 / len(lat),
+            "payments_ms": pay_s * 1e3 / len(lat),
             "batches": len(lat), "matched": gpu.accounts["matched"],
-            "bid_rounds_per_solve": bid_launches / max(1, batches_with_edge),
+            "spill_rescued": gpu.accounts["spill_rescued"],
+            "solves": {"solve_batch": tally.batch_calls,
+                       "solve": tally.single_calls,
+                       "cold re-solves": tally.resolves},
+            "rounds": card_rounds,
+            "ledger_bytes": gpu.ledger.bytes_sent / len(lat),
             "calls": {name: r.calls for name, r in rec.items()},
             "req_per_s": routed / sum(lat), "head": gpu.settlement.head}
+
+
+def print_router(run) -> None:
+    counts, ms, cpu_ms = run["counts"], run["route_ms"], run["cpu_route_ms"]
+    print(f"    {run['routed']} requests in {run['batches']} batches, "
+          f"{run['matched']} matched ({run['spill_rescued']} by the spill "
+          f"round), identical decisions/accounts/ledger head "
+          f"{run['head'][:16]}")
+    print(f"    route_batch p50 {percentile(ms, 0.5):.2f} ms, p90 "
+          f"{percentile(ms, 0.9):.2f} ms, {run['req_per_s']:.1f} requests/s "
+          f"(CUDA router, host clock, synchronised)")
+    print(f"    CPU router (plain versions): p50 {percentile(cpu_ms, 0.5):.2f}"
+          f" ms, p90 {percentile(cpu_ms, 0.9):.2f} ms")
+    print("    CUDA router per batch: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(run["phase_ms"].items())))
+    print(f"    of phase2_solve and phase2_spill: {run['solve_ms']:.2f} ms in "
+          f"the auction_solve calls (packing, the launch, the copy back), "
+          f"{run['payments_ms']:.2f} ms in the host's Clarke payments "
+          f"(dense_clarke_payments, NumPy float64) per batch")
+    rounds = run["rounds"]
+    print(f"    launches: {counts}; solves on the card {run['solves']}; "
+          f"bid rounds per market solve (the kernel's, equal to the CPU "
+          f"router's): mean {statistics.mean(rounds):.1f}, max "
+          f"{max(rounds)}, over {len(rounds)} markets")
+    print(f"    ledger bytes sent to the card per batch: "
+          f"{run['ledger_bytes']:.0f} (prompts, row indices and dirty arena "
+          f"rows; the first batch uploads the arena)")
 
 
 def replay(calls, kernel, plain, work, iters: int, plain_iters: int) -> dict:
@@ -702,6 +1006,126 @@ def replay(calls, kernel, plain, work, iters: int, plain_iters: int) -> dict:
             "ms": ms / len(calls), "device_ms": dev_ms,
             "plain_ms": plain_ms / len(calls),
             "bound_ms": bound, "bound_by": by}
+
+
+def replay_solve(calls, dev) -> tuple[dict, list]:
+    """Every recorded ``auction_solve`` call once through the kernel and,
+    on host copies, through its plain version (the host-driven staged
+    market), bit for bit; then the kernel timed over the whole sequence.
+    The plain replay also keeps every forward-bidding round it ran (the
+    inputs of ``auction_bid`` at the main path's markets).  Returns the
+    figures per call and those rounds' inputs."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.auction_bid import (auction_solve_cuda,
+                                                 auction_solve_plain,
+                                                 unpack_solution)
+
+    check(bool(calls), "no auction_solve call was recorded on the main path")
+    bids = []
+    plain_bid = ops.auction_bid_op
+
+    def keep_bid(*args):
+        bids.append(args)
+        return plain_bid(*args)
+
+    ops.auction_bid_op = keep_bid
+    err, plain_s, rounds, nbytes, nops = 0.0, 0.0, 0, 0, 0
+    try:
+        for (fbuf, ibuf, meta), _ in calls:
+            got = auction_solve_cuda(fbuf, ibuf, meta).cpu()
+            first = len(bids)
+            t = time.perf_counter()
+            want = auction_solve_plain(fbuf.cpu(), ibuf.cpu(), meta)
+            plain_s += time.perf_counter() - t
+            err = max(err, exact_diff(got, want))
+            rounds += sum(r[3] for r in unpack_solution(want.numpy(), meta))
+            nbytes += solve_bytes(meta)
+            # forward bidding alone: 3 operations per active row and agent
+            nops += sum(3 * b[0].shape[1] * int(b[3].sum())
+                        for b in bids[first:])
+    finally:
+        ops.auction_bid_op = plain_bid
+    check(err == 0.0, "auction_solve kernel != plain at a main-path input")
+    ms = cuda_time_ms(lambda: [auction_solve_cuda(*a) for a, _ in calls],
+                      5, 1)
+    dev_ms = device_ms([lambda a=a: auction_solve_cuda(*a)
+                        for a, _ in calls], "auction_solve")
+    bound, by = roofline(nbytes / len(calls), nops / len(calls))
+    return ({"calls": len(calls), "max_abs_err": err,
+             "ms": ms / len(calls), "device_ms": dev_ms,
+             "plain_ms": plain_s * 1e3 / len(calls), "bound_ms": bound,
+             "bound_by": by, "rounds_per_call": rounds / len(calls),
+             "markets": sum(len(a[2]) for a, _ in calls)}, bids)
+
+
+def bid_calls_on_card(bids, dev, most: int = 2048) -> list:
+    """Up to ``most`` of the recorded bidding rounds, evenly spaced, moved
+    to the card as replayable calls."""
+    step = max(1, len(bids) // most)
+    return [(tuple(a.to(dev) if hasattr(a, "to") else a for a in b), {})
+            for b in bids[::step][:most]]
+
+
+def phase_router_kernels(dev) -> tuple[Counter, dict]:
+    """Phases 3-5: the router's kernels against their plain versions on
+    synthetic inputs, the router lockstep at one hub and at SCALE_128's
+    hubs, and the kernels at every main-path input.  Returns the main
+    path's launch counts (both runs) and each router kernel's figures."""
+    from repro_torch.configs.iemas_cluster import SCALE_128
+    from repro_torch.kernels.auction_bid import (auction_bid_cuda,
+                                                 auction_bid_plain)
+    from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
+                                                  lcp_affinity_plain,
+                                                  lcp_gather_cuda,
+                                                  lcp_gather_plain)
+
+    print("[3] router kernels against their plain versions")
+    phase_kernels(dev)
+    phase_solve_kernels(dev)
+
+    runs = {}
+    for hubs in (1, SCALE_128.n_hubs()):
+        print(f"[4] router lockstep, CUDA vs CPU, SCALE_128 fleet, {hubs} "
+              f"hub(s), spill on")
+        runs[hubs] = run = phase_router(dev, hubs)
+        print_router(run)
+    counts = Counter()
+    for run in runs.values():
+        counts.update(run["counts"])
+    check(counts["lcp_gather"] > 0 and counts["auction_solve"] > 0,
+          f"a kernel of the main path never launched: {counts}")
+
+    print("[5] router kernels at the inputs of every main-path call")
+    calls = {name: [c for run in runs.values() for c in run["calls"][name]]
+             for name in ("auction_solve", "lcp_gather")}
+    solve, bids = replay_solve(calls["auction_solve"], dev)
+    gather = replay(calls["lcp_gather"], lcp_gather_cuda, lcp_gather_plain,
+                    lambda args, out: gather_work(*args, out[0]), 50, 10)
+    # the one-round and dense-tile kernels, which the main path no longer
+    # launches, at the same data: the bidding rounds of the plain replay
+    # and the dense tiles of the gather calls
+    bid = replay(bid_calls_on_card(bids, dev), auction_bid_cuda,
+                 auction_bid_plain, lambda args, out: bid_work(*args), 5, 2)
+    lcp = replay([(dense_tile(*args), {}) for args, _ in calls["lcp_gather"]],
+                 lcp_affinity_cuda, lcp_affinity_plain,
+                 lambda args, out: lcp_work(*args, out[0]), 50, 10)
+    print(f"    auction_solve over {solve['calls']} calls ({solve['markets']} "
+          f"markets, {solve['rounds_per_call']:.1f} rounds per call): "
+          f"bit-exact, kernel {solve['ms']:.4f} ms (device "
+          f"{solve['device_ms']:.4f}, "
+          f"{solve['device_ms'] / solve['rounds_per_call'] * 1e3:.2f} us per "
+          f"round), plain (host) {solve['plain_ms']:.1f} ms, bound "
+          f"{solve['bound_ms']:.7f} ms ({solve['bound_by']}) per call")
+    for name, r in (("lcp_gather", gather), ("auction_bid", bid),
+                    ("lcp_affinity", lcp)):
+        print(f"    {name} over {r['calls']} calls {r['shapes']}: bit-exact, "
+              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms "
+              f"({r['bound_by']}) per call")
+    return counts, {"lcp_gather": gather, "auction_solve": solve,
+                    "auction_bid": bid, "lcp_affinity": lcp}
 
 
 # ------------------------------------------------------- attention, 6 --
@@ -1649,10 +2073,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
-    from repro_torch.kernels.auction_bid import (auction_bid_cuda,
-                                                 auction_bid_plain)
-    from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
-                                                  lcp_affinity_plain)
 
     # float32 products in full float32 (the engine lockstep of phase 7)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1673,8 +2093,13 @@ def main() -> int:
     print(f"[2] built {sorted(reports) or 'nothing (cached)'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in sorted(reports.items()):
-        for line in ptxas_report(log):
+        lines = ptxas_report(log)
+        for line in lines:
             print(f"    {name}: {line}")
+        for kernel in {"auction_bid": ("auction_solve_kernel",),
+                       "lcp_affinity": ("lcp_gather_kernel",)}.get(name, ()):
+            check(any(kernel in line for line in lines),
+                  f"no ptxas report for {kernel}")
     hmma = tensor_core_counts(build.library_path("flash_attention"),
                               "flash_tc_kernel")
     label = {n: re.sub(r".*flash_tc_kernelILi(\d+)E.*", r"DP=\1", n)
@@ -1698,52 +2123,7 @@ def main() -> int:
               f"an instance of the {name} kernels has no tensor-core "
               f"instruction: {hmma}")
 
-    print("[3] router kernels against their plain versions")
-    phase_kernels(dev)
-
-    print("[4] router lockstep, CUDA vs CPU, SCALE_128 fleet")
-    run = phase_router(dev)
-    counts = run["counts"]
-    check(counts["lcp_affinity"] > 0 and counts["auction_bid"] > 0,
-          f"a kernel of the main path never launched: {counts}")
-    ms = run["route_ms"]
-    print(f"    {run['routed']} requests in {run['batches']} batches, "
-          f"{run['matched']} matched, identical decisions/accounts/ledger "
-          f"head {run['head'][:16]}")
-    print(f"    route_batch p50 {percentile(ms, 0.5):.2f} ms, p90 "
-          f"{percentile(ms, 0.9):.2f} ms, {run['req_per_s']:.1f} requests/s "
-          f"(CUDA router, host clock, synchronised)")
-    cpu_ms = run["cpu_route_ms"]
-    print(f"    CPU router (plain versions): p50 {percentile(cpu_ms, 0.5):.2f}"
-          f" ms, p90 {percentile(cpu_ms, 0.9):.2f} ms")
-    print("    CUDA router per batch: " + ", ".join(
-        f"{k} {v:.2f} ms" for k, v in sorted(run["phase_ms"].items())))
-    print(f"    launches: {counts}; auction_bid launches per solve "
-          f"{run['bid_rounds_per_solve']:.1f}")
-
-    calls = run["calls"]
-    lmat = calls["lcp_affinity"][-1][0][1].cpu()  # the last batch's tile
-    copy_ms = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        lmat.to(dev)
-        torch.cuda.synchronize()
-        copy_ms.append((time.perf_counter() - t) * 1e3)
-    print(f"    ledger tile {tuple(lmat.shape)} int32 "
-          f"({lmat.numel() * 4 / 2**20:.1f} MiB) host->device copy: median "
-          f"{statistics.median(copy_ms):.3f} ms")
-
-    print("[5] router kernels at the inputs of every main-path call")
-    lcp = replay(calls["lcp_affinity"], lcp_affinity_cuda, lcp_affinity_plain,
-                 lambda args, out: lcp_work(*args, out[0]), 50, 10)
-    bid = replay(calls["auction_bid"], auction_bid_cuda, auction_bid_plain,
-                 lambda args, out: bid_work(*args), 5, 2)
-    for name, r in (("lcp_affinity", lcp), ("auction_bid", bid)):
-        print(f"    {name} over {r['calls']} calls {r['shapes']}: bit-exact, "
-              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms "
-              f"({r['bound_by']}) per call")
+    counts, router_figures = phase_router_kernels(dev)
 
     print("[6] attention kernels against their plain versions, synthetic "
           f"full-width {ARCH} shapes")
@@ -1828,17 +2208,29 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels = [
+        {"name": "lcp_gather", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lcp_affinity.cu",
+         "replaces": "src/repro/kernels/lcp_affinity.py:40",
+         "launches": counts["lcp_gather"],
+         **{k: router_figures["lcp_gather"][k] for k in MEASURED},
+         "library_ms": None},
+        {"name": "auction_solve", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/auction_bid.cu",
+         "replaces": "src/repro/kernels/auction_bid.py:112",
+         "launches": counts["auction_solve"],
+         **{k: router_figures["auction_solve"][k] for k in MEASURED},
+         "library_ms": None},
         {"name": "lcp_affinity", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lcp_affinity.cu",
          "replaces": "src/repro/kernels/lcp_affinity.py:40",
          "launches": counts["lcp_affinity"],
-         **{k: lcp[k] for k in MEASURED},
+         **{k: router_figures["lcp_affinity"][k] for k in MEASURED},
          "library_ms": None},
         {"name": "auction_bid", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/auction_bid.cu",
          "replaces": "src/repro/kernels/auction_bid.py:112",
          "launches": counts["auction_bid"],
-         **{k: bid[k] for k in MEASURED},
+         **{k: router_figures["auction_bid"][k] for k in MEASURED},
          "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

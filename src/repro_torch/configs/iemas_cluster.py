@@ -34,11 +34,12 @@ class RouterConfig:
     """Mechanism-side knobs plumbed from configs into IEMASRouter.
 
     ``solver`` names a backend in the ``repro_torch.core.solvers`` registry:
-    ``"cuda"`` is the staged float32 column auction with the CUDA bidding
-    kernel (the plain round for a CPU router), ``"dense-torch"`` the same
-    solver with the plain round on the CPU.  ``use_kernel_affinity`` runs
-    the Eq.-4 LCP as one batched op on the router's device (the CUDA kernel
-    on a card) instead of the per-pair host loop.
+    ``"cuda"`` is the staged float32 column auction, one CUDA launch per
+    solve and hub blocks batched (the plain staged market for a CPU
+    router), ``"dense-torch"`` the same single-market solver on the CPU.
+    ``use_kernel_affinity`` runs the Eq.-4 LCP as one batched op on the
+    router's device against a device copy of the ledger arena (the CUDA
+    kernel on a card) instead of the per-pair host loop.
 
     ``n_hubs`` shards Phase 2 across proxy hubs (§4.4); ``warm_start=True``
     reuses each hub's final slot prices as the next round's ε-scaling seed
@@ -84,15 +85,24 @@ DEFAULT_ROUTER = RouterConfig()
 class ClusterScaleConfig:
     """Preset for scale runs: the fleet size plus the serving-loop knobs a
     run at that size uses (micro-batch cap, generated tokens per turn,
-    solver and warm starts).  The reference's preset also shards Phase 2
-    into ``n_agents // 16`` hubs; the port's hub-batched solve is later
-    work, so its scale runs use one hub."""
+    solver and warm starts), and the reference's hub cut: Phase 2 sharded
+    into ``n_agents // agents_per_hub`` hubs."""
 
     n_agents: int = 128
     batch_cap: int = 64            # micro-batch size per router invocation
     max_new_tokens: int = 6
+    agents_per_hub: int = 16       # n_hubs = max(1, n_agents // this)
     solver: str = "cuda"
     warm_start: bool = True
+
+    def n_hubs(self, n_agents: int | None = None) -> int:
+        """Hub count for a given fleet size."""
+        return max(1, (n_agents or self.n_agents) // self.agents_per_hub)
+
+    def router_config(self, n_agents: int | None = None) -> RouterConfig:
+        """The matching mechanism-side RouterConfig."""
+        return RouterConfig(solver=self.solver, n_hubs=self.n_hubs(n_agents),
+                            warm_start=self.warm_start)
 
 
 #: the 128-agent headline scale preset

@@ -13,10 +13,11 @@ the previous prompt (the state cannot be rewound), so their affinity is
 Entries live in a persistent padded token arena (`PaddedLedgerStore`): one
 (S, L) int32 host matrix whose rows are (agent, session) entries, updated in
 place on ``update``/``evict``.  ``affinity_matrix`` computes the full N x M
-request-agent matrix; with ``use_kernel=True`` the padded batched form
-gathers rows out of the arena on the host, moves them to ``device`` and runs
-the LCP kernel there (`repro_torch.kernels.ops.lcp_affinity_op`: the CUDA
-kernel for a CUDA device, its plain version for the CPU).
+request-agent matrix; with ``use_kernel=True`` it runs on ``device``
+against a copy of the arena that stays there (`LedgerMirror`, synced by
+dirty rows, as the reference's fused step mirrors it), through the row
+gather LCP (`repro_torch.kernels.ops.lcp_gather_op`: the CUDA kernel for a
+CUDA device, its plain version for the CPU).
 """
 from __future__ import annotations
 
@@ -52,6 +53,11 @@ class PaddedLedgerStore:
     Row 0 is a reserved all-pad sentinel with length 0: batch gathers map
     "no entry for this (agent, session)" to row 0, which scores affinity 0
     through the shared LCP post-processing without any masking.
+
+    ``consume_dirty`` hands out the rows written since the last drain so a
+    device mirror (`LedgerMirror`) can copy just the changed rows instead of
+    re-uploading the arena; ``shape_version`` bumps on regrow (and whenever
+    the arrays are replaced wholesale), signalling the mirror to re-upload.
     """
 
     def __init__(self, floor_rows: int = 8, floor_width: int = 8):
@@ -60,6 +66,9 @@ class PaddedLedgerStore:
         self.row_of: dict[tuple, int] = {}
         self._free: list[int] = []
         self._next = 1                       # row 0 = absent sentinel
+        self._dirty: set[int] = set()
+        self.version = 0                     # bumps on every write
+        self.shape_version = 0               # bumps on regrow
 
     @property
     def width(self) -> int:
@@ -77,6 +86,10 @@ class PaddedLedgerStore:
         self.tokens = grown
         self.lens = np.concatenate(
             [self.lens, np.zeros((s - len(self.lens),), np.int32)])
+        self.shape_version += 1
+        self.version += 1
+        # every row moved to a fresh buffer: device mirrors must re-upload
+        self._dirty = set(range(self._next))
 
     def put(self, key: tuple, toks: np.ndarray) -> int:
         """Write (or overwrite) the entry for ``key``; returns its row."""
@@ -91,6 +104,8 @@ class PaddedLedgerStore:
         self.tokens[row, :k] = toks
         self.tokens[row, k:] = PAD_LEDGER    # clear stale tail on row reuse
         self.lens[row] = k
+        self._dirty.add(row)
+        self.version += 1
         return row
 
     def drop(self, key: tuple) -> None:
@@ -101,6 +116,8 @@ class PaddedLedgerStore:
         self.lens[row] = 0
         self.tokens[row, :] = PAD_LEDGER
         self._free.append(row)
+        self._dirty.add(row)
+        self.version += 1
 
     def get(self, key: tuple) -> np.ndarray | None:
         """The stored token row for ``key`` (a view), or None."""
@@ -117,6 +134,55 @@ class PaddedLedgerStore:
             for j, d in enumerate(sessions):
                 out[j, i] = get((a, d), 0)
         return out
+
+    def consume_dirty(self) -> np.ndarray:
+        """Rows written since the last drain (then clears the set)."""
+        rows = np.fromiter(self._dirty, np.int32, len(self._dirty))
+        self._dirty.clear()
+        return rows
+
+
+class LedgerMirror:
+    """A copy of a `PaddedLedgerStore` arena (tokens and lengths) on one
+    device, the counterpart of the reference fused step's ``_LedgerMirror``.
+
+    ``sync`` drains the store's dirty rows and copies just those into the
+    device tensors (``index_copy_``); a new ``shape_version`` (the arena
+    regrew or was replaced) re-uploads the whole arena instead.
+    ``bytes_sent`` counts what went to the device.
+    """
+
+    def __init__(self, store: PaddedLedgerStore, device):
+        self.store = store
+        self.device = device
+        self.tokens = None
+        self.lens = None
+        self._shape_version = -1
+        self.bytes_sent = 0
+
+    def sync(self) -> None:
+        """Bring the device arena up to date with the host store."""
+        import torch
+
+        st = self.store
+        if self.tokens is None or self._shape_version != st.shape_version:
+            st.consume_dirty()          # the full upload covers everything
+            self.tokens = torch.from_numpy(st.tokens).to(self.device,
+                                                         copy=True)
+            self.lens = torch.from_numpy(st.lens).to(self.device, copy=True)
+            self._shape_version = st.shape_version
+            self.bytes_sent += st.tokens.nbytes + st.lens.nbytes
+            return
+        rows = st.consume_dirty()
+        if rows.size == 0:
+            return
+        rows.sort()
+        idx = torch.from_numpy(rows.astype(np.int64)).to(self.device)
+        toks, lens = st.tokens[rows], st.lens[rows]
+        self.tokens.index_copy_(0, idx, torch.from_numpy(toks).to(
+            self.device))
+        self.lens.index_copy_(0, idx, torch.from_numpy(lens).to(self.device))
+        self.bytes_sent += rows.size * 8 + toks.nbytes + lens.nbytes
 
 
 class PrefixLedger:
@@ -143,6 +209,8 @@ class PrefixLedger:
 
     def __init__(self, max_sessions_per_agent: int | None = None):
         self.store = PaddedLedgerStore()
+        self._mirror: LedgerMirror | None = None  # see `mirror`
+        self.bytes_sent = 0     # host -> device bytes of the kernel path
         # agent_id -> {dialogue_id: last-touch clock}, kept in sync with
         # the store (the per-agent LRU index; insertion order tracks recency
         # because every touch deletes + reinserts)
@@ -313,49 +381,58 @@ class PrefixLedger:
                 out[j, i] = self.affinity(a, d, p, extension_only=ext)
         return out
 
-    def padded_batch(self, prompts, dialogue_ids, agent_ids):
-        """The kernel's host inputs: prompts [n, L] (pad -1) with their
-        lengths, and each request's ledger rows at every agent [n, m, L]
-        (pad -2, gathered from the arena; absent entries are the all-pad
-        row 0) with theirs.  Returns (pmat, plen, lmat, llen)."""
-        n, m = len(prompts), len(agent_ids)
-        max_p = max((len(p) for p in prompts), default=1)
+    def mirror(self, device) -> LedgerMirror:
+        """The arena's copy on ``device``.  The ledger keeps one: mirrors
+        drain the store's one set of dirty rows, so a second would miss the
+        rows the first drained.  Asked for another device, it makes a new
+        mirror, whose first sync uploads the whole arena."""
+        import torch
+
+        device = torch.device(device)
+        if self._mirror is None or self._mirror.device != device:
+            self._mirror = LedgerMirror(self.store, device)
+        return self._mirror
+
+    def _affinity_matrix_kernel(self, prompts, dialogue_ids, agent_ids,
+                                extension_only_mask, device):
+        """Batched LCP on ``device`` through the row-gather op: the arena's
+        device copy is synced by dirty rows, and per batch only the padded
+        prompts, their lengths and the (n, m) row indices cross to the
+        device.  The post-processing (min with the lengths, the float64
+        division, the extension-only branch) runs on the device and one
+        (n, m) float64 matrix comes back."""
+        import torch
+
+        from repro_torch.kernels.ops import lcp_gather_op
+
+        n = len(prompts)
+        mirror = self.mirror(device)
+        sent = mirror.bytes_sent
+        mirror.sync()
         rows = self.store.rows_for(dialogue_ids, agent_ids)   # (n, m)
-        llen = self.store.lens[rows]
-        length = max(max_p, self.store.width, 8)
-        pmat = np.full((n, length), PAD_PROMPT, np.int32)
+        width = max(max((len(p) for p in prompts), default=1), 8)
+        pmat = np.full((n, width), PAD_PROMPT, np.int32)
         plen = np.zeros((n,), np.int32)
         for j, p in enumerate(prompts):
             pmat[j, : len(p)] = p
             plen[j] = len(p)
-        lmat = np.full((n, m, length), PAD_LEDGER, np.int32)
-        lmat[:, :, : self.store.width] = self.store.tokens[rows]
-        return pmat, plen, lmat, llen
-
-    def _affinity_matrix_kernel(self, prompts, dialogue_ids, agent_ids,
-                                extension_only_mask, device):
-        """Batched LCP on ``device`` through the LCP op.  The host builds the
-        dense [n, m, L] ledger tile every batch and copies it over; the
-        post-processing (min with the lengths, the float64 division, the
-        extension-only branch) runs on the device and one (n, m) float64
-        matrix comes back."""
-        import torch
-
-        from repro_torch.kernels.ops import lcp_affinity_op
-
-        pmat, plen, lmat, llen = self.padded_batch(prompts, dialogue_ids,
-                                                   agent_ids)
+        ext = None if extension_only_mask is None \
+            else np.asarray(extension_only_mask, bool)
+        self.bytes_sent += (mirror.bytes_sent - sent + pmat.nbytes
+                            + plen.nbytes + rows.nbytes
+                            + (0 if ext is None else ext.nbytes))
+        rows_t = torch.from_numpy(rows).to(device)
         plen_t = torch.from_numpy(plen).to(device)[:, None]
-        llen_t = torch.from_numpy(llen).to(device)
-        lcp = lcp_affinity_op(torch.from_numpy(pmat).to(device),
-                              torch.from_numpy(lmat).to(device))  # [N, M]
+        llen_t = mirror.lens[rows_t.long()]
+        lcp = lcp_gather_op(torch.from_numpy(pmat).to(device), mirror.tokens,
+                            rows_t)                               # [N, M]
         lcp = torch.minimum(lcp, torch.minimum(plen_t, llen_t))
         denom = plen_t.clamp(min=1).to(torch.float64)
         o = lcp.to(torch.float64) / denom
-        if extension_only_mask is not None:
-            ext = torch.as_tensor(np.asarray(extension_only_mask, bool),
-                                  device=device)[None, :]
+        if ext is not None:
             full_prev = (lcp == llen_t) & (llen_t > 0)
-            o = torch.where(ext, torch.where(
-                full_prev, llen_t.to(torch.float64) / denom, 0.0), o)
+            o = torch.where(torch.from_numpy(ext).to(device)[None, :],
+                            torch.where(full_prev,
+                                        llen_t.to(torch.float64) / denom,
+                                        0.0), o)
         return o.cpu().numpy()

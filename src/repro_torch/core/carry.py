@@ -92,6 +92,9 @@ def router_from_reference_state(state: dict, infos: list,
     store.row_of = {tuple(k): int(r) for k, r in led["row_of"]}
     store._free = [int(r) for r in led["free"]]
     store._next = int(led["next"])
+    # the arrays were replaced wholesale: a device mirror must re-upload
+    store.shape_version += 1
+    store.version += 1
     router.ledger._by_agent = {aid: {d: int(c) for d, c in sessions}
                                for aid, sessions in led["by_agent"]}
     router.ledger._clock = int(led["clock"])

@@ -12,8 +12,9 @@ name        implementation                                 warm  batch
 dense-torch staged float32 auction, plain bidding round    yes   no
             (CPU; the counterpart of the reference's
             ``dense-jax``)
-cuda        staged float32 auction, CUDA bidding kernel    yes   no
-            (plain round for CPU tensors)
+cuda        staged float32 auction, one CUDA launch per    yes   yes
+            solve (the plain staged market for CPU
+            tensors)
 =========== ============================================== ===== ======
 """
 from repro_torch.core.solvers.base import (AuctionResult, SolverBackend,

@@ -1,24 +1,28 @@
-"""Staged dense column auction in PyTorch, on the router's device.
+"""Staged dense column auction in PyTorch: one kernel launch per solve.
 
 The counterpart of the reference's jit-staged solver
 (`repro.core.solvers.dense_jax._build_jax_solver`): the same capacitated
 column market, ε schedules, eviction pass, forward bidding and reverse
 rounds, warm-start budget and cold fallback, op for op in float32.  The
 market state lives on an (m × cmax) unit-price grid — one capacitated column
-per agent, ``counts[i] = min(b_i, n)`` live units each.  The forward bidding
-round always goes through `repro_torch.kernels.ops.auction_bid_op`: the CUDA
-kernel for a market on the card, the plain PyTorch round for a market on the
-CPU.
+per agent, ``counts[i] = min(b_i, n)`` live units each.
 
 Where the reference stages four nested ``lax.while_loop``s (ε phase →
-settle → forward bidding / reverse rounds), this solver keeps the state on
-the device and evaluates each loop's condition once per iteration on the
-host.  The round count ``rounds`` must match the reference exactly: it
-decides the warm-budget fallback and the cold-cap error, and it is reported
-in ``solver_stats``; a host loop counts exactly the iterations whose
+settle → forward bidding / reverse rounds) in one XLA program, the solve
+goes through `repro_torch.kernels.ops.auction_solve_op`: on a CUDA device
+one launch of the hand-written ``auction_solve_kernel`` runs every loop of
+every market of the call on the card, one thread block per market, and the
+result crosses to the host once; on the CPU the plain version runs
+`_StagedMarket` below per market.  `_StagedMarket` keeps the state in
+tensors and reads each loop's condition on the host once per iteration; its
+forward bidding round is `repro_torch.kernels.ops.auction_bid_op`.  The
+round count ``rounds`` must match the reference exactly: it decides the
+warm-budget fallback and the cold-cap error, and it is reported in
+``solver_stats``; both versions count exactly the iterations whose
 condition held.
 
-Things that must match the reference bit for bit, each handled below:
+Things that must match the reference bit for bit, each handled in
+`_StagedMarket` and in the kernel alike:
 
 * The ε schedule is float32 in the reference (the jitted solve receives ε₀,
   ε_final and θ as float32 scalars), so it is kept in ``np.float32`` here:
@@ -28,17 +32,22 @@ Things that must match the reference bit for bit, each handled below:
   every scatter goes into one extra sink slot that is sliced off.
 * Ties go to the first index everywhere (``argmax``/``argmin``; the
   ``argmax`` of a bool grid is taken on an integer cast).
-* The market is solved unpadded, at (n, m, cmax), so the warm budget
-  ``warm_round_budget(n, m·cmax)`` is the reference's.
+* A market is solved unpadded, at (n, m, cmax), under its own round cap:
+  ``warm_round_budget(n, m·cmax)`` for one warm market, as the reference's
+  single solve; in a hub batch the budget of the market's pow-2 shape
+  bucket, as the reference's vmapped batch (padding a market into its
+  bucket does not change its solve: see `solve_dense_auction_torch_batch`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.buckets import pow2_bucket
 from repro_torch.core.solvers.base import (AuctionResult,
                                            sequential_solve_batch)
-from repro_torch.core.solvers.dense_common import (THETA, _price_grid,
+from repro_torch.core.solvers.dense_common import (THETA, DenseAuctionResult,
+                                                   _price_grid,
                                                    check_start_prices,
                                                    column_counts,
                                                    empty_result,
@@ -46,10 +55,13 @@ from repro_torch.core.solvers.dense_common import (THETA, _price_grid,
                                                    materialize_staged,
                                                    package_dense, warm_eps0,
                                                    warm_round_budget)
+from repro_torch.core.solvers.dense_np import solve_dense_auction
 from repro_torch.kernels import ops
+from repro_torch.kernels.auction_bid import pack_markets, unpack_solution
 from repro_torch.utils.device import resolve_device
 
-__all__ = ["solve_dense_auction_torch", "DenseTorchBackend"]
+__all__ = ["solve_dense_auction_torch", "solve_dense_auction_torch_batch",
+           "DenseTorchBackend"]
 
 _F32 = np.float32
 _BIG = torch.finfo(torch.float32).max / 4
@@ -267,6 +279,17 @@ class _StagedMarket:
         return s.unit_price, s.agent_of, s.unit_of, s.rounds
 
 
+def solve_markets(markets, device):
+    """One ``auction_solve`` call over ``markets`` ((W, counts, p0, ε₀,
+    ε_final, θ, cap) each, on the host) on ``device``: one kernel launch on
+    a card, whose result crosses to the host once.  Returns (unit_price,
+    agent_of, unit_of, rounds) per market."""
+    fbuf, ibuf, meta = pack_markets(markets)
+    out = ops.auction_solve_op(torch.from_numpy(fbuf).to(device),
+                               torch.from_numpy(ibuf).to(device), meta)
+    return unpack_solution(out.cpu().numpy(), meta)
+
+
 def solve_dense_auction_torch(w, caps, *, eps_final: float | None = None,
                               theta: float = THETA,
                               max_rounds: int = 200_000,
@@ -278,7 +301,8 @@ def solve_dense_auction_torch(w, caps, *, eps_final: float | None = None,
 
     ``start_prices`` (flat agent-major, length K = Σ min(b_i, n)) seeds the
     unit-price grid: the warm attempt skips the coarse phases and runs
-    under ``warm_round_budget``; tripping the budget re-solves cold.
+    under ``warm_round_budget``; only if it trips does a second call
+    re-solve cold.
     """
     dev = resolve_device(device)
     w_np = np.asarray(w, dtype=np.float64)
@@ -297,19 +321,14 @@ def solve_dense_auction_torch(w, caps, *, eps_final: float | None = None,
     warm = start_prices is not None
     if warm:
         p0_np = check_start_prices(start_prices, K)
-    W = torch.from_numpy(W_np.astype(np.float32)).to(dev)
-    counts_t = torch.from_numpy(counts.astype(np.int32)).to(dev)
+    W = W_np.astype(np.float32)
     if eps_final is None:
         eps_final = float32_eps_final(wmax, np.float32)
     cold_eps0 = max(wmax / theta, eps_final)
 
     def run(p0, eps0, cap):
-        market = _StagedMarket(W, counts_t, cmax, cap, eps_final)
-        unit_price, agent_of, unit_of, rounds = market.solve(
-            torch.from_numpy(p0.astype(np.float32)).to(dev), eps0, eps_final,
-            theta)
-        return (unit_price.cpu().numpy(), agent_of.cpu().numpy(),
-                unit_of.cpu().numpy(), rounds)
+        return solve_markets([(W, counts, p0, eps0, eps_final, theta, cap)],
+                             dev)[0]
 
     if warm:
         eps0 = min(warm_eps0(p0_np, wmax, eps_final, theta), cold_eps0)
@@ -332,6 +351,79 @@ def solve_dense_auction_torch(w, caps, *, eps_final: float | None = None,
     return materialize_staged(w_np, counts, unit_price, agent_of, unit_of,
                               rounds, eps_final, warm_started=warm,
                               fallback=warm)
+
+
+def solve_dense_auction_torch_batch(ws, caps_list, *,
+                                    eps_final: float | None = None,
+                                    theta: float = THETA,
+                                    max_rounds: int = 200_000,
+                                    start_prices_list=None, device="cuda"
+                                    ) -> list[DenseAuctionResult]:
+    """Solve many independent hub blocks in one ``auction_solve`` call.
+
+    The counterpart of the reference's ``solve_dense_auction_jax_batch``.
+    ``ws[h]`` is hub h's (n_h, m_h) weight block, ``caps_list[h]`` its
+    capacities and ``start_prices_list[h]`` an optional warm seed.  The
+    reference pads blocks into pow-2 (n, m, cmax) buckets, warm and cold
+    apart, and solves each bucket in one vmapped program; padding is
+    behaviour-neutral (a zero-weight request parks on its first bid, a
+    zero-count agent has ask +big and no valid unit), so every block is
+    solved here unpadded — all of them in one call, one launch on a card —
+    under the round cap of its bucket: ``warm_round_budget`` of the
+    bucket's shape for a warm block, ``max_rounds`` for a cold one.  A
+    block that reaches its cap is re-solved by the float64 NumPy solver
+    (``result.fallback``).  ε_final and ε₀ come from the float32 weights,
+    as in the reference's batch.
+    """
+    dev = resolve_device(device)
+    H = len(ws)
+    sp_list = start_prices_list or [None] * H
+    results: list[DenseAuctionResult | None] = [None] * H
+    prep, markets = [], []
+    for h, (w, caps) in enumerate(zip(ws, caps_list)):
+        w_np = np.asarray(w, dtype=np.float64)
+        n = w_np.shape[0]
+        counts = column_counts(caps, n)
+        K = int(counts.sum())
+        W = np.maximum(w_np, 0.0).astype(np.float32)
+        wmax = 0.0 if (n == 0 or K == 0) \
+            else float(W[:, counts > 0].max(initial=0.0))
+        if n == 0 or K == 0 or wmax <= 0.0:
+            results[h] = empty_result(n, counts)
+            continue
+        cmax = int(counts.max())
+        eps_f = eps_final if eps_final is not None \
+            else float32_eps_final(wmax, np.float32)
+        warm = sp_list[h] is not None
+        if warm:
+            p0 = check_start_prices(sp_list[h], K, block=h)
+            grid0 = _price_grid(p0, counts, cmax)
+            eps0 = min(warm_eps0(p0, wmax, eps_f, theta),
+                       max(wmax / theta, eps_f))
+            cap = warm_round_budget(
+                pow2_bucket(n), pow2_bucket(len(counts)) * pow2_bucket(cmax),
+                max_rounds)
+        else:
+            grid0 = np.zeros((len(counts), cmax))
+            eps0 = max(wmax / theta, eps_f)
+            cap = max_rounds
+        prep.append((h, w_np, counts, eps_f, warm, cap))
+        markets.append((W, counts, grid0, eps0, eps_f, theta, cap))
+    if not markets:
+        return results
+    for (h, w_np, counts, eps_f, warm, cap), (price, agent_of, unit_of,
+                                              rounds) in zip(
+            prep, solve_markets(markets, dev)):
+        if rounds >= cap:
+            # capped mid-solve: the float64 solver re-solves this hub
+            results[h] = solve_dense_auction(w_np, caps_list[h])
+            results[h].warm_started = warm
+            results[h].fallback = True
+            continue
+        results[h] = materialize_staged(w_np, counts, price, agent_of,
+                                        unit_of, rounds, eps_f,
+                                        warm_started=warm)
+    return results
 
 
 class DenseTorchBackend:

@@ -1,8 +1,8 @@
-"""One Jacobi forward-bidding round of the capacitated column auction.
+"""The capacitated column auction of Phase 2: one round, and the whole solve.
 
-The Phase-2 ε-scaling auction (`repro_torch.core.solvers`) runs this round
-once per forward-bidding iteration.  For an (n × m) agent-level weight
-matrix and the two cheapest unit prices per agent (``ask``, ``ask2``):
+``auction_bid`` is one Jacobi forward-bidding round.  For an (n × m)
+agent-level weight matrix and the two cheapest unit prices per agent
+(``ask``, ``ask2``):
 
     P[j, i]  = W[j, i] - ask[i]               (only active rows compete)
     v1, k1   = top profit and its agent       (per request, lowest index)
@@ -17,6 +17,17 @@ warp per request row, the segment max as a 64-bit atomicMax on an ordered
 key); ``auction_bid_plain`` is the same round in plain PyTorch
 (`kernels/ref.py`), used for CPU tensors and as the kernel's oracle.  The
 two are bit-identical.
+
+``auction_solve`` is the whole staged ε-scaling solve of many markets (the
+hub blocks of a batch): ε phases, eviction, forward bidding and reverse
+rounds, each market under its own round cap.  On the card it is one launch
+of ``auction_solve_kernel``, one thread block per market, every loop on the
+device; ``auction_solve_plain`` runs the solver's host-driven staged market
+(`core/solvers/dense_torch.py::_StagedMarket`) per market, for CPU tensors
+and as the kernel's oracle.  The two are bit-identical: unit prices,
+assignment and round counts.  The markets travel packed (`pack_markets`):
+a float32 buffer, an int32 buffer and a host layout table; the result is
+one int32 buffer (`unpack_solution`).
 """
 from __future__ import annotations
 
@@ -28,17 +39,29 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import auction_bid_ref as auction_bid_plain
 
-__all__ = ["auction_bid_cuda", "auction_bid_plain"]
+__all__ = ["auction_bid_cuda", "auction_bid_plain", "auction_solve_cuda",
+           "auction_solve_plain", "auction_solve_plan", "pack_markets",
+           "unpack_solution"]
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+# one market's row of the layout table: n, m, cmax, its round cap, the
+# offsets of W and of the start grid in the float buffer, of the counts in
+# the int buffer, and of its grid and its requests in the output
+META = ("n", "m", "cmax", "cap", "w_off", "p_off", "c_off", "g_off", "r_off")
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("auction_bid")
     fn = lib.auction_bid_launch
-    fn.argtypes = [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P,
-                   ctypes.c_int, ctypes.c_int, _P]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [_P, _P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _P]
+    fn.restype = _I
+    fn = lib.auction_solve_launch
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    fn = lib.auction_solve_plan
+    fn.argtypes = [_I, _I, _I, _I * 2]
+    fn.restype = _I
     return lib
 
 
@@ -77,3 +100,139 @@ def auction_bid_cuda(W: torch.Tensor, ask: torch.Tensor, ask2: torch.Tensor,
         raise RuntimeError(f"auction_bid kernel launch failed: CUDA error "
                            f"{err}")
     return best, winner, wants
+
+
+def pack_markets(markets):
+    """Pack markets for one ``auction_solve`` call.
+
+    ``markets``: (W [n, m], counts [m], p0 [m, cmax], eps0, eps_final,
+    theta, cap) per market, NumPy arrays and numbers on the host; the three
+    ε values are rounded to float32 here.  Returns (fbuf float32, ibuf
+    int32, meta int32 [G, 9]): fbuf holds (eps0, eps_final, theta) per
+    market and then every W and p0, ibuf the layout table (``META`` per
+    market) and then every counts vector, and meta is the layout table on
+    the host."""
+    G = len(markets)
+    meta = np.zeros((G, len(META)), np.int32)
+    scal = np.zeros((G, 3), np.float32)
+    f_at, i_at, g_at, r_at = 3 * G, len(META) * G, 0, 0
+    for g, (W, counts, p0, eps0, eps_final, theta, cap) in enumerate(markets):
+        n, m = W.shape
+        cmax = p0.shape[1]
+        meta[g] = (n, m, cmax, cap, f_at, f_at + n * m, i_at, g_at, r_at)
+        scal[g] = (eps0, eps_final, theta)
+        f_at += n * m + m * cmax
+        i_at += m
+        g_at += m * cmax
+        r_at += n
+    fbuf = np.empty(f_at, np.float32)
+    ibuf = np.empty(i_at, np.int32)
+    fbuf[:3 * G] = scal.ravel()
+    ibuf[:meta.size] = meta.ravel()
+    for (W, counts, p0, *_), (n, m, cmax, _c, w_off, p_off, c_off, _g, _r) \
+            in zip(markets, meta):
+        fbuf[w_off:w_off + n * m] = np.asarray(W, np.float32).ravel()
+        fbuf[p_off:p_off + m * cmax] = np.asarray(p0, np.float32).ravel()
+        ibuf[c_off:c_off + m] = counts
+    return fbuf, ibuf, meta
+
+
+def _sizes(meta):
+    """(Σ m·cmax, Σ n): the output's grid and request lengths."""
+    return (int((meta[:, 1] * meta[:, 2]).sum()), int(meta[:, 0].sum()))
+
+
+def _bounds(meta):
+    """(max n, max m, max cmax): what every block's layout fits in."""
+    return tuple(int(meta[:, k].max()) for k in range(3))
+
+
+def unpack_solution(out: np.ndarray, meta: np.ndarray):
+    """The host copy of an ``auction_solve`` result -> (unit_price [m, cmax]
+    float32, agent_of [n] int32, unit_of [n] int32, rounds) per market."""
+    G = len(meta)
+    total_grid, total_req = _sizes(meta)
+    rounds = out[:G]
+    grids = out[G:G + total_grid].view(np.float32)
+    agents = out[G + total_grid:G + total_grid + total_req]
+    units = out[G + total_grid + total_req:]
+    res = []
+    for g, (n, m, cmax, _c, _w, _p, _i, g_off, r_off) in enumerate(meta):
+        res.append((grids[g_off:g_off + m * cmax].reshape(m, cmax),
+                    agents[r_off:r_off + n], units[r_off:r_off + n],
+                    int(rounds[g])))
+    return res
+
+
+def auction_solve_cuda(fbuf: torch.Tensor, ibuf: torch.Tensor,
+                       meta: np.ndarray) -> torch.Tensor:
+    """fbuf float32 / ibuf int32 (contiguous CUDA tensors on one device,
+    packed by `pack_markets`), meta the host layout table -> the packed
+    int32 result on the device (`unpack_solution` reads its host copy),
+    launched on the current stream.  Raises on any other input and on a
+    failed launch."""
+    dev = fbuf.device
+    if dev.type != "cuda" or ibuf.device != dev:
+        raise ValueError("auction_solve_cuda takes CUDA tensors on one "
+                         "device")
+    if fbuf.dtype != torch.float32 or ibuf.dtype != torch.int32:
+        raise TypeError("auction_solve_cuda takes a float32 and an int32 "
+                        "buffer")
+    if not (fbuf.is_contiguous() and ibuf.is_contiguous()):
+        raise ValueError("auction_solve_cuda takes contiguous buffers")
+    meta = np.asarray(meta, np.int32)
+    if meta.ndim != 2 or meta.shape[1] != len(META) or len(meta) == 0:
+        raise ValueError(f"meta must be [G > 0, {len(META)}]")
+    total_grid, total_req = _sizes(meta)
+    G = len(meta)
+    out = torch.empty(G + total_grid + 2 * total_req, dtype=torch.int32,
+                      device=dev)
+    err = _lib().auction_solve_launch(
+        fbuf.data_ptr(), ibuf.data_ptr(), out.data_ptr(), G,
+        *_bounds(meta), total_grid, total_req,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"auction_solve kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def auction_solve_plan(meta: np.ndarray) -> tuple[bool, int]:
+    """How ``auction_solve_cuda`` launches over the markets of ``meta``:
+    whether W sits in shared memory, and the dynamic shared memory of each
+    block in bytes (on the current CUDA device)."""
+    info = (_I * 2)()
+    err = _lib().auction_solve_plan(*_bounds(np.asarray(meta)), info)
+    if err != 0:
+        raise RuntimeError(f"no auction_solve launch fits: CUDA error {err}")
+    return bool(info[0]), int(info[1])
+
+
+def auction_solve_plain(fbuf: torch.Tensor, ibuf: torch.Tensor,
+                        meta: np.ndarray) -> torch.Tensor:
+    """What ``auction_solve_cuda`` computes, market by market through the
+    solver's host-driven staged market, on the buffers' device."""
+    # the plain version is the solver's own staged market
+    from repro_torch.core.solvers.dense_torch import _StagedMarket
+
+    meta = np.asarray(meta, np.int32)
+    G = len(meta)
+    total_grid, total_req = _sizes(meta)
+    out = torch.empty(G + total_grid + 2 * total_req, dtype=torch.int32,
+                      device=fbuf.device)
+    grids = out[G:G + total_grid].view(torch.float32)
+    agents = out[G + total_grid:G + total_grid + total_req]
+    units = out[G + total_grid + total_req:]
+    for g, (n, m, cmax, cap, w_off, p_off, c_off, g_off, r_off) in \
+            enumerate(meta.tolist()):
+        eps0, eps_final, theta = fbuf[3 * g:3 * g + 3].tolist()
+        market = _StagedMarket(fbuf[w_off:w_off + n * m].view(n, m),
+                               ibuf[c_off:c_off + m], cmax, cap, eps_final)
+        price, agent_of, unit_of, rounds = market.solve(
+            fbuf[p_off:p_off + m * cmax].view(m, cmax), eps0, eps_final,
+            theta)
+        grids[g_off:g_off + m * cmax] = price.reshape(-1)
+        agents[r_off:r_off + n] = agent_of
+        units[r_off:r_off + n] = unit_of
+        out[g] = rounds
+    return out

@@ -11,23 +11,28 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.auction_bid import auction_bid_cuda, auction_bid_plain
+from repro_torch.kernels.auction_bid import (auction_bid_cuda,
+                                             auction_bid_plain,
+                                             auction_solve_cuda,
+                                             auction_solve_plain)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
-                                              lcp_affinity_plain)
+                                              lcp_affinity_plain,
+                                              lcp_gather_cuda, lcp_gather_plain)
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
-__all__ = ["auction_bid_op", "decode_attention_op", "flash_attention_op",
-           "lcp_affinity_op", "launch_counts", "reset_launch_counts",
-           "ssd_op", "wkv6_op"]
+__all__ = ["auction_bid_op", "auction_solve_op", "decode_attention_op",
+           "flash_attention_op", "lcp_affinity_op", "lcp_gather_op",
+           "launch_counts", "reset_launch_counts", "ssd_op", "wkv6_op"]
 
 
-_LAUNCHES = {"auction_bid": 0, "lcp_affinity": 0, "flash_attention": 0,
-             "decode_attention": 0, "wkv6": 0, "ssd": 0}
+_LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "lcp_affinity": 0,
+             "lcp_gather": 0, "flash_attention": 0, "decode_attention": 0,
+             "wkv6": 0, "ssd": 0}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -45,6 +50,28 @@ def auction_bid_op(W, ask, ask2, active, eps):
         _LAUNCHES["auction_bid"] += 1
         return out
     return auction_bid_plain(W, ask, ask2, active, eps)
+
+
+def auction_solve_op(fbuf, ibuf, meta):
+    """The staged ε-scaling solve of packed markets (`auction_bid.
+    pack_markets`): fbuf float32, ibuf int32, meta the host layout table ->
+    the packed int32 result (`auction_bid.unpack_solution`); see
+    `kernels/auction_bid.py`."""
+    if _route(fbuf) == "cuda":
+        out = auction_solve_cuda(fbuf, ibuf, meta)
+        _LAUNCHES["auction_solve"] += 1
+        return out
+    return auction_solve_plain(fbuf, ibuf, meta)
+
+
+def lcp_gather_op(prompts, arena, rows):
+    """prompts [N, Lp] against arena rows ``arena[rows]`` (arena [S, La],
+    rows [N, M]) -> lcp [N, M]; see `kernels/lcp_affinity.py`."""
+    if _route(prompts) == "cuda":
+        out = lcp_gather_cuda(prompts, arena, rows)
+        _LAUNCHES["lcp_gather"] += 1
+        return out
+    return lcp_gather_plain(prompts, arena, rows)
 
 
 def lcp_affinity_op(prompts, ledgers):

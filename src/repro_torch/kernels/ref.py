@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the port's kernels (the CPU path and the oracles).
 
-Each of the first four functions computes exactly what its hand-written
+Each of the first five functions computes exactly what its hand-written
 CUDA kernel computes, with plain tensor ops in the reference's op order:
-the LCP and bidding kernels agree with them bit for bit, the attention
+the LCP, LCP-gather and bidding kernels agree with them bit for bit, the attention
 kernels within the reference's tolerances (their sums run in another
 order).  The tests hold these against the JAX package's oracles
 (`repro.kernels.ref`) on the CPU, `chip_smoke.py` holds each kernel
@@ -36,6 +36,25 @@ def lcp_ref(prompts: torch.Tensor, ledgers: torch.Tensor) -> torch.Tensor:
     first = neq.to(torch.uint8).argmax(dim=-1)      # first True (0 if none)
     return torch.where(neq.any(dim=-1), first,
                        torch.full_like(first, length)).to(torch.int32)
+
+
+def lcp_gather_ref(prompts: torch.Tensor, arena: torch.Tensor,
+                   rows: torch.Tensor) -> torch.Tensor:
+    """prompts: [N, Lp] int32; arena: [S, La] int32 (pad -2); rows: [N, M]
+    int32 row indices -> [N, M] int32.
+
+    `lcp_ref` on the dense tile ``arena[rows]``, cut or padded (-2) to the
+    prompt width Lp: tokens past the arena's width never match.
+    """
+    n, lp = prompts.shape
+    tile = arena[rows.long()]                       # [N, M, La]
+    la = tile.shape[-1]
+    if la >= lp:
+        tile = tile[..., :lp]
+    else:
+        tile = torch.cat([tile, tile.new_full((*tile.shape[:2], lp - la),
+                                              -2)], dim=-1)
+    return lcp_ref(prompts, tile)
 
 
 # ---------------- auction bidding round ----------------

@@ -16,6 +16,7 @@ TIER1_MODULES = {
     "test_torch_engine",
     "test_torch_isolation",
     "test_torch_kernels_ref",
+    "test_torch_ledger_mirror",
     "test_torch_models",
     "test_torch_recurrent",
     "test_torch_router",

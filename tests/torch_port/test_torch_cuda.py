@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain versions at the main
-paths' shapes, a short CUDA-vs-CPU router lockstep and reduced CUDA-vs-CPU
-serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
+paths' shapes (the staged auction solve bit for bit against the host-driven
+staged market: one market, a hub batch, a tripped budget, ties), short
+CUDA-vs-CPU router locksteps (one hub and 8 hubs with spill) and reduced
+CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
 2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
@@ -14,13 +16,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.auction_bid import (auction_bid_cuda,  # noqa: E402
-                                             auction_bid_plain)
+                                             auction_bid_plain,
+                                             auction_solve_cuda,
+                                             auction_solve_plain,
+                                             pack_markets, unpack_solution)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_cuda, decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda, flash_attention_plain)
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,  # noqa: E402
-                                              lcp_affinity_plain)
+                                              lcp_affinity_plain,
+                                              lcp_gather_cuda,
+                                              lcp_gather_plain)
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
 
@@ -92,40 +99,137 @@ def test_bid_kernel_bit_exact_with_plain(dev, n, m):
         assert torch.equal(g, w)
 
 
+def solve_market(n, m, cmax, seed, *, warm=False, tie=False, cap=200_000):
+    """A seeded market for ``auction_solve``: cold (zero grid, ε₀ = wmax/5)
+    or warm (seeded prices, ε₀ = wmax/125), ``tie`` repeating columns and
+    rows."""
+    from repro_torch.core.solvers.dense_common import float32_eps_final
+
+    rng = np.random.default_rng(seed)
+    W = np.maximum(rng.uniform(-1, 4, (n, m)), 0.0).astype(np.float32)
+    if tie:
+        W[:, 1::2] = W[:, 0::2][:, : m // 2]
+        W[1::2] = W[0::2][: n // 2]
+    counts = rng.integers(0, cmax + 1, m).astype(np.int32)
+    counts[0] = cmax
+    wmax = float(W[:, counts > 0].max())
+    eps_f = float32_eps_final(wmax, np.float32)
+    p0, eps0 = np.zeros((m, cmax), np.float32), max(wmax / 5.0, eps_f)
+    if warm:
+        p0 = (rng.uniform(0, 3, (m, cmax)) * (np.arange(cmax)[None, :]
+                                               < counts[:, None])
+              ).astype(np.float32)
+        eps0 = max(wmax / 125.0, eps_f)
+    return W, counts, p0, eps0, eps_f, 5.0, cap
+
+
+def assert_solve_matches_plain(markets, dev):
+    """One launch against the plain staged market on the host, bit for bit
+    (the packed result holds prices, assignment and rounds); returns the
+    rounds per market."""
+    fbuf, ibuf, meta = pack_markets(markets)
+    got = auction_solve_cuda(torch.from_numpy(fbuf).to(dev),
+                             torch.from_numpy(ibuf).to(dev), meta)
+    torch.cuda.synchronize()
+    want = auction_solve_plain(torch.from_numpy(fbuf),
+                               torch.from_numpy(ibuf), meta)
+    assert torch.equal(got.cpu(), want)
+    return [r[3] for r in unpack_solution(want.numpy(), meta)]
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_solve_kernel_single_market(dev, warm):
+    rounds = assert_solve_matches_plain(
+        [solve_market(64, 128, 12, int(warm), warm=warm)], dev)
+    assert rounds[0] > 0
+
+
+def test_solve_kernel_hub_batch(dev):
+    shapes = [(8, 16, 8), (3, 16, 3), (12, 16, 12), (1, 16, 1), (20, 16, 12),
+              (9, 15, 5), (16, 17, 12), (5, 16, 2)]
+    rounds = assert_solve_matches_plain(
+        [solve_market(n, m, c, 10 + h, warm=h % 2 == 1)
+         for h, (n, m, c) in enumerate(shapes)], dev)
+    assert len(set(rounds)) > 1
+
+
+def test_solve_kernel_budget_trip_and_ties(dev):
+    rounds = assert_solve_matches_plain(
+        [solve_market(64, 128, 12, 2, warm=True, cap=20),
+         solve_market(64, 128, 12, 3, tie=True)], dev)
+    assert rounds[0] == 20
+
+
+def test_solve_kernel_with_w_in_global_memory(dev):
+    assert_solve_matches_plain([solve_market(200, 400, 12, 4)], dev)
+
+
+@pytest.mark.parametrize("lp,la", [(1024, 1024), (1000, 1024), (1100, 1024),
+                                   (37, 64)])
+def test_lcp_gather_kernel_matches_plain(dev, lp, la):
+    rng = np.random.default_rng(lp + la)
+    n, m, s = 64, 128, 300
+    arena = np.full((s, la), -2, np.int32)
+    for r in range(1, s):
+        k = int(rng.integers(0, la + 1))
+        arena[r, :k] = rng.integers(1, 4, k)
+    rows = rng.integers(0, s, (n, m)).astype(np.int32)
+    prompts = np.full((n, lp), -1, np.int32)
+    for j in range(n):
+        k = int(rng.integers(lp // 4, lp + 1))
+        prompts[j, :k] = rng.integers(1, 4, k)
+        src = arena[rows[j, 1], :min(k, la)]
+        prompts[j, :len(src)] = np.where(src >= 0, src, prompts[j, :len(src)])
+    args = [torch.from_numpy(x).to(dev) for x in (prompts, arena, rows)]
+    got = lcp_gather_cuda(*args)
+    torch.cuda.synchronize()
+    want = lcp_gather_plain(*args)
+    assert torch.equal(got, want) and int(want.max()) > 0
+
+
 def test_ops_count_kernel_launches(dev):
     ops.reset_launch_counts()
     ops.auction_bid_op(*bid_inputs(8, 4, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, dev))
     ops.lcp_affinity_op(*lcp_inputs(2, 3, 40, 0, "cpu"))      # plain: uncounted
+    fbuf, ibuf, meta = pack_markets([solve_market(8, 4, 2, 0)])
+    ops.auction_solve_op(torch.from_numpy(fbuf).to(dev),
+                         torch.from_numpy(ibuf).to(dev), meta)
+    ops.auction_solve_op(torch.from_numpy(fbuf), torch.from_numpy(ibuf), meta)
+    prompts, ledgers = lcp_inputs(2, 3, 40, 0, dev)
+    ops.lcp_gather_op(prompts, ledgers[0],
+                      torch.zeros((2, 3), dtype=torch.int32, device=dev))
     ops.wkv6_op(*wkv6_inputs(1, 20, 2, 16, torch.float32, True, dev, 0))
     ops.ssd_op(*ssd_inputs(1, 20, 2, 16, 8, torch.float32, False, dev, 0))
     ops.wkv6_op(*wkv6_inputs(1, 20, 2, 16, torch.float32, True, "cpu", 0))
-    assert ops.launch_counts() == {"auction_bid": 1, "lcp_affinity": 1,
+    assert ops.launch_counts() == {"auction_bid": 1, "auction_solve": 1,
+                                   "lcp_affinity": 1, "lcp_gather": 1,
                                    "flash_attention": 0,
                                    "decode_attention": 0, "wkv6": 1,
                                    "ssd": 1}
 
 
-def test_cuda_router_matches_cpu_router(dev):
-    from repro_torch.configs.iemas_cluster import (RouterConfig, agent_infos,
+def _router_lockstep(dev, n_agents, cfg, batches, n_req):
+    from repro_torch.configs.iemas_cluster import (agent_infos,
                                                    agent_profiles,
                                                    make_router)
     from repro_torch.core.mechanism import CompletionObs, Request
 
-    infos = agent_infos(agent_profiles(16))
-    cfg = RouterConfig(warm_start=True, audit_ledger=True)
+    infos = agent_infos(agent_profiles(n_agents))
     gpu = make_router(infos, cfg, device=dev)
     cpu = make_router(infos, cfg, device="cpu")
     rng = np.random.default_rng(0)
+    domains = ("dialogue", "code", "math", "longctx", "reasoning")
     ops.reset_launch_counts()
-    for t in range(4):
+    for t in range(batches):
         reqs = [(f"r{t}_{j}", f"d{j}", rng.integers(1, 50, 20 + 10 * t),
-                 "dialogue" if j % 2 else "code") for j in range(12)]
+                 domains[j % len(domains)]) for j in range(n_req)]
         out = [r.route_batch([Request(a, b, c.astype(np.int32), t, d)
                               for a, b, c, d in reqs], {})
                for r in (gpu, cpu)]
         for a, b in zip(*out):
-            assert (a.agent_id, a.payment) == (b.agent_id, b.payment)
+            assert (a.agent_id, a.payment, a.hub_id) == \
+                (b.agent_id, b.payment, b.hub_id)
             if a.agent_id is not None:
                 obs = CompletionObs(0.05, len(a.request.tokens), 0, 6, 0.7)
                 gpu.on_complete(a.request.request_id, obs)
@@ -133,7 +237,26 @@ def test_cuda_router_matches_cpu_router(dev):
     assert gpu.accounts == cpu.accounts
     assert gpu.settlement.head == cpu.settlement.head
     counts = ops.launch_counts()
-    assert counts["lcp_affinity"] == 4 and counts["auction_bid"] > 0
+    assert counts["lcp_gather"] == batches and counts["auction_solve"] > 0
+    assert counts["auction_bid"] == 0 and counts["lcp_affinity"] == 0
+    return gpu
+
+
+def test_cuda_router_matches_cpu_router(dev):
+    from repro_torch.configs.iemas_cluster import RouterConfig
+
+    _router_lockstep(dev, 16, RouterConfig(warm_start=True,
+                                           audit_ledger=True), 4, 12)
+
+
+def test_cuda_router_matches_cpu_router_at_8_hubs(dev):
+    import dataclasses
+
+    from repro_torch.configs.iemas_cluster import SCALE_128
+
+    cfg = dataclasses.replace(SCALE_128.router_config(), audit_ledger=True)
+    gpu = _router_lockstep(dev, 128, cfg, 4, 64)
+    assert len(gpu.hubs) == 8
 
 
 def _normal(shape, dtype, dev, rng):

@@ -56,7 +56,8 @@ def test_lcp_plain_matches_reference_oracle_and_pallas(seed):
     via_op = ops.lcp_affinity_op(torch.from_numpy(prompts),
                                  torch.from_numpy(ledgers))
     assert np.array_equal(via_op.numpy(), want)
-    assert ops.launch_counts() == {"auction_bid": 0, "lcp_affinity": 0,
+    assert ops.launch_counts() == {"auction_bid": 0, "auction_solve": 0,
+                                   "lcp_affinity": 0, "lcp_gather": 0,
                                    "flash_attention": 0,
                                    "decode_attention": 0, "wkv6": 0,
                                    "ssd": 0}

@@ -6,9 +6,12 @@ the same router with ``solver="cuda", device="cpu"`` (the plain kernel
 versions).  Both route the same seeded coqa_like + quac_like closed loop and
 receive the same completion feedback from the reference's analytic engines.
 Gate: identical decisions (agent, payment bit for bit, hub, estimate),
-identical accounts and the same settlement-ledger head hash.  The carry test
-moves a warmed reference router's state into a port router and continues in
-lockstep."""
+identical accounts and the same settlement-ledger head hash.  The same
+lockstep runs at 2 and 4 hubs, with the spill round on and off and agents
+quarantined, added and removed mid-loop (the port's ``cuda`` backend solving
+every hub block in one call, the reference's ``dense-jax`` one vmapped
+program per bucket).  The carry test moves a warmed reference router's
+state into a port router and continues in lockstep."""
 import numpy as np
 import pytest
 
@@ -40,15 +43,21 @@ def _profiles():
             for i, p in enumerate(agent_profiles(N_AGENTS, seed=1))]
 
 
-def _ref_router(profiles):
-    infos = [ref_mech.AgentInfo(p.agent_id,
-                                RefPrices(p.price_miss, p.price_hit,
-                                          p.price_out),
-                                p.capacity, p.domains, p.scale,
-                                cache_slots=p.cache_slots) for p in profiles]
-    return ref_mech.IEMASRouter(infos, solver="dense-jax", n_hubs=1,
-                                warm_start=True, use_kernel_affinity=True,
-                                audit_ledger=True)
+def _ref_info(p):
+    return ref_mech.AgentInfo(p.agent_id,
+                              RefPrices(p.price_miss, p.price_hit,
+                                        p.price_out),
+                              p.capacity, p.domains, p.scale,
+                              cache_slots=p.cache_slots)
+
+
+def _ref_router(profiles, n_hubs: int = 1, spill: bool = True,
+                hub_scheme: str = "domain"):
+    return ref_mech.IEMASRouter([_ref_info(p) for p in profiles],
+                                solver="dense-jax", n_hubs=n_hubs,
+                                hub_scheme=hub_scheme, warm_start=True,
+                                use_kernel_affinity=True, audit_ledger=True,
+                                spill=spill)
 
 
 class ClosedLoop:
@@ -56,21 +65,34 @@ class ClosedLoop:
     every matched request is served on the reference's analytic engine of
     its agent and both routers get the same completion."""
 
-    def __init__(self, profiles, seed: int):
+    def __init__(self, profiles, seed: int, mixed: bool = False):
         scripts = generate(WorkloadSpec("coqa_like", 10, seed=seed)) + \
             generate(WorkloadSpec("quac_like", 8, seed=seed))
+        if mixed:
+            # three domains, interleaved, so a batch spans several hubs
+            from itertools import chain, zip_longest
+
+            scripts += generate(WorkloadSpec("hotpot_like", 8, seed=seed))
+            by_dom = {}
+            for s in scripts:
+                by_dom.setdefault(s.domain, []).append(s)
+            scripts = [s for s in chain(*zip_longest(*by_dom.values()))
+                       if s is not None]
         self.scripts = {s.dialogue_id: s for s in scripts}
         self.turn = {d: 0 for d in self.scripts}
         self.history = {d: np.zeros(0, np.int32) for d in self.scripts}
         self.ready = list(self.scripts)
-        self.engines = {p.agent_id: AnalyticEngine(p.model_class, seed=i,
-                                                   speed=p.speed,
-                                                   cache_slots=p.cache_slots,
-                                                   max_new_tokens=6)
-                        for i, p in enumerate(profiles)}
-        self.scale = {p.agent_id: p.scale for p in profiles}
+        self.engines, self.scale = {}, {}
+        for i, p in enumerate(profiles):
+            self.add_engine(p, seed=i)
         self.rid = 0
         self.now = 0.0
+
+    def add_engine(self, p, seed: int) -> None:
+        self.engines[p.agent_id] = AnalyticEngine(
+            p.model_class, seed=seed, speed=p.speed,
+            cache_slots=p.cache_slots, max_new_tokens=6)
+        self.scale[p.agent_id] = p.scale
 
     def batch(self):
         out = []
@@ -155,6 +177,43 @@ def test_router_lockstep_matches_reference(seed):
     assert matched >= 20 and port.price_book.warm_hits >= 3
     assert port.settlement.verify_chain()
     port.settlement.audit(port.accounts)
+
+
+# hub cuts under which this fleet's three request domains reach 2-3 hubs
+@pytest.mark.parametrize("n_hubs,spill,scheme", [
+    (2, True, "scale"), (2, False, "scale"), (4, True, "random"),
+    (4, False, "domain")])
+def test_hub_sharded_lockstep_matches_reference(n_hubs, spill, scheme):
+    """Per-hub auctions in one batched solve, the spill round, and the
+    fleet changing under the router: agent-3 quarantined before batch 2 and
+    reinstated before batch 4, a new agent added before batch 3 (the hubs
+    are recut), agent-5 removed before batch 4."""
+    import dataclasses
+
+    profiles = _profiles()
+    ref = _ref_router(profiles, n_hubs, spill, scheme)
+    port = make_router(agent_infos(profiles),
+                       dataclasses.replace(CFG, n_hubs=n_hubs, spill=spill,
+                                           hub_scheme=scheme),
+                       device="cpu")
+    loop = ClosedLoop(profiles, seed=n_hubs + 5 * spill, mixed=True)
+    extra = dataclasses.replace(agent_profiles(N_AGENTS + 1, seed=1)[-1],
+                                capacity=3, cache_slots=3)
+    for step in range(5):
+        if step == 1:
+            for r in (ref, port):
+                r.quarantine("agent-3")
+        if step == 2:
+            loop.add_engine(extra, seed=N_AGENTS)
+            ref.add_agent(_ref_info(extra))
+            port.add_agent(agent_infos([extra])[0])
+        if step == 3:
+            for r in (ref, port):
+                r.reinstate("agent-3")
+                r.remove_agent("agent-5")
+        assert_same(*loop.step([ref, port]), ref, port)
+    assert len(port.hubs) == len(ref.hubs) > 1
+    assert port.settlement.verify_chain()
 
 
 def test_incremental_routes_match_reference():
@@ -255,7 +314,17 @@ def test_carried_state_continues_in_lockstep():
                                        agent_infos(profiles), CFG,
                                        device="cpu")
     assert port.settlement.head == ref.settlement.head
-    for _ in range(2):
+    # the carried arena replaced the store's arrays: a mirror synced before
+    # the carry must re-upload all of it
+    store = port.ledger.store
+    assert store.shape_version == 1
+    carried = store.tokens.nbytes
+    for step in range(2):
         ref_dec, port_dec = loop.step([ref, port])
         assert_same(ref_dec, port_dec, ref, port)
+        mirror = port.ledger.mirror("cpu")
+        if step == 0:
+            assert mirror.bytes_sent >= carried
+        mirror.sync()     # level with the completions' ledger writes
+        assert torch.equal(mirror.tokens, torch.from_numpy(store.tokens))
     assert port.price_book.warm_hits > 0

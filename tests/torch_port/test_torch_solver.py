@@ -3,7 +3,11 @@ the CPU) against the reference's jit-staged ``solve_dense_auction_jax``:
 identical assignments, unit indices and round counts, a bit-identical
 float32 price grid, identical Clarke payments, and welfare within the
 ``2·n·ε`` certificate of the float64 ``dense`` solver.  Cold, warm, and a
-warm seed bad enough to trip the warm round budget."""
+warm seed bad enough to trip the warm round budget.  The hub batch
+(``cuda``'s ``solve_batch``) against the reference's vmapped
+``DenseJaxBackend.solve_batch`` on uneven hubs, warm and cold mixed and a
+warm hub that trips its bucket budget into the float64 fallback, and the
+ported float64 ``dense_np`` solver against the reference's."""
 import numpy as np
 import pytest
 
@@ -12,13 +16,20 @@ torch = pytest.importorskip("torch")
 from repro.core.solvers.dense_common import jax_eps_final  # noqa: E402
 from repro.core.solvers.dense_jax import (DenseJaxBackend,  # noqa: E402
                                           _get_jax_solver,
-                                          solve_dense_auction_jax)
+                                          solve_dense_auction_jax,
+                                          solve_dense_auction_jax_batch)
 from repro.core.solvers.dense_np import DenseNumpyBackend  # noqa: E402
+from repro.core.solvers.dense_np import \
+    solve_dense_auction as ref_dense_np  # noqa: E402
 from repro_torch.core.solvers import get_solver  # noqa: E402
 from repro_torch.core.solvers.cuda_backend import \
     solve_dense_auction_cuda  # noqa: E402
+from repro_torch.core.solvers.dense_np import \
+    solve_dense_auction as port_dense_np  # noqa: E402
 from repro_torch.core.solvers.dense_torch import (  # noqa: E402
-    _StagedMarket, solve_dense_auction_torch)
+    _StagedMarket, solve_dense_auction_torch,
+    solve_dense_auction_torch_batch)
+from repro_torch.kernels import ops  # noqa: E402
 
 # one market shape (n, m, cmax) = (12, 6, 4) keeps the reference's jit cache
 # to a few programs
@@ -128,3 +139,99 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
         get_solver("cuda").solve(w, costs, CAPS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_solver("dense-torch").solve(w, costs, CAPS, device="cuda")
+
+
+# uneven hub blocks (n_h requests, m_h agents); a few pow-2 buckets keep the
+# reference's vmapped trace cache small
+HUBS = [(7, 3), (16, 5), (33, 4), (64, 16)]
+
+
+def _hub_markets(seed: int):
+    rng = np.random.default_rng(seed)
+    ws, costs, caps = [], [], []
+    for n, m in HUBS:
+        values = rng.uniform(0, 6, (n, m)) * (rng.random((n, m)) > 0.3)
+        c = rng.uniform(0, 3, (n, m))
+        ws.append(np.maximum(values - c, 0.0))
+        costs.append(c)
+        caps.append([int(x) for x in rng.integers(1, 6, m)])
+    return ws, costs, caps
+
+
+def _same_backend_result(got, want):
+    assert got.assignment == want.assignment
+    assert got.payments == want.payments
+    assert got.welfare == want.welfare
+    for k in ("rounds", "eps", "gap_bound", "warm_started", "warm_fallback"):
+        assert got.solver_stats[k] == want.solver_stats[k], k
+    for pa, pb in zip(got.solver_stats["agent_prices"],
+                      want.solver_stats["agent_prices"]):
+        assert np.array_equal(pa, pb)
+
+
+@pytest.mark.parametrize("seed,warm", [(0, ()), (1, (0, 2)),
+                                       (2, (0, 1, 2, 3))])
+def test_hub_batch_matches_dense_jax_batch(seed, warm):
+    """Cold hubs, warm and cold mixed, all warm: prices, assignment,
+    payments, rounds and fallback flags bit for bit, in one
+    ``auction_solve`` call."""
+    ws, costs, caps = _hub_markets(seed)
+    first = DenseJaxBackend().solve_batch(ws, costs, caps)
+    rng = np.random.default_rng(seed + 50)
+    seeds = [np.concatenate(first[h].solver_stats["agent_prices"])
+             * rng.uniform(0.8, 1.2) if h in warm else None
+             for h in range(len(HUBS))]
+    want = DenseJaxBackend().solve_batch(ws, costs, caps,
+                                         start_prices_list=seeds)
+    ops.reset_launch_counts()
+    got = get_solver("cuda").solve_batch(ws, costs, caps,
+                                         start_prices_list=seeds,
+                                         device="cpu")
+    assert ops.launch_counts()["auction_solve"] == 0      # plain on the CPU
+    for g, w in zip(got, want):
+        _same_backend_result(g, w)
+    assert [g.solver_stats["warm_started"] for g in got] == \
+        [h in warm for h in range(len(HUBS))]
+
+
+def test_hub_batch_budget_trip_falls_back_to_dense_np():
+    """A warm hub seeded far above every weight bids for longer than its
+    cold solve (383 rounds against 207) and trips its bucket budget (here
+    ``max_rounds``, just above the cold hubs' rounds); both batches
+    re-solve it with the float64 solver, the cold hubs are unaffected."""
+    ws, _, caps = _hub_markets(3)
+    ws, caps = ws[:3], caps[:3]
+    cold = solve_dense_auction_jax_batch(ws, caps)
+    cap = max(r.rounds for r in cold) + 1
+    seeds = [None, np.full(sum(min(c, 16) for c in caps[1]), 50.0), None]
+    want = solve_dense_auction_jax_batch(ws, caps, start_prices_list=seeds,
+                                         max_rounds=cap)
+    got = solve_dense_auction_torch_batch(ws, caps, start_prices_list=seeds,
+                                          max_rounds=cap, device="cpu")
+    assert want[1].fallback and want[1].warm_started
+    assert not any(r.fallback for h, r in enumerate(want) if h != 1)
+    for g, w in zip(got, want):
+        _same_result(g, w)
+        assert g.eps == w.eps and g.phases == w.phases
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dense_np_matches_reference(seed):
+    """The ported float64 solver: cold, warm and a budget-tripping warm
+    seed give the reference's assignment, prices, rounds and phases."""
+    rng = np.random.default_rng(seed)
+    n, m = 20 + 7 * seed, 6 + seed
+    w = rng.uniform(0, 5, (n, m)) * (rng.random((n, m)) > 0.4)
+    caps = [int(x) for x in rng.integers(0, 6, m)]
+    cold = port_dense_np(w, caps)
+    _same_result(cold, ref_dense_np(w, caps))
+    assert cold.phases == ref_dense_np(w, caps).phases
+    warm_seed = cold.flat_prices * rng.uniform(0.9, 1.1, cold.flat_prices.size)
+    _same_result(port_dense_np(w, caps, start_prices=warm_seed),
+                 ref_dense_np(w, caps, start_prices=warm_seed))
+    high = np.full(cold.flat_prices.size, 40.0)
+    got = port_dense_np(w, caps, start_prices=high,
+                        max_rounds=cold.rounds + 1)
+    want = ref_dense_np(w, caps, start_prices=high,
+                        max_rounds=cold.rounds + 1)
+    _same_result(got, want)
