@@ -10,10 +10,11 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
-2. Build: all six kernel libraries from ``src/repro_torch/kernels/csrc``
+2. Build: all seven kernel libraries from ``src/repro_torch/kernels/csrc``
    with one ``nvcc`` each, started together; prints each kernel instance's
    registers, static shared memory and spills from ``-Xptxas -v``
-   (``auction_solve_kernel`` and ``lcp_gather_kernel`` must be among them),
+   (``auction_solve_kernel``, ``auction_fused_kernel``,
+   ``lcp_gather_kernel`` and ``fused_phase1_kernel`` must be among them),
    and the count of tensor-core instructions (``HMMA``/``HGMMA``) in the
    SASS of every instance of the bf16 flash kernel and of both passes of
    each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
@@ -117,9 +118,32 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     12's rwkv6-3b engine, ``AgentInfo.recurrent`` taken from the engines,
     routes two two-turn dialogues; every request is served, and a turn 2
     that returns to the rwkv agent as an exact extension hits the cache.
-    Then the card line, the JSON line of the eight kernels' records (the
-    six TPU kernels' counterparts and the router's two redesigned entries)
-    and the device line last.
+15. The fused router (``IEMASRouter(fused=True)``, the reference's
+    ``core/routing_fused.py``): the SCALE_128 fleet at one hub, solver
+    ``cuda``, warm starts and spill on, phase 4's closed loop on the
+    analytic engines plus one batch whose DAG steps name parent sessions.
+    The CUDA and the CPU fused routers must give identical decisions,
+    payments, accounts, ledger head and rounds per solve; against the
+    staged CUDA router the two-tier gate of tests/test_routing_fused.py
+    holds on every batch until the first tier-2 batch (another assignment
+    within the ε-optimality gap), where the comparison stops as the test's
+    does.  Per batch exactly one launch each of ``lcp_gather``,
+    ``fused_phase1`` and ``auction_fused`` (the fused mode of the solve,
+    its cold fallback in the same launch), none of ``auction_bid`` and
+    ``lcp_affinity``, ``auction_solve`` only for spill solves.  No sync
+    between a step's first launch and the return of its fused solve
+    (PyTorch's sync debug mode is "error" there, so one raises) and one
+    synchronizing call after it, the copy (counted in "warn" mode); one
+    device-to-host copy per step in a ``torch.profiler`` trace of three
+    more steps.  Then the steps' gathers and both fused kernels against
+    their plain versions at every main-path input (the plain Phase-1 pass
+    on the plain gather's LCP), timed, and on synthetic cases (cold
+    and trained agents, recurrent and LRU-capped agents, the optimism
+    bonus, parents, padding; the solve cold, warm and with a tripped warm
+    budget).
+    Then the card line, the JSON line of the ten kernels' records (the six
+    TPU kernels' counterparts, the router's two redesigned entries and the
+    fused step's two kernels) and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -198,6 +222,8 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
               "lcp_gather": ("lcp_gather_kernel",),
               "auction_bid": ("Memset", "bid_rows", "bid_decode"),
               "auction_solve": ("auction_solve_kernel",),
+              "fused_phase1": ("Memset", "fused_phase1_kernel"),
+              "auction_fused": ("auction_fused_kernel",),
               "flash_attention": ("flash_",),
               "decode_attention": ("decode_split_kernel",
                                    "decode_combine_kernel"),
@@ -2056,6 +2082,633 @@ def phase_mixed_fleet(dev, qwen_engine, rwkv_engine) -> None:
     print(f"    accounts {dict(router.accounts)}")
 
 
+# ----------------------------------------------------- fused router, 15 --
+PAY_TOL = 1e-5       # tests/test_routing_fused.py's two-tier gate
+EST_TOL = 1e-4
+# what PyTorch's sync debug mode says of a synchronizing call (a warning in
+# "warn" mode, the error's message in "error" mode)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def gate_tier(staged, fused, batch: int) -> int:
+    """tests/test_routing_fused.py's two-tier gate of the fused decisions
+    against the staged ones: 1 when the assignments are identical (then
+    payments within PAY_TOL, estimates within EST_TOL), 2 when they differ
+    but the total welfare is within the auction's ε-optimality gap; fails
+    otherwise."""
+    a_s = [d.agent_id for d in staged]
+    a_f = [d.agent_id for d in fused]
+    w_s = sum(d.welfare_weight for d in staged)
+    w_f = sum(d.welfare_weight for d in fused)
+    if a_f != a_s:
+        check(abs(w_f - w_s) <= 1e-5 * max(1.0, abs(w_s)),
+              f"batch {batch}: fused welfare {w_f} vs staged {w_s} beyond "
+              "the ε-optimality gap")
+        return 2
+    for s, f in zip(staged, fused):
+        check(abs(s.payment - f.payment) < PAY_TOL,
+              f"batch {batch}: payment {f.payment} vs {s.payment}")
+        if s.agent_id:
+            for k in ("latency", "cost", "quality"):
+                check(abs(getattr(s.estimate, k) - getattr(f.estimate, k))
+                      < EST_TOL, f"batch {batch}: estimate {k} differs")
+    return 1
+
+
+@contextmanager
+def recording_fused(ops):
+    """Keep copies of the inputs of every card call of ``fused_phase1_op``
+    and ``auction_fused_op`` (the step's buffers and the ledger arena are
+    reused from batch to batch, and the fused solve writes into its
+    buffer), each ``fused_phase1`` call with the inputs of the
+    ``lcp_gather_op`` call whose output is its ``lcp`` (None if there is
+    none; a staged router's gathers are left out, phase 5 replays those);
+    the calls go on unchanged."""
+    import torch
+
+    phase1, fused, gather = (ops.fused_phase1_op, ops.auction_fused_op,
+                             ops.lcp_gather_op)
+    calls = {"fused_phase1": [], "auction_fused": []}
+    last = {}
+
+    def rec_gather(prompts, arena, rows):
+        out = gather(prompts, arena, rows)
+        if out.is_cuda:
+            last.update(out=out, args=(prompts, arena, rows))
+        return out
+
+    def rec_phase1(args, out, lay):
+        if out.is_cuda:
+            g = None
+            if last.get("out") is args.lcp:
+                g = tuple(t.clone() for t in last["args"])
+            calls["fused_phase1"].append((args.map(torch.clone), lay, g))
+        return phase1(args, out, lay)
+
+    def rec_fused(out, counts, p0, lay, **kw):
+        if out.is_cuda:
+            calls["auction_fused"].append(
+                ((out.clone(), counts.clone(), p0.clone(), lay), kw))
+        return fused(out, counts, p0, lay, **kw)
+
+    ops.fused_phase1_op, ops.auction_fused_op, ops.lcp_gather_op = (
+        rec_phase1, rec_fused, rec_gather)
+    try:
+        yield calls
+    finally:
+        ops.fused_phase1_op, ops.auction_fused_op, ops.lcp_gather_op = (
+            phase1, fused, gather)
+
+
+def keep_rounds(router, sink: list, starts: Counter | None = None) -> None:
+    """Append the rounds of each of ``router``'s fused solves to ``sink``
+    and count its warm starts and their trips into the cold re-solve in
+    ``starts`` (from the packaged result the step returns: no extra device
+    read)."""
+    step = router._fused.step
+
+    def wrapped(*args, **kw):
+        out = step(*args, **kw)
+        stats = out[5].solver_stats
+        sink.append(stats.get("rounds"))
+        if starts is not None:
+            starts["warm"] += bool(stats.get("warm_started"))
+            starts["tripped"] += bool(stats.get("warm_fallback"))
+        return out
+
+    router._fused.step = wrapped
+
+
+@contextmanager
+def guarding_syncs(router, ops):
+    """Measure the device syncs of every step of ``router``'s fused step on
+    the card.  From the step's first launch (``lcp_gather``) until its
+    fused solve returns, PyTorch's sync debug mode is "error", so any
+    synchronizing call there raises and fails the phase; from then until
+    the step returns it is "warn", and the synchronizing calls there (the
+    step's one device-to-host copy) are counted.  Yields a Counter of
+    ``steps`` and ``tail_syncs``; the blocking uploads before the first
+    launch are not counted."""
+    import warnings
+
+    import torch
+
+    step = router._fused.step
+    tally = Counter()
+
+    def guarded(*args, **kw):
+        gather, fused = ops.lcp_gather_op, ops.auction_fused_op
+
+        def first(*a):
+            torch.cuda.set_sync_debug_mode("error")
+            return gather(*a)
+
+        def last(*a, **k):
+            out = fused(*a, **k)
+            torch.cuda.set_sync_debug_mode("warn")
+            return out
+
+        ops.lcp_gather_op, ops.auction_fused_op = first, last
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                out = step(*args, **kw)
+        except RuntimeError as e:
+            check(SYNC_WARNING not in str(e), f"a fused step synced between "
+                  f"its launches: {e}")
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            ops.lcp_gather_op, ops.auction_fused_op = gather, fused
+        tally["steps"] += 1
+        tally["tail_syncs"] += sum(SYNC_WARNING in str(w.message)
+                                   for w in seen)
+        return out
+
+    router._fused.step = guarded
+    try:
+        yield tally
+    finally:
+        router._fused.step = step
+
+
+def profiled_copies(router, loop, steps: int) -> list[tuple[int, int, int]]:
+    """Route ``steps`` more batches of ``loop`` through ``router`` alone,
+    each fused step inside its own ``torch.profiler`` trace (after an empty
+    trace that takes late records of earlier work); returns each trace's
+    (device-to-host copies, host-to-device copies, kernel records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step = router._fused.step
+    seen = []
+
+    def traced(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = step(*args, **kw)
+        d2h = h2d = kernels = 0
+        for e in prof.key_averages():
+            if e.key.startswith("Memcpy DtoH"):
+                d2h += e.count
+            elif e.key.startswith("Memcpy HtoD"):
+                h2d += e.count
+            elif e.device_type == DeviceType.CUDA and e.count \
+                    and not e.key.startswith("Mem"):
+                kernels += e.count
+        seen.append((d2h, h2d, kernels))
+        return out
+
+    router._fused.step = traced
+    try:
+        for _ in range(steps):
+            reqs = loop.next_batch()
+            check(bool(reqs), "closed loop ran dry before the traced steps")
+            got = router.route_batch(reqs, {"router_inflight": len(reqs),
+                                            "router_rps": 2.0})
+            loop.complete(got, [router])
+    finally:
+        router._fused.step = step
+    return seen
+
+
+def phase1_work(args, lay) -> tuple[int, int]:
+    """(bytes, operations) one ``fused_phase1`` call must move and do:
+    every input array read once (the arena lengths only at the pairs' rows,
+    each forest's node pool whole), the outputs (lat, cst, qual, values, W,
+    the 10 features, wmax) written once; ~110 float32 operations a pair
+    (Eq. 4, the features, the prior blend, Eq. 1; the descents' compares
+    counted as one a level)."""
+    pairs = args.nb * args.mb
+    rows = args.lcp.shape[0] * args.mb
+    # lcp, rows and alen at the rows; keep and dom; ckeep; plen, turns and
+    # req_mask; cj; ext, agent_mask, counts, inflight, rps and caps; the
+    # router scalars; blend; val_cfg
+    nbytes = 4 * (3 * rows + 2 * pairs + args.cb * args.mb + 3 * args.nb
+                  + args.cb + 6 * args.mb + 2 + args.blend.numel() + 3)
+    for fo in args.forests:
+        nbytes += 4 * (5 * fo.feature.numel() + fo.roots.numel())
+    nbytes += 4 * (15 * pairs + 1)
+    depth = sum(fo.depth for fo in args.forests)
+    return nbytes, pairs * (110 + depth)
+
+
+def fused_router_small(dev):
+    """tests/test_routing_fused.py's heterogeneous 5-agent fleet (a
+    recurrent agent, an LRU-capped one) as a fused router on ``dev``, with
+    the optimism bonus on two agents."""
+    from repro_torch.core.mechanism import AgentInfo, IEMASRouter
+    from repro_torch.core.pricing import TokenPrices
+
+    agents = [AgentInfo(f"a{i}", TokenPrices(0.01 * (1 + i / 5),
+                                             0.001 * (1 + i / 5),
+                                             0.03 * (1 + i / 5)), 2,
+                        ("dialogue",) if i % 2 == 0
+                        else ("dialogue", "reasoning"), scale=4.0 + i,
+                        recurrent=(i == 3), cache_slots=2 if i == 1 else 0)
+              for i in range(5)]
+    r = IEMASRouter(agents, solver="cuda", n_hubs=1, fused=True,
+                    warm_start=True, device=dev)
+    for aid in ("a0", "a2"):
+        r.pool[aid].explore = 0.05
+    return r
+
+
+def small_batch(n, t, parents):
+    import numpy as np
+
+    from repro_torch.core.mechanism import Request
+
+    rng = np.random.default_rng(1000 + t)
+    return [Request(f"s{t}_{j}", f"d{j % 4}",
+                    rng.integers(0, 50, int(rng.integers(5, 30))), turn=t,
+                    domain="dialogue" if j % 2 == 0 else "reasoning",
+                    meta={"parent_sessions": (f"d{(j + 1) % 4}",
+                                              f"d{(j + 2) % 4}")}
+                    if parents and j % 3 == 1 else {})
+            for j in range(n)]
+
+
+def phase1_synthetic(dev, ops) -> None:
+    """``fused_phase1`` against its plain version on the 5-agent fleet's
+    calls: cold agents, then trained trees (split), recurrent and
+    LRU-capped agents, the optimism bonus, parents, padded rows and
+    agents."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.predictor import PredictorInput
+    from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
+                                                   fused_phase1_plain)
+
+    r = fused_router_small(dev)
+    tel = {"router_inflight": 2, "router_rps": 1.0,
+           "agent_inflight": {"a0": 1}, "agent_rps": {"a1": 0.5}}
+    rng = np.random.default_rng(4)
+    with recording_fused(ops) as calls:
+        r.route_batch(small_batch(3, 0, False), dict(tel))
+        for k in range(700):
+            x = rng.uniform(0, 1, 10) * np.array([30, 4, 1, 3, 2, 2, 1, 2,
+                                                  1, 1])
+            r.pool[f"a{k % 5}"].update(PredictorInput(*x),
+                                       0.02 + 0.3 * (x[0] > 15),
+                                       0.01 + 2.0 * (x[2] > 0.5),
+                                       float(x[9] > 0.5))
+        for k in range(12):
+            r.ledger.update(f"a{k % 5}", f"d{k % 4}",
+                            rng.integers(0, 50, int(rng.integers(5, 30))))
+        r.route_batch(small_batch(6, 1, True), dict(tel))
+        r.route_batch(small_batch(5, 2, False), dict(tel))
+    check(r.pool["a0"].lat.compiled().depth >= 1, "the trees did not split")
+    got_parents = False
+    for args, lay, _ in calls["fused_phase1"]:
+        got = fused_phase1_cuda(args, torch.zeros(lay.total, device=dev),
+                                lay)
+        want = fused_phase1_plain(args.map(lambda t: t.cpu()),
+                                  torch.zeros(lay.total), lay)
+        check(exact_diff(got.cpu(), want) == 0.0,
+              f"fused_phase1 kernel != plain at (nb, mb, cb) = "
+              f"({args.nb}, {args.mb}, {args.cb})")
+        got_parents |= args.cb > 0
+    check(got_parents, "no synthetic fused_phase1 call had parents")
+    print(f"    fused_phase1 on the 5-agent fleet: {len(calls['fused_phase1'])}"
+          " calls (cold, trained trees, recurrent and LRU-capped agents, "
+          "explore 0.05 on two agents, parents, padded rows and agents): "
+          "bit-exact")
+
+
+def fused_solve_synthetic(dev) -> None:
+    """The fused mode against its plain version at the one-hub padded
+    shape (64 x 128, 16 unit columns): cold, warm, and a warm budget of 5
+    that trips into the cold re-solve in the same launch; and a (256, 512)
+    market whose W does not fit in shared memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.solvers.dense_common import THETA
+    from repro_torch.kernels.auction_bid import (auction_fused_cuda,
+                                                 auction_fused_plain,
+                                                 auction_solve_plan)
+    from repro_torch.kernels.routing_fused import packed_layout
+
+    rng = np.random.default_rng(6)
+    for case, (nb, mb, cbu) in (("cold", (64, N_AGENTS, 16)),
+                                ("warm", (64, N_AGENTS, 16)),
+                                ("tripped", (64, N_AGENTS, 16)),
+                                ("W past shared memory", (256, 512, 4))):
+        n, m = nb * 25 // 32, mb * 25 // 32
+        W = np.zeros((nb, mb), np.float32)
+        W[:n, :m] = rng.uniform(0, 4, (n, m)) * (rng.random((n, m)) > 0.3)
+        counts = np.zeros(mb, np.int32)
+        counts[:m] = rng.integers(0, cbu + 1, m)
+        lay = packed_layout(nb, mb, cbu)
+        grid = np.zeros((mb, cbu), np.float32)
+        warm = case in ("warm", "tripped")
+        if warm:
+            grid[:m] = rng.uniform(0, 2, (m, cbu))
+        out = torch.zeros(lay.total)
+        out[0] = float(W[:, counts > 0].max())
+        out[lay.W:lay.W + nb * mb] = torch.from_numpy(W.ravel())
+        kw = dict(budget=5 if case == "tripped" else 10_000,
+                  max_rounds=200_000, warm=warm, theta=THETA)
+        t = time.perf_counter()
+        want = auction_fused_plain(out.clone(), torch.from_numpy(counts),
+                                   torch.from_numpy(grid.ravel()), lay, **kw)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        args = (out.to(dev), torch.from_numpy(counts).to(dev),
+                torch.from_numpy(grid.ravel()).to(dev), lay)
+        got = auction_fused_cuda(*args, **kw)
+        check(exact_diff(got.cpu().view(torch.int32),
+                         want.view(torch.int32)) == 0.0,
+              f"auction_fused kernel != plain ({case})")
+        ints = want.view(torch.int32)
+        check(bool(ints[2]) == (case == "tripped"),
+              f"the trip flag is wrong ({case})")
+        shared_w, smem = auction_solve_plan(np.array([[nb, mb, cbu]]))
+        check(shared_w == (case != "W past shared memory"),
+              f"W in the wrong memory ({case})")
+        ms = cuda_time_ms(lambda: auction_fused_cuda(*args, **kw), 5, 1)
+        print(f"    auction_fused ({nb}, {mb}, cbu {cbu}) {case}: bit-exact "
+              f"(prices, assignment, rounds {int(ints[1])}, tripped "
+              f"{bool(ints[2])}), kernel {ms:.4f} ms, plain (host) "
+              f"{plain_ms:.1f} ms; W in {'shared' if shared_w else 'global'}"
+              f" memory, {smem} B dynamic smem")
+
+
+def replay_fused_calls(calls, dev) -> dict:
+    """Every recorded main-path call of the two fused kernels once through
+    the kernel and, on host copies, through its plain version, bit for bit;
+    then each kernel timed over the recorded sequence.  Each step's gather
+    (the request and parent-candidate rows) is held against its plain
+    version too, and the plain Phase-1 replay takes the plain gather's LCP,
+    so the plain chain does not lean on the card.  The plain replay of
+    the fused solves keeps its forward-bidding rounds, whose active rows
+    count the bound's operations."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.auction_bid import (auction_fused_cuda,
+                                                 auction_fused_plain)
+    from repro_torch.kernels.lcp_affinity import (lcp_gather_cuda,
+                                                  lcp_gather_plain)
+    from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
+                                                   fused_phase1_plain)
+
+    p1 = calls["fused_phase1"]
+    check(bool(p1), "no fused_phase1 call was recorded on the main path")
+    err, gerr, nbytes, nops, plain_s = 0.0, 0.0, 0, 0, 0.0
+    outs = []
+    for args, lay, gathered in p1:
+        check(gathered is not None, "a fused step's fused_phase1 did not "
+              "take the LCP of the step's lcp_gather")
+        host_in = tuple(t.cpu() for t in gathered)
+        lcp = lcp_gather_plain(*host_in)
+        gerr = max(gerr, exact_diff(lcp_gather_cuda(*gathered).cpu(), lcp),
+                   exact_diff(args.lcp.cpu(), lcp))
+        out = torch.zeros(lay.total, device=dev)
+        got = fused_phase1_cuda(args, out, lay).cpu()
+        host = dataclasses.replace(args.map(lambda t: t.cpu()), lcp=lcp)
+        t = time.perf_counter()
+        want = fused_phase1_plain(host, torch.zeros(lay.total), lay)
+        plain_s += time.perf_counter() - t
+        err = max(err, exact_diff(got.view(torch.int32),
+                                  want.view(torch.int32)))
+        b, o = phase1_work(args, lay)
+        nbytes, nops = nbytes + b, nops + o
+        outs.append(out)
+    check(gerr == 0.0, "lcp_gather kernel != plain at a fused step's "
+          "request and candidate rows")
+    check(err == 0.0, "fused_phase1 kernel != plain at a main-path input")
+    ms = cuda_time_ms(lambda: [fused_phase1_cuda(a, o, lay)
+                               for (a, lay, _), o in zip(p1, outs)], 50, 2)
+    dev_ms = device_ms([lambda a=a, o=o, lay=lay: fused_phase1_cuda(a, o, lay)
+                        for (a, lay, _), o in zip(p1, outs)], "fused_phase1")
+    bound, by = roofline(nbytes / len(p1), nops / len(p1))
+    phase1 = {"calls": len(p1), "max_abs_err": err, "ms": ms / len(p1),
+              "device_ms": dev_ms, "plain_ms": plain_s * 1e3 / len(p1),
+              "bound_ms": bound, "bound_by": by,
+              "gathers": len(p1), "gather_max_abs_err": gerr,
+              "shapes": sorted({(a.nb, a.mb, a.cb) for a, _, _ in p1})}
+
+    fc = calls["auction_fused"]
+    check(bool(fc), "no auction_fused call was recorded on the main path")
+    bids = []
+    plain_bid = ops.auction_bid_op
+
+    def keep_bid(*args):
+        bids.append(args)
+        return plain_bid(*args)
+
+    ops.auction_bid_op = keep_bid
+    err, nbytes, nops, plain_s, rounds = 0.0, 0, 0, 0.0, 0
+    try:
+        for (out, counts, p0, lay), kw in fc:
+            got = auction_fused_cuda(out.clone(), counts, p0, lay, **kw).cpu()
+            first = len(bids)
+            t = time.perf_counter()
+            want = auction_fused_plain(out.cpu(), counts.cpu(), p0.cpu(),
+                                       lay, **kw)
+            plain_s += time.perf_counter() - t
+            err = max(err, exact_diff(got.view(torch.int32),
+                                      want.view(torch.int32)))
+            rounds += int(want.view(torch.int32)[1])
+            # W, counts, the start grid and wmax read once; the prices,
+            # the assignment and the header written once
+            nbytes += 4 * (lay.nb * lay.mb + 2 * lay.mb + lay.mb * lay.cbu
+                           + 1) + 4 * (lay.mb * lay.cbu + 2 * lay.nb + 3)
+            nops += sum(3 * b[0].shape[1] * int(b[3].sum())
+                        for b in bids[first:])
+    finally:
+        ops.auction_bid_op = plain_bid
+    check(err == 0.0, "auction_fused kernel != plain at a main-path input")
+    ms = cuda_time_ms(lambda: [auction_fused_cuda(*a, **kw) for a, kw in fc],
+                      5, 1)
+    dev_ms = device_ms([lambda a=a, kw=kw: auction_fused_cuda(*a, **kw)
+                        for a, kw in fc], "auction_fused")
+    bound, by = roofline(nbytes / len(fc), nops / len(fc))
+    solve = {"calls": len(fc), "max_abs_err": err, "ms": ms / len(fc),
+             "device_ms": dev_ms, "plain_ms": plain_s * 1e3 / len(fc),
+             "bound_ms": bound, "bound_by": by,
+             "rounds_per_call": rounds / len(fc)}
+    return {"fused_phase1": phase1, "auction_fused": solve}
+
+
+def phase_fused_router(dev) -> tuple[Counter, dict]:
+    """Phase 15: the fused routing step (``IEMASRouter(fused=True)``) on the
+    card at SCALE_128's fleet and one hub, against the fused CPU router bit
+    for bit and the staged CUDA router under the two-tier gate; then both
+    fused kernels at every main-path input and on synthetic cases.
+    Returns the main path's launch counts and the two kernels' figures."""
+    import torch
+
+    from repro_torch.configs.iemas_cluster import (SCALE_128, agent_infos,
+                                                   agent_profiles,
+                                                   make_router)
+    from repro_torch.kernels import ops
+
+    profiles = agent_profiles(SCALE_128.n_agents)
+    infos = agent_infos(profiles)
+    cfg = dataclasses.replace(SCALE_128.router_config(), n_hubs=1,
+                              audit_ledger=True, fused=True)
+    gpu = make_router(infos, cfg, device=dev)
+    cpu = make_router(infos, cfg, device="cpu")
+    staged = make_router(infos, dataclasses.replace(cfg, fused=False),
+                         device=dev)
+    gpu.profiler = clock = PhaseClock()
+    gpu_rounds, cpu_rounds, starts = [], [], Counter()
+    keep_rounds(gpu, gpu_rounds, starts)
+    keep_rounds(cpu, cpu_rounds)
+    loop = ClosedLoop(profiles, SCALE_128.batch_cap,
+                      SCALE_128.max_new_tokens, seed=0)
+    lat, staged_lat, tiers, routed, pay_s = [], [], [], 0, 0.0
+    per_batch = ("lcp_gather", "fused_phase1", "auction_fused")
+    counts = Counter()      # the fused CUDA router's launches only
+
+    def clone(reqs):
+        return [type(r)(r.request_id, r.dialogue_id, r.tokens.copy(),
+                        r.turn, r.domain, r.max_new_tokens, dict(r.meta))
+                for r in reqs]
+
+    def route(reqs, telemetry):
+        """One batch through the three routers; returns the fused CUDA
+        router's decisions and whether the staged router took part."""
+        before = ops.launch_counts()
+        nonlocal pay_s
+        spill_before = tally.single_calls + tally.resolves
+        pay0 = tally.pay_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gpu.route_batch(reqs, telemetry)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        pay_s += tally.pay_s - pay0
+        after = ops.launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        counts.update(delta)
+        check(all(delta[k] == 1 for k in per_batch)
+              and delta["auction_bid"] == 0 and delta["lcp_affinity"] == 0,
+              f"batch {len(lat)}: launches {delta}, not one of each fused "
+              "kernel and none of the replaced ones")
+        check(delta["auction_solve"] == tally.single_calls + tally.resolves
+              - spill_before, "auction_solve launched beyond the spill "
+              "round's solves")
+        want = cpu.route_batch(clone(reqs), telemetry)
+        check(same_decisions(got, want), "CUDA and CPU fused routers decided "
+              f"differently at batch {len(lat)}")
+        check(gpu_rounds == cpu_rounds, "the fused solves' rounds differ "
+              f"between the card and the CPU: {gpu_rounds} {cpu_rounds}")
+        with_staged = not tiers or tiers[-1] == 1
+        if with_staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = staged.route_batch(clone(reqs), telemetry)
+            torch.cuda.synchronize()
+            staged_lat.append(time.perf_counter() - t0)
+            tiers.append(gate_tier(st, got, len(lat)))
+        return got, with_staged
+
+    with recording_fused(ops) as calls, SolveTally() as tally, \
+            guarding_syncs(gpu, ops) as syncs:
+        ops.reset_launch_counts()          # the main path's run starts here
+        while routed < MIN_REQUESTS or len(lat) < 5:
+            reqs = loop.next_batch()
+            check(bool(reqs), "closed loop ran dry before enough requests")
+            telemetry = {"router_inflight": len(reqs), "router_rps": 2.0}
+            got, with_staged = route(reqs, telemetry)
+            routed += len(reqs)
+            loop.complete(got, [gpu, cpu] + ([staged] if with_staged
+                                             and tiers[-1] == 1 else []))
+            check(gpu.accounts == cpu.accounts, "fused accounts diverged")
+            check(gpu.settlement.head == cpu.settlement.head,
+                  "fused settlement ledger heads diverged")
+        # one batch whose DAG steps name parent sessions
+        reqs = loop.next_batch()
+        check(len(reqs) >= 3, "closed loop ran dry before the parents batch")
+        ids = [r.dialogue_id for r in reqs]
+        for j, r in enumerate(reqs):
+            if j % 3 == 1:
+                r.meta["parent_sessions"] = (ids[(j + 1) % len(ids)],
+                                             ids[(j + 2) % len(ids)])
+        got, with_staged = route(reqs, {"router_inflight": len(reqs),
+                                        "router_rps": 2.0})
+        routed += len(reqs)
+        check(calls["fused_phase1"][-1][0].cb > 0,
+              "the parents batch ran no candidate rows")
+        loop.complete(got, [gpu, cpu])
+    check(gpu.accounts == cpu.accounts, "fused accounts diverged")
+    gpu.settlement.audit(gpu.accounts)
+    batches = len(lat)
+    check(syncs["steps"] == batches and syncs["tail_syncs"] == batches,
+          f"{syncs['tail_syncs']} synchronizing calls after the fused solve "
+          f"in {syncs['steps']} fused steps of {batches} batches, not one "
+          "each")
+    ms = sorted(x * 1e3 for x in lat)
+    sms = sorted(x * 1e3 for x in staged_lat)
+    print(f"    {routed} requests in {batches} batches (the last with parent "
+          f"sessions), {gpu.accounts['matched']} matched, the CUDA and CPU "
+          f"fused routers identical (decisions, payments, accounts, ledger "
+          f"head {gpu.settlement.head[:16]}, rounds per solve {gpu_rounds})")
+    print(f"    against the staged CUDA router: {tiers.count(1)} batches in "
+          f"tier 1 (same assignment, payments within {PAY_TOL}, estimates "
+          f"within {EST_TOL}), {tiers.count(2)} in tier 2 (another "
+          "assignment within the ε-optimality gap; the comparison stops "
+          "there, as tests/test_routing_fused.py's does)")
+    print(f"    launches {dict(counts)}; per batch exactly one lcp_gather, "
+          "fused_phase1 and auction_fused; no sync from the first launch to "
+          "the fused solve's return (sync debug mode \"error\") and "
+          f"{syncs['tail_syncs']} synchronizing calls after it in "
+          f"{batches} fused steps (\"warn\"); "
+          f"{gpu._fused.cache_size()} padded shape keys")
+    print(f"    fused router route_batch p50 {percentile(ms, 0.5):.2f} ms, p90 "
+          f"{percentile(ms, 0.9):.2f} ms, {routed / sum(lat):.1f} requests/s;"
+          " per batch " + ", ".join(
+              f"{k} {v / batches:.2f} ms" for k, v in
+              sorted(clock.ms.items())))
+    print(f"    of fused_route: {pay_s * 1e3 / batches:.2f} ms per batch in the "
+          "host's Clarke payments (dense_clarke_payments, NumPy float64); "
+          f"{starts['warm']} of {batches} solves warm-started, "
+          f"{starts['tripped']} tripped into the cold re-solve")
+    print(f"    staged CUDA router at one hub on the first {len(sms)} of "
+          f"these batches: route_batch p50 {percentile(sms, 0.5):.2f} ms, "
+          f"p90 {percentile(sms, 0.9):.2f} ms")
+    print("    route_batch ms per batch, fused: " + ", ".join(
+        f"{x * 1e3:.2f}" for x in lat) + "; staged, same batches: "
+        + ", ".join(f"{x * 1e3:.2f}" for x in staged_lat))
+    gpu.profiler = None
+    traced = profiled_copies(gpu, loop, 3)
+    check(any(k > 0 for _, _, k in traced), f"no traced fused step held a "
+          f"kernel record: {traced}")
+    check(all(d == 1 for d, _, k in traced if k > 0),
+          f"device-to-host copies per traced fused step: {traced}")
+    print("    3 more fused steps, each in its own profiler trace: "
+          "(device-to-host copies, host-to-device copies, kernel records) "
+          f"{traced}")
+    print("    the two fused kernels at every main-path input")
+    figures = replay_fused_calls(calls, dev)
+    r1, r2 = figures["fused_phase1"], figures["auction_fused"]
+    print(f"    lcp_gather at the {r1['gathers']} fused steps' request and "
+          "parent-candidate rows: bit-exact against its plain version, whose "
+          "LCP fed the plain fused_phase1")
+    print(f"    fused_phase1 over {r1['calls']} calls {r1['shapes']}: "
+          f"bit-exact, kernel {r1['ms']:.4f} ms (device {r1['device_ms']:.4f})"
+          f", plain {r1['plain_ms']:.4f} ms, bound {r1['bound_ms']:.7f} ms "
+          f"({r1['bound_by']}) per call")
+    print(f"    auction_fused over {r2['calls']} calls "
+          f"({r2['rounds_per_call']:.1f} rounds per call): bit-exact, kernel "
+          f"{r2['ms']:.4f} ms (device {r2['device_ms']:.4f}, "
+          f"{r2['device_ms'] / max(1.0, r2['rounds_per_call']) * 1e3:.2f} us "
+          f"per round), plain (host) {r2['plain_ms']:.1f} ms, bound "
+          f"{r2['bound_ms']:.7f} ms ({r2['bound_by']}) per call")
+    print("    the two fused kernels on synthetic cases")
+    phase1_synthetic(dev, ops)
+    fused_solve_synthetic(dev)
+    return counts, figures
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -2096,8 +2749,11 @@ def main() -> int:
         lines = ptxas_report(log)
         for line in lines:
             print(f"    {name}: {line}")
-        for kernel in {"auction_bid": ("auction_solve_kernel",),
-                       "lcp_affinity": ("lcp_gather_kernel",)}.get(name, ()):
+        for kernel in {"auction_bid": ("auction_solve_kernel",
+                                       "auction_fused_kernel"),
+                       "lcp_affinity": ("lcp_gather_kernel",),
+                       "routing_fused": ("fused_phase1_kernel",)
+                       }.get(name, ()):
             check(any(kernel in line for line in lines),
                   f"no ptxas report for {kernel}")
     hmma = tensor_core_counts(build.library_path("flash_attention"),
@@ -2207,6 +2863,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    print("[15] fused router, CUDA vs CPU, SCALE_128 fleet, 1 hub, spill on")
+    fused_counts, fused_figures = phase_fused_router(dev)
+
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lcp_affinity.cu",
@@ -2231,6 +2890,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/auction_bid.py:112",
          "launches": counts["auction_bid"],
          **{k: router_figures["auction_bid"][k] for k in MEASURED},
+         "library_ms": None},
+        {"name": "fused_phase1", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/routing_fused.cu",
+         "replaces": "src/repro/core/routing_fused.py:212",
+         "launches": fused_counts["fused_phase1"],
+         **{k: fused_figures["fused_phase1"][k] for k in MEASURED},
+         "library_ms": None},
+        {"name": "auction_fused", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/auction_bid.cu",
+         "replaces": "src/repro/kernels/auction_bid.py:112",
+         "launches": fused_counts["auction_fused"],
+         **{k: fused_figures["auction_fused"][k] for k in MEASURED},
          "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

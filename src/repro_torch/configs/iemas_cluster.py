@@ -36,8 +36,9 @@ class RouterConfig:
     ``solver`` names a backend in the ``repro_torch.core.solvers`` registry:
     ``"cuda"`` is the staged float32 column auction, one CUDA launch per
     solve and hub blocks batched (the plain staged market for a CPU
-    router), ``"dense-torch"`` the same single-market solver on the CPU.
-    ``use_kernel_affinity`` runs the Eq.-4 LCP as one batched op on the
+    router), ``"dense-torch"`` the same single-market solver on the CPU,
+    ``"dense"`` the float64 NumPy auction and ``"mcmf"`` the exact
+    pure-Python oracle (both on the host).  ``use_kernel_affinity`` runs the Eq.-4 LCP as one batched op on the
     router's device against a device copy of the ledger arena (the CUDA
     kernel on a card) instead of the per-pair host loop.
 
@@ -47,11 +48,21 @@ class RouterConfig:
     ``spill=True`` re-auctions requests a saturated hub left unmatched over
     every hub's residual capacity.
 
+    ``batched`` picks the Phase-1 QoS path: True (default) scores the full
+    (n, m, F) feature tensor through the stacked Hoeffding forests in one
+    pass; False keeps the per-pair scalar loop (the semantic oracle).
+    ``predictor_backend`` is ``"numpy"`` (bit-exact vs the scalar path) or
+    ``"torch"`` (the forests walked in float32 on the router's device; the
+    reference's ``"jax"``).
+
     ``reputation`` enables the reputation-weighted priors (exactly neutral
     without an audit channel); ``audit_ledger`` attaches the append-only
-    hash-chained settlement ledger (`repro_torch.core.ledger`).  ``fused``
-    is the one device-resident routing step, which the port does not have
-    yet (the router raises).  ``explore_bonus`` is the predictor optimism
+    hash-chained settlement ledger (`repro_torch.core.ledger`).
+    ``fused=True`` runs the per-batch routing step (ledger gather, Eq.-4
+    affinity, Eq.-5 prediction, Eq.-1 values and the column auction) as one
+    device step with one device-to-host copy
+    (`repro_torch.core.routing_fused`); it requires ``n_hubs == 1`` and
+    solver ``cuda`` or ``dense-torch``.  ``explore_bonus`` is the predictor optimism
     knob: predicted quality is lifted by ``explore_bonus / sqrt(1 + n_obs)``
     (0.0 is an exact no-op)."""
     solver: str = "cuda"
@@ -61,6 +72,8 @@ class RouterConfig:
     warm_start: bool = False
     spill: bool = True
     use_kernel_affinity: bool = True
+    batched: bool = True
+    predictor_backend: str = "numpy"
     reputation: bool = True
     audit_ledger: bool = False
     fused: bool = False

@@ -4,8 +4,9 @@ All solver selection goes through the ``core/solvers`` registry — this
 module contains NO per-solver branching.  ``run_auction`` prunes the welfare
 matrix and delegates to the named
 :class:`~repro_torch.core.solvers.SolverBackend` (``dense-torch`` staged
-auction with the plain round, ``cuda`` with the CUDA bidding kernel — see
-``available_solvers()``) on the caller's ``device``;
+auction with the plain round, ``cuda`` with the CUDA solve kernel, the host
+solvers ``dense`` and ``mcmf`` — see ``available_solvers()``) on the
+caller's ``device``;
 ``run_sharded_auction`` does the same per hub block, batching the blocks
 through ``solve_batch`` when the backend supports it, and optionally runs a
 cross-hub **spill** round: unmatched requests from saturated hubs re-auction

@@ -18,6 +18,8 @@ bumps a version counter (leaf means shift even without a split), so the
 compiled form is invalidated and rebuilt on next use. ``stack_compiled``
 concatenates many trees into one node pool with per-tree roots, so an
 ensemble over m agents scores an (n·m, F) feature matrix in a single pass.
+``descend_torch`` is the same walk in float32 on a torch device (the
+counterpart of the reference's ``descend_jax``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
+
+from repro_torch.core.buckets import pow2_bucket
 
 
 class _LeafStats:
@@ -211,6 +215,71 @@ def stack_compiled(trees: list[CompiledTree]) -> tuple[CompiledTree, np.ndarray]
     return stacked, offsets
 
 
+def descend_torch(tree: CompiledTree, X, roots=None,
+                  device="cuda") -> np.ndarray:
+    """`descend` in float32 on ``device`` (the reference's ``descend_jax``).
+
+    Rows, the node pool and the loop depth are padded to power-of-two
+    buckets exactly as the reference pads them (padded rows descend from
+    node 0 and are sliced off, padded nodes are leaves, extra iterations
+    leave settled rows in place), and the walk runs the bucketed depth.
+    Features and thresholds are float32, as on the reference's default
+    JAX configuration: against the float64 `descend` expect equal leaves
+    except where a feature lands within float32 rounding of a threshold,
+    where the comparison can flip and route to a different leaf.  Returns
+    float64 NumPy.
+    """
+    import torch
+
+    from repro_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    X = np.asarray(X)
+    n_rows = X.shape[0]
+    if roots is None:
+        roots = np.zeros(n_rows, dtype=np.int32)
+    nb = pow2_bucket(n_rows)
+    Xp = np.zeros((nb, X.shape[1]), np.float32)
+    Xp[:n_rows] = X
+    rootp = np.zeros(nb, np.int64)
+    rootp[:n_rows] = roots
+    n_nodes = len(tree.feature)
+    kb = pow2_bucket(n_nodes)
+    feature = np.full(kb, -1, np.int64)            # padded nodes: leaves
+    feature[:n_nodes] = tree.feature
+    threshold = np.zeros(kb, np.float32)
+    threshold[:n_nodes] = tree.threshold
+    left = np.zeros(kb, np.int64)
+    left[:n_nodes] = tree.left
+    right = np.zeros(kb, np.int64)
+    right[:n_nodes] = tree.right
+    value = np.zeros(kb, np.float32)
+    value[:n_nodes] = tree.value
+    feature, threshold, left, right, value, cur, Xt = (
+        torch.from_numpy(a).to(dev) for a in
+        (feature, threshold, left, right, value, rootp, Xp))
+    cur = descend_nodes(feature, threshold, left, right, cur, Xt,
+                        pow2_bucket(tree.depth + 1, floor=4))
+    return value[cur].cpu().numpy().astype(np.float64)[:n_rows]
+
+
+def descend_nodes(feature, threshold, left, right, cur, X, depth: int):
+    """``depth`` steps of the padded walk on device tensors: row r of ``X``
+    (float32 [n, F]) moves from node ``cur[r]`` (int64) to its child while
+    that node is internal (``feature >= 0``), left when the feature is
+    ``<=`` the threshold; settled rows stay.  Returns the int64 nodes."""
+    import torch
+
+    for _ in range(depth):
+        f = feature[cur]
+        internal = f >= 0
+        go_left = X.gather(1, torch.where(internal, f, 0).long()[:, None]
+                           )[:, 0] <= threshold[cur]
+        nxt = torch.where(go_left, left[cur], right[cur])
+        cur = torch.where(internal, nxt.long(), cur)
+    return cur
+
+
 class _HoeffdingTreeBase:
     def __init__(self, n_features: int, *, delta: float = 1e-4,
                  grace_period: int = 40, max_depth: int = 7,
@@ -332,10 +401,14 @@ class _HoeffdingTreeBase:
             self._compiled_version = self._version
         return self._compiled
 
-    def predict_batch(self, X) -> np.ndarray:
+    def predict_batch(self, X, backend: str = "numpy",
+                      device="cuda") -> np.ndarray:
         """Score every row of ``X`` (B, n_features); matches per-row
-        ``predict_one`` exactly."""
+        ``predict_one`` exactly on the NumPy backend.  ``backend="torch"``
+        walks in float32 on ``device`` (`descend_torch`)."""
         X = np.asarray(X, dtype=np.float64)
+        if backend == "torch":
+            return descend_torch(self.compiled(), X, device=device)
         return descend(self.compiled(), X)
 
 

@@ -4,15 +4,20 @@ Per micro-batch of requests:
   Phase 1  cache-aware prediction & valuation (ledger LCP -> o_ij; Hoeffding
            QoS -> (L,C,P); Eq. 1 -> v_ij; w_ij = v_ij - c_ij, pruned).
            The Eq.-4 LCP runs on the router's ``device`` (the CUDA kernel
-           on a card, its plain version on the CPU); the full (n, m, F)
-           Eq.-5 feature tensor is scored by
-           ``PredictorPool.predict_matrix`` in one vectorized NumPy pass,
-           bit-identical to the reference's serving default.
+           on a card, its plain version on the CPU); batched by default,
+           the full (n, m, F) Eq.-5 feature tensor is scored by
+           ``PredictorPool.predict_matrix`` in one vectorized pass (NumPy,
+           bit-identical to the reference's serving default, or
+           ``predictor_backend="torch"``: float32 on ``device``);
+           ``batched=False`` keeps the per-pair scalar loop as the semantic
+           oracle.  ``fused=True`` runs Phase 1 and the single hub's Phase
+           2 as one device step per batch (`core/routing_fused.py`).
   Phase 2  welfare maximization per proxy hub (Eq. 7 / Thm 4.1): any
            backend in the port's ``core/solvers`` registry (``solver=``
-           kwarg — ``cuda``, the staged float32 column auction with the
-           CUDA bidding kernel, or ``dense-torch`` with the plain round),
-           on the router's ``device``.  With ``n_hubs > 1`` the batch's
+           kwarg — ``cuda``, the staged float32 column auction as one CUDA
+           launch, ``dense-torch`` with the plain round, the float64 NumPy
+           ``dense`` auction or the exact ``mcmf`` oracle), on the router's
+           ``device`` (``dense`` and ``mcmf`` run on the host).  With ``n_hubs > 1`` the batch's
            welfare matrix is carved into per-hub blocks and each block is
            auctioned independently (``run_sharded_auction``), with
            ``warm_start=True`` each hub's final slot prices
@@ -43,7 +48,8 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.affinity import PrefixLedger
-from repro_torch.core.auction import SPILL_HUB, run_sharded_auction
+from repro_torch.core.auction import (SPILL_HUB, _spill_round,
+                                      run_sharded_auction)
 from repro_torch.core.hub import SlotPriceBook, cluster_agents, route_to_hub
 from repro_torch.core.ledger import SettlementLedger
 from repro_torch.core.predictor import (PredictorInput, PredictorPool,
@@ -124,13 +130,10 @@ class IEMASRouter:
                  n_hubs: int = 1, hub_scheme: str = "domain",
                  warm_start: bool = False, spill: bool = True,
                  use_kernel_affinity: bool = True,
+                 batched: bool = True, predictor_backend: str = "numpy",
                  predictor_kw: dict | None = None,
                  reputation: bool = True, audit_ledger: bool = False,
                  fused: bool = False, device="cuda"):
-        if fused:
-            raise NotImplementedError(
-                "fused=True (one device-resident routing step) belongs to "
-                "the fused-step slice of the port; use the staged path")
         # where the Phase-1a LCP and the Phase-2 solve run; raises when CUDA
         # is asked for and absent (nothing moves to the CPU by itself)
         self.device = resolve_device(device)
@@ -148,6 +151,8 @@ class IEMASRouter:
         # otherwise
         self.warm_start = warm_start and get_solver(solver).supports_warm_start
         self.use_kernel_affinity = use_kernel_affinity
+        self.batched = batched
+        self.predictor_backend = predictor_backend
         self.ledger = PrefixLedger()
         self._refresh_ledger_cap()
         self.pool = PredictorPool({a.agent_id: a.prices for a in agents},
@@ -173,6 +178,25 @@ class IEMASRouter:
         self.price_book = SlotPriceBook()
         self._rebuild_hubs()
         self.quarantined: set[str] = set()
+        # fused device step (core/routing_fused.py): one step replaces
+        # _phase1 + the hub-0 solve; host-side spill, price-book splice and
+        # payments are shared with the staged path
+        self.fused = fused
+        self._fused = None
+        if fused:
+            from repro_torch.core.routing_fused import (FUSED_SOLVERS,
+                                                        FusedRoutingStep)
+            if n_hubs != 1:
+                raise ValueError(
+                    "fused=True runs one global device-resident column "
+                    f"market and requires n_hubs=1 (got {n_hubs}); use the "
+                    "staged path for hub sharding")
+            if solver not in FUSED_SOLVERS:
+                raise ValueError(
+                    "fused=True requires a solver whose bidding loop stages "
+                    f"inside the fused program {FUSED_SOLVERS}; got "
+                    f"{solver!r}")
+            self._fused = FusedRoutingStep(self)
 
     # ---------------- elastic membership ----------------
     def _refresh_ledger_cap(self):
@@ -230,7 +254,7 @@ class IEMASRouter:
 
     def _phase1(self, requests, live, telemetry):
         """Phase 1a/1b: affinity + QoS matrices + Eq.-1 values (see
-        route_batch); returns (lat, cst, qual, values, X)."""
+        route_batch); returns (lat, cst, qual, values, X, xs)."""
         # Phase 1a: affinity matrix over LIVE agents.  DAG steps carry their
         # own session key (``meta["session"]``) distinct from the dialogue id
         # so sibling steps do not clobber each other's ledger entries; linear
@@ -260,31 +284,63 @@ class IEMASRouter:
                 cache_slots=[a.cache_slots for a in live])
 
         # Phase 1b: QoS prediction per candidate pair — the whole (n, m, F)
-        # Eq.-5 tensor in one vectorized pass; PredictorInput objects are
+        # Eq.-5 tensor in one vectorized pass (default), or the scalar
+        # per-pair oracle loop (batched=False); PredictorInput objects are
         # then materialized only for the pairs the auction actually matches.
+        n, m = len(requests), len(live)
         inflight = telemetry.get("agent_inflight", {})
         agent_rps = telemetry.get("agent_rps", {})
-        # domain membership via a per-unique-domain lookup row (a batch has
-        # few distinct domains; avoids n*m Python membership tests)
-        dom_rows: dict[str, np.ndarray] = {}
-        for r in requests:
-            if r.domain not in dom_rows:
-                dom_rows[r.domain] = np.array(
-                    [float(r.domain in a.domains) for a in live])
-        X = feature_tensor(
-            [float(len(r.tokens)) for r in requests],
-            [float(r.turn) for r in requests], o,
-            router_inflight=float(telemetry.get("router_inflight", 0)),
-            router_rps=float(telemetry.get("router_rps", 0.0)),
-            agent_inflight=[float(inflight.get(a.agent_id, 0))
-                            for a in live],
-            agent_rps=[float(agent_rps.get(a.agent_id, 0.0)) for a in live],
-            capacity=[float(a.capacity) for a in live],
-            domain_match=np.stack([dom_rows[r.domain] for r in requests]))
-        lat, cst, qual = self.pool.predict_matrix(
-            [a.agent_id for a in live], X)
+        if self.batched:
+            # domain membership via a per-unique-domain lookup row (a batch
+            # has few distinct domains; avoids n*m Python membership tests)
+            dom_rows: dict[str, np.ndarray] = {}
+            for r in requests:
+                if r.domain not in dom_rows:
+                    dom_rows[r.domain] = np.array(
+                        [float(r.domain in a.domains) for a in live])
+            X = feature_tensor(
+                [float(len(r.tokens)) for r in requests],
+                [float(r.turn) for r in requests], o,
+                router_inflight=float(telemetry.get("router_inflight", 0)),
+                router_rps=float(telemetry.get("router_rps", 0.0)),
+                agent_inflight=[float(inflight.get(a.agent_id, 0))
+                                for a in live],
+                agent_rps=[float(agent_rps.get(a.agent_id, 0.0))
+                           for a in live],
+                capacity=[float(a.capacity) for a in live],
+                domain_match=np.stack([dom_rows[r.domain] for r in requests]))
+            lat, cst, qual = self.pool.predict_matrix(
+                [a.agent_id for a in live], X,
+                backend=self.predictor_backend, device=self.device)
+            xs = None
+        else:
+            lat = np.zeros((n, m))
+            cst = np.zeros((n, m))
+            qual = np.zeros((n, m))
+            xs = []
+            for j, r in enumerate(requests):
+                row = []
+                for i, a in enumerate(live):
+                    util = inflight.get(a.agent_id, 0) / max(1, a.capacity)
+                    x = PredictorInput(
+                        prompt_len=float(len(r.tokens)), turn=float(r.turn),
+                        affinity=float(o[j, i]),
+                        router_inflight=float(
+                            telemetry.get("router_inflight", 0)),
+                        router_rps=float(telemetry.get("router_rps", 0.0)),
+                        agent_inflight=float(inflight.get(a.agent_id, 0)),
+                        agent_rps=float(agent_rps.get(a.agent_id, 0.0)),
+                        capacity=float(a.capacity), utilization=float(util),
+                        domain_match=float(r.domain in a.domains),
+                    )
+                    est = self.pool[a.agent_id].predict(x)
+                    lat[j, i], cst[j, i], qual[j, i] = (est.latency, est.cost,
+                                                        est.quality)
+                    row.append((x, est))
+                xs.append(row)
+
         values = client_value(qual, lat, self.valuation)
-        return lat, cst, qual, values, X
+        return lat, cst, qual, values, (X if self.batched else None), xs
 
     def route_batch(self, requests: list[Request], telemetry: dict,
                     free_slots: dict | None = None) -> list[RouteDecision]:
@@ -329,7 +385,7 @@ class IEMASRouter:
 
         # Phase 1c/2/3 per hub (capacities, hub blocks and warm-start seeds
         # are pure functions of membership/telemetry, so they are assembled
-        # before Phase 1)
+        # before Phase 1 — the fused path feeds them INTO its device step)
         caps = []
         for a in live:
             free = (free_slots or {}).get(a.agent_id, a.capacity)
@@ -376,25 +432,49 @@ class IEMASRouter:
                     if seed is not None:
                         start_prices[h] = seed
 
-        with self._phase("phase1_predict"):
-            lat, cst, qual, values, X = self._phase1(all_reqs, live,
-                                                     telemetry)
-        results = run_sharded_auction(values, cst, caps, blocks,
-                                      payment_mode=self.payment_mode,
-                                      solver=self.solver,
-                                      start_prices=start_prices,
-                                      spill=self.spill,
-                                      spill_agents=sorted(hub_of_agent),
-                                      profiler=self.profiler,
-                                      device=self.device)
+        if self._fused is not None:
+            # one device step from the ledger gather to the settled auction
+            # (n_hubs == 1, so block 0 IS the global market); the cross-hub
+            # spill helper still runs host-side for parity with the staged
+            # path (it is vacuous unless capacity ran out)
+            with self._phase("fused_route"):
+                lat, cst, qual, values, X, result = self._fused.step(
+                    all_reqs, live, telemetry, caps,
+                    start_prices=start_prices.get(0))
+            xs = None
+            results = {0: result}
+            if self.spill:
+                with self._phase("phase2_spill"):
+                    sres = _spill_round(values, cst, caps, blocks, results,
+                                        get_solver(self.solver),
+                                        self.payment_mode,
+                                        sorted(hub_of_agent),
+                                        device=self.device)
+                if sres is not None:
+                    results[SPILL_HUB] = sres
+        else:
+            with self._phase("phase1_predict"):
+                lat, cst, qual, values, X, xs = self._phase1(all_reqs, live,
+                                                             telemetry)
+            results = run_sharded_auction(values, cst, caps, blocks,
+                                          payment_mode=self.payment_mode,
+                                          solver=self.solver,
+                                          start_prices=start_prices,
+                                          spill=self.spill,
+                                          spill_agents=sorted(hub_of_agent),
+                                          profiler=self.profiler,
+                                          device=self.device)
 
         def _record_match(j, i, pay, weight, pred_cost, h):
             """Decision (+ a pending-feedback entry for real batch members —
             shadow provisionals are already pending from their dispatch)."""
             agent = live[i]
-            x = PredictorInput(*(float(v) for v in X[j, i]))
-            est = QoSEstimate(float(lat[j, i]), float(cst[j, i]),
-                              float(qual[j, i]))
+            if xs is None:  # batched: materialize matched pairs only
+                x = PredictorInput(*(float(v) for v in X[j, i]))
+                est = QoSEstimate(float(lat[j, i]), float(cst[j, i]),
+                                  float(qual[j, i]))
+            else:
+                x, est = xs[j][i]
             decisions[j] = RouteDecision(all_reqs[j], agent.agent_id, pay,
                                          est, weight, h)
             if j >= shadow:
@@ -496,8 +576,8 @@ class IEMASRouter:
         if not live or not self.warm_start:
             return misses
         with self._phase("phase1_predict"):
-            lat, cst, qual, values, X = self._phase1(requests, live,
-                                                     telemetry)
+            lat, cst, qual, values, X, xs = self._phase1(requests, live,
+                                                         telemetry)
         w = np.asarray(values, dtype=np.float64) - np.asarray(
             cst, dtype=np.float64)
         w = np.where(w > 0, w, 0.0)
@@ -543,9 +623,12 @@ class IEMASRouter:
                 continue
             _, i, ask = best
             agent = live[i]
-            x = PredictorInput(*(float(v) for v in X[j, i]))
-            est = QoSEstimate(float(lat[j, i]), float(cst[j, i]),
-                              float(qual[j, i]))
+            if xs is None:
+                x = PredictorInput(*(float(v) for v in X[j, i]))
+                est = QoSEstimate(float(lat[j, i]), float(cst[j, i]),
+                                  float(qual[j, i]))
+            else:
+                x, est = xs[j][i]
             pay = float(cst[j, i]) + ask
             d = RouteDecision(r, agent.agent_id, pay, est, float(w[j, i]), h)
             decisions.append(d)

@@ -14,6 +14,8 @@ all m agents' trees stacked into one node pool (one vectorized descend per
 target), the structural prior and the ``w = min(1, n_obs/60)`` blend applied
 as arrays. Every operation mirrors ``AgentPredictor.predict`` double-for-
 double, so the batched path is a pure oracle-parity optimization.
+``backend="torch"`` walks the forests in float32 on a torch device
+(`hoeffding.descend_torch`, the reference's ``"jax"`` backend) instead.
 
 Reputation-weighted priors (adversarial stress):
 each agent carries a multiplicative reputation in [0, 1], EWMA-updated from
@@ -34,7 +36,7 @@ import numpy as np
 
 from repro_torch.core.hoeffding import (HoeffdingTreeClassifier,
                                         HoeffdingTreeRegressor, descend,
-                                        stack_compiled)
+                                        descend_torch, stack_compiled)
 from repro_torch.core.pricing import TokenPrices, predicted_cost
 
 N_FEATURES = 10
@@ -74,9 +76,9 @@ def _blend_with_prior(X, *, lpt, lb, miss, hit, out, ewma, n_obs, warm_n,
     """Structural cold-start prior + ``w = min(1, n_obs/60)`` tree blend as
     array ops — the single vectorized transcription of the scalar
     ``AgentPredictor.predict`` math (kept bit-equivalent: same op order,
-    same ``trunc``/``maximum``/``clip`` semantics), used by
-    ``predict_matrix`` with (m,) per-agent param arrays broadcast against
-    (n, m) features.
+    same ``trunc``/``maximum``/``clip`` semantics), shared by
+    ``predict_rows`` (scalar per-agent params) and ``predict_matrix``
+    ((m,) per-agent param arrays broadcast against (n, m) features).
     ``rep`` is the reputation weight: it scales the tree-blend weight and
     multiplies quality in both warm and cold branches (exactly neutral at
     1.0, the honest fixed point).  ``explore`` is the per-agent optimism
@@ -211,6 +213,25 @@ class AgentPredictor:
                 float(np.clip(self.quality.predict_one(v), 0.0, 1.0)) * rep),
         )
 
+    def predict_rows(self, X, backend: str = "numpy", device="cuda"):
+        """Vectorized ``predict`` over the rows of ``X`` (B, N_FEATURES).
+
+        Returns (latency, cost, quality) arrays; every op mirrors the
+        scalar path double-for-double (NumPy backend), so
+        ``predict_rows(X)[k][b] == predict(PredictorInput(*X[b]))``.
+        ``backend="torch"`` descends the trees in float32 on ``device``.
+        """
+        X = np.asarray(X, dtype=np.float64)
+        return _blend_with_prior(
+            X, lpt=self.prior_lpt, lb=self.prior_lb, miss=self.prices.miss,
+            hit=self.prices.hit, out=self.prices.out, ewma=self.ewma_gen,
+            n_obs=self.n_obs, warm_n=self.warm_n,
+            prior_q=np.full(X.shape[0], self.prior_q), rep=self.reputation,
+            raw_lat=self.lat.predict_batch(X, backend, device),
+            raw_cst=self.cost.predict_batch(X, backend, device),
+            raw_q=self.quality.predict_batch(X, backend, device),
+            explore=self.explore)
+
     def update(self, x: PredictorInput, latency_obs: float, cost_obs: float,
                quality_obs: float) -> None:
         """Phase-4 feedback: one observed (Lat, Cost, Perf) triple."""
@@ -342,7 +363,8 @@ class PredictorPool:
                               "stacked": stacked, "roots": roots}
         return stacked, roots
 
-    def predict_matrix(self, agent_ids: list[str], X: np.ndarray):
+    def predict_matrix(self, agent_ids: list[str], X: np.ndarray,
+                       backend: str = "numpy", device="cuda"):
         """Score the full (n, m, N_FEATURES) feature tensor in array ops.
 
         Returns (latency, cost, quality) matrices, (n, m) each, equal to
@@ -350,7 +372,8 @@ class PredictorPool:
         over every pair — the m agents' trees are stacked into one node
         pool per target (one vectorized descend over the (n·m, F) matrix),
         and the structural cold-start prior + the ``min(1, n_obs/60)``
-        blend are applied as broadcast array ops.
+        blend are applied as broadcast array ops.  ``backend="torch"``
+        walks the stacked forests with `descend_torch` on ``device``.
         """
         X = np.asarray(X, dtype=np.float64)
         n, m = X.shape[:2]
@@ -360,7 +383,11 @@ class PredictorPool:
         raw = {}
         for name in ("lat", "cost", "quality"):
             stacked, roots = self._stacked_forest(name, agent_ids)
-            raw[name] = descend(stacked, flat, roots[col]).reshape(n, m)
+            if backend == "torch":
+                out = descend_torch(stacked, flat, roots[col], device=device)
+            else:
+                out = descend(stacked, flat, roots[col])
+            raw[name] = out.reshape(n, m)
 
         return _blend_with_prior(
             X,

@@ -80,6 +80,16 @@ def column_counts(caps, n: int) -> np.ndarray:
     return np.minimum(caps, n)
 
 
+def expand_slots(caps, n: int) -> np.ndarray:
+    """Agent capacities -> the slot -> agent map (min(b_i, n) unit slots).
+
+    Only the slot-expanded parity oracle uses this; the production
+    backends operate on :func:`column_counts` directly.
+    """
+    return np.repeat(np.arange(len(column_counts(caps, n))),
+                     column_counts(caps, n))
+
+
 def warm_round_budget(n: int, K: int, max_rounds: int) -> int:
     """Round cap for a warm attempt before falling back to a cold solve."""
     return min(max_rounds, WARM_ROUNDS_PER_NODE * (n + K) + WARM_ROUNDS_FLOOR)

@@ -22,21 +22,28 @@ rounds (Bertsekas–Castañón), so the assignment is certified within
 price vectors) warm-starts the solve under a bounded round budget, with a
 cold re-solve when it trips (``result.fallback``).
 
-The reference's slot-expanded parity oracle (``solve_dense_auction_slots``)
-is not carried over: nothing in the port calls it.
+``solve_dense_auction_slots`` keeps the classical per-unit slot expansion
+as the column market's parity oracle, and ``DenseNumpyBackend`` registers
+this solver as ``solver="dense"`` (warm starts yes, batching no).  Both run
+on the host; the backend takes the ``device=`` keyword every backend of the
+port receives and moves nothing.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.solvers.base import (AuctionResult,
+                                           sequential_solve_batch)
 from repro_torch.core.solvers.dense_common import (DenseAuctionResult, THETA,
                                                    _price_grid,
                                                    check_start_prices,
                                                    column_counts,
-                                                   empty_result, warm_eps0,
+                                                   empty_result, expand_slots,
+                                                   package_dense, warm_eps0,
                                                    warm_round_budget)
 
-__all__ = ["EPS_FINAL_REL", "solve_dense_auction"]
+__all__ = ["EPS_FINAL_REL", "solve_dense_auction",
+           "solve_dense_auction_slots", "DenseNumpyBackend"]
 
 # gap_bound = 2 * n * eps_final: below 1e-7 for any n <= ~500 at unit
 # weight scale
@@ -271,3 +278,213 @@ def _solve_dense_columns(w, W, counts, grid0, eps0, eps_final, theta,
     return DenseAuctionResult(
         [int(a) for a in agent_of], welfare, agent_prices, counts, profits,
         eps, phases, rounds[0], 2.0 * n * eps)
+
+
+# --------------------------------------------------------------------------
+# Retained slot-expanded solver: the column market's parity oracle.
+# --------------------------------------------------------------------------
+def solve_dense_auction_slots(w: np.ndarray, caps, *,
+                              eps_final: float | None = None,
+                              theta: float = THETA,
+                              max_rounds: int = 500_000,
+                              start_prices: np.ndarray | None = None,
+                              start_eps: float | None = None
+                              ) -> DenseAuctionResult:
+    """The classical per-unit slot expansion (agents split into min(b_i, n)
+    identical slots), kept as the decision-parity oracle and the baseline
+    the benchmarks measure the column market's ~K/m round cost cut against.
+    Same result contract as :func:`solve_dense_auction` (per-agent ascending
+    price vectors); O(n·K) per round instead of O(n·m + K).
+    """
+    w = np.asarray(w, dtype=np.float64)
+    n, m = w.shape
+    counts = column_counts(caps, n)
+    slot_agent = expand_slots(caps, n)
+    K = len(slot_agent)
+    if n == 0 or K == 0:
+        return empty_result(n, counts)
+    B = np.maximum(w, 0.0)[:, slot_agent]          # (n, K) slot-level weights
+    wmax = float(B.max(initial=0.0))
+    if wmax <= 0.0:
+        return empty_result(n, counts)
+    if eps_final is None:
+        eps_final = EPS_FINAL_REL * max(wmax, 1.0)
+    cold_eps0 = max(wmax / theta, eps_final)
+    if start_prices is None:
+        return _solve_dense_slots(w, B, slot_agent, counts, np.zeros(K),
+                                  cold_eps0, eps_final, theta, max_rounds)
+    p0 = check_start_prices(start_prices, K)
+    eps0 = start_eps if start_eps is not None \
+        else warm_eps0(p0, wmax, eps_final, theta)
+    eps0 = min(max(eps0, eps_final), cold_eps0)
+    budget = warm_round_budget(n, K, max_rounds)
+    try:
+        res = _solve_dense_slots(w, B, slot_agent, counts, p0, eps0,
+                                 eps_final, theta, budget)
+        res.warm_started = True
+        return res
+    except RuntimeError:
+        res = _solve_dense_slots(w, B, slot_agent, counts, np.zeros(K),
+                                 cold_eps0, eps_final, theta, max_rounds)
+        res.warm_started = True
+        res.fallback = True
+        return res
+
+
+def _solve_dense_slots(w, B, slot_agent, counts, prices0, eps0, eps_final,
+                       theta, max_rounds) -> DenseAuctionResult:
+    """The forward/reverse ε-scaling loop over explicit unit slots."""
+    n, K = B.shape
+    m = w.shape[1]
+    eps = eps0
+    tol = eps_final / 8.0
+
+    prices = prices0.copy()
+    owner = np.full(K, -1, dtype=np.int64)          # slot -> request
+    slot_of = np.full(n, -1, dtype=np.int64)        # request -> slot
+    parked = np.zeros(n, dtype=bool)
+    rows = np.arange(n)
+    phases = 0
+    rounds = [0]
+
+    def _evict(eps) -> bool:
+        v1 = (B - prices).max(axis=1)
+        assigned = slot_of >= 0
+        prof = np.where(assigned, B[rows, np.maximum(slot_of, 0)]
+                        - prices[np.maximum(slot_of, 0)], 0.0)
+        np.logical_and(parked, v1 <= eps + tol, out=parked)
+        viol = assigned & (prof < np.maximum(v1, 0.0) - eps - tol)
+        if viol.any():
+            owner[slot_of[viol]] = -1
+            slot_of[viol] = -1
+        return bool(((slot_of < 0) & ~parked).any())
+
+    def _bid_until_settled(eps):
+        while True:
+            active = np.nonzero((slot_of < 0) & ~parked)[0]
+            if len(active) == 0:
+                return
+            rounds[0] += 1
+            if rounds[0] > max_rounds:
+                raise RuntimeError(
+                    f"dense auction failed to converge in {max_rounds} rounds"
+                    f" (n={n}, m={m}, eps={eps:g})")
+            P = B[active] - prices                       # (A, K) profits
+            v1 = P.max(axis=1)
+            k1 = P.argmax(axis=1)
+            P[np.arange(len(active)), k1] = -np.inf
+            v2 = np.maximum(P.max(axis=1), 0.0)          # incl. outside option
+            wants = v1 > 0.0
+            parked[active[~wants]] = True
+            bidders = active[wants]
+            if len(bidders) == 0:
+                continue
+            kb = k1[wants]
+            bid = prices[kb] + (v1[wants] - v2[wants]) + eps
+            best = np.full(K, -np.inf)
+            np.maximum.at(best, kb, bid)
+            winner = np.full(K, n, dtype=np.int64)
+            at_best = bid == best[kb]
+            np.minimum.at(winner, kb[at_best], bidders[at_best])
+            slots_won = np.nonzero(winner < n)[0]
+            prev = owner[slots_won]
+            slot_of[prev[prev >= 0]] = -1
+            owner[slots_won] = winner[slots_won]
+            slot_of[winner[slots_won]] = slots_won
+            prices[slots_won] = best[slots_won]
+
+    def _reverse_until_clean(eps) -> None:
+        while True:
+            stale = np.nonzero((owner < 0) & (prices > 0.0))[0]
+            if len(stale) == 0:
+                return
+            rounds[0] += 1
+            if rounds[0] > max_rounds:
+                raise RuntimeError("dense auction reverse rounds exceeded "
+                                   f"{max_rounds} (n={n}, m={m})")
+            assigned = slot_of >= 0
+            pi = np.where(assigned, B[rows, np.maximum(slot_of, 0)]
+                          - prices[np.maximum(slot_of, 0)], 0.0)
+            V = B[:, stale] - pi[:, None]
+            b1 = V.max(axis=0)
+            j1 = V.argmax(axis=0)
+            V[j1, np.arange(len(stale))] = -np.inf
+            b2 = V.max(axis=0) if n > 1 else np.full(len(stale), -np.inf)
+            weak = b1 <= eps
+            prices[stale[weak]] = 0.0
+            ks = stale[~weak]
+            if len(ks) == 0:
+                continue
+            js = j1[~weak]
+            newp = np.maximum(b2[~weak] - eps, 0.0)
+            off = B[js, ks] - newp
+            bestoff = np.full(n, -np.inf)
+            np.maximum.at(bestoff, js, off)
+            at_best = off == bestoff[js]
+            take = np.full(n, K, dtype=np.int64)
+            np.minimum.at(take, js[at_best], ks[at_best])
+            sel = take[js] == ks
+            ks, js, newp = ks[sel], js[sel], newp[sel]
+            old = slot_of[js]
+            owner[old[old >= 0]] = -1    # freed, keeps price (maybe stale)
+            prices[ks] = newp
+            owner[ks] = js
+            slot_of[js] = ks
+            parked[js] = False
+
+    while True:
+        phases += 1
+        for _ in range(8 * (n + K) + 8):
+            if _evict(eps):
+                _bid_until_settled(eps)
+                _reverse_until_clean(eps)
+                continue
+            if ((owner < 0) & (prices > 0.0)).any():
+                _reverse_until_clean(eps)
+                continue
+            break
+        else:
+            raise RuntimeError("dense auction forward/reverse alternation "
+                               f"failed to settle (n={n}, m={m}, eps={eps:g})")
+        if eps <= eps_final * (1.0 + 1e-12):
+            break
+        eps = max(eps / theta, eps_final)
+
+    assignment = np.where(slot_of >= 0, slot_agent[np.maximum(slot_of, 0)], -1)
+    welfare = float(np.where(slot_of >= 0,
+                             w[rows, np.maximum(assignment, 0)], 0.0).sum())
+    profits = np.where(slot_of >= 0,
+                       B[rows, np.maximum(slot_of, 0)]
+                       - prices[np.maximum(slot_of, 0)], 0.0)
+    agent_prices = [np.sort(prices[slot_agent == i])
+                    for i in range(len(counts))]
+    return DenseAuctionResult(
+        [int(a) for a in assignment], welfare, agent_prices, counts, profits,
+        eps, phases, rounds[0], 2.0 * n * eps)
+
+
+class DenseNumpyBackend:
+    """``solver="dense"``: the float64 NumPy auction (DSIC-grade payments)."""
+
+    name = "dense"
+    supports_warm_start = True
+    supports_batch = False
+
+    def solve(self, w, costs, caps, *, payment_mode: str = "warmstart",
+              start_prices=None, device="cpu") -> AuctionResult:
+        """One market through the NumPy auction + batched Clarke payments,
+        on the host whatever ``device`` says."""
+        res = solve_dense_auction(w, caps, start_prices=start_prices)
+        return package_dense(self.name, w, costs, caps, res)
+
+    def solve_batch(self, ws, costs_list, caps_list, *,
+                    payment_mode: str = "warmstart", start_prices_list=None,
+                    device="cpu") -> list[AuctionResult]:
+        """Sequential per-market solves (NumPy has no batched program)."""
+        return sequential_solve_batch(
+            self, ws, costs_list, caps_list, payment_mode=payment_mode,
+            start_prices_list=start_prices_list, device=device)
+
+    def certificate(self, result: AuctionResult) -> float:
+        """2·n·ε_final — the ε-CS optimality bound of the returned solve."""
+        return float(result.solver_stats["gap_bound"])

@@ -28,6 +28,16 @@ and as the kernel's oracle.  The two are bit-identical: unit prices,
 assignment and round counts.  The markets travel packed (`pack_markets`):
 a float32 buffer, an int32 buffer and a host layout table; the result is
 one int32 buffer (`unpack_solution`).
+
+``auction_fused`` is the solve's fused mode for the fused routing step
+(`core/routing_fused.py`): one market whose W and wmax the fused Phase-1
+pass (`kernels/routing_fused.py`) wrote into the step's packed buffer, the
+ε schedule derived from wmax in float32 as the reference's fused program
+derives it (`src/repro/core/routing_fused.py:308-320`), the warm attempt
+under its round budget and, when it trips, the cold re-solve from zero
+prices, all in one launch of ``auction_fused_kernel``; the result goes back
+into the packed buffer.  ``auction_fused_plain`` runs the same on the
+host-driven staged market.
 """
 from __future__ import annotations
 
@@ -39,9 +49,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import auction_bid_ref as auction_bid_plain
 
-__all__ = ["auction_bid_cuda", "auction_bid_plain", "auction_solve_cuda",
-           "auction_solve_plain", "auction_solve_plan", "pack_markets",
-           "unpack_solution"]
+__all__ = ["auction_bid_cuda", "auction_bid_plain", "auction_fused_cuda",
+           "auction_fused_plain", "auction_solve_cuda", "auction_solve_plain",
+           "auction_solve_plan", "pack_markets", "unpack_solution"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +59,14 @@ _I = ctypes.c_int
 # offsets of W and of the start grid in the float buffer, of the counts in
 # the int buffer, and of its grid and its requests in the output
 META = ("n", "m", "cmax", "cap", "w_off", "p_off", "c_off", "g_off", "r_off")
+
+
+class _FusedArgs(ctypes.Structure):
+    _fields_ = ([(n, _P) for n in ("W", "counts", "p0", "hdr", "price",
+                                   "agent_of", "unit_of")]
+                + [("theta", ctypes.c_float)]
+                + [(n, ctypes.c_int32) for n in ("n", "m", "cmax", "budget",
+                                                 "max_rounds", "warm")])
 
 
 def _lib() -> ctypes.CDLL:
@@ -62,6 +80,12 @@ def _lib() -> ctypes.CDLL:
     fn = lib.auction_solve_plan
     fn.argtypes = [_I, _I, _I, _I * 2]
     fn.restype = _I
+    lib.auction_fused_launch.argtypes = [ctypes.POINTER(_FusedArgs), _P]
+    lib.auction_fused_launch.restype = _I
+    lib.auction_fused_args_size.restype = _I
+    if lib.auction_fused_args_size() != ctypes.sizeof(_FusedArgs):
+        raise RuntimeError("the FusedSolveArgs layout of csrc/auction_bid.cu "
+                           "differs from kernels/auction_bid.py")
     return lib
 
 
@@ -235,4 +259,98 @@ def auction_solve_plain(fbuf: torch.Tensor, ibuf: torch.Tensor,
         agents[r_off:r_off + n] = agent_of
         units[r_off:r_off + n] = unit_of
         out[g] = rounds
+    return out
+
+
+def _check_fused(out, counts, p0, lay) -> None:
+    if counts.device != out.device or p0.device != out.device:
+        raise ValueError("auction_fused takes tensors on one device")
+    if out.dtype != torch.float32 or p0.dtype != torch.float32 \
+            or counts.dtype != torch.int32:
+        raise TypeError("auction_fused takes a float32 packed buffer and "
+                        "start grid and int32 counts")
+    if not all(t.is_contiguous() for t in (out, counts, p0)):
+        raise ValueError("auction_fused takes contiguous tensors")
+    if out.numel() != lay.total or counts.numel() != lay.mb \
+            or p0.numel() != lay.mb * lay.cbu:
+        raise ValueError("auction_fused inputs do not match the layout")
+
+
+def auction_fused_cuda(out: torch.Tensor, counts: torch.Tensor,
+                       p0: torch.Tensor, lay, *, budget: int,
+                       max_rounds: int, warm: bool,
+                       theta: float) -> torch.Tensor:
+    """The fused-mode solve on the card: the (lay.nb, lay.mb) market whose
+    W and wmax sit in the packed buffer ``out`` (float32, layout ``lay`` of
+    `kernels/routing_fused.packed_layout`), ``counts`` int32 [mb] units per
+    agent, ``p0`` float32 [mb, cbu] the warm start grid; writes the unit
+    prices, agent_of, unit_of, rounds, the trip flag and ε_final into
+    ``out`` in one launch on the current stream and returns it.  Raises on
+    any other input and on a failed launch."""
+    if out.device.type != "cuda":
+        raise ValueError("auction_fused_cuda takes CUDA tensors")
+    _check_fused(out, counts, p0, lay)
+    ptr = out.data_ptr()
+    a = _FusedArgs(ptr + 4 * lay.W, counts.data_ptr(), p0.data_ptr(), ptr,
+                   ptr + 4 * lay.price, ptr + 4 * lay.agent_of,
+                   ptr + 4 * lay.unit_of, float(np.float32(theta)), lay.nb,
+                   lay.mb, lay.cbu, int(budget), int(max_rounds), int(warm))
+    err = _lib().auction_fused_launch(
+        ctypes.byref(a), torch.cuda.current_stream(out.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"auction_fused kernel launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def fused_eps(wmax, p0max, *, warm: bool, theta: float):
+    """The fused mode's ε schedule from wmax in float32 scalars (the
+    reference's ``jax_eps_final`` and ``warm_eps0`` as traced float32, as
+    `routing_fused.py:308-320` computes them): (eps0, eps_final,
+    cold_eps0)."""
+    f32 = np.float32
+    wmax, theta = f32(wmax), f32(theta)
+    anchor = max(wmax, f32(1.0))
+    eps_final = max(f32(1e-5) * anchor,
+                    f32(64.0 * np.finfo(np.float32).eps) * anchor)
+    cold_eps0 = max(wmax / theta, eps_final)
+    eps0 = cold_eps0
+    if warm:
+        fine = max(wmax / (theta * theta * theta), eps_final)
+        if f32(p0max) > fine:
+            eps0 = fine
+    return eps0, eps_final, cold_eps0
+
+
+def auction_fused_plain(out: torch.Tensor, counts: torch.Tensor,
+                        p0: torch.Tensor, lay, *, budget: int,
+                        max_rounds: int, warm: bool,
+                        theta: float) -> torch.Tensor:
+    """What ``auction_fused_cuda`` computes, through the solver's
+    host-driven staged market on the buffers' device, with the same ε
+    derivation and cold fallback in float32 scalars."""
+    from repro_torch.core.solvers.dense_torch import _StagedMarket
+
+    _check_fused(out, counts, p0, lay)
+    nb, mb, cbu = lay.nb, lay.mb, lay.cbu
+    W = out[lay.W:lay.W + nb * mb].view(nb, mb)
+    grid = p0.view(mb, cbu)
+    eps0, eps_final, cold_eps0 = fused_eps(
+        out[0].item(), grid.max().item() if grid.numel() else 0.0,
+        warm=warm, theta=theta)
+    cap = budget if warm else max_rounds
+    price, agent_of, unit_of, rounds = _StagedMarket(
+        W, counts, cbu, cap, eps_final).solve(grid, eps0, eps_final, theta)
+    tripped = bool(warm and rounds >= budget)
+    if tripped:
+        price, agent_of, unit_of, rounds = _StagedMarket(
+            W, counts, cbu, max_rounds, eps_final).solve(
+            torch.zeros_like(grid), cold_eps0, eps_final, theta)
+    out[lay.price:lay.price + mb * cbu] = price.reshape(-1)
+    ints = out.view(torch.int32)
+    ints[lay.agent_of:lay.agent_of + nb] = agent_of
+    ints[lay.unit_of:lay.unit_of + nb] = unit_of
+    ints[1] = rounds
+    ints[2] = int(tripped)
+    out[3] = float(eps_final)
     return out

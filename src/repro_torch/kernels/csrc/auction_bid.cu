@@ -34,6 +34,13 @@
 // sit in shared memory at an odd stride, so a warp reading a row (bidding)
 // or a column (reverse rounds) hits 32 distinct banks.
 //
+// The fused mode (`auction_fused_kernel`) is the same solve for the fused
+// routing step: one market whose W the fused Phase-1 kernel
+// (csrc/routing_fused.cu) left on the device, the ε schedule derived in the
+// block from that kernel's wmax, the warm attempt under its budget and, if
+// it trips, the cold re-solve in the same launch; nothing is read by the
+// host in between.
+//
 // Bit-exactness with the plain version (`core/solvers/dense_torch.py::
 // _StagedMarket`, PyTorch on the CPU): every arithmetic step uses the _rn
 // intrinsics (no contraction); the ε schedule runs in float32 with IEEE
@@ -469,29 +476,11 @@ struct Market {
   }
 };
 
+// Points a block's Market at its dynamic shared memory, stages W there
+// (kSharedW) or reads it in place, and loads the unit counts.
 template <bool kSharedW>
-__global__ void __launch_bounds__(kSolveThreads, 1)
-    auction_solve_kernel(const float* __restrict__ fbuf,
-                         const int32_t* __restrict__ ibuf,
-                         int32_t* __restrict__ out, int markets,
-                         int total_grid, int total_req) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int g = blockIdx.x;
-  const int32_t* meta = ibuf + g * kMetaInts;
-  Market s;
-  s.n = meta[0];
-  s.m = meta[1];
-  s.cmax = meta[2];
-  s.cap = meta[3];
-  const float* Wg = fbuf + meta[4];
-  const float* p0 = fbuf + meta[5];
-  const int32_t* counts = ibuf + meta[6];
-  const int g_off = meta[7];
-  const int r_off = meta[8];
-  const float eps0 = fbuf[3 * g];
-  const float eps_final = fbuf[3 * g + 1];
-  const float theta = fbuf[3 * g + 2];
-
+__device__ void market_setup(Market& s, unsigned char* smem, const float* Wg,
+                             const int32_t* counts) {
   const int n = s.n, m = s.m, cmax = s.cmax;
   const Layout l = solve_layout(n, m, cmax, kSharedW);
   s.tid = threadIdx.x;
@@ -525,39 +514,131 @@ __global__ void __launch_bounds__(kSolveThreads, 1)
     s.W = Wg;
     s.ws = m;
   }
-  for (int e = threadIdx.x; e < m * cmax; e += blockDim.x) {
-    s.price[e] = p0[e];
+  for (int i = threadIdx.x; i < m; i += blockDim.x) s.cnt[i] = counts[i];
+}
+
+// A fresh market state from start grid p0 (all zeros when p0 is null), then
+// the ε phases (the reference tests eps > eps_final * 1.0000000001 in
+// float32, where the factor rounds to 1.0) and one final settle.
+__device__ void market_solve(Market& s, const float* p0, float eps0,
+                             float eps_final, float theta) {
+  for (int e = threadIdx.x; e < s.m * s.cmax; e += blockDim.x) {
+    s.price[e] = p0 != nullptr ? p0[e] : 0.0f;
     s.owner[e] = -1;
   }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) s.cnt[i] = counts[i];
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  for (int j = threadIdx.x; j < s.n; j += blockDim.x) {
     s.agent_of[j] = -1;
     s.unit_of[j] = -1;
     s.parked[j] = 0;
   }
   __syncthreads();
-
   s.tol = __fdiv_rn(eps_final, 8.0f);
   s.rounds = 0;
-  // the ε phases (the reference tests eps > eps_final * 1.0000000001 in
-  // float32, where the factor rounds to 1.0), then one final settle
   float eps = eps0;
   while (eps > eps_final && s.rounds < s.cap) {
     s.settle(eps);
     eps = fmaxf(__fdiv_rn(eps, theta), eps_final);
   }
   s.settle(eps_final);
+}
 
-  float* price_out = reinterpret_cast<float*>(out + markets) + g_off;
-  int32_t* agent_out = out + markets + total_grid + r_off;
-  int32_t* unit_out = agent_out + total_req;
-  for (int e = threadIdx.x; e < m * cmax; e += blockDim.x)
+__device__ void market_store(const Market& s, float* price_out,
+                             int32_t* agent_out, int32_t* unit_out) {
+  for (int e = threadIdx.x; e < s.m * s.cmax; e += blockDim.x)
     price_out[e] = s.price[e];
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+  for (int j = threadIdx.x; j < s.n; j += blockDim.x) {
     agent_out[j] = s.agent_of[j];
     unit_out[j] = s.unit_of[j];
   }
+}
+
+template <bool kSharedW>
+__global__ void __launch_bounds__(kSolveThreads, 1)
+    auction_solve_kernel(const float* __restrict__ fbuf,
+                         const int32_t* __restrict__ ibuf,
+                         int32_t* __restrict__ out, int markets,
+                         int total_grid, int total_req) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x;
+  const int32_t* meta = ibuf + g * kMetaInts;
+  Market s;
+  s.n = meta[0];
+  s.m = meta[1];
+  s.cmax = meta[2];
+  s.cap = meta[3];
+  market_setup<kSharedW>(s, smem, fbuf + meta[4], ibuf + meta[6]);
+  market_solve(s, fbuf + meta[5], fbuf[3 * g], fbuf[3 * g + 1],
+               fbuf[3 * g + 2]);
+  int32_t* agent_out = out + markets + total_grid + meta[8];
+  market_store(s, reinterpret_cast<float*>(out + markets) + meta[7],
+               agent_out, agent_out + total_req);
   if (threadIdx.x == 0) out[g] = s.rounds;
+}
+
+}  // namespace
+
+// The fused mode (the reference's fused program, routing_fused.py:308-333):
+// one market whose W the fused Phase-1 kernel wrote on the device, the ε
+// schedule derived here from its wmax in float32, the warm attempt under
+// its round budget and, when it trips, the cold re-solve from zero prices
+// in the same launch (the reference's lax.cond), with no host read between.
+struct FusedSolveArgs {
+  const float* W;        // [n, m], written by fused_phase1_kernel
+  const int32_t* counts; // [m]
+  const float* p0;       // [m, cmax] warm-start grid (zeros when cold)
+  float* hdr;            // [0] wmax in; [1] rounds, [2] tripped (int32),
+                         // [3] eps_final out
+  float* price;          // [m, cmax] out
+  int32_t* agent_of;     // [n] out
+  int32_t* unit_of;      // [n] out
+  float theta;
+  int32_t n, m, cmax, budget, max_rounds, warm;
+};
+
+namespace {
+
+template <bool kSharedW>
+__global__ void __launch_bounds__(kSolveThreads, 1)
+    auction_fused_kernel(const FusedSolveArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Market s;
+  s.n = a.n;
+  s.m = a.m;
+  s.cmax = a.cmax;
+  market_setup<kSharedW>(s, smem, a.W, a.counts);
+  // the ε schedule (dense_common.jax_eps_final / warm_eps0 as float32
+  // scalars): every thread derives the same values
+  const float wmax = a.hdr[0];
+  const float anchor = fmaxf(wmax, 1.0f);
+  const float eps_final = fmaxf(__fmul_rn(1e-5f, anchor),
+                                __fmul_rn(64.0f * FLT_EPSILON, anchor));
+  const float cold_eps0 = fmaxf(__fdiv_rn(wmax, a.theta), eps_final);
+  float eps0 = cold_eps0;
+  if (a.warm) {
+    // fine schedule iff the seed carries price mass above it; each warp
+    // takes the whole grid's max, so every thread holds it
+    float p0max = -CUDART_INF_F;
+    for (int e = s.lane; e < s.m * s.cmax; e += kWarp)
+      p0max = fmaxf(p0max, a.p0[e]);
+    p0max = warp_max(p0max);
+    const float theta3 = __fmul_rn(__fmul_rn(a.theta, a.theta), a.theta);
+    const float fine = fmaxf(__fdiv_rn(wmax, theta3), eps_final);
+    if (p0max > fine) eps0 = fine;
+  }
+  s.cap = a.warm ? a.budget : a.max_rounds;
+  market_solve(s, a.p0, eps0, eps_final, a.theta);
+  const bool tripped = a.warm && s.rounds >= a.budget;
+  if (tripped) {  // block-uniform: every thread holds the same rounds
+    __syncthreads();
+    s.cap = a.max_rounds;
+    market_solve(s, nullptr, cold_eps0, eps_final, a.theta);
+  }
+  market_store(s, a.price, a.agent_of, a.unit_of);
+  if (threadIdx.x == 0) {
+    reinterpret_cast<int32_t*>(a.hdr)[1] = s.rounds;
+    reinterpret_cast<int32_t*>(a.hdr)[2] = tripped ? 1 : 0;
+    a.hdr[3] = eps_final;
+  }
 }
 
 template <bool kSharedW>
@@ -572,6 +653,18 @@ cudaError_t launch_solve(const void* fbuf, const void* ibuf, void* out,
   kernel<<<markets, kSolveThreads, smem, stream>>>(
       static_cast<const float*>(fbuf), static_cast<const int32_t*>(ibuf),
       static_cast<int32_t*>(out), markets, total_grid, total_req);
+  return cudaGetLastError();
+}
+
+template <bool kSharedW>
+cudaError_t launch_fused(const FusedSolveArgs& a, size_t smem,
+                         cudaStream_t stream) {
+  auto* kernel = auction_fused_kernel<kSharedW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kSolveThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -657,4 +750,22 @@ extern "C" int auction_solve_launch(const void* fbuf, const void* ibuf,
                                    total_req, smem, s)
               : launch_solve<false>(fbuf, ibuf, out, markets, total_grid,
                                     total_req, smem, s));
+}
+
+// The fused mode: one market of `*args` (device pointers), one block, on
+// `stream`; the instance and the shared memory are `auction_solve_plan`'s
+// for (n, m, cmax).  Returns the first CUDA error.
+extern "C" int auction_fused_launch(const FusedSolveArgs* args, void* stream) {
+  int info[2];
+  const int err = auction_solve_plan(args->n, args->m, args->cmax, info);
+  if (err != static_cast<int>(cudaSuccess)) return err;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = static_cast<size_t>(info[1]);
+  return static_cast<int>(info[0] ? launch_fused<true>(*args, smem, s)
+                                  : launch_fused<false>(*args, smem, s));
+}
+
+// sizeof(FusedSolveArgs), so the caller can check its mirror of the layout
+extern "C" int auction_fused_args_size() {
+  return static_cast<int>(sizeof(FusedSolveArgs));
 }

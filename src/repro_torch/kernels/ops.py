@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.kernels.auction_bid import (auction_bid_cuda,
                                              auction_bid_plain,
+                                             auction_fused_cuda,
+                                             auction_fused_plain,
                                              auction_solve_cuda,
                                              auction_solve_plain)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -22,17 +24,21 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
 from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                               lcp_affinity_plain,
                                               lcp_gather_cuda, lcp_gather_plain)
+from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
+                                               fused_phase1_plain)
 from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
-__all__ = ["auction_bid_op", "auction_solve_op", "decode_attention_op",
-           "flash_attention_op", "lcp_affinity_op", "lcp_gather_op",
-           "launch_counts", "reset_launch_counts", "ssd_op", "wkv6_op"]
+__all__ = ["auction_bid_op", "auction_fused_op", "auction_solve_op",
+           "decode_attention_op", "flash_attention_op", "fused_phase1_op",
+           "lcp_affinity_op", "lcp_gather_op", "launch_counts",
+           "reset_launch_counts", "ssd_op", "wkv6_op"]
 
 
-_LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "lcp_affinity": 0,
-             "lcp_gather": 0, "flash_attention": 0, "decode_attention": 0,
-             "wkv6": 0, "ssd": 0}
+_LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "auction_fused": 0,
+             "fused_phase1": 0, "lcp_affinity": 0, "lcp_gather": 0,
+             "flash_attention": 0, "decode_attention": 0, "wkv6": 0,
+             "ssd": 0}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -62,6 +68,29 @@ def auction_solve_op(fbuf, ibuf, meta):
         _LAUNCHES["auction_solve"] += 1
         return out
     return auction_solve_plain(fbuf, ibuf, meta)
+
+
+def fused_phase1_op(args, out, lay):
+    """Phase 1 of the fused routing step over the padded (nb, mb) grid of
+    ``args`` (`routing_fused.Phase1Args`) into the packed buffer ``out``
+    of layout ``lay``; see `kernels/routing_fused.py`."""
+    if _route(out) == "cuda":
+        res = fused_phase1_cuda(args, out, lay)
+        _LAUNCHES["fused_phase1"] += 1
+        return res
+    return fused_phase1_plain(args, out, lay)
+
+
+def auction_fused_op(out, counts, p0, lay, **kw):
+    """The fused mode of the staged solve: the market whose W and wmax sit
+    in ``out`` (layout ``lay``), ε derived from wmax, the warm attempt and
+    its cold fallback in one launch; keywords ``budget``, ``max_rounds``,
+    ``warm``, ``theta``.  See `kernels/auction_bid.py`."""
+    if _route(out) == "cuda":
+        res = auction_fused_cuda(out, counts, p0, lay, **kw)
+        _LAUNCHES["auction_fused"] += 1
+        return res
+    return auction_fused_plain(out, counts, p0, lay, **kw)
 
 
 def lcp_gather_op(prompts, arena, rows):

@@ -11,9 +11,11 @@ PORT_TESTS = Path(__file__).parent
 TIER1_MODULES = {
     "test_torch_affinity_predictor",
     "test_torch_attention",
+    "test_torch_backends",
     "test_torch_budget",
     "test_torch_cuda",
     "test_torch_engine",
+    "test_torch_fused",
     "test_torch_isolation",
     "test_torch_kernels_ref",
     "test_torch_ledger_mirror",

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain versions at the main
 paths' shapes (the staged auction solve bit for bit against the host-driven
 staged market: one market, a hub batch, a tripped budget, ties), short
-CUDA-vs-CPU router locksteps (one hub and 8 hubs with spill) and reduced
+CUDA-vs-CPU router locksteps (one hub and 8 hubs with spill), the fused
+routing step's two kernels and the fused CUDA router against the fused CPU
+router (bit for bit, one launch of each kernel per batch) and reduced
 CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
@@ -34,6 +36,7 @@ from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
 pytestmark = pytest.mark.cuda
 BIG = np.float32(np.finfo(np.float32).max / 4)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SYNC_WARNING = "called a synchronizing CUDA operation"   # sync debug mode's
 
 
 @pytest.fixture
@@ -203,6 +206,7 @@ def test_ops_count_kernel_launches(dev):
     ops.ssd_op(*ssd_inputs(1, 20, 2, 16, 8, torch.float32, False, dev, 0))
     ops.wkv6_op(*wkv6_inputs(1, 20, 2, 16, torch.float32, True, "cpu", 0))
     assert ops.launch_counts() == {"auction_bid": 1, "auction_solve": 1,
+                                   "auction_fused": 0, "fused_phase1": 0,
                                    "lcp_affinity": 1, "lcp_gather": 1,
                                    "flash_attention": 0,
                                    "decode_attention": 0, "wkv6": 1,
@@ -257,6 +261,212 @@ def test_cuda_router_matches_cpu_router_at_8_hubs(dev):
     cfg = dataclasses.replace(SCALE_128.router_config(), audit_ledger=True)
     gpu = _router_lockstep(dev, 128, cfg, 4, 64)
     assert len(gpu.hubs) == 8
+
+
+# ------------------------------------------------------ the fused step --
+FUSED_TELEMETRY = {"router_inflight": 2, "router_rps": 1.0,
+                   "agent_inflight": {"a0": 1}, "agent_rps": {"a1": 0.5}}
+
+
+def _fused_router(device, **kw):
+    """tests/test_routing_fused.py's heterogeneous 5-agent fleet (a
+    recurrent agent, an LRU-capped one), the optimism bonus on two."""
+    from repro_torch.core.mechanism import AgentInfo, IEMASRouter
+    from repro_torch.core.pricing import TokenPrices
+
+    agents = [AgentInfo(f"a{i}", TokenPrices(0.01 * (1 + i / 5),
+                                             0.001 * (1 + i / 5),
+                                             0.03 * (1 + i / 5)), 2,
+                        ("dialogue",) if i % 2 == 0
+                        else ("dialogue", "reasoning"), scale=4.0 + i,
+                        recurrent=(i == 3), cache_slots=2 if i == 1 else 0)
+              for i in range(5)]
+    r = IEMASRouter(agents, device=device, fused=True, **kw)
+    for aid in ("a0", "a2"):
+        r.pool[aid].explore = 0.05
+    return r
+
+
+def _fused_batch(n, t, seed, parents=False):
+    from repro_torch.core.mechanism import Request
+
+    rng = np.random.default_rng(seed * 1000 + t)
+    return [Request(f"r{t}_{j}", f"d{j % 4}",
+                    rng.integers(0, 50, int(rng.integers(5, 30))), turn=t,
+                    domain="dialogue" if j % 2 == 0 else "reasoning",
+                    meta={"parent_sessions": (f"d{(j + 1) % 4}",
+                                              f"d{(j + 2) % 4}")}
+                    if parents and j % 3 == 1 else {})
+            for j in range(n)]
+
+
+def _train(routers, seed, n_obs=700):
+    """The same observations and ledger entries into every router, so
+    their trees split."""
+    from repro_torch.core.predictor import PredictorInput
+
+    rng = np.random.default_rng(seed)
+    for k in range(n_obs):
+        x = rng.uniform(0, 1, 10) * np.array([30, 4, 1, 3, 2, 2, 1, 2, 1, 1])
+        for r in routers:
+            r.pool[f"a{k % 5}"].update(PredictorInput(*x),
+                                       0.02 + 0.3 * (x[0] > 15),
+                                       0.01 + 2.0 * (x[2] > 0.5),
+                                       float(x[9] > 0.5))
+    for k in range(12):
+        toks = rng.integers(0, 50, int(rng.integers(5, 30)))
+        for r in routers:
+            r.ledger.update(f"a{k % 5}", f"d{k % 4}", toks)
+
+
+def test_fused_phase1_kernel_matches_plain(dev, monkeypatch):
+    """``fused_phase1_kernel`` against the plain pass at the inputs the
+    fused CPU router gave it (cold agents, trained trees, parents, the
+    optimism bonus, padding), bit for bit, W and wmax included."""
+    from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
+                                                   fused_phase1_plain)
+
+    calls = []
+    real = ops.fused_phase1_op
+
+    def rec(args, out, lay):
+        calls.append((args.map(torch.clone), lay))
+        return real(args, out, lay)
+
+    monkeypatch.setattr(ops, "fused_phase1_op", rec)
+    cpu = _fused_router("cpu", solver="cuda", n_hubs=1)
+    cpu.route_batch(_fused_batch(3, 0, 2), dict(FUSED_TELEMETRY))
+    _train([cpu], seed=4)
+    cpu.route_batch(_fused_batch(6, 1, 2, parents=True),
+                    dict(FUSED_TELEMETRY))
+    assert len(calls) == 2 and calls[1][0].cb > 0
+    for args, lay in calls:
+        want = fused_phase1_plain(args, torch.zeros(lay.total), lay)
+        got = fused_phase1_cuda(args.map(lambda t: t.to(dev)),
+                                torch.zeros(lay.total, device=dev), lay)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "tripped", "global"])
+def test_auction_fused_kernel_matches_plain(dev, case):
+    """The fused mode of the solve against its plain version: the ε
+    schedule from wmax, the warm attempt, a tripped budget and its cold
+    re-solve in the same launch, and a market whose W does not fit in
+    shared memory, bit for bit."""
+    from repro_torch.core.solvers.dense_common import THETA
+    from repro_torch.kernels.auction_bid import (auction_fused_cuda,
+                                                 auction_fused_plain,
+                                                 auction_solve_plan)
+    from repro_torch.kernels.routing_fused import packed_layout
+
+    nb, mb, cbu = (256, 512, 4) if case == "global" else (64, 128, 16)
+    n, m = nb * 25 // 32, mb * 25 // 32
+    rng = np.random.default_rng(6)
+    W = np.zeros((nb, mb), np.float32)
+    W[:n, :m] = rng.uniform(0, 4, (n, m)) * (rng.random((n, m)) > 0.3)
+    counts = np.zeros(mb, np.int32)
+    counts[:m] = rng.integers(0, cbu + 1, m)
+    grid = np.zeros((mb, cbu), np.float32)
+    if case in ("warm", "tripped"):
+        grid[:m] = rng.uniform(0, 2, (m, cbu))
+    lay = packed_layout(nb, mb, cbu)
+    out = torch.zeros(lay.total)
+    out[0] = float(W[:, counts > 0].max())
+    out[lay.W:lay.W + nb * mb] = torch.from_numpy(W.ravel())
+    kw = dict(budget=5 if case == "tripped" else 10_000, max_rounds=200_000,
+              warm=case in ("warm", "tripped"), theta=THETA)
+    want = auction_fused_plain(out.clone(), torch.from_numpy(counts),
+                               torch.from_numpy(grid.ravel()), lay, **kw)
+    got = auction_fused_cuda(out.to(dev), torch.from_numpy(counts).to(dev),
+                             torch.from_numpy(grid.ravel()).to(dev), lay,
+                             **kw)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert bool(want.view(torch.int32)[2]) == (case == "tripped")
+    assert auction_solve_plan(np.array([[nb, mb, cbu]]))[0] == \
+        (case != "global")
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_fused_cuda_router_matches_cpu_router(dev, warm):
+    """The fused router on the card against the fused router on the CPU:
+    decisions, payments, estimates and accounts bit for bit; per batch one
+    launch each of ``lcp_gather``, ``fused_phase1`` and ``auction_fused``,
+    none of the staged kernels."""
+    kw = dict(solver="cuda", n_hubs=1, warm_start=warm)
+    cpu, gpu = _fused_router("cpu", **kw), _fused_router(dev, **kw)
+    _train([cpu, gpu], seed=9)
+    rng = np.random.default_rng(7)
+    for t in range(5):
+        n = int(rng.integers(2, 9))
+        ops.reset_launch_counts()
+        dg = gpu.route_batch(_fused_batch(n, t, 8, parents=t % 2 == 1),
+                             dict(FUSED_TELEMETRY))
+        counts = ops.launch_counts()
+        dc = cpu.route_batch(_fused_batch(n, t, 8, parents=t % 2 == 1),
+                             dict(FUSED_TELEMETRY))
+        assert (counts["lcp_gather"], counts["fused_phase1"],
+                counts["auction_fused"], counts["auction_bid"],
+                counts["lcp_affinity"]) == (1, 1, 1, 0, 0)
+        for a, b in zip(dg, dc):
+            assert (a.agent_id, a.payment, a.welfare_weight) == \
+                (b.agent_id, b.payment, b.welfare_weight)
+            if b.estimate is not None:
+                assert (a.estimate.latency, a.estimate.cost,
+                        a.estimate.quality) == (b.estimate.latency,
+                                                b.estimate.cost,
+                                                b.estimate.quality)
+        for d in dc:
+            if d.agent_id:
+                from repro_torch.core.mechanism import CompletionObs
+
+                obs = CompletionObs(latency=0.03 + 0.01 * rng.random(),
+                                    n_prompt=len(d.request.tokens), n_hit=0,
+                                    n_gen=20, quality=0.7)
+                gpu.on_complete(d.request.request_id, obs)
+                cpu.on_complete(d.request.request_id, obs)
+        assert gpu.accounts == cpu.accounts
+
+
+def test_fused_step_syncs_only_at_its_copy(dev, monkeypatch):
+    """From the fused step's first launch until its fused solve returns no
+    call synchronizes with the host (PyTorch's sync debug mode "error"
+    raises on one); after it, the step makes exactly one synchronizing call,
+    its device-to-host copy (counted in "warn" mode)."""
+    import warnings
+
+    gpu = _fused_router(dev, solver="cuda", n_hubs=1, warm_start=True)
+    _train([gpu], seed=9)
+    gather, fused = ops.lcp_gather_op, ops.auction_fused_op
+
+    def first(*a):
+        torch.cuda.set_sync_debug_mode("error")
+        return gather(*a)
+
+    def last(*a, **k):
+        out = fused(*a, **k)
+        torch.cuda.set_sync_debug_mode("warn")
+        return out
+
+    monkeypatch.setattr(ops, "lcp_gather_op", first)
+    monkeypatch.setattr(ops, "auction_fused_op", last)
+    step, tail = gpu._fused.step, []
+
+    def guarded(*args, **kw):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            try:
+                return step(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                tail.append(sum(SYNC_WARNING in str(w.message)
+                                for w in seen))
+
+    gpu._fused.step = guarded
+    for t in range(4):
+        gpu.route_batch(_fused_batch(5, t, 8, parents=t % 2 == 1),
+                        dict(FUSED_TELEMETRY))
+    assert tail == [1, 1, 1, 1]
 
 
 def _normal(shape, dtype, dev, rng):

@@ -57,6 +57,7 @@ def test_lcp_plain_matches_reference_oracle_and_pallas(seed):
                                  torch.from_numpy(ledgers))
     assert np.array_equal(via_op.numpy(), want)
     assert ops.launch_counts() == {"auction_bid": 0, "auction_solve": 0,
+                                   "auction_fused": 0, "fused_phase1": 0,
                                    "lcp_affinity": 0, "lcp_gather": 0,
                                    "flash_attention": 0,
                                    "decode_attention": 0, "wkv6": 0,
