@@ -134,16 +134,48 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     between a step's first launch and the return of its fused solve
     (PyTorch's sync debug mode is "error" there, so one raises) and one
     synchronizing call after it, the copy (counted in "warn" mode); one
-    device-to-host copy per step in a ``torch.profiler`` trace of three
-    more steps.  Then the steps' gathers and both fused kernels against
+    device-to-host copy per step in a ``torch.profiler`` trace of each
+    further step, until three traces hold kernel records (at most eight
+    steps: the profiler sometimes drops a whole trace).  Then the steps' gathers and both fused kernels against
     their plain versions at every main-path input (the plain Phase-1 pass
     on the plain gather's LCP), timed, and on synthetic cases (cold
     and trained agents, recurrent and LRU-capped agents, the optimism
     bonus, parents, padding; the solve cold, warm and with a tripped warm
     budget).
+16. Closed-loop serving on real engines, through the serving CLI
+    (``repro_torch.launch.serve.main``, its cluster and router kept): the
+    CLI's defaults (9 agents of ``agent_profiles(9)``: llama3-7b / qwen-8b /
+    qwen-4b classes, float32, 6 / 6 / 4 layers, heads of 64 / 72 / 48; 16
+    coqa_like dialogues; 6 new tokens; engine warm-up) with ``--solver
+    cuda --warm-start --audit-ledger``, run twice: staged at 2 hubs and
+    ``--fused`` at 1 hub.  Every dialogue finishes, the KV hit rate is
+    above 0.5, the surplus is not negative and the settlement ledger
+    audits clean; per routed batch exactly one ``lcp_gather`` launch (and
+    one each of ``fused_phase1`` and ``auction_fused`` when fused),
+    ``auction_solve`` once per solve, ``auction_bid`` and ``lcp_affinity``
+    never; ``flash_attention`` once per layer of every fresh prefill and
+    ``decode_attention`` once per layer of every decode and no-op step,
+    warm-up included, exactly.  Each agent's requests are served again, in
+    order, on a CPU engine holding the card engine's weights: the same
+    tokens and hits.  Then the attention kernels at up to 2 of the run's
+    inputs of each shape (d = 48, 64, 72) against their plain versions
+    (2e-5), timed.
+17. Open-loop serving at the ``SCALE_128`` preset: ``EventSimulator`` over
+    128 analytic agents, the ``cuda`` solver at 8 hubs with warm starts and
+    spill, Poisson arrivals at 96 dialogues/s of a streamed coqa_like
+    workload, ``max_inflight`` 256, batches of <= 64 every 0.05 virtual s,
+    a ``RoutingProfiler``.  The CUDA and the CPU routers each run the first
+    200 dialogues: equal metrics (every key but the wall-clock ones, left
+    out by name), accounts and settlement head, and ``lcp_gather`` once
+    per batch.  Then the CUDA router alone over the preset's 10,000
+    dialogues, printing requests dispatched and completed, KV hit rate,
+    latency p50 / p95, mean cost, route_batch p50 / p90 (host clock),
+    requests/s, the profiler's report and the router kernels' launches.
     Then the card line, the JSON line of the ten kernels' records (the six
     TPU kernels' counterparts, the router's two redesigned entries and the
-    fused step's two kernels) and the device line last.
+    fused step's two kernels; ``serving_launches`` gives each one's
+    launches in phase 16's two runs and phase 17's scale run) and the
+    device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -232,6 +264,7 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
 
 
 PROFILE_TRIES = 3                  # traces of one op before events
+TRACE_MARGIN_S = 0.2               # idle time at each end of a step's trace
 DEVICE_MS_FROM: dict[str, set] = {}   # op -> {"profiler", "events"}
 
 
@@ -2232,11 +2265,15 @@ def guarding_syncs(router, ops):
         router._fused.step = step
 
 
-def profiled_copies(router, loop, steps: int) -> list[tuple[int, int, int]]:
-    """Route ``steps`` more batches of ``loop`` through ``router`` alone,
-    each fused step inside its own ``torch.profiler`` trace (after an empty
-    trace that takes late records of earlier work); returns each trace's
-    (device-to-host copies, host-to-device copies, kernel records)."""
+def profiled_copies(router, loop, steps: int,
+                    tries: int) -> list[tuple[int, int, int]]:
+    """Route more batches of ``loop`` through ``router`` alone, each fused
+    step inside its own ``torch.profiler`` trace (after an empty trace that
+    takes late records of earlier work), until ``steps`` traces hold kernel
+    records, ``tries`` steps were traced or the loop runs dry (late in a
+    long run the profiler sometimes drops a whole trace's records); returns
+    each trace's (device-to-host copies, host-to-device copies, kernel
+    records)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2250,7 +2287,12 @@ def profiled_copies(router, loop, steps: int) -> list[tuple[int, int, int]]:
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # idle margins inside the trace window: device records whose
+            # converted timestamps fall a little outside it are kept
+            time.sleep(TRACE_MARGIN_S)
             out = step(*args, **kw)
+            torch.cuda.synchronize()
+            time.sleep(TRACE_MARGIN_S)
         d2h = h2d = kernels = 0
         for e in prof.key_averages():
             if e.key.startswith("Memcpy DtoH"):
@@ -2265,9 +2307,10 @@ def profiled_copies(router, loop, steps: int) -> list[tuple[int, int, int]]:
 
     router._fused.step = traced
     try:
-        for _ in range(steps):
+        while len(seen) < tries and sum(k > 0 for *_, k in seen) < steps:
             reqs = loop.next_batch()
-            check(bool(reqs), "closed loop ran dry before the traced steps")
+            if not reqs:
+                break
             got = router.route_batch(reqs, {"router_inflight": len(reqs),
                                             "router_rps": 2.0})
             loop.complete(got, [router])
@@ -2679,14 +2722,14 @@ def phase_fused_router(dev) -> tuple[Counter, dict]:
         f"{x * 1e3:.2f}" for x in lat) + "; staged, same batches: "
         + ", ".join(f"{x * 1e3:.2f}" for x in staged_lat))
     gpu.profiler = None
-    traced = profiled_copies(gpu, loop, 3)
+    traced = profiled_copies(gpu, loop, 3, tries=8)
     check(any(k > 0 for _, _, k in traced), f"no traced fused step held a "
           f"kernel record: {traced}")
     check(all(d == 1 for d, _, k in traced if k > 0),
           f"device-to-host copies per traced fused step: {traced}")
-    print("    3 more fused steps, each in its own profiler trace: "
-          "(device-to-host copies, host-to-device copies, kernel records) "
-          f"{traced}")
+    print(f"    {len(traced)} more fused steps, each in its own profiler "
+          "trace, until 3 held kernel records: (device-to-host copies, "
+          f"host-to-device copies, kernel records) {traced}")
     print("    the two fused kernels at every main-path input")
     figures = replay_fused_calls(calls, dev)
     r1, r2 = figures["fused_phase1"], figures["auction_fused"]
@@ -2707,6 +2750,398 @@ def phase_fused_router(dev) -> tuple[Counter, dict]:
     phase1_synthetic(dev, ops)
     fused_solve_synthetic(dev)
     return counts, figures
+
+
+# ------------------------------------------------ serving stack, 16-17 --
+SERVE_FLAGS = ["--agents", "9", "--dialogues", "16", "--workload",
+               "coqa_like", "--solver", "cuda", "--warm-start",
+               "--audit-ledger"]            # the CLI's defaults otherwise
+SCALE_LOCKSTEP = 200          # dialogues, CUDA vs CPU router
+SCALE_DIALOGUES = None         # the scale run's dialogues (None: SCALE_128's)
+WALL_KEYS = ("wall_time_s", "routing.routing_wall_s", "routing.overhead_frac")
+
+
+def flat_metrics(metrics: dict, pre: str = "") -> dict:
+    out = {}
+    for k, v in metrics.items():
+        if isinstance(v, dict):
+            out.update(flat_metrics(v, f"{pre}{k}."))
+        else:
+            out[f"{pre}{k}"] = v
+    return out
+
+
+def without_wall_clock(metrics: dict) -> dict:
+    """The metrics as dotted keys, less the ones that read the host clock
+    (left out by name: ``WALL_KEYS`` and each profiler phase's ``wall_s``
+    and ``frac_of_engine``)."""
+    return {k: v for k, v in flat_metrics(metrics).items()
+            if k not in WALL_KEYS and not (
+                k.startswith("routing.phases.")
+                and k.rsplit(".", 1)[1] in ("wall_s", "frac_of_engine"))}
+
+
+@contextmanager
+def serve_cli_capture(serve, per_batch):
+    """Run ``serve.main`` with its cluster and router kept: every real
+    engine's ``serve`` call, its warm-up's included, is logged per engine
+    (arguments and result, so that the calls can be served again on
+    another engine in the same order), and every ``route_batch`` call is
+    timed on the host clock (synchronised) and handed to
+    ``per_batch(before, after)`` with the launch counts around it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    made = {"logs": {}, "route_ms": []}
+    sim_cluster, build_router = serve.SimCluster, serve.build_router
+    engine_serve = AgentEngine.serve
+
+    def logged(self, session, prompt, now=0.0, max_new_tokens=None,
+               parents=()):
+        res = engine_serve(self, session, prompt, now=now,
+                           max_new_tokens=max_new_tokens, parents=parents)
+        made["logs"].setdefault(id(self), []).append(
+            (session, np.array(prompt, np.int32), now, max_new_tokens,
+             tuple(parents), res))
+        return res
+
+    def cluster(*args, **kwargs):
+        made["cluster"] = c = sim_cluster(*args, **kwargs)
+        return c
+
+    def router(*args, **kwargs):
+        made["router"] = r = build_router(*args, **kwargs)
+        route_batch = r.route_batch
+
+        def timed(*a, **kw):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = route_batch(*a, **kw)
+            torch.cuda.synchronize()
+            made["route_ms"].append((time.perf_counter() - t0) * 1e3)
+            per_batch(before, ops.launch_counts())
+            return out
+        r.route_batch = timed
+        return r
+
+    serve.SimCluster, serve.build_router = cluster, router
+    AgentEngine.serve = logged
+    try:
+        yield made
+    finally:
+        serve.SimCluster, serve.build_router = sim_cluster, build_router
+        AgentEngine.serve = engine_serve
+        built = made.get("cluster")
+        made["logs"] = {} if built is None else {
+            aid: made["logs"].get(id(rt.engine), [])
+            for aid, rt in built.agents.items()}
+
+
+def serve_closed(dev, flags, record=False):
+    """One closed-loop CLI run on the card (``launch.serve.main``, real
+    engines) under the phase's gates; returns the run's launch counts, the
+    cluster, the engines' logs and the recorded attention calls."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    fused = "--fused" in flags
+    batches = Counter()
+
+    def per_batch(before, after):
+        delta = {k: after[k] - before[k] for k in after}
+        batches["n"] += 1
+        if fused:
+            check(delta["lcp_gather"] == delta["fused_phase1"]
+                  == delta["auction_fused"] == 1, f"fused batch "
+                  f"{batches['n']}: launches {delta}, not one of each")
+        else:
+            check(delta["lcp_gather"] == 1, f"staged batch {batches['n']}: "
+                  f"lcp_gather launched {delta['lcp_gather']} times")
+        check(delta["auction_bid"] == delta["lcp_affinity"] == 0,
+              f"a replaced kernel launched: {delta}")
+
+    names = ("flash_attention", "decode_attention") if record else ()
+    out = io.StringIO()
+    with serve_cli_capture(serve, per_batch) as made, \
+            recording(ops, names, per_shape=2) as rec, \
+            SolveTally() as tally, redirect_stdout(out):
+        ops.reset_launch_counts()          # the path's run starts here
+        t0 = time.perf_counter()
+        metrics = serve.main(flags + ["--device", dev.type])
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()       # ... and ends here
+    printed = json.loads(out.getvalue())
+    check(without_wall_clock(printed) == without_wall_clock(
+        json.loads(json.dumps(metrics, default=float))),
+          "the CLI printed other metrics than it returned")
+    cluster, router = made["cluster"], made["router"]
+    check(not metrics["truncated"] and metrics["unfinished_dialogues"] == 0,
+          f"dialogues left unfinished: {metrics['unfinished_dialogues']}")
+    check(metrics["kv_hit_rate"] > 0.5,
+          f"KV hit rate {metrics['kv_hit_rate']} <= 0.5")
+    check(metrics["accounts"]["surplus"] >= 0, "negative surplus")
+    check(metrics["ledger"]["settled"] == metrics["n"],
+          "the settlement ledger does not settle every completed request")
+    n = batches["n"]
+    check(counts["lcp_gather"] == n > 0, f"lcp_gather launched "
+          f"{counts['lcp_gather']} times over {n} batches")
+    check(counts["auction_bid"] == counts["lcp_affinity"] == 0,
+          f"a replaced kernel launched on the path: {counts}")
+    solves = sum(d == dev.type for d, _ in tally.rounds)
+    if fused:
+        check(counts["fused_phase1"] == counts["auction_fused"] == n,
+              f"fused kernels launched {counts} over {n} batches")
+        check(counts["auction_solve"] == solves, "auction_solve launched "
+              "beyond the spill round's solves")
+    else:
+        check(counts["auction_solve"] == solves > 0,
+              f"auction_solve launched {counts['auction_solve']} times for "
+              f"{solves} solves on the card")
+        check(dev.type != "cuda" or solves <= tally.batch_calls
+              + tally.single_calls + tally.resolves, "auction_solve "
+              "launched more than once per solve")
+    # the attention kernels: exact counts from what each engine served
+    fresh = steps = 0
+    for aid, log in made["logs"].items():
+        layers = cluster.agents[aid].engine.cfg.n_layers
+        for *_, res in log:
+            fresh += layers * (res.n_hit == 0)
+            steps += layers * (res.n_gen + (res.n_hit == res.n_prompt))
+    check(counts["flash_attention"] == fresh > 0,
+          f"flash_attention launched {counts['flash_attention']} times for "
+          f"{fresh} layer prefills")
+    check(counts["decode_attention"] == steps > 0,
+          f"decode_attention launched {counts['decode_attention']} times for "
+          f"{steps} layer decode steps")
+    ms = sorted(made["route_ms"])
+    print(f"    {metrics['dispatched_requests']} requests in {n} batches, "
+          f"{metrics['n']} completed, KV hit rate "
+          f"{metrics['kv_hit_rate']:.4f}, latency p50 "
+          f"{metrics['latency_ms_median']:.2f} ms / p95 "
+          f"{metrics['latency_ms_p95']:.2f} ms, mean cost "
+          f"{metrics['cost_mean']:.4f}, quality {metrics['quality_mean']:.3f}"
+          f", surplus {metrics['accounts']['surplus']:.4f}, ledger head "
+          f"{metrics['ledger']['head'][:16]}")
+    print(f"    route_batch p50 {percentile(ms, 0.5):.2f} ms, p90 "
+          f"{percentile(ms, 0.9):.2f} ms (host clock, synchronised); "
+          f"{metrics['dispatched_requests'] / wall:.1f} requests/s over the "
+          f"CLI call's {wall:.1f} s (engine build and warm-up included); "
+          f"launches {counts}")
+    return counts, cluster, made["logs"], rec
+
+
+def rebuild_on_cpu(cluster, logs) -> int:
+    """Every agent's requests again, in order and after the same warm-up,
+    on a CPU engine holding the card engine's weights: the same tokens and
+    hits per request."""
+    import numpy as np
+
+    from repro_torch.serving.engine import AgentEngine
+
+    served = 0
+    for aid, log in logs.items():
+        eng = cluster.agents[aid].engine
+        cpu = AgentEngine(eng.cfg, device="cpu",
+                          params=copy.deepcopy(eng.params).cpu(),
+                          speed=eng.speed, cache_slots=eng.cache_slots,
+                          max_len=eng.max_len, max_new_tokens=eng.max_new)
+        cpu.warmup()
+        for session, prompt, now, max_new, parents, res in log:
+            if session == "__warm__":
+                continue                   # served by the warm-up above
+            got = cpu.serve(session, prompt, now=now, max_new_tokens=max_new,
+                            parents=parents)
+            check(np.array_equal(got.output_tokens, res.output_tokens)
+                  and (got.n_hit, got.n_prompt) == (res.n_hit, res.n_prompt),
+                  f"{aid}: the CPU engine on the card's weights served "
+                  f"{session} otherwise: {got.output_tokens} / "
+                  f"{res.output_tokens}, hits {got.n_hit} / {res.n_hit}")
+            served += 1
+    return served
+
+
+def phase_serving_closed(dev) -> dict:
+    """Phase 16: ``launch.serve.main`` in its closed loop on real engines,
+    staged (2 hubs) and fused (1 hub); returns each run's launch counts."""
+    from repro_torch.configs.iemas_cluster import MODEL_CLASSES
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    print("    fleet: " + ", ".join(
+        f"{c} ({n} layers, d_model {d}, {h} heads of {d // h})"
+        for c, (n, d, h, _, _) in MODEL_CLASSES.items()) + ", float32")
+    runs = {}
+    for label, extra in (("staged", ["--hubs", "2"]),
+                         ("fused", ["--hubs", "1", "--fused"])):
+        print(f"    {label}: serve {' '.join(SERVE_FLAGS + extra)} "
+              f"--device {dev.type}")
+        counts, cluster, logs, rec = serve_closed(
+            dev, SERVE_FLAGS + extra, record=label == "staged")
+        served = rebuild_on_cpu(cluster, logs)
+        print(f"    the {served} requests again on CPU engines holding the "
+              "card's weights: the same tokens and hits")
+        runs[label] = counts
+        if label == "staged":
+            dims = {args[0].shape[-1] for args, _ in
+                    rec["flash_attention"].calls}
+            check({48, 64, 72} <= dims, f"flash head dims {dims}")
+            print("    the attention kernels at the run's inputs (up to 2 "
+                  "calls of each shape, weighted by the calls made), "
+                  "float32, d = 48 / 64 / 72")
+            for name, kernel, plain, lib, work in (
+                    ("flash_attention", flash_attention_cuda,
+                     flash_attention_plain, sdpa_flash, flash_work),
+                    ("decode_attention", decode_attention_cuda,
+                     decode_attention_plain, sdpa_decode, decode_work)):
+                r = replay_attention(rec[name], kernel, plain, lib, work)
+                print(f"    {name} per call ({r['calls']} calls, "
+                      f"{r['sampled']} sampled): max abs err "
+                      f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
+                      f"(device {r['device_ms']:.4f}), plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
+                      f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
+        del cluster, logs, rec
+    return runs
+
+
+@contextmanager
+def device_traced(dev):
+    """A ``torch.profiler`` trace of the card's activity only (kernels and
+    copies) around the block; yields a function that returns their summed
+    device ms once the block is done (0.0 for a CPU device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev.type != "cuda":
+        yield lambda: 0.0
+        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield lambda: sum(e.device_time_total for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA) / 1e3
+        torch.cuda.synchronize()
+
+
+def scale_sim(dev, n_dialogues: int, *, route_ms=None):
+    """The SCALE_128 preset's open loop: 128 analytic agents, the ``cuda``
+    solver at 8 hubs with warm starts and spill, Poisson arrivals at the
+    preset's rate over a streamed coqa_like workload, the admission window,
+    batch cap and window of the preset, and a `RoutingProfiler` (which
+    also keeps each route_batch's host ms in ``route_ms``).  Returns
+    (metrics, router, wall seconds)."""
+    from repro_torch.configs.iemas_cluster import SCALE_128
+    from repro_torch.serving import (EventSimulator, PoissonArrivals,
+                                     RoutingProfiler, SimCluster,
+                                     WorkloadSpec, iter_dialogues,
+                                     make_router)
+
+    class Profiler(RoutingProfiler):
+        @contextmanager
+        def phase(self, name):
+            t0 = time.perf_counter()
+            with super().phase(name):
+                yield
+            if name == "route_batch" and route_ms is not None:
+                route_ms.append((time.perf_counter() - t0) * 1e3)
+
+    cluster = SimCluster(SCALE_128.n_agents, seed=0,
+                         max_new_tokens=SCALE_128.max_new_tokens,
+                         engine_mode=SCALE_128.engine_mode, device=dev)
+    router = make_router(cluster, SCALE_128.router_config(),
+                         audit_ledger=True)
+    check(len(router.hubs) == 8 and router.spill and router.warm_start,
+          "not the SCALE_128 router")
+    sim = EventSimulator(
+        cluster, router, iter_dialogues(WorkloadSpec(
+            "coqa_like", n_dialogues, seed=1)),
+        arrivals=PoissonArrivals(rate=SCALE_128.arrival_rate(), seed=2),
+        batch_cap=SCALE_128.batch_cap, batch_window=SCALE_128.batch_window,
+        max_inflight=SCALE_128.max_inflight, max_new_tokens=SCALE_128.
+        max_new_tokens, profiler=Profiler(), lean=True)
+    t0 = time.perf_counter()
+    metrics = sim.run()
+    return metrics, router, time.perf_counter() - t0
+
+
+def phase_serving_scale(dev) -> dict:
+    """Phase 17: the SCALE_128 open loop, CUDA router against CPU router
+    over the first dialogues, then the CUDA router alone at scale; returns
+    the scale run's launch counts."""
+    from repro_torch.configs.iemas_cluster import SCALE_128
+    from repro_torch.kernels import ops
+
+    print(f"    {SCALE_128.n_agents} analytic agents, {SCALE_128.n_hubs()} "
+          f"hubs, Poisson {SCALE_128.arrival_rate():g} dialogues/s, "
+          f"max_inflight {SCALE_128.max_inflight}, batch_cap "
+          f"{SCALE_128.batch_cap}, batch_window {SCALE_128.batch_window}")
+    with SolveTally() as tally, device_traced(dev) as kernel_ms:
+        ops.reset_launch_counts()          # the lockstep run starts here
+        gpu, gpu_router, gpu_s = scale_sim(dev, SCALE_LOCKSTEP)
+        counts = ops.launch_counts()       # ... and ends here
+        solves = sum(d == dev.type for d, _ in tally.rounds)
+    cpu, cpu_router, cpu_s = scale_sim("cpu", SCALE_LOCKSTEP)
+    a, b = without_wall_clock(gpu), without_wall_clock(cpu)
+    check(a == b, "CUDA and CPU routers' runs differ: " + str(
+        {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+         if a.get(k) != b.get(k)}))
+    check(gpu_router.accounts == cpu_router.accounts, "accounts differ")
+    check(gpu_router.settlement.head == cpu_router.settlement.head,
+          "settlement heads differ")
+    check(not gpu["truncated"]
+          and gpu["dialogues_completed"] == SCALE_LOCKSTEP,
+          "the lockstep run did not finish")
+    batches = gpu["routing"]["phases"]["route_batch"]["calls"]
+    check(counts["lcp_gather"] == batches > 0
+          and counts["auction_solve"] == solves > 0
+          and counts["auction_bid"] == counts["lcp_affinity"] == 0,
+          f"launches {counts} over {batches} batches and {solves} solves")
+    print(f"    lockstep over {SCALE_LOCKSTEP} dialogues: equal metrics "
+          f"(wall clock aside), accounts and ledger head "
+          f"{gpu_router.settlement.head[:16]}; {gpu['dispatched_requests']} "
+          f"requests in {batches} batches, KV hit rate "
+          f"{gpu['kv_hit_rate']:.4f}; CUDA router run {gpu_s:.2f} s, CPU "
+          f"router run {cpu_s:.2f} s")
+    busy = kernel_ms()
+    print("    device busy over the CUDA router's run: " + (
+        "not measured (the trace holds no device record)" if not busy else
+        f"{busy:.1f} ms of kernels and copies in {gpu_s * 1e3:.1f} ms "
+        f"({busy / (gpu_s * 1e3):.2%}; torch.profiler, device activity "
+        "only, a lower bound)"))
+    del gpu_router, cpu_router
+    route_ms, n = [], SCALE_DIALOGUES or SCALE_128.n_dialogues
+    ops.reset_launch_counts()              # the scale run starts here
+    m, router, wall = scale_sim(dev, n, route_ms=route_ms)
+    counts = ops.launch_counts()           # ... and ends here
+    batches = m["routing"]["phases"]["route_batch"]["calls"]
+    check(counts["lcp_gather"] == batches > 0 and counts["auction_solve"] > 0
+          and counts["auction_bid"] == counts["lcp_affinity"] == 0,
+          f"scale run launches {counts} over {batches} batches")
+    check(not m["truncated"] and m["dialogues_completed"] == n,
+          "the scale run did not finish")
+    check(router.accounts["surplus"] >= 0, "negative surplus")
+    ms = sorted(route_ms)
+    print(f"    scale run, {n} dialogues: "
+          f"{m['dispatched_requests']} requests dispatched, {m['n']} "
+          f"completed, KV hit rate {m['kv_hit_rate']:.4f}, latency p50 "
+          f"{m['latency_ms_median']:.2f} ms / p95 "
+          f"{m['latency_ms_p95']:.2f} ms, mean cost {m['cost_mean']:.4f}, "
+          f"{m['sim_time_s']:.1f} virtual s")
+    print(f"    route_batch p50 {percentile(ms, 0.5):.2f} ms, p90 "
+          f"{percentile(ms, 0.9):.2f} ms over {batches} batches; "
+          f"{m['dispatched_requests'] / wall:.1f} requests/s over the run's "
+          f"{wall:.1f} s (host clock); launches lcp_gather "
+          f"{counts['lcp_gather']}, auction_solve {counts['auction_solve']}")
+    print("    RoutingProfiler: " + json.dumps(m["routing"]))
+    return counts
 
 
 def agent_seed(agent_id: str) -> int:
@@ -2865,6 +3300,18 @@ def main() -> int:
 
     print("[15] fused router, CUDA vs CPU, SCALE_128 fleet, 1 hub, spill on")
     fused_counts, fused_figures = phase_fused_router(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[16] closed-loop serving on real engines: launch.serve.main, "
+          "9 agents, 16 coqa_like dialogues, staged and fused")
+    serving = phase_serving_closed(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[17] open-loop serving at the SCALE_128 preset: EventSimulator, "
+          "CUDA router")
+    serving["scale"] = phase_serving_scale(dev)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -2930,6 +3377,9 @@ def main() -> int:
     ]
     for row in kernels:     # where each op's device figures came from
         row["device_ms_from"] = "+".join(sorted(DEVICE_MS_FROM[row["name"]]))
+        # launches on the serving paths of phases 16 (staged, fused) and 17
+        row["serving_launches"] = {path: c[row["name"]]
+                                   for path, c in serving.items()}
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

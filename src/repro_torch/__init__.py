@@ -1,6 +1,9 @@
 """PyTorch/CUDA port of IEMAS (the JAX package `repro` is the reference):
-the router's per-batch step and the agents' real serving engine (the dense
-GQA family, ``qwen3-8b``).
+the router, the agents' real serving engines (the dense GQA family,
+RWKV-6 and zamba2), and the serving stack over them — the simulated
+cluster, the closed-loop and event-driven serving loops, the baselines and
+adversaries, and the serving launcher (``python -m
+repro_torch.launch.serve``).
 
 The port keeps the reference's module layout and names.  Its device work
 runs on ``device=`` (default ``"cuda"``): the hand-written Hopper kernels in

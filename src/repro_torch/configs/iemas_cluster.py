@@ -3,8 +3,9 @@
 The paper profiles vLLM on RTX 4090 / RTX 6000 nodes serving LLaMA-3-7B,
 Qwen-4B and Qwen-8B, with a concurrent batch buffer of 12 and constrained
 GPU memory (frequent cache evictions). Here the same *population structure*
-is expressed as agent profiles; the port serves them on the analytic engine
-(`repro_torch.serving.analytic`).
+is expressed as agent profiles; the port's `SimCluster` serves them on real
+engines (reduced models of the three classes, on the card) or on the
+analytic engine (`repro_torch.serving.analytic`).
 
 ``agent_profiles(n_agents)`` tiles the three model classes across agents with
 heterogeneous domains, capacities and token pricing; ``make_router`` builds
@@ -96,17 +97,31 @@ DEFAULT_ROUTER = RouterConfig()
 
 @dataclass(frozen=True)
 class ClusterScaleConfig:
-    """Preset for scale runs: the fleet size plus the serving-loop knobs a
-    run at that size uses (micro-batch cap, generated tokens per turn,
-    solver and warm starts), and the reference's hub cut: Phase 2 sharded
-    into ``n_agents // agents_per_hub`` hubs."""
+    """Preset for open-loop scale runs (`repro_torch.serving.simulator`).
+
+    Bundles the population size with the serving-loop knobs a scale run
+    needs: analytic engines, an open-loop Poisson arrival rate scaled per
+    agent (so every fleet size runs a comparable virtual-time window), the
+    streaming-admission window, the micro-batch cap and window, and the
+    reference's hub cut: Phase 2 sharded into ``n_agents // agents_per_hub``
+    warm-started hubs.  The reference's federation fields (``super_hubs``,
+    ``epoch``) wait for the federation's port."""
 
     n_agents: int = 128
+    n_dialogues: int = 10_000
+    engine_mode: str = "analytic"
+    rate_per_agent: float = 0.75   # Poisson dialogues/s per agent
+    max_inflight: int = 256        # streaming admission window
     batch_cap: int = 64            # micro-batch size per router invocation
+    batch_window: float = 0.05     # batching delay, seconds
     max_new_tokens: int = 6
     agents_per_hub: int = 16       # n_hubs = max(1, n_agents // this)
     solver: str = "cuda"
     warm_start: bool = True
+
+    def arrival_rate(self, n_agents: int | None = None) -> float:
+        """Open-loop arrival rate (dialogues/s) for a given fleet size."""
+        return self.rate_per_agent * (n_agents or self.n_agents)
 
     def n_hubs(self, n_agents: int | None = None) -> int:
         """Hub count for a given fleet size."""
@@ -118,7 +133,7 @@ class ClusterScaleConfig:
                             warm_start=self.warm_start)
 
 
-#: the 128-agent headline scale preset
+#: the 128-agent / 10k-dialogue headline scale preset
 SCALE_128 = ClusterScaleConfig()
 
 MODEL_CLASSES = {

@@ -13,6 +13,7 @@ TIER1_MODULES = {
     "test_torch_attention",
     "test_torch_backends",
     "test_torch_budget",
+    "test_torch_cluster",
     "test_torch_cuda",
     "test_torch_engine",
     "test_torch_fused",
@@ -23,6 +24,8 @@ TIER1_MODULES = {
     "test_torch_recurrent",
     "test_torch_router",
     "test_torch_scan_design",
+    "test_torch_serve",
+    "test_torch_simulator",
     "test_torch_solver",
     "test_torch_ssm",
 }

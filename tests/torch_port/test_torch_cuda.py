@@ -747,3 +747,86 @@ def test_cuda_recurrent_engine_matches_cpu_engine(dev, arch):
     else:
         assert counts["ssd"] == cfg.n_layers * 2            # 2 fresh
         assert counts["flash_attention"] == cfg.n_layers // cfg.attn_every * 2
+
+
+def _serving_run(device, *, solver="cuda", n_hubs=2, fused=False):
+    """An analytic 16-agent cluster and its router on ``device``: a seeded
+    open-loop `EventSimulator` run over 24 coqa_like + quac_like
+    dialogues; returns (metrics, router, records)."""
+    from repro_torch.serving import (EventSimulator, PoissonArrivals,
+                                     RoutingProfiler, SimCluster,
+                                     WorkloadSpec, iter_dialogues,
+                                     make_router)
+
+    cluster = SimCluster(16, seed=3, engine_mode="analytic", device=device)
+    router = make_router(cluster, solver=solver, n_hubs=n_hubs,
+                         warm_start=True, audit_ledger=True, fused=fused)
+    dialogues = [d for pair in zip(
+        iter_dialogues(WorkloadSpec("coqa_like", 12, seed=4)),
+        iter_dialogues(WorkloadSpec("quac_like", 12, seed=4))) for d in pair]
+    m = EventSimulator(cluster, router, dialogues,
+                       arrivals=PoissonArrivals(rate=12.0, seed=5),
+                       batch_cap=16, batch_window=0.05,
+                       profiler=RoutingProfiler(), lean=True).run()
+    recs = [(r.request.request_id, r.agent_id, r.payment, r.n_hit,
+             r.latency) for r in cluster.records]
+    return m, router, recs
+
+
+@pytest.mark.parametrize("n_hubs,fused", [(2, False), (1, True)])
+def test_cuda_serving_run_matches_cpu_run(dev, n_hubs, fused):
+    """The event simulator over an analytic cluster: the CUDA router and
+    the CPU router give the same metrics (wall clock aside), records,
+    accounts and settlement-ledger head; the router's kernels launched."""
+    ops.reset_launch_counts()
+    m_gpu, r_gpu, rec_gpu = _serving_run(dev, n_hubs=n_hubs, fused=fused)
+    counts = ops.launch_counts()
+    m_cpu, r_cpu, rec_cpu = _serving_run("cpu", n_hubs=n_hubs, fused=fused)
+    wall = ("wall_time_s", "routing")
+    assert {k: v for k, v in m_gpu.items() if k not in wall} == \
+        {k: v for k, v in m_cpu.items() if k not in wall}
+    assert rec_gpu == rec_cpu and not m_gpu["truncated"]
+    assert r_gpu.accounts == r_cpu.accounts
+    assert r_gpu.settlement.head == r_cpu.settlement.head
+    batches = m_gpu["routing"]["phases"]["route_batch"]["calls"]
+    assert counts["lcp_gather"] == batches > 0
+    assert counts["auction_bid"] == counts["lcp_affinity"] == 0
+    if fused:
+        assert counts["fused_phase1"] == counts["auction_fused"] == batches
+    else:
+        assert counts["auction_solve"] > 0
+
+
+def test_real_engine_cluster_runs_on_the_card(dev):
+    """A 3-agent real-mode cluster on the card serves three coqa_like
+    dialogues through the CUDA router: every dialogue finishes, the cache
+    is warm, the budget balances, and the attention kernels launched as
+    many times as the engines' fresh prefills and decode steps need."""
+    from repro_torch.configs.iemas_cluster import MODEL_CLASSES
+    from repro_torch.serving import (SimCluster, WorkloadSpec, generate,
+                                     make_router, run_workload)
+
+    cluster = SimCluster(3, seed=0, max_new_tokens=3, device=dev)
+    router = make_router(cluster, audit_ledger=True)
+    served = []
+    for rt in cluster.agents.values():
+        def serve(*args, _serve=rt.engine.serve, _rt=rt, **kw):
+            res = _serve(*args, **kw)
+            served.append((_rt.profile.model_class, res))
+            return res
+        rt.engine.serve = serve
+    ops.reset_launch_counts()
+    m = run_workload(cluster, router, generate(WorkloadSpec("coqa_like", 3,
+                                                            seed=1)),
+                     max_new_tokens=3)
+    counts = ops.launch_counts()
+    assert not m["truncated"] and m["kv_hit_rate"] > 0.5
+    assert router.accounts["surplus"] >= 0
+    router.settlement.audit(router.accounts)
+    layers = {c: MODEL_CLASSES[c][0] for c, _ in served}
+    fresh = sum(layers[c] for c, r in served if r.n_hit == 0)
+    steps = sum(layers[c] * (r.n_gen + (r.n_hit == r.n_prompt))
+                for c, r in served)
+    assert counts["flash_attention"] == fresh > 0
+    assert counts["decode_attention"] == steps > 0
+    assert counts["lcp_gather"] > 0
