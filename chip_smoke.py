@@ -167,15 +167,43 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     a ``RoutingProfiler``.  The CUDA and the CPU routers each run the first
     200 dialogues: equal metrics (every key but the wall-clock ones, left
     out by name), accounts and settlement head, and ``lcp_gather`` once
-    per batch.  Then the CUDA router alone over the preset's 10,000
-    dialogues, printing requests dispatched and completed, KV hit rate,
-    latency p50 / p95, mean cost, route_batch p50 / p90 (host clock),
-    requests/s, the profiler's report and the router kernels' launches.
+    per batch.  Then the CUDA router alone over 5,000 of the preset's
+    10,000 dialogues, printing requests dispatched and completed, KV hit
+    rate, latency p50 / p95, mean cost, route_batch p50 / p90 (host
+    clock), requests/s, the profiler's report and the router kernels'
+    launches.
+18. The hubs-of-hubs federation (``repro_torch.serving.federation``), every
+    super-hub shard's router on the card.  (a) The reference's overloaded
+    federation: 12 agents in 3 super-hubs, 150 coqa_like dialogues forced
+    into one domain, Poisson 300/s, ``max_inflight`` 900, faults
+    (``fail_prob`` 0.1), epoch 0.25, spill after 0.2 s, solver ``cuda``
+    with warm starts and ledgers, inline on the card and on the CPU: equal
+    reports (wall clock aside), accounts and every shard's ledger head;
+    dialogues migrate (in == out > 0) and settle exactly once.  (b) The
+    ``SCALE_1K`` fleet (1024 agents, 8 super-hubs recut into inner hubs
+    of 16 agents, Poisson 768 dialogues/s, ``max_inflight`` 2048 over the
+    shards, batches of <= 64 every 0.05 s, epoch 0.5) over 200 coqa_like
+    dialogues: CUDA inline = CPU inline, and CUDA process shards (one
+    spawned process and CUDA context each) = CUDA inline; on the inline
+    run ``lcp_gather`` once per route_batch call over all shards,
+    ``auction_solve`` once per solve, ``auction_bid``, ``lcp_affinity``,
+    ``fused_phase1`` and ``auction_fused`` never, and nothing in the
+    federation's own spill rounds; route_batch p50 / p90 inline and in
+    processes, the device-busy share of an inline run (a profiler lower
+    bound), and both router kernels against their plain versions at up
+    to 2 of the run's calls per shape.  (c) The scale run: ``SCALE_1K``
+    with 8 process shards on the card over 20,000 dialogues (the
+    preset's 100,000, cut), under the reference scale benchmark's gates
+    (exactly-once, 8 ledgers, nothing lost, migrations balanced,
+    completed + unfinished = dialogues, not truncated, consumed
+    staleness <= 1 epoch, overhead in (0, 0.5)); prints the wall seconds,
+    requests/s, KV hit rate, latency, cost, epochs, spill, staleness,
+    overhead, each phase's share and each shard's ``n``.
     Then the card line, the JSON line of the ten kernels' records (the six
     TPU kernels' counterparts, the router's two redesigned entries and the
     fused step's two kernels; ``serving_launches`` gives each one's
-    launches in phase 16's two runs and phase 17's scale run) and the
-    device line last.
+    launches in phase 16's two runs, phase 17's scale run and 18b's CUDA
+    inline federation) and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -2757,15 +2785,27 @@ SERVE_FLAGS = ["--agents", "9", "--dialogues", "16", "--workload",
                "coqa_like", "--solver", "cuda", "--warm-start",
                "--audit-ledger"]            # the CLI's defaults otherwise
 SCALE_LOCKSTEP = 200          # dialogues, CUDA vs CPU router
-SCALE_DIALOGUES = None         # the scale run's dialogues (None: SCALE_128's)
-WALL_KEYS = ("wall_time_s", "routing.routing_wall_s", "routing.overhead_frac")
+SCALE_DIALOGUES = 5_000        # the scale run's (SCALE_128's 10,000, cut
+                               # to leave phase 18 its room)
+# the metrics that read the host clock: a federation's report adds its two
+# routing walls, every shard's report has its own copy of the first three,
+# and phase 18's profiler lists each route_batch call's host ms
+WALL_KEYS = ("wall_time_s", "routing.routing_wall_s", "routing.overhead_frac",
+             "routing.federation_wall_s", "routing.shard_routing_wall_s",
+             "routing.route_batch_ms")
 
 
 def flat_metrics(metrics: dict, pre: str = "") -> dict:
+    """Nested metric dicts as one dict of dotted keys (a list of dicts,
+    such as a federation's ``shards``, by position: ``shards.0.n``)."""
     out = {}
     for k, v in metrics.items():
         if isinstance(v, dict):
             out.update(flat_metrics(v, f"{pre}{k}."))
+        elif isinstance(v, list) and v and all(isinstance(e, dict)
+                                               for e in v):
+            for i, e in enumerate(v):
+                out.update(flat_metrics(e, f"{pre}{k}.{i}."))
         else:
             out[f"{pre}{k}"] = v
     return out
@@ -2773,12 +2813,18 @@ def flat_metrics(metrics: dict, pre: str = "") -> dict:
 
 def without_wall_clock(metrics: dict) -> dict:
     """The metrics as dotted keys, less the ones that read the host clock
-    (left out by name: ``WALL_KEYS`` and each profiler phase's ``wall_s``
-    and ``frac_of_engine``)."""
-    return {k: v for k, v in flat_metrics(metrics).items()
-            if k not in WALL_KEYS and not (
-                k.startswith("routing.phases.")
-                and k.rsplit(".", 1)[1] in ("wall_s", "frac_of_engine"))}
+    (left out by name, at the top or inside a federation shard's report:
+    ``WALL_KEYS`` and each profiler phase's ``wall_s`` and
+    ``frac_of_engine``)."""
+    out = {}
+    for k, v in flat_metrics(metrics).items():
+        key = re.sub(r"^shards\.\d+\.", "", k)
+        if key in WALL_KEYS or (key.startswith("routing.phases.")
+                                and key.rsplit(".", 1)[1] in
+                                ("wall_s", "frac_of_engine")):
+            continue
+        out[k] = v
+    return out
 
 
 @contextmanager
@@ -3031,27 +3077,43 @@ def device_traced(dev):
         torch.cuda.synchronize()
 
 
-def scale_sim(dev, n_dialogues: int, *, route_ms=None):
-    """The SCALE_128 preset's open loop: 128 analytic agents, the ``cuda``
-    solver at 8 hubs with warm starts and spill, Poisson arrivals at the
-    preset's rate over a streamed coqa_like workload, the admission window,
-    batch cap and window of the preset, and a `RoutingProfiler` (which
-    also keeps each route_batch's host ms in ``route_ms``).  Returns
-    (metrics, router, wall seconds)."""
-    from repro_torch.configs.iemas_cluster import SCALE_128
-    from repro_torch.serving import (EventSimulator, PoissonArrivals,
-                                     RoutingProfiler, SimCluster,
-                                     WorkloadSpec, iter_dialogues,
-                                     make_router)
+def batch_timing_profiler():
+    """A `RoutingProfiler` whose report also lists every route_batch
+    call's host ms (``route_batch_ms``, a wall-clock key); a module-level
+    factory, so a process shard builds one in its own process
+    (``loop_kwargs["profile"]``)."""
+    from repro_torch.serving.simulator import RoutingProfiler
 
-    class Profiler(RoutingProfiler):
+    class BatchTimes(RoutingProfiler):
+        def __init__(self):
+            super().__init__()
+            self.batch_ms = []
+
         @contextmanager
         def phase(self, name):
             t0 = time.perf_counter()
             with super().phase(name):
                 yield
-            if name == "route_batch" and route_ms is not None:
-                route_ms.append((time.perf_counter() - t0) * 1e3)
+            if name == "route_batch":
+                self.batch_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def report(self):
+            return {**super().report(), "route_batch_ms": self.batch_ms}
+
+    return BatchTimes()
+
+
+def scale_sim(dev, n_dialogues: int):
+    """The SCALE_128 preset's open loop: 128 analytic agents, the ``cuda``
+    solver at 8 hubs with warm starts and spill, Poisson arrivals at the
+    preset's rate over a streamed coqa_like workload, the admission window,
+    batch cap and window of the preset, and a `RoutingProfiler` that also
+    reports each route_batch's host ms (``routing.route_batch_ms``).
+    Returns (metrics, router, wall seconds)."""
+    from repro_torch.configs.iemas_cluster import SCALE_128
+    from repro_torch.serving import (EventSimulator, PoissonArrivals,
+                                     SimCluster, WorkloadSpec,
+                                     iter_dialogues, make_router)
 
     cluster = SimCluster(SCALE_128.n_agents, seed=0,
                          max_new_tokens=SCALE_128.max_new_tokens,
@@ -3066,7 +3128,7 @@ def scale_sim(dev, n_dialogues: int, *, route_ms=None):
         arrivals=PoissonArrivals(rate=SCALE_128.arrival_rate(), seed=2),
         batch_cap=SCALE_128.batch_cap, batch_window=SCALE_128.batch_window,
         max_inflight=SCALE_128.max_inflight, max_new_tokens=SCALE_128.
-        max_new_tokens, profiler=Profiler(), lean=True)
+        max_new_tokens, profiler=batch_timing_profiler(), lean=True)
     t0 = time.perf_counter()
     metrics = sim.run()
     return metrics, router, time.perf_counter() - t0
@@ -3117,9 +3179,9 @@ def phase_serving_scale(dev) -> dict:
         f"({busy / (gpu_s * 1e3):.2%}; torch.profiler, device activity "
         "only, a lower bound)"))
     del gpu_router, cpu_router
-    route_ms, n = [], SCALE_DIALOGUES or SCALE_128.n_dialogues
+    n = SCALE_DIALOGUES or SCALE_128.n_dialogues
     ops.reset_launch_counts()              # the scale run starts here
-    m, router, wall = scale_sim(dev, n, route_ms=route_ms)
+    m, router, wall = scale_sim(dev, n)
     counts = ops.launch_counts()           # ... and ends here
     batches = m["routing"]["phases"]["route_batch"]["calls"]
     check(counts["lcp_gather"] == batches > 0 and counts["auction_solve"] > 0
@@ -3128,7 +3190,7 @@ def phase_serving_scale(dev) -> dict:
     check(not m["truncated"] and m["dialogues_completed"] == n,
           "the scale run did not finish")
     check(router.accounts["surplus"] >= 0, "negative surplus")
-    ms = sorted(route_ms)
+    ms = sorted(m["routing"].pop("route_batch_ms"))
     print(f"    scale run, {n} dialogues: "
           f"{m['dispatched_requests']} requests dispatched, {m['n']} "
           f"completed, KV hit rate {m['kv_hit_rate']:.4f}, latency p50 "
@@ -3141,6 +3203,325 @@ def phase_serving_scale(dev) -> dict:
           f"{wall:.1f} s (host clock); launches lcp_gather "
           f"{counts['lcp_gather']}, auction_solve {counts['auction_solve']}")
     print("    RoutingProfiler: " + json.dumps(m["routing"]))
+    return counts
+
+
+# --------------------------------------------------- the federation, 18 --
+FED_MIGRATION = 150        # dialogues of 18a, the reference test's run
+FED_LOCKSTEP = 200         # dialogues of 18b at the SCALE_1K fleet
+FED_DIALOGUES = 20_000     # the scale run's (SCALE_1K's 100,000, cut)
+FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
+                     "auction_fused")
+
+
+@contextmanager
+def spill_launches():
+    """While active, the kernel launches made inside each of the
+    federation's own spill rounds, one entry per round."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.federation import FederatedSimulator
+
+    spill_round = FederatedSimulator._spill_round
+    made = []
+
+    def counted(self, *args):
+        before = sum(ops.launch_counts().values())
+        try:
+            return spill_round(self, *args)
+        finally:
+            made.append(sum(ops.launch_counts().values()) - before)
+
+    FederatedSimulator._spill_round = counted
+    try:
+        yield made
+    finally:
+        FederatedSimulator._spill_round = spill_round
+
+
+@contextmanager
+def phase1_calls():
+    """While active, the routers' Phase-1 passes (route_batch calls that
+    have requests and a live agent: each gathers the LCP once), in a
+    one-element list."""
+    from repro_torch.core.mechanism import IEMASRouter
+
+    phase1 = IEMASRouter._phase1
+    made = [0]
+
+    def counted(self, *args):
+        made[0] += 1
+        return phase1(self, *args)
+
+    IEMASRouter._phase1 = counted
+    try:
+        yield made
+    finally:
+        IEMASRouter._phase1 = phase1
+
+
+def fed_migration(dev):
+    """18a's federation: the reference test's overloaded one (12 agents, 3
+    super-hubs, every coqa_like dialogue in one domain, Poisson 300/s,
+    faults, spill after 0.2 s) on the ``cuda`` solver with warm starts and
+    ledgers, every shard inline on ``dev``.  Returns (report, seconds)."""
+    from repro_torch.serving import (PoissonArrivals, WorkloadSpec,
+                                     build_federation, generate)
+
+    dlg = generate(WorkloadSpec("coqa_like", n_dialogues=FED_MIGRATION,
+                                seed=1))
+    dom = sorted({d.domain for d in dlg})[0]
+    dlg = [type(d)(d.dialogue_id, dom, d.turns, d.difficulty) for d in dlg]
+    fed = build_federation(
+        dlg, n_agents=12, super_hubs=3,
+        arrivals=PoissonArrivals(rate=300.0, seed=2), seed=0,
+        router_kwargs=dict(solver="cuda", warm_start=True, audit_ledger=True),
+        loop_kwargs=dict(batch_cap=32, batch_window=0.05, max_new_tokens=4),
+        cluster_kwargs=dict(max_new_tokens=4, fail_prob=0.1),
+        max_inflight=900, epoch=0.25, spill_min_wait=0.2, device=dev)
+    t0 = time.perf_counter()
+    out = fed.run()
+    return out, time.perf_counter() - t0
+
+
+def fed_scale(dev, n_dialogues: int, parallel: str):
+    """The SCALE_1K preset's federation as the reference's scale benchmark
+    builds it (1024 analytic agents, 8 super-hubs recut into inner hubs of
+    ``agents_per_hub``, Poisson 0.75 dialogues/s per agent of streamed
+    coqa_like, ``max_inflight`` 2048 split over the shards, batches of <= 64
+    every 0.05 s, epoch 0.5 s, the ``cuda`` solver with warm starts, ledgers
+    on) over ``n_dialogues``, with its shards ``parallel`` on ``dev`` and
+    every shard's route_batch calls timed.  Returns (report, seconds to
+    build the federation, seconds to run it)."""
+    from repro_torch.configs.iemas_cluster import SCALE_1K as c
+    from repro_torch.serving import (PoissonArrivals, WorkloadSpec,
+                                     build_federation, iter_dialogues)
+
+    t0 = time.perf_counter()
+    fed = build_federation(
+        iter_dialogues(WorkloadSpec("coqa_like", n_dialogues, seed=1)),
+        n_agents=c.n_agents, super_hubs=c.super_hubs,
+        arrivals=PoissonArrivals(rate=c.arrival_rate(), seed=2), seed=0,
+        engine_mode=c.engine_mode, agents_per_hub=c.agents_per_hub,
+        max_inflight=c.max_inflight,
+        router_kwargs=dict(solver=c.solver, warm_start=c.warm_start,
+                           audit_ledger=True),
+        loop_kwargs=dict(batch_cap=c.batch_cap, batch_window=c.batch_window,
+                         max_new_tokens=c.max_new_tokens, lean=True,
+                         max_events=20_000_000, max_rounds=2_000_000,
+                         profile=batch_timing_profiler),
+        cluster_kwargs=dict(max_new_tokens=c.max_new_tokens),
+        epoch=c.epoch, parallel=parallel, device=dev)
+    built = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = fed.run()
+    return out, built, time.perf_counter() - t0
+
+
+def shard_heads(out) -> list:
+    return [s["ledger"]["head"] for s in out["shards"]]
+
+
+def same_federation(a, b, what: str) -> None:
+    """Two federation reports of one seeded run: every metric but the
+    wall-clock ones equal, the accounts and every shard's ledger head."""
+    x, y = without_wall_clock(a), without_wall_clock(b)
+    check(x == y, f"{what}: reports differ: " + str(
+        {k: (x.get(k), y.get(k)) for k in set(x) | set(y)
+         if x.get(k) != y.get(k)}))
+    check(a["accounts"] == b["accounts"], f"{what}: accounts differ")
+    check(shard_heads(a) == shard_heads(b), f"{what}: ledger heads differ")
+
+
+def batch_ms(out) -> list:
+    """Every shard's route_batch host ms, sorted."""
+    return sorted(x for s in out["shards"]
+                  for x in s["routing"]["route_batch_ms"])
+
+
+def gate_federation(out: dict, n_dialogues: int, super_hubs: int) -> None:
+    """The reference scale benchmark's federation gates
+    (benchmarks/serving_scale.py, ``_gate_federation``)."""
+    eo = out["federation"]["exactly_once"]
+    check(eo["ok"], f"exactly-once audit failed: {eo}")
+    check(eo["ledger_replay_ok"] and eo["ledgers_attached"] == super_hubs,
+          f"ledgers: {eo}")
+    check(eo["lost_dialogues"] == 0 and eo["dialogues_conserved"],
+          f"dialogues lost: {eo}")
+    check(eo["migrations_balanced"], f"migrations unbalanced: {eo}")
+    check(out["dialogues_completed"] + out["unfinished_dialogues"]
+          == n_dialogues, "completed + unfinished != dialogues")
+    check(not out["truncated"], "federation run truncated")
+    check(out["federation"]["gossip"]["max_staleness_epochs"] <= 1,
+          "spill consumed a digest older than one epoch")
+    over = out["routing"]["overhead_frac"]
+    check(over is not None and 0 < over < 0.5,
+          f"routing+boundary overhead {over} out of (0, 0.5)")
+
+
+def print_shards(out) -> None:
+    print("    per shard (agents, n, router host s): " + ", ".join(
+        f"{s['super_id']}: {s['n_agents']}, {s['n']}, "
+        f"{s['routing']['routing_wall_s']:.2f}" for s in out["shards"]))
+
+
+def phase_federation(dev) -> Counter:
+    """Phase 18: the hubs-of-hubs federation with every shard's router on
+    the card; returns the launch counts of 18b's CUDA inline run."""
+    import os
+
+    from repro_torch.configs.iemas_cluster import SCALE_1K as c
+    from repro_torch.configs.iemas_cluster import agent_profiles
+    from repro_torch.core.hub import cluster_super_hubs
+    from repro_torch.distributed.federation import worker_slots
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lcp_affinity import (lcp_gather_cuda,
+                                                  lcp_gather_plain)
+
+    print(f"    (a) migration lockstep: 12 agents, 3 super-hubs, "
+          f"{FED_MIGRATION} coqa_like dialogues in one domain, Poisson 300/s, "
+          "max_inflight 900, fail_prob 0.1, epoch 0.25, spill_min_wait 0.2, "
+          "solver cuda, warm starts, ledgers; inline on the card and on "
+          "the CPU")
+    with SolveTally() as tally, spill_launches() as spills, \
+            phase1_calls() as passes:
+        ops.reset_launch_counts()          # 18a's CUDA run starts here
+        gpu, gpu_s = fed_migration(dev)
+        counts = ops.launch_counts()       # ... and ends here
+        solves = sum(d == dev.type for d, _ in tally.rounds)
+    cpu, cpu_s = fed_migration("cpu")
+    same_federation(gpu, cpu, "18a, CUDA and CPU shards")
+    fed = gpu["federation"]
+    check(fed["spill_migrated"] > 0
+          and gpu["migrated_in"] == gpu["migrated_out"] > 0,
+          f"18a migrated nothing: {fed['spill_migrated']}, "
+          f"{gpu['migrated_in']} / {gpu['migrated_out']}")
+    check(fed["exactly_once"]["ok"], f"18a: {fed['exactly_once']}")
+    batches = gpu["routing"]["phases"]["route_batch"]["calls"]
+    check(counts["lcp_gather"] == passes[0] > 0
+          and counts["auction_solve"] == solves > 0
+          and all(counts[k] == 0 for k in FED_LAUNCHES_NONE)
+          and spills and sum(spills) == 0,
+          f"18a launches {counts} over {passes[0]} Phase-1 passes and "
+          f"{solves} solves; spill rounds launched {sum(spills)}")
+    print(f"    equal reports (wall clock aside), accounts and ledger heads "
+          f"{[h[:12] for h in shard_heads(gpu)]}; {gpu['n']} requests, "
+          f"{fed['spill_migrated']} dialogues migrated of "
+          f"{fed['spill_candidates']} candidates, {gpu['epochs']} epochs, "
+          f"{batches} route_batch calls ({passes[0]} with a live agent, the "
+          f"rest while faults quarantined a whole shard); launches "
+          f"lcp_gather "
+          f"{counts['lcp_gather']}, auction_solve {counts['auction_solve']}, "
+          f"none in {len(spills)} spill rounds; CUDA run {gpu_s:.2f} s, CPU "
+          f"run {cpu_s:.2f} s")
+    del gpu, cpu
+
+    profiles = agent_profiles(c.n_agents)
+    supers = cluster_super_hubs([p.domains for p in profiles],
+                                [p.scale for p in profiles], c.super_hubs,
+                                agents_per_hub=c.agents_per_hub)
+    print(f"    (b) the SCALE_1K fleet in lockstep: {c.n_agents} analytic "
+          f"agents in {len(supers)} super-hubs of "
+          f"{[len(h.agent_indices) for h in supers]} agents and "
+          f"{[h.n_inner_hubs for h in supers]} inner hubs, Poisson "
+          f"{c.arrival_rate():g} dialogues/s, max_inflight {c.max_inflight} "
+          f"({c.max_inflight // c.super_hubs} a shard), batch_cap "
+          f"{c.batch_cap}, batch_window {c.batch_window}, epoch {c.epoch}, "
+          f"{FED_LOCKSTEP} coqa_like dialogues")
+    with recording(ops, ("auction_solve", "lcp_gather"), per_shape=2,
+                   copy=True) as rec, SolveTally() as tally, \
+            spill_launches() as spills, phase1_calls() as passes:
+        ops.reset_launch_counts()          # 18b's CUDA inline run starts
+        inline, _, inline_s = fed_scale(dev, FED_LOCKSTEP, "inline")
+        counts = ops.launch_counts()       # ... and ends here
+        solves = sum(d == dev.type for d, _ in tally.rounds)
+    cpu, _, cpu_s = fed_scale("cpu", FED_LOCKSTEP, "inline")
+    same_federation(inline, cpu, "18b, CUDA and CPU shards")
+    proc, proc_built, proc_s = fed_scale(dev, FED_LOCKSTEP, "process")
+    same_federation(proc, inline, "18b, CUDA process and inline shards")
+    batches = inline["routing"]["phases"]["route_batch"]["calls"]
+    check(counts["lcp_gather"] == batches == passes[0] > 0
+          and counts["auction_solve"] == solves > 0
+          and all(counts[k] == 0 for k in FED_LAUNCHES_NONE)
+          and sum(spills) == 0,
+          f"18b launches {counts} over {batches} batches ({passes[0]} "
+          f"Phase-1 passes) and {solves} solves; spill rounds launched "
+          f"{sum(spills)}")
+    with device_traced(dev) as kernel_ms:
+        traced, _, traced_s = fed_scale(dev, FED_LOCKSTEP, "inline")
+    busy = kernel_ms()
+    same_federation(traced, inline, "18b, traced and untraced runs")
+    ms_in, ms_proc = batch_ms(inline), batch_ms(proc)
+    print(f"    CUDA inline = CPU inline and CUDA process = CUDA inline: "
+          f"equal reports (wall clock aside), accounts and ledger heads; "
+          f"{inline['n']} requests in {batches} route_batch calls, KV hit "
+          f"rate {inline['kv_hit_rate']:.4f}; launches lcp_gather "
+          f"{counts['lcp_gather']}, auction_solve {counts['auction_solve']} "
+          f"({solves} solves), none in {len(spills)} spill rounds")
+    print_shards(inline)
+    print(f"    route_batch p50 / p90 (host, every shard): inline "
+          f"{percentile(ms_in, 0.5):.2f} / {percentile(ms_in, 0.9):.2f} ms, "
+          f"process {percentile(ms_proc, 0.5):.2f} / "
+          f"{percentile(ms_proc, 0.9):.2f} ms; runs: CUDA inline "
+          f"{inline_s:.2f} s, CPU inline {cpu_s:.2f} s, CUDA process "
+          f"{proc_s:.2f} s (its 8 workers started in {proc_built:.2f} s)")
+    print("    device busy over a CUDA inline run: " + (
+        "not measured (the trace holds no device record)" if not busy else
+        f"{busy:.1f} ms of kernels and copies in {traced_s * 1e3:.1f} ms "
+        f"({busy / (traced_s * 1e3):.2%}; torch.profiler, device activity "
+        "only, a lower bound)"))
+    saved = {k: set(v) for k, v in DEVICE_MS_FROM.items()}
+    solve, _ = replay_solve(rec["auction_solve"].calls, dev)
+    gather = replay(rec["lcp_gather"].calls, lcp_gather_cuda,
+                    lcp_gather_plain,
+                    lambda args, out: gather_work(*args, out[0]), 50, 10)
+    fresh = {k: v - saved.get(k, set()) for k, v in DEVICE_MS_FROM.items()}
+
+    def span(axis: int) -> str:      # the range of the gathers' n and m
+        sizes = [args[2].shape[axis] for args, _ in rec["lcp_gather"].calls]
+        return f"{min(sizes)}-{max(sizes)}"
+    DEVICE_MS_FROM.clear()
+    DEVICE_MS_FROM.update(saved)
+    print(f"    at 18b's shapes (up to 2 calls of each): auction_solve over "
+          f"{solve['calls']} calls ({solve['markets']} markets, "
+          f"{solve['rounds_per_call']:.1f} rounds a call) bit-exact, kernel "
+          f"{solve['ms']:.4f} ms (device {solve['device_ms']:.4f}), plain "
+          f"(host) {solve['plain_ms']:.2f} ms, bound {solve['bound_ms']:.7f} "
+          f"ms ({solve['bound_by']}); lcp_gather over {gather['calls']} calls "
+          f"(prompts of {span(0)} requests, {span(1)} agents) bit-exact, "
+          f"kernel {gather['ms']:.4f} ms "
+          f"(device {gather['device_ms']:.4f}), plain {gather['plain_ms']:.4f}"
+          f" ms, bound {gather['bound_ms']:.7f} ms ({gather['bound_by']}); "
+          f"device times from "
+          f"{sorted(set().union(*fresh.values())) or ['profiler']}")
+    del inline, cpu, proc, traced, rec
+
+    print(f"    (c) scale run: SCALE_1K, {FED_DIALOGUES} dialogues (the "
+          f"preset's {c.n_dialogues}, cut), {c.super_hubs} process shards "
+          f"on the card; os.cpu_count() {os.cpu_count()}, worker_slots() "
+          f"{worker_slots()}")
+    m, built, wall = fed_scale(dev, FED_DIALOGUES, "process")
+    gate_federation(m, FED_DIALOGUES, c.super_hubs)
+    fed, ms = m["federation"], batch_ms(m)
+    g = fed["gossip"]
+    print(f"    {wall:.1f} s (host clock; the 8 workers started in "
+          f"{built:.2f} s before it), {m['dispatched_requests']} requests "
+          f"dispatched, {m['n']} completed, "
+          f"{m['dispatched_requests'] / wall:.1f} requests/s; KV hit rate "
+          f"{m['kv_hit_rate']:.4f}, latency p50 {m['latency_ms_median']:.2f} "
+          f"/ p95 {m['latency_ms_p95']:.2f} ms (virtual), mean cost "
+          f"{m['cost_mean']:.4f}, {m['sim_time_s']:.1f} virtual s")
+    print(f"    {m['epochs']} epochs, spilled {fed['spill_migrated']} / "
+          f"{fed['spill_candidates']} candidates, staleness max "
+          f"{g['max_staleness_epochs']} / mean "
+          f"{g['mean_staleness_epochs']:.3f} epochs, overhead "
+          f"{m['routing']['overhead_frac']:.4%} of engine seconds; "
+          f"route_batch p50 {percentile(ms, 0.5):.2f} / p90 "
+          f"{percentile(ms, 0.9):.2f} ms over {len(ms)} calls")
+    phases = m["routing"]["phases"]
+    print("    phase shares of engine seconds: " + ", ".join(
+        f"{k} {v['frac_of_engine']:.4%} ({v['wall_s']:.2f} s, {v['calls']} "
+        f"calls)" for k, v in phases.items()))
+    print_shards(m)
     return counts
 
 
@@ -3312,6 +3693,12 @@ def main() -> int:
     print("[17] open-loop serving at the SCALE_128 preset: EventSimulator, "
           "CUDA router")
     serving["scale"] = phase_serving_scale(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[18] the hubs-of-hubs federation: every super-hub shard's router "
+          "on the card, inline and in processes of their own")
+    serving["federation"] = phase_federation(dev)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -3377,7 +3764,8 @@ def main() -> int:
     ]
     for row in kernels:     # where each op's device figures came from
         row["device_ms_from"] = "+".join(sorted(DEVICE_MS_FROM[row["name"]]))
-        # launches on the serving paths of phases 16 (staged, fused) and 17
+        # launches on the serving paths of phases 16 (staged, fused), 17
+        # and 18 (18b's CUDA inline federation)
         row["serving_launches"] = {path: c[row["name"]]
                                    for path, c in serving.items()}
     print(card)

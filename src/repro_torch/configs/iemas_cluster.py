@@ -104,8 +104,11 @@ class ClusterScaleConfig:
     agent (so every fleet size runs a comparable virtual-time window), the
     streaming-admission window, the micro-batch cap and window, and the
     reference's hub cut: Phase 2 sharded into ``n_agents // agents_per_hub``
-    warm-started hubs.  The reference's federation fields (``super_hubs``,
-    ``epoch``) wait for the federation's port."""
+    warm-started hubs.  ``super_hubs`` and ``epoch`` are the hubs-of-hubs
+    federation's (`repro_torch.serving.federation`): the number of
+    independently-advancing super-hub shards and the virtual seconds
+    between their gossip and spill boundaries (``super_hubs=1`` is the
+    single-heap `EventSimulator`)."""
 
     n_agents: int = 128
     n_dialogues: int = 10_000
@@ -118,13 +121,20 @@ class ClusterScaleConfig:
     agents_per_hub: int = 16       # n_hubs = max(1, n_agents // this)
     solver: str = "cuda"
     warm_start: bool = True
+    # hubs-of-hubs federation (repro_torch.serving.federation): number of
+    # independently-advancing super-hub shards and the virtual seconds
+    # between price-book-gossip / cross-super-hub-spill boundaries.
+    # super_hubs=1 is the single-heap EventSimulator (bit-exact oracle).
+    super_hubs: int = 1
+    epoch: float = 0.25
 
     def arrival_rate(self, n_agents: int | None = None) -> float:
         """Open-loop arrival rate (dialogues/s) for a given fleet size."""
         return self.rate_per_agent * (n_agents or self.n_agents)
 
     def n_hubs(self, n_agents: int | None = None) -> int:
-        """Hub count for a given fleet size."""
+        """Hub count for a given fleet size (inner hubs per shard when
+        federated: each super-hub recuts its slice by ``agents_per_hub``)."""
         return max(1, (n_agents or self.n_agents) // self.agents_per_hub)
 
     def router_config(self, n_agents: int | None = None) -> RouterConfig:
@@ -135,6 +145,11 @@ class ClusterScaleConfig:
 
 #: the 128-agent / 10k-dialogue headline scale preset
 SCALE_128 = ClusterScaleConfig()
+
+#: the federation scale preset: a 1024-agent fleet serving 100k dialogues
+#: across 8 super-hub shards — the regime one event heap cannot sustain
+SCALE_1K = ClusterScaleConfig(n_agents=1024, n_dialogues=100_000,
+                              max_inflight=2048, super_hubs=8, epoch=0.5)
 
 MODEL_CLASSES = {
     # name: (n_layers, d_model, n_heads, d_ff, relative scale); the analytic

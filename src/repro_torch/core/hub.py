@@ -220,3 +220,157 @@ class SlotPriceBook:
         """Warm-start effectiveness counters for telemetry/benchmarks."""
         return {"warm_hits": self.warm_hits, "cold_starts": self.cold_starts,
                 "stores": self.stores, "hubs_tracked": len(self._book)}
+
+
+# ---------------------------------------------------------------------------
+# Super-hub layer (hubs-of-hubs federation)
+# ---------------------------------------------------------------------------
+# One level up from proxy hubs: S super-hubs each own a SHARD of the fleet —
+# their own IEMASRouter (which re-clusters its members into inner proxy
+# hubs), their own SlotPriceBook, and their own independently-advancing
+# event heap (`repro_torch.serving.simulator.ShardEventLoop`).  Between
+# synchronization epochs the shards never communicate; at each epoch
+# boundary they exchange `GossipDigest`s (per-agent posted asks + slack,
+# epoch-stamped so staleness is measurable) and the federation re-auctions
+# stuck residual dialogues against the gossiped remote capacity
+# (`repro_torch.serving.federation.FederatedSimulator`).
+
+
+@dataclass
+class SuperHub(Hub):
+    """One federation shard's membership: a stable super-set of hubs.
+
+    Subclasses `Hub` so the same coarse domain-overlap router
+    (`route_to_hub`) assigns a dialogue its HOME super-hub; the
+    fine-grained structure below (the shard's inner proxy hubs) is the
+    shard router's own business.  ``agent_indices`` index the GLOBAL
+    profile list, which is what keeps federated agent ids/prices/engine
+    seeds identical to the single-heap fleet.
+    """
+
+    n_inner_hubs: int = 1
+
+
+def cluster_super_hubs(agent_domains: list[tuple[str, ...]],
+                       agent_scales: list[float], s: int,
+                       scheme: str = "domain", seed: int = 0,
+                       agents_per_hub: int = 16) -> list[SuperHub]:
+    """Partition the global fleet into ``s`` super-hubs.
+
+    Reuses `cluster_agents` (same static published-metadata-only signals,
+    same balance rule) one level up, then sizes each shard's inner hub
+    count from ``agents_per_hub`` — so an S-way federation of K-hub
+    shards covers the same fleet the single-heap router would cut into
+    S*K hubs.
+    """
+    hubs = cluster_agents(agent_domains, agent_scales, s,
+                          scheme=scheme, seed=seed)
+    # renumber positionally: `cluster_agents` may skip empty bucket ids,
+    # but the federation keys shard lists / seeds / request-id prefixes on
+    # LIST POSITION (which is also what route_to_hub returns)
+    return [SuperHub(pos, h.agent_indices, h.domains,
+                     n_inner_hubs=max(1, len(h.agent_indices)
+                                      // max(1, agents_per_hub)))
+            for pos, h in enumerate(hubs)]
+
+
+def route_to_super_hub(request_domain: str, super_hubs: list[SuperHub],
+                       agent_domains: list[tuple[str, ...]]) -> int:
+    """Home-shard assignment for an arriving dialogue.
+
+    Same coarse classifier as `route_to_hub` (domain overlap, published
+    free capacity and size as tie-breakers) — a dialogue's whole lifetime
+    anchors to this shard unless a cross-super-hub spill migrates it.
+    """
+    return route_to_hub(request_domain, super_hubs, agent_domains)
+
+
+@dataclass
+class AgentAsk:
+    """One agent's gossiped market summary (published metadata only).
+
+    Everything a REMOTE federation shard may legitimately see: the
+    published profile (prices, capacity, domains, scale), current free
+    slack, a utilization signal, the predictor's generation-length EWMA
+    (needed for the Eq.-6 structural cost prior) and the standing
+    ascending unit asks from the shard's `SlotPriceBook` (empty = cold
+    book, i.e. price-0 free-unit boundary — the same capacity-keyed
+    cold-start rule `lookup` applies locally).  No tree state, no
+    observation history: remote valuation runs on the structural
+    cold-start prior alone.
+    """
+
+    agent_id: str
+    free: int
+    capacity: int
+    price_miss: float
+    price_hit: float
+    price_out: float
+    scale: float
+    domains: tuple[str, ...]
+    utilization: float
+    ewma_gen: float
+    asks: np.ndarray   # ascending standing unit duals (may be empty)
+
+
+@dataclass
+class GossipDigest:
+    """One shard's epoch-stamped gossip payload: its agents' `AgentAsk`s.
+
+    ``epoch`` is the synchronization-epoch index at whose boundary the
+    digest was cut; a reader measures staleness as ``reader_epoch -
+    digest.epoch`` (the federation smoke gate bounds this by one).
+    """
+
+    super_id: int
+    epoch: int
+    asks: list[AgentAsk] = field(default_factory=list)
+
+    def total_slack(self) -> int:
+        """Summed free capacity across the shard's live agents."""
+        return int(sum(a.free for a in self.asks))
+
+
+class GossipBook:
+    """The federation's view of every shard's last digest + staleness.
+
+    A tiny version-tracking store: `publish` overwrites a shard's entry,
+    `fresh` returns the digests visible to a reader at ``epoch``
+    (excluding the reader's own shard), and staleness telemetry records
+    the max/mean age actually *consumed* by spill valuation — the
+    number the CI gate bounds, not the worst age that merely sat unread.
+    """
+
+    def __init__(self) -> None:
+        self._digests: dict[int, GossipDigest] = {}
+        self.max_staleness = 0
+        self._staleness_sum = 0
+        self._staleness_n = 0
+
+    def publish(self, digest: GossipDigest) -> None:
+        """Record (overwrite) one shard's latest digest."""
+        self._digests[digest.super_id] = digest
+
+    def fresh(self, reader_super_id: int, epoch: int) -> list[GossipDigest]:
+        """Remote digests visible to ``reader_super_id`` at ``epoch``,
+        recording the staleness of each digest consumed."""
+        out = []
+        for sid, d in sorted(self._digests.items()):
+            if sid == reader_super_id:
+                continue
+            age = max(0, int(epoch) - d.epoch)
+            self.max_staleness = max(self.max_staleness, age)
+            self._staleness_sum += age
+            self._staleness_n += 1
+            out.append(d)
+        return out
+
+    def stats(self) -> dict[str, float]:
+        """Staleness telemetry for the federation report/smoke gates."""
+        return {
+            "digests": len(self._digests),
+            "max_staleness_epochs": self.max_staleness,
+            "mean_staleness_epochs": (
+                self._staleness_sum / self._staleness_n
+                if self._staleness_n else 0.0),
+        }

@@ -1,1 +1,3 @@
-"""Serving-side elasticity of the port (agent-set versions)."""
+"""Distribution layer of the port: serving-side elasticity (agent-set
+versions, `elastic`) and the process-parallel super-hub shard workers of
+the hubs-of-hubs federation (`federation`)."""

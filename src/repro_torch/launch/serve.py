@@ -26,9 +26,19 @@ Two serving loops:
         python -m repro_torch.launch.serve --sim-mode event --agents 128 \\
             --n-dialogues 10000 --arrival-rate 96 --hubs 8 --warm-start
 
-``--super-hubs K > 1`` (the reference's federation) is accepted with
-``--epoch`` and ``--federation-parallel`` so the flag set matches, and
-refused: the federation is not ported yet (ROADMAP, queue 1, item 6b).
+``--super-hubs K`` (event mode) federates the simulator itself: K
+super-hub shards, each with its own router (on ``--device``), price book
+and event heap, advance independently and synchronize every ``--epoch``
+virtual seconds via price-book gossip, cross-super-hub spill and
+exactly-once dialogue migration (`repro_torch.serving.federation`);
+``--federation-parallel process`` gives each shard its own process (and,
+on the card, its own CUDA context).  Federation scale example (the
+SCALE_1K preset's shape)::
+
+    python -m repro_torch.launch.serve --sim-mode event --agents 1024 \\
+        --n-dialogues 100000 --arrival-rate 768 --warm-start \\
+        --super-hubs 8 --epoch 0.5 --federation-parallel process \\
+        --max-inflight 2048
 """
 from __future__ import annotations
 
@@ -41,8 +51,8 @@ from repro_torch.core.mechanism import IEMASRouter
 from repro_torch.core.solvers import available_solvers
 from repro_torch.serving import (DAG_WORKLOADS, EventSimulator,
                                  RoutingProfiler, SimCluster, WorkloadSpec,
-                                 generate, iter_dialogues, load_trace,
-                                 make_arrivals, run_workload)
+                                 build_federation, generate, iter_dialogues,
+                                 load_trace, make_arrivals, run_workload)
 
 
 def build_router(name: str, infos, *, n_hubs: int = 1, payment_mode="warmstart",
@@ -110,9 +120,11 @@ def main(argv=None) -> dict:
                          "provisionally instead of waiting out the "
                          "batch window (needs --warm-start)")
     ap.add_argument("--super-hubs", type=int, default=1,
-                    help="the reference's federation of K super-hub "
-                         "shards; only 1 (the single-heap EventSimulator) "
-                         "runs here: the federation is not ported yet")
+                    help="event mode: shard the fleet into K super-hubs, "
+                         "each with its own router/price-book/event heap "
+                         "advancing independently between epochs "
+                         "(serving/federation.py); 1 = the single-heap "
+                         "EventSimulator (bit-exact oracle)")
     ap.add_argument("--epoch", type=float, default=0.25,
                     help="federation: virtual seconds between "
                          "synchronization boundaries (price-book gossip, "
@@ -241,9 +253,36 @@ def main(argv=None) -> dict:
                 rate=args.arrival_rate or 8.0, seed=args.seed + 2)
 
     if args.super_hubs > 1:
-        ap.error("--super-hubs > 1 runs the reference's federation "
-                 "(serving/federation.py), which the port does not have "
-                 "yet (ROADMAP, queue 1, item 6b); pass --super-hubs 1")
+        # hubs-of-hubs: the federation builds its own per-shard
+        # cluster/router/loop triples on --device (serving/federation.py)
+        rkw = dict(payment_mode=args.payment_mode, solver=args.solver,
+                   warm_start=args.warm_start, spill=not args.no_spill,
+                   batched=not args.scalar_phase1,
+                   predictor_backend=args.predictor_backend,
+                   reputation=not args.no_reputation,
+                   audit_ledger=args.audit_ledger)
+        if args.hubs != 1:      # default: recut each shard by agents_per_hub
+            rkw["n_hubs"] = args.hubs
+        if args.explore_bonus:
+            rkw["predictor_kw"] = {"explore": args.explore_bonus}
+        fed = build_federation(
+            iter_dialogues(spec), n_agents=args.agents,
+            super_hubs=args.super_hubs, arrivals=arrivals, seed=args.seed,
+            engine_mode=engine_mode, max_inflight=args.max_inflight,
+            router_kwargs=rkw,
+            loop_kwargs=dict(batch_cap=args.batch_cap,
+                             batch_window=args.batch_window,
+                             incremental=args.incremental, lean=True),
+            cluster_kwargs=dict(fail_prob=args.fail_prob,
+                                straggle_prob=args.straggle_prob),
+            epoch=args.epoch, parallel=args.federation_parallel,
+            device=args.device)
+        metrics = fed.run()
+        print(json.dumps(metrics, indent=2, default=float))
+        if args.json:
+            with open(args.json, "w") as f:
+                json.dump(metrics, f, indent=2, default=float)
+        return metrics
 
     mix = None
     if args.adversary != "none":

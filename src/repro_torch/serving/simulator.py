@@ -227,9 +227,9 @@ class ShardEventLoop:
     one ready deque, one admission window over ONE ``(cluster, router)``
     pair.  `EventSimulator` (the public single-heap simulator) is a thin
     subclass that treats the whole fleet as a single shard; the
-    reference's federation (`repro.serving.federation.FederatedSimulator`,
-    not yet ported) composes S of these — one per super-hub — and advances
-    them independently between synchronization epochs via `advance_until`.
+    federation (`repro_torch.serving.federation.FederatedSimulator`)
+    composes S of these — one per super-hub — and advances them
+    independently between synchronization epochs via `advance_until`.
 
     Parameters
     ----------

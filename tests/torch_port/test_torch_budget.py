@@ -16,6 +16,7 @@ TIER1_MODULES = {
     "test_torch_cluster",
     "test_torch_cuda",
     "test_torch_engine",
+    "test_torch_federation",
     "test_torch_fused",
     "test_torch_isolation",
     "test_torch_kernels_ref",

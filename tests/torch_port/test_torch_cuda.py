@@ -3,7 +3,9 @@ paths' shapes (the staged auction solve bit for bit against the host-driven
 staged market: one market, a hub batch, a tripped budget, ties), short
 CUDA-vs-CPU router locksteps (one hub and 8 hubs with spill), the fused
 routing step's two kernels and the fused CUDA router against the fused CPU
-router (bit for bit, one launch of each kernel per batch) and reduced
+router (bit for bit, one launch of each kernel per batch), the hubs-of-hubs
+federation on the card against the CPU one and its process shards (each
+with its own CUDA context) against its inline shards, and reduced
 CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
@@ -16,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _serving_parity import comparable  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.auction_bid import (auction_bid_cuda,  # noqa: E402
                                              auction_bid_plain,
@@ -830,3 +833,64 @@ def test_real_engine_cluster_runs_on_the_card(dev):
     assert counts["flash_attention"] == fresh > 0
     assert counts["decode_attention"] == steps > 0
     assert counts["lcp_gather"] > 0
+
+
+def _federation(device, *, parallel="inline", n_dialogues=40):
+    """The overloaded S=3 federation of the reference's federation tests
+    (12 agents, every coqa_like dialogue in one domain, Poisson 300/s,
+    faults, spill) on the ``cuda`` solver with warm starts and ledgers,
+    every shard's router on ``device``."""
+    from repro_torch.serving import (PoissonArrivals, WorkloadSpec,
+                                     build_federation, generate)
+
+    dlg = generate(WorkloadSpec("coqa_like", n_dialogues=n_dialogues,
+                                seed=1))
+    dom = sorted({d.domain for d in dlg})[0]
+    dlg = [type(d)(d.dialogue_id, dom, d.turns, d.difficulty) for d in dlg]
+    return build_federation(
+        dlg, n_agents=12, super_hubs=3,
+        arrivals=PoissonArrivals(rate=300.0, seed=2), seed=0,
+        router_kwargs=dict(solver="cuda", warm_start=True, audit_ledger=True),
+        loop_kwargs=dict(batch_cap=32, batch_window=0.05, max_new_tokens=4),
+        cluster_kwargs=dict(max_new_tokens=4, fail_prob=0.1),
+        max_inflight=900, epoch=0.25, spill_min_wait=0.2,
+        parallel=parallel, device=device).run()
+
+
+def test_cuda_federation_matches_cpu_federation(dev):
+    """The overloaded federation with every shard's router on the card
+    equals the same federation on the CPU (reports, accounts, every
+    shard's ledger head); it migrates, settles exactly once, and gathers
+    the LCP once per Phase-1 pass, never in the federation's spill round."""
+    from repro_torch.core.mechanism import IEMASRouter
+
+    passes = []
+    phase1 = IEMASRouter._phase1
+
+    def counted(self, *args):
+        passes.append(self.device.type)
+        return phase1(self, *args)
+
+    IEMASRouter._phase1 = counted
+    try:
+        ops.reset_launch_counts()
+        gpu = _federation(dev)
+        counts = ops.launch_counts()
+    finally:
+        IEMASRouter._phase1 = phase1
+    cpu = _federation("cpu")
+    assert comparable(gpu) == comparable(cpu)
+    assert gpu["federation"]["spill_migrated"] > 0
+    assert gpu["federation"]["exactly_once"]["ok"]
+    assert counts["lcp_gather"] == passes.count("cuda") == len(passes) > 0
+    assert counts["auction_solve"] > 0
+    assert counts["auction_bid"] == counts["lcp_affinity"] == 0
+
+
+def test_cuda_process_shards_match_inline(dev):
+    """Each shard in a spawned process with its own CUDA context gives the
+    inline run's report, accounts and ledger heads."""
+    inline = _federation(dev)
+    proc = _federation(dev, parallel="process")
+    assert comparable(proc) == comparable(inline)
+    assert proc["federation"]["exactly_once"]["ok"]

@@ -1,9 +1,9 @@
 """``python -m repro_torch.launch.serve`` against ``python -m
 repro.launch.serve``: the same flags (plus ``--device cpu``) print the
 same metrics JSON, the wall-clock keys aside, in the closed and the event
-loop, for IEMAS, a baseline and an adversarial fleet; and the flag checks
-refuse what the reference's refuse.  ``--super-hubs > 1`` (the reference's
-federation) is refused by the port, which has no federation yet."""
+loop, for IEMAS, a baseline and an adversarial fleet, and the hubs-of-hubs
+federation (``--super-hubs``) with its shards inline and in their own
+processes; and the flag checks refuse what the reference's refuse."""
 import json
 import sys
 
@@ -77,15 +77,44 @@ def test_cli_refuses_what_the_reference_refuses(flags, monkeypatch, capsys):
     capsys.readouterr()
 
 
-def test_cli_refuses_the_federation(capsys):
-    """A flag set the reference runs as a federation: the port stops with
-    an error that names the missing slice."""
+FEDERATION = ["--sim-mode", "event", "--super-hubs", "2", "--agents", "16",
+              "--dialogues", "40", "--arrival-rate", "30", "--solver",
+              "dense", "--warm-start", "--audit-ledger"]
+
+
+@pytest.mark.parametrize("parallel", ["inline", "process"])
+def test_cli_federation_matches_reference(parallel, monkeypatch, capsys):
+    """``--super-hubs 2``: the port's federation (its shards inline, or
+    each in a spawned process) prints the reference CLI's JSON, the
+    wall-clock keys of the merged report and of every shard aside."""
+    flags = FEDERATION + ["--federation-parallel", parallel]
+    ref = _ref_main(monkeypatch, capsys, FEDERATION)
+    port = _port_main(capsys, flags)
+    assert sorted(ref) == sorted(port)
+    assert comparable(ref) == comparable(port)
+    fed = port["federation"]
+    assert fed["super_hubs"] == 2 and fed["exactly_once"]["ok"]
+    assert [s["ledger"]["head"] for s in port["shards"]] == \
+        [s["ledger"]["head"] for s in ref["shards"]]
+    assert port["n"] > 0 and not port["truncated"]
+
+
+@pytest.mark.parametrize("flags,why", [
+    (["--fused", "--hubs", "1", "--warm-start"], "cannot be sharded"),
+    (["--adversary", "freerider"], "single-heap"),
+], ids=["fused", "adversary"])
+def test_cli_refuses_the_federation(flags, why, monkeypatch, capsys):
+    """Flag sets the federation cannot run, refused by both CLIs (exit 2);
+    the port's error names the federation's reason."""
+    flags = ["--sim-mode", "event", "--super-hubs", "2"] + flags
     with pytest.raises(SystemExit) as exc:
-        port_serve.main(["--sim-mode", "event", "--super-hubs", "2",
-                         "--epoch", "0.5", "--federation-parallel",
-                         "inline"] + CPU)
+        _ref_main(monkeypatch, capsys, flags)
     assert exc.value.code == 2
-    assert "ROADMAP, queue 1, item 6b" in capsys.readouterr().err
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        port_serve.main(flags + CPU)
+    assert exc.value.code == 2
+    assert why in capsys.readouterr().err
 
 
 def test_cli_names_the_ports_solvers_and_backends(capsys):
