@@ -50,13 +50,15 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    the dense-tile ``lcp_affinity``, which the main path no longer
    launches, at the same data (the bidding rounds of the plain replay of
    those solves, the gathers' dense tiles).  Every
-   kernel's figures (here and in phases 6, 8, 10, 12, 13) give two times
-   per call: ``ms``, CUDA events around back-to-back wrapper calls, and
-   ``device_ms``, the CUDA time of the op's kernels in a ``torch.profiler``
-   trace over the op's calls (after three traces that lack the op's
-   kernels, CUDA events with the host queued ahead; the JSON line's
-   ``device_ms_from`` says which); where the first is much larger, the
-   wrapper (host), not the kernel body, bounds the op.
+   kernel's figures (here and in phases 6, 8, 10, 12, 13, 19, 21) give two
+   times per call: ``ms``, CUDA events around back-to-back wrapper calls,
+   and ``device_ms``, the CUDA time of the op's kernels in a
+   ``torch.profiler`` trace over the op's calls, counted only when the
+   trace holds a record of each of the op's kernels for every call (after
+   three traces short of that, CUDA events with the host queued ahead;
+   each printed device time and the JSON line's ``device_ms_from`` say
+   which); where the first is much
+   larger, the wrapper (host), not the kernel body, bounds the op.
 6. The attention kernels against their plain versions (2e-5 in float32,
    3e-2 in bfloat16) at synthetic full-width shapes: qwen3-8b's layers
    (prefill buckets 128 and 512) and zamba2-7b's shared block (32 / 32
@@ -167,7 +169,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     a ``RoutingProfiler``.  The CUDA and the CPU routers each run the first
     200 dialogues: equal metrics (every key but the wall-clock ones, left
     out by name), accounts and settlement head, and ``lcp_gather`` once
-    per batch.  Then the CUDA router alone over 5,000 of the preset's
+    per batch.  Then the CUDA router alone over 2,000 of the preset's
     10,000 dialogues, printing requests dispatched and completed, KV hit
     rate, latency p50 / p95, mean cost, route_batch p50 / p90 (host
     clock), requests/s, the profiler's report and the router kernels'
@@ -192,18 +194,51 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     processes, the device-busy share of an inline run (a profiler lower
     bound), and both router kernels against their plain versions at up
     to 2 of the run's calls per shape.  (c) The scale run: ``SCALE_1K``
-    with 8 process shards on the card over 20,000 dialogues (the
+    with 8 process shards on the card over 8,000 dialogues (the
     preset's 100,000, cut), under the reference scale benchmark's gates
     (exactly-once, 8 ledgers, nothing lost, migrations balanced,
     completed + unfinished = dialogues, not truncated, consumed
     staleness <= 1 epoch, overhead in (0, 0.5)); prints the wall seconds,
     requests/s, KV hit rate, latency, cost, epochs, spill, staleness,
     overhead, each phase's share and each shard's ``n``.
-    Then the card line, the JSON line of the ten kernels' records (the six
-    TPU kernels' counterparts, the router's two redesigned entries and the
-    fused step's two kernels; ``serving_launches`` gives each one's
-    launches in phase 16's two runs, phase 17's scale run and 18b's CUDA
-    inline federation) and the device line last.
+19. The attention kernels against their plain versions and SDPA, bf16,
+    at the head layouts the reference's larger configs add: qwen2.5-32b
+    (40 / 8), deepseek-coder-33b (56 / 8) and qwen2-72b (64 / 8), heads of
+    128, at prompts of 128 and 512 and decode at M = 1024 under a random
+    mask; mixtral-8x22b (48 / 8, window 4096) flash over 6,144 tokens and
+    decode over M = 4096 with every slot valid (a full window).  At these
+    shapes an output row averages hundreds to thousands of keys and is
+    small (about 0.03), so besides the 3e-2 absolute gate each kernel's
+    output rows are held to 2e-2 of the row's largest plain output (about
+    2.5 bf16 ulps; a dropped 128-key split or a window off by one moves
+    some row by 0.3 or more of its largest output).
+20. Engine lockstep, CUDA vs CPU, float32 (TF32 off), full width, 2
+    layers: deepseek-v2-lite-16b (its dense layer and one MoE + MLA
+    layer), mixtral-8x22b (two MoE layers, its window cut to 16 so the
+    40- to 52-token dialogue wraps the ring and the window masks) and
+    qwen2.5-32b (QKV biases drawn nonzero).  Fresh, exact extension, a partial prefix hit
+    (truncate, extend, decode: the path of the reference's MLA
+    stale-latent fault, reproduced on both devices) and the no-op repeat:
+    identical tokens, hits and modes, logits within 2e-3 of their max;
+    every MoE routing call's top-k experts compared, a flip printed with
+    its margin.
+21. The new families at full width, bf16, random weights, batch 1,
+    serving phase 8's plan through ``AgentEngine`` (phase 8's figures and
+    gates): deepseek-v2-lite-16b whole (27 layers; MLA launches no
+    attention kernel, and the gate is 0), mixtral-8x22b at 8 of its 56
+    layers, qwen2.5-32b whole (64 layers).  Each decode step's weight-read
+    bound (every expert's bucket is computed, as in the reference's
+    layout, against the active weights), and the attention kernels
+    against their plain versions and SDPA at the calls mixtral and
+    qwen2.5 made.
+    Then the time of all phases, the card line, the JSON line of the ten
+    kernels' records (the six TPU kernels' counterparts, the router's two
+    redesigned entries and the fused step's two kernels;
+    ``serving_launches`` gives each one's launches in phase 16's two runs,
+    phase 17's scale run and 18b's CUDA inline federation,
+    ``family_launches`` in phase 21's engines, ``family_replays`` the
+    attention kernels' figures at phase 21's calls) and the device line
+    last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -235,9 +270,12 @@ N_AGENTS = 128
 MIN_REQUESTS = 300
 BIG = 3.4028234663852886e38 / 4    # float32 max / 4, the no-bid price
 # the per-kernel figures of the JSON line that phases 5 and 8 measure
-MEASURED = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-            "bound_by")
+MEASURED = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms",
+            "bound_ms", "bound_by")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's
+# phase 19: each bf16 output row's max abs error over its largest plain
+# output, about 2.5 bf16 ulps (2^-7 each) of the row's scale
+ATTN_ROW_TOL = 2e-2
 ENGINE_LOGIT_TOL = 2e-3            # tests/test_models.py's
 ARCH = "qwen3-8b"
 RWKV = "rwkv6-3b"
@@ -293,15 +331,15 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
 
 PROFILE_TRIES = 3                  # traces of one op before events
 TRACE_MARGIN_S = 0.2               # idle time at each end of a step's trace
-DEVICE_MS_FROM: dict[str, set] = {}   # op -> {"profiler", "events"}
 
 
-def profiled_kernel_means(fn, op: str) -> dict[str, float]:
+def profiled_kernel_means(fn, op: str) -> tuple[dict[str, float], Counter]:
     """Mean CUDA microseconds of each of ``op``'s kernels (by stem) in one
-    ``torch.profiler`` trace of ``fn``; a kernel the trace lacks is absent.
-    Means, not totals over the calls: after long traces the profiler drops
-    some kernel records (each recorded time stays right), and an empty
-    trace taken first absorbs records of earlier work that arrive late."""
+    ``torch.profiler`` trace of ``fn``, and the number of records of each;
+    a kernel the trace lacks is absent.  After long traces the profiler
+    drops some kernel records (each recorded time stays right), so the
+    caller checks the counts; an empty trace taken first absorbs records
+    of earlier work that arrive late."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -320,7 +358,7 @@ def profiled_kernel_means(fn, op: str) -> dict[str, float]:
         if e.device_type == DeviceType.CUDA and stem and e.count:
             total[stem] += e.device_time_total
             count[stem] += e.count
-    return {k: total[k] / count[k] for k in count}
+    return {k: total[k] / count[k] for k in count}, count
 
 
 def queued_event_ms(calls) -> float:
@@ -353,26 +391,28 @@ def queued_event_ms(calls) -> float:
     return total
 
 
-def device_ms(calls, op: str) -> float:
+def device_ms(calls, op: str) -> tuple[float, str]:
     """Device milliseconds per call of ``op`` (a key of OP_KERNELS) over
     ``calls`` (zero-argument callables, each one call of the op): the mean
     CUDA time of each of the op's kernels in a ``torch.profiler`` trace,
-    summed over the kernels one call launches.  The profiler sometimes
-    hands back a trace without the op's kernels after long traces of other
-    work; after ``PROFILE_TRIES`` such traces the time comes from CUDA
-    events with the host run ahead (``queued_event_ms``).  The source of
-    every figure is kept in ``DEVICE_MS_FROM`` and printed."""
+    summed over the kernels one call launches.  A trace counts only if it
+    holds a record of each of the op's kernels for every call traced (each
+    stem of OP_KERNELS launches once per call); the profiler sometimes
+    drops records after long traces of other work, and a mean over the
+    records it kept is not the mean over the calls.  After
+    ``PROFILE_TRIES`` short traces the time comes from CUDA events with
+    the host run ahead (``queued_event_ms``).  Returns the time and its
+    source, "profiler" or "events", which every figure keeps beside it."""
     check(bool(calls), f"no {op} call to time")
-    seen: dict[str, float] = {}
+    count: Counter = Counter()
     for _ in range(PROFILE_TRIES):
-        seen = profiled_kernel_means(lambda: [c() for c in calls], op)
-        if set(seen) == set(OP_KERNELS[op]):
-            DEVICE_MS_FROM.setdefault(op, set()).add("profiler")
-            return sum(seen.values()) / 1e3
-    print(f"    {op}: {PROFILE_TRIES} profiler traces lacked a kernel "
-          f"(last {seen}); its device time comes from CUDA events")
-    DEVICE_MS_FROM.setdefault(op, set()).add("events")
-    return queued_event_ms(calls) / len(calls)
+        seen, count = profiled_kernel_means(lambda: [c() for c in calls], op)
+        if all(count[k] >= len(calls) for k in OP_KERNELS[op]):
+            return sum(seen.values()) / 1e3, "profiler"
+    print(f"    {op}: {PROFILE_TRIES} profiler traces of {len(calls)} calls "
+          f"held fewer records of a kernel (last {dict(count)}); its device "
+          "time comes from CUDA events")
+    return queued_event_ms(calls) / len(calls), "events"
 
 
 def cuda_tool(name: str) -> str:
@@ -1082,16 +1122,16 @@ def replay(calls, kernel, plain, work, iters: int, plain_iters: int) -> dict:
         nbytes, nops = nbytes + b, nops + o
     check(err == 0.0, f"{kernel.__name__} != plain at a main-path input")
     ms = cuda_time_ms(lambda: [kernel(*a, **kw) for a, kw in calls], iters, 1)
-    dev_ms = device_ms([lambda a=a, kw=kw: kernel(*a, **kw)
-                        for a, kw in calls],
-                       kernel.__name__.removesuffix("_cuda"))
+    dev_ms, dev_from = device_ms([lambda a=a, kw=kw: kernel(*a, **kw)
+                                  for a, kw in calls],
+                                 kernel.__name__.removesuffix("_cuda"))
     plain_ms = cuda_time_ms(lambda: [plain(*a, **kw) for a, kw in calls],
                             plain_iters, 1)
     bound, by = roofline(nbytes / len(calls), nops / len(calls))
     shapes = sorted({shape_key(args)[:2] for args, _ in calls})
     return {"calls": len(calls), "shapes": shapes, "max_abs_err": err,
             "ms": ms / len(calls), "device_ms": dev_ms,
-            "plain_ms": plain_ms / len(calls),
+            "device_ms_from": dev_from, "plain_ms": plain_ms / len(calls),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -1137,11 +1177,12 @@ def replay_solve(calls, dev) -> tuple[dict, list]:
     check(err == 0.0, "auction_solve kernel != plain at a main-path input")
     ms = cuda_time_ms(lambda: [auction_solve_cuda(*a) for a, _ in calls],
                       5, 1)
-    dev_ms = device_ms([lambda a=a: auction_solve_cuda(*a)
-                        for a, _ in calls], "auction_solve")
+    dev_ms, dev_from = device_ms([lambda a=a: auction_solve_cuda(*a)
+                                  for a, _ in calls], "auction_solve")
     bound, by = roofline(nbytes / len(calls), nops / len(calls))
     return ({"calls": len(calls), "max_abs_err": err,
              "ms": ms / len(calls), "device_ms": dev_ms,
+             "device_ms_from": dev_from,
              "plain_ms": plain_s * 1e3 / len(calls), "bound_ms": bound,
              "bound_by": by, "rounds_per_call": rounds / len(calls),
              "markets": sum(len(a[2]) for a, _ in calls)}, bids)
@@ -1200,15 +1241,14 @@ def phase_router_kernels(dev) -> tuple[Counter, dict]:
                  lambda args, out: lcp_work(*args, out[0]), 50, 10)
     print(f"    auction_solve over {solve['calls']} calls ({solve['markets']} "
           f"markets, {solve['rounds_per_call']:.1f} rounds per call): "
-          f"bit-exact, kernel {solve['ms']:.4f} ms (device "
-          f"{solve['device_ms']:.4f}, "
+          f"bit-exact, kernel {solve['ms']:.4f} ms ({dev_text(solve)}, "
           f"{solve['device_ms'] / solve['rounds_per_call'] * 1e3:.2f} us per "
           f"round), plain (host) {solve['plain_ms']:.1f} ms, bound "
           f"{solve['bound_ms']:.7f} ms ({solve['bound_by']}) per call")
     for name, r in (("lcp_gather", gather), ("auction_bid", bid),
                     ("lcp_affinity", lcp)):
         print(f"    {name} over {r['calls']} calls {r['shapes']}: bit-exact, "
-              f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+              f"kernel {r['ms']:.4f} ms ({dev_text(r)}), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.7f} ms "
               f"({r['bound_by']}) per call")
     return counts, {"lcp_gather": gather, "auction_solve": solve,
@@ -1293,30 +1333,53 @@ def attn_err(got, want, what: str) -> float:
     return err
 
 
-def attn_figures(kernel, plain, library, work, args, kw, iters=50) -> dict:
+def row_rel_err(got, want, what: str) -> float:
+    """The largest over output rows (one query and head) of the row's max
+    abs error over its largest plain output, checked against
+    ``ATTN_ROW_TOL``: the gate for outputs far below the absolute one."""
+    got, want = got.float(), want.float()
+    err = float(((got - want).abs().amax(-1)
+                 / want.abs().amax(-1).clamp_min(1e-30)).max())
+    check(err < ATTN_ROW_TOL, f"{what}: a row's error is {err} of its "
+          f"largest output (>= {ATTN_ROW_TOL})")
+    return err
+
+
+def attn_figures(kernel, plain, library, work, args, kw, iters=50,
+                 rows=False) -> dict:
     """One call's kernel, plain and library times (CUDA events) and bound,
-    after checking the kernel and the library against the plain version."""
+    after checking the kernel and the library against the plain version;
+    with ``rows``, the kernel's rows also within ``ATTN_ROW_TOL``."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
-    err = attn_err(got, want, f"{kernel.__name__} {shape_key(args)}")
+    what = f"{kernel.__name__} {shape_key(args)}"
+    err = attn_err(got, want, what)
+    row_err = row_rel_err(got, want, what) if rows else None
     attn_err(library(*args, **kw), want, f"library {shape_key(args)}")
     bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
-    return {"max_abs_err": err,
+    dev_ms, dev_from = device_ms([lambda: kernel(*args, **kw)] * iters,
+                                 kernel.__name__.removesuffix("_cuda"))
+    return {"max_abs_err": err, "max_row_rel_err": row_err,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
-            "device_ms": device_ms(
-                [lambda: kernel(*args, **kw)] * iters,
-                kernel.__name__.removesuffix("_cuda")),
+            "device_ms": dev_ms, "device_ms_from": dev_from,
             "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 10, 2),
             "library_ms": cuda_time_ms(lambda: library(*args, **kw), iters,
                                        5),
             "bound_ms": bound, "bound_by": by}
 
 
+def dev_text(f) -> str:
+    """A figure's device time per call and where it came from."""
+    return f"device {f['device_ms']:.4f} from {f['device_ms_from']}"
+
+
 def print_figures(name, shape, f) -> None:
     lib = ("" if f["library_ms"] is None
            else f", library {f['library_ms']:.4f} ms")
-    print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}, kernel "
-          f"{f['ms']:.4f} ms (device {f['device_ms']:.4f}), plain "
+    rows = ("" if f.get("max_row_rel_err") is None else
+            f" (rows within {f['max_row_rel_err']:.3g} of their max)")
+    print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}{rows}, "
+          f"kernel {f['ms']:.4f} ms ({dev_text(f)}), plain "
           f"{f['plain_ms']:.4f} ms{lib}, bound {f['bound_ms']:.6f} ms "
           f"({f['bound_by']})")
 
@@ -1334,9 +1397,11 @@ def phase_attention(dev) -> None:
         attention_shapes(dev, cfg.n_heads, cfg.n_kv_heads, cfg.hd, lengths)
 
 
-def attention_shapes(dev, h, hkv, d, lengths) -> None:
+def attention_shapes(dev, h, hkv, d, lengths, dtypes=None,
+                     rows=False) -> None:
     """Flash attention at each prompt length and decode attention at
-    M = MAX_LEN under a random mask, for one head layout."""
+    M = MAX_LEN under a random mask, for one head layout, in float32 and
+    bf16 (or ``dtypes``); ``rows`` as in ``attn_figures``."""
     import numpy as np
     import torch
 
@@ -1351,12 +1416,12 @@ def attention_shapes(dev, h, hkv, d, lengths) -> None:
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).to(dtype)
 
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         for s in lengths:
             args = (normal((1, s, h, d), dtype), normal((1, s, hkv, d), dtype),
                     normal((1, s, hkv, d), dtype))
             f = attn_figures(flash_attention_cuda, flash_attention_plain,
-                             sdpa_flash, flash_work, args, {})
+                             sdpa_flash, flash_work, args, {}, rows=rows)
             print_figures(f"flash_attention {dtype}", shape_key(args), f)
         valid = rng.random((1, MAX_LEN)) < 0.6
         valid[:, 0] = True
@@ -1364,7 +1429,7 @@ def attention_shapes(dev, h, hkv, d, lengths) -> None:
                 normal((1, MAX_LEN, hkv, d), dtype),
                 torch.from_numpy(valid).to(dev))
         f = attn_figures(decode_attention_cuda, decode_attention_plain,
-                         sdpa_decode, decode_work, args, {})
+                         sdpa_decode, decode_work, args, {}, rows=rows)
         print_figures(f"decode_attention {dtype}", shape_key(args), f)
 
 
@@ -1377,7 +1442,7 @@ def replay_sampled(rec, name: str, figures) -> dict:
     sampled = Counter(shape_key(args) for args, _ in rec.calls)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     total = dict.fromkeys(keys, 0.0)
-    err, weight, by = 0.0, 0.0, Counter()
+    err, weight, by, froms = 0.0, 0.0, Counter(), set()
     for args, kw in rec.calls:
         key = shape_key(args)
         w = rec.count[key] / sampled[key]
@@ -1386,10 +1451,12 @@ def replay_sampled(rec, name: str, figures) -> dict:
         for k in keys:
             total[k] = None if f[k] is None else total[k] + w * f[k]
         by[f["bound_by"]] += w
+        froms.add(f["device_ms_from"])
         weight += w
         print_figures(f"{name} x{rec.count[key]}", key[:2], f)
     return {"calls": sum(rec.count.values()), "sampled": len(rec.calls),
             "max_abs_err": err, "bound_by": by.most_common(1)[0][0],
+            "device_ms_from": "+".join(sorted(froms)),
             **{k: None if v is None else v / weight
                for k, v in total.items()}}
 
@@ -1496,9 +1563,12 @@ def slice_requests():
     return plan
 
 
-def phase_slice(dev, seed: int):
-    """One full-width bf16 engine serves the slice's requests; returns the
-    engine, the launch counts of the run and the recorded kernel calls."""
+def phase_slice(dev, seed: int, cfg=None):
+    """One full-width bf16 engine (``cfg``, default qwen3-8b) serves the
+    slice's requests; returns the engine, the launch counts of the run and
+    the recorded kernel calls.  Each GQA layer launches one flash call per
+    fresh prefill and one decode call per decode or no-op step; MLA layers
+    launch neither (no kernel in the reference)."""
     import numpy as np
     import torch
 
@@ -1506,14 +1576,20 @@ def phase_slice(dev, seed: int):
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import AgentEngine, _bucket
 
-    cfg = get_config(ARCH)
+    cfg = cfg or get_config(ARCH)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine = AgentEngine(cfg, seed=seed, device=dev, max_len=MAX_LEN,
                          max_new_tokens=8, cache_slots=12)
     torch.cuda.synchronize()
+    kind = cfg.attn_kind
+    if cfg.sliding_window:
+        kind += f", window {cfg.sliding_window}"
+    if cfg.is_moe:
+        kind += f", {cfg.n_experts} experts, top {cfg.top_k}"
     print(f"    {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, {cfg.dtype}; "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd} ({kind}), "
+          f"{cfg.dtype}; "
           f"{sum(p.numel() for p in engine.params.parameters()) / 1e9:.3f} B "
           f"parameters drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1539,7 +1615,7 @@ def phase_slice(dev, seed: int):
             rows.append((mode, res))
             history[did] = np.concatenate([prompt, res.output_tokens])
         counts = ops.launch_counts()       # ... and ends here
-    layers = cfg.n_layers
+    layers = 0 if cfg.attn_kind == "mla" else cfg.n_layers
     check(counts["flash_attention"] == layers * fresh,
           f"flash_attention launched {counts['flash_attention']} times for "
           f"{fresh} fresh prefills of {layers} layers")
@@ -1777,11 +1853,11 @@ def scan_figures(kernel, plain, work, args, kw, iters=50) -> dict:
     err = scan_err(kernel(*args, **kw), plain(*args, **kw),
                    f"{kernel.__name__} {shape_key(args)}")
     bound, by = roofline(*work(*args, **kw))       # float32 math
+    dev_ms, dev_from = device_ms([lambda: kernel(*args, **kw)] * iters,
+                                 kernel.__name__.removesuffix("_cuda"))
     return {"max_abs_err": err,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 5),
-            "device_ms": device_ms(
-                [lambda: kernel(*args, **kw)] * iters,
-                kernel.__name__.removesuffix("_cuda")),
+            "device_ms": dev_ms, "device_ms_from": dev_from,
             "plain_ms": cuda_time_ms(lambda: plain(*args, **kw), 5, 1),
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
@@ -2556,11 +2632,13 @@ def replay_fused_calls(calls, dev) -> dict:
     check(err == 0.0, "fused_phase1 kernel != plain at a main-path input")
     ms = cuda_time_ms(lambda: [fused_phase1_cuda(a, o, lay)
                                for (a, lay, _), o in zip(p1, outs)], 50, 2)
-    dev_ms = device_ms([lambda a=a, o=o, lay=lay: fused_phase1_cuda(a, o, lay)
-                        for (a, lay, _), o in zip(p1, outs)], "fused_phase1")
+    dev_ms, dev_from = device_ms(
+        [lambda a=a, o=o, lay=lay: fused_phase1_cuda(a, o, lay)
+         for (a, lay, _), o in zip(p1, outs)], "fused_phase1")
     bound, by = roofline(nbytes / len(p1), nops / len(p1))
     phase1 = {"calls": len(p1), "max_abs_err": err, "ms": ms / len(p1),
-              "device_ms": dev_ms, "plain_ms": plain_s * 1e3 / len(p1),
+              "device_ms": dev_ms, "device_ms_from": dev_from,
+              "plain_ms": plain_s * 1e3 / len(p1),
               "bound_ms": bound, "bound_by": by,
               "gathers": len(p1), "gather_max_abs_err": gerr,
               "shapes": sorted({(a.nb, a.mb, a.cb) for a, _, _ in p1})}
@@ -2598,11 +2676,13 @@ def replay_fused_calls(calls, dev) -> dict:
     check(err == 0.0, "auction_fused kernel != plain at a main-path input")
     ms = cuda_time_ms(lambda: [auction_fused_cuda(*a, **kw) for a, kw in fc],
                       5, 1)
-    dev_ms = device_ms([lambda a=a, kw=kw: auction_fused_cuda(*a, **kw)
-                        for a, kw in fc], "auction_fused")
+    dev_ms, dev_from = device_ms(
+        [lambda a=a, kw=kw: auction_fused_cuda(*a, **kw) for a, kw in fc],
+        "auction_fused")
     bound, by = roofline(nbytes / len(fc), nops / len(fc))
     solve = {"calls": len(fc), "max_abs_err": err, "ms": ms / len(fc),
-             "device_ms": dev_ms, "plain_ms": plain_s * 1e3 / len(fc),
+             "device_ms": dev_ms, "device_ms_from": dev_from,
+             "plain_ms": plain_s * 1e3 / len(fc),
              "bound_ms": bound, "bound_by": by,
              "rounds_per_call": rounds / len(fc)}
     return {"fused_phase1": phase1, "auction_fused": solve}
@@ -2765,12 +2845,12 @@ def phase_fused_router(dev) -> tuple[Counter, dict]:
           "parent-candidate rows: bit-exact against its plain version, whose "
           "LCP fed the plain fused_phase1")
     print(f"    fused_phase1 over {r1['calls']} calls {r1['shapes']}: "
-          f"bit-exact, kernel {r1['ms']:.4f} ms (device {r1['device_ms']:.4f})"
+          f"bit-exact, kernel {r1['ms']:.4f} ms ({dev_text(r1)})"
           f", plain {r1['plain_ms']:.4f} ms, bound {r1['bound_ms']:.7f} ms "
           f"({r1['bound_by']}) per call")
     print(f"    auction_fused over {r2['calls']} calls "
           f"({r2['rounds_per_call']:.1f} rounds per call): bit-exact, kernel "
-          f"{r2['ms']:.4f} ms (device {r2['device_ms']:.4f}, "
+          f"{r2['ms']:.4f} ms ({dev_text(r2)}, "
           f"{r2['device_ms'] / max(1.0, r2['rounds_per_call']) * 1e3:.2f} us "
           f"per round), plain (host) {r2['plain_ms']:.1f} ms, bound "
           f"{r2['bound_ms']:.7f} ms ({r2['bound_by']}) per call")
@@ -2785,8 +2865,8 @@ SERVE_FLAGS = ["--agents", "9", "--dialogues", "16", "--workload",
                "coqa_like", "--solver", "cuda", "--warm-start",
                "--audit-ledger"]            # the CLI's defaults otherwise
 SCALE_LOCKSTEP = 200          # dialogues, CUDA vs CPU router
-SCALE_DIALOGUES = 5_000        # the scale run's (SCALE_128's 10,000, cut
-                               # to leave phase 18 its room)
+SCALE_DIALOGUES = 2_000        # the scale run's (SCALE_128's 10,000, cut
+                               # to leave phases 18-21 their room)
 # the metrics that read the host clock: a federation's report adds its two
 # routing walls, every shard's report has its own copy of the first three,
 # and phase 18's profiler lists each route_batch call's host ms
@@ -3052,7 +3132,7 @@ def phase_serving_closed(dev) -> dict:
                 print(f"    {name} per call ({r['calls']} calls, "
                       f"{r['sampled']} sampled): max abs err "
                       f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
-                      f"(device {r['device_ms']:.4f}), plain "
+                      f"({dev_text(r)}), plain "
                       f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} "
                       f"ms, bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
         del cluster, logs, rec
@@ -3209,7 +3289,8 @@ def phase_serving_scale(dev) -> dict:
 # --------------------------------------------------- the federation, 18 --
 FED_MIGRATION = 150        # dialogues of 18a, the reference test's run
 FED_LOCKSTEP = 200         # dialogues of 18b at the SCALE_1K fleet
-FED_DIALOGUES = 20_000     # the scale run's (SCALE_1K's 100,000, cut)
+FED_DIALOGUES = 8_000      # the scale run's (SCALE_1K's 100,000, cut to
+                           # leave phases 19-21 their room)
 FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
                      "auction_fused")
 
@@ -3469,30 +3550,24 @@ def phase_federation(dev) -> Counter:
         f"{busy:.1f} ms of kernels and copies in {traced_s * 1e3:.1f} ms "
         f"({busy / (traced_s * 1e3):.2%}; torch.profiler, device activity "
         "only, a lower bound)"))
-    saved = {k: set(v) for k, v in DEVICE_MS_FROM.items()}
     solve, _ = replay_solve(rec["auction_solve"].calls, dev)
     gather = replay(rec["lcp_gather"].calls, lcp_gather_cuda,
                     lcp_gather_plain,
                     lambda args, out: gather_work(*args, out[0]), 50, 10)
-    fresh = {k: v - saved.get(k, set()) for k, v in DEVICE_MS_FROM.items()}
 
     def span(axis: int) -> str:      # the range of the gathers' n and m
         sizes = [args[2].shape[axis] for args, _ in rec["lcp_gather"].calls]
         return f"{min(sizes)}-{max(sizes)}"
-    DEVICE_MS_FROM.clear()
-    DEVICE_MS_FROM.update(saved)
     print(f"    at 18b's shapes (up to 2 calls of each): auction_solve over "
           f"{solve['calls']} calls ({solve['markets']} markets, "
           f"{solve['rounds_per_call']:.1f} rounds a call) bit-exact, kernel "
-          f"{solve['ms']:.4f} ms (device {solve['device_ms']:.4f}), plain "
+          f"{solve['ms']:.4f} ms ({dev_text(solve)}), plain "
           f"(host) {solve['plain_ms']:.2f} ms, bound {solve['bound_ms']:.7f} "
           f"ms ({solve['bound_by']}); lcp_gather over {gather['calls']} calls "
           f"(prompts of {span(0)} requests, {span(1)} agents) bit-exact, "
           f"kernel {gather['ms']:.4f} ms "
-          f"(device {gather['device_ms']:.4f}), plain {gather['plain_ms']:.4f}"
-          f" ms, bound {gather['bound_ms']:.7f} ms ({gather['bound_by']}); "
-          f"device times from "
-          f"{sorted(set().union(*fresh.values())) or ['profiler']}")
+          f"({dev_text(gather)}), plain {gather['plain_ms']:.4f}"
+          f" ms, bound {gather['bound_ms']:.7f} ms ({gather['bound_by']})")
     del inline, cpu, proc, traced, rec
 
     print(f"    (c) scale run: SCALE_1K, {FED_DIALOGUES} dialogues (the "
@@ -3525,6 +3600,284 @@ def phase_federation(dev) -> Counter:
     return counts
 
 
+# ------------------------------- the MoE / MLA and larger dense families --
+DEEPSEEK = "deepseek-v2-lite-16b"
+MIXTRAL = "mixtral-8x22b"
+QWEN25 = "qwen2.5-32b"
+# the head layouts the earlier phases never ran: 40 / 8, 56 / 8, 64 / 8
+GROUP_ARCHS = (QWEN25, "deepseek-coder-33b", "qwen2-72b")
+WINDOW_SEQ = 6144          # mixtral's flash past its 4096-token window
+MIXTRAL_LAYERS = 8         # of 56 (~40 GB in bf16 on one card)
+FAMILY_SEEDS = {DEEPSEEK: "agent-3", MIXTRAL: "agent-4", QWEN25: "agent-5"}
+LOCKSTEP_WINDOW = 16       # phase 20's mixtral window: its dialogue wraps it
+
+
+def phase_attention_groups(dev) -> None:
+    """Both attention kernels against their plain versions and SDPA at the
+    new configs' head layouts, bf16, full width: qwen2.5-32b (40 / 8),
+    deepseek-coder-33b (56 / 8) and qwen2-72b (64 / 8) at prompts of 128
+    and 512 and decode at M = MAX_LEN; mixtral-8x22b (48 / 8, window 4096)
+    with flash over 6,144 tokens and decode over M = 4096 with every slot
+    valid.  Every output row is held within ``ATTN_ROW_TOL`` of its
+    largest plain output besides the absolute gate."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    for arch in GROUP_ARCHS:
+        cfg = get_config(arch)
+        print(f"    {arch}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads "
+              f"of {cfg.hd}, bf16")
+        attention_shapes(dev, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         (128, 512), dtypes=(torch.bfloat16,), rows=True)
+    cfg = get_config(MIXTRAL)
+    h, hkv, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.sliding_window
+    print(f"    {MIXTRAL}: {h} query / {hkv} KV heads of {d}, window {w}, "
+          "bf16")
+    rng = np.random.default_rng(19)
+
+    def normal(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    s = WINDOW_SEQ
+    args = (normal((1, s, h, d)), normal((1, s, hkv, d)),
+            normal((1, s, hkv, d)))
+    f = attn_figures(flash_attention_cuda, flash_attention_plain, sdpa_flash,
+                     flash_work, args, {"window": w}, iters=10, rows=True)
+    print_figures("flash_attention window", shape_key(args), f)
+    del args
+    # the decode step after that prompt: a full window, every one of the
+    # ring's w slots valid
+    valid = torch.ones((1, w), dtype=torch.bool, device=dev)
+    args = (normal((1, h, d)), normal((1, w, hkv, d)), normal((1, w, hkv, d)),
+            valid)
+    f = attn_figures(decode_attention_cuda, decode_attention_plain,
+                     sdpa_decode, decode_work, args, {}, rows=True)
+    print_figures("decode_attention full mask", shape_key(args), f)
+
+
+@contextmanager
+def recording_routes():
+    """Keep each MoE routing call's top-k experts and router
+    probabilities, per device (`models/moe._route`), to find the calls
+    where the card and the CPU chose other experts."""
+    import torch
+
+    from repro_torch.models import moe
+
+    route = moe._route
+    calls = {"cuda": [], "cpu": []}
+
+    def recorded(p, x, cfg):
+        gates, idx = route(p, x, cfg)
+        probs = torch.softmax(torch.einsum("bsd,de->bse", x, p["router"])
+                              .float(), dim=-1)
+        calls[x.device.type].append((idx.cpu(), probs.cpu()))
+        return gates, idx
+
+    moe._route = recorded
+    try:
+        yield calls
+    finally:
+        moe._route = route
+
+
+def route_flips(calls, k: int) -> str:
+    """Where the card's top-k expert sets differ from the CPU's, with the
+    CPU's margin there (k-th minus (k+1)-th probability); else the
+    smallest margin of any token."""
+    import torch
+
+    check(len(calls["cuda"]) == len(calls["cpu"]),
+          "the devices made different numbers of routing calls")
+    flips, margins, least = 0, [], float("inf")
+    for (gi, _), (ci, cp) in zip(calls["cuda"], calls["cpu"]):
+        top = torch.sort(cp, dim=-1, descending=True).values
+        gap = top[..., k - 1] - top[..., k]
+        least = min(least, float(gap.min()))
+        diff = (torch.sort(gi, -1).values != torch.sort(ci, -1).values) \
+            .any(-1)
+        flips += int(diff.sum())
+        margins += gap[diff].tolist()
+    if flips:
+        return (f"{flips} top-{k} expert flips between card and CPU, CPU "
+                f"margins {sorted(margins)[:5]}")
+    return (f"no top-{k} expert flip in {len(calls['cpu'])} routing calls; "
+            f"the closest token's margin {least:.3g}")
+
+
+def phase_family_lockstep(dev) -> None:
+    """A CUDA engine and a CPU engine on the same weights, full width, two
+    layers, float32: deepseek-v2-lite-16b (its dense layer and one MoE +
+    MLA layer), mixtral-8x22b (two MoE layers, its window cut to
+    LOCKSTEP_WINDOW so the ring wraps and the window masks) and
+    qwen2.5-32b (the QKV biases drawn nonzero).  Per model one dialogue:
+    fresh, exact extension, a partial prefix hit (truncate, extend,
+    decode: the path of the reference's MLA stale-latent fault, reproduced
+    on both devices) and the no-op repeat.  Identical greedy tokens, hits
+    and modes; logits within 2e-3 of their max."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    kw = {"max_len": MAX_LEN, "max_new_tokens": 4, "cache_slots": 2}
+    for arch in (DEEPSEEK, MIXTRAL, QWEN25):
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32")
+        if cfg.sliding_window:
+            cfg = dataclasses.replace(cfg, sliding_window=LOCKSTEP_WINDOW)
+        t0 = time.perf_counter()
+        gpu = AgentEngine(cfg, seed=20, device=dev, **kw)
+        if cfg.qkv_bias:
+            gen = torch.Generator(device=dev).manual_seed(20)
+            with torch.no_grad():
+                for layer in gpu.params["stack0"]:
+                    for name in ("bq", "bk", "bv"):
+                        b = layer["attn"][name]
+                        b.copy_(0.2 * torch.randn(b.shape, generator=gen,
+                                                  device=dev))
+        cpu = AgentEngine(cfg, device="cpu",
+                          params=copy.deepcopy(gpu.params).cpu(), **kw)
+        rng = np.random.default_rng(20)
+        prompt = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
+        modes, worst = [], 0.0
+        ops.reset_launch_counts()
+        with recording_routes() as routes:
+            for i in range(4):
+                prev = gpu.sessions.get("d")
+                prev = None if prev is None else prev.prompt
+                a = gpu.serve("d", prompt, now=float(i))
+                b = cpu.serve("d", prompt, now=float(i))
+                check(np.array_equal(a.output_tokens, b.output_tokens)
+                      and (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt),
+                      f"{arch}: CUDA and CPU engines diverged at request "
+                      f"{i}: {a.output_tokens} / {b.output_tokens}, hits "
+                      f"{a.n_hit} / {b.n_hit}")
+                err = rel_logit_err(session_logits(gpu, "d"),
+                                    session_logits(cpu, "d"))
+                check(err < ENGINE_LOGIT_TOL, f"{arch}: last-token logits "
+                      f"differ by {err} at request {i}")
+                worst = max(worst, err)
+                modes.append(mode_of(a, prev))
+                full = gpu.sessions["d"].prompt
+                more = rng.integers(1, cfg.vocab_size, 12).astype(np.int32)
+                prompt = (np.concatenate([full, more]) if i == 0 else
+                          np.concatenate([full[:30], more[:9]]) if i == 1
+                          else full)
+        counts = ops.launch_counts()
+        check(modes == ["fresh", "extend", "extend", "identical"],
+              f"{arch}: modes {modes}")
+        layers = 0 if cfg.attn_kind == "mla" else cfg.n_layers
+        check(counts["flash_attention"] == layers
+              and counts["decode_attention"] > 0 if layers else
+              counts["flash_attention"] == counts["decode_attention"] == 0,
+              f"{arch}: attention launches {counts}")
+        flips = route_flips(routes, cfg.top_k) if cfg.is_moe else \
+            "no router"
+        if cfg.sliding_window:
+            end = int(gpu.sessions["d"].cache["pos"].max())
+            check(end > cfg.sliding_window, f"{arch}: a dialogue of "
+                  f"{end} tokens does not wrap the ring")
+            flips += (f"; window {cfg.sliding_window}, the ring wrapped by "
+                      f"position {end}")
+        print(f"    {arch} (2 layers, float32): modes {modes}, identical "
+              f"tokens and hits, logits within {worst:.2e} of their max "
+              f"(limit {ENGINE_LOGIT_TOL}); {flips}; flash "
+              f"{counts['flash_attention']}, decode "
+              f"{counts['decode_attention']} launches; "
+              f"{time.perf_counter() - t0:.1f} s")
+        del gpu, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def decode_bounds(engine) -> str:
+    """A decode step's least time, reading each weight once at the HBM
+    rate: every weight but the embedding table (one row of it is read),
+    all experts included (the reference's bucket layout computes every
+    expert's bucket), against the weights one token needs (its top-k
+    experts of each MoE layer)."""
+    params = engine.params
+    es = params["embed"].element_size()
+    every = sum(p.numel() for p in params.parameters()) \
+        - params["embed"].numel()
+    idle = 0                  # expert weights outside a token's top-k
+    cfg = engine.cfg
+    for name, _ in params.named_children():
+        for layer in params[name] if name.startswith("stack") else ():
+            if "moe" in layer:
+                experts = sum(layer["moe"][w].numel()
+                              for w in ("wg", "wu", "wd"))
+                idle += experts * (cfg.n_experts - cfg.top_k) \
+                    // cfg.n_experts
+    ms = lambda n: n * es / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    text = f"weight-read bound {ms(every):.3f} ms ({every / 1e9:.3f} B)"
+    if idle:
+        text += (f" with every expert computed, {ms(every - idle):.3f} ms "
+                 f"for the active {(every - idle) / 1e9:.3f} B")
+    return text
+
+
+def phase_family_slices(dev) -> tuple[dict, dict]:
+    """The new families at full width, bf16, random weights, batch 1,
+    serving phase 8's plan through `AgentEngine`: deepseek-v2-lite-16b
+    whole (no attention kernel: MLA), mixtral-8x22b cut to
+    MIXTRAL_LAYERS of 56 layers, qwen2.5-32b whole.  Returns the launch
+    counts per model and the replays of the recorded attention calls."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    counts, replays = {}, {}
+    for arch in (DEEPSEEK, MIXTRAL, QWEN25):
+        cfg = get_config(arch)
+        if arch == MIXTRAL:
+            cfg = dataclasses.replace(cfg, n_layers=MIXTRAL_LAYERS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        engine, c, rec = phase_slice(dev, agent_seed(FAMILY_SEEDS[arch]),
+                                     cfg)
+        print(f"    {arch} decode step: {decode_bounds(engine)}")
+        counts[arch] = c
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        if cfg.attn_kind == "mla":
+            continue
+        print(f"    the attention kernels at the inputs of {arch} (up to 2 "
+              "calls of each shape, weighted by the calls made)")
+        replays[arch] = {
+            "flash_attention": replay_attention(
+                rec["flash_attention"], flash_attention_cuda,
+                flash_attention_plain, sdpa_flash, flash_work),
+            "decode_attention": replay_attention(
+                rec["decode_attention"], decode_attention_cuda,
+                decode_attention_plain, sdpa_decode, decode_work)}
+        for name, r in replays[arch].items():
+            print(f"    {name} per {arch} call ({r['calls']} calls, "
+                  f"{r['sampled']} sampled): max abs err "
+                  f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
+                  f"({dev_text(r)}), plain {r['plain_ms']:.4f} ms, "
+                  f"SDPA {r['library_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, replays
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -3551,6 +3904,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3622,7 +3976,7 @@ def main() -> int:
     for name, r in (("flash_attention", flash), ("decode_attention", dec)):
         print(f"    {name} per main-path call ({r['calls']} calls, "
               f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
-              f" kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+              f" kernel {r['ms']:.4f} ms ({dev_text(r)}), "
               f"plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     del attn_rec
@@ -3668,7 +4022,7 @@ def main() -> int:
     for name, r in (("wkv6", wkv6), ("ssd", ssd)):
         print(f"    {name} per main-path call ({r['calls']} calls, "
               f"{r['sampled']} sampled): max abs err {r['max_abs_err']:.3g},"
-              f" kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}), "
+              f" kernel {r['ms']:.4f} ms ({dev_text(r)}), "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
 
@@ -3699,6 +4053,23 @@ def main() -> int:
     print("[18] the hubs-of-hubs federation: every super-hub shard's router "
           "on the card, inline and in processes of their own")
     serving["federation"] = phase_federation(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[19] attention kernels against their plain versions at the head "
+          f"layouts of {', '.join(GROUP_ARCHS)} and {MIXTRAL}, bf16")
+    phase_attention_groups(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[20] engine lockstep, CUDA vs CPU, {DEEPSEEK}, {MIXTRAL} and "
+          f"{QWEN25} at full width, 2 layers, float32")
+    phase_family_lockstep(dev)
+
+    print(f"[21] the new families at full width on the card: {DEEPSEEK} "
+          f"whole, {MIXTRAL} at {MIXTRAL_LAYERS} of 56 layers, {QWEN25} "
+          "whole")
+    family_counts, family_replays = phase_family_slices(dev)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -3762,12 +4133,21 @@ def main() -> int:
          **{k: ssd[k] for k in MEASURED},
          "library_ms": None},
     ]
-    for row in kernels:     # where each op's device figures came from
-        row["device_ms_from"] = "+".join(sorted(DEVICE_MS_FROM[row["name"]]))
+    for row in kernels:
         # launches on the serving paths of phases 16 (staged, fused), 17
         # and 18 (18b's CUDA inline federation)
         row["serving_launches"] = {path: c[row["name"]]
                                    for path, c in serving.items()}
+        # launches in phase 21's engines; the attention kernels' figures
+        # at the inputs those engines gave them
+        row["family_launches"] = {arch: c[row["name"]]
+                                  for arch, c in family_counts.items()}
+        if row["name"] in ("flash_attention", "decode_attention"):
+            row["family_replays"] = {
+                arch: {k: r[row["name"]][k] for k in
+                       (*MEASURED, "library_ms", "calls")}
+                for arch, r in family_replays.items()}
+    print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,11 +23,12 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.solvers import (AuctionResult, available_solvers,
-                                      get_solver)
+                                      get_solver, solve_allocation)
 from repro_torch.utils.timing import phase_scope
 
 __all__ = ["AuctionResult", "run_auction", "run_sharded_auction",
-           "available_solvers", "SPILL_HUB"]
+           "client_utilities", "solve_allocation", "available_solvers",
+           "SPILL_HUB"]
 
 #: pseudo hub id under which run_sharded_auction(..., spill=True) returns the
 #: cross-hub second-round result; its request/agent indices are GLOBAL and
@@ -235,3 +236,14 @@ def _spill_round(values, costs, caps, blocks, results, backend,
         "warm_started": seed is not None,
     }
     return res
+
+
+def client_utilities(result: AuctionResult,
+                     true_values: np.ndarray) -> np.ndarray:
+    """u_j = v_j(true) - p_j for matched requests (0 otherwise)."""
+    n = len(result.assignment)
+    u = np.zeros(n)
+    for j, i in enumerate(result.assignment):
+        if i >= 0:
+            u[j] = float(true_values[j, i]) - result.payments[j]
+    return u

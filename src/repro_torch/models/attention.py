@@ -1,4 +1,5 @@
-"""GQA attention: parallel (prefill), cached-decode and chunked-extend forms.
+"""Attention: GQA / sliding-window / MLA, parallel (prefill), cached-decode
+and chunked-extend forms.
 
 Conventions (the reference's, `repro.models.attention`)
 -------------------------------------------------------
@@ -13,12 +14,18 @@ Conventions (the reference's, `repro.models.attention`)
   tensor their plain versions.  `attend_mixed` (chunked prefill over a
   cache) has no kernel in the reference either and is plain PyTorch on
   both devices.
-* Functional caches: `cache_append`, `prefill_cache_layout` and
-  `cache_extend` return new tensors and never write their inputs, as the
-  reference's immutable arrays.  The serving engine relies on that: a
-  session forked from a DAG parent and the engine's no-op decode step
-  leave the stored caches untouched.  A step copies its layer's cache
-  (2·M·Hkv·hd elements) once.
+* MLA (DeepSeek-V2) has no kernel: its prefill attends with q/k of width
+  nope + rope and v of another width, its absorbed decode over the latent
+  (lora + rope wide), and neither fits the ported kernels (k and v of one
+  width, at most 128), nor is either a Pallas kernel in the reference.  So
+  MLA attention is plain PyTorch on both devices, written as the reference
+  writes it (`attend_parallel_plain`, einsums and a float32 softmax).
+* Functional caches: `cache_append`, `prefill_cache_layout`,
+  `cache_extend` and the MLA forms return new tensors and never write
+  their inputs, as the reference's immutable arrays.  The serving engine
+  relies on that: a session forked from a DAG parent and the engine's
+  no-op decode step leave the stored caches untouched.  A step copies its
+  layer's cache (2·M·Hkv·hd elements, or MLA's latents) once.
 """
 from __future__ import annotations
 
@@ -50,6 +57,30 @@ def attend_parallel(q, k, v, *, window: int = 0):
     """
     return ops.flash_attention_op(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=True, window=window)
+
+
+def attend_parallel_plain(q, k, v, *, kv_valid_len=None):
+    """The reference's dense causal parallel attention (`repro.models.
+    attention.attend_parallel` below its long-context threshold), plain
+    PyTorch on both devices: q [B, Sq, H, dk], k [B, Sk, Hkv, dk], v [B, Sk,
+    Hkv, dv] with dk and dv free, the scale 1/sqrt(dk), scores and softmax
+    in float32, keys at or past ``kv_valid_len`` [B] masked.  MLA's prefill
+    runs here (the flash kernel takes one width for k and v)."""
+    b, sq, h, hd = q.shape
+    sk, n_kv = k.shape[1], k.shape[2]
+    dev = q.device
+    k_pos = torch.arange(sk, device=dev)
+    q_pos = torch.arange(sq, device=dev)
+    m = k_pos[None, :] <= q_pos[:, None]
+    s = torch.einsum("bskgd,btkd->bkgst", _group(q, n_kv), k).float() \
+        * (1.0 / math.sqrt(hd))
+    s = torch.where(m[None, None, None], s, NEG_INF)
+    if kv_valid_len is not None:
+        kmask = k_pos[None, :] < kv_valid_len[:, None]              # [B, Sk]
+        s = torch.where(kmask[:, None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v)
+    return out.reshape(b, sq, h, v.shape[-1])
 
 
 def attend_decode(q, k_cache, v_cache, slot_pos, pos, *, window: int = 0):
@@ -200,10 +231,6 @@ def cache_extend(k_cache, v_cache, slot_pos, k_new, v_new, pos0, lens_new,
 # ---------------- parameterized attention ----------------
 
 def gqa_init(cfg, dtype, *, generator: torch.Generator) -> dict:
-    if cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"attention kind {cfg.attn_kind!r}: the "
-                                  "port builds GQA only; MLA waits for its "
-                                  "family slice")
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dev = generator.device
     p = {
@@ -280,3 +307,148 @@ def gqa_extend(p, x, cache_layer, cfg, lens_new):
                               window=cfg.sliding_window)
     out = torch.einsum("...hk,hkd->...d", o, p["wo"])
     return out, {"k": kc, "v": vc, "slot_pos": sp, "pos": pos0 + lens_new}
+
+
+# ---------------- MLA (DeepSeek-V2) ----------------
+
+def mla_init(cfg, dtype, *, generator: torch.Generator) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope_d, vd, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim,
+                              cfg.v_head_dim, cfg.kv_lora_rank)
+    return {
+        "wq": normal_init((d, h, nope + rope_d), d, dtype,
+                          generator=generator),
+        "wdkv": normal_init((d, lora + rope_d), d, dtype,
+                            generator=generator),
+        "kv_norm": torch.ones((lora,), dtype=dtype, device=generator.device),
+        "wuk": normal_init((lora, h, nope), lora, dtype, generator=generator),
+        "wuv": normal_init((lora, h, vd), lora, dtype, generator=generator),
+        "wo": normal_init((h, vd, d), h * vd, dtype, generator=generator,
+                          scale=1.0 / max(2 * cfg.n_layers, 1) ** 0.5),
+    }
+
+
+def _mla_qkv_from_latent(p, ckv, krope, cfg):
+    """Expand cached latents to per-head K/V.  ckv: [..., lora], krope:
+    [..., rope] -> (k [..., H, nope + rope], v [..., H, vd])."""
+    k_nope = torch.einsum("...l,lhn->...hn", ckv, p["wuk"])
+    v = torch.einsum("...l,lhv->...hv", ckv, p["wuv"])
+    k_rope = krope[..., None, :].expand(*k_nope.shape[:-1], cfg.qk_rope_dim)
+    return torch.cat([k_nope, k_rope], dim=-1), v
+
+
+def _mla_q(p, x, pos, cfg):
+    """Queries with RoPE on their rope part: x [..., S, D] -> (q, q_nope,
+    q_rope) [..., S, H, *]."""
+    q = torch.einsum("...d,dhk->...hk", x, p["wq"])
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], -1)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    return torch.cat([q_nope, q_rope], dim=-1), q_nope, q_rope
+
+
+def _mla_latent(p, x, pos, cfg):
+    """The compressed latent and the shared rope key of x [..., S, D]:
+    (ckv [..., S, lora] normed, krope [..., S, rope] rotated)."""
+    dkv = torch.einsum("...d,dl->...l", x, p["wdkv"])
+    ckv, krope = torch.split(dkv, [cfg.kv_lora_rank, cfg.qk_rope_dim], -1)
+    ckv = rms_norm(ckv, p["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(krope[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+    return ckv, krope
+
+
+def mla_parallel(p, x, cfg, *, lens=None):
+    """x: [B, S, D] -> (out [B, S, D], (ckv, krope) for the cache)."""
+    pos = torch.arange(x.shape[1], device=x.device)
+    q, _, _ = _mla_q(p, x, pos, cfg)
+    ckv, krope = _mla_latent(p, x, pos, cfg)
+    k, v = _mla_qkv_from_latent(p, ckv, krope, cfg)
+    o = attend_parallel_plain(q, k, v, kv_valid_len=lens)
+    return torch.einsum("bshv,hvd->bsd", o, p["wo"]), (ckv, krope)
+
+
+# Absorbed MLA decode (DeepSeek-V2 "absorb"): W_uk folds into the query and
+# W_uv into the output, so attention runs in the compressed latent space.
+# On by default, as in the reference; the naive form expands every cached
+# latent to per-head K/V each step.
+MLA_ABSORBED = True
+
+
+def mla_decode(p, x, cache_layer, cfg, *, absorbed: bool | None = None):
+    """x: [B, D] one token; cache_layer: dict(ckv [B, M, lora], krope
+    [B, M, rope], slot_pos, pos [B]).  Returns (out [B, D], new cache
+    layer); the given one is left as it was."""
+    if absorbed is None:
+        absorbed = MLA_ABSORBED
+    pos = cache_layer["pos"]
+    q, q_nope, q_rope = (t[:, 0] for t in _mla_q(p, x[:, None], pos[:, None],
+                                                 cfg))
+    ckv_new, krope_new = (t[:, 0] for t in _mla_latent(p, x[:, None],
+                                                       pos[:, None], cfg))
+    b, m = cache_layer["slot_pos"].shape
+    slot = pos.clamp(max=m - 1).long()
+    rows = torch.arange(b, device=x.device)
+    ckv_c = cache_layer["ckv"].clone()
+    kr_c = cache_layer["krope"].clone()
+    sp = cache_layer["slot_pos"].clone()
+    ckv_c[rows, slot] = ckv_new
+    kr_c[rows, slot] = krope_new
+    sp[rows, slot] = pos.to(sp.dtype)
+
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if absorbed:
+        # scores = q_nope^T W_uk ckv + q_rope^T k_rope, all in latent space
+        q_abs = torch.einsum("bhn,lhn->bhl", q_nope, p["wuk"])   # [B, H, lora]
+        scores = (torch.einsum("bhl,bml->bhm", q_abs, ckv_c)
+                  + torch.einsum("bhr,bmr->bhm", q_rope, kr_c)).float()
+        scores = torch.where(valid[:, None, :], scores * scale, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhm,bml->bhl", probs, ckv_c)      # [B, H, lora]
+        o = torch.einsum("bhl,lhv->bhv", o_lat, p["wuv"])
+    else:
+        k, v = _mla_qkv_from_latent(p, ckv_c, kr_c, cfg)      # [B, M, H, *]
+        scores = torch.einsum("bhk,bmhk->bhm", q, k).float() * scale
+        scores = torch.where(valid[:, None, :], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        o = torch.einsum("bhm,bmhv->bhv", probs, v)
+    out = torch.einsum("bhv,hvd->bd", o, p["wo"])
+    return out, {"ckv": ckv_c, "krope": kr_c, "slot_pos": sp,
+                 "pos": pos + 1}
+
+
+def mla_extend(p, x, cache_layer, cfg, lens_new):
+    """A block of new tokens x [B, Sn, D] against an MLA latent cache
+    (multi-turn).  Returns (out [B, Sn, D], new cache layer with pos
+    advanced by lens_new); the given one is left as it was."""
+    sn = x.shape[1]
+    pos0 = cache_layer["pos"]
+    t = torch.arange(sn, device=x.device)
+    pos = pos0[:, None] + t[None, :]
+    q, _, _ = _mla_q(p, x, pos, cfg)
+    ckv_new, krope_new = _mla_latent(p, x, pos, cfg)
+    k_new, v_new = _mla_qkv_from_latent(p, ckv_new, krope_new, cfg)
+    k_cache, v_cache = _mla_qkv_from_latent(p, cache_layer["ckv"],
+                                            cache_layer["krope"], cfg)
+    o = attend_mixed(q, k_new, v_new, k_cache, v_cache,
+                     cache_layer["slot_pos"], pos0, lens_new)
+
+    # The new latents are ADDED into their slots, which are not cleared
+    # first: the reference's `mla_extend` (src/repro/models/attention.py:
+    # 535-539) does so, unlike `cache_extend`.  After a truncation or a
+    # padded prefill the slots still hold stale latents, and the next
+    # decode reads their sums.  Reproduced on purpose (ROADMAP §3).
+    b, m = cache_layer["slot_pos"].shape
+    slot = pos.clamp(max=m - 1).long()
+    keep = t[None, :] < lens_new[:, None]
+
+    def add(cache, new):
+        index = slot[..., None].expand(b, sn, new.shape[-1])
+        return cache.clone().scatter_add_(
+            1, index, torch.where(keep[..., None], new, 0.0))
+
+    sp = cache_layer["slot_pos"].scatter_reduce(
+        1, slot, torch.where(keep, pos, -1).to(torch.int32), "amax")
+    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out, {"ckv": add(cache_layer["ckv"], ckv_new),
+                 "krope": add(cache_layer["krope"], krope_new),
+                 "slot_pos": sp, "pos": pos0 + lens_new}

@@ -1,13 +1,14 @@
 """Block assembly of the port's families (the reference's
-`repro.models.blocks`): dense GQA attention blocks, RWKV-6 blocks, Mamba-2
-blocks and zamba2's shared attention block with per-invocation LoRA.  The
-reference's sharding constraints (``shard``/``_res``) constrain nothing on
-one card and are left out; MoE blocks wait for their slice."""
+`repro.models.blocks`): attention blocks (GQA or MLA attention, a dense or
+MoE FFN), RWKV-6 blocks, Mamba-2 blocks and zamba2's shared attention
+block with per-invocation LoRA.  The reference's sharding constraints
+(``shard``/``_res``) constrain nothing on one card and are left out."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_rope, ffn_apply, ffn_init,
                                        normal_init, rms_norm)
@@ -15,32 +16,57 @@ from repro_torch.models.layers import (apply_rope, ffn_apply, ffn_init,
 
 def attn_block_init(cfg, dtype, *, generator: torch.Generator,
                     ffn_kind: str = "dense", d_ff: int | None = None) -> dict:
-    if ffn_kind != "dense":
-        raise NotImplementedError(f"ffn kind {ffn_kind!r}: MoE blocks wait "
-                                  "for the MoE slice")
+    """ffn_kind: dense | moe; the attention is MLA or GQA by
+    ``cfg.attn_kind``."""
     dev = generator.device
-    return {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "attn": attn.gqa_init(cfg, dtype, generator=generator),
-            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
-            "mlp": ffn_init(cfg.d_model, d_ff or cfg.d_ff, dtype,
-                            generator=generator)}
+    init = attn.mla_init if cfg.attn_kind == "mla" else attn.gqa_init
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+         "attn": init(cfg, dtype, generator=generator),
+         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=dev)}
+    if ffn_kind == "dense":
+        p["mlp"] = ffn_init(cfg.d_model, d_ff or cfg.d_ff, dtype,
+                            generator=generator)
+    else:
+        p["moe"] = moe_mod.moe_init(cfg, dtype, generator=generator)
+    return p
 
 
-def attn_block_parallel(p, x, cfg):
-    """Returns (x, kv) where kv are the cacheables of this layer."""
+def ffn(p, h, cfg, ffn_kind: str, moe_mode: str = "sort"):
+    """The block's FFN on h [B, S, D]: SwiGLU or the MoE layer."""
+    if ffn_kind == "dense":
+        return ffn_apply(p["mlp"], h)
+    return moe_mod.moe_ffn(p["moe"], h, cfg, mode=moe_mode)
+
+
+def attn_block_parallel(p, x, cfg, *, ffn_kind: str = "dense", lens=None,
+                        moe_mode: str = "sort"):
+    """Returns (x, kv) where kv are the cacheables of this layer.  ``lens``
+    masks MLA's keys past each prompt's length, as in the reference; GQA
+    calls the flash kernel with the causal mask only (see
+    `attention.attend_parallel`)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, kv = attn.gqa_parallel(p["attn"], h, cfg)
+    if cfg.attn_kind == "mla":
+        o, kv = attn.mla_parallel(p["attn"], h, cfg, lens=lens)
+    else:
+        o, kv = attn.gqa_parallel(p["attn"], h, cfg)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["mlp"], h), kv
+    return x + ffn(p, h, cfg, ffn_kind, moe_mode), kv
 
 
-def attn_block_decode(p, x, cache_layer, cfg):
+def attn_block_decode(p, x, cache_layer, cfg, *, ffn_kind: str = "dense",
+                      moe_mode: str = "sort"):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    o, new_cache = attn.gqa_decode(p["attn"], h, cache_layer, cfg)
+    if cfg.attn_kind == "mla":
+        o, new_cache = attn.mla_decode(p["attn"], h, cache_layer, cfg)
+    else:
+        o, new_cache = attn.gqa_decode(p["attn"], h, cache_layer, cfg)
     x = x + o
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_apply(p["mlp"], h), new_cache
+    if ffn_kind == "dense":
+        return x + ffn_apply(p["mlp"], h), new_cache
+    return x + moe_mod.moe_ffn(p["moe"], h[:, None, :], cfg,
+                               mode=moe_mode)[:, 0], new_cache
 
 
 # ---------------- RWKV-6 block ----------------

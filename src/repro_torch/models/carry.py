@@ -5,8 +5,11 @@ dicts of NumPy arrays (``jax.device_get(params)``, laid out as the
 reference's ``lm.py`` builds it) and returns the port's `ParamTree`, with
 the reference's stacked groups split into per-layer trees:
 
-* ``stack<i>`` (dense) and ``layers`` (rwkv) and ``tail`` (zamba): a
-  leading L -> a list of L trees;
+* ``stack<i>`` (the attention decoder's stacks: dense or MoE FFN, GQA or
+  MLA attention, their nested groups such as ``moe`` / ``shared`` or
+  MLA's ``wdkv`` / ``kv_norm`` / ``wuk`` / ``wuv`` split alike),
+  ``layers`` (rwkv) and ``tail`` (zamba): a leading L -> a list of L
+  trees;
 * ``groups`` (zamba): [G, per, ...] -> G lists of ``per`` trees;
 * ``shared`` (zamba): ``block`` unstacked, ``lora`` [G, ...] -> G trees.
 
@@ -54,7 +57,8 @@ def _unstack(tree: dict, device, depth: int = 1):
 
 
 def params_from_reference(tree: dict, device="cpu") -> ParamTree:
-    """The port's parameters for a reference dense, rwkv or zamba pytree."""
+    """The port's parameters for a reference attention-decoder (dense,
+    MoE, MLA), rwkv or zamba pytree."""
     out = {}
     for key, value in tree.items():
         if key.startswith("stack") or key in _STACKED:

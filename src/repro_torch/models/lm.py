@@ -1,7 +1,9 @@
 """Decoder-only language models of three families (the reference's
-`repro.models.lm`): ``attn`` (the dense GQA decoder, one dense stack),
-``rwkv`` (RWKV-6) and ``zamba`` (Mamba-2 layers in groups, each followed by
-one shared attention block).
+`repro.models.lm`): ``attn`` (the attention decoder: GQA or MLA attention,
+one dense stack, or for MoE configs a dense stack of
+``first_dense_layers`` and then the MoE stack), ``rwkv`` (RWKV-6) and
+``zamba`` (Mamba-2 layers in groups, each followed by one shared attention
+block).
 
 * The reference stacks homogeneous layers (leading dim L) and drives them
   with ``lax.scan`` / ``fori_loop``; here each stack is a ``ModuleList`` of
@@ -12,15 +14,16 @@ one shared attention block).
   KV-prefix reuse, the physical substrate of the paper's affinity o_ij.
 * Caches hold per-layer lists of tensors in place of the reference's
   stacked ``[L, ...]`` arrays: ``{"pos": [B] int32, "slot_pos": [B, M]
-  int32, "stack0": {"k": [L x [B, M, Hkv, hd]], "v": [...]}}`` for attn;
-  per-layer state tuples for rwkv and zamba (see `_build_rwkv`,
-  `_build_zamba`).  Every function returns a new cache and leaves the one
-  it was given as it was.
+  int32, "stack<i>": {"k": [L x [B, M, Hkv, hd]], "v": [...]}}`` for GQA,
+  ``{"ckv": [L x [B, M, lora]], "krope": [L x [B, M, rope]]}`` per stack
+  for MLA (the compressed latent, no ring); per-layer state tuples for
+  rwkv and zamba (see `_build_rwkv`, `_build_zamba`).  Every function
+  returns a new cache and leaves the one it was given as it was.
 * For the recurrent families the parallel forms run from a stored state,
   so rwkv's ``extend`` is a prefill of the new tokens from the cache;
   zamba's ``extend`` raises, as the reference's does.
-* MoE stacks, MLA and patch inputs raise ``NotImplementedError`` naming
-  the slice that ports them.
+* Patch inputs raise ``NotImplementedError`` naming the slice that ports
+  them.
 """
 from __future__ import annotations
 
@@ -31,37 +34,37 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import (ParamTree, ffn_apply, normal_init,
-                                       rms_norm)
+from repro_torch.models.layers import ParamTree, normal_init, rms_norm
 
 
 @dataclass(frozen=True)
 class StackSpec:
     n_layers: int
-    ffn_kind: str  # dense (moe waits for its slice)
+    ffn_kind: str  # dense | moe
     d_ff: int
 
 
 def _make_stacks(cfg) -> list[StackSpec]:
     if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE stacks wait for the MoE "
-                                  "slice")
+        nd = cfg.first_dense_layers
+        stacks = []
+        if nd:
+            stacks.append(StackSpec(nd, "dense", cfg.dense_d_ff or cfg.d_ff))
+        stacks.append(StackSpec(cfg.n_layers - nd, "moe",
+                                cfg.moe_d_ff or cfg.d_ff))
+        return stacks
     return [StackSpec(cfg.n_layers, "dense", cfg.d_ff)]
 
 
 def _family(cfg) -> str:
     """The reference's family switch: rwkv, zamba (Mamba-2 + shared
-    attention) or attn (the dense GQA decoder)."""
+    attention) or attn (the attention decoder, dense or MoE)."""
     if cfg.ssm_kind == "rwkv6":
         return "rwkv"
     return "zamba" if cfg.attn_every else "attn"
 
 
 def _check_family(cfg) -> None:
-    if _family(cfg) != "rwkv" and cfg.attn_kind != "gqa":
-        raise NotImplementedError(f"{cfg.name}: attention kind "
-                                  f"{cfg.attn_kind!r} (MLA) waits for its "
-                                  "family slice")
     if cfg.n_patches:
         raise NotImplementedError(f"{cfg.name}: patch inputs wait for the "
                                   "VLM slice")
@@ -77,6 +80,8 @@ def build_lm(cfg):
     dtype = getattr(torch, cfg.dtype)
     stacks = _make_stacks(cfg)
     window = cfg.sliding_window
+    mla = cfg.attn_kind == "mla"
+    keys = ("ckv", "krope") if mla else ("k", "v")    # a layer's cache
 
     # ---------------- init ----------------
     def init(generator: torch.Generator) -> ParamTree:
@@ -93,14 +98,17 @@ def build_lm(cfg):
         return ParamTree(params)
 
     # ---------------- parallel forward (fresh prefill) ----------------
-    def forward(params, batch, *, collect: bool):
-        """Returns (x_final [B, S, D], {stack: [(k, v) per layer]} or {})."""
+    def forward(params, batch, *, collect: bool, lens=None):
+        """Returns (x_final [B, S, D], {stack: [cacheables per layer]} or
+        {}): (k, v) for GQA, (ckv, krope) for MLA."""
         x = params["embed"][batch["tokens"].long()]
         parts = {}
-        for i, _spec in enumerate(stacks):
+        for i, spec in enumerate(stacks):
             kvs = []
             for p_l in params[f"stack{i}"]:
-                x, kv = blk.attn_block_parallel(p_l, x, cfg)
+                x, kv = blk.attn_block_parallel(p_l, x, cfg,
+                                                ffn_kind=spec.ffn_kind,
+                                                lens=lens)
                 if collect:
                     kvs.append(kv)
             if collect:
@@ -113,13 +121,28 @@ def build_lm(cfg):
         c = {"pos": torch.zeros((b,), dtype=torch.int32, device=device),
              "slot_pos": torch.full((b, m), -1, dtype=torch.int32,
                                     device=device)}
+        shapes = (((b, m, cfg.kv_lora_rank), (b, m, cfg.qk_rope_dim)) if mla
+                  else ((b, m, cfg.n_kv_heads, cfg.hd),) * 2)
         for i, spec in enumerate(stacks):
             c[f"stack{i}"] = {
-                kk: [torch.zeros((b, m, cfg.n_kv_heads, cfg.hd), dtype=dtype,
-                                 device=device)
+                kk: [torch.zeros(sh, dtype=dtype, device=device)
                      for _ in range(spec.n_layers)]
-                for kk in ("k", "v")}
+                for kk, sh in zip(keys, shapes)}
         return c
+
+    def _mla_layout(ckv, krope, lens, max_len: int):
+        """The reference's MLA prefill layout: latents padded to max_len
+        (padded positions' latents kept, only ``slot_pos`` marks them
+        invalid: a pad, not a masked copy), no ring."""
+        b, s = ckv.shape[:2]
+        pad = lambda t: torch.cat(  # noqa: E731
+            [t, t.new_zeros((b, max_len - s, t.shape[-1]))], dim=1)
+        pos = torch.arange(s, device=ckv.device)
+        sp = torch.full((b, max_len), -1, dtype=torch.int32,
+                        device=ckv.device)
+        sp[:, :s] = torch.where(pos[None, :] < lens[:, None], pos[None, :],
+                                -1)
+        return pad(ckv), pad(krope), sp
 
     # ---------------- fresh prefill ----------------
     def prefill(params, batch):
@@ -127,18 +150,21 @@ def build_lm(cfg):
         max_len).  Returns (last-token logits [B, V], cache)."""
         lens = _lens(batch)
         max_len = int(batch.get("max_len", batch["tokens"].shape[1]))
-        x, parts = forward(params, batch, collect=True)
+        x, parts = forward(params, batch, collect=True, lens=lens)
         logits = _lm_head(params, _last(x, lens), cfg)
         cache = {"pos": lens}
         for i, _spec in enumerate(stacks):
-            ks, vs = [], []
-            for k_l, v_l in parts[f"stack{i}"]:
-                kc, vc, sp = attn.prefill_cache_layout(k_l, v_l, lens,
-                                                       max_len, window=window)
-                ks.append(kc)
-                vs.append(vc)
+            st = {kk: [] for kk in keys}
+            for a, c in parts[f"stack{i}"]:
+                if mla:
+                    a, c, sp = _mla_layout(a, c, lens, max_len)
+                else:
+                    a, c, sp = attn.prefill_cache_layout(
+                        a, c, lens, max_len, window=window)
+                st[keys[0]].append(a)
+                st[keys[1]].append(c)
                 cache.setdefault("slot_pos", sp)
-            cache[f"stack{i}"] = {"k": ks, "v": vs}
+            cache[f"stack{i}"] = st
         return logits, cache
 
     # ---------------- decode step ----------------
@@ -148,17 +174,18 @@ def build_lm(cfg):
         pos = cache["pos"]
         new_cache = dict(cache)
         sp_out = cache["slot_pos"]
-        for i, _spec in enumerate(stacks):
+        for i, spec in enumerate(stacks):
             st = cache[f"stack{i}"]
-            ks, vs = [], []
+            new = {kk: [] for kk in keys}
             for l, p_l in enumerate(params[f"stack{i}"]):
-                cl = {"k": st["k"][l], "v": st["v"][l],
-                      "slot_pos": cache["slot_pos"], "pos": pos}
-                x, nc = blk.attn_block_decode(p_l, x, cl, cfg)
-                ks.append(nc["k"])
-                vs.append(nc["v"])
+                cl = {kk: st[kk][l] for kk in keys}
+                cl.update(slot_pos=cache["slot_pos"], pos=pos)
+                x, nc = blk.attn_block_decode(p_l, x, cl, cfg,
+                                              ffn_kind=spec.ffn_kind)
+                for kk in keys:
+                    new[kk].append(nc[kk])
                 sp_out = nc["slot_pos"]
-            new_cache[f"stack{i}"] = {"k": ks, "v": vs}
+            new_cache[f"stack{i}"] = new
         new_cache["slot_pos"] = sp_out
         new_cache["pos"] = pos + 1
         return _lm_head(params, x, cfg), new_cache
@@ -166,25 +193,26 @@ def build_lm(cfg):
     # ---------------- multi-turn extend (serving KV reuse) -------------
     def extend(params, cache, tokens, lens_new):
         """A new block of tokens [B, Sn] (lens_new [B] valid) against an
-        existing cache: chunked prefill over the KV cache."""
+        existing cache: chunked prefill over the KV or latent cache."""
         x = params["embed"][tokens.long()]
         pos0 = cache["pos"]
         new_cache = dict(cache)
         sp_out = cache["slot_pos"]
+        attn_extend = attn.mla_extend if mla else attn.gqa_extend
         for i, spec in enumerate(stacks):
             st = cache[f"stack{i}"]
-            ks, vs = [], []
+            new = {kk: [] for kk in keys}
             for l, p_l in enumerate(params[f"stack{i}"]):
                 h = rms_norm(x, p_l["ln1"], cfg.norm_eps)
-                cl = {"k": st["k"][l], "v": st["v"][l],
-                      "slot_pos": cache["slot_pos"], "pos": pos0}
-                o, nc = attn.gqa_extend(p_l["attn"], h, cl, cfg, lens_new)
+                cl = {kk: st[kk][l] for kk in keys}
+                cl.update(slot_pos=cache["slot_pos"], pos=pos0)
+                o, nc = attn_extend(p_l["attn"], h, cl, cfg, lens_new)
                 x = _block_ffn(p_l, x + o, cfg, spec.ffn_kind)
-                ks.append(nc["k"])
-                vs.append(nc["v"])
+                for kk in keys:
+                    new[kk].append(nc[kk])
                 if l == 0:
                     sp_out = nc["slot_pos"]
-            new_cache[f"stack{i}"] = {"k": ks, "v": vs}
+            new_cache[f"stack{i}"] = new
         new_cache["slot_pos"] = sp_out
         new_cache["pos"] = pos0 + lens_new
         return _lm_head(params, _last(x, lens_new), cfg), new_cache
@@ -195,10 +223,8 @@ def build_lm(cfg):
 
 
 def _block_ffn(p_l, y, cfg, ffn_kind):
-    if ffn_kind != "dense":
-        raise NotImplementedError("MoE FFN waits for the MoE slice")
     h = rms_norm(y, p_l["ln2"], cfg.norm_eps)
-    return y + ffn_apply(p_l["mlp"], h)
+    return y + blk.ffn(p_l, h, cfg, ffn_kind)
 
 
 # ---------------- shared by the families ----------------

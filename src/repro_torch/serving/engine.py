@@ -1,11 +1,11 @@
 """Per-agent inference engine: real prefill / extend / decode with KV reuse.
 
 The port of the reference's `repro.serving.engine`.  An engine runs one
-model of the port (`repro_torch.models`: the dense GQA family, RWKV-6 or
-zamba2) on its ``device`` (default ``"cuda"``: the hand-written kernels;
-``"cpu"``: their plain versions), keeps per-dialogue caches (LRU over
-``cache_slots`` sessions, the paper's constrained-memory regime) and
-measures:
+model of the port (`repro_torch.models`: the attention decoder, dense or
+MoE, GQA or MLA; RWKV-6 or zamba2) on its ``device`` (default ``"cuda"``:
+the hand-written kernels; ``"cpu"``: their plain versions), keeps
+per-dialogue caches (LRU over ``cache_slots`` sessions, the paper's
+constrained-memory regime) and measures:
 
   * TTFT    — host seconds of the prefill / extend path, ending in a
               ``torch.cuda.synchronize()`` on a card, scaled by the agent's

@@ -22,6 +22,7 @@ TIER1_MODULES = {
     "test_torch_kernels_ref",
     "test_torch_ledger_mirror",
     "test_torch_models",
+    "test_torch_moe_mla",
     "test_torch_recurrent",
     "test_torch_router",
     "test_torch_scan_design",
@@ -29,6 +30,7 @@ TIER1_MODULES = {
     "test_torch_simulator",
     "test_torch_solver",
     "test_torch_ssm",
+    "test_torch_truthfulness",
 }
 
 SLOW_RE = re.compile(r"^pytestmark\s*=.*pytest\.mark\.slow", re.MULTILINE)

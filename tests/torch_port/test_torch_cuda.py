@@ -6,7 +6,9 @@ routing step's two kernels and the fused CUDA router against the fused CPU
 router (bit for bit, one launch of each kernel per batch), the hubs-of-hubs
 federation on the card against the CPU one and its process shards (each
 with its own CUDA context) against its inline shards, and reduced
-CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2).  These need an NVIDIA GPU
+CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2, MoE with MLA
+or GQA) and MoE / MLA blocks, and the attention kernels at the head groups
+of the reference's larger dense and MoE configs.  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
 2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
@@ -605,6 +607,133 @@ def test_cuda_engine_matches_cpu_engine(dev):
     counts = ops.launch_counts()
     assert counts["flash_attention"] == cfg.n_layers * 3     # a, b, c fresh
     assert counts["decode_attention"] == cfg.n_layers * 5 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,win", [(40, 0), (48, 64), (56, 0), (64, 0)])
+def test_attention_kernels_at_the_new_head_groups(dev, h, win, dtype):
+    """The head layouts of qwen2.5-32b (40 / 8: group 5), mixtral-8x22b
+    (48 / 8: group 6, a sliding window), deepseek-coder-33b (56 / 8: group
+    7) and qwen2-72b (64 / 8), heads of 128: flash over a window that
+    slides, decode over a ring that has wrapped (every slot valid)."""
+    rng = np.random.default_rng(h + win)
+    s, m = 300, 256
+    q = _normal((1, s, h, 128), dtype, dev, rng)
+    k = _normal((1, s, 8, 128), dtype, dev, rng)
+    v = _normal((1, s, 8, 128), dtype, dev, rng)
+    got = flash_attention_cuda(q, k, v, causal=True, window=win)
+    want = flash_attention_plain(q, k, v, causal=True, window=win)
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+    from repro_torch.models.attention import _slot
+
+    pos = torch.tensor([700], device=dev)             # past 256: wrapped
+    slot_pos = torch.full((1, m), -1, dtype=torch.int32, device=dev)
+    past = torch.arange(700 - m + 1, 701, device=dev)
+    slot_pos[0, _slot(past, m, m)] = past.to(torch.int32)
+    valid = (slot_pos >= 0) & (slot_pos <= pos[:, None]) \
+        & ((pos[:, None] - slot_pos) < m)
+    assert bool(valid.all())
+    qd = _normal((1, h, 128), dtype, dev, rng)
+    kc = _normal((1, m, 8, 128), dtype, dev, rng)
+    vc = _normal((1, m, 8, 128), dtype, dev, rng)
+    got = decode_attention_cuda(qd, kc, vc, valid)
+    want = decode_attention_plain(qd, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b"])
+def test_cuda_moe_mla_blocks_match_cpu(dev, arch, monkeypatch):
+    """Reduced MoE blocks (MLA attention for deepseek, sliding-window GQA
+    for mixtral) in float32: prefill and one decode step on the card equal
+    the CPU's on the same weights (1e-4 of the output's scale; TF32 off)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).scaled(dtype="float32", sliding_window=0)
+    gen = torch.Generator().manual_seed(1)
+    p_cpu = blocks.attn_block_init(cfg, torch.float32, generator=gen,
+                                   ffn_kind="moe")
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        return tree.to(dev)
+
+    p_gpu = to(p_cpu)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((1, 24, cfg.d_model))
+                         .astype(np.float32))
+    lens = torch.tensor([24], dtype=torch.int32)
+    for mode in ("sort", "onehot"):
+        a, kv_a = blocks.attn_block_parallel(p_gpu, x.to(dev), cfg,
+                                             ffn_kind="moe",
+                                             lens=lens.to(dev),
+                                             moe_mode=mode)
+        b, kv_b = blocks.attn_block_parallel(p_cpu, x, cfg, ffn_kind="moe",
+                                             lens=lens, moe_mode=mode)
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) < 1e-4 * scale
+    keys = ("ckv", "krope") if cfg.attn_kind == "mla" else ("k", "v")
+    m = 32
+    cache = {kk: torch.cat([t, t.new_zeros((1, m - 24, *t.shape[2:]))], 1)
+             for kk, t in zip(keys, kv_b)}
+    cache.update(slot_pos=torch.cat([torch.arange(24, dtype=torch.int32),
+                                     torch.full((m - 24,), -1,
+                                                dtype=torch.int32)])[None],
+                 pos=torch.tensor([24], dtype=torch.int32))
+    xd = x[:, -1] * 0.5
+    a, nc_a = blocks.attn_block_decode(
+        p_gpu, xd.to(dev), {k: v.to(dev) for k, v in cache.items()}, cfg,
+        ffn_kind="moe")
+    b, nc_b = blocks.attn_block_decode(p_cpu, xd, cache, cfg,
+                                       ffn_kind="moe")
+    assert float((a.cpu() - b).abs().max()) < 1e-4 * float(b.abs().max())
+    for kk in keys:
+        assert float((nc_a[kk].cpu() - nc_b[kk]).abs().max()) < 1e-4 * \
+            float(nc_b[kk].abs().max())
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b",
+                                  "qwen2.5-32b"])
+def test_cuda_moe_mla_engine_matches_cpu_engine(dev, arch, monkeypatch):
+    """Reduced engines in float32 on the same weights, the card's against
+    the CPU's: fresh, exact extension, a prefix hit (truncate, extend,
+    decode), identical repeat.  MLA launches no attention kernel; GQA one
+    flash launch per layer of each fresh prefill.  Mixtral's window is 16,
+    so the dialogue wraps its ring and the window masks."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import AgentEngine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    over = {"sliding_window": 16} if arch == "mixtral-8x22b" else {}
+    cfg = get_config(arch).scaled(dtype="float32", **over)
+    kw = {"max_len": 128, "max_new_tokens": 4, "cache_slots": 2}
+    gpu = AgentEngine(cfg, seed=0, device=dev, **kw)
+    cpu = AgentEngine(cfg, device="cpu",
+                      params=copy.deepcopy(gpu.params).cpu(), **kw)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(1, 255, 40).astype(np.int32)
+    ops.reset_launch_counts()
+    fresh = 0
+    for step in range(4):
+        a, b = (e.serve("a", prompt) for e in (gpu, cpu))
+        np.testing.assert_array_equal(a.output_tokens, b.output_tokens)
+        assert (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt)
+        fresh += a.n_hit == 0
+        full = gpu.sessions["a"].prompt
+        prompt = (np.concatenate([full, rng.integers(1, 255, 5)])
+                  if step == 0 else
+                  np.concatenate([full[:30], rng.integers(1, 255, 7)])
+                  if step == 1 else full).astype(np.int32)
+    counts = ops.launch_counts()
+    if cfg.sliding_window:
+        assert int(gpu.sessions["a"].cache["pos"].max()) > cfg.sliding_window
+    mla = cfg.attn_kind == "mla"
+    assert counts["flash_attention"] == (0 if mla else cfg.n_layers * fresh)
+    assert (counts["decode_attention"] == 0) == mla
 
 
 def assert_scan_close(got, want):

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every `repro_torch` module (and
-``chip_smoke.py``) loads neither JAX nor anything of the reference package
-`repro`."""
+"""The port stands alone: importing every `repro_torch` module (the MoE
+module `models/moe.py` among them) and ``chip_smoke.py`` loads neither JAX
+nor anything of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -24,6 +24,7 @@ runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
+assert "repro_torch.models.moe" in names, names
 print(len(names), bad)
 """
 

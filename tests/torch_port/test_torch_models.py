@@ -1,9 +1,10 @@
 """The port's dense GQA model against the JAX model on the same weights.
 
 Reduced ``qwen3-8b`` (``scaled(dtype="float32")``: GQA with qk-norm), the
-``llama3-7b`` engine class (MHA, no qk-norm, head dim 64) and a
-sliding-window variant (the ring-buffer cache layout) are built by both
-packages; one parameter pytree in the JAX model's layout,
+``llama3-7b`` engine class (MHA, no qk-norm, head dim 64), a
+sliding-window variant (the ring-buffer cache layout) and the reference's
+other dense configs (``qwen2.5-32b`` and ``qwen2-72b`` with QKV biases,
+drawn nonzero; ``deepseek-coder-33b``) are built by both packages; one parameter pytree in the JAX model's layout,
 drawn with numpy, goes to the JAX model as it is and to the port through
 `repro_torch.models.carry`; inputs are drawn with numpy too.  Checked: prefill
 logits and caches, the hidden state of every layer on valid rows, decode
@@ -41,6 +42,10 @@ CONFIGS = {
                                    else _engine_config)("llama3-7b", 255),
     "qwen3-8b-window": lambda g: g("qwen3-8b").scaled(dtype="float32",
                                                       sliding_window=8),
+    "qwen2.5-32b": lambda g: g("qwen2.5-32b").scaled(dtype="float32"),
+    "qwen2-72b": lambda g: g("qwen2-72b").scaled(dtype="float32"),
+    "deepseek-coder-33b": lambda g: g("deepseek-coder-33b").scaled(
+        dtype="float32"),
 }
 
 
@@ -196,10 +201,14 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_families_raise():
-    """The registry lists only what the port builds (dense GQA, RWKV-6,
-    zamba2); the other families name the slice that ports them."""
+    """The registry lists only what the port builds (the attention decoder
+    dense or MoE, GQA or MLA; RWKV-6; zamba2); patch inputs and
+    encoder-decoder models name the slice that ports them."""
     base = get_config("qwen3-8b").scaled(dtype="float32")
-    for over in ({"n_experts": 4, "top_k": 2}, {"attn_kind": "mla"},
-                 {"enc_layers": 2}):
+    for over in ({"n_patches": 8}, {"enc_layers": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             build_model(dataclasses.replace(base, **over))
+    for arch in ("qwen2.5-32b", "qwen2-72b", "deepseek-coder-33b",
+                 "mixtral-8x22b", "deepseek-v2-lite-16b"):
+        assert build_model(get_config(arch)).family == "attn"
+    assert build_model(get_config("qwen2.5-32b")).config.qkv_bias
