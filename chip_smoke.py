@@ -49,9 +49,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    (``auction_solve``, ``lcp_gather``); the one-round ``auction_bid`` and
    the dense-tile ``lcp_affinity``, which the main path no longer
    launches, at the same data (the bidding rounds of the plain replay of
-   those solves, the gathers' dense tiles).  Every
-   kernel's figures (here and in phases 6, 8, 10, 12, 13, 19, 21) give two
-   times per call: ``ms``, CUDA events around back-to-back wrapper calls,
+   those solves, the gathers' dense tiles).  Every kernel's figures
+   (here and in phases 6, 8, 10, 12, 13, 19, 21–23) give two times per
+   call: ``ms``, CUDA events around back-to-back wrapper calls,
    and ``device_ms``, the CUDA time of the op's kernels in a
    ``torch.profiler`` trace over the op's calls, counted only when the
    trace holds a record of each of the op's kernels for every call (after
@@ -194,7 +194,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     processes, the device-busy share of an inline run (a profiler lower
     bound), and both router kernels against their plain versions at up
     to 2 of the run's calls per shape.  (c) The scale run: ``SCALE_1K``
-    with 8 process shards on the card over 8,000 dialogues (the
+    with 8 process shards on the card over 4,000 dialogues (the
     preset's 100,000, cut), under the reference scale benchmark's gates
     (exactly-once, 8 ledgers, nothing lost, migrations balanced,
     completed + unfinished = dialogues, not truncated, consumed
@@ -231,14 +231,42 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     layout, against the active weights), and the attention kernels
     against their plain versions and SDPA at the calls mixtral and
     qwen2.5 made.
+22. The encoder-decoder and the patch-input model, CUDA vs CPU, float32
+    (TF32 off), the same weights: seamless-m4t-medium whole (12 encoder +
+    12 decoder layers) and llava-next-34b at full width and 2 layers.
+    Model level: a prefill with seeded frames (0.1·N(0, 1), [1, 1024,
+    1024]) or 2,880 seeded patches ahead of 128 tokens, 4 greedy decode
+    steps and, for llava, an extend; then one engine dialogue on the
+    engine's own inputs (zero frames; text alone): fresh, the no-op
+    repeat, a truncation-only hit and, for llava, an exact extension, which
+    for seamless raises `NotImplementedError` on both devices (the
+    reference's engine has no fallback).  Identical greedy tokens, hits
+    and modes, logits within 2e-3 of their max, exact launches; both
+    attention kernels against their plain versions (2e-5) at one
+    model-level call of each shape and mode.
+23. Both models whole at full width, bf16, random weights, batch 1:
+    seamless through `AgentEngine` (a warm-up per prefill bucket; fresh
+    turns, identical repeats, truncation-only hits) and llava through
+    phase 8's plan on text alone; then each at model level with seeded
+    frames (a 512-token prompt) or 2,880 patches + 128 tokens, 64 decode
+    steps and, for llava, one extend.  Exact launches: seamless 36
+    ``flash_attention`` per fresh prefill (12 encoder non-causal, 12
+    decoder causal, 12 cross non-causal with Sq != Sk) and 24
+    ``decode_attention`` per step (12 self, 12 cross over 1,024 valid
+    frames), llava 60 and 60.  TTFT, decode ms a token, the busy share,
+    peak memory and the decode step's weight-read bound; both kernels at
+    the model-level calls (each shape and mode apart) against their plain
+    versions, SDPA and their bounds, each bf16 row within 2e-2 of its
+    largest plain output.
     Then the time of all phases, the card line, the JSON line of the ten
     kernels' records (the six TPU kernels' counterparts, the router's two
     redesigned entries and the fused step's two kernels;
     ``serving_launches`` gives each one's launches in phase 16's two runs,
     phase 17's scale run and 18b's CUDA inline federation,
-    ``family_launches`` in phase 21's engines, ``family_replays`` the
-    attention kernels' figures at phase 21's calls) and the device line
-    last.
+    ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
+    phase 22 and in phase 23's runs, ``family_replays`` and
+    ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
+    and phases 22–23's model-level calls) and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -828,10 +856,25 @@ class ClosedLoop:
         self.ready = back + self.ready
 
 
-def shape_key(args) -> tuple:
+MODE_KEYS = ("causal", "window")   # an attention call's mode
+
+
+def shape_key(args, kw=None) -> tuple:
+    """The shapes of a call's tensor arguments, then its attention mode
+    (``causal``, ``window``) where the call names it: calls of one shape in
+    two modes (an encoder's 1024 x 1024 non-causal flash, a decoder's
+    causal one at a 1024 bucket) are counted, sampled and checked apart."""
     import torch
 
-    return tuple(tuple(a.shape) for a in args if isinstance(a, torch.Tensor))
+    shapes = tuple(tuple(a.shape) for a in args
+                   if isinstance(a, torch.Tensor))
+    return shapes + tuple((k, kw[k]) for k in MODE_KEYS if kw and k in kw)
+
+
+def shown_key(key) -> tuple:
+    """A key as printed: the first two shapes and the mode."""
+    return key[:2] + tuple(m for m in key[2:]
+                           if m and isinstance(m[0], str))
 
 
 class Recorder:
@@ -858,7 +901,7 @@ class Recorder:
 
     def __call__(self, *args, **kwargs):
         if args[0].is_cuda:
-            key = shape_key(args)
+            key = shape_key(args, kwargs)
             self.count[key] += 1
             if self.per_shape is None or self.count[key] <= self.per_shape:
                 kept = args
@@ -1352,10 +1395,10 @@ def attn_figures(kernel, plain, library, work, args, kw, iters=50,
     with ``rows``, the kernel's rows also within ``ATTN_ROW_TOL``."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
-    what = f"{kernel.__name__} {shape_key(args)}"
+    what = f"{kernel.__name__} {shape_key(args, kw)}"
     err = attn_err(got, want, what)
     row_err = row_rel_err(got, want, what) if rows else None
-    attn_err(library(*args, **kw), want, f"library {shape_key(args)}")
+    attn_err(library(*args, **kw), want, f"library {shape_key(args, kw)}")
     bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
     dev_ms, dev_from = device_ms([lambda: kernel(*args, **kw)] * iters,
                                  kernel.__name__.removesuffix("_cuda"))
@@ -1439,12 +1482,12 @@ def replay_sampled(rec, name: str, figures) -> dict:
     weighted by how many calls of the sample's shape the main path made, so
     they are means per call of the main path."""
     check(bool(rec.calls), f"no {name} call was recorded")
-    sampled = Counter(shape_key(args) for args, _ in rec.calls)
+    sampled = Counter(shape_key(args, kw) for args, kw in rec.calls)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     total = dict.fromkeys(keys, 0.0)
     err, weight, by, froms = 0.0, 0.0, Counter(), set()
     for args, kw in rec.calls:
-        key = shape_key(args)
+        key = shape_key(args, kw)
         w = rec.count[key] / sampled[key]
         f = figures(args, kw)
         err = max(err, f["max_abs_err"])
@@ -1453,7 +1496,7 @@ def replay_sampled(rec, name: str, figures) -> dict:
         by[f["bound_by"]] += w
         froms.add(f["device_ms_from"])
         weight += w
-        print_figures(f"{name} x{rec.count[key]}", key[:2], f)
+        print_figures(f"{name} x{rec.count[key]}", shown_key(key), f)
     return {"calls": sum(rec.count.values()), "sampled": len(rec.calls),
             "max_abs_err": err, "bound_by": by.most_common(1)[0][0],
             "device_ms_from": "+".join(sorted(froms)),
@@ -1461,9 +1504,11 @@ def replay_sampled(rec, name: str, figures) -> dict:
                for k, v in total.items()}}
 
 
-def replay_attention(rec, kernel, plain, library, work) -> dict:
+def replay_attention(rec, kernel, plain, library, work,
+                     rows: bool = False) -> dict:
+    """``replay_sampled`` through ``attn_figures`` (``rows`` as there)."""
     return replay_sampled(rec, kernel.__name__, lambda args, kw: attn_figures(
-        kernel, plain, library, work, args, kw, iters=20))
+        kernel, plain, library, work, args, kw, iters=20, rows=rows))
 
 
 # ------------------------------------------------------------ engines --
@@ -2866,7 +2911,7 @@ SERVE_FLAGS = ["--agents", "9", "--dialogues", "16", "--workload",
                "--audit-ledger"]            # the CLI's defaults otherwise
 SCALE_LOCKSTEP = 200          # dialogues, CUDA vs CPU router
 SCALE_DIALOGUES = 2_000        # the scale run's (SCALE_128's 10,000, cut
-                               # to leave phases 18-21 their room)
+                               # to leave phases 18-23 their room)
 # the metrics that read the host clock: a federation's report adds its two
 # routing walls, every shard's report has its own copy of the first three,
 # and phase 18's profiler lists each route_batch call's host ms
@@ -3289,8 +3334,8 @@ def phase_serving_scale(dev) -> dict:
 # --------------------------------------------------- the federation, 18 --
 FED_MIGRATION = 150        # dialogues of 18a, the reference test's run
 FED_LOCKSTEP = 200         # dialogues of 18b at the SCALE_1K fleet
-FED_DIALOGUES = 8_000      # the scale run's (SCALE_1K's 100,000, cut to
-                           # leave phases 19-21 their room)
+FED_DIALOGUES = 4_000      # the scale run's (SCALE_1K's 100,000, cut to
+                           # leave phases 19-23 their room)
 FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
                      "auction_fused")
 
@@ -3650,7 +3695,8 @@ def phase_attention_groups(dev) -> None:
             normal((1, s, hkv, d)))
     f = attn_figures(flash_attention_cuda, flash_attention_plain, sdpa_flash,
                      flash_work, args, {"window": w}, iters=10, rows=True)
-    print_figures("flash_attention window", shape_key(args), f)
+    print_figures("flash_attention window",
+                  shape_key(args, {"window": w}), f)
     del args
     # the decode step after that prompt: a full window, every one of the
     # ring's w slots valid
@@ -3836,10 +3882,6 @@ def phase_family_slices(dev) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                      decode_attention_plain)
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
 
     counts, replays = {}, {}
     for arch in (DEEPSEEK, MIXTRAL, QWEN25):
@@ -3858,20 +3900,457 @@ def phase_family_slices(dev) -> tuple[dict, dict]:
             continue
         print(f"    the attention kernels at the inputs of {arch} (up to 2 "
               "calls of each shape, weighted by the calls made)")
-        replays[arch] = {
-            "flash_attention": replay_attention(
+        replays[arch] = replay_both(rec, rows=False)
+        print_replays(arch, replays[arch])
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts, replays
+
+
+# --------------------- the encoder-decoder and the patch-input model --
+SEAMLESS = "seamless-m4t-medium"
+LLAVA = "llava-next-34b"
+ENCDEC_SEEDS = {SEAMLESS: "agent-6", LLAVA: "agent-7"}
+VLM_LOCKSTEP_LAYERS = 2    # phase 22's llava (~8 GB a side in float32)
+VLM_TEXT = 128             # text tokens after llava's 2,880 patches
+VLM_MAX_LEN = 4096         # the patched prompt's cache
+ENCDEC_PROMPT = 512        # seamless's model-level prompt
+MODEL_STEPS = 64           # decode steps of phase 23's model-level runs
+EXTEND_TOKENS = 16         # llava's extend after them
+
+
+def attention_launches(cfg) -> tuple[int, int]:
+    """(flash launches per fresh prefill, decode launches per decode
+    step): one flash per encoder layer and two per decoder layer (self,
+    cross) and two decode per decoder layer for an encoder-decoder; one
+    and one per layer for the attention decoder."""
+    if cfg.is_encdec:
+        return cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def side_inputs(cfg, dev, seed: int) -> dict:
+    """0.1 · N(0, 1) float32 frames [1, src_len, D] (encoder-decoder) or
+    patches [1, P, D] (patch input) drawn on ``dev`` from a seeded
+    generator, the scale of the reference's model tests; zero frames, the
+    engine's, would leave the encoder and the cross-attention at zero."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    key, n = (("frames", cfg.src_len) if cfg.is_encdec
+              else ("patches", cfg.n_patches))
+    return {key: 0.1 * torch.randn((1, n, cfg.d_model), generator=gen,
+                                   device=dev)}
+
+
+def encdec_vlm_configs(dtype: str):
+    """seamless-m4t-medium whole and llava-next-34b at VLM_LOCKSTEP_LAYERS
+    (float32 lockstep) or whole (bf16)."""
+    from repro_torch.configs import get_config
+
+    llava = get_config(LLAVA)
+    if dtype == "float32":
+        llava = dataclasses.replace(llava, n_layers=VLM_LOCKSTEP_LAYERS)
+    return [dataclasses.replace(get_config(SEAMLESS), dtype=dtype),
+            dataclasses.replace(llava, dtype=dtype)]
+
+
+def model_lockstep(model, gpu_p, cpu_p, dev, seed: int) -> float:
+    """Model level, CUDA vs CPU on the same weights: a prefill with seeded
+    frames or patches, 4 greedy decode steps and, for the patch model, one
+    extend; each step's greedy token the same, logits within 2e-3 of their
+    max, and exactly the launches of one fresh prefill and 4 steps.
+    Returns the worst logit error."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg = model.config
+    rng = np.random.default_rng(seed)
+    n_text = VLM_TEXT if cfg.n_patches else 40
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, n_text))
+                            .astype(np.int32))
+    side = side_inputs(cfg, dev, seed)
+    max_len = VLM_MAX_LEN if cfg.n_patches else MAX_LEN
+    worst = 0.0
+
+    def agree(a, b, what):
+        nonlocal worst
+        err = rel_logit_err(a, b)
+        check(err < ENGINE_LOGIT_TOL and int(a.argmax()) == int(b.argmax()),
+              f"{cfg.name}: {what}: CUDA and CPU logits differ by {err}, "
+              f"greedy {int(a.argmax())} / {int(b.argmax())}")
+        worst = max(worst, err)
+        return a.argmax(-1).to(torch.int32)
+
+    def on(device):
+        return {"tokens": toks.to(device), "max_len": max_len,
+                **{k: v.to(device) for k, v in side.items()}}
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lg, cg = model.prefill(gpu_p, on(dev))
+        lc, cc = model.prefill(cpu_p, on("cpu"))
+        tok = agree(lg, lc, "prefill")
+        for i in range(4):
+            lg, cg = model.decode_step(gpu_p, cg, tok)
+            lc, cc = model.decode_step(cpu_p, cc, tok.cpu())
+            tok = agree(lg, lc, f"decode step {i}")
+        counts = ops.launch_counts()
+        if cfg.n_patches:
+            ext = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+                1, EXTEND_TOKENS)).astype(np.int32))
+            n = torch.tensor([EXTEND_TOKENS - 3], dtype=torch.int32)
+            lg, _ = model.extend(gpu_p, cg, ext.to(dev), n.to(dev))
+            lc, _ = model.extend(cpu_p, cc, ext, n)
+            agree(lg, lc, "extend")
+    flash, per_step = attention_launches(cfg)
+    check(counts["flash_attention"] == flash
+          and counts["decode_attention"] == 4 * per_step,
+          f"{cfg.name}: launches {counts} for one prefill and 4 steps")
+    return worst
+
+
+def engine_lockstep(cfg, gpu_p, cpu_p, dev) -> tuple[list, float, Counter]:
+    """A CUDA and a CPU engine on the same weights serve one dialogue on
+    the engine's own inputs (zero frames; text alone): fresh, the no-op
+    repeat, a truncation-only hit and, for the patch model, an exact
+    extension; for the encoder-decoder that extension needs ``extend`` and
+    raises on both devices, as the reference's engine does.  Returns the
+    modes, the worst logit error and the launches of the served turns."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    kw = {"max_len": MAX_LEN, "max_new_tokens": 4, "cache_slots": 2}
+    gpu = AgentEngine(cfg, device=dev, params=gpu_p, **kw)
+    cpu = AgentEngine(cfg, device="cpu", params=cpu_p, **kw)
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
+    modes, worst, launched = [], 0.0, Counter()
+    for i, kind in enumerate(("fresh", "repeat", "truncate", "extend")):
+        stored = gpu.sessions.get("d")
+        stored = None if stored is None else stored.prompt
+        if kind == "repeat":
+            prompt = stored
+        elif kind == "truncate":
+            prompt = stored[:30]
+        elif kind == "extend":
+            prompt = np.concatenate([stored, rng.integers(
+                1, cfg.vocab_size, 12).astype(np.int32)])
+        if kind == "extend" and cfg.is_encdec:
+            for eng in (gpu, cpu):
+                raised = False
+                try:
+                    eng.serve("d", prompt, now=float(i))
+                except NotImplementedError:
+                    raised = True
+                check(raised, f"{cfg.name}: an exact extension did not "
+                      f"raise on {eng.device}")
+            modes.append("extend raised")
+            break
+        before = ops.launch_counts()
+        a = gpu.serve("d", prompt, now=float(i))
+        launched.update({k: v - before[k]
+                         for k, v in ops.launch_counts().items()})
+        b = cpu.serve("d", prompt, now=float(i))
+        check(np.array_equal(a.output_tokens, b.output_tokens)
+              and (a.n_hit, a.n_prompt) == (b.n_hit, b.n_prompt),
+              f"{cfg.name}: CUDA and CPU engines diverged at request {i}: "
+              f"{a.output_tokens} / {b.output_tokens}, hits {a.n_hit} / "
+              f"{b.n_hit}")
+        err = rel_logit_err(session_logits(gpu, "d"),
+                            session_logits(cpu, "d"))
+        check(err < ENGINE_LOGIT_TOL, f"{cfg.name}: last-token logits "
+              f"differ by {err} at request {i}")
+        worst = max(worst, err)
+        modes.append(mode_of(a, stored))
+    want = ["fresh", "identical", "extend-noop",
+            "extend raised" if cfg.is_encdec else "extend"]
+    check(modes == want, f"{cfg.name}: modes {modes}, expected {want}")
+    flash, per_step = attention_launches(cfg)
+    served = len(want) - cfg.is_encdec
+    steps = 4 * served + 2                  # and the two no-op steps
+    check(launched["flash_attention"] == flash
+          and launched["decode_attention"] == per_step * steps,
+          f"{cfg.name}: engine launches {dict(launched)}")
+    return modes, worst, launched
+
+
+def phase_encdec_vlm_lockstep(dev) -> tuple[Counter, dict]:
+    """Phase 22: seamless-m4t-medium at full depth and llava-next-34b at
+    full width and VLM_LOCKSTEP_LAYERS layers, float32 (TF32 off), the same
+    weights on the card and on the CPU: ``model_lockstep`` (seeded frames;
+    2,880 seeded patches) and ``engine_lockstep``.  Returns the card's
+    launches and both attention kernels' figures at the card's
+    model-level calls (one per shape and mode), against their plain
+    versions (2e-5) and SDPA."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    launches, replays = Counter(), {}
+    for cfg in encdec_vlm_configs("float32"):
+        t0 = time.perf_counter()
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(22)
+        gpu_p = model.init(gen)
+        cpu_p = copy.deepcopy(gpu_p).cpu()
+        with recording(ops, ("flash_attention", "decode_attention"),
+                       per_shape=1) as rec:
+            model_err = model_lockstep(model, gpu_p, cpu_p, dev, 22)
+        launches.update(ops.launch_counts())
+        modes, eng_err, eng_launches = engine_lockstep(cfg, gpu_p, cpu_p,
+                                                       dev)
+        launches.update(eng_launches)
+        layers = (f"{cfg.enc_layers} + {cfg.n_layers} layers"
+                  if cfg.is_encdec else f"{cfg.n_layers} layers")
+        print(f"    {cfg.name} ({layers}, float32): model-level prefill, 4 "
+              f"steps{', extend' if cfg.n_patches else ''} within "
+              f"{model_err:.2e}; engine modes {modes}, identical tokens and "
+              f"hits, logits within {eng_err:.2e} (limit "
+              f"{ENGINE_LOGIT_TOL}); {time.perf_counter() - t0:.1f} s")
+        del model, gpu_p, cpu_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"    the attention kernels at the float32 model-level inputs "
+              f"of {cfg.name} (one call of each shape and mode)")
+        replays[cfg.name] = replay_both(rec, rows=False)
+        print_replays(cfg.name, replays[cfg.name])
+        del rec
+    return launches, replays
+
+
+def encdec_requests(engine):
+    """seamless's serving plan over the three dialogues that open phase
+    8's plan: each first turn fresh, its identical repeat, the first turn
+    again (a prefix of the stored prompt and answer: a truncation-only
+    hit), and the first two turns as a fresh dialogue of their own (an
+    extension of the stored prompt would need the extend the
+    encoder-decoder lacks).  Yields (dialogue, prompt), reading a stored
+    prompt when its turn comes."""
+    import numpy as np
+
+    scripts = [s for s, t in slice_requests() if t == 0]
+    for s in scripts:
+        yield s.dialogue_id, np.asarray(s.turns[0], np.int32)
+    for s in scripts:
+        yield s.dialogue_id, engine.sessions[s.dialogue_id].prompt
+    for s in scripts:
+        yield s.dialogue_id, np.asarray(s.turns[0], np.int32)
+    for s in scripts:
+        yield (s.dialogue_id + "/2",
+               np.concatenate(s.turns[:2]).astype(np.int32))
+
+
+def serve_encdec(dev, cfg, seed: int):
+    """The seamless engine at full width serves ``encdec_requests`` under
+    exact launch gates; returns the engine and the launches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import AgentEngine
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = AgentEngine(cfg, seed=seed, device=dev, max_len=MAX_LEN,
+                         max_new_tokens=8, cache_slots=12)
+    torch.cuda.synchronize()
+    print(f"    {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.hd}, src_len {cfg.src_len}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}; "
+          f"{sum(p.numel() for p in engine.params.parameters()) / 1e9:.3f} B "
+          f"parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # one warm-up session per bucket: a second bucket under the same
+    # session would extend the first, which raises (the reference's gap)
+    for b in (32, 64, 128, 256, 512):
+        engine.warmup(prefill_buckets=(b,), extend_buckets=())
+    rows = []
+    ops.reset_launch_counts()              # the engine's main path starts
+    for i, (did, prompt) in enumerate(encdec_requests(engine)):
+        check(len(prompt) + engine.max_new <= MAX_LEN,
+              "a dialogue outgrew max_len")
+        prev = engine.sessions.get(did)
+        prev = None if prev is None else prev.prompt
+        res = engine.serve(did, prompt, now=float(i))
+        rows.append((mode_of(res, prev), res))
+    counts = ops.launch_counts()           # ... and ends here
+    modes = [m for m, _ in rows]
+    fresh = modes.count("fresh")
+    noops = len(modes) - fresh
+    steps = sum(r.n_gen for _, r in rows)
+    flash, per_step = attention_launches(cfg)
+    check(counts["flash_attention"] == flash * fresh
+          and counts["decode_attention"] == per_step * (steps + noops),
+          f"{cfg.name}: launches {counts} for {fresh} fresh prefills, "
+          f"{steps} decode and {noops} no-op steps")
+    print_modes(rows, ("fresh", "identical", "extend-noop"))
+    print(f"    launches {counts} for {fresh} fresh prefills, {steps} decode "
+          f"steps and {noops} no-op steps")
+    return engine, counts
+
+
+def model_run(engine, dev, seed: int):
+    """Phase 23's model-level run on an engine's weights, with seeded
+    frames (an ENCDEC_PROMPT-token prompt) or patches (VLM_TEXT text
+    tokens after them): a prefill, MODEL_STEPS greedy decode steps and, for
+    the patch model, one extend, under exact launch gates; prints TTFT,
+    decode ms a token and the device's busy share, and returns the
+    recorded attention calls (up to 2 per shape and mode) and the
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+
+    cfg, model, params = engine.cfg, engine.model, engine.params
+    rng = np.random.default_rng(seed)
+    n_text = VLM_TEXT if cfg.n_patches else ENCDEC_PROMPT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (1, n_text)).astype(np.int32)).to(dev),
+        "max_len": VLM_MAX_LEN if cfg.n_patches else MAX_LEN,
+        **side_inputs(cfg, dev, seed)}
+    flash, per_step = attention_launches(cfg)
+    text = ""
+    with recording(ops, ("flash_attention", "decode_attention"),
+                   per_shape=2) as rec, torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        check(tuple(logits.shape) == (1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()), f"{cfg.name}: prefill "
+              "logits are not finite values of shape [1, vocab]")
+        t0 = time.perf_counter()
+        for _ in range(MODEL_STEPS):
+            tok = logits.argmax(-1).to(torch.int32)
+            logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MODEL_STEPS
+        check(bool(torch.isfinite(logits).all()), f"{cfg.name}: decode "
+              "logits are not finite")
+        counts = ops.launch_counts()
+        if cfg.n_patches:
+            ext = torch.from_numpy(rng.integers(1, cfg.vocab_size, (
+                1, EXTEND_TOKENS)).astype(np.int32)).to(dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = model.extend(params, cache, ext, torch.tensor(
+                [EXTEND_TOKENS], dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(logits).all())
+                  and ops.launch_counts() == counts, f"{cfg.name}: extend "
+                  "logits not finite, or it launched an attention kernel")
+            text = (f", extend of {EXTEND_TOKENS} tokens "
+                    f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    check(counts["flash_attention"] == flash
+          and counts["decode_attention"] == per_step * MODEL_STEPS,
+          f"{cfg.name}: model-level launches {counts}, expected {flash} "
+          f"flash and {per_step * MODEL_STEPS} decode")
+    side = (f"{cfg.src_len} frames" if cfg.is_encdec
+            else f"{cfg.n_patches} patches")
+    print(f"    model level, {side} (0.1·N(0, 1)) + {n_text} tokens: TTFT "
+          f"{ttft:.2f} ms, decode {step_ms:.2f} ms/token over "
+          f"{MODEL_STEPS} steps{text}; launches {counts}")
+    tok = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        for what, fn, n in (
+                (f"prefill of {side} + {n_text} tokens",
+                 lambda: model.prefill(params, batch), 2),
+                ("decode step", lambda: model.decode_step(params, cache,
+                                                          tok), 8)):
+            print(f"    {what}: " + device_share(fn, n))
+    return rec, counts
+
+
+def encdec_decode_bound(engine) -> str:
+    """A decoder step's least time at the HBM rate: each decoder weight
+    read once but the cross-attention's wk / wv (the cross K/V are
+    cached), the final norm and the head, then every layer's cross K/V
+    over all src_len frames."""
+    params, cfg = engine.params, engine.cfg
+    es = params["embed"].element_size()
+    layers = params["decoder"]
+    n = (sum(p.numel() for p in layers.parameters())
+         - sum(layer["xattn"][w].numel() for layer in layers
+               for w in ("wk", "wv"))
+         + params["final_norm"].numel() + params["lm_head"].numel())
+    cross = 2 * cfg.n_layers * cfg.src_len * cfg.n_kv_heads * cfg.hd * es
+    ms = lambda nbytes: nbytes / HBM_BYTES_PER_S * 1e3  # noqa: E731
+    return (f"weight-read bound {ms(n * es):.3f} ms ({n / 1e6:.1f} M "
+            f"parameters), cross K/V {ms(cross):.3f} ms "
+            f"({cross / 1e6:.1f} MB)")
+
+
+def print_replays(name: str, replays: dict) -> None:
+    for op, r in replays.items():
+        print(f"    {op} per {name} call ({r['calls']} calls, "
+              f"{r['sampled']} sampled): max abs err "
+              f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
+              f"({dev_text(r)}), plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+
+
+def replay_both(rec, rows: bool) -> dict:
+    """Both attention kernels against their plain versions and SDPA at the
+    recorded calls (``replay_attention``)."""
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    return {"flash_attention": replay_attention(
                 rec["flash_attention"], flash_attention_cuda,
-                flash_attention_plain, sdpa_flash, flash_work),
+                flash_attention_plain, sdpa_flash, flash_work, rows=rows),
             "decode_attention": replay_attention(
                 rec["decode_attention"], decode_attention_cuda,
-                decode_attention_plain, sdpa_decode, decode_work)}
-        for name, r in replays[arch].items():
-            print(f"    {name} per {arch} call ({r['calls']} calls, "
-                  f"{r['sampled']} sampled): max abs err "
-                  f"{r['max_abs_err']:.3g}, kernel {r['ms']:.4f} ms "
-                  f"({dev_text(r)}), plain {r['plain_ms']:.4f} ms, "
-                  f"SDPA {r['library_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.6f} ms ({r['bound_by']})")
+                decode_attention_plain, sdpa_decode, decode_work,
+                rows=rows)}
+
+
+def phase_encdec_vlm_slices(dev) -> tuple[dict, dict]:
+    """Phase 23: seamless-m4t-medium and llava-next-34b whole at full
+    width, bf16, random weights, batch 1.  seamless through `AgentEngine`
+    (``serve_encdec``), llava through phase 8's plan on text alone
+    (``phase_slice``); then each model level (``model_run``) and the
+    attention kernels against their plain versions and SDPA at the
+    model-level calls, each bf16 row within ATTN_ROW_TOL of its largest
+    plain output.  Returns the launches per model (engine and model level
+    together) and the replays."""
+    import torch
+
+    counts, replays = {}, {}
+    for cfg in encdec_vlm_configs("bfloat16"):
+        seed = agent_seed(ENCDEC_SEEDS[cfg.name])
+        torch.cuda.reset_peak_memory_stats(dev)
+        if cfg.is_encdec:
+            engine, c = serve_encdec(dev, cfg, seed)
+            bound = encdec_decode_bound(engine)
+        else:
+            engine, c, _ = phase_slice(dev, seed, cfg)
+            bound = decode_bounds(engine)
+        engine.sessions.clear()
+        rec, c2 = model_run(engine, dev, seed)
+        counts[cfg.name] = Counter(c) + Counter(c2)
+        print(f"    {cfg.name} decode step: {bound}; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"    the attention kernels at the model-level inputs of "
+              f"{cfg.name} (up to 2 calls of each shape and mode, weighted "
+              "by the calls made)")
+        replays[cfg.name] = replay_both(rec, rows=True)
+        print_replays(cfg.name, replays[cfg.name])
         del rec
         gc.collect()
         torch.cuda.empty_cache()
@@ -4070,6 +4549,19 @@ def main() -> int:
           f"whole, {MIXTRAL} at {MIXTRAL_LAYERS} of 56 layers, {QWEN25} "
           "whole")
     family_counts, family_replays = phase_family_slices(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[22] encoder-decoder and patch-input lockstep, CUDA vs CPU, "
+          f"float32: {SEAMLESS} whole, {LLAVA} at full width and "
+          f"{VLM_LOCKSTEP_LAYERS} layers")
+    lock_counts, lock_replays = phase_encdec_vlm_lockstep(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"[23] the encoder-decoder and the patch-input model at full width "
+          f"on the card: {SEAMLESS} and {LLAVA} whole, bf16")
+    encdec_counts, encdec_replays = phase_encdec_vlm_slices(dev)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -4142,11 +4634,21 @@ def main() -> int:
         # at the inputs those engines gave them
         row["family_launches"] = {arch: c[row["name"]]
                                   for arch, c in family_counts.items()}
+        # launches in phase 22 (both models, card side) and in phase 23's
+        # engines and model-level runs; the attention kernels' figures at
+        # the model-level calls of phase 22 (float32) and 23 (bf16)
+        row["encdec_vlm_launches"] = {
+            "lockstep": lock_counts[row["name"]],
+            **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
         if row["name"] in ("flash_attention", "decode_attention"):
-            row["family_replays"] = {
-                arch: {k: r[row["name"]][k] for k in
-                       (*MEASURED, "library_ms", "calls")}
-                for arch, r in family_replays.items()}
+            pick = lambda r: {k: r[row["name"]][k] for k in  # noqa: E731
+                              (*MEASURED, "library_ms", "calls")}
+            row["family_replays"] = {arch: pick(r) for arch, r in
+                                     family_replays.items()}
+            row["encdec_vlm_replays"] = {
+                **{f"{arch} float32": pick(r)
+                   for arch, r in lock_replays.items()},
+                **{arch: pick(r) for arch, r in encdec_replays.items()}}
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

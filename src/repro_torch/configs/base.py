@@ -2,9 +2,8 @@
 
 ``ModelConfig`` is the reference's frozen dataclass (`repro.configs.base`)
 field for field, with the derived ``hd``, the ``scaled()`` reduction the
-CPU tests use and the analytic ``param_counts``.  The port builds the dense
-GQA, RWKV-6 and zamba2 families from it (`repro_torch.models`); its other
-fields describe the families later slices port.
+CPU tests use and the analytic ``param_counts``.  The port builds every
+family of the reference from it (`repro_torch.models`).
 """
 from __future__ import annotations
 

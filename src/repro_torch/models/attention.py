@@ -4,7 +4,8 @@ and chunked-extend forms.
 Conventions (the reference's, `repro.models.attention`)
 -------------------------------------------------------
 * Parallel form (prefill): q, k, v are [B, S, H(kv), hd], causal (+ an
-  optional sliding window).
+  optional sliding window); the encoder-decoder's encoder and
+  cross-attention call it non-causal, with Sq != Sk for the latter.
 * Decode form: q is [B, H, hd] for ONE new token per sequence; the cache of
   a layer is k/v [B, M, Hkv, hd] with a per-slot absolute-position array
   ``slot_pos`` ([B, M], -1 = empty).  Sliding-window caches are ring
@@ -45,18 +46,24 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, s, n_kv, h // n_kv, d)
 
 
-def attend_parallel(q, k, v, *, window: int = 0):
-    """Causal (+ sliding-window) attention over a whole prompt.
+def attend_parallel(q, k, v, *, causal: bool = True, window: int = 0):
+    """Causal (+ sliding-window) or bidirectional attention over a whole
+    prompt.
 
-    q: [B, S, H, hd]; k, v: [B, S, Hkv, hd].  The reference also masks keys
-    at or past each sequence's valid length (``kv_valid_len``); under the
-    causal mask that changes only rows at or past the valid length, which
-    nothing reads (`prefill_cache_layout` drops their K/V and the logits
-    come from the last valid row), so the kernel is called as the TPU
-    kernel is, with the causal and window masks only.
+    q: [B, Sq, H, hd]; k, v: [B, Sk, Hkv, hd] (Sq = Sk when causal).  The
+    reference also masks keys at or past each sequence's valid length
+    (``kv_valid_len``).  Under the causal mask that changes only rows at
+    or past the valid length, which nothing reads (`prefill_cache_layout`
+    drops their K/V and the logits come from the last valid row).  The
+    non-causal callers pass no valid length in the reference either: the
+    encoder's frames are all ``src_len`` valid, and a cross-attention's
+    keys are those frames, while its padded decoder rows are never read.
+    So the kernel is called as the TPU kernel is, with the causal and
+    window masks only.
     """
     return ops.flash_attention_op(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=True, window=window)
+                                  v.contiguous(), causal=causal,
+                                  window=window)
 
 
 def attend_parallel_plain(q, k, v, *, kv_valid_len=None):

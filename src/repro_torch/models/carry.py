@@ -8,8 +8,8 @@ the reference's stacked groups split into per-layer trees:
 * ``stack<i>`` (the attention decoder's stacks: dense or MoE FFN, GQA or
   MLA attention, their nested groups such as ``moe`` / ``shared`` or
   MLA's ``wdkv`` / ``kv_norm`` / ``wuk`` / ``wuv`` split alike),
-  ``layers`` (rwkv) and ``tail`` (zamba): a leading L -> a list of L
-  trees;
+  ``layers`` (rwkv), ``tail`` (zamba), ``encoder`` and ``decoder`` (the
+  encoder-decoder): a leading L -> a list of L trees;
 * ``groups`` (zamba): [G, per, ...] -> G lists of ``per`` trees;
 * ``shared`` (zamba): ``block`` unstacked, ``lora`` [G, ...] -> G trees.
 
@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.models.layers import ParamTree
 
-_STACKED = ("layers", "tail")
+_STACKED = ("layers", "tail", "encoder", "decoder")
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -58,7 +58,7 @@ def _unstack(tree: dict, device, depth: int = 1):
 
 def params_from_reference(tree: dict, device="cpu") -> ParamTree:
     """The port's parameters for a reference attention-decoder (dense,
-    MoE, MLA), rwkv or zamba pytree."""
+    MoE, MLA, patch input), rwkv, zamba or encoder-decoder pytree."""
     out = {}
     for key, value in tree.items():
         if key.startswith("stack") or key in _STACKED:
@@ -69,8 +69,8 @@ def params_from_reference(tree: dict, device="cpu") -> ParamTree:
             out[key] = {"block": _unstack(value["block"], device, depth=0),
                         "lora": _unstack(value["lora"], device)}
         elif isinstance(value, dict):
-            raise NotImplementedError(f"parameter group {key!r} belongs to a "
-                                      "family the port does not build yet")
+            raise KeyError(f"{key!r} is no parameter group of the "
+                           "reference's models")
         else:
             out[key] = tensor_from_numpy(value, device)
     return ParamTree(out)

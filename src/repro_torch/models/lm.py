@@ -22,8 +22,10 @@ block).
 * For the recurrent families the parallel forms run from a stored state,
   so rwkv's ``extend`` is a prefill of the new tokens from the cache;
   zamba's ``extend`` raises, as the reference's does.
-* Patch inputs raise ``NotImplementedError`` naming the slice that ports
-  them.
+* Patch inputs (llava-next-34b, the attention decoder): a prefill batch's
+  ``patches`` [B, P, D] are prepended to the token embeddings, so the
+  prompt's positions, ``lens`` and the cache start with the P patches,
+  and decode and extend go on from ``lens + P``.
 """
 from __future__ import annotations
 
@@ -64,14 +66,7 @@ def _family(cfg) -> str:
     return "zamba" if cfg.attn_every else "attn"
 
 
-def _check_family(cfg) -> None:
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: patch inputs wait for the "
-                                  "VLM slice")
-
-
 def build_lm(cfg):
-    _check_family(cfg)
     family = _family(cfg)
     if family == "rwkv":
         return _build_rwkv(cfg)
@@ -101,7 +96,7 @@ def build_lm(cfg):
     def forward(params, batch, *, collect: bool, lens=None):
         """Returns (x_final [B, S, D], {stack: [cacheables per layer]} or
         {}): (k, v) for GQA, (ckv, krope) for MLA."""
-        x = params["embed"][batch["tokens"].long()]
+        x = _embed_inputs(params, batch, cfg)
         parts = {}
         for i, spec in enumerate(stacks):
             kvs = []
@@ -147,9 +142,15 @@ def build_lm(cfg):
     # ---------------- fresh prefill ----------------
     def prefill(params, batch):
         """batch: tokens [B, S] (+ lens [B] for right-padded prompts, +
-        max_len).  Returns (last-token logits [B, V], cache)."""
+        max_len, + patches [B, P, D] ahead of the tokens: lens and the
+        default max_len then count the P patches too).  Returns (last-token
+        logits [B, V], cache)."""
         lens = _lens(batch)
-        max_len = int(batch.get("max_len", batch["tokens"].shape[1]))
+        s = batch["tokens"].shape[1]
+        if cfg.n_patches and "patches" in batch:
+            lens = lens + cfg.n_patches
+            s += cfg.n_patches
+        max_len = int(batch.get("max_len", s))
         x, parts = forward(params, batch, collect=True, lens=lens)
         logits = _lm_head(params, _last(x, lens), cfg)
         cache = {"pos": lens}
@@ -238,6 +239,15 @@ def _embed_and_head(cfg, dtype, generator: torch.Generator) -> dict:
         "lm_head": normal_init((cfg.d_model, cfg.vocab_size), cfg.d_model,
                                dtype, generator=generator),
     }
+
+
+def _embed_inputs(params, batch, cfg):
+    """The token embeddings [B, S, D], after the batch's patch embeddings
+    [B, P, D] (cast to the model's dtype) where the config takes them."""
+    x = params["embed"][batch["tokens"].long()]
+    if cfg.n_patches and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _lm_head(params, x, cfg):

@@ -17,13 +17,15 @@ class Model(NamedTuple):
     extend: Callable        # (params, cache, tokens [B, Sn], lens_new) -> ...
     init_cache: Callable    # (b, max_len, device) -> cache
     family: str
+    extras: dict            # the family's other functions (encdec: encode)
 
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models wait "
-                                  "for the seamless-m4t slice")
-    from repro_torch.models.lm import build_lm
-
-    fns = build_lm(cfg)
-    return Model(config=cfg, **fns)
+        from repro_torch.models.encdec import build_encdec as build
+    else:
+        from repro_torch.models.lm import build_lm as build
+    fns = build(cfg)
+    extras = {k: v for k, v in fns.items() if k not in Model._fields}
+    return Model(config=cfg, extras=extras,
+                 **{k: v for k, v in fns.items() if k in Model._fields})

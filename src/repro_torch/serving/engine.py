@@ -2,10 +2,11 @@
 
 The port of the reference's `repro.serving.engine`.  An engine runs one
 model of the port (`repro_torch.models`: the attention decoder, dense or
-MoE, GQA or MLA; RWKV-6 or zamba2) on its ``device`` (default ``"cuda"``:
-the hand-written kernels; ``"cpu"``: their plain versions), keeps
-per-dialogue caches (LRU over ``cache_slots`` sessions, the paper's
-constrained-memory regime) and measures:
+MoE, GQA or MLA; RWKV-6, zamba2 or the encoder-decoder) on its
+``device`` (default ``"cuda"``: the hand-written kernels; ``"cpu"``:
+their plain versions), keeps per-dialogue caches (LRU over
+``cache_slots`` sessions, the paper's constrained-memory regime) and
+measures:
 
   * TTFT    — host seconds of the prefill / extend path, ending in a
               ``torch.cuda.synchronize()`` on a card, scaled by the agent's
@@ -21,6 +22,11 @@ and cost: the paper's causal chain, physically.  Attention prompt lengths
 are bucketed to powers of two, as in the reference (there to bound jit
 retraces; here they fix the kernels' shapes); a recurrent state cannot
 mask padding, so recurrent prompts and extends run at their exact length.
+
+As in the reference, an encoder-decoder's fresh prefill gets zero
+frames, and a patch-input model is served on its text alone; an
+encoder-decoder turn that needs ``extend`` raises, as the reference's
+engine does (ROADMAP §3).
 
 Caches are never written in place: the model's functions return new cache
 tensors (`models/attention.py`), truncation builds a new dict, so forking
@@ -219,6 +225,11 @@ class AgentEngine:
             batch = {"tokens": self._tokens(pad[None]),
                      "lens": self._tokens(np.array([n_prompt])),
                      "max_len": self.max_len}
+            if self.cfg.is_encdec:
+                # the reference engine's stand-in source: zero frames
+                batch["frames"] = torch.zeros(
+                    (1, self.cfg.src_len, self.cfg.d_model),
+                    dtype=torch.float32, device=self.device)
             logits, cache = self.model.prefill(self.params, batch)
             n_hit = 0
         self._sync()

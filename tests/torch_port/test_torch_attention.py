@@ -1,8 +1,9 @@
 """The attention kernels' plain versions against the JAX package: the
 reference's oracles (`repro.kernels.ref`) at the shapes of
 ``tests/test_kernels.py``, and its Pallas kernels (interpret mode) at two
-small shapes each.  Inputs are drawn with numpy and handed to both.  Also
-the numerics of the bf16 tensor-core flash kernel (a float32 emulation of
+small shapes each, and flash also in the encoder-decoder's
+cross-attention mode (non-causal, Sq != Sk).  Inputs are drawn with numpy
+and handed to both.  Also the numerics of the bf16 tensor-core flash kernel (a float32 emulation of
 its recipe against the JAX oracle) and the decode kernel's split plan,
 which the CUDA tests cannot reach here.
 
@@ -87,6 +88,23 @@ def test_flash_plain_matches_pallas_interpret(b, sq, h, hkv, d, causal, win,
     want = flash_attention(q, k, v, causal=causal, window=win, bq=32, bk=32)
     got = flash_attention_plain(*map(tensor_from_numpy, (q, k, v)),
                                 causal=causal, window=win)
+    assert max_err(got, want) < 2e-5
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,bq,bk", [
+    (2, 16, 32, 4, 4, 16, 16, 32),       # seamless's cross-attention
+    (1, 24, 40, 4, 2, 32, 8, 16)])       # ragged tiles on both sides
+def test_flash_plain_matches_pallas_interpret_cross(b, sq, sk, h, hkv, d, bq,
+                                                    bk, rng):
+    """The encoder-decoder's cross-attention mode: non-causal, the
+    decoder's prompt (Sq) against the encoder's frames (Sk != Sq)."""
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hkv, d)).astype(np.float32)
+    want = flash_attention(q, k, v, causal=False, bq=bq, bk=bk)
+    got = flash_attention_plain(*map(tensor_from_numpy, (q, k, v)),
+                                causal=False)
+    assert got.shape == (b, sq, h, d)
     assert max_err(got, want) < 2e-5
 
 

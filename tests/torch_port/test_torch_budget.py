@@ -15,6 +15,7 @@ TIER1_MODULES = {
     "test_torch_budget",
     "test_torch_cluster",
     "test_torch_cuda",
+    "test_torch_encdec_vlm",
     "test_torch_engine",
     "test_torch_federation",
     "test_torch_fused",

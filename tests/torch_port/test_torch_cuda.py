@@ -7,8 +7,10 @@ router (bit for bit, one launch of each kernel per batch), the hubs-of-hubs
 federation on the card against the CPU one and its process shards (each
 with its own CUDA context) against its inline shards, and reduced
 CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2, MoE with MLA
-or GQA) and MoE / MLA blocks, and the attention kernels at the head groups
-of the reference's larger dense and MoE configs.  These need an NVIDIA GPU
+or GQA) and MoE / MLA blocks, the attention kernels at the head groups
+of the reference's larger dense and MoE configs, and the encoder-decoder
+and patch-input models (their attention shapes and modes, and reduced
+CUDA-vs-CPU model locksteps).  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
 2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
@@ -1023,3 +1025,103 @@ def test_cuda_process_shards_match_inline(dev):
     proc = _federation(dev, parallel="process")
     assert comparable(proc) == comparable(inline)
     assert proc["federation"]["exactly_once"]["ok"]
+
+
+# ------------------- the encoder-decoder and patch-input models' shapes --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,h,hkv,d,causal", [
+    (1024, 1024, 16, 16, 64, False),     # seamless's encoder
+    (16, 1024, 16, 16, 64, False),       # its cross-attention, bucket 16
+    (512, 1024, 16, 16, 64, False),      # ... bucket 512
+    (1000, 1024, 16, 16, 64, False),     # a prompt that is no tile multiple
+    (3008, 3008, 56, 8, 128, True)])     # llava: 2,880 patches + 128 text
+def test_flash_kernel_at_encdec_and_patch_shapes(dev, sq, sk, h, hkv, d,
+                                                 causal, dtype):
+    """The modes the encoder-decoder adds (non-causal, Sq = Sk and Sq !=
+    Sk) and llava's patched prefill, the longest causal one."""
+    rng = np.random.default_rng(sq + sk + h)
+    q = _normal((1, sq, h, d), dtype, dev, rng)
+    k = _normal((1, sk, hkv, d), dtype, dev, rng)
+    v = _normal((1, sk, hkv, d), dtype, dev, rng)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == (1, sq, h, d)
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d,m,n_valid", [
+    (16, 16, 64, 1024, 1024),            # seamless's cross decode
+    (16, 16, 64, 1024, 40),              # its self-attention decode
+    (56, 8, 128, 4096, 3072)])           # llava after its patched prompt
+def test_decode_kernel_at_encdec_and_patch_shapes(dev, h, hkv, d, m,
+                                                  n_valid, dtype):
+    rng = np.random.default_rng(m + n_valid)
+    q = _normal((1, h, d), dtype, dev, rng)
+    kc = _normal((1, m, hkv, d), dtype, dev, rng)
+    vc = _normal((1, m, hkv, d), dtype, dev, rng)
+    valid = torch.arange(m, device=dev)[None, :] < n_valid
+    got = decode_attention_cuda(q, kc, vc, valid)
+    want = decode_attention_plain(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "llava-next-34b"])
+def test_cuda_encdec_and_patch_models_match_cpu(dev, arch, monkeypatch):
+    """Reduced models in float32 on the same weights, the card's against
+    the CPU's: a prefill with 0.1 · N(0, 1) frames or patches, three decode
+    steps (and llava's extend), logits within 2e-3 of their max; then the
+    launches: seamless one flash call per encoder layer and two per
+    decoder layer (self, cross) a prefill and two decode calls per decoder
+    layer a step, llava one and one per layer."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).scaled(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cpu_params = copy.deepcopy(params).cpu()
+    rng = np.random.default_rng(0)
+    side = ({"frames": (cfg.src_len, cfg.d_model)} if cfg.is_encdec
+            else {"patches": (cfg.n_patches, cfg.d_model)})
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24)),
+             "lens": np.array([24, 17]),
+             **{k: 0.1 * rng.standard_normal((2, *sh))
+                for k, sh in side.items()}}
+    batch = {k: torch.from_numpy(v.astype(np.int32 if v.dtype.kind == "i"
+                                          else np.float32))
+             for k, v in batch.items()}
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, 2)
+                              .astype(np.int32)) for _ in range(3)]
+    ext = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8))
+                           .astype(np.int32))
+    lens_new = torch.tensor([8, 5], dtype=torch.int32)
+
+    def run(p, device):
+        on = {k: v.to(device) for k, v in batch.items()}
+        logits, cache = model.prefill(p, {**on, "max_len": 64})
+        out = [logits]
+        for tok in steps:
+            logits, cache = model.decode_step(p, cache, tok.to(device))
+            out.append(logits)
+        if not cfg.is_encdec:
+            logits, cache = model.extend(p, cache, ext.to(device),
+                                         lens_new.to(device))
+            out.append(logits)
+        return [x.double().cpu() for x in out]
+
+    ops.reset_launch_counts()
+    got = run(params, dev)
+    counts = ops.launch_counts()
+    want = run(cpu_params, "cpu")
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) < 2e-3
+    flash, per_step = ((cfg.enc_layers + 2 * cfg.n_layers, 2)
+                       if cfg.is_encdec else (cfg.n_layers, 1))
+    assert counts["flash_attention"] == flash
+    assert counts["decode_attention"] == per_step * cfg.n_layers * 3

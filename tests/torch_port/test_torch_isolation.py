@@ -1,6 +1,7 @@
 """The port stands alone: importing every `repro_torch` module (the MoE
-module `models/moe.py` among them) and ``chip_smoke.py`` loads neither JAX
-nor anything of the reference package `repro`."""
+module `models/moe.py` and the encoder-decoder `models/encdec.py` among
+them) and ``chip_smoke.py`` loads neither JAX nor anything of the
+reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -25,6 +26,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 assert "repro_torch.models.moe" in names, names
+assert "repro_torch.models.encdec" in names, names
 print(len(names), bad)
 """
 

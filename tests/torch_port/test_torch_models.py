@@ -29,7 +29,7 @@ from repro.models import blocks as jax_blocks  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving.cluster import \
     _engine_config as jax_engine_config  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.models import blocks, build_model  # noqa: E402
 from repro_torch.models.carry import params_from_reference  # noqa: E402
 from repro_torch.serving.cluster import _engine_config  # noqa: E402
@@ -201,14 +201,17 @@ def test_init_cache_matches_jax(name):
 
 
 def test_unported_families_raise():
-    """The registry lists only what the port builds (the attention decoder
-    dense or MoE, GQA or MLA; RWKV-6; zamba2); patch inputs and
-    encoder-decoder models name the slice that ports them."""
-    base = get_config("qwen3-8b").scaled(dtype="float32")
-    for over in ({"n_patches": 8}, {"enc_layers": 2}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_model(dataclasses.replace(base, **over))
-    for arch in ("qwen2.5-32b", "qwen2-72b", "deepseek-coder-33b",
-                 "mixtral-8x22b", "deepseek-v2-lite-16b"):
-        assert build_model(get_config(arch)).family == "attn"
+    """No family is left unported: `build_model` builds each of the
+    reference's ten architectures, under the reference's family name
+    (``attn``, ``rwkv``, ``zamba``, ``encdec``), patch inputs and the
+    encoder-decoder included."""
+    from repro.configs import list_archs as jax_list_archs
+
+    assert list_archs() == jax_list_archs()
+    for arch in list_archs():
+        jm = jax_build_model(jax_get_config(arch))
+        pm = build_model(get_config(arch))
+        assert pm.family == jm.family, arch
+        assert sorted(pm.extras) == sorted(jm.extras), arch
     assert build_model(get_config("qwen2.5-32b")).config.qkv_bias
+    assert build_model(get_config("llava-next-34b")).config.n_patches == 2880
