@@ -10,11 +10,12 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
 
 1. Device report: ``nvidia-smi`` name and power limit, torch and CUDA
    versions.
-2. Build: all seven kernel libraries from ``src/repro_torch/kernels/csrc``
+2. Build: all eight kernel libraries from ``src/repro_torch/kernels/csrc``
    with one ``nvcc`` each, started together; prints each kernel instance's
    registers, static shared memory and spills from ``-Xptxas -v``
    (``auction_solve_kernel``, ``auction_fused_kernel``,
-   ``lcp_gather_kernel`` and ``fused_phase1_kernel`` must be among them),
+   ``lcp_gather_kernel``, ``fused_phase1_kernel`` and the flash backward's
+   ``stats_kernel``, ``dkdv_kernel`` and ``dq_kernel`` must be among them),
    and the count of tensor-core instructions (``HMMA``/``HGMMA``) in the
    SASS of every instance of the bf16 flash kernel and of both passes of
    each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
@@ -258,15 +259,49 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     the model-level calls (each shape and mode apart) against their plain
     versions, SDPA and their bounds, each bf16 row within 2e-2 of its
     largest plain output.
-    Then the time of all phases, the card line, the JSON line of the ten
-    kernels' records (the six TPU kernels' counterparts, the router's two
-    redesigned entries and the fused step's two kernels;
+24. Training lockstep, CUDA vs CPU, float32 (TF32 off), the same init
+    weights drawn on the CPU and copied: qwen3-8b (2 layers, 32 / 8 heads
+    of 128, d_model 1024, vocab 8,192), mixtral-8x22b (2 layers, 48 / 8
+    heads of 128, 8 experts of 2,048, window 16 so the backward's window
+    mask bites) and seamless-m4t-medium (2 + 2 layers at full width,
+    src_len 256, seeded frames), batches of 2 x 512 tokens.  Step 0's loss
+    within 1e-5 relative and every gradient leaf within 1e-4 of its
+    largest CPU magnitude, with 2 forward and 1 backward flash launch per
+    attention call (remat); then 4 ``make_train_step`` steps (plain,
+    ``accum_steps=2``, int8 compression, plain) with losses within 1e-4
+    relative.  Then the training CLI (``python -m
+    repro_torch.launch.train --arch qwen3-8b --smoke --steps 20
+    --ckpt-dir``, called in process) with its printed lines and launches;
+    ``train_loop`` crashed after step 15 and resumed from its step-10
+    checkpoint against an uninterrupted run (the losses and parameters
+    bit for bit, else the difference printed and held to 2e-3); and
+    rwkv6-3b's and zamba2-7b's loss raising under grad on the card (no
+    backward kernel for ``wkv6`` and ``ssd`` yet).
+25. Training at full width, bf16, random weights, through ``train_loop``:
+    qwen3-8b at 16 of its 36 layers (``TRAIN_LAYERS``, the deepest cut whose
+    peak memory, with the float32 master weights and moments, stays under
+    72 GiB of the card's 80 GB), train_4k's 4,096
+    tokens, batch 1; seamless-m4t-medium whole, 512 decoder tokens, 1,024
+    seeded frames, batch 2; 6 steps each.  Finite losses that fall by the
+    last step; exactly 2 forward and 1 backward flash launch per attention
+    call and step; step ms, tokens/s, peak memory, MODEL_FLOPS against
+    the bf16 peak and the busy share of two more steps under the
+    profiler.  Then the backward kernel at every recorded call shape and
+    mode against its plain version (float32 within 1e-4, bf16 within 3e-2
+    of each output's largest plain magnitude), timed beside the plain
+    version and SDPA's backward, with its bound.
+    Then the time of all phases, the card line, the JSON line of the
+    eleven kernels' records (the six TPU kernels' counterparts, the
+    router's two redesigned entries, the fused step's two kernels and the
+    flash attention's backward;
     ``serving_launches`` gives each one's launches in phase 16's two runs,
     phase 17's scale run and 18b's CUDA inline federation,
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
-    phase 22 and in phase 23's runs, ``family_replays`` and
+    phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
+    locksteps and phase 25's runs, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
-    and phases 22–23's model-level calls) and the device line last.
+    and phases 22–23's model-level calls, ``training_replays`` the
+    backward kernel's at phase 25's calls) and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -277,6 +312,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import re
 import shutil
 import statistics
@@ -300,6 +336,9 @@ BIG = 3.4028234663852886e38 / 4    # float32 max / 4, the no-bid price
 # the per-kernel figures of the JSON line that phases 5 and 8 measure
 MEASURED = ("max_abs_err", "ms", "device_ms", "device_ms_from", "plain_ms",
             "bound_ms", "bound_by")
+# the error figures a replay keeps the worst of (those a figure has): max
+# abs error, and each output's and each row's over their largest plain value
+ERROR_FIGURES = ("max_abs_err", "max_rel_err", "max_row_rel_err")
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2}   # the reference's
 # phase 19: each bf16 output row's max abs error over its largest plain
 # output, about 2.5 bf16 ulps (2^-7 each) of the row's scale
@@ -351,6 +390,8 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
               "fused_phase1": ("Memset", "fused_phase1_kernel"),
               "auction_fused": ("auction_fused_kernel",),
               "flash_attention": ("flash_",),
+              "flash_attention_bwd": ("stats_kernel", "dkdv_kernel",
+                                      "dq_kernel"),
               "decode_attention": ("decode_split_kernel",
                                    "decode_combine_kernel"),
               "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
@@ -1376,13 +1417,17 @@ def attn_err(got, want, what: str) -> float:
     return err
 
 
-def row_rel_err(got, want, what: str) -> float:
-    """The largest over output rows (one query and head) of the row's max
-    abs error over its largest plain output, checked against
-    ``ATTN_ROW_TOL``: the gate for outputs far below the absolute one."""
+def row_rel_err(got, want, what: str, floor: float = 0.0) -> float:
+    """The largest over output rows (the last axis: one query and head) of
+    the row's max abs error over its largest plain output, checked against
+    ``ATTN_ROW_TOL``: the gate for outputs far below the absolute one.
+    With ``floor``, a row's largest plain output counts as at least
+    ``floor`` of the whole output's (for rows whose exact value is 0,
+    where both versions hold only rounding noise)."""
     got, want = got.float(), want.float()
+    least = max(floor * float(want.abs().max()), 1e-30)
     err = float(((got - want).abs().amax(-1)
-                 / want.abs().amax(-1).clamp_min(1e-30)).max())
+                 / want.abs().amax(-1).clamp_min(least)).max())
     check(err < ATTN_ROW_TOL, f"{what}: a row's error is {err} of its "
           f"largest output (>= {ATTN_ROW_TOL})")
     return err
@@ -1421,6 +1466,9 @@ def print_figures(name, shape, f) -> None:
            else f", library {f['library_ms']:.4f} ms")
     rows = ("" if f.get("max_row_rel_err") is None else
             f" (rows within {f['max_row_rel_err']:.3g} of their max)")
+    if f.get("max_rel_err") is not None:
+        rows += (f" (each output within {f['max_rel_err']:.3g} of its "
+                 "largest plain value)")
     print(f"    {name} {shape}: max abs err {f['max_abs_err']:.3g}{rows}, "
           f"kernel {f['ms']:.4f} ms ({dev_text(f)}), plain "
           f"{f['plain_ms']:.4f} ms{lib}, bound {f['bound_ms']:.6f} ms "
@@ -1485,12 +1533,15 @@ def replay_sampled(rec, name: str, figures) -> dict:
     sampled = Counter(shape_key(args, kw) for args, kw in rec.calls)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms")
     total = dict.fromkeys(keys, 0.0)
-    err, weight, by, froms = 0.0, 0.0, Counter(), set()
+    weight, by, froms = 0.0, Counter(), set()
+    worst = {}                  # each error figure's worst over the samples
     for args, kw in rec.calls:
         key = shape_key(args, kw)
         w = rec.count[key] / sampled[key]
         f = figures(args, kw)
-        err = max(err, f["max_abs_err"])
+        for k in ERROR_FIGURES:
+            if f.get(k) is not None:
+                worst[k] = max(worst.get(k, 0.0), f[k])
         for k in keys:
             total[k] = None if f[k] is None else total[k] + w * f[k]
         by[f["bound_by"]] += w
@@ -1498,7 +1549,7 @@ def replay_sampled(rec, name: str, figures) -> dict:
         weight += w
         print_figures(f"{name} x{rec.count[key]}", shown_key(key), f)
     return {"calls": sum(rec.count.values()), "sampled": len(rec.calls),
-            "max_abs_err": err, "bound_by": by.most_common(1)[0][0],
+            **worst, "bound_by": by.most_common(1)[0][0],
             "device_ms_from": "+".join(sorted(froms)),
             **{k: None if v is None else v / weight
                for k, v in total.items()}}
@@ -2909,9 +2960,10 @@ def phase_fused_router(dev) -> tuple[Counter, dict]:
 SERVE_FLAGS = ["--agents", "9", "--dialogues", "16", "--workload",
                "coqa_like", "--solver", "cuda", "--warm-start",
                "--audit-ledger"]            # the CLI's defaults otherwise
-SCALE_LOCKSTEP = 200          # dialogues, CUDA vs CPU router
-SCALE_DIALOGUES = 2_000        # the scale run's (SCALE_128's 10,000, cut
-                               # to leave phases 18-23 their room)
+SCALE_LOCKSTEP = 100          # dialogues, CUDA vs CPU router (200, cut to
+                              # leave phases 24-25 their room)
+SCALE_DIALOGUES = 1_000        # the scale run's (SCALE_128's 10,000, cut
+                               # to leave phases 18-25 their room)
 # the metrics that read the host clock: a federation's report adds its two
 # routing walls, every shard's report has its own copy of the first three,
 # and phase 18's profiler lists each route_batch call's host ms
@@ -3334,8 +3386,8 @@ def phase_serving_scale(dev) -> dict:
 # --------------------------------------------------- the federation, 18 --
 FED_MIGRATION = 150        # dialogues of 18a, the reference test's run
 FED_LOCKSTEP = 200         # dialogues of 18b at the SCALE_1K fleet
-FED_DIALOGUES = 4_000      # the scale run's (SCALE_1K's 100,000, cut to
-                           # leave phases 19-23 their room)
+FED_DIALOGUES = 2_000      # the scale run's (SCALE_1K's 100,000, cut to
+                           # leave phases 19-25 their room)
 FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
                      "auction_fused")
 
@@ -3722,8 +3774,9 @@ def recording_routes():
 
     def recorded(p, x, cfg):
         gates, idx = route(p, x, cfg)
-        probs = torch.softmax(torch.einsum("bsd,de->bse", x, p["router"])
-                              .float(), dim=-1)
+        with torch.no_grad():
+            probs = torch.softmax(torch.einsum(
+                "bsd,de->bse", x, p["router"]).float(), dim=-1)
         calls[x.device.type].append((idx.cpu(), probs.cpu()))
         return gates, idx
 
@@ -4357,6 +4410,473 @@ def phase_encdec_vlm_slices(dev) -> tuple[dict, dict]:
     return counts, replays
 
 
+# ------------------------------------------------------------ training --
+TRAIN_SEQ, TRAIN_BATCH = 512, 2    # phase 24's batches
+TRAIN_LOCK_STEPS = ("plain", "accum", "compress", "plain")
+TRAIN_VOCAB = 8192                 # phase 24's vocab (the CPU twin's head)
+TRAIN_LAYERS = 16                  # phase 25's qwen3-8b depth (of 36)
+TRAIN_STEPS = 6                    # phase 25's steps per model
+TRAIN_4K = 4096                    # train_4k's sequence length
+# phase 25's peak learning rates: at qwen3-8b's 1e-3 its loss rose; at
+# seamless-m4t-medium's 4e-4 its loss fell by less than the batches move it
+TRAIN_LR = {ARCH: 1e-4, SEAMLESS: 2e-3}
+GRAD_TOL = 1e-4                    # a gradient leaf, of its largest CPU value
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# phase 25's rows of dQ (a query and head) and dK / dV (a key and KV head):
+# each within ATTN_ROW_TOL of the row's largest plain value, a row counting
+# as at least BWD_ROW_FLOOR of the output's largest (dQ's first row under a
+# causal mask is 0: one key, P = 1, dS = 0; both versions hold noise there)
+BWD_ROW_FLOOR = 1e-3
+
+
+def training_configs():
+    """Phase 24's reduced float32 configs: qwen3-8b and mixtral-8x22b at
+    2 layers of their head layouts (32 / 8 and 48 / 8 heads of 128),
+    d_model 1024, TRAIN_VOCAB (mixtral's window cut to 16, 8 experts of
+    2048); seamless-m4t-medium at full width (16 / 16 heads of 64) with 2
+    + 2 layers, src_len 256 and TRAIN_VOCAB."""
+    from repro_torch.configs import get_config
+
+    narrow = dict(n_layers=2, d_model=1024, vocab_size=TRAIN_VOCAB,
+                  dtype="float32")
+    return [
+        dataclasses.replace(get_config(ARCH), d_ff=3072, **narrow),
+        dataclasses.replace(get_config(MIXTRAL), d_ff=2048, moe_d_ff=2048,
+                            sliding_window=LOCKSTEP_WINDOW, **narrow),
+        dataclasses.replace(get_config(SEAMLESS), n_layers=2, enc_layers=2,
+                            src_len=256, vocab_size=TRAIN_VOCAB,
+                            dtype="float32")]
+
+
+def attention_calls(cfg) -> int:
+    """Flash-attention calls of one forward: one per layer, and for an
+    encoder-decoder one per encoder layer and two per decoder layer."""
+    return attention_launches(cfg)[0]
+
+
+class FramedData:
+    """``SyntheticLM``'s tokens and, for an encoder-decoder, seeded
+    0.1 · N(0, 1) frames [B, src_len, D] per step (the reference's data
+    has none, and its encoder-decoder loss needs them); records the host
+    time of each ``batch_at`` call, which ``train_loop`` makes at the
+    start of each step, after the previous step's loss was read."""
+
+    def __init__(self, cfg, seq: int, batch: int, seed: int):
+        from repro_torch.training import SyntheticLM
+
+        self.cfg, self.seed = cfg, seed
+        self.lm = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        self.times = []
+
+    def batch_at(self, step: int) -> dict:
+        import numpy as np
+
+        self.times.append(time.perf_counter())
+        out = self.lm.batch_at(step)
+        if self.cfg.is_encdec:
+            rng = np.random.default_rng(self.seed * 1_000 + step)
+            out["frames"] = (0.1 * rng.standard_normal(
+                (self.lm.batch, self.cfg.src_len, self.cfg.d_model))
+                ).astype(np.float32)
+        return out
+
+
+def leaf_errors(got, want) -> tuple[float, str]:
+    """The largest over leaves of a leaf's max abs error over its largest
+    reference magnitude, and that leaf's name."""
+    from repro_torch.utils.tree import tree_leaves, tree_paths_and_leaves
+
+    worst, name = 0.0, ""
+    for (n, g), w in zip(tree_paths_and_leaves(got), tree_leaves(want)):
+        w = w.detach().double()
+        err = float((g.detach().cpu().double() - w).abs().max()
+                    / w.abs().max().clamp_min(1e-30))
+        if err >= worst:
+            worst, name = err, n
+    return worst, name
+
+
+def training_lockstep(cfg, dev) -> dict:
+    """One model of phase 24: the same init weights (drawn on the CPU,
+    copied to the card) trained on both devices.  Step 0's loss and every
+    gradient leaf, then 4 ``make_train_step`` steps (plain, accum_steps=2,
+    int8 compression, plain) with the losses compared; exact launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import CompressionConfig, OptConfig
+    from repro_torch.training.loop import (init_opt_state, loss_and_grads,
+                                           make_train_step)
+    from repro_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    cpu_p = model.init(torch.Generator().manual_seed(24))
+    gpu_p = copy.deepcopy(cpu_p).to(dev)
+    for p in (*tree_leaves(cpu_p), *tree_leaves(gpu_p)):
+        p.requires_grad_(True)
+    data = FramedData(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=24)
+
+    def batch(step, device):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in data.batch_at(step).items()}
+
+    calls = attention_calls(cfg)
+    with recording_routes() as routes:
+        ops.reset_launch_counts()
+        lg, gg = loss_and_grads(model, gpu_p, batch(0, dev))
+        counts = ops.launch_counts()
+        lc, gc_ = loss_and_grads(model, cpu_p, batch(0, "cpu"))
+    check(counts["flash_attention"] == 2 * calls
+          and counts["flash_attention_bwd"] == calls,
+          f"{cfg.name}: launches {counts} for one remat step of {calls} "
+          "attention calls")
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_err, leaf = leaf_errors(gg, gc_)
+    flips = route_flips(routes, cfg.top_k) if cfg.is_moe else "no router"
+    check(loss_err <= 1e-5, f"{cfg.name}: step-0 loss {float(lg)} on the "
+          f"card, {float(lc)} on the CPU")
+    check(grad_err <= GRAD_TOL, f"{cfg.name}: gradient leaf {leaf} off by "
+          f"{grad_err:.3g} of its largest CPU value; {flips}")
+    del gg, gc_
+
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=10)
+    comp = CompressionConfig(enabled=True)
+    steps = {"plain": make_train_step(model, opt),
+             "accum": make_train_step(model, opt, accum_steps=2),
+             "compress": make_train_step(model, opt, comp)}
+    gs, cs = init_opt_state(gpu_p, comp), init_opt_state(cpu_p, comp)
+    losses, worst = [], 0.0
+    for i, kind in enumerate(TRAIN_LOCK_STEPS):
+        gpu_p, gs, mg = steps[kind](gpu_p, gs, batch(i, dev))
+        cpu_p, cs, mc = steps[kind](cpu_p, cs, batch(i, "cpu"))
+        err = abs(float(mg["loss"]) - float(mc["loss"])) / float(mc["loss"])
+        check(err <= 1e-4 and np.isfinite(float(mg["loss"])),
+              f"{cfg.name}: step {i} ({kind}) loss {float(mg['loss'])} on "
+              f"the card, {float(mc['loss'])} on the CPU")
+        losses.append(float(mg["loss"]))
+        worst = max(worst, err)
+    layers = (f"{cfg.enc_layers} + {cfg.n_layers} layers" if cfg.is_encdec
+              else f"{cfg.n_layers} layers")
+    print(f"    {cfg.name} ({layers}, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, vocab "
+          f"{cfg.vocab_size}{f', window {cfg.sliding_window}' if cfg.sliding_window else ''}, "
+          f"float32): step-0 loss within {loss_err:.2e}, gradients within "
+          f"{grad_err:.2e} of a leaf's max (worst {leaf}; limit "
+          f"{GRAD_TOL}); {flips}; launches flash {counts['flash_attention']}"
+          f", backward {counts['flash_attention_bwd']}; steps "
+          f"{'/'.join(TRAIN_LOCK_STEPS)} losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} within {worst:.2e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def training_cli_and_resume(dev, tmp: Path) -> None:
+    """Phase 24's entry points on the card: the CLI's smoke run with a
+    checkpoint directory, then ``train_loop`` crashed after step 15 and
+    resumed from its step-10 checkpoint against an uninterrupted run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import build_model
+    from repro_torch.training import (OptConfig, SyntheticLM, latest_step,
+                                      train_loop)
+    from repro_torch.utils.tree import tree_leaves
+
+    argv = ["--arch", ARCH, "--smoke", "--steps", "20", "--ckpt-dir",
+            str(tmp / "cli")]
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(argv)
+    counts = ops.launch_counts()
+    lines = out.getvalue().splitlines()
+    cfg = get_config(ARCH).scaled(dtype="float32")
+    check([ln.split()[1] for ln in lines[:-1]] == ["0", "10", "19"]
+          and lines[-1].startswith("done: 20 steps in ")
+          and latest_step(str(tmp / "cli")) == 20
+          and counts["flash_attention"] == 20 * 2 * cfg.n_layers
+          and counts["flash_attention_bwd"] == 20 * cfg.n_layers,
+          f"the training CLI printed {lines}, launched {counts}")
+    print(f"    python -m repro_torch.launch.train {' '.join(argv[:-1])} "
+          f"<tmp>: " + " | ".join(lines) + f"; launches {counts}")
+
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, 64, 8, seed=3)
+    kw = dict(steps=30, opt_cfg=OptConfig(lr=3e-3, warmup_steps=5,
+                                          total_steps=30),
+              device=dev, log_every=1)
+    d = str(tmp / "resume")
+    crashed = False
+    try:
+        train_loop(model, data, ckpt_dir=d, ckpt_every=10,
+                   crash_at_step=15, **kw)
+    except RuntimeError as e:
+        crashed = "injected crash" in str(e)
+    check(crashed and latest_step(d) == 10, "the injected crash did not "
+          "leave the step-10 checkpoint")
+    resumed = train_loop(model, data, ckpt_dir=d, ckpt_every=10, **kw)
+    ref = train_loop(model, data, **kw)
+    same = resumed["losses"] == ref["losses"][10:]
+    diff = max(abs(a[1] - b[1]) for a, b in zip(resumed["losses"],
+                                               ref["losses"][10:]))
+    params_same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(resumed["params"]), tree_leaves(ref["params"])))
+    print(f"    train_loop crashed after step 15, resumed from step "
+          f"{resumed['losses'][0][0]}: losses of steps 10-29 "
+          f"{'equal bit for bit' if same else f'differ by up to {diff:.3g}'}"
+          f", parameters {'equal bit for bit' if params_same else 'differ'}"
+          f" (final loss {ref['losses'][-1][1]:.4f})")
+    check(diff <= 2e-3, f"resumed losses differ by {diff} (the reference "
+          "test allows 2e-3)")
+
+
+def forward_only_ops_raise(dev) -> None:
+    """On the card, the scans have no backward kernel yet: rwkv6-3b's and
+    zamba2-7b's loss raise under grad instead of training without their
+    gradients."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.loop import loss_and_grads
+    from repro_torch.utils.tree import tree_leaves
+
+    said = []
+    for arch, op in ((RWKV, "wkv6"), (ZAMBA, "ssd")):
+        cfg = get_config(arch).scaled(dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        toks = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (2, 32)).astype(np.int32)).to(dev)
+        msg = ""
+        try:
+            loss_and_grads(model, params, {"tokens": toks})
+        except NotImplementedError as e:
+            msg = str(e)
+        check(msg.startswith(f"{op}: no backward kernel"),
+              f"{arch}'s loss did not raise under grad on the card: {msg!r}")
+        said.append(f"{arch} raised at {op}")
+    print(f"    {'; '.join(said)} (\"{msg.split(' (')[0]}\")")
+
+
+def phase_training_lockstep(dev) -> Counter:
+    """Phase 24: CUDA = CPU training (float32, TF32 off), then the CLI,
+    crash and resume, and the scans raising under grad.  Returns the
+    launches of the locksteps' card side."""
+    import tempfile
+
+    launches = Counter()
+    for cfg in training_configs():
+        launches.update(training_lockstep(cfg, dev))
+        gc.collect()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        training_cli_and_resume(dev, Path(tmp))
+    forward_only_ops_raise(dev)
+    return launches
+
+
+def bwd_work(q, k, v, o, do, *, causal=True, window=0) -> tuple[int, int]:
+    """(bytes, operations) of one backward call: q, o, dO, dQ and k, v,
+    dK, dV moved once; 10·H·d operations per unmasked pair (Q·Kᵀ again,
+    dO·Vᵀ, P·dO, dS·K, dS·Q)."""
+    _, fwd_ops = flash_work(q, k, v, causal=causal, window=window)
+    return (4 * q.numel() + 4 * k.numel()) * q.element_size(), \
+        fwd_ops // 4 * 10
+
+
+def sdpa_bwd_ms(q, k, v, o, do, *, causal=True, window=0,
+                iters: int = 10) -> float:
+    """PyTorch's SDPA backward for the same call (the yardstick): its
+    forward + backward less its forward, CUDA events."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+
+    def both():
+        out = sdpa_flash(*leaves, causal=causal, window=window)
+        torch.autograd.grad(out, leaves, do)
+
+    def fwd():
+        sdpa_flash(*leaves, causal=causal, window=window)
+
+    return cuda_time_ms(both, iters, 2) - cuda_time_ms(fwd, iters, 2)
+
+
+def bwd_figures(args, kw, iters: int = 10) -> dict:
+    """One backward call against its plain version (each output within
+    BWD_TOL of its largest plain magnitude, each row within ATTN_ROW_TOL
+    of its own, floored at BWD_ROW_FLOOR), timed beside the plain version
+    and SDPA's backward, with its bound."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+
+    args = tuple(a.detach() for a in args)    # saved by the autograd node
+    got = flash_attention_bwd_cuda(*args, **kw)
+    want = flash_attention_bwd_plain(*args, **kw)
+    tol = BWD_TOL[str(args[0].dtype).removeprefix("torch.")]
+    err, rel, row = 0.0, 0.0, 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        what = f"flash_attention_bwd {name} {shape_key(args, kw)}"
+        e = float((g.float() - w.float()).abs().max())
+        r = e / float(w.float().abs().max())
+        check(r <= tol, f"{what}: {r:.3g} of its largest plain value "
+              f"(limit {tol})")
+        row = max(row, row_rel_err(g, w, what, floor=BWD_ROW_FLOOR))
+        err, rel = max(err, e), max(rel, r)
+    del got, want
+    bound, by = roofline(*bwd_work(*args, **kw), ops_rate(args[0].dtype))
+    dev_ms, dev_from = device_ms(
+        [lambda: flash_attention_bwd_cuda(*args, **kw)] * iters,
+        "flash_attention_bwd")
+    return {"max_abs_err": err, "max_rel_err": rel, "max_row_rel_err": row,
+            "ms": cuda_time_ms(lambda: flash_attention_bwd_cuda(*args, **kw),
+                               iters, 2),
+            "device_ms": dev_ms, "device_ms_from": dev_from,
+            "plain_ms": cuda_time_ms(
+                lambda: flash_attention_bwd_plain(*args, **kw), 3, 1),
+            "library_ms": sdpa_bwd_ms(*args, **kw),
+            "bound_ms": bound, "bound_by": by}
+
+
+def initial_losses(model, data, dev, steps: int) -> list:
+    """The loss of ``train_loop``'s first weights (seed 0) on each of the
+    run's ``steps`` batches, without grad: how far the batch alone moves
+    the loss, at fixed weights."""
+    import torch
+
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    out = []
+    with torch.no_grad():
+        for step in range(steps):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in data.batch_at(step).items()}
+            out.append(float(model.loss(params, batch)))
+    return out
+
+
+def step_times_ms(times, t_end) -> list:
+    """Step times from the start times of the steps and the loop's end."""
+    return [(b - a) * 1e3 for a, b in zip(times, [*times[1:], t_end])]
+
+
+def train_full_width(cfg, dev, seq: int, batch: int) -> tuple[Counter, dict]:
+    """Phase 25 for one model: ``train_loop`` on the card for TRAIN_STEPS
+    steps from random bf16 weights, every backward call recorded (one per
+    shape and mode).  Gates: finite losses; the mean of the last two below
+    the first by more than the batches alone move the loss (the spread of
+    the first weights' losses over the run's batches), and each of the
+    last two below the first weights' loss on the same batch; the
+    launches exact (2 forward and 1 backward flash launch per attention
+    call and step).  Prints step ms, tokens/s, peak memory, the losses,
+    MODEL_FLOPS against the bf16 peak, and the busy share of two further
+    steps under the profiler; then replays every recorded backward
+    call."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig, model_flops
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig
+    from repro_torch.training.loop import make_train_step, train_loop
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    data = FramedData(cfg, seq, batch, seed=25)
+    opt = OptConfig(lr=TRAIN_LR[cfg.name], warmup_steps=2,
+                    total_steps=TRAIN_STEPS + 3)
+    calls = attention_calls(cfg)
+    base = initial_losses(model, FramedData(cfg, seq, batch, seed=25), dev,
+                          TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with recording(ops, ("flash_attention_bwd",), per_shape=1) as rec:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_loop(model, data, steps=TRAIN_STEPS, opt_cfg=opt,
+                         log_every=1, device=dev)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    losses = [loss for _, loss in out["losses"]]
+    check(counts["flash_attention"] == TRAIN_STEPS * 2 * calls
+          and counts["flash_attention_bwd"] == TRAIN_STEPS * calls,
+          f"{cfg.name}: launches {counts} over {TRAIN_STEPS} steps of "
+          f"{calls} attention calls")
+    spread = max(base) - min(base)
+    fall = losses[0] - statistics.mean(losses[-2:])
+    paired = [b - x for b, x in zip(base[-2:], losses[-2:])]
+    print(f"    {cfg.name}: the first weights' losses on the run's batches "
+          f"{', '.join(f'{x:.4f}' for x in base)} (spread {spread:.4f}); "
+          f"the last two steps' mean {fall:.4f} below the first loss, "
+          f"{', '.join(f'{x:.4f}' for x in paired)} below the first "
+          "weights' on the same batches")
+    check(all(map(math.isfinite, losses)) and len(losses) == TRAIN_STEPS
+          and fall > spread and min(paired) > 0,
+          f"{cfg.name}: losses {losses} do not fall by more than the "
+          f"batches move them ({base})")
+    step_ms = step_times_ms(data.times, t_end)
+    steady = statistics.mean(step_ms[1:])
+    tokens = seq * batch
+    flops = model_flops(cfg, ShapeConfig("train", "train", seq, batch))
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    print(f"    {cfg.name}: {n_params / 1e9:.3f} B parameters, bf16, "
+          f"{TRAIN_STEPS} steps of {batch} x {seq} tokens in "
+          f"{(t_end - t0):.1f} s: first step {step_ms[0]:.1f} ms, then "
+          f"{steady:.1f} ms a step ({tokens / steady * 1e3:.0f} tokens/s); "
+          f"peak device memory {peak:.2f} GiB; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; MODEL_FLOPS "
+          f"{flops:.4g} a step, {flops / (steady / 1e3) / 1e12:.1f} TFLOP/s"
+          f" = {flops / (steady / 1e3) / BF16_OPS_PER_S:.1%} of the bf16 "
+          f"peak; launches flash {counts['flash_attention']}, backward "
+          f"{counts['flash_attention_bwd']}")
+    params, state = out["params"], out["opt_state"]
+    step_fn = make_train_step(model, opt)
+    on = {k: torch.as_tensor(v, device=dev)
+          for k, v in data.batch_at(TRAIN_STEPS).items()}
+    print("    two more steps under the profiler: " + device_share(
+        lambda: step_fn(params, state, on), 2))
+    del out, params, state, step_fn, on
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    flash_attention_bwd at {cfg.name}'s backward calls (one of "
+          "each shape and mode, weighted by the calls made)")
+    replay = replay_sampled(rec["flash_attention_bwd"],
+                            "flash_attention_bwd", bwd_figures)
+    replay["step_ms"], replay["peak_gib"] = steady, peak
+    return counts, replay
+
+
+def phase_training_full_width(dev) -> tuple[dict, dict]:
+    """Phase 25: qwen3-8b at full width and TRAIN_LAYERS of its 36 layers
+    (train_4k's 4,096 tokens, batch 1), then seamless-m4t-medium whole
+    (512 decoder tokens, 1,024 frames, batch 2), bf16."""
+    from repro_torch.configs import get_config
+
+    qwen = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    counts, replays = {}, {}
+    for cfg, seq, batch in ((qwen, TRAIN_4K, 1),
+                            (get_config(SEAMLESS), ENCDEC_PROMPT, 2)):
+        counts[cfg.name], replays[cfg.name] = train_full_width(
+            cfg, dev, seq, batch)
+    return counts, replays
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -4384,6 +4904,12 @@ def main() -> int:
                                                      flash_attention_plain)
 
     t_start = time.perf_counter()
+
+    def phase(title: str) -> None:
+        """The time since the start, then the next phase's header."""
+        print(f"    ({time.perf_counter() - t_start:.1f} s since the start)")
+        print(title)
+
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -4401,7 +4927,9 @@ def main() -> int:
         for kernel in {"auction_bid": ("auction_solve_kernel",
                                        "auction_fused_kernel"),
                        "lcp_affinity": ("lcp_gather_kernel",),
-                       "routing_fused": ("fused_phase1_kernel",)
+                       "routing_fused": ("fused_phase1_kernel",),
+                       "flash_attention_bwd": ("stats_kernel",
+                                               "dkdv_kernel", "dq_kernel")
                        }.get(name, ()):
             check(any(kernel in line for line in lines),
                   f"no ptxas report for {kernel}")
@@ -4430,17 +4958,17 @@ def main() -> int:
 
     counts, router_figures = phase_router_kernels(dev)
 
-    print("[6] attention kernels against their plain versions, synthetic "
+    phase("[6] attention kernels against their plain versions, synthetic "
           f"full-width {ARCH} shapes")
     phase_attention(dev)
 
-    print(f"[7] serving-engine lockstep, CUDA vs CPU, {ARCH} full width, 2 "
+    phase(f"[7] serving-engine lockstep, CUDA vs CPU, {ARCH} full width, 2 "
           "layers, float32")
     phase_engine_lockstep(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"[8] the serving slice: {ARCH} AgentEngine at full width on the "
+    phase(f"[8] the serving slice: {ARCH} AgentEngine at full width on the "
           "card")
     engine, engine_counts, attn_rec = phase_slice(dev,
                                                   agent_seed(SLICE_AGENT))
@@ -4460,7 +4988,7 @@ def main() -> int:
               f" bound {r['bound_ms']:.6f} ms ({r['bound_by']})")
     del attn_rec
 
-    print("[9] router to real engines: the CUDA router over two full-width "
+    phase("[9] router to real engines: the CUDA router over two full-width "
           f"{ARCH} engines")
     phase_router_engines(dev, engine)
     gc.collect()
@@ -4469,17 +4997,17 @@ def main() -> int:
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
-    print("[10] scan kernels against their plain versions, synthetic "
+    phase("[10] scan kernels against their plain versions, synthetic "
           f"full-width {RWKV} / {ZAMBA} shapes")
     phase_scans(dev)
 
-    print(f"[11] recurrent engine lockstep, CUDA vs CPU, {RWKV} and {ZAMBA} "
+    phase(f"[11] recurrent engine lockstep, CUDA vs CPU, {RWKV} and {ZAMBA} "
           "at full width and cut depth, float32")
     phase_recurrent_lockstep(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"[12] the {RWKV} slice: AgentEngine at full width on the card")
+    phase(f"[12] the {RWKV} slice: AgentEngine at full width on the card")
     rwkv, rwkv_counts, rec = phase_recurrent_slice(
         dev, RWKV, agent_seed("agent-1"), rwkv_requests(),
         ("wkv6",))
@@ -4488,7 +5016,7 @@ def main() -> int:
     wkv6 = replay_scan(rec["wkv6"], wkv6_cuda, wkv6_plain, wkv6_work)
     del rec
 
-    print(f"[13] the {ZAMBA} slice: AgentEngine at full width on the card")
+    phase(f"[13] the {ZAMBA} slice: AgentEngine at full width on the card")
     zamba, zamba_counts, rec = phase_recurrent_slice(
         dev, ZAMBA, agent_seed("agent-2"), zamba_requests(),
         ("ssd",))
@@ -4505,63 +5033,78 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.6f} ms "
               f"({r['bound_by']})")
 
-    print(f"[14] mixed fleet: the CUDA router over the {ARCH} engine of "
+    phase(f"[14] mixed fleet: the CUDA router over the {ARCH} engine of "
           f"phase 8 and the {RWKV} engine of phase 12")
     phase_mixed_fleet(dev, engine, rwkv)
     del rwkv, engine
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[15] fused router, CUDA vs CPU, SCALE_128 fleet, 1 hub, spill on")
+    phase("[15] fused router, CUDA vs CPU, SCALE_128 fleet, 1 hub, spill on")
     fused_counts, fused_figures = phase_fused_router(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[16] closed-loop serving on real engines: launch.serve.main, "
+    phase("[16] closed-loop serving on real engines: launch.serve.main, "
           "9 agents, 16 coqa_like dialogues, staged and fused")
     serving = phase_serving_closed(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[17] open-loop serving at the SCALE_128 preset: EventSimulator, "
+    phase("[17] open-loop serving at the SCALE_128 preset: EventSimulator, "
           "CUDA router")
     serving["scale"] = phase_serving_scale(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[18] the hubs-of-hubs federation: every super-hub shard's router "
+    phase("[18] the hubs-of-hubs federation: every super-hub shard's router "
           "on the card, inline and in processes of their own")
     serving["federation"] = phase_federation(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print("[19] attention kernels against their plain versions at the head "
+    phase("[19] attention kernels against their plain versions at the head "
           f"layouts of {', '.join(GROUP_ARCHS)} and {MIXTRAL}, bf16")
     phase_attention_groups(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"[20] engine lockstep, CUDA vs CPU, {DEEPSEEK}, {MIXTRAL} and "
+    phase(f"[20] engine lockstep, CUDA vs CPU, {DEEPSEEK}, {MIXTRAL} and "
           f"{QWEN25} at full width, 2 layers, float32")
     phase_family_lockstep(dev)
 
-    print(f"[21] the new families at full width on the card: {DEEPSEEK} "
+    phase(f"[21] the new families at full width on the card: {DEEPSEEK} "
           f"whole, {MIXTRAL} at {MIXTRAL_LAYERS} of 56 layers, {QWEN25} "
           "whole")
     family_counts, family_replays = phase_family_slices(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"[22] encoder-decoder and patch-input lockstep, CUDA vs CPU, "
+    phase(f"[22] encoder-decoder and patch-input lockstep, CUDA vs CPU, "
           f"float32: {SEAMLESS} whole, {LLAVA} at full width and "
           f"{VLM_LOCKSTEP_LAYERS} layers")
     lock_counts, lock_replays = phase_encdec_vlm_lockstep(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
-    print(f"[23] the encoder-decoder and the patch-input model at full width "
+    phase(f"[23] the encoder-decoder and the patch-input model at full width "
           f"on the card: {SEAMLESS} and {LLAVA} whole, bf16")
     encdec_counts, encdec_replays = phase_encdec_vlm_slices(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[24] training lockstep, CUDA vs CPU, float32: {ARCH} and "
+          f"{MIXTRAL} at 2 layers, {SEAMLESS} at 2 + 2 layers; the training "
+          "CLI, crash and resume, the scans raising under grad")
+    train_lock_counts = phase_training_lockstep(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[25] training at full width on the card, bf16: {ARCH} at "
+          f"{TRAIN_LAYERS} of 36 layers over {TRAIN_4K} tokens, {SEAMLESS} "
+          "whole")
+    train_counts, train_replays = phase_training_full_width(dev)
+    bwd = train_replays[ARCH]
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -4624,6 +5167,14 @@ def main() -> int:
          "launches": zamba_counts["ssd"],
          **{k: ssd[k] for k in MEASURED},
          "library_ms": None},
+        # no Pallas kernel: the gradient of the reference's jnp attention,
+        # which its training differentiates under jax.value_and_grad
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/attention.py:35",
+         "launches": train_counts[ARCH]["flash_attention_bwd"],
+         **{k: bwd[k] for k in MEASURED},
+         "library_ms": bwd["library_ms"]},
     ]
     for row in kernels:
         # launches on the serving paths of phases 16 (staged, fused), 17
@@ -4640,6 +5191,16 @@ def main() -> int:
         row["encdec_vlm_launches"] = {
             "lockstep": lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
+        # launches in phase 24's locksteps (card side) and phase 25's runs
+        row["training_launches"] = {
+            "lockstep": train_lock_counts[row["name"]],
+            **{arch: c[row["name"]] for arch, c in train_counts.items()}}
+        if row["name"] == "flash_attention_bwd":
+            row["training_replays"] = {
+                arch: {k: r.get(k) for k in (
+                    *MEASURED, *ERROR_FIGURES[1:], "library_ms", "calls",
+                    "step_ms", "peak_gib")}
+                for arch, r in train_replays.items()}
         if row["name"] in ("flash_attention", "decode_attention"):
             pick = lambda r: {k: r[row["name"]][k] for k in  # noqa: E731
                               (*MEASURED, "library_ms", "calls")}

@@ -2,8 +2,9 @@
 
 ``ModelConfig`` is the reference's frozen dataclass (`repro.configs.base`)
 field for field, with the derived ``hd``, the ``scaled()`` reduction the
-CPU tests use and the analytic ``param_counts``.  The port builds every
-family of the reference from it (`repro_torch.models`).
+CPU tests use, the analytic ``param_counts`` and ``model_flops``, and the
+reference's shape cells (``ShapeConfig``, ``SHAPES``).  The port builds
+every family of the reference from it (`repro_torch.models`).
 """
 from __future__ import annotations
 
@@ -108,8 +109,23 @@ class ModelConfig:
         return dataclasses.replace(self, **base)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
-# ---------------- parameter accounting (analytic) ----------------
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+# ---------------- parameter / FLOP accounting (analytic) ----------------
 
 def param_counts(cfg: ModelConfig) -> dict:
     """Analytic parameter counts: total and active-per-token (MoE-aware)."""
@@ -169,3 +185,21 @@ def param_counts(cfg: ModelConfig) -> dict:
         # one shared attention block (+ lora deltas folded in approx)
         total += attn + ffn_dense
     return {"total": total + emb, "active": total + emb, "embedding": emb}
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS per step: 6*N*D for training, 2*N_active*D forward-only.
+
+    N excludes embeddings-as-lookup but includes the LM head matmul via the
+    embedding term when tied (standard 6ND convention keeps it simple).
+    """
+    counts = param_counts(cfg)
+    if shape.kind == "train":
+        tokens = shape.seq_len * shape.global_batch
+        return 6.0 * counts["active"] * tokens
+    if shape.kind == "prefill":
+        tokens = shape.seq_len * shape.global_batch
+        return 2.0 * counts["active"] * tokens
+    # decode: one new token per sequence
+    tokens = shape.global_batch
+    return 2.0 * counts["active"] * tokens

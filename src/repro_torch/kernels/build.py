@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("lcp_affinity", "auction_bid", "flash_attention",
-           "decode_attention", "wkv6", "ssd", "routing_fused")
+           "flash_attention_bwd", "decode_attention", "wkv6", "ssd",
+           "routing_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

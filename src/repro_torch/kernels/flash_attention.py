@@ -12,6 +12,16 @@ for CPU tensors and as the kernel's oracle.  Like the TPU kernel it masks
 only keys at or past ``Sk`` (with the causal and window masks): a caller
 with right-padded sequences relies on the causal mask to keep padding out
 of the valid rows.
+
+Its gradient (training on the card) is ``csrc/flash_attention_bwd.cu``:
+given q, k, v, the forward's o and the output's gradient dO, three
+launches recompute each row's log-sum-exp and D = rowsum(dO ∘ O), then dK
+and dV per block of keys (summed over the group's query heads) and dQ per
+block of queries, in float32 on the CUDA cores, with no atomics (two runs
+give the same bits).  ``flash_attention_bwd_plain`` writes out the same
+softmax-backward formulas in plain PyTorch: the CPU's version and the
+kernel's oracle.  `kernels/ops.py` puts the pair behind a
+``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -21,9 +31,11 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention_bwd_cuda", "flash_attention_bwd_plain",
+           "flash_attention_cuda", "flash_attention_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,26 +51,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """q [B, Sq, H, d], k/v [B, Sk, Hkv, d] (contiguous CUDA tensors on one
+def _check(name: str, q, k, v, window: int, *like_q) -> None:
+    """The inputs both kernels take: q [B, Sq, H, d], k/v [B, Sk, Hkv, d]
+    and ``like_q`` tensors of q's shape, contiguous CUDA tensors on one
     device, all float32 or all bfloat16; H a multiple of Hkv; d a multiple
-    of 4 up to 128) -> [B, Sq, H, d] of q's dtype, launched on the current
-    stream.  With a window, Sq may not exceed Sk (a row with no valid key
-    is not defined).  Raises on any other input and on a failed launch."""
+    of 4 up to 128; with a window, Sq at most Sk.  Raises otherwise."""
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
-        raise ValueError("flash_attention_cuda takes CUDA tensors on one "
-                         "device")
+    rest = (k, v, *like_q)
+    if dev.type != "cuda" or any(t.device != dev for t in rest):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention_cuda takes q, k, v all float32 or "
-                        "all bfloat16")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+            or any(t.dtype != q.dtype for t in rest):
+        raise TypeError(f"{name} takes inputs all float32 or all bfloat16")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or any(t.shape != q.shape for t in like_q):
         raise ValueError(f"shapes {tuple(q.shape)} / {tuple(k.shape)} / "
                          f"{tuple(v.shape)} are not [B, Sq, H, d] / "
-                         "[B, Sk, Hkv, d] twice")
+                         "[B, Sk, Hkv, d] twice (o, dO as q)")
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or h % hkv:
@@ -69,8 +78,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"4..{MAX_HEAD_DIM}")
     if window and sq > sk:
         raise ValueError("a sliding window needs Sq <= Sk")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_cuda takes contiguous tensors")
+    if not all(t.is_contiguous() for t in (q, *rest)):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: int = 0) -> torch.Tensor:
+    """q [B, Sq, H, d], k/v [B, Sk, Hkv, d] (contiguous CUDA tensors on one
+    device, all float32 or all bfloat16; H a multiple of Hkv; d a multiple
+    of 4 up to 128) -> [B, Sq, H, d] of q's dtype, launched on the current
+    stream.  With a window, Sq may not exceed Sk (a row with no valid key
+    is not defined).  Raises on any other input and on a failed launch."""
+    _check("flash_attention_cuda", q, k, v, window)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:     # the tensor-core kernel's 16-byte copies
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
@@ -79,8 +101,81 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
         h, hkv, d, 1.0 / math.sqrt(d), int(causal), int(window),
         int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     return out
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
+                             window: int = 0):
+    """The gradient of `flash_attention_cuda`: q, o, dO [B, Sq, H, d], k/v
+    [B, Sk, Hkv, d], taken as the forward takes them -> (dQ, dK, dV) in
+    the inputs' dtype, launched on the current stream (three kernels; two
+    float32 scratch rows per query row and head).  Raises on any input the
+    forward would refuse and on a failed launch."""
+    _check("flash_attention_bwd_cuda", q, k, v, window, o, do)
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if b * h > 65535:
+        raise ValueError(f"B·H = {b * h} exceeds the kernel's grid (65535)")
+    if q.numel() == 0 or k.numel() == 0:
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
+    q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (q, k, v, o, do))     # 16-byte loads
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    err = _bwd_lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, d,
+        1.0 / math.sqrt(d), int(causal), int(window),
+        int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              window: int = 0):
+    """The gradient of `flash_attention_plain` at (q, k, v) given its output
+    o and the output's gradient dO, in float32, as the kernel computes it:
+    P from the masked scores (a masked pair is -1e30, so its P is 0),
+    D = rowsum(dO ∘ O), dS = P ∘ (dO·Vᵀ − D), dQ = scale·dS·K,
+    dK = scale·dSᵀ·Q and dV = Pᵀ·dO, summed over each KV head's group.
+    Returns (dQ, dK, dV) in the inputs' dtype."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / math.sqrt(d)
+    qg, og, dog = (t.reshape(b, sq, hkv, g, d).float() for t in (q, o, do))
+    kf, vf = k.float(), v.float()
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]  # [B,Kv,G,Sq,1]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

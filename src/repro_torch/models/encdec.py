@@ -22,6 +22,9 @@ are the session-reusable state of the serving engine.
 * ``extend`` raises, as the reference's does; its serving engine has no
   fallback, so a turn that is neither fresh, a repeat nor a truncation of
   the stored prompt raises (ROADMAP §3).
+* ``loss`` checkpoints every encoder and decoder layer (``remat``, as in
+  `lm.py`) and reads ``batch["frames"]``: a batch without frames raises
+  KeyError, as the reference's does.
 """
 from __future__ import annotations
 
@@ -29,8 +32,9 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (ParamTree, apply_rope, ffn_apply,
-                                       ffn_init, normal_init, rms_norm)
-from repro_torch.models.lm import _last, _lens, _lm_head
+                                       ffn_init, next_token_loss, normal_init,
+                                       rms_norm)
+from repro_torch.models.lm import _embed, _last, _lens, _lm_head, _remat
 
 
 def _ones(cfg, dtype, device) -> torch.Tensor:
@@ -135,27 +139,33 @@ def build_encdec(cfg):
                                    generator=generator),
         })
 
-    def encode(params, frames):
+    def encode(params, frames, *, remat: bool = False):
         """frames [B, src_len, D] (any float dtype) -> the normed encoder
         output [B, src_len, D] in the model's dtype."""
         x = frames.to(dtype) @ params["frame_proj"]
+        layer = _remat(lambda p_l, x: _enc_block(p_l, x, cfg), remat)
         for p_l in params["encoder"]:
-            x = _enc_block(p_l, x, cfg)
+            x = layer(p_l, x)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
-    def forward(params, batch, *, collect: bool):
+    def _decoder_layer(p_l, x, enc_out):
+        xk, xv = _cross_kv(p_l, enc_out)
+        x, kv = _dec_block_parallel(p_l, x, xk, xv, cfg)
+        return x, kv, (xk, xv)
+
+    def forward(params, batch, *, collect: bool, remat: bool = False):
         """batch: tokens [B, S], frames [B, src_len, D].  Returns (x_final
         [B, S, D], {"kv": [per layer (k, v)], "cross": [per layer (xk,
         xv)]} or {})."""
-        enc_out = encode(params, batch["frames"])
-        x = params["embed"][batch["tokens"].long()]
+        enc_out = encode(params, batch["frames"], remat=remat)
+        x = _embed(params, batch["tokens"])
+        layer = _remat(_decoder_layer, remat)
         kvs, cross = [], []
         for p_l in params["decoder"]:
-            xk, xv = _cross_kv(p_l, enc_out)
-            x, kv = _dec_block_parallel(p_l, x, xk, xv, cfg)
+            x, kv, xkv = layer(p_l, x, enc_out)
             if collect:
                 kvs.append(kv)
-                cross.append((xk, xv))
+                cross.append(xkv)
         return x, ({"kv": kvs, "cross": cross} if collect else {})
 
     def init_cache(b: int, max_len: int, device) -> dict:
@@ -209,6 +219,13 @@ def build_encdec(cfg):
             "enc-dec extend: cross-cache is session-static; the engine "
             "re-prefills the decoder (see serving/engine.py)")
 
+    def loss(params, batch):
+        """The decoder's next-token loss over batch["tokens"] [B, S] given
+        batch["frames"] [B, src_len, D]."""
+        x, _ = forward(params, batch, collect=False, remat=True)
+        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "family": "encdec", "encode": encode}
+            "init_cache": init_cache, "loss": loss, "family": "encdec",
+            "encode": encode}

@@ -1,7 +1,9 @@
-"""Shared model primitives: the parameter tree, norms, RoPE, SwiGLU, inits.
+"""Shared model primitives: the parameter tree, norms, RoPE, SwiGLU, inits,
+the next-token loss.
 
 Parameters live in a `ParamTree`: an ``nn.Module`` whose leaves are frozen
-``nn.Parameter``s read as ``p["name"]``, like the reference's nested dicts
+``nn.Parameter``s read as ``p["name"]`` (a trainer unfreezes its own
+with ``requires_grad_``), like the reference's nested dicts
 of arrays, so each model function keeps the reference's shape (init,
 apply).  ``.to(device)``, ``state_dict`` and ``parameters()`` work as on
 any module.  The reference's float32 islands stay: `rms_norm` and
@@ -111,3 +113,31 @@ def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
     h = torch.nn.functional.silu(x @ p["wg"])
     h = h * (x @ p["wu"])
     return h @ p["wd"]
+
+
+# ---------------- losses ----------------
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    ignore: int = -100) -> torch.Tensor:
+    """Causal LM loss: logits[:, t] predicts tokens[:, t+1], float32
+    log-sum-exp, targets equal to ``ignore`` left out of the mean.
+
+    The reference picks each target's logit with a one-hot contraction, so
+    that a vocab-sharded logit array need not be gathered; on one card a
+    ``gather`` gives the same float32 value exactly (every other term of
+    that contraction is a logit times 0) without a [B, S, V] one-hot.
+    Logits and targets of different lengths raise ValueError, as the
+    reference's contraction does.
+    """
+    logits = logits[:, :-1].float()
+    targets = tokens[:, 1:].long()
+    if targets.shape != logits.shape[:2]:
+        raise ValueError(f"targets {tuple(targets.shape)} do not match "
+                         f"logits {tuple(logits.shape)}")
+    valid = targets != ignore
+    safe_t = torch.where(valid, targets, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, safe_t[..., None])[..., 0]
+    nll = torch.where(valid, lse - picked, 0.0)
+    denom = valid.sum().clamp(min=1)
+    return nll.sum() / denom

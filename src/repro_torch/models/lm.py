@@ -26,6 +26,12 @@ block).
   ``patches`` [B, P, D] are prepended to the token embeddings, so the
   prompt's positions, ``lens`` and the cache start with the P patches,
   and decode and extend go on from ``lens + P``.
+* Training: ``loss`` runs ``forward`` with ``remat=True``, each layer (a
+  group of layers and its shared block, for zamba) under
+  ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
+  forward runs once keeping only its inputs, and once more in the
+  backward.  On the card every attention call therefore launches the
+  flash kernel twice per step and its backward kernel once.
 """
 from __future__ import annotations
 
@@ -33,10 +39,12 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import ParamTree, normal_init, rms_norm
+from repro_torch.models.layers import (ParamTree, next_token_loss,
+                                       normal_init, rms_norm)
 
 
 @dataclass(frozen=True)
@@ -66,6 +74,14 @@ def _family(cfg) -> str:
     return "zamba" if cfg.attn_every else "attn"
 
 
+def _remat(fn, remat: bool):
+    """``fn``, or ``fn`` under activation checkpointing (non-reentrant, so
+    closures over parameters get their gradients)."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def build_lm(cfg):
     family = _family(cfg)
     if family == "rwkv":
@@ -93,17 +109,20 @@ def build_lm(cfg):
         return ParamTree(params)
 
     # ---------------- parallel forward (fresh prefill) ----------------
-    def forward(params, batch, *, collect: bool, lens=None):
+    def forward(params, batch, *, collect: bool, lens=None,
+                remat: bool = False):
         """Returns (x_final [B, S, D], {stack: [cacheables per layer]} or
         {}): (k, v) for GQA, (ckv, krope) for MLA."""
         x = _embed_inputs(params, batch, cfg)
         parts = {}
         for i, spec in enumerate(stacks):
             kvs = []
+            layer = _remat(lambda p_l, x, _kind=spec.ffn_kind:
+                           blk.attn_block_parallel(p_l, x, cfg,
+                                                   ffn_kind=_kind,
+                                                   lens=lens), remat)
             for p_l in params[f"stack{i}"]:
-                x, kv = blk.attn_block_parallel(p_l, x, cfg,
-                                                ffn_kind=spec.ffn_kind,
-                                                lens=lens)
+                x, kv = layer(p_l, x)
                 if collect:
                     kvs.append(kv)
             if collect:
@@ -218,9 +237,23 @@ def build_lm(cfg):
         new_cache["pos"] = pos0 + lens_new
         return _lm_head(params, _last(x, lens_new), cfg), new_cache
 
+    # ---------------- loss ----------------
+    def loss(params, batch):
+        """The next-token loss over batch["tokens"] [B, S] (+ patches).
+        With ``n_patches`` in the config, the reference prepends that many
+        -100 targets whether or not the batch holds patches, so a batch
+        without them raises, as the reference's does (ROADMAP §3)."""
+        x, _ = forward(params, batch, collect=False, remat=True)
+        tokens = batch["tokens"]
+        if cfg.n_patches:
+            tokens = torch.cat([torch.full(
+                (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,
+                device=tokens.device), tokens], dim=1)
+        return next_token_loss(_lm_head(params, x, cfg), tokens)
+
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "family": "attn"}
+            "init_cache": init_cache, "loss": loss, "family": "attn"}
 
 
 def _block_ffn(p_l, y, cfg, ffn_kind):
@@ -241,10 +274,18 @@ def _embed_and_head(cfg, dtype, generator: torch.Generator) -> dict:
     }
 
 
+def _embed(params, tokens):
+    """Token embeddings through ``F.embedding``: the same values as
+    indexing, but its backward sums each row's gradient in a fixed order
+    on both devices, where indexing's accumulates with atomics on the CPU,
+    so a resumed training run repeats an uninterrupted one bit for bit."""
+    return torch.nn.functional.embedding(tokens.long(), params["embed"])
+
+
 def _embed_inputs(params, batch, cfg):
     """The token embeddings [B, S, D], after the batch's patch embeddings
     [B, P, D] (cast to the model's dtype) where the config takes them."""
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed(params, batch["tokens"])
     if cfg.n_patches and "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     return x
@@ -295,14 +336,17 @@ def _build_rwkv(cfg):
                             for _ in range(cfg.n_layers)]
         return ParamTree(params)
 
-    def forward(params, batch, *, collect: bool, init_state=None):
+    def forward(params, batch, *, collect: bool, init_state=None,
+                remat: bool = False):
         """Returns (x_final [B, S, D], {"states": [per layer]} or {})."""
-        x = params["embed"][batch["tokens"].long()]
+        x = _embed(params, batch["tokens"])
         states = init_state if init_state is not None else _rwkv_zero_state(
             cfg, x.shape[0], x.dtype, x.device)
+        layer = _remat(lambda p_l, x, st: blk.rwkv_block_parallel(
+            p_l, x, cfg, state=st), remat)
         new = []
         for p_l, st in zip(params["layers"], states):
-            x, st = blk.rwkv_block_parallel(p_l, x, cfg, state=st)
+            x, st = layer(p_l, x, st)
             new.append(st)
         return x, ({"states": new} if collect else {})
 
@@ -334,9 +378,13 @@ def _build_rwkv(cfg):
         return (_lm_head(params, _last(x, lens_new), cfg),
                 {"pos": cache["pos"] + lens_new, "states": parts["states"]})
 
+    def loss(params, batch):
+        x, _ = forward(params, batch, collect=False, remat=True)
+        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "family": "rwkv"}
+            "init_cache": init_cache, "loss": loss, "family": "rwkv"}
 
 
 # ---------------- zamba2 (Mamba-2 + one shared attention block) ---------
@@ -391,22 +439,36 @@ def _build_zamba(cfg):
             new.append(st)
         return x, new
 
-    def forward(params, batch, *, collect: bool, init_state=None):
+    def forward(params, batch, *, collect: bool, init_state=None,
+                remat: bool = False):
         """Returns (x_final [B, S, D], {"mamba": states, "kv": [per group
-        (k, v)]} or {})."""
-        x = params["embed"][batch["tokens"].long()]
+        (k, v)]} or {}).  With ``remat`` each group (its Mamba-2 layers and
+        the shared block) and each tail layer is checkpointed, as the
+        reference checkpoints its group and tail bodies."""
+        x = _embed(params, batch["tokens"])
         st = init_state if init_state is not None else _zamba_zero_state(
             cfg, x.shape[0], x.dtype, x.device)
+
+        def group(p_g, lora_g, x, st_g):
+            x, ms = _mamba_run(p_g, x, st_g, step=False)
+            x, kv = blk.shared_attn_parallel(params["shared"], lora_g, x,
+                                             cfg)
+            return x, ms, kv
+
+        group = _remat(group, remat)
+        tail_layer = _remat(lambda p_l, x, st_l: blk.mamba_block_parallel(
+            p_l, x, cfg, st_l), remat)
         groups, kvs = [], []
         for gi in range(g):
-            x, ms = _mamba_run(params["groups"][gi], x, st["groups"][gi],
-                               step=False)
-            x, kv = blk.shared_attn_parallel(
-                params["shared"], params["shared"]["lora"][gi], x, cfg)
+            x, ms, kv = group(params["groups"][gi],
+                              params["shared"]["lora"][gi], x,
+                              st["groups"][gi])
             groups.append(ms)
             kvs.append(kv)
-        x, tail_st = _mamba_run(params["tail"] if tail else [], x,
-                                st["tail"], step=False)
+        tail_st = []
+        for p_l, st_l in zip(params["tail"] if tail else [], st["tail"]):
+            x, st_l = tail_layer(p_l, x, st_l)
+            tail_st.append(st_l)
         if not collect:
             return x, {}
         return x, {"mamba": {"groups": groups, "tail": tail_st}, "kv": kvs}
@@ -465,6 +527,10 @@ def _build_zamba(cfg):
         raise NotImplementedError(
             "zamba2 extend: use prefill from scratch (engine falls back)")
 
+    def loss(params, batch):
+        x, _ = forward(params, batch, collect=False, remat=True)
+        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "family": "zamba"}
+            "init_cache": init_cache, "loss": loss, "family": "zamba"}

@@ -10,8 +10,9 @@ from repro_torch.configs.base import ModelConfig
 class Model(NamedTuple):
     config: ModelConfig
     init: Callable          # (generator) -> params (a ParamTree)
-    forward: Callable       # (params, batch, *, collect[, init_state])
-                            # -> (x, parts)
+    forward: Callable       # (params, batch, *, collect[, init_state],
+                            # remat=False) -> (x, parts)
+    loss: Callable          # (params, batch) -> scalar float32
     prefill: Callable       # (params, batch) -> (logits [B, V], cache)
     decode_step: Callable   # (params, cache, tokens [B]) -> (logits, cache)
     extend: Callable        # (params, cache, tokens [B, Sn], lens_new) -> ...

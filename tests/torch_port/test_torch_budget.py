@@ -31,6 +31,7 @@ TIER1_MODULES = {
     "test_torch_simulator",
     "test_torch_solver",
     "test_torch_ssm",
+    "test_torch_training",
     "test_torch_truthfulness",
 }
 

@@ -10,7 +10,12 @@ CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2, MoE with MLA
 or GQA) and MoE / MLA blocks, the attention kernels at the head groups
 of the reference's larger dense and MoE configs, and the encoder-decoder
 and patch-input models (their attention shapes and modes, and reduced
-CUDA-vs-CPU model locksteps).  These need an NVIDIA GPU
+CUDA-vs-CPU model locksteps), and training: the flash-attention backward
+kernel against its plain version at the training paths' shapes (float32
+within 1e-4 and bf16 within 3e-2 of each output's largest plain
+magnitude), bit for bit from run to run, the reduced models' gradients
+on the card against the CPU's, and the kernel ops without a backward
+raising under grad.  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
 2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
@@ -216,6 +221,7 @@ def test_ops_count_kernel_launches(dev):
                                    "auction_fused": 0, "fused_phase1": 0,
                                    "lcp_affinity": 1, "lcp_gather": 1,
                                    "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 0, "wkv6": 1,
                                    "ssd": 1}
 
@@ -1125,3 +1131,148 @@ def test_cuda_encdec_and_patch_models_match_cpu(dev, arch, monkeypatch):
                        if cfg.is_encdec else (cfg.n_layers, 1))
     assert counts["flash_attention"] == flash
     assert counts["decode_attention"] == per_step * cfg.n_layers * 3
+
+
+# ---------------------------------------------------------- training --
+
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# each row (a query and head of dQ, a key and KV head of dK / dV) within
+# BWD_ROW_TOL of its own largest plain value, counted as at least
+# BWD_ROW_FLOOR of the output's largest (dQ's first row under a causal mask
+# is exactly 0: both versions hold rounding noise there); chip_smoke.py's
+# ATTN_ROW_TOL and BWD_ROW_FLOOR
+BWD_ROW_TOL, BWD_ROW_FLOOR = 2e-2, 1e-3
+
+
+def _bwd_inputs(b, sq, sk, h, hkv, d, causal, win, dtype, dev, seed):
+    """q, k, v, the forward kernel's o and a seeded dO."""
+    rng = np.random.default_rng(seed)
+    q = _normal((b, sq, h, d), dtype, dev, rng)
+    k = _normal((b, sk, hkv, d), dtype, dev, rng)
+    v = _normal((b, sk, hkv, d), dtype, dev, rng)
+    o = flash_attention_cuda(q, k, v, causal=causal, window=win)
+    do = _normal((b, sq, h, d), dtype, dev, rng)
+    return q, k, v, o, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,win", [
+    (2, 512, 512, 32, 8, 128, True, 0),       # phase 24 qwen3-8b
+    (2, 512, 512, 48, 8, 128, True, 16),      # phase 24 mixtral, window 16
+    (2, 256, 256, 16, 16, 64, False, 0),      # phase 24 seamless encoder
+    (2, 512, 256, 16, 16, 64, False, 0),      # ... its cross-attention
+    (1, 4096, 4096, 32, 8, 128, True, 0),     # phase 25 qwen3-8b
+    (2, 1024, 1024, 16, 16, 64, False, 0),    # phase 25 seamless encoder
+    (2, 512, 1024, 16, 16, 64, False, 0),     # ... its cross-attention
+    (2, 512, 512, 16, 16, 64, True, 0),       # ... its decoder
+    (1, 100, 100, 6, 1, 12, True, 7), (2, 37, 61, 4, 2, 20, False, 9),
+    (1, 70, 30, 8, 2, 100, False, 0), (3, 33, 33, 2, 2, 4, True, 0)])
+def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, hkv, d, causal,
+                                        win, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain)
+
+    args = _bwd_inputs(b, sq, sk, h, hkv, d, causal, win, dtype, dev,
+                       sq + sk + d)
+    kw = dict(causal=causal, window=win)
+    got = flash_attention_bwd_cuda(*args, **kw)
+    want = flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, args[:3]):
+        assert g.dtype == dtype and g.shape == x.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max())
+        g, w = g.float(), w.float()
+        least = BWD_ROW_FLOOR * float(w.abs().max())
+        rows = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(least)
+        assert float(rows.max()) <= BWD_ROW_TOL
+    again = flash_attention_bwd_cuda(*args, **kw)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)               # no atomics: the same bits
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mixtral-8x22b",
+                                  "seamless-m4t-medium"])
+def test_cuda_gradients_match_cpu(dev, arch):
+    """A reduced float32 model's loss and gradients on the card (the flash
+    kernel behind its autograd Function, TF32 off) against the CPU's
+    plain autograd on the same weights, with 2·L forward and L backward
+    flash launches under remat."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training.loop import loss_and_grads
+    from repro_torch.utils.tree import tree_leaves
+
+    over = {"sliding_window": 16} if arch == "mixtral-8x22b" else {}
+    cfg = get_config(arch).scaled(dtype="float32", **over)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cpu_params = copy.deepcopy(params).cpu()
+    for p in (*tree_leaves(params), *tree_leaves(cpu_params)):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy((0.1 * rng.standard_normal(
+            (2, cfg.src_len, cfg.d_model))).astype(np.float32))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ops.reset_launch_counts()
+        loss, grads = loss_and_grads(model, params,
+                                     {k: v.to(dev) for k, v in batch.items()})
+        counts = ops.launch_counts()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want_loss, want = loss_and_grads(model, cpu_params, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        assert float((g.cpu() - w).abs().max()) \
+            <= 1e-4 * float(w.abs().max()) + 1e-12
+    calls = cfg.enc_layers + 2 * cfg.n_layers if cfg.is_encdec \
+        else cfg.n_layers
+    assert counts["flash_attention"] == 2 * calls
+    assert counts["flash_attention_bwd"] == calls
+
+
+def test_kernel_ops_without_a_backward_raise_under_grad(dev):
+    rng = np.random.default_rng(0)
+    x = _normal((1, 32, 2, 16), torch.float32, dev, rng).requires_grad_(True)
+    u = _normal((2, 16), torch.float32, dev, rng)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.wkv6_op(x, x, x, x, u)
+    bmat = _normal((1, 32, 8), torch.float32, dev, rng)
+    dt = torch.rand((1, 32, 2), device=dev)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.ssd_op(x, bmat, bmat, dt, u[:, 0], u[:, 1])
+    q = _normal((1, 2, 16), torch.float32, dev, rng).requires_grad_(True)
+    cache = _normal((1, 8, 2, 16), torch.float32, dev, rng)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.decode_attention_op(q, cache, cache, valid)
+    with torch.no_grad():                     # the serving path runs it
+        out = ops.decode_attention_op(q, cache, cache, valid)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.grad_fn is None
+
+
+def test_flash_op_without_grad_launches_only_the_forward(dev):
+    rng = np.random.default_rng(0)
+    q = _normal((1, 64, 4, 32), torch.float32, dev, rng).requires_grad_(True)
+    k = _normal((1, 64, 2, 32), torch.float32, dev, rng)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        out = ops.flash_attention_op(q, k, k)
+    assert out.grad_fn is None
+    assert ops.launch_counts()["flash_attention"] == 1
+    out = ops.flash_attention_op(q, k, k)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2
+    assert counts["flash_attention_bwd"] == 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())

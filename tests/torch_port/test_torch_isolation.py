@@ -1,7 +1,8 @@
 """The port stands alone: importing every `repro_torch` module (the MoE
-module `models/moe.py` and the encoder-decoder `models/encdec.py` among
-them) and ``chip_smoke.py`` loads neither JAX nor anything of the
-reference package `repro`."""
+module `models/moe.py`, the encoder-decoder `models/encdec.py`, the
+training package `training/*`, the training CLI `launch/train.py` and
+`utils/tree.py` among them) and ``chip_smoke.py`` loads neither JAX nor
+anything of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -25,8 +26,10 @@ runpy.run_path(sys.argv[1], run_name="chip_smoke_import_probe")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-assert "repro_torch.models.moe" in names, names
-assert "repro_torch.models.encdec" in names, names
+for need in ("models.moe", "models.encdec", "training.checkpoint",
+             "training.compress", "training.data", "training.loop",
+             "training.optimizer", "launch.train", "utils.tree"):
+    assert "repro_torch." + need in names, (need, names)
 print(len(names), bad)
 """
 

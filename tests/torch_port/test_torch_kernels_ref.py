@@ -60,6 +60,7 @@ def test_lcp_plain_matches_reference_oracle_and_pallas(seed):
                                    "auction_fused": 0, "fused_phase1": 0,
                                    "lcp_affinity": 0, "lcp_gather": 0,
                                    "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "decode_attention": 0, "wkv6": 0,
                                    "ssd": 0}
 
