@@ -15,12 +15,16 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    registers, static shared memory and spills from ``-Xptxas -v``
    (``auction_solve_kernel``, ``auction_fused_kernel``,
    ``lcp_gather_kernel``, ``fused_phase1_kernel`` and the flash backward's
-   ``stats_kernel``, ``dkdv_kernel`` and ``dq_kernel`` must be among them),
-   and the count of tensor-core instructions (``HMMA``/``HGMMA``) in the
-   SASS of every instance of the bf16 flash kernel and of both passes of
-   each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
+   ``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``, ``dkdv_tc_kernel``
+   and ``dq_tc_kernel`` must be among them), and the count of tensor-core
+   instructions (``HMMA``/``HGMMA``) in the SASS of every instance of the
+   bf16 flash kernel, of the bf16 flash backward's two kernels (16
+   instances; a spill at head dims padded to 64 or 128 also fails) and of
+   both passes of each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
    ``ssd_intra_kernel``, ``ssd_state_kernel``, bf16 and float32;
-   ``cuobjdump -sass``): 0 fails.
+   ``cuobjdump -sass``): 0 fails.  Then the forward's LSE at phase 25's
+   calls against the plain LSE within 1e-4, its output the same bits with
+   and without the LSE.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
    at the router path's shapes: LCP at prompts [64, 1024] x ledgers
    [64, 128, 1024] and at a width that is not a multiple of 32; the row
@@ -390,8 +394,9 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
               "fused_phase1": ("Memset", "fused_phase1_kernel"),
               "auction_fused": ("auction_fused_kernel",),
               "flash_attention": ("flash_",),
-              "flash_attention_bwd": ("stats_kernel", "dkdv_kernel",
-                                      "dq_kernel"),
+              # D's row pass, then the dK/dV and dQ kernels of either
+              # type (dkdv_tc_kernel / dkdv_kernel, dq_tc_kernel / dq_kernel)
+              "flash_attention_bwd": ("delta_kernel", "dkdv_", "dq_"),
               "decode_attention": ("decode_split_kernel",
                                    "decode_combine_kernel"),
               "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
@@ -491,27 +496,37 @@ def cuda_tool(name: str) -> str:
     return found
 
 
+def ptxas_entries(log: str) -> list[dict]:
+    """One entry per kernel instance of an ``nvcc -Xptxas -v`` log: its
+    mangled ``name``, ``registers``, static shared memory (``smem``) and
+    spill bytes (``spill_stores``, ``spill_loads``)."""
+    rows, fn, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn, spill = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"name": fn, "registers": int(m.group(1)),
+                         "smem": int(smem.group(1)) if smem else 0,
+                         "spill_stores": spill[0], "spill_loads": spill[1]})
+            fn = None
+    return rows
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel instance of an ``nvcc -Xptxas -v`` log: its
     (demangled) name, registers, static shared memory and spill bytes."""
-    rows, fn, spill = [], None, ""
-    for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            fn, spill = m.group(1), ""
-        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                            r"loads", line):
-            spill = f"spills {m.group(1)}/{m.group(2)} B (store/load)"
-        elif fn and (m := re.search(r"Used (\d+) registers", line)):
-            smem = re.search(r"(\d+) bytes smem", line)
-            rows.append((fn, f"{m.group(1)} registers, "
-                         f"{smem.group(1) if smem else 0} B static smem, "
-                         f"{spill}"))
-            fn = None
+    rows = ptxas_entries(log)
     names = subprocess.run([cuda_tool("cu++filt")], input="\n".join(
-        n for n, _ in rows), capture_output=True, text=True,
+        r["name"] for r in rows), capture_output=True, text=True,
         timeout=60).stdout.splitlines() if rows else []
-    return [f"{(names[i] if i < len(names) else n)[:90]}: {r}"
-            for i, (n, r) in enumerate(rows)]
+    return [f"{(names[i] if i < len(names) else r['name'])[:90]}: "
+            f"{r['registers']} registers, {r['smem']} B static smem, spills "
+            f"{r['spill_stores']}/{r['spill_loads']} B (store/load)"
+            for i, r in enumerate(rows)]
 
 
 def tensor_core_counts(lib: Path, kernel: str) -> dict[str, int]:
@@ -529,6 +544,34 @@ def tensor_core_counts(lib: Path, kernel: str) -> dict[str, int]:
         elif fn and re.search(r"\bHG?MMA\b", line):
             counts[fn] += 1
     return counts
+
+
+def bwd_tensor_core_spills(log: str) -> None:
+    """Phase 2's checks of the bf16 backward kernels (``dkdv_tc_kernel``
+    and ``dq_tc_kernel``, one instance per head dim padded to 16): the
+    ``HMMA`` count in each instance's SASS (0 fails: every pair product
+    runs on the tensor cores) and its ptxas spill bytes (a spill at DP = 64
+    or 128, the training path's head dims, fails)."""
+    from repro_torch.kernels import build
+
+    entries = {r["name"]: r for r in ptxas_entries(log)}
+    hmma = tensor_core_counts(build.library_path("flash_attention_bwd"),
+                              "_tc_kernel")
+    shown = []
+    for name, count in sorted(hmma.items()):
+        m = re.search(r"(dkdv_tc_kernel|dq_tc_kernel)ILi(\d+)E", name)
+        r = entries.get(name)
+        check(m is not None and r is not None,
+              f"no ptxas report for the backward instance {name}")
+        spill = r["spill_stores"] + r["spill_loads"]
+        shown.append(f"{m.group(1)}<{m.group(2)}> {count} HMMA, "
+                     f"{r['registers']} registers, {spill} B spilled")
+        check(count > 0, f"{name} has no tensor-core instruction")
+        check(spill == 0 or int(m.group(2)) not in (64, 128),
+              f"{name} spills {r['spill_stores']}/{r['spill_loads']} B")
+    print("    the bf16 flash backward's instances: " + "; ".join(shown))
+    check(len(hmma) == 16, f"{len(hmma)} bf16 backward instances, not 16 "
+          "(two kernels x eight padded head dims)")
 
 
 # ---------------------------------------------------------------- inputs --
@@ -4687,16 +4730,18 @@ def phase_training_lockstep(dev) -> Counter:
     return launches
 
 
-def bwd_work(q, k, v, o, do, *, causal=True, window=0) -> tuple[int, int]:
+def bwd_work(q, k, v, o, do, lse=None, *, causal=True,
+             window=0) -> tuple[int, int]:
     """(bytes, operations) of one backward call: q, o, dO, dQ and k, v,
-    dK, dV moved once; 10·H·d operations per unmasked pair (Q·Kᵀ again,
-    dO·Vᵀ, P·dO, dS·K, dS·Q)."""
+    dK, dV moved once, and the forward's float32 LSE read once; 10·H·d
+    operations per unmasked pair (Q·Kᵀ again, dO·Vᵀ, P·dO, dS·K, dS·Q)."""
     _, fwd_ops = flash_work(q, k, v, causal=causal, window=window)
-    return (4 * q.numel() + 4 * k.numel()) * q.element_size(), \
+    lse_bytes = 0 if lse is None else 4 * lse.numel()
+    return (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse_bytes, \
         fwd_ops // 4 * 10
 
 
-def sdpa_bwd_ms(q, k, v, o, do, *, causal=True, window=0,
+def sdpa_bwd_ms(q, k, v, o, do, lse=None, *, causal=True, window=0,
                 iters: int = 10) -> float:
     """PyTorch's SDPA backward for the same call (the yardstick): its
     forward + backward less its forward, CUDA events."""
@@ -4712,6 +4757,48 @@ def sdpa_bwd_ms(q, k, v, o, do, *, causal=True, window=0,
         sdpa_flash(*leaves, causal=causal, window=window)
 
     return cuda_time_ms(both, iters, 2) - cuda_time_ms(fwd, iters, 2)
+
+
+LSE_TOL = 1e-4      # the forward's LSE (float32, bf16 inputs), absolute
+
+
+def forward_lse_check(dev) -> None:
+    """Phase 2: the forward kernel's LSE against the plain one
+    (``attention_lse_ref``) within LSE_TOL at phase 25's calls, bf16 —
+    qwen3-8b's 4,096-token causal call, seamless-m4t-medium's encoder,
+    cross and decoder calls at batch 2 — and the kernel's output with the
+    LSE asked for the same bits as without."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     flash_attention_cuda)
+
+    qwen, seam = get_config(ARCH), get_config(SEAMLESS)
+    calls = [(qwen, 1, TRAIN_4K, TRAIN_4K, True),
+             (seam, 2, seam.src_len, seam.src_len, False),
+             (seam, 2, ENCDEC_PROMPT, seam.src_len, False),
+             (seam, 2, ENCDEC_PROMPT, ENCDEC_PROMPT, True)]
+    for i, (cfg, b, sq, sk, causal) in enumerate(calls):
+        rng = np.random.default_rng(2400 + i)
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16) for shape in (
+            (b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        return_lse=True)
+        same = torch.equal(out, flash_attention_cuda(q, k, v, causal=causal))
+        err = float((lse - attention_lse_ref(q, k, causal=causal))
+                    .abs().max())
+        print(f"    forward LSE at {cfg.name}'s {sq} x {sk} "
+              f"{'causal' if causal else 'non-causal'} call ({h} / {hkv} "
+              f"heads of {d}, batch {b}, bf16): max abs err {err:.3g} "
+              f"against the plain LSE; output with it the same bits: {same}")
+        check(same and err <= LSE_TOL, f"the forward's LSE at {cfg.name}'s "
+              f"{sq} x {sk} call: err {err} (limit {LSE_TOL}), output the "
+              f"same bits {same}")
+        del q, k, v, out, lse
 
 
 def bwd_figures(args, kw, iters: int = 10) -> dict:
@@ -4928,11 +5015,14 @@ def main() -> int:
                                        "auction_fused_kernel"),
                        "lcp_affinity": ("lcp_gather_kernel",),
                        "routing_fused": ("fused_phase1_kernel",),
-                       "flash_attention_bwd": ("stats_kernel",
-                                               "dkdv_kernel", "dq_kernel")
+                       "flash_attention_bwd": (
+                           "delta_kernel", "dkdv_kernel", "dq_kernel",
+                           "dkdv_tc_kernel", "dq_tc_kernel")
                        }.get(name, ()):
             check(any(kernel in line for line in lines),
                   f"no ptxas report for {kernel}")
+    if "flash_attention_bwd" in reports:
+        bwd_tensor_core_spills(reports["flash_attention_bwd"])
     hmma = tensor_core_counts(build.library_path("flash_attention"),
                               "flash_tc_kernel")
     label = {n: re.sub(r".*flash_tc_kernelILi(\d+)E.*", r"DP=\1", n)
@@ -4955,6 +5045,8 @@ def main() -> int:
         check(len(hmma) == 4 and min(hmma.values()) > 0,
               f"an instance of the {name} kernels has no tensor-core "
               f"instruction: {hmma}")
+
+    forward_lse_check(dev)
 
     counts, router_figures = phase_router_kernels(dev)
 

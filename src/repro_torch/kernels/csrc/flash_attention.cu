@@ -10,6 +10,15 @@
 // score is -1e30, as in the TPU kernel, so the arithmetic is the same; the
 // denominator is max(l, 1e-30).
 //
+// The row log-sum-exp, on request (the training path's forward, which the
+// backward kernel reads; the serving path asks for none and its output is
+// the same bits either way): lse [B, H, Sq] float32 in natural-log units,
+// lse_i = ln Σ_j exp(scale·q_i·k_j) over the row's unmasked keys, written
+// as m + ln max(l, 1e-30) from the row's final max m and sum l (the bf16
+// kernel's m and l are in log2 units: (m + log2 max(l, 1e-30))·ln 2).  A
+// row with no unmasked key stores about -1e30, the masked score (the
+// wrapper's gates leave no such row: key 0 is in every row's reach).
+//
 // Bound on an H100: at the serving engine's prefill shapes (Sq = Sk = 16 ..
 // 1024, 32 query heads over 8 KV heads of 128, or zamba2's 32 / 32 of 112,
 // bf16) the work is 2·Sq·Sk·H·d FLOPs under the causal mask against
@@ -65,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"
+
 namespace {
 
 constexpr int kMaxD = 128;                      // largest head dim taken
@@ -92,8 +103,9 @@ __device__ __forceinline__ float4 load4(const T* p) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-                 int h, int hkv, int d, float scale, int causal, int window) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int sq, int sk, int h, int hkv,
+                 int d, float scale, int causal, int window) {
   __shared__ float4 ks[kBK][kMaxD / 4];
   __shared__ float4 vs[kBK][kMaxD / 4];
 
@@ -219,18 +231,20 @@ __global__ void __launch_bounds__(kThreads)
         out[3] = from_f<T>(acc[i].w / denom);
       }
     }
+    if (lse && part == 0)
+      lse[static_cast<int64_t>(bh) * sq + qpos] = m + logf(denom);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int b, int sq, int sk, int h, int hkv, int d, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   float* lse, int b, int sq, int sk, int h, int hkv, int d,
+                   float scale, int causal, int window, cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   flash_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, hkv, d, scale,
-      causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, hkv, d,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -238,7 +252,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // ---------------------------------------------------------------- bf16 --
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace flash_tc;
 constexpr int kBQ = 64;       // query rows per block, 16 per warp
 constexpr int kBK = 64;       // keys per tile
 constexpr int kThreads = 128;
@@ -248,103 +262,21 @@ constexpr int kStages = 2;    // K/V tiles in flight
 // then kStages K tiles, then kStages V tiles, rows of DP + 8 bf16
 template <int DP>
 struct Layout {
-  static constexpr int kStride = DP + 8;
+  static constexpr int kStride = stride<DP>();
   static constexpr int kTile = kBK * kStride;
   static constexpr int kBytes = (kBQ * kStride + 2 * kStages * kTile) * 2;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES (16 or 8) from global to shared; src_bytes = 0 reads nothing and
-// zero-fills the destination
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c[16x8] += a[16x16] · b[16x8], bf16 in, float32 accumulate
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + rows) of a matrix with `pitch` elements between rows
-// into shared rows of DP + 8; rows >= n_rows and columns >= d zero-filled.
-// VEC elements (8 or 4) per copy; d is a multiple of VEC.
-template <int DP, int VEC>
-__device__ __forceinline__ void load_rows(bf16* sm, const bf16* g,
-                                          int64_t pitch, int row0, int rows,
-                                          int n_rows, int d) {
-  constexpr int kChunks = DP / VEC;
-  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int col = (idx % kChunks) * VEC;
-    const bool ok = row0 + r < n_rows && col < d;
-    const bf16* src = ok ? g + (row0 + r) * pitch + col : g;
-    cp_async<VEC * 2>(sm + r * Layout<DP>::kStride + col, src,
-                      ok ? VEC * 2 : 0);
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* g,
-                                          int64_t pitch, int row0, int rows,
-                                          int n_rows, int d, bool vec16) {
-  if (vec16)
-    load_rows<DP, 8>(sm, g, pitch, row0, rows, n_rows, d);
-  else
-    load_rows<DP, 4>(sm, g, pitch, row0, rows, n_rows, d);
-}
-
 // grid (B·H, ceil(Sq / 64)); 128 threads; Layout<DP>::kBytes of dynamic
-// shared memory.  scale_log2 = log2(e) / sqrt(d).
+// shared memory.  scale_log2 = log2(e) / sqrt(d).  lse: null, or [B, H, Sq]
+// for the rows' log-sum-exp.
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int sq,
-                    int sk, int h, int hkv, int d, float scale_log2,
-                    int causal, int window, int vec16) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int sq, int sk, int h, int hkv,
+                    int d, float scale_log2, int causal, int window,
+                    int vec16) {
   using L = Layout<DP>;
   constexpr int S = L::kStride;
   constexpr int KD = DP / 16;  // k-steps of Q·Kᵀ
@@ -376,11 +308,11 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = window ? max(0, q0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
-  load_tile<DP>(qs, qg, q_pitch, q0, kBQ, sq, d, vec);
+  load_tile<DP, kThreads>(qs, qg, q_pitch, q0, kBQ, sq, d, vec);
   cp_async_commit();
   if (n_tiles > 0) {
-    load_tile<DP>(ks, kg, kv_pitch, k_begin, kBK, sk, d, vec);
-    load_tile<DP>(vs, vg, kv_pitch, k_begin, kBK, sk, d, vec);
+    load_tile<DP, kThreads>(ks, kg, kv_pitch, k_begin, kBK, sk, d, vec);
+    load_tile<DP, kThreads>(vs, vg, kv_pitch, k_begin, kBK, sk, d, vec);
   }
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed
@@ -408,10 +340,10 @@ __global__ void __launch_bounds__(kThreads)
     const int st = it % kStages;
     if (it + 1 < n_tiles) {
       const int nx = (it + 1) % kStages;
-      load_tile<DP>(ks + nx * L::kTile, kg, kv_pitch, k0 + kBK, kBK, sk, d,
-                    vec);
-      load_tile<DP>(vs + nx * L::kTile, vg, kv_pitch, k0 + kBK, kBK, sk, d,
-                    vec);
+      load_tile<DP, kThreads>(ks + nx * L::kTile, kg, kv_pitch, k0 + kBK,
+                              kBK, sk, d, vec);
+      load_tile<DP, kThreads>(vs + nx * L::kTile, vg, kv_pitch, k0 + kBK,
+                              kBK, sk, d, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile `it` has landed
@@ -495,10 +427,8 @@ __global__ void __launch_bounds__(kThreads)
     // O += P·V: P as bf16 A fragments straight from the S registers
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // 16 keys per step
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t a[4];
+      a_from_c(s, kk, a);
 #pragma unroll
       for (int dp = 0; dp < DP / 16; ++dp) {  // two column tiles per x4
         uint32_t bfr[4];
@@ -520,6 +450,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
+  if (lse && tq == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row_a + 8 * i;
+      if (row < sq)
+        lse[static_cast<int64_t>(bh) * sq + row] =
+            (m_r[i] + log2f(fmaxf(l_r[i], 1e-30f))) * 0.6931471805599453f;
+    }
+  }
   bf16* os = qs + warp * 16 * S;
   const int r = lane >> 2;
 #pragma unroll
@@ -551,30 +490,22 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int DP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
-                   int b, int sq, int sk, int h, int hkv, int d, float scale,
-                   int causal, int window, int vec16, cudaStream_t stream) {
-  // above 48 KB of dynamic shared memory only after raising the limit,
-  // once per device
+                   float* lse, int b, int sq, int sk, int h, int hkv, int d,
+                   float scale, int causal, int window, int vec16,
+                   cudaStream_t stream) {
   static bool raised[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      raise_smem(flash_tc_kernel<DP>, Layout<DP>::kBytes, raised);
   if (err != cudaSuccess) return err;
-  if (dev >= 64 || !raised[dev]) {
-    err = cudaFuncSetAttribute(flash_tc_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Layout<DP>::kBytes);
-    if (err != cudaSuccess) return err;
-    if (dev < 64) raised[dev] = true;
-  }
   const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
   flash_tc_kernel<DP><<<grid, kThreads, Layout<DP>::kBytes, stream>>>(
-      q, k, v, o, sq, sk, h, hkv, d, scale * 1.4426950408889634f, causal,
-      window, vec16);
+      q, k, v, o, lse, sq, sk, h, hkv, d, scale * 1.4426950408889634f,
+      causal, window, vec16);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int b, int sq, int sk, int h, int hkv, int d,
+                     float* lse, int b, int sq, int sk, int h, int hkv, int d,
                      float scale, int causal, int window,
                      cudaStream_t stream) {
   const auto aligned = [](const void* p, uintptr_t n) {
@@ -590,8 +521,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
   bf16* ob = static_cast<bf16*>(o);
 #define FLASH_TC_CASE(DP)                                                  \
   case DP:                                                                \
-    return launch<DP>(qb, kb, vb, ob, b, sq, sk, h, hkv, d, scale, causal, \
-                      window, vec16, stream);
+    return launch<DP>(qb, kb, vb, ob, lse, b, sq, sk, h, hkv, d, scale,    \
+                      causal, window, vec16, stream);
   switch ((d + 15) / 16 * 16) {
     FLASH_TC_CASE(16)
     FLASH_TC_CASE(32)
@@ -614,21 +545,23 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // q [b, sq, h, d], k/v [b, sk, hkv, d], o [b, sq, h, d]: contiguous, on the
 // device, all float32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); h % hkv == 0,
 // d % 4 == 0, d <= 128; bf16 pointers 8-byte aligned (16 for 16-byte
-// copies).  bf16 runs on the tensor cores, float32 on the CUDA cores.
+// copies).  lse: null, or float32 [b, h, sq] for the rows' natural-log
+// log-sum-exp.  bf16 runs on the tensor cores, float32 on the CUDA cores.
 // Launches on `stream`; returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int sq,
-                                      int sk, int h, int hkv, int d,
-                                      float scale, int causal, int window,
-                                      int is_bf16, void* stream) {
+                                      const void* v, void* o, void* lse,
+                                      int b, int sq, int sk, int h, int hkv,
+                                      int d, float scale, int causal,
+                                      int window, int is_bf16, void* stream) {
   if (d <= 0 || d > kMaxD || d % 4 != 0 || hkv <= 0 || h % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || sq == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   const cudaError_t err =
-      is_bf16 ? tc::dispatch(q, k, v, o, b, sq, sk, h, hkv, d, scale, causal,
-                             window, s)
-              : launch<float>(q, k, v, o, b, sq, sk, h, hkv, d, scale, causal,
-                              window, s);
+      is_bf16 ? tc::dispatch(q, k, v, o, l, b, sq, sk, h, hkv, d, scale,
+                             causal, window, s)
+              : launch<float>(q, k, v, o, l, b, sq, sk, h, hkv, d, scale,
+                              causal, window, s);
   return static_cast<int>(err);
 }

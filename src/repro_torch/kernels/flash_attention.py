@@ -13,14 +13,20 @@ only keys at or past ``Sk`` (with the causal and window masks): a caller
 with right-padded sequences relies on the causal mask to keep padding out
 of the valid rows.
 
+On request (``return_lse=True``, the training path) the forward also
+returns each row's log-sum-exp, [B, H, Sq] float32 in natural-log units;
+its output is the same bits either way.  ``attention_lse_ref`` is the
+plain LSE, computed independently of the kernel.
+
 Its gradient (training on the card) is ``csrc/flash_attention_bwd.cu``:
-given q, k, v, the forward's o and the output's gradient dO, three
-launches recompute each row's log-sum-exp and D = rowsum(dO ∘ O), then dK
-and dV per block of keys (summed over the group's query heads) and dQ per
-block of queries, in float32 on the CUDA cores, with no atomics (two runs
-give the same bits).  ``flash_attention_bwd_plain`` writes out the same
-softmax-backward formulas in plain PyTorch: the CPU's version and the
-kernel's oracle.  `kernels/ops.py` puts the pair behind a
+given q, k, v, the forward's o and LSE and the output's gradient dO, three
+launches compute D = rowsum(dO ∘ O), then dK and dV per block of keys
+(summed over the group's query heads) and dQ per block of queries, with no
+atomics (two runs give the same bits): bf16 on the tensor cores (`mma.sync`
+for all five pair products, P and dS rounded to bf16 as operands), float32
+on the CUDA cores.  ``flash_attention_bwd_plain`` writes out the same
+softmax-backward formulas in plain PyTorch, with its own softmax: the CPU's
+version and the kernel's oracle.  `kernels/ops.py` puts the pair behind a
 ``torch.autograd.Function``.
 """
 from __future__ import annotations
@@ -31,11 +37,12 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, attention_lse_ref, attention_mask
 from repro_torch.kernels.ref import attention_ref as flash_attention_plain
 
-__all__ = ["flash_attention_bwd_cuda", "flash_attention_bwd_plain",
-           "flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["attention_lse_ref", "flash_attention_bwd_cuda",
+           "flash_attention_bwd_plain", "flash_attention_cuda",
+           "flash_attention_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,8 +52,7 @@ MAX_HEAD_DIM = 128
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-                   _I, _I, _I, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return lib
 
@@ -83,13 +89,16 @@ def _check(name: str, q, k, v, window: int, *like_q) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, window: int = 0,
+                         return_lse: bool = False):
     """q [B, Sq, H, d], k/v [B, Sk, Hkv, d] (contiguous CUDA tensors on one
     device, all float32 or all bfloat16; H a multiple of Hkv; d a multiple
     of 4 up to 128) -> [B, Sq, H, d] of q's dtype, launched on the current
-    stream.  With a window, Sq may not exceed Sk (a row with no valid key
-    is not defined).  Raises on any other input and on a failed launch."""
+    stream; with ``return_lse``, (output, lse) where lse [B, H, Sq] float32
+    holds each row's natural-log log-sum-exp of its scaled, unmasked scores
+    (the output is the same bits either way).  With a window, Sq may not
+    exceed Sk (a row with no valid key is not defined).  Raises on any
+    other input and on a failed launch."""
     _check("flash_attention_cuda", q, k, v, window)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -97,15 +106,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                    for t in (q, k, v))
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     err = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-        h, hkv, d, 1.0 / math.sqrt(d), int(causal), int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, b, sq, sk, h, hkv, d,
+        1.0 / math.sqrt(d), int(causal), int(window),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    return out
+    return (out, lse) if return_lse else out
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -116,25 +128,30 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
                              window: int = 0):
     """The gradient of `flash_attention_cuda`: q, o, dO [B, Sq, H, d], k/v
-    [B, Sk, Hkv, d], taken as the forward takes them -> (dQ, dK, dV) in
-    the inputs' dtype, launched on the current stream (three kernels; two
-    float32 scratch rows per query row and head).  Raises on any input the
-    forward would refuse and on a failed launch."""
+    [B, Sk, Hkv, d], taken as the forward takes them, and the forward's
+    ``lse`` ([B, H, Sq] float32, from ``return_lse=True``) -> (dQ, dK, dV)
+    in the inputs' dtype, launched on the current stream (three kernels;
+    one float32 scratch value per query row and head).  Raises on any
+    input the forward would refuse, on an lse of another shape or type, and
+    on a failed launch."""
     _check("flash_attention_bwd_cuda", q, k, v, window, o, do)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if b * h > 65535:
         raise ValueError(f"B·H = {b * h} exceeds the kernel's grid (65535)")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype} is not the "
+                         f"forward's contiguous float32 [{b}, {h}, {sq}]")
     if q.numel() == 0 or k.numel() == 0:
         return tuple(torch.zeros_like(t) for t in (q, k, v))
     q, k, v, o, do = (t if t.data_ptr() % 16 == 0 else t.clone()
                       for t in (q, k, v, o, do))     # 16-byte loads
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     err = _bwd_lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -148,27 +165,24 @@ def flash_attention_bwd_cuda(q, k, v, o, do, *, causal: bool = True,
     return dq, dk, dv
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
-                              window: int = 0):
+def flash_attention_bwd_plain(q, k, v, o, do, lse=None, *,
+                              causal: bool = True, window: int = 0):
     """The gradient of `flash_attention_plain` at (q, k, v) given its output
     o and the output's gradient dO, in float32, as the kernel computes it:
     P from the masked scores (a masked pair is -1e30, so its P is 0),
     D = rowsum(dO ∘ O), dS = P ∘ (dO·Vᵀ − D), dQ = scale·dS·K,
     dK = scale·dSᵀ·Q and dV = Pᵀ·dO, summed over each KV head's group.
-    Returns (dQ, dK, dV) in the inputs' dtype."""
+    ``lse``, the forward kernel's, is taken for the kernel's signature and
+    not read: this oracle computes its own softmax.  Returns (dQ, dK, dV)
+    in the inputs' dtype."""
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
     scale = 1.0 / math.sqrt(d)
     qg, og, dog = (t.reshape(b, sq, hkv, g, d).float() for t in (q, o, do))
     kf, vf = k.float(), v.float()
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= (qpos - kpos) < window
+    mask = attention_mask(sq, sk, causal=causal, window=window,
+                          device=q.device)
     s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)

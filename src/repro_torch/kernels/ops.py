@@ -144,23 +144,26 @@ def lcp_affinity_op(prompts, ledgers):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel with its gradient: the forward saves q, k, v and
-    o, the backward runs ``flash_attention_bwd_op`` (looked up when it
-    runs, so a recorder that stands in for the op sees the call)."""
+    """The flash kernel with its gradient: the forward asks the kernel for
+    its rows' log-sum-exp and saves q, k, v, o and that LSE (a re-run
+    forward under remat saves its own); the backward runs
+    ``flash_attention_bwd_op`` (looked up when it runs, so a recorder that
+    stands in for the op sees the call)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
         _LAUNCHES["flash_attention"] += 1
-        ctx.save_for_backward(q, k, v, o)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.mode = (causal, window)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window = ctx.mode
-        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do.contiguous(),
+        dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do.contiguous(), lse,
                                             causal=causal, window=window)
         return dq, dk, dv, None, None
 
@@ -180,12 +183,13 @@ def flash_attention_op(q, k, v, *, causal=True, window=0):
     return flash_attention_plain(q, k, v, causal=causal, window=window)
 
 
-def flash_attention_bwd_op(q, k, v, o, do, *, causal=True, window=0):
+def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal=True, window=0):
     """The flash attention's gradient on the card: q, o, dO [B, Sq, H, d],
-    k/v [B, Sk, Hkv, d] -> (dQ, dK, dV); see `kernels/flash_attention.py`.
-    Only ``_FlashAttention``'s backward calls it, and that Function runs
-    only on CUDA (on the CPU the plain forward differentiates itself)."""
-    out = flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+    k/v [B, Sk, Hkv, d] and the forward's lse [B, H, Sq] -> (dQ, dK, dV);
+    see `kernels/flash_attention.py`.  Only ``_FlashAttention``'s backward
+    calls it, and that Function runs only on CUDA (on the CPU the plain
+    forward differentiates itself)."""
+    out = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
                                    window=window)
     _LAUNCHES["flash_attention_bwd"] += 1
     return out

@@ -101,6 +101,19 @@ def auction_bid_ref(W, ask, ask2, active, eps):
 
 # ---------------- attention ----------------
 
+def attention_mask(sq, sk, *, causal, window, device=None):
+    """[Sq, Sk] bool: True where query i may read key j (j <= i when
+    ``causal``; i - j < ``window`` when ``window`` > 0)."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
 def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     """q: [B, Sq, H, d], k/v: [B, Sk, Hkv, d] -> [B, Sq, H, d] in q's dtype.
 
@@ -114,17 +127,30 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     qg = q.reshape(b, sq, hkv, h // hkv, d).float()
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
     s = s * (scale or 1.0 / math.sqrt(d))
-    qpos = torch.arange(sq, device=q.device)[:, None]
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= (qpos - kpos) < window
+    mask = attention_mask(sq, sk, causal=causal, window=window,
+                          device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_lse_ref(q, k, *, causal=True, window=0, scale=None):
+    """q: [B, Sq, H, d], k: [B, Sk, Hkv, d] -> [B, H, Sq] float32.
+
+    Each query row's natural-log log-sum-exp of its scaled scores under
+    `attention_ref`'s masks (a masked score is -1e30): the flash forward
+    kernel's saved LSE, computed independently of it.
+    """
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    s = s * (scale or 1.0 / math.sqrt(d))
+    mask = attention_mask(sq, sk, causal=causal, window=window,
+                          device=q.device)
+    lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+    return lse.reshape(b, h, sq)
 
 
 def decode_attention_ref(q, k_cache, v_cache, valid):

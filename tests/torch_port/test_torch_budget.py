@@ -18,6 +18,7 @@ TIER1_MODULES = {
     "test_torch_encdec_vlm",
     "test_torch_engine",
     "test_torch_federation",
+    "test_torch_flash_bwd_design",
     "test_torch_fused",
     "test_torch_isolation",
     "test_torch_kernels_ref",

@@ -10,8 +10,10 @@ CUDA-vs-CPU serving-engine locksteps (dense, RWKV-6, zamba2, MoE with MLA
 or GQA) and MoE / MLA blocks, the attention kernels at the head groups
 of the reference's larger dense and MoE configs, and the encoder-decoder
 and patch-input models (their attention shapes and modes, and reduced
-CUDA-vs-CPU model locksteps), and training: the flash-attention backward
-kernel against its plain version at the training paths' shapes (float32
+CUDA-vs-CPU model locksteps), and training: the forward kernel's saved
+row log-sum-exp against the plain one (its output the same bits with and
+without it), the flash-attention backward kernel, fed that LSE, against
+its plain version at the training paths' shapes (float32
 within 1e-4 and bf16 within 3e-2 of each output's largest plain
 magnitude), bit for bit from run to run, the reduced models' gradients
 on the card against the CPU's, and the kernel ops without a backward
@@ -1145,14 +1147,47 @@ BWD_ROW_TOL, BWD_ROW_FLOOR = 2e-2, 1e-3
 
 
 def _bwd_inputs(b, sq, sk, h, hkv, d, causal, win, dtype, dev, seed):
-    """q, k, v, the forward kernel's o and a seeded dO."""
+    """q, k, v, the forward kernel's o, a seeded dO and the forward's
+    LSE, in the backward's argument order."""
     rng = np.random.default_rng(seed)
     q = _normal((b, sq, h, d), dtype, dev, rng)
     k = _normal((b, sk, hkv, d), dtype, dev, rng)
     v = _normal((b, sk, hkv, d), dtype, dev, rng)
-    o = flash_attention_cuda(q, k, v, causal=causal, window=win)
+    o, lse = flash_attention_cuda(q, k, v, causal=causal, window=win,
+                                  return_lse=True)
     do = _normal((b, sq, h, d), dtype, dev, rng)
-    return q, k, v, o, do
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,win", [
+    (2, 512, 512, 32, 8, 128, True, 0),       # phase 24 qwen3-8b
+    (2, 512, 512, 48, 8, 128, True, 16),      # phase 24 mixtral, window 16
+    (2, 512, 1024, 16, 16, 64, False, 0),     # phase 25 seamless cross
+    (1, 100, 100, 6, 1, 12, True, 7), (1, 70, 30, 8, 2, 100, False, 0)])
+def test_flash_lse_keeps_the_output_bits_and_matches_plain(
+        dev, b, sq, sk, h, hkv, d, causal, win, dtype):
+    """The forward's output is the same bits with and without its LSE, and
+    the LSE is within 1e-5 of the plain one relative to max(|lse|, 1) in
+    float32, within 1e-4 absolute for bf16 inputs (a float32 LSE)."""
+    from repro_torch.kernels.flash_attention import attention_lse_ref
+
+    rng = np.random.default_rng(sq + sk + d)
+    q = _normal((b, sq, h, d), dtype, dev, rng)
+    k = _normal((b, sk, hkv, d), dtype, dev, rng)
+    v = _normal((b, sk, hkv, d), dtype, dev, rng)
+    kw = dict(causal=causal, window=win)
+    out = flash_attention_cuda(q, k, v, **kw)
+    again, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want = attention_lse_ref(q, k, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    err = (lse - want).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-5 * want.abs().clamp_min(1.0)).all())
+    else:
+        assert float(err.max()) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
