@@ -62,9 +62,11 @@
 // ahead of the one computed, each thread with fixed copy slots (at most
 // two 16-byte copies a chunk, their sources advancing by a fixed stride):
 // staging through a general tile loop spent most of a chunk's
-// instructions on address arithmetic.  The incoming state of each chunk is
-// never stored (16 KiB per head and chunk, 58.7 MB for zamba2 at 512
-// tokens).
+// instructions on address arithmetic.  The incoming state of each chunk
+// (16 KiB per head and chunk, 58.7 MB for zamba2 at 512 tokens) is stored
+// only when the caller gives a `states` buffer (training: the backward
+// reads it); without one the output's bits are those of a run that keeps
+// nothing.
 //
 // Precision (scan_mma.cuh): in the bf16 instance x, B and C enter the
 // `mma`s exactly; M, w∘x and the state are split into two bf16 parts
@@ -293,8 +295,9 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     ssd_state_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ cm, const float* __restrict__ scr,
                      const float* __restrict__ s0, T* __restrict__ y,
-                     float* __restrict__ s_out, int s_len, int n_chunks,
-                     int h, int hd, int ds, int vec_x, int vec_bc) {
+                     float* __restrict__ s_out, float* __restrict__ states,
+                     int s_len, int n_chunks, int h, int hd, int ds,
+                     int vec_x, int vec_bc) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = StateSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -404,6 +407,17 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     __syncthreads();  // ... for every warp; chunk c - 1 is consumed
     if (c + kAhead < n_chunks) load(c + kAhead, (c + kAhead) % kStages);
     scan::cp_async_commit();
+    if (states) {  // the chunk's incoming state, for the backward
+      float* sc = states + (static_cast<int64_t>(bh) * n_chunks + c) * hd * ds;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = g + (e >> 1) * 8, n = n0 + nt * 8 + 2 * q + (e & 1);
+          if (i < nri && n < ds)
+            sc[static_cast<int64_t>(i0 + i) * ds + n] = acc[nt][e];
+        }
+    }
     const bf16* cs = tile(st, 0);
     const bf16* bs = tile(st, 1);
     const bf16* xs = tile(st, 2);
@@ -529,9 +543,9 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 template <typename T>
 cudaError_t launch(const void* x, const void* bm, const void* cm,
                    const void* dt, const void* a_log, const void* d_skip,
-                   const void* s0, void* scratch, void* y, void* s_out, int b,
-                   int s_len, int h, int hd, int ds, int vec_x, int vec_bc,
-                   cudaStream_t stream) {
+                   const void* s0, void* scratch, void* y, void* s_out,
+                   void* states, int b, int s_len, int h, int hd, int ds,
+                   int vec_x, int vec_bc, cudaStream_t stream) {
   const int n_chunks = (s_len + kChunk - 1) / kChunk;
   if (n_chunks > 0) {
     const dim3 grid(b * n_chunks, (h + kHeads - 1) / kHeads);
@@ -554,7 +568,8 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
       static_cast<const T*>(x), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(scratch),
       static_cast<const float*>(s0), static_cast<T*>(y),
-      static_cast<float*>(s_out), s_len, n_chunks, h, hd, ds, vec_x, vec_bc);
+      static_cast<float*>(s_out), static_cast<float*>(states), s_len,
+      n_chunks, h, hd, ds, vec_x, vec_bc);
   return cudaGetLastError();
 }
 
@@ -570,23 +585,26 @@ extern "C" long long ssd_scratch_floats(int b, int s_len, int h, int hd) {
 // 0, or all bf16: is_bf16 = 1), dt [b, s_len, h], a_log and d_skip [h],
 // s0 (or null: a zero state) and s_out [b, h, hd, ds] float32, scratch of
 // ssd_scratch_floats(...) floats: contiguous, on the device; 0 < ds <= 64.
+// states (or null: none kept) [b, h, n_chunks, hd, ds] float32 receives
+// each chunk's incoming state, for the backward (ssd_bwd.cu).
 // vec_x / vec_bc: bf16 x (B and C) 16-byte aligned with hd (ds) a multiple
 // of 8, so their tiles go by cp.async.  Two launches on `stream`; returns
 // the first failing cudaGetLastError().
 extern "C" int ssd_launch(const void* x, const void* bm, const void* cm,
                           const void* dt, const void* a_log,
                           const void* d_skip, const void* s0, void* scratch,
-                          void* y, void* s_out, int b, int s_len, int h,
-                          int hd, int ds, int is_bf16, int vec_x, int vec_bc,
-                          void* stream) {
+                          void* y, void* s_out, void* states, int b,
+                          int s_len, int h, int hd, int ds, int is_bf16,
+                          int vec_x, int vec_bc, void* stream) {
   if (ds <= 0 || ds > kMaxN || hd <= 0 || s_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<bf16>(x, bm, cm, dt, a_log, d_skip, s0, scratch, y,
-                             s_out, b, s_len, h, hd, ds, vec_x, vec_bc, st)
+                             s_out, states, b, s_len, h, hd, ds, vec_x,
+                             vec_bc, st)
               : launch<float>(x, bm, cm, dt, a_log, d_skip, s0, scratch, y,
-                              s_out, b, s_len, h, hd, ds, 0, 0, st);
+                              s_out, states, b, s_len, h, hd, ds, 0, 0, st);
   return static_cast<int>(err);
 }

@@ -69,8 +69,10 @@
 // into a ring of shared stages (one block barrier per chunk), three chunks
 // ahead of the one computed, each thread with fixed copy slots (at most
 // two 16-byte copies a chunk): staging through a general tile loop spent
-// most of a chunk's instructions on address arithmetic.  No chunk's
-// incoming state is stored.
+// most of a chunk's instructions on address arithmetic.  Each chunk's
+// incoming state is stored only when the caller gives a `states` buffer
+// (training: the backward reads it); without one the output's bits are
+// those of a run that keeps nothing.
 //
 // Precision (scan_mma.cuh): in the bf16 instance v enters the `mma`s
 // exactly; A, r_dec, k_dec and the state are split into two bf16 parts
@@ -283,8 +285,8 @@ template <typename T>
 __global__ void __launch_bounds__(kStateWarps * 32)
     wkv6_state_kernel(const T* __restrict__ v, const float* __restrict__ scr,
                       const float* __restrict__ s0, T* __restrict__ o,
-                      float* __restrict__ s_out, int s_len, int n_chunks,
-                      int h, int dk, int vec) {
+                      float* __restrict__ s_out, float* __restrict__ states,
+                      int s_len, int n_chunks, int h, int dk, int vec) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = StateSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -395,6 +397,17 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     __syncthreads();  // ... for every warp; chunk c - 1 is consumed
     if (c + kAhead < n_chunks) load(c + kAhead, (c + kAhead) % kStages);
     scan::cp_async_commit();
+    if (states) {  // the chunk's incoming state, for the backward
+      float* sc = states + (static_cast<int64_t>(bh) * n_chunks + c) * dk * dk;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = g + (e >> 1) * 8, d = d0 + nt * 8 + 2 * q + (e & 1);
+          if (j < ncol && d < dk)
+            sc[static_cast<int64_t>(d) * dk + j0 + j] = acc[nt][e];
+        }
+    }
     const bf16* rdc = rdp(st);
     const bf16* kdc = kdp(st);
     const bf16* vsc = vsp(st);
@@ -503,8 +516,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* log_w, const void* u, const void* s0,
-                   void* scratch, void* o, void* s_out, int b, int s_len,
-                   int h, int dk, int vec, cudaStream_t stream) {
+                   void* scratch, void* o, void* s_out, void* states, int b,
+                   int s_len, int h, int dk, int vec, cudaStream_t stream) {
   const int n_chunks = (s_len + kChunk - 1) / kChunk;
   if (n_chunks > 0) {
     wkv6_intra_kernel<T><<<dim3(b * n_chunks, h), kWarps * 32, 0, stream>>>(
@@ -523,7 +536,8 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                          stream>>>(
       static_cast<const T*>(v), static_cast<const float*>(scratch),
       static_cast<const float*>(s0), static_cast<T*>(o),
-      static_cast<float*>(s_out), s_len, n_chunks, h, dk, vec);
+      static_cast<float*>(s_out), static_cast<float*>(states), s_len,
+      n_chunks, h, dk, vec);
   return cudaGetLastError();
 }
 
@@ -541,22 +555,24 @@ extern "C" long long wkv6_scratch_floats(int b, int s_len, int h, int dk,
 // is_bf16 = 1), log_w [b, s_len, h, dk] float32, u [h, dk] float32, s0 (or
 // null: a zero state) and s_out [b, h, dk, dk] float32, scratch of
 // wkv6_scratch_floats(..., is_bf16) floats: contiguous, on the device;
-// 0 < dk <= 64.  vec: bf16 v 16-byte aligned with dk a multiple of 8, so
+// 0 < dk <= 64.  states (or null: none kept) [b, h, n_chunks, dk, dk]
+// float32 receives each chunk's incoming state, for the backward
+// (wkv6_bwd.cu).  vec: bf16 v 16-byte aligned with dk a multiple of 8, so
 // its tiles go by cp.async.  Two launches on `stream`; returns the first
 // failing cudaGetLastError().
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* log_w, const void* u, const void* s0,
-                           void* scratch, void* o, void* s_out, int b,
-                           int s_len, int h, int dk, int is_bf16, int vec,
-                           void* stream) {
+                           void* scratch, void* o, void* s_out, void* states,
+                           int b, int s_len, int h, int dk, int is_bf16,
+                           int vec, void* stream) {
   if (dk <= 0 || dk > kMaxK || s_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<bf16>(r, k, v, log_w, u, s0, scratch, o, s_out, b,
-                             s_len, h, dk, vec, st)
-              : launch<float>(r, k, v, log_w, u, s0, scratch, o, s_out, b,
-                              s_len, h, dk, 0, st);
+      is_bf16 ? launch<bf16>(r, k, v, log_w, u, s0, scratch, o, s_out,
+                             states, b, s_len, h, dk, vec, st)
+              : launch<float>(r, k, v, log_w, u, s0, scratch, o, s_out,
+                              states, b, s_len, h, dk, 0, st);
   return static_cast<int>(err);
 }

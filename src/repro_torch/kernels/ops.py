@@ -9,12 +9,14 @@ kernels.
 
 Gradients.  A kernel's output is a fresh tensor with no ``grad_fn``, so on
 the card an op whose input requires grad (under grad mode) either has a
-backward kernel or raises: ``flash_attention_op`` then runs through a
-``torch.autograd.Function`` whose backward is ``flash_attention_bwd_op``
-(the hand-written backward kernel); every other op raises, since no
-backward kernel exists for it yet.  Without grad (the serving path) the
-kernels are called directly, as before.  On the CPU the plain versions
-differentiate through PyTorch's own autograd.
+backward kernel or raises.  The ops that training runs have one:
+``flash_attention_op``, ``wkv6_op`` and ``ssd_op`` then run through a
+``torch.autograd.Function`` whose backward is a hand-written kernel
+(``flash_attention_bwd_op``, ``wkv6_bwd_op``, ``ssd_bwd_op``).  Decode
+attention and the router's ops raise: training never calls them, so they
+have no backward kernel.  Without grad (the serving path) the kernels are
+called directly.  On the CPU the plain versions differentiate through
+PyTorch's own autograd.
 """
 from __future__ import annotations
 
@@ -36,20 +38,21 @@ from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                               lcp_gather_cuda, lcp_gather_plain)
 from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
                                                fused_phase1_plain)
-from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
-from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_cuda, ssd_plain
+from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_cuda, wkv6_plain
 
 __all__ = ["auction_bid_op", "auction_fused_op", "auction_solve_op",
            "decode_attention_op", "flash_attention_bwd_op",
            "flash_attention_op", "fused_phase1_op", "lcp_affinity_op",
-           "lcp_gather_op", "launch_counts", "reset_launch_counts", "ssd_op",
-           "wkv6_op"]
+           "lcp_gather_op", "launch_counts", "reset_launch_counts",
+           "ssd_bwd_op", "ssd_op", "wkv6_bwd_op", "wkv6_op"]
 
 
 _LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "auction_fused": 0,
              "fused_phase1": 0, "lcp_affinity": 0, "lcp_gather": 0,
              "flash_attention": 0, "flash_attention_bwd": 0,
-             "decode_attention": 0, "wkv6": 0, "ssd": 0}
+             "decode_attention": 0, "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
+             "ssd_bwd": 0}
 
 
 def _route(t: torch.Tensor) -> str:
@@ -66,14 +69,15 @@ def _needs_grad(*tensors) -> bool:
 def _cuda_forward_only(name: str, *tensors) -> str:
     """``_route`` of the first tensor, raising on CUDA when an input
     requires grad under grad mode: the kernel's output would carry no
-    gradient, and no backward kernel exists for ``name`` yet."""
+    gradient, and ``name`` has no backward kernel (training never calls
+    it)."""
     route = _route(tensors[0])
     if route == "cuda" and _needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: no backward kernel exists yet on CUDA (ROADMAP.md, "
-            "queue 1, item 5b), and an input requires grad under grad mode; "
-            "call it under torch.no_grad(), or on the CPU, where its plain "
-            "version differentiates")
+            f"{name}: no backward kernel on CUDA (training does not call "
+            "this op), and an input requires grad under grad mode; call it "
+            "under torch.no_grad(), or on the CPU, where its plain version "
+            "differentiates")
     return route
 
 
@@ -206,27 +210,117 @@ def decode_attention_op(q, k_cache, v_cache, valid):
     return decode_attention_plain(q, k_cache, v_cache, valid)
 
 
+def _state_grad(dst):
+    """The final state's gradient for a backward kernel: None (the state
+    was not used, so no zeros are filled) or contiguous."""
+    return None if dst is None else dst.contiguous()
+
+
+class _WKV6(torch.autograd.Function):
+    """The WKV6 kernel with its gradient: the forward asks the kernel for
+    each chunk's incoming state and saves r, k, v, log_w, u, those states
+    and the final state (a re-run forward under remat saves its own); the
+    backward runs ``wkv6_bwd_op`` (looked up when it runs, so a recorder
+    that stands in for the op sees the call).  In training the final state
+    is discarded, so its gradient arrives as None and reaches the kernel
+    as a null pointer."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, s0):
+        o, s_t, states = wkv6_cuda(r, k, v, log_w, u, s0, return_states=True)
+        _LAUNCHES["wkv6"] += 1
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, log_w, u, states, s_t)
+        return o, s_t
+
+    @staticmethod
+    def backward(ctx, do, dst):
+        r, k, v, log_w, u, states, s_t = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.contiguous()
+        grads = wkv6_bwd_op(r, k, v, log_w, u, states, s_t, do,
+                            _state_grad(dst),
+                            want_ds0=ctx.needs_input_grad[5])
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def wkv6_op(r, k, v, log_w, u, s0=None):
     """The RWKV-6 recurrence from state s0 (None: zeros): r, k, v, log_w
     [B, S, H, dk], u [H, dk] -> (o [B, S, H, dk], sT [B, H, dk, dk]); see
-    `kernels/wkv6.py`."""
-    if _cuda_forward_only("wkv6", r, k, v, log_w, u, s0) == "cuda":
+    `kernels/wkv6.py`.  On CUDA with an input that requires grad (under
+    grad mode) it runs through `_WKV6`, so the backward kernel gives the
+    inputs their gradients; otherwise the kernel is called directly."""
+    if _route(r) == "cuda":
+        if _needs_grad(r, k, v, log_w, u, s0):
+            return _WKV6.apply(r, k, v, log_w, u, s0)
         out = wkv6_cuda(r, k, v, log_w, u, s0)
         _LAUNCHES["wkv6"] += 1
         return out
     return wkv6_plain(r, k, v, log_w, u, s0)
 
 
+def wkv6_bwd_op(r, k, v, log_w, u, states, s_t, do, dst=None, *,
+                want_ds0=False):
+    """WKV6's gradient on the card: the forward's inputs, its per-chunk
+    ``states`` and final state, the output's gradient and the final
+    state's (None: zeros) -> (dr, dk, dv, dlog_w, du, ds0); see
+    `kernels/wkv6.py`.  Only ``_WKV6``'s backward calls it, and that
+    Function runs only on CUDA."""
+    out = wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst,
+                        want_ds0=want_ds0)
+    _LAUNCHES["wkv6_bwd"] += 1
+    return out
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD kernel with its gradient, as `_WKV6`: the forward saves the
+    inputs and each chunk's incoming state; the backward runs
+    ``ssd_bwd_op``."""
+
+    @staticmethod
+    def forward(ctx, x, bmat, cmat, dt, a_log, d_skip, s0):
+        y, s_t, states = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0,
+                                  return_states=True)
+        _LAUNCHES["ssd"] += 1
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, bmat, cmat, dt, a_log, d_skip, states)
+        return y, s_t
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        x, bmat, cmat, dt, a_log, d_skip, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        grads = ssd_bwd_op(x, bmat, cmat, dt, a_log, d_skip, states, dy,
+                           _state_grad(dst),
+                           want_ds0=ctx.needs_input_grad[6])
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def ssd_op(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     """The Mamba-2 SSD scan from state s0 (None: zeros): x [B, S, H, hd],
     bmat/cmat [B, S, ds], dt [B, S, H], a_log/d_skip [H] -> (y [B, S, H,
-    hd], sT [B, H, hd, ds]); see `kernels/ssd.py`."""
-    if _cuda_forward_only("ssd", x, bmat, cmat, dt, a_log, d_skip,
-                          s0) == "cuda":
+    hd], sT [B, H, hd, ds]); see `kernels/ssd.py`.  On CUDA under grad it
+    runs through `_SSD`, as `wkv6_op` through `_WKV6`."""
+    if _route(x) == "cuda":
+        if _needs_grad(x, bmat, cmat, dt, a_log, d_skip, s0):
+            return _SSD.apply(x, bmat, cmat, dt, a_log, d_skip, s0)
         out = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0)
         _LAUNCHES["ssd"] += 1
         return out
     return ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0)
+
+
+def ssd_bwd_op(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None, *,
+               want_ds0=False):
+    """SSD's gradient on the card: the forward's inputs, its per-chunk
+    ``states``, the output's gradient and the final state's (None: zeros)
+    -> (dx, dB, dC, ddt, da_log, dD, ds0); see `kernels/ssd.py`.  Only
+    ``_SSD``'s backward calls it, and that Function runs only on CUDA."""
+    out = ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst,
+                       want_ds0=want_ds0)
+    _LAUNCHES["ssd_bwd"] += 1
+    return out
 
 
 def launch_counts() -> dict[str, int]:

@@ -9,7 +9,9 @@ order).  The tests hold these against the JAX package's oracles
 against them on the card, and `kernels/ops.py` uses them for CPU tensors
 only.  `wkv6_ref` and `ssd_ref` are the stepwise recurrences: the oracles
 of the chunked plain versions in `kernels/wkv6.py` and `kernels/ssd.py`,
-which are what the scan kernels and the CPU path compute.
+which are what the scan kernels and the CPU path compute.  `scan_vjp` is
+autograd through such a plain forward: the backward oracle that
+`wkv6_bwd_plain` and `ssd_bwd_plain` share.
 """
 from __future__ import annotations
 
@@ -213,3 +215,28 @@ def ssd_ref(x, bmat, cmat, dt, a_log, d_skip, s0):
         outs.append(y + d_skip[None, :, None] * x[:, t])
     y = torch.stack(outs, dim=1) if outs else torch.zeros_like(x)
     return y, state
+
+
+# ---------------- scan gradients ----------------
+
+def scan_vjp(plain, inputs, s0, state_shape, do, dst):
+    """``torch.autograd.grad`` of ``plain(*inputs, s0)`` at the cotangents
+    do (of the output) and dst (of the final state; None: zeros), s0 None
+    meaning a zero state.  Returns the gradients of ``inputs`` and of s0,
+    each in its input's dtype (a zero gradient where the function does not
+    read an input)."""
+    dev = inputs[0].device
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        state = (torch.zeros(state_shape, dtype=torch.float32, device=dev)
+                 if s0 is None else s0.detach().float())
+        state.requires_grad_(True)
+        out, s_t = plain(*leaves, state)
+        outs, cots = [out], [do.to(out.dtype)]
+        if dst is not None:
+            outs.append(s_t)
+            cots.append(dst.float())
+        grads = torch.autograd.grad(outs, [*leaves, state], cots,
+                                    allow_unused=True)
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, (*leaves, state)))

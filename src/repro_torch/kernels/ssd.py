@@ -20,9 +20,10 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import scan_vjp
 from repro_torch.kernels.wkv6 import CHUNK, _pad_chunks
 
-__all__ = ["ssd_cuda", "ssd_plain"]
+__all__ = ["ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda", "ssd_plain"]
 
 MAX_STATE = 64
 _P = ctypes.c_void_p
@@ -78,11 +79,23 @@ def ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     return y[:, :s].to(x.dtype), state
 
 
+def ssd_bwd_plain(x, bmat, cmat, dt, a_log, d_skip, s0, dy, dst=None):
+    """The gradient of `ssd_plain` at (x, B, C, dt, a_log, D, s0) given the
+    output's gradient ``dy`` [B, S, H, hd] and the final state's ``dst``
+    [B, H, hd, ds] (None: zeros; s0 None: a zero state), by PyTorch's
+    autograd through the plain chunked forward: the oracle of
+    `ssd_bwd_cuda`, independent of its recipe.  Returns (dx, dB, dC, ddt,
+    da_log, dD, ds0), dx/dB/dC in x's dtype, the rest float32."""
+    b, _, h, hd = x.shape
+    return scan_vjp(ssd_plain, (x, bmat, cmat, dt, a_log, d_skip), s0,
+                    (b, h, hd, bmat.shape[-1]), dy, dst)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd")
     fn = lib.ssd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P]
     fn.restype = ctypes.c_int
     lib.ssd_scratch_floats.argtypes = [_I] * 4
     lib.ssd_scratch_floats.restype = ctypes.c_longlong
@@ -95,24 +108,20 @@ def _scratch_floats(*shape) -> int:
     return _lib().ssd_scratch_floats(*shape)
 
 
-def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
-    """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
-    one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
-    d_skip and s0 float32; ds <= 64), launched on the current stream as
-    two kernels (no zero state is filled when s0 is None).  Raises on any
-    other input and on a failed launch."""
+def _check_inputs(name, x, bmat, cmat, dt, a_log, d_skip, s0):
+    """Raise unless (x, B, C, dt, a_log, D, s0) is what the kernels take."""
     dev = x.device
     tensors = (x, bmat, cmat, dt, a_log, d_skip) + (() if s0 is None
                                                      else (s0,))
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("ssd_cuda takes CUDA tensors on one device")
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
-        raise TypeError("ssd_cuda takes x, bmat, cmat all float32 or all "
+        raise TypeError(f"{name} takes x, bmat, cmat all float32 or all "
                         "bfloat16")
     if any(t.dtype != torch.float32 for t in (dt, a_log, d_skip)) \
             or (s0 is not None and s0.dtype != torch.float32):
-        raise TypeError("ssd_cuda takes dt, a_log, d_skip and s0 in float32")
+        raise TypeError(f"{name} takes dt, a_log, d_skip and s0 in float32")
     if x.dim() != 4:
         raise ValueError(f"x {tuple(x.shape)} is not [B, S, H, hd]")
     b, s, h, hd = x.shape
@@ -129,10 +138,28 @@ def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     if s0 is not None and tuple(s0.shape) != (b, h, hd, ds):
         raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, hd, ds]")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_cuda takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None, *,
+             return_states=False):
+    """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
+    one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
+    d_skip and s0 float32; ds <= 64), launched on the current stream as
+    two kernels (no zero state is filled when s0 is None).  With
+    ``return_states`` it also returns each chunk's incoming state, float32
+    [B, H, n_chunks, hd, ds] (what `ssd_bwd_cuda` reads), with y and sT
+    the same bits as without.  Raises on any other input and on a failed
+    launch."""
+    _check_inputs("ssd_cuda", x, bmat, cmat, dt, a_log, d_skip, s0)
+    dev = x.device
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
     lib = _lib()
     y = torch.empty_like(x)
     s_t = torch.empty((b, h, hd, ds), dtype=torch.float32, device=dev)
+    states = (torch.empty((b, h, -(-s // CHUNK), hd, ds), dtype=torch.float32,
+                          device=dev) if return_states else None)
     scratch = torch.empty(_scratch_floats(b, s, h, hd),
                           dtype=torch.float32, device=dev)
     bf16 = x.dtype == torch.bfloat16
@@ -143,8 +170,78 @@ def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None):
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
         a_log.data_ptr(), d_skip.data_ptr(),
         None if s0 is None else s0.data_ptr(), scratch.data_ptr(),
-        y.data_ptr(), s_t.data_ptr(), b, s, h, hd, ds, int(bf16),
-        int(vec_x), int(vec_bc), torch.cuda.current_stream(dev).cuda_stream)
+        y.data_ptr(), s_t.data_ptr(),
+        None if states is None else states.data_ptr(), b, s, h, hd, ds,
+        int(bf16), int(vec_x), int(vec_bc),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
-    return y, s_t
+    return (y, s_t, states) if return_states else (y, s_t)
+
+
+MAX_BWD_HEAD = 256
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("ssd_bwd")
+    lib.ssd_bwd_launch.argtypes = [_P] * 21 + [_I] * 6 + [_P]
+    lib.ssd_bwd_launch.restype = ctypes.c_int
+    lib.ssd_bwd_groups.argtypes = [_I]
+    lib.ssd_bwd_groups.restype = ctypes.c_int
+    return lib
+
+
+def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
+                 want_ds0=False):
+    """The gradient of `ssd_cuda` (``csrc/ssd_bwd.cu``): its inputs as it
+    took them, its ``states`` (``return_states=True``), the output's
+    gradient ``dy`` (x's dtype and shape) and the
+    final state's ``dst`` (None: zeros, no buffer filled) -> (dx, dB, dC,
+    ddt, da_log, dD, ds0): dx/dB/dC in x's dtype, the rest float32, ds0
+    None unless ``want_ds0``.  Launched on the current stream as four
+    kernels, with float32 scratch: one hd x ds matrix per chunk and head
+    (each chunk's outgoing state gradient) and the head groups' partial
+    sums of dB and dC.  Takes hd <= 256.  Raises on any input the forward
+    would refuse, on states, dy or dst of another shape or type, and on a
+    failed launch."""
+    _check_inputs("ssd_bwd_cuda", x, bmat, cmat, dt, a_log, d_skip, None)
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
+    if hd > MAX_BWD_HEAD:
+        raise ValueError(f"head size {hd} is not in 1..{MAX_BWD_HEAD}")
+    n = -(-s // CHUNK)
+    dev = x.device
+    shapes = {"states": (states, (b, h, n, hd, ds), torch.float32),
+              "dy": (dy, tuple(x.shape), x.dtype)}
+    if dst is not None:
+        shapes["dst"] = (dst, (b, h, hd, ds), torch.float32)
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"ssd_bwd_cuda: {name} {tuple(t.shape)} "
+                             f"{t.dtype} is not a contiguous {dtype} {shape} "
+                             f"on {dev}")
+    lib = _bwd_lib()
+    groups = lib.ssd_bwd_groups(h)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, db, dc = (torch.empty_like(t) for t in (x, bmat, cmat))
+    ddt, da_log, dd = (torch.empty_like(t) for t in (dt, a_log, d_skip))
+    ds0 = torch.empty((b, h, hd, ds), **f32) if want_ds0 else None
+    dstates = torch.empty_like(states)
+    db_part, dc_part = (torch.empty((b, s, groups, ds), **f32)
+                        for _ in range(2))
+    dd_part, da_part = (torch.empty((b, n, h), **f32) for _ in range(2))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.ssd_bwd_launch(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
+        states.data_ptr(), ptr(dst), dstates.data_ptr(),
+        db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
+        da_part.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        ddt.data_ptr(), da_log.data_ptr(), dd.data_ptr(), ptr(ds0), b, s, h,
+        hd, ds, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {err}")
+    return dx, db, dc, ddt, da_log, dd, ds0

@@ -22,8 +22,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import scan_vjp
 
-__all__ = ["CHUNK", "wkv6_cuda", "wkv6_plain"]
+__all__ = ["CHUNK", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda",
+           "wkv6_plain"]
 
 CHUNK = 16
 MAX_HEAD_DIM = 64
@@ -88,11 +90,23 @@ def wkv6_plain(r, k, v, log_w, u, s0=None):
     return o[:, :s].to(r.dtype), state
 
 
+def wkv6_bwd_plain(r, k, v, log_w, u, s0, do, dst=None):
+    """The gradient of `wkv6_plain` at (r, k, v, log_w, u, s0) given the
+    output's gradient ``do`` [B, S, H, dk] and the final state's ``dst``
+    [B, H, dk, dk] (None: zeros; s0 None: a zero state), by PyTorch's
+    autograd through the plain chunked forward: the oracle of
+    `wkv6_bwd_cuda`, independent of its recipe.  Returns (dr, dk, dv,
+    dlog_w, du, ds0), dr/dk/dv in r's dtype, the rest float32."""
+    b, _, h, dk = r.shape
+    return scan_vjp(wkv6_plain, (r, k, v, log_w, u), s0, (b, h, dk, dk), do,
+                    dst)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("wkv6")
     fn = lib.wkv6_launch
-    fn.argtypes = [_P] * 9 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [_P]
     fn.restype = ctypes.c_int
     lib.wkv6_scratch_floats.argtypes = [_I] * 5
     lib.wkv6_scratch_floats.restype = ctypes.c_longlong
@@ -105,29 +119,24 @@ def _scratch_floats(*shape) -> int:
     return _lib().wkv6_scratch_floats(*shape)
 
 
-def wkv6_cuda(r, k, v, log_w, u, s0=None):
-    """The kernel: ``wkv6_plain``'s function on contiguous CUDA tensors of
-    one device (r, k, v all float32 or all bfloat16; log_w, u and s0
-    float32; dk <= 64), launched on the current stream as two kernels (no
-    zero state is filled when s0 is None).  Raises on any other input and
-    on a failed launch."""
+def _check_inputs(name, r, k, v, log_w, u, s0):
+    """Raise unless (r, k, v, log_w, u, s0) is what the kernels take."""
     dev = r.device
     tensors = (r, k, v, log_w, u) + (() if s0 is None else (s0,))
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("wkv6_cuda takes CUDA tensors on one device")
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if r.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError("wkv6_cuda takes r, k, v all float32 or all "
-                        "bfloat16")
+        raise TypeError(f"{name} takes r, k, v all float32 or all bfloat16")
     if log_w.dtype != torch.float32 or u.dtype != torch.float32 \
             or (s0 is not None and s0.dtype != torch.float32):
-        raise TypeError("wkv6_cuda takes log_w, u and s0 in float32")
+        raise TypeError(f"{name} takes log_w, u and s0 in float32")
     if r.dim() != 4 or k.shape != r.shape or v.shape != r.shape \
             or log_w.shape != r.shape:
         raise ValueError(f"r, k, v, log_w must share one [B, S, H, dk] "
                          f"shape, got {tuple(r.shape)} / {tuple(k.shape)} / "
                          f"{tuple(v.shape)} / {tuple(log_w.shape)}")
-    b, s, h, dk = r.shape
+    b, _, h, dk = r.shape
     if not 0 < dk <= MAX_HEAD_DIM:
         raise ValueError(f"head size {dk} is not in 1..{MAX_HEAD_DIM}")
     if tuple(u.shape) != (h, dk):
@@ -135,10 +144,25 @@ def wkv6_cuda(r, k, v, log_w, u, s0=None):
     if s0 is not None and tuple(s0.shape) != (b, h, dk, dk):
         raise ValueError(f"s0 {tuple(s0.shape)} is not [B, H, dk, dk]")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("wkv6_cuda takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False):
+    """The kernel: ``wkv6_plain``'s function on contiguous CUDA tensors of
+    one device (r, k, v all float32 or all bfloat16; log_w, u and s0
+    float32; dk <= 64), launched on the current stream as two kernels (no
+    zero state is filled when s0 is None).  With ``return_states`` it also
+    returns each chunk's incoming state, float32 [B, H, n_chunks, dk, dk]
+    (what `wkv6_bwd_cuda` reads), with o and sT the same bits as without.
+    Raises on any other input and on a failed launch."""
+    _check_inputs("wkv6_cuda", r, k, v, log_w, u, s0)
+    dev = r.device
+    b, s, h, dk = r.shape
     lib = _lib()
     o = torch.empty_like(r)
     s_t = torch.empty((b, h, dk, dk), dtype=torch.float32, device=dev)
+    states = (torch.empty((b, h, -(-s // CHUNK), dk, dk), dtype=torch.float32,
+                          device=dev) if return_states else None)
     bf16 = r.dtype == torch.bfloat16
     scratch = torch.empty(_scratch_floats(b, s, h, dk, int(bf16)),
                           dtype=torch.float32, device=dev)
@@ -146,8 +170,64 @@ def wkv6_cuda(r, k, v, log_w, u, s0=None):
     err = lib.wkv6_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
         u.data_ptr(), None if s0 is None else s0.data_ptr(),
-        scratch.data_ptr(), o.data_ptr(), s_t.data_ptr(), b, s, h, dk,
+        scratch.data_ptr(), o.data_ptr(), s_t.data_ptr(),
+        None if states is None else states.data_ptr(), b, s, h, dk,
         int(bf16), int(vec), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
-    return o, s_t
+    return (o, s_t, states) if return_states else (o, s_t)
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("wkv6_bwd")
+    lib.wkv6_bwd_launch.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+    lib.wkv6_bwd_launch.restype = ctypes.c_int
+    return lib
+
+
+def wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst=None,
+                  want_ds0=False):
+    """The gradient of `wkv6_cuda` (``csrc/wkv6_bwd.cu``): its inputs r, k,
+    v, log_w, u as it took them, its ``states`` (``return_states=True``)
+    and final state ``s_t``, the output's gradient ``do`` (r's dtype and
+    shape) and the final state's ``dst`` (None: zeros, no buffer filled)
+    -> (dr, dk, dv, dlog_w, du, ds0): dr/dk/dv in r's dtype, the rest
+    float32, ds0 None unless ``want_ds0``.  Launched on the current stream
+    as three kernels, with a float32 scratch of one dk x dk matrix per
+    chunk and head (each chunk's outgoing state gradient).  Raises on any
+    input the forward would refuse, on states, s_t, do or dst of another
+    shape or type, and on a failed launch."""
+    _check_inputs("wkv6_bwd_cuda", r, k, v, log_w, u, None)
+    b, s, h, dk = r.shape
+    n = -(-s // CHUNK)
+    dev = r.device
+    shapes = {"states": (states, (b, h, n, dk, dk), torch.float32),
+              "s_t": (s_t, (b, h, dk, dk), torch.float32),
+              "do": (do, tuple(r.shape), r.dtype)}
+    if dst is not None:
+        shapes["dst"] = (dst, (b, h, dk, dk), torch.float32)
+    for name, (t, shape, dtype) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"wkv6_bwd_cuda: {name} {tuple(t.shape)} "
+                             f"{t.dtype} is not a contiguous {dtype} {shape} "
+                             f"on {dev}")
+    dr, dk_, dv = (torch.empty_like(t) for t in (r, k, v))
+    dlog_w = torch.empty_like(log_w)
+    du = torch.empty_like(u)
+    ds0 = (torch.empty((b, h, dk, dk), dtype=torch.float32, device=dev)
+           if want_ds0 else None)
+    dstates = torch.empty_like(states)
+    du_part = torch.empty((b, n, h, dk), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _bwd_lib().wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), do.data_ptr(), states.data_ptr(), s_t.data_ptr(),
+        ptr(dst), dstates.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
+        dk_.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(),
+        ptr(ds0), b, s, h, dk, int(r.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")
+    return dr, dk_, dv, dlog_w, du, ds0

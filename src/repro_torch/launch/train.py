@@ -5,7 +5,9 @@ The reference's ``python -m repro.launch.train`` with its flags and printed
 lines, plus ``--device {cuda,cpu}`` (default ``cuda``): without a card
 ``--device cuda`` raises, and nothing moves to the CPU unless asked.
 ``--smoke`` trains the reduced config of the same family (float32, widths
-64 · ``--scale``).  Fault tolerance: atomic checkpoints and
+64 · ``--scale``).  Every architecture trains on the card: the kernels on
+its path (flash attention, the WKV6 and SSD scans) have backward kernels
+(`kernels/ops.py`).  Fault tolerance: atomic checkpoints and
 resume-from-latest (``--ckpt-dir``).  The reference shards over several
 devices through its mesh and sharding policy, which the port has not yet;
 with several cards visible it trains on one and says so.

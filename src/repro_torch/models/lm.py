@@ -31,7 +31,10 @@ block).
   ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
   forward runs once keeping only its inputs, and once more in the
   backward.  On the card every attention call therefore launches the
-  flash kernel twice per step and its backward kernel once.
+  flash kernel twice per step and its backward kernel once, and every
+  RWKV-6 or Mamba-2 layer its scan kernel twice and the scan's backward
+  kernel once (a zamba group's re-run forward keeps the saved states of
+  its layers until the group's backward has read them).
 """
 from __future__ import annotations
 

@@ -4,7 +4,11 @@ The port of the reference's `repro.models.ssm`.  The parallel (prefill,
 extend) forms run the recurrence in chunks of 16 tokens through
 `kernels/ops.py`: ``wkv6_op`` and ``ssd_op`` launch the hand-written CUDA
 kernels on a CUDA tensor and run their plain chunked versions on a CPU
-tensor, from the stored state when there is one.  The one-token decode
+tensor, from the stored state when there is one.  Under grad on the card
+they run through ``torch.autograd.Function``s whose backward is a
+hand-written kernel too (``csrc/wkv6_bwd.cu``, ``csrc/ssd_bwd.cu``); the
+casts ``u.float()``, ``a_log.float()`` and ``d_skip.float()`` below are
+differentiable, so the model's parameters get their gradients.  The one-token decode
 forms (`wkv6_step`, `ssd_step`) are the exact recurrence in plain PyTorch,
 as the reference left them to jnp.
 

@@ -2,8 +2,9 @@
 (the reference's `repro.training.loop`).
 
 ``make_train_step`` builds the step: the model's ``loss`` and its gradient
-by PyTorch's autograd (on the card the attention's gradient is the
-hand-written backward kernel, `kernels/ops.py`), optional compression, then
+by PyTorch's autograd (on the card the gradients of the attention and of
+the WKV6 and SSD scans are hand-written backward kernels,
+`kernels/ops.py`), optional compression, then
 AdamW; ``train_loop`` adds the fault-tolerance shell (periodic atomic
 checkpoints, resume-from-latest, an optional injected crash for tests).
 The reference jits its step and donates its buffers; here the step runs

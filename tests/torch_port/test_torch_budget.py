@@ -27,6 +27,7 @@ TIER1_MODULES = {
     "test_torch_moe_mla",
     "test_torch_recurrent",
     "test_torch_router",
+    "test_torch_scan_bwd",
     "test_torch_scan_design",
     "test_torch_serve",
     "test_torch_simulator",

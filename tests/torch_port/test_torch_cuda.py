@@ -15,9 +15,14 @@ row log-sum-exp against the plain one (its output the same bits with and
 without it), the flash-attention backward kernel, fed that LSE, against
 its plain version at the training paths' shapes (float32
 within 1e-4 and bf16 within 3e-2 of each output's largest plain
-magnitude), bit for bit from run to run, the reduced models' gradients
-on the card against the CPU's, and the kernel ops without a backward
-raising under grad.  These need an NVIDIA GPU
+magnitude), bit for bit from run to run, the WKV6 and SSD backward
+kernels against their plain versions (autograd through the plain
+forwards) under the same gates, each row (a token and head; a token of
+dB / dC) within 2e-2 of its own largest plain value, the scan forwards'
+bits the same with and without their saved states, the scan ops under
+grad never reaching a plain version, the reduced models' gradients (the
+recurrent families' too) on the card against the CPU's, and the kernel
+ops without a backward raising under grad.  These need an NVIDIA GPU
 (and ``nvcc`` to build the kernels); where none is present they skip,
 deciding inside the fixture.  Attention tolerances are the reference's:
 2e-5 in float32, 3e-2 in bfloat16.  WKV6 and SSD: 1e-3 in float32 (the
@@ -225,7 +230,8 @@ def test_ops_count_kernel_launches(dev):
                                    "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0, "wkv6": 1,
-                                   "ssd": 1}
+                                   "wkv6_bwd": 0, "ssd": 1,
+                                   "ssd_bwd": 0}
 
 
 def _router_lockstep(dev, n_agents, cfg, batches, n_req):
@@ -1227,12 +1233,15 @@ def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, hkv, d, causal,
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "mixtral-8x22b",
-                                  "seamless-m4t-medium"])
+                                  "seamless-m4t-medium", "rwkv6-3b",
+                                  "zamba2-7b"])
 def test_cuda_gradients_match_cpu(dev, arch):
     """A reduced float32 model's loss and gradients on the card (the flash
-    kernel behind its autograd Function, TF32 off) against the CPU's
-    plain autograd on the same weights, with 2·L forward and L backward
-    flash launches under remat."""
+    and scan kernels behind their autograd Functions, TF32 off) against
+    the CPU's plain autograd on the same weights, with 2·L forward and L
+    backward launches of each kernel under remat (L its calls in one
+    forward: attention layers, encoder and decoder calls, the scan layers,
+    zamba2's shared-block applications)."""
     import copy
 
     from repro_torch.configs import get_config
@@ -1267,22 +1276,21 @@ def test_cuda_gradients_match_cpu(dev, arch):
     for g, w in zip(tree_leaves(grads), tree_leaves(want)):
         assert float((g.cpu() - w).abs().max()) \
             <= 1e-4 * float(w.abs().max()) + 1e-12
-    calls = cfg.enc_layers + 2 * cfg.n_layers if cfg.is_encdec \
-        else cfg.n_layers
-    assert counts["flash_attention"] == 2 * calls
-    assert counts["flash_attention_bwd"] == calls
+    if cfg.is_encdec:
+        calls = {"flash_attention": cfg.enc_layers + 2 * cfg.n_layers}
+    elif cfg.ssm_kind == "rwkv6":
+        calls = {"wkv6": cfg.n_layers, "flash_attention": 0}
+    elif cfg.ssm_kind == "mamba2":
+        calls = {"ssd": cfg.n_layers,
+                 "flash_attention": cfg.n_layers // cfg.attn_every}
+    else:
+        calls = {"flash_attention": cfg.n_layers}
+    for op, n in calls.items():
+        assert counts[op] == 2 * n and counts[f"{op}_bwd"] == n, counts
 
 
 def test_kernel_ops_without_a_backward_raise_under_grad(dev):
     rng = np.random.default_rng(0)
-    x = _normal((1, 32, 2, 16), torch.float32, dev, rng).requires_grad_(True)
-    u = _normal((2, 16), torch.float32, dev, rng)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ops.wkv6_op(x, x, x, x, u)
-    bmat = _normal((1, 32, 8), torch.float32, dev, rng)
-    dt = torch.rand((1, 32, 2), device=dev)
-    with pytest.raises(NotImplementedError, match="no backward kernel"):
-        ops.ssd_op(x, bmat, bmat, dt, u[:, 0], u[:, 1])
     q = _normal((1, 2, 16), torch.float32, dev, rng).requires_grad_(True)
     cache = _normal((1, 8, 2, 16), torch.float32, dev, rng)
     valid = torch.ones((1, 8), dtype=torch.bool, device=dev)
@@ -1311,3 +1319,152 @@ def test_flash_op_without_grad_launches_only_the_forward(dev):
     assert counts["flash_attention"] == 2
     assert counts["flash_attention_bwd"] == 1
     assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+
+
+# the scans' backward kernels: rwkv6-3b's and zamba2-7b's head layouts at
+# the lockstep's and train_4k's lengths, ragged and narrow shapes
+
+def _scan_bwd_gates(got, want, rows, dtype):
+    """Each gradient within BWD_TOL of its largest plain magnitude and, for
+    the ``rows`` ones (last axis a row), each row within BWD_ROW_TOL of its
+    own largest plain value, floored at BWD_ROW_FLOOR."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert bool(torch.isfinite(g.float()).all()), i
+        g, w = g.float(), w.float()
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= BWD_TOL[dtype] * scale, i
+        if i in rows:
+            least = BWD_ROW_FLOOR * scale
+            err = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(least)
+            assert float(err.max()) <= BWD_ROW_TOL, i
+
+
+def _strong_wkv6(args, dev, seed):
+    rng = np.random.default_rng(seed)
+    lw = np.clip(-np.exp(rng.standard_normal(tuple(args[3].shape)) * 2.0
+                         + 1.0), -50.0, -1e-3).astype(np.float32)
+    return (*args[:3], torch.from_numpy(lw).to(dev), *args[4:])
+
+
+def _strong_ssd(args, dev, seed):
+    rng = np.random.default_rng(seed)
+    dt = np.minimum(np.abs(rng.standard_normal(tuple(args[3].shape)))
+                    * 10.0, 20.0).astype(np.float32)
+    return (args[0] * 0.05, *args[1:3], torch.from_numpy(dt).to(dev),
+            *args[4:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,dk,state,grad_st,strong", [
+    (2, 61, 40, 64, True, True, False),       # rwkv6-3b, ragged
+    (2, 512, 40, 64, False, False, False),    # phase 24's lockstep
+    (1, 4096, 40, 64, False, False, False),   # train_4k
+    (2, 512, 40, 64, True, True, True),       # log_w down to -50
+    (2, 37, 3, 16, True, False, False), (1, 100, 2, 24, False, True, True)])
+def test_wkv6_bwd_kernel_matches_plain(dev, b, s, h, dk, state, grad_st,
+                                       strong, dtype):
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+
+    args = wkv6_inputs(b, s, h, dk, dtype, state, dev, s + dk)
+    if strong:
+        args = _strong_wkv6(args, dev, s)
+    rng = np.random.default_rng(dk)
+    do = _normal((b, s, h, dk), dtype, dev, rng)
+    dst = _normal((b, h, dk, dk), torch.float32, dev, rng) if grad_st \
+        else None
+    _, s_t, states = wkv6_cuda(*args, return_states=True)
+    got = wkv6_bwd_cuda(*args[:5], states, s_t, do, dst, want_ds0=True)
+    want = wkv6_bwd_plain(*args, do, dst)
+    torch.cuda.synchronize()
+    _scan_bwd_gates(got, want, {0, 1, 2, 3}, dtype)
+    again = wkv6_bwd_cuda(*args[:5], states, s_t, do, dst, want_ds0=True)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)               # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd,ds,state,grad_st,strong", [
+    (2, 61, 112, 64, 64, True, True, False),      # zamba2-7b, ragged
+    (2, 512, 112, 64, 64, False, False, False),   # phase 24's lockstep
+    (1, 4096, 112, 64, 64, False, False, False),  # train_4k
+    (2, 512, 112, 64, 64, True, True, True),      # dt up to 20
+    (2, 37, 3, 24, 16, True, False, False),
+    (1, 100, 9, 32, 40, False, True, True)])
+def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, hd, ds, state, grad_st,
+                                      strong, dtype):
+    from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_bwd_plain
+
+    args = ssd_inputs(b, s, h, hd, ds, dtype, state, dev, s + hd)
+    if strong:
+        args = _strong_ssd(args, dev, s)
+    rng = np.random.default_rng(hd)
+    dy = _normal((b, s, h, hd), dtype, dev, rng)
+    dst = _normal((b, h, hd, ds), torch.float32, dev, rng) if grad_st \
+        else None
+    _, _, states = ssd_cuda(*args, return_states=True)
+    got = ssd_bwd_cuda(*args[:6], states, dy, dst, want_ds0=True)
+    want = ssd_bwd_plain(*args, dy, dst)
+    torch.cuda.synchronize()
+    _scan_bwd_gates(got, want, {0, 1, 2}, dtype)
+    again = ssd_bwd_cuda(*args[:6], states, dy, dst, want_ds0=True)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)               # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_forwards_keep_their_bits_with_states(dev, dtype):
+    """The forward kernels give the same output and final state with and
+    without ``return_states``, and the saved states are the plain chunked
+    recurrence's incoming states (chunk 0's is s0)."""
+    args = wkv6_inputs(2, 61, 40, 64, dtype, True, dev, 7)
+    o, s_t = wkv6_cuda(*args)
+    o2, s_t2, states = wkv6_cuda(*args, return_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(s_t, s_t2)
+    assert states.shape == (2, 40, 4, 64, 64)
+    assert torch.equal(states[:, :, 0], args[5])
+    tail = [a[:, 48:] for a in args[:4]]
+    _, want = wkv6_plain(*tail, args[4], states[:, :, 3])
+    assert float((want - s_t).abs().max()) < 1e-3
+    args = ssd_inputs(2, 61, 112, 64, 64, dtype, True, dev, 8)
+    y, s_t = ssd_cuda(*args)
+    y2, s_t2, states = ssd_cuda(*args, return_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s_t, s_t2)
+    assert torch.equal(states[:, :, 0], args[6])
+    tail = [a[:, 48:] for a in args[:4]]
+    _, want = ssd_plain(*tail, *args[4:6], states[:, :, 3])
+    assert float((want - s_t).abs().max()) < 1e-3
+
+
+def test_scan_ops_under_grad_never_reach_a_plain_version(dev, monkeypatch):
+    """On the card, wkv6_op and ssd_op under grad run the kernels forward
+    and backward: with every plain version patched to raise, the gradients
+    still come, with one forward and one backward launch each."""
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.kernels import wkv6 as wkv6_mod
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    for mod, names in ((ops, ("wkv6_plain", "ssd_plain")),
+                       (wkv6_mod, ("wkv6_plain", "wkv6_bwd_plain")),
+                       (ssd_mod, ("ssd_plain", "ssd_bwd_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    ops.reset_launch_counts()
+    args = [a.requires_grad_(True) if a.dtype == torch.float32 else a
+            for a in wkv6_inputs(1, 40, 4, 64, torch.float32, True, dev, 9)]
+    o, _ = ops.wkv6_op(*args)
+    grads = torch.autograd.grad(o.sum(), args)
+    args = [a.requires_grad_(True)
+            for a in ssd_inputs(1, 40, 4, 64, 64, torch.float32, True, dev,
+                                10)]
+    y, _ = ops.ssd_op(*args)
+    grads += torch.autograd.grad(y.sum(), args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    counts = ops.launch_counts()
+    assert [counts[k] for k in ("wkv6", "wkv6_bwd", "ssd", "ssd_bwd")] \
+        == [1, 1, 1, 1]

@@ -62,7 +62,8 @@ def test_lcp_plain_matches_reference_oracle_and_pallas(seed):
                                    "flash_attention": 0,
                                    "flash_attention_bwd": 0,
                                    "decode_attention": 0, "wkv6": 0,
-                                   "ssd": 0}
+                                   "wkv6_bwd": 0, "ssd": 0,
+                                   "ssd_bwd": 0}
 
 
 def test_lcp_plain_edge_widths():

@@ -73,10 +73,13 @@ def chunks(t: torch.Tensor, s: int) -> torch.Tensor:
 
 # ---------------- the SSD recipe ----------------
 
-def ssd_recipe(x, bm, cm, dt, a_log, d_skip, s0, dtype, parts_of=None):
+def ssd_recipe(x, bm, cm, dt, a_log, d_skip, s0, dtype, parts_of=None,
+               states=None):
     """(y, sT) as ``ssd_intra_kernel`` then ``ssd_state_kernel`` compute
     them; inputs are float32 tensors holding the instance's input values;
-    ``parts_of`` (inputs, computed) overrides the instance's part counts."""
+    ``parts_of`` (inputs, computed) overrides the instance's part counts;
+    ``states`` [B, H, n, hd, ds], when given, receives each chunk's
+    incoming state as pass B holds it (the kernel's ``states`` output)."""
     ni, nc = parts_of or PARTS[dtype]
     b, s, h, hd = x.shape
     xc, bc, cc = chunks(x, s), chunks(bm, s), chunks(cm, s)
@@ -108,6 +111,8 @@ def ssd_recipe(x, bm, cm, dt, a_log, d_skip, s0, dtype, parts_of=None):
         sl = slice(i0, i0 + SLICE)
         st = state[:, :, sl]                             # [B, H, 16, ds]
         for c in range(n):
+            if states is not None:
+                states[:, :, c, sl] = st
             inter = pmm("btn,bhin->bthi", parts(cc[:, c], ni), parts(st, nc))
             y[:, c, :, :, sl] = y_intra[:, c, :, :, sl] \
                 + ep[:, c, :, :, None] * inter
@@ -121,10 +126,12 @@ def ssd_recipe(x, bm, cm, dt, a_log, d_skip, s0, dtype, parts_of=None):
 
 # ---------------- the WKV6 recipe ----------------
 
-def wkv6_recipe(r, k, v, log_w, u, s0, dtype, parts_of=None):
+def wkv6_recipe(r, k, v, log_w, u, s0, dtype, parts_of=None, states=None):
     """(o, sT) as ``wkv6_intra_kernel`` then ``wkv6_state_kernel`` compute
     them; inputs are float32 tensors holding the instance's input values;
-    ``parts_of`` (inputs, computed) overrides the instance's part counts."""
+    ``parts_of`` (inputs, computed) overrides the instance's part counts;
+    ``states`` [B, H, n, dk, dk], when given, receives each chunk's
+    incoming state as pass B holds it (the kernel's ``states`` output)."""
     ni, nc = parts_of or PARTS[dtype]
     b, s, h, dk = r.shape
     rc, kc, vc, lc = (chunks(t, s) for t in (r, k, v, log_w))  # [B,n,16,H,d]
@@ -156,6 +163,8 @@ def wkv6_recipe(r, k, v, log_w, u, s0, dtype, parts_of=None):
         sl = slice(j0, j0 + SLICE)
         st = state[:, :, :, sl].transpose(2, 3)          # [B, H, j, d]
         for c in range(n):
+            if states is not None:
+                states[:, :, c, :, sl] = st.transpose(2, 3)
             o[:, c, :, :, sl] = o_intra[:, c, :, :, sl] + pmm(
                 "bthd,bhjd->bthj", [x[:, c] for x in rdec], parts(st, nc))
             st = st * el[:, c, :, None, :] + pmm(
