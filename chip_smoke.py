@@ -16,20 +16,22 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
    (``auction_solve_kernel``, ``auction_fused_kernel``,
    ``lcp_gather_kernel``, ``fused_phase1_kernel``, the flash backward's
    ``delta_kernel``, ``dkdv_kernel``, ``dq_kernel``, ``dkdv_tc_kernel``
-   and ``dq_tc_kernel``, and the scan backwards' kernels — float32 on the
-   CUDA cores, so no tensor-core count — ``wkv6_bwd_state_kernel``,
-   ``wkv6_bwd_chunk_kernel``, ``wkv6_bwd_du_kernel``,
-   ``ssd_bwd_state_kernel``, ``ssd_bwd_chunk_kernel``,
-   ``ssd_bwd_sum_kernel`` and ``ssd_bwd_head_kernel`` must be among
-   them), and the count of tensor-core
-   instructions (``HMMA``/``HGMMA``) in the SASS of every instance of the
-   bf16 flash kernel, of the bf16 flash backward's two kernels (16
-   instances; a spill at head dims padded to 64 or 128 also fails) and of
-   both passes of each scan (``wkv6_intra_kernel``, ``wkv6_state_kernel``,
-   ``ssd_intra_kernel``, ``ssd_state_kernel``, bf16 and float32;
-   ``cuobjdump -sass``): 0 fails.  Then the forward's LSE at phase 25's
-   calls against the plain LSE within 1e-4, its output the same bits with
-   and without the LSE.
+   and ``dq_tc_kernel``, and the scan backwards' kernels
+   ``wkv6_bwd_reverse_kernel``, ``wkv6_bwd_intra_kernel``,
+   ``wkv6_bwd_du_kernel``, ``ssd_bwd_reverse_kernel``,
+   ``ssd_bwd_intra_kernel``, ``ssd_bwd_sum_kernel`` and
+   ``ssd_bwd_head_kernel`` must be among them), and the count of
+   tensor-core instructions (``HMMA``/``HGMMA``) in the SASS of every
+   instance of the bf16 flash kernel, of the bf16 flash backward's two
+   kernels (16 instances; a spill at head dims padded to 64 or 128 also
+   fails), of both passes of each scan (``wkv6_intra_kernel``,
+   ``wkv6_state_kernel``, ``ssd_intra_kernel``, ``ssd_state_kernel``,
+   bf16 and float32) and of both tensor-core passes of each scan backward
+   (the four kernels named ``*_bwd_reverse_kernel`` and
+   ``*_bwd_intra_kernel``, bf16 and float32: 8 instances, where a spill
+   also fails; ``cuobjdump -sass``): 0 fails.  Then the forward's LSE at
+   phase 25's calls against the plain LSE within 1e-4, its output the
+   same bits with and without the LSE.
 3. The router's kernels against their plain PyTorch versions, bit for bit,
    at the router path's shapes: LCP at prompts [64, 1024] x ledgers
    [64, 128, 1024] and at a width that is not a multiple of 32; the row
@@ -280,7 +282,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     dC) within 2e-2 of its own largest plain value, counted as at least
     1e-3 of the gradient's largest; a second call the same bits; the
     forward the same bits with and without its saved states; each timed
-    beside its plain version (CUDA events), with its bound.
+    beside its plain version (CUDA events), with its bound; at 4,096
+    tokens each pass's device time (profiler), float32 beside bf16, and
+    the bf16 call no slower than the float32 one.
 24. Training lockstep, CUDA vs CPU, float32 (TF32 off), the same init
     weights drawn on the CPU and copied: qwen3-8b (2 layers, 32 / 8 heads
     of 128, d_model 1024, vocab 8,192), mixtral-8x22b (2 layers, 48 / 8
@@ -433,9 +437,9 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
               "wkv6": ("wkv6_intra_kernel", "wkv6_state_kernel"),
               "ssd": ("ssd_intra_kernel", "ssd_state_kernel"),
               # the reverse pass, the chunk pass, the fixed-order sums
-              "wkv6_bwd": ("wkv6_bwd_state_kernel", "wkv6_bwd_chunk_kernel",
+              "wkv6_bwd": ("wkv6_bwd_reverse_kernel", "wkv6_bwd_intra_kernel",
                            "wkv6_bwd_du_kernel"),
-              "ssd_bwd": ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel",
+              "ssd_bwd": ("ssd_bwd_reverse_kernel", "ssd_bwd_intra_kernel",
                           "ssd_bwd_sum_kernel", "ssd_bwd_head_kernel")}
 
 
@@ -622,6 +626,38 @@ def bwd_tensor_core_spills(log: str) -> None:
     print("    the bf16 flash backward's instances: " + "; ".join(shown))
     check(len(hmma) == 16, f"{len(hmma)} bf16 backward instances, not 16 "
           "(two kernels x eight padded head dims)")
+
+
+def scan_bwd_tensor_core_spills(reports: dict[str, str]) -> None:
+    """Phase 2's checks of the scan backwards' tensor-core passes
+    (``*_bwd_reverse_kernel`` and ``*_bwd_intra_kernel`` of ``wkv6_bwd``
+    and ``ssd_bwd``, bf16 and float32): the ``HMMA`` count in each
+    instance's SASS (0 fails) and its ptxas spill bytes (any spill
+    fails)."""
+    from repro_torch.kernels import build
+
+    shown = []
+    for name in ("wkv6_bwd", "ssd_bwd"):
+        entries = {r["name"]: r for r in ptxas_entries(reports[name])}
+        hmma = {n: c for n, c in tensor_core_counts(
+            build.library_path(name), f"{name}_").items()
+            if "_reverse_kernel" in n or "_intra_kernel" in n}
+        for fn, count in sorted(hmma.items()):
+            m = re.search(r"((?:ssd|wkv6)_bwd_(?:reverse|intra)_kernel)I"
+                          r"(13__nv_bfloat16|f)E", fn)
+            r = entries.get(fn)
+            check(m is not None and r is not None,
+                  f"no ptxas report for the scan backward instance {fn}")
+            spill = r["spill_stores"] + r["spill_loads"]
+            label = f"{m.group(1)}<{m.group(2).replace('13__nv_', '')}>"
+            shown.append(f"{label} {count} HMMA, {r['registers']} registers, "
+                         f"{spill} B spilled")
+            check(count > 0, f"{label} has no tensor-core instruction")
+            check(spill == 0, f"{label} spills {r['spill_stores']}/"
+                  f"{r['spill_loads']} B")
+        check(len(hmma) == 4, f"{name}: {len(hmma)} tensor-core pass "
+              "instances, not 4 (two passes x two types)")
+    print("    the scan backwards' tensor-core passes: " + "; ".join(shown))
 
 
 # ---------------------------------------------------------------- inputs --
@@ -2263,6 +2299,16 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
             "bound_by": by}
 
 
+def scan_bwd_pass_ms(op: str, args, kw, calls: int = 5) -> dict[str, float]:
+    """Device ms per call of each kernel of a scan backward (``op``), by
+    its OP_KERNELS stem: the profiler's mean over ``calls`` calls in one
+    trace (a stem whose records the trace lost is absent)."""
+    kernel, _, _ = scan_bwd_parts(op)
+    means, _ = profiled_kernel_means(
+        lambda: [kernel(*args, **kw) for _ in range(calls)], op)
+    return {k: v / 1e3 for k, v in means.items()}
+
+
 def phase_scan_bwd(dev) -> None:
     """Phase 23b: both backward kernels against their plain versions
     (autograd through the plain forwards) on the card: WKV6 at rwkv6-3b's
@@ -2271,7 +2317,9 @@ def phase_scan_bwd(dev) -> None:
     training shape) without them, batch 2; float32 and bf16; then strong
     decays (log_w down to -50, dt up to 20) at 512.  Each call's forward
     gives the same bits with and without its saved states.  Device times
-    from CUDA events (phase 25 profiles the training calls)."""
+    from CUDA events (phase 25 profiles the training calls); at 4,096
+    tokens each pass's device time from the profiler, bf16 beside float32,
+    and the bf16 call no slower than the float32 one."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2296,6 +2344,7 @@ def phase_scan_bwd(dev) -> None:
              if s < 4096 or not stored]
     cases += [(dtype, 512, True, True) for dtype in (torch.float32,
                                                       torch.bfloat16)]
+    passes = {}   # (op, dtype) -> (ms per pass, the call's device ms)
     for dtype, s, stored, strong in cases:
         label = (f"{str(dtype).removeprefix('torch.')} S={s} "
                  f"{'s0, dsT' if stored else 'no s0 / dsT'}"
@@ -2315,6 +2364,9 @@ def phase_scan_bwd(dev) -> None:
         f = scan_bwd_figures("wkv6_bwd", args, {"want_ds0": stored},
                              profile=False)
         print_figures(f"wkv6_bwd {label}", (b, s, h, dk), f)
+        if s == 4096:
+            passes["wkv6_bwd", dtype] = (scan_bwd_pass_ms(
+                "wkv6_bwd", args, {"want_ds0": stored}), f["device_ms"])
         del o, o0, s_t, s_t0, states, args, fwd, raw, lw
 
         dt = (torch.clamp(normal((b, s, zh)).abs() * 10.0, max=20.0)
@@ -2332,8 +2384,24 @@ def phase_scan_bwd(dev) -> None:
         f = scan_bwd_figures("ssd_bwd", args, {"want_ds0": stored},
                              profile=False)
         print_figures(f"ssd_bwd {label}", (b, s, zh, hd, ds), f)
+        if s == 4096:
+            passes["ssd_bwd", dtype] = (scan_bwd_pass_ms(
+                "ssd_bwd", args, {"want_ds0": stored}), f["device_ms"])
         del y, y0, s_t, s_t0, states, args, fwd, dt
         torch.cuda.empty_cache()
+    for op in ("wkv6_bwd", "ssd_bwd"):
+        if len([k for k in passes if k[0] == op]) < 2:
+            continue    # SCAN_BWD_LENGTHS cut below 4,096
+        (f32, f32_ms), (bf, bf_ms) = (passes[op, torch.float32],
+                                      passes[op, torch.bfloat16])
+        shown = ", ".join(
+            f"{k} {f32.get(k, float('nan')):.4f} / {bf.get(k, float('nan')):.4f}"
+            for k in OP_KERNELS[op])
+        print(f"    {op} at S=4096, batch {b}, device ms per pass (profiler), "
+              f"float32 / bf16: {shown}; the call (events) {f32_ms:.4f} / "
+              f"{bf_ms:.4f}")
+        check(bf_ms <= f32_ms, f"{op}: the bf16 call ({bf_ms:.4f} ms) is "
+              f"slower than the float32 one ({f32_ms:.4f} ms) at 4,096 tokens")
 
 
 # -------------------------------------------- recurrent engines, 11-14 --
@@ -5431,6 +5499,8 @@ def main() -> int:
                   f"no ptxas report for {kernel}")
     if "flash_attention_bwd" in reports:
         bwd_tensor_core_spills(reports["flash_attention_bwd"])
+    if "wkv6_bwd" in reports and "ssd_bwd" in reports:
+        scan_bwd_tensor_core_spills(reports)
     hmma = tensor_core_counts(build.library_path("flash_attention"),
                               "flash_tc_kernel")
     label = {n: re.sub(r".*flash_tc_kernelILi(\d+)E.*", r"DP=\1", n)

@@ -1,4 +1,5 @@
-// Tensor-core building blocks shared by the chunked scans (ssd.cu, wkv6.cu).
+// Tensor-core building blocks shared by the chunked scans and their
+// gradients (ssd.cu, wkv6.cu, ssd_bwd.cu, wkv6_bwd.cu).
 //
 // Products run as `mma.sync` m16n8k16 (bf16 in, float32 accumulate), fed
 // by `ldmatrix` from shared tiles whose rows are padded by 16 bytes (every
@@ -58,6 +59,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// 4 bytes from global to shared (a float32 scalar); src_bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
 }
@@ -132,6 +140,110 @@ __device__ __forceinline__ void split2(float x0, float x1, uint32_t* out) {
       x1 -= f.y;
     }
   }
+}
+
+// The B fragment (k 16 x n 8) of a float32 matrix in shared memory, as NP
+// bf16 parts: element (k, n) at m[k·ld + n] (`frag_b_rows`: a pair along k
+// is two loads) or at m[n·ld + k] (`frag_b_cols`: one 8-byte load)
+template <int NP>
+__device__ __forceinline__ void frag_b_rows(const float* m, int ld, int lane,
+                                            uint32_t (&b)[NP][2]) {
+  const float* p = m + 2 * (lane & 3) * ld + (lane >> 2);
+  uint32_t lo[NP], hi[NP];
+  split2<NP>(p[0], p[ld], lo);
+  split2<NP>(p[8 * ld], p[9 * ld], hi);
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) {
+    b[pp][0] = lo[pp];
+    b[pp][1] = hi[pp];
+  }
+}
+template <int NP>
+__device__ __forceinline__ void frag_b_cols(const float* m, int ld, int lane,
+                                            uint32_t (&b)[NP][2]) {
+  const float* p = m + (lane >> 2) * ld + 2 * (lane & 3);
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  const float2 y = *reinterpret_cast<const float2*>(p + 8);
+  uint32_t lo[NP], hi[NP];
+  split2<NP>(x.x, x.y, lo);
+  split2<NP>(y.x, y.y, hi);
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) {
+    b[pp][0] = lo[pp];
+    b[pp][1] = hi[pp];
+  }
+}
+
+// The A fragment (m 16 x k 16) of values f(row, k) computed by the lane,
+// as NP bf16 parts: rows g, g + 8 and k 2q, 2q + 1, 2q + 8, 2q + 9
+template <int NP, typename F>
+__device__ __forceinline__ void frag_a(F f, int lane, uint32_t (&a)[NP][4]) {
+  const int g = lane >> 2, k = 2 * (lane & 3);
+  uint32_t r[4][NP];
+  split2<NP>(f(g, k), f(g, k + 1), r[0]);
+  split2<NP>(f(g + 8, k), f(g + 8, k + 1), r[1]);
+  split2<NP>(f(g, k + 8), f(g, k + 9), r[2]);
+  split2<NP>(f(g + 8, k + 8), f(g + 8, k + 9), r[3]);
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[pp][e] = r[e][pp];
+}
+
+// the A fragment of a bf16 plane tile (row-major [m][k], row stride sp
+// elements) at (row 0, column k0), NP planes `plane` elements apart
+template <int NP>
+__device__ __forceinline__ void ldsm_a(const bf16* sm, int sp, int plane,
+                                       int k0, int lane, uint32_t (&a)[NP][4]) {
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+    ldsm_x4(sm + pp * plane + (lane & 15) * sp + k0 + (lane >> 4) * 8, a[pp]);
+}
+
+// two B fragments (n 0-7 and 8-15) of a bf16 plane tile: `ldsm_b_nk` for
+// B[k][n] stored as rows n (row n at sm + n·sp, k from k0), `ldsm_b_kn`
+// for B[k][n] stored as rows k (row k at sm + k·sp, n from n0)
+template <int NP>
+__device__ __forceinline__ void ldsm_b_nk(const bf16* sm, int sp, int plane,
+                                          int k0, int lane,
+                                          uint32_t (&b)[2][NP][2]) {
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) {
+    uint32_t r[4];
+    ldsm_x4(sm + pp * plane + ((lane & 7) + ((lane >> 4) << 3)) * sp + k0 +
+                ((lane >> 3) & 1) * 8,
+            r);
+    b[0][pp][0] = r[0];
+    b[0][pp][1] = r[1];
+    b[1][pp][0] = r[2];
+    b[1][pp][1] = r[3];
+  }
+}
+template <int NP>
+__device__ __forceinline__ void ldsm_b_kn(const bf16* sm, int sp, int plane,
+                                          int n0, int lane,
+                                          uint32_t (&b)[2][NP][2]) {
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) {
+    uint32_t r[4];
+    ldsm_x4_trans(sm + pp * plane + ((lane & 7) + ((lane >> 3) & 1) * 8) * sp +
+                      n0 + (lane >> 4) * 8,
+                  r);
+    b[0][pp][0] = r[0];
+    b[0][pp][1] = r[1];
+    b[1][pp][0] = r[2];
+    b[1][pp][1] = r[3];
+  }
+}
+
+// the value at (r, c) of a bf16 plane tile, its NP parts summed
+template <int NP>
+__device__ __forceinline__ float plane_at(const bf16* sm, int sp, int plane,
+                                          int r, int c) {
+  float x = 0.f;
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp) x += __bfloat162float(sm[pp * plane + r * sp + c]);
+  return x;
 }
 
 // A ROWS x COLS tile of a T matrix (row r at g + r·pitch) into NP bf16

@@ -9,13 +9,13 @@
 // Given dY and the final state's gradient dsT (a null pointer: zeros), it
 // returns dx, dB, dC (x's dtype), ddt, da_log, dD and, when asked, ds0
 // (float32), from the forward's saved incoming state of every chunk
-// (`ssd.cu`, `states`) and its final state.
+// (`ssd.cu`, `states`).
 //
 // Per chunk of 16 tokens and head, with p the inclusive running sum of la
-// (summed serially; every exponent p_t - p_s, s <= t, is clamped at 0 as
-// in the forward), E[t][s] = exp(p_t - p_s) and G[t][s] = (C_t·B_s)·E[t][s]
-// for s <= t, w_s = exp(p_last - p_s), S_in the chunk's incoming state and
-// dS_out the gradient of its outgoing one:
+// (every exponent p_t - p_s, s <= t, clamped at 0 as in the forward),
+// E[t][s] = exp(p_t - p_s) and G[t][s] = (C_t·B_s)·E[t][s] for s <= t,
+// w_s = exp(p_last - p_s), S_in the chunk's incoming state and dS_out the
+// gradient of its outgoing one:
 //   dx_s  = dt_s·(Σ_{t>=s} G[t][s] dY_t + w_s·dS_out B_s) + D·dY_s
 //   dC_t  = Σ_{s<=t} E[t][s] dt_s (x_s·dY_t) B_s + exp(p_t)·S_inᵀ dY_t
 //   dB_s  = dt_s·(Σ_{t>=s} E[t][s] (x_s·dY_t) C_t + w_s·dS_outᵀ x_s)
@@ -37,64 +37,73 @@
 //
 // Bound on an H100: per call it reads x, dY (2 or 4 bytes), B and C once,
 // dt and the saved states (4 bytes; hd·ds floats per chunk and head) and
-// writes dx, dB, dC, ddt: ~0.8 GB for zamba2-7b at 4,096 tokens (112 heads
-// of 64, ds 64, bf16; the states 0.47 GB of it), ~0.25 ms at 3.35 TB/s;
-// its float32 work (three 16·64·64 products per chunk and head) ~19 GFLOP,
-// ~0.28 ms at 67 TFLOP/s on the CUDA cores.  It runs far above that
-// bound (PERF.md §6, row 6b): the reverse pass's serial walk and the chunk
-// pass's shared-memory products take about half the call each.
+// writes dx, dB, dC, ddt: ~0.65 GB for zamba2-7b at 4,096 tokens (112 heads
+// of 64, ds 64, bf16; the states 0.47 GB of it), ~0.19 ms at 3.35 TB/s;
+// its products are ~20 GFLOP, far less at the bf16 tensor-core rate.  The
+// design adds the float32 dS_out scratch (written by the reverse pass and
+// read by the chunk pass: another 0.94 GB of traffic).  On an H100 80GB
+// HBM3 at 700 W (tools/scan_bwd_probe.py, bf16, 1 x 4,096 tokens) the
+// reverse pass took 0.3184 ms (1.24 µs a chunk: its barrier, the copies'
+// wait and two dependent `mma` rounds) and the chunk pass 0.8254 ms, with
+// 215 registers two blocks an SM (at three, ptxas spilled); the first
+// version took 4.4419 and 2.9240 (PERF.md, row 6b).
 //
 // Design: four launches per call, every sum in one fixed order (two runs
-// give the same bits), every product in float32 on the CUDA cores (bf16
-// enters as inputs, exact in float32, and leaves as the rounded dx, dB,
-// dC).
+// give the same bits), every product on the tensor cores (`mma.sync`
+// through `scan_mma.cuh`), no atomics.
 //
-// `ssd_bwd_state_kernel` (the reverse pass), one block of 256 threads per
-// (batch·head, 16 state rows): the serial walk from the last chunk to the
-// first.  dS's rows are independent, so each thread keeps 4 entries of one
-// column in registers and forms its own running sums of la: no shared
-// memory and no barrier; a chunk's loads are all issued before its serial
-// sums, as in `wkv6_bwd.cu`.  It writes each chunk's dS_out to a float32
-// scratch buffer [B, H, n, hd, ds] (470 MB for zamba2-7b at 4,096 tokens),
-// and dS_in of the first chunk as ds0.
+// `ssd_bwd_reverse_kernel` (the reverse pass), shaped as the forward's pass
+// B (`ssd.cu::ssd_state_kernel`) walking the chunks from the last: one
+// block of 16 warps per (batch·head, 64 rows of dS), each warp a 16 x 16
+// piece of dS in `mma` accumulator fragments.  Per chunk it stores dS_out
+// to a float32 scratch [B, H, n, hd, ds] (470 MB for zamba2-7b at 4,096
+// tokens), forms p by a warp scan of la and updates
+// dS = exp(p_last)·dS + (exp(p)∘dY)ᵀ·C on `mma`; dY, C and dt are staged by
+// `cp.async` into a ring of shared stages three chunks ahead of the one
+// computed, each thread with fixed copy slots.  dS of the first chunk goes
+// out as ds0.
 //
-// `ssd_bwd_chunk_kernel` (the chunk-parallel pass), one block of 256
-// threads per (batch, chunk, 8 heads): C, B and C·Bᵀ once for the block,
-// then per head, in head order, x, dY, S_in and dS_out staged in shared
-// memory (rows padded by one float, so a warp walking a row index hits 32
-// banks), the running sums, E, G and x·dY per pair, dx, the head's dB^h and
-// dC^h, the per-token dots and the log-decay sums.  Each
-// thread owns the same 4 (token, state column) entries of dB and dC for
-// every head, so their sums over the block's heads run in head order;
-// the blocks' sums go to a scratch buffer [B, S, groups, ds] that
-// `ssd_bwd_sum_kernel` adds up in group order, and D's and a_log's
-// per-chunk partials likewise (`ssd_bwd_head_kernel`).
+// `ssd_bwd_intra_kernel` (the chunk-parallel pass), one block of 4 warps
+// per (batch, chunk, 8 heads): C·Bᵀ once per block, then per head, in head
+// order, x, dY (bf16 planes, `cp.async`), S_in and dS_out (float32, by
+// `cp.async`, split into parts as the fragments are built) staged in shared
+// memory, and on `mma`: the pair table dY·xᵀ, dY·S_in and x·dS_out (each
+// warp 16 state columns), B·dS_outᵀ and Gᵀ·dY (16 head columns a warp,
+// giving dx at once), then (E∘dt∘(x·dY))·B and (E∘(x·dY))ᵀ·C into the
+// head's dC^h and dB^h.  Each warp keeps the same 16 state columns of dB
+// and dC for every head in its accumulators, so their sums over the
+// block's heads run in head order; the blocks' sums go to a scratch
+// buffer [B, S, groups, ds] that `ssd_bwd_sum_kernel` adds up in group
+// order, and D's and a_log's per-chunk partials likewise
+// (`ssd_bwd_head_kernel`).  The per-token sums of the log-decay gradient
+// run on one warp, a token a lane.
+//
+// Precision (scan_mma.cuh): in the bf16 instance x, dY, B and C enter the
+// `mma`s exactly; the states, dS and every computed operand are split into
+// two bf16 parts.  The float32 instance splits every operand into three.
+//
+// Ragged widths: ds is zero-padded to 64 (the products over it stop at the
+// multiple of 16 that covers it), hd is walked in pieces of 64; a width
+// that is not a multiple of 8 (x, B, C) or of 4 (the states), or float32
+// inputs, is staged element by element.
 #include "scan_mma.cuh"
 
 namespace {
 
 using scan::bf16;
+using scan::Parts;
 
 constexpr int kChunk = 16;            // tokens per chunk
 constexpr int kMaxN = 64;             // largest state size ds taken
 constexpr int kMaxHd = 256;           // largest head size hd taken
-constexpr int kR = kMaxN + 1;         // row stride of C, B, dB^h, dC^h
-constexpr int kP = kChunk + 1;        // row stride of pair tables
-constexpr int kThreads = 256;
+constexpr int kNS = kMaxN + 8;        // bf16 row stride of plane tiles
+constexpr int kFS = kMaxN + 4;        // float row stride of state tiles
+constexpr int kPlane = kChunk * kNS;  // elements of one bf16 plane
+constexpr int kRevWarps = 16;         // reverse pass: 4 x 4 pieces
+constexpr int kWarps = 4;             // chunk pass
+constexpr int kThreads = kWarps * 32;
 constexpr int kHeads = 8;             // heads per chunk-pass block
-constexpr int kRows = 16;             // dS rows per reverse-pass block
-constexpr int kEntries = kChunk * kMaxN / kThreads;   // of dB / dC a thread
 constexpr unsigned kFull = 0xffffffffu;
-
-// floats of the chunk pass's dynamic shared memory for head size hd
-__host__ __device__ inline int smem_floats(int hd) {
-  const int hr = hd + 1;
-  return 3 * kChunk * kR +            // C, B, S_inᵀ dY
-         3 * kChunk * hr +            // x, dY, dS_out·B
-         2 * hd * kR +                // S_in, dS_out
-         4 * kChunk * kP +            // C·Bᵀ, E, G, x·dY
-         9 * kChunk + kThreads / 32 + 1;  // coefficients, the sums
-}
 
 __device__ __forceinline__ float warp_sum(float a) {
 #pragma unroll
@@ -102,74 +111,214 @@ __device__ __forceinline__ float warp_sum(float a) {
   return a;
 }
 
+// p (inclusive running sum of la = -a·dt over the chunk) in lanes 0..15,
+// by the forward's warp scan; lanes past 15 hold partial sums, unused
+__device__ __forceinline__ float scan_la(float dtl, float a, int lane) {
+  float p = -a * dtl;
+#pragma unroll
+  for (int off = 1; off < kChunk; off <<= 1) {
+    const float v = __shfl_up_sync(kFull, p, off);
+    if (lane >= off) p += v;
+  }
+  return p;
+}
+
+// the reverse pass's dynamic shared memory: kStages stages of the dY and C
+// planes and dt
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ssd_bwd_state_kernel(const T* __restrict__ cm,
-                         const float* __restrict__ dt,
-                         const float* __restrict__ a_log,
-                         const T* __restrict__ dy,
-                         const float* __restrict__ dst,
-                         float* __restrict__ dstates,
-                         float* __restrict__ ds0, int s_len, int n_chunks,
-                         int h, int hd, int ds) {
-  const int tid = threadIdx.x, n = tid % kMaxN;
+struct RevSmem {
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 1;
+  static constexpr int kStageBytes =
+      2 * Parts<T>::kIn * kPlane * 2 + kChunk * 4;
+  static constexpr int kBytes = kStages * kStageBytes;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kRevWarps * 32, 1)
+    ssd_bwd_reverse_kernel(const T* __restrict__ cm,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ a_log,
+                           const T* __restrict__ dy,
+                           const float* __restrict__ dst,
+                           float* __restrict__ dstates,
+                           float* __restrict__ ds0, int s_len, int n_chunks,
+                           int h, int hd, int ds, int vec_x, int vec_bc) {
+  constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
+  using L = RevSmem<T>;
+  constexpr int kStages = L::kStages, kAhead = L::kAhead;
+  constexpr int kThr = kRevWarps * 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage st: dY planes, C planes, dt
+  auto tile = [&](int st, int which) {
+    return reinterpret_cast<bf16*>(smem + st * L::kStageBytes) +
+           which * NI * kPlane;
+  };
+  auto dts = [&](int st) { return reinterpret_cast<float*>(tile(st, 2)); };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int sl = warp >> 2, qu = warp & 3;   // 16 rows, 16 state columns
   const int bh = blockIdx.x, b = bh / h, head = bh % h;
-  const int i = blockIdx.y * kRows + (tid / kMaxN) * 4;  // 4 rows from i
-  if (n >= ds || i >= hd) return;  // no barrier follows
-  const int ni = min(4, hd - i);
+  const int i0b = blockIdx.y * kMaxN, ncb = min(kMaxN, hd - i0b);
+  const int iw = sl * 16, n0 = qu * 16;
+  const int i0 = i0b + iw, nri = min(16, hd - i0);
+  const int64_t xp = static_cast<int64_t>(h) * hd;   // dY between tokens
   const float a = expf(a_log[head]);
-  const int64_t xp = static_cast<int64_t>(h) * hd;       // dY between tokens
-  float dss[4];
+  float* const dsb = dstates + static_cast<int64_t>(bh) * n_chunks * hd * ds;
+
+  // this warp's piece dS[i0 + i][n0 + n]: acc[nt] holds rows g and g + 8,
+  // columns 8·nt + 2q and + 1
+  float acc[2][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    dss[e] = (dst && e < ni)
-                 ? dst[(static_cast<int64_t>(bh) * hd + i + e) * ds + n]
-                 : 0.f;
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    float* out = dstates +
-                 ((static_cast<int64_t>(bh) * n_chunks + c) * hd + i) * ds + n;
+  for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (e < ni) out[e * ds] = dss[e];
+    for (int e = 0; e < 4; ++e) {
+      const int i = g + (e >> 1) * 8, n = n0 + nt * 8 + 2 * q + (e & 1);
+      acc[nt][e] = (dst && i < nri && n < ds)
+                       ? dst[(static_cast<int64_t>(bh) * hd + i0 + i) * ds + n]
+                       : 0.f;
+    }
+
+  // the bf16 path's fixed copy slots (one 16-byte copy a thread), as
+  // sources at chunk 0 that move by a fixed stride a chunk
+  const int sr = (tid & 127) >> 3, scol = (tid & 7) * 8;
+  const int64_t row0 = static_cast<int64_t>(b) * s_len + sr;
+  const T* src_c = cm + row0 * ds + scol;                  // tid < 128
+  const T* src_y = dy + row0 * xp + static_cast<int64_t>(head) * hd + i0b +
+                   scol;                                    // 128 <= tid < 256
+  auto load = [&](int c, int st) {
     const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
-    const int64_t row0 = static_cast<int64_t>(b) * s_len + t0;
-    // the chunk's loads first, all in flight at once (a ragged chunk's
-    // missing tokens read as zeros and add nothing)
-    float dtv[kChunk], ec[kChunk], gy[kChunk][4];
-#pragma unroll
-    for (int t = 0; t < kChunk; ++t) {
-      const bool in = t < nr;
-      dtv[t] = in ? dt[(row0 + t) * h + head] : 0.f;
-      ec[t] = in ? scan::to_f(cm[(row0 + t) * ds + n]) : 0.f;
-      const T* g = dy + (row0 + t) * xp + static_cast<int64_t>(head) * hd + i;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        gy[t][e] = (in && e < ni) ? scan::to_f(g[e]) : 0.f;
+    const int64_t brow = static_cast<int64_t>(b) * s_len + t0;
+    if (tid >= 256 && tid < 256 + kChunk) {  // dt, zeros past the end
+      const int t = tid - 256;
+      const bool ok = t < nr;
+      scan::cp_async4(dts(st) + t, ok ? dt + (brow + t) * h + head : dt,
+                      ok ? 4 : 0);
     }
-    // exp(p_t)·C_t, p the running sum of la as the chunk pass forms it
-    float acc = 0.f;
-#pragma unroll
-    for (int t = 0; t < kChunk; ++t) {
-      acc += -a * dtv[t];
-      ec[t] *= expf(acc);
+    if (NI == 1 && vec_x && vec_bc) {
+      if (tid < 128) {
+        const bool ok = sr < nr && scol < ds;
+        scan::cp_async16(tile(st, 1) + sr * kNS + scol,
+                         ok ? src_c + static_cast<int64_t>(t0) * ds : cm,
+                         ok ? 16 : 0);
+      } else if (tid < 256) {
+        const bool ok = sr < nr && scol < ncb;
+        scan::cp_async16(tile(st, 0) + sr * kNS + scol,
+                         ok ? src_y + static_cast<int64_t>(t0) * xp : dy,
+                         ok ? 16 : 0);
+      }
+      return;
     }
+    scan::stage<T, NI, kChunk, kMaxN, kThr>(
+        tile(st, 0), kNS, kPlane,
+        dy + brow * xp + static_cast<int64_t>(head) * hd + i0b, xp, nr, ncb,
+        vec_x, tid);
+    scan::stage<T, NI, kChunk, kMaxN, kThr>(tile(st, 1), kNS, kPlane,
+                                            cm + brow * ds, ds, nr, ds,
+                                            vec_bc, tid);
+  };
+
+  for (int k = 0; k < kAhead; ++k) {  // the last chunks in flight
+    if (k < n_chunks) load(n_chunks - 1 - k, k % kStages);
+    scan::cp_async_commit();
+  }
+  for (int k = 0; k < n_chunks; ++k) {
+    const int c = n_chunks - 1 - k, st = k % kStages;
+    scan::cp_async_wait<kAhead - 1>();  // chunk c has landed (elementwise
+                                        // copies were stored already)
+    __syncthreads();  // ... for every warp; the chunk after c is consumed
+    if (k + kAhead < n_chunks) load(c - kAhead, (k + kAhead) % kStages);
+    scan::cp_async_commit();
+    {  // dS_out of chunk c, for the chunk pass
+      float* out = dsb + static_cast<int64_t>(c) * hd * ds;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dss[e] *= expf(acc);
+      for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-    for (int t = 0; t < kChunk; ++t)
+        for (int e = 0; e < 4; ++e) {
+          const int i = g + (e >> 1) * 8, n = n0 + nt * 8 + 2 * q + (e & 1);
+          if (i < nri && n < ds)
+            out[static_cast<int64_t>(i0 + i) * ds + n] = acc[nt][e];
+        }
+    }
+    const float p = scan_la(lane < kChunk ? dts(st)[lane] : 0.f, a, lane);
+    const float ep = expf(p);
+    const float el = expf(__shfl_sync(kFull, p, kChunk - 1));
+    const float w[4] = {__shfl_sync(kFull, ep, 2 * q),
+                        __shfl_sync(kFull, ep, 2 * q + 1),
+                        __shfl_sync(kFull, ep, 2 * q + 8),
+                        __shfl_sync(kFull, ep, 2 * q + 9)};
+    // (exp(p)∘dY)ᵀ [i x t] as an A fragment, C [t x n] as B fragments
+    uint32_t yr[NI][4], af[NC][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dss[e] += ec[t] * gy[t][e];
+    for (int pp = 0; pp < NI; ++pp)
+      scan::ldsm_x4_trans(tile(st, 0) + pp * kPlane +
+                              ((lane >> 4) * 8 + (lane & 7)) * kNS + iw +
+                              ((lane >> 3) & 1) * 8,
+                          yr[pp]);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float2 v = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int pp = 0; pp < NI; ++pp) {
+        const float2 u = scan::unpack(yr[pp][r]);
+        v.x += u.x;
+        v.y += u.y;
+      }
+      const int wj = r >= 2 ? 2 : 0;
+      uint32_t parts[NC];
+      scan::split2<NC>(v.x * w[wj], v.y * w[wj + 1], parts);
+#pragma unroll
+      for (int pp = 0; pp < NC; ++pp) af[pp][r] = parts[pp];
+    }
+    uint32_t bt[2][NI][2];
+    scan::ldsm_b_kn<NI>(tile(st, 1), kNS, kPlane, n0, lane, bt);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= el;
+      scan::mma_parts<NC, NI>(acc[nt], af, bt[nt]);
+    }
   }
   if (ds0) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (e < ni) ds0[(static_cast<int64_t>(bh) * hd + i + e) * ds + n] = dss[e];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = g + (e >> 1) * 8, n = n0 + nt * 8 + 2 * q + (e & 1);
+        if (i < nri && n < ds)
+          ds0[(static_cast<int64_t>(bh) * hd + i0 + i) * ds + n] = acc[nt][e];
+      }
   }
 }
 
+// the chunk pass's dynamic shared memory, in bytes from the start: C, B,
+// x and dY planes; S_in and dS_out (float32, a piece of 64 rows); C·Bᵀ,
+// the pair tables and the per-warp partial sums
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ssd_bwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ bm,
+struct IntraSmem {
+  static constexpr int kPlanes = Parts<T>::kIn * kPlane * 2;  // bytes
+  static constexpr int kC = 0, kB = kPlanes, kX = 2 * kPlanes,
+                       kY = 3 * kPlanes;
+  static constexpr int kSin = 4 * kPlanes;
+  static constexpr int kDso = kSin + kMaxN * kFS * 4;
+  static constexpr int kTab = kDso + kMaxN * kFS * 4;
+  // floats from kTab: cb, xd, gx and the prefix table [16][17]; per-warp
+  // pair partials [4][16][16]; per-warp xsb, csd [4][16]; per-warp
+  // Σ S_in∘dS_out [4]; dt of two heads [2][16]; p, exp(p), w [16]
+  static constexpr int kCb = 0, kXd = kCb + kChunk * 17,
+                       kGx = kXd + kChunk * 17, kPre = kGx + kChunk * 17,
+                       kXdp = kPre + kChunk * 17, kXsb = kXdp + kWarps * 256,
+                       kCsd = kXsb + kWarps * 16, kSo = kCsd + kWarps * 16,
+                       kDt = kSo + kWarps, kP = kDt + 2 * kChunk,
+                       kEp = kP + kChunk, kWl = kEp + kChunk,
+                       kFloats = kWl + kChunk;
+  static constexpr int kBytes = kTab + kFloats * 4;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_bwd_intra_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                          const T* __restrict__ cm,
                          const float* __restrict__ dt,
                          const float* __restrict__ a_log,
@@ -182,211 +331,391 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dc_part,
                          float* __restrict__ dd_part,
                          float* __restrict__ da_part, int s_len,
-                         int n_chunks, int h, int hd, int ds) {
-  extern __shared__ float sm[];
-  const int hr = hd + 1;
-  float* cs = sm;                      // C [16][kR], zero-padded
-  float* bs = cs + kChunk * kR;        // B
-  float* sdy = bs + kChunk * kR;       // S_inᵀ dY_t at [t][n]
-  float* xs = sdy + kChunk * kR;       // x [16][hr]
-  float* ys = xs + kChunk * hr;        // dY
-  float* sb = ys + kChunk * hr;        // dS_out·B_s [16][hr]
-  float* s_in = sb + kChunk * hr;      // S_in [hd][kR]
-  float* ds_out = s_in + hd * kR;      // dS_out [hd][kR]
-  float* cb = ds_out + hd * kR;        // C_t·B_s at [t][s]
-  float* em = cb + kChunk * kP;        // E[t][s], s <= t
-  float* gm = em + kChunk * kP;        // G[t][s]
-  float* xd = gm + kChunk * kP;        // x_s·dY_t at [t][s]
-  float* dts = xd + kChunk * kP;       // dt
-  float* las = dts + kChunk;           // la
-  float* ps = las + kChunk;            // p
-  float* ep = ps + kChunk;             // exp(p)
-  float* wl = ep + kChunk;             // exp(p_last - p)
-  float* csd = wl + kChunk;            // C_t·S_inᵀ dY_t
-  float* xsb = csd + kChunk;           // x_s·dS_out B_s
-  float* rect = xsb + kChunk;          // Σ_{t>=τ, s<τ} of the pair terms
-  float* dir = rect + kChunk;          // ddt's direct term
-  float* red = dir + kChunk;           // the warps' partial sums, total
+                         int n_chunks, int h, int hd, int ds, int vec_x,
+                         int vec_bc, int vec_s) {
+  constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
+  using L = IntraSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* cs = reinterpret_cast<bf16*>(smem + L::kC);
+  bf16* bs = reinterpret_cast<bf16*>(smem + L::kB);
+  bf16* xs = reinterpret_cast<bf16*>(smem + L::kX);
+  bf16* ys = reinterpret_cast<bf16*>(smem + L::kY);
+  float* sin = reinterpret_cast<float*>(smem + L::kSin);
+  float* dso = reinterpret_cast<float*>(smem + L::kDso);
+  float* tab = reinterpret_cast<float*>(smem + L::kTab);
+  float (*cb)[17] = reinterpret_cast<float (*)[17]>(tab + L::kCb);
+  float (*xdt)[17] = reinterpret_cast<float (*)[17]>(tab + L::kXd);
+  float (*gxt)[17] = reinterpret_cast<float (*)[17]>(tab + L::kGx);
+  float (*pre)[17] = reinterpret_cast<float (*)[17]>(tab + L::kPre);
+  float* xdp = tab + L::kXdp;
+  float* xsbp = tab + L::kXsb;
+  float* csdp = tab + L::kCsd;
+  float* sop = tab + L::kSo;
+  float* dt2 = tab + L::kDt;   // dt of the head and of the next one
+  float* ps = tab + L::kP;
+  float* eps = tab + L::kEp;
+  float* wls = tab + L::kWl;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, q = lane & 3;
   const int b = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
   const int group = blockIdx.y, n_groups = gridDim.y;
   const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
   const int64_t row0 = static_cast<int64_t>(b) * s_len + t0;
   const int64_t xp = static_cast<int64_t>(h) * hd;   // x between tokens
   const int64_t mat = static_cast<int64_t>(hd) * ds;
+  const int dsp = (ds + 15) & ~15;
+  const int w16 = warp * 16;   // this warp's 16 state (or head) columns
 
-  for (int e = tid; e < kChunk * kMaxN; e += kThreads) {
-    const int t = e / kMaxN, n = e % kMaxN;
-    const bool in = t < nr && n < ds;
-    cs[t * kR + n] = in ? scan::to_f(cm[(row0 + t) * ds + n]) : 0.f;
-    bs[t * kR + n] = in ? scan::to_f(bm[(row0 + t) * ds + n]) : 0.f;
-  }
+  scan::stage<T, NI, kChunk, kMaxN, kThreads>(cs, kNS, kPlane, cm + row0 * ds,
+                                              ds, nr, ds, vec_bc, tid);
+  scan::stage<T, NI, kChunk, kMaxN, kThreads>(bs, kNS, kPlane, bm + row0 * ds,
+                                              ds, nr, ds, vec_bc, tid);
+  scan::cp_async_commit();
+  scan::cp_async_wait<0>();
   __syncthreads();
-  {  // C_t·B_s, a pair a thread
-    const int t = tid / kChunk, s = tid % kChunk;
-    float a = 0.f;
-#pragma unroll 8
-    for (int n = 0; n < kMaxN; ++n) a += cs[t * kR + n] * bs[s * kR + n];
-    cb[t * kP + s] = a;
+  if (warp == 0) {  // C·Bᵀ [16 t x 16 s], once for the block's heads
+    float acc[2][4] = {};
+    for (int kk = 0; kk < dsp; kk += 16) {
+      uint32_t af[NI][4], bt[2][NI][2];
+      scan::ldsm_a<NI>(cs, kNS, kPlane, kk, lane, af);
+      scan::ldsm_b_nk<NI>(bs, kNS, kPlane, kk, lane, bt);
+      scan::mma_parts<NI, NI>(acc[0], af, bt[0]);
+      scan::mma_parts<NI, NI>(acc[1], af, bt[1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cb[g + (e >> 1) * 8][nt * 8 + 2 * q + (e & 1)] = acc[nt][e];
   }
-  float db_acc[kEntries] = {}, dc_acc[kEntries] = {};
+  // this warp's 16 state columns of the block's Σ_h dC^h [t x n] and
+  // Σ_h dB^h [s x n]
+  float dc_acc[2][4] = {}, db_acc[2][4] = {};
 
-  for (int hh = 0; hh < kHeads; ++hh) {
+  // x, dY, S_in and dS_out rows i0.. of head `head` (and its dt, at i0 = 0,
+  // into dt2 + 16·(hh & 1)) into shared memory; commit is the caller's
+  auto stage_piece = [&](int hh, int i0) {
     const int head = group * kHeads + hh;
-    if (head >= h) break;  // uniform over the block
+    const int ncb = min(kMaxN, hd - i0);
     const int64_t bh = static_cast<int64_t>(b) * h + head;
     const float* s_in_g = states + (bh * n_chunks + c) * mat;
     const float* ds_out_g = dstates + (bh * n_chunks + c) * mat;
     const int64_t xbase = row0 * xp + static_cast<int64_t>(head) * hd;
-    const float a = expf(a_log[head]), dsk = d_skip[head];
-    __syncthreads();  // the previous head's readers are done
-    for (int e = tid; e < kChunk * hd; e += kThreads) {
-      const int t = e / hd, i = e % hd;
-      const bool in = t < nr;
-      xs[t * hr + i] = in ? scan::to_f(x[xbase + t * xp + i]) : 0.f;
-      ys[t * hr + i] = in ? scan::to_f(dy[xbase + t * xp + i]) : 0.f;
+    scan::stage<T, NI, kChunk, kMaxN, kThreads>(
+        xs, kNS, kPlane, x + xbase + i0, xp, nr, ncb, vec_x, tid);
+    scan::stage<T, NI, kChunk, kMaxN, kThreads>(
+        ys, kNS, kPlane, dy + xbase + i0, xp, nr, ncb, vec_x, tid);
+    if (vec_s) {  // 4 floats a copy
+#pragma unroll 2
+      for (int e = tid; e < kMaxN * kMaxN / 4; e += kThreads) {
+        const int i = e / (kMaxN / 4), n = (e % (kMaxN / 4)) * 4;
+        const bool ok = i < ncb && n < ds;
+        const int64_t off = static_cast<int64_t>(i0 + i) * ds + n;
+        scan::cp_async16(sin + i * kFS + n, ok ? s_in_g + off : s_in_g,
+                         ok ? 16 : 0);
+        scan::cp_async16(dso + i * kFS + n, ok ? ds_out_g + off : ds_out_g,
+                         ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kMaxN * kMaxN; e += kThreads) {
+        const int i = e / kMaxN, n = e % kMaxN;
+        const bool ok = i < ncb && n < ds;
+        const int64_t off = static_cast<int64_t>(i0 + i) * ds + n;
+        sin[i * kFS + n] = ok ? s_in_g[off] : 0.f;
+        dso[i * kFS + n] = ok ? ds_out_g[off] : 0.f;
+      }
     }
-    float so = 0.f;  // Σ S_in∘dS_out, this thread's share
-    for (int e = tid; e < hd * kMaxN; e += kThreads) {
-      const int i = e / kMaxN, n = e % kMaxN;
-      const bool in = n < ds;
-      const float sv = in ? s_in_g[i * ds + n] : 0.f;
-      const float dv = in ? ds_out_g[i * ds + n] : 0.f;
-      s_in[i * kR + n] = sv;
-      ds_out[i * kR + n] = dv;
-      so += sv * dv;
+    if (i0 == 0 && tid < kChunk)
+      scan::cp_async4(dt2 + (hh & 1) * kChunk + tid,
+                      tid < nr ? dt + (row0 + tid) * h + head : dt,
+                      tid < nr ? 4 : 0);
+  };
+  stage_piece(0, 0);   // the first head's first piece
+  scan::cp_async_commit();
+
+  for (int hh = 0; hh < kHeads; ++hh) {
+    const int head = group * kHeads + hh;
+    if (head >= h) break;  // uniform over the block
+    const int64_t xbase = row0 * xp + static_cast<int64_t>(head) * hd;
+    const float a = expf(a_log[head]), dsk = d_skip[head];
+    const float* dts = dt2 + (hh & 1) * kChunk;
+
+    float xd_acc[2][4] = {}, dsi[2][4] = {}, xds[2][4] = {};
+    float xsb2[2] = {0.f, 0.f}, so = 0.f;
+    float p = 0.f, dtl = 0.f, wl = 0.f;   // lane t: p_t, dt_t, w_t
+    for (int i0 = 0; i0 < hd; i0 += kMaxN) {   // 64 head rows at a time
+      const int ncb = min(kMaxN, hd - i0);
+      if (i0 > 0) {   // piece 0 was staged ahead
+        __syncthreads();  // the previous piece's readers are done
+        stage_piece(hh, i0);
+        scan::cp_async_commit();
+      }
+      scan::cp_async_wait<0>();
+      __syncthreads();
+
+      if (i0 == 0) {  // the decays, in every warp's lanes
+        dtl = lane < kChunk ? dts[lane] : 0.f;
+        p = scan_la(dtl, a, lane);
+        const float p_last = __shfl_sync(kFull, p, kChunk - 1);
+        wl = expf(fminf(p_last - p, 0.f));
+        if (warp == 0 && lane < kChunk) {  // read after the next barrier
+          ps[lane] = p;
+          eps[lane] = expf(p);
+          wls[lane] = wl;
+        }
+      }
+      // Σ S_in∘dS_out, this thread's share, in a fixed order
+#pragma unroll 2
+      for (int e = tid; e < kMaxN * kMaxN / 4; e += kThreads) {
+        const int i = e / (kMaxN / 4), n = (e % (kMaxN / 4)) * 4;
+        const float4 u = *reinterpret_cast<const float4*>(sin + i * kFS + n);
+        const float4 v = *reinterpret_cast<const float4*>(dso + i * kFS + n);
+        so += (u.x * v.x + u.y * v.y) + (u.z * v.z + u.w * v.w);
+      }
+      // the pair table's part over this warp's 16 head rows: dY·xᵀ
+      if (w16 < ncb) {
+        uint32_t af[NI][4], bt[2][NI][2];
+        scan::ldsm_a<NI>(ys, kNS, kPlane, w16, lane, af);
+        scan::ldsm_b_nk<NI>(xs, kNS, kPlane, w16, lane, bt);
+        scan::mma_parts<NI, NI>(xd_acc[0], af, bt[0]);
+        scan::mma_parts<NI, NI>(xd_acc[1], af, bt[1]);
+      }
+      // dY·S_in and x·dS_out at this warp's 16 state columns
+      for (int kk = 0; kk < ncb; kk += 16) {
+        uint32_t ya[NI][4], xa[NI][4];
+        scan::ldsm_a<NI>(ys, kNS, kPlane, kk, lane, ya);
+        scan::ldsm_a<NI>(xs, kNS, kPlane, kk, lane, xa);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          uint32_t sb[NC][2], db[NC][2];
+          scan::frag_b_rows<NC>(sin + kk * kFS + w16 + nt * 8, kFS, lane, sb);
+          scan::frag_b_rows<NC>(dso + kk * kFS + w16 + nt * 8, kFS, lane, db);
+          scan::mma_parts<NI, NC>(dsi[nt], ya, sb);
+          scan::mma_parts<NI, NC>(xds[nt], xa, db);
+        }
+      }
+      // B·dS_outᵀ and Gᵀ·dY at this warp's 16 head columns, then dx
+      if (w16 < ncb) {
+        const float wlr[2] = {__shfl_sync(kFull, wl, g),
+                              __shfl_sync(kFull, wl, g + 8)};
+        const float dtr[2] = {__shfl_sync(kFull, dtl, g),
+                              __shfl_sync(kFull, dtl, g + 8)};
+        float sbv[2][4] = {}, gd[2][4] = {};
+        for (int kk = 0; kk < dsp; kk += 16) {
+          uint32_t ba[NI][4];
+          scan::ldsm_a<NI>(bs, kNS, kPlane, kk, lane, ba);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            uint32_t db[NC][2];
+            scan::frag_b_cols<NC>(dso + (w16 + nt * 8) * kFS + kk, kFS, lane,
+                                  db);
+            scan::mma_parts<NI, NC>(sbv[nt], ba, db);
+          }
+        }
+        {
+          uint32_t gda[NC][4], bt[2][NI][2];   // Gᵀ [s x t], k = t
+          scan::frag_a<NC>(
+              [&](int s, int t) {
+                const float pt = __shfl_sync(kFull, p, t);
+                const float psv = __shfl_sync(kFull, p, s);
+                return t >= s ? cb[t][s] * expf(fminf(pt - psv, 0.f)) : 0.f;
+              },
+              lane, gda);
+          scan::ldsm_b_kn<NI>(ys, kNS, kPlane, w16, lane, bt);
+          scan::mma_parts<NC, NI>(gd[0], gda, bt[0]);
+          scan::mma_parts<NC, NI>(gd[1], gda, bt[1]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = g + (e >> 1) * 8, ic = w16 + nt * 8 + 2 * q + (e & 1);
+            const float yv = scan::plane_at<NI>(ys, kNS, kPlane, s, ic);
+            const float xv = scan::plane_at<NI>(xs, kNS, kPlane, s, ic);
+            xsb2[e >> 1] += xv * sbv[nt][e];
+            if (s < nr && ic < ncb)
+              dx[xbase + s * xp + i0 + ic] = scan::from_f<T>(
+                  dtr[e >> 1] * (gd[nt][e] + wlr[e >> 1] * sbv[nt][e]) +
+                  dsk * yv);
+          }
+      }
+    }
+
+    // the warps' partial sums to shared memory
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = xsb2[hf];
+      v += __shfl_xor_sync(kFull, v, 1);
+      v += __shfl_xor_sync(kFull, v, 2);
+      if (q == 0) xsbp[warp * 16 + g + 8 * hf] = v;
     }
     so = warp_sum(so);
-    if (lane == 0) red[warp] = so;
-    if (tid < kChunk) dts[tid] = tid < nr ? dt[(row0 + tid) * h + head] : 0.f;
-    __syncthreads();
-    if (tid == 0) {  // the running sums of la, in token order
-      float acc = 0.f;
-      for (int t = 0; t < kChunk; ++t) {
-        las[t] = -a * dts[t];
-        acc += las[t];
-        ps[t] = acc;
-      }
-      float sum = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) sum += red[w];
-      red[kThreads / 32] = sum;
-    }
-    __syncthreads();
-    if (tid < kChunk) {
-      ep[tid] = expf(ps[tid]);
-      wl[tid] = expf(fminf(ps[kChunk - 1] - ps[tid], 0.f));
-    }
-    {  // E, G and x·dY, a pair a thread
-      const int t = tid / kChunk, s = tid % kChunk;
-      const float ev = s <= t ? expf(fminf(ps[t] - ps[s], 0.f)) : 0.f;
-      em[t * kP + s] = ev;
-      gm[t * kP + s] = cb[t * kP + s] * ev;
-      float a2 = 0.f;
-      for (int i = 0; i < hd; ++i) a2 += xs[s * hr + i] * ys[t * hr + i];
-      xd[t * kP + s] = a2;
-    }
-    __syncthreads();
-    // dx, with dS_out·B_s kept for ddt
-    for (int e = tid; e < kChunk * hd; e += kThreads) {
-      const int s = e / hd, i = e % hd;
-      float sbv = 0.f;
-#pragma unroll 8
-      for (int n = 0; n < kMaxN; ++n) sbv += ds_out[i * kR + n] * bs[s * kR + n];
-      sb[s * hr + i] = sbv;
-      float intra = 0.f;
-      for (int t = s; t < kChunk; ++t) intra += gm[t * kP + s] * ys[t * hr + i];
-      if (s < nr)
-        dx[xbase + s * xp + i] = scan::from_f<T>(
-            dts[s] * (intra + wl[s] * sbv) + dsk * ys[s * hr + i]);
-    }
-    // the head's dC^h and dB^h at this thread's 4 (token, column) entries
+    if (lane == 0) sop[warp] = so;
 #pragma unroll
-    for (int k = 0; k < kEntries; ++k) {
-      const int e = tid + k * kThreads, t = e / kMaxN, n = e % kMaxN;
-      float sdy_v = 0.f, dsx = 0.f;
-      for (int i = 0; i < hd; ++i) {
-        sdy_v += s_in[i * kR + n] * ys[t * hr + i];
-        dsx += ds_out[i * kR + n] * xs[t * hr + i];
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        xdp[warp * 256 + (g + (e >> 1) * 8) * 16 + nt * 8 + 2 * q + (e & 1)] =
+            xd_acc[nt][e];
+    {  // C_t·(S_inᵀ dY_t) over this warp's 16 state columns
+      float cv[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          cv[e >> 1] += scan::plane_at<NI>(cs, kNS, kPlane, g + (e >> 1) * 8,
+                                           w16 + nt * 8 + 2 * q + (e & 1)) *
+                        dsi[nt][e];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float v = cv[hf];
+        v += __shfl_xor_sync(kFull, v, 1);
+        v += __shfl_xor_sync(kFull, v, 2);
+        if (q == 0) csdp[warp * 16 + g + 8 * hf] = v;
       }
-      float intra = 0.f;
-      for (int s = 0; s <= t; ++s)
-        intra += em[t * kP + s] * dts[s] * xd[t * kP + s] * bs[s * kR + n];
-      float intra2 = 0.f;
-      for (int t2 = t; t2 < kChunk; ++t2)
-        intra2 += em[t2 * kP + t] * xd[t2 * kP + t] * cs[t2 * kR + n];
-      const float dcv = intra + ep[t] * sdy_v;
-      const float dbv = dts[t] * (intra2 + wl[t] * dsx);
-      sdy[t * kR + n] = sdy_v;
-      dc_acc[k] += dcv;
-      db_acc[k] += dbv;
     }
     __syncthreads();
-    for (int t = warp; t < kChunk; t += kThreads / 32) {  // a token a warp
-      float xv = 0.f, cv = 0.f;
-      for (int i = lane; i < hd; i += 32) xv += xs[t * hr + i] * sb[t * hr + i];
-      for (int n = lane; n < kMaxN; n += 32)
-        cv += cs[t * kR + n] * sdy[t * kR + n];
-      xv = warp_sum(xv);
-      cv = warp_sum(cv);
+    // x, dY, S_in and dS_out are read no more: the next head's first piece
+    // goes in flight behind the rest of this one
+    if (hh + 1 < kHeads && head + 1 < h) {
+      stage_piece(hh + 1, 0);
+      scan::cp_async_commit();
+    }
+    // the pair table x_s·dY_t (the warps' parts in warp order), G∘(x·dY)
+    // and its prefix sums Σ_{s<τ} dt_s·G[t][s](x_s·dY_t), a row t to 8
+    // threads, two columns s each
+    {
+      const int t = tid >> 3, s0 = 2 * (tid & 7);
+      float m[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int s = s0 + j, e = t * kChunk + s;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += xdp[w * 256 + e];
+        xdt[t][s] = v;
+        const float gx =
+            s <= t ? cb[t][s] * expf(fminf(ps[t] - ps[s], 0.f)) * v : 0.f;
+        gxt[t][s] = gx;
+        m[j] = dts[s] * gx;
+      }
+      const float pair = m[0] + m[1];
+      float incl = pair;
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) {
+        const float v = __shfl_up_sync(kFull, incl, off, 8);
+        if ((tid & 7) >= off) incl += v;
+      }
+      pre[t][s0] = incl - pair;
+      pre[t][s0 + 1] = incl - pair + m[0];
+    }
+    __syncthreads();
+
+    // the head's dC^h = (E∘dt∘(x·dY))·B + exp(p)·(dY·S_in) and
+    // dB^h = dt∘((E∘(x·dY))ᵀ·C + w·(x·dS_out)) at this warp's columns
+    {
+      uint32_t wa[NC][4], bt[2][NI][2];
+      scan::frag_a<NC>(
+          [&](int t, int s) {
+            return s <= t ? expf(fminf(ps[t] - ps[s], 0.f)) * dts[s] *
+                                xdt[t][s]
+                          : 0.f;
+          },
+          lane, wa);
+      scan::ldsm_b_kn<NI>(bs, kNS, kPlane, w16, lane, bt);
+      float dc1[2][4] = {};
+      scan::mma_parts<NC, NI>(dc1[0], wa, bt[0]);
+      scan::mma_parts<NC, NI>(dc1[1], wa, bt[1]);
+      scan::frag_a<NC>(
+          [&](int s, int t) {
+            return t >= s ? expf(fminf(ps[t] - ps[s], 0.f)) * xdt[t][s] : 0.f;
+          },
+          lane, wa);
+      scan::ldsm_b_kn<NI>(cs, kNS, kPlane, w16, lane, bt);
+      float db1[2][4] = {};
+      scan::mma_parts<NC, NI>(db1[0], wa, bt[0]);
+      scan::mma_parts<NC, NI>(db1[1], wa, bt[1]);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = g + (e >> 1) * 8;
+          dc_acc[nt][e] += dc1[nt][e] + eps[r] * dsi[nt][e];
+          db_acc[nt][e] += dts[r] * (db1[nt][e] + wls[r] * xds[nt][e]);
+        }
+    }
+    if (warp == 0) {  // ddt and the log-decay sums, a token τ a lane
+      const int tau = lane;
+      const bool in = tau < kChunk;
+      float xsb = 0.f, csd = 0.f, sov = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        if (in) {
+          xsb += xsbp[w * 16 + tau];
+          csd += csdp[w * 16 + tau];
+        }
+        sov += sop[w];
+      }
+      float direct = 0.f, rect = 0.f;   // Σ_{t>=τ} of G∘(x·dY) and of
+      if (in) {                         // its prefixes
+#pragma unroll
+        for (int t = 0; t < kChunk; ++t)
+          if (t >= tau) {
+            direct += gxt[t][tau];
+            rect += pre[t][tau];
+          }
+        direct += wls[tau] * xsb;
+      }
+      // Σ_{t>=τ} exp(p_t)·csd_t and Σ_{s<τ} w_s dt_s xsb_s by warp scans
+      float suf = in ? eps[tau] * csd : 0.f;
+#pragma unroll
+      for (int off = 1; off < kChunk; off <<= 1) {
+        const float v = __shfl_down_sync(kFull, suf, off);
+        if (tau + off < kChunk) suf += v;
+      }
+      const float bef = in ? wls[tau] * dts[tau] * xsb : 0.f;
+      float pre = bef;
+#pragma unroll
+      for (int off = 1; off < kChunk; off <<= 1) {
+        const float v = __shfl_up_sync(kFull, pre, off);
+        if (lane >= off) pre += v;
+      }
+      pre -= bef;
+      const float inner = expf(__shfl_sync(kFull, p, kChunk - 1)) * sov;
+      const float dla = rect + suf + inner + pre;
+      if (in && tau < nr) ddt[(row0 + tau) * h + head] = direct - a * dla;
+      const float da = warp_sum(in ? dla * (-a * dtl) : 0.f);
+      const float dd = warp_sum(in ? xdt[tau][tau] : 0.f);
       if (lane == 0) {
-        float direct = wl[t] * xv;
-        for (int t2 = t; t2 < kChunk; ++t2)
-          direct += gm[t2 * kP + t] * xd[t2 * kP + t];
-        dir[t] = direct;
-        xsb[t] = xv;
-        csd[t] = cv;
+        const int64_t at = (static_cast<int64_t>(b) * n_chunks + c) * h + head;
+        dd_part[at] = dd;
+        da_part[at] = da;
       }
-    }
-    if (tid < kChunk) {  // the pair terms with s < τ <= t, τ = tid
-      const int tau = tid;
-      float acc = 0.f;
-      for (int t = tau; t < kChunk; ++t)
-        for (int s = 0; s < tau; ++s)
-          acc += dts[s] * gm[t * kP + s] * xd[t * kP + s];
-      rect[tau] = acc;
-    }
-    __syncthreads();
-    if (tid == 0) {  // dla in token order; ddt, the partials
-      const float inner = ep[kChunk - 1] * red[kThreads / 32];
-      float pre[kChunk], acc = 0.f;   // Σ_{s<τ} w_s dt_s x_sᵀ dS_out B_s
-      for (int tau = 0; tau < kChunk; ++tau) {
-        pre[tau] = acc;
-        acc += wl[tau] * dts[tau] * xsb[tau];
-      }
-      float suf = 0.f, da = 0.f, dd = 0.f;   // Σ_{t>=τ} exp(p_t) C·S_inᵀdY
-      for (int tau = kChunk - 1; tau >= 0; --tau) {
-        suf += ep[tau] * csd[tau];
-        const float dla = rect[tau] + suf + inner + pre[tau];
-        if (tau < nr) ddt[(row0 + tau) * h + head] = dir[tau] - a * dla;
-        da += dla * las[tau];
-      }
-      for (int t = 0; t < kChunk; ++t) dd += xd[t * kP + t];
-      const int64_t at = (static_cast<int64_t>(b) * n_chunks + c) * h + head;
-      dd_part[at] = dd;
-      da_part[at] = da;
     }
   }
   // this block's sums of dB^h and dC^h over its heads
 #pragma unroll
-  for (int k = 0; k < kEntries; ++k) {
-    const int e = tid + k * kThreads, t = e / kMaxN, n = e % kMaxN;
-    if (t < nr && n < ds) {
-      const int64_t at = ((row0 + t) * n_groups + group) * ds + n;
-      db_part[at] = db_acc[k];
-      dc_part[at] = dc_acc[k];
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = g + (e >> 1) * 8, n = w16 + nt * 8 + 2 * q + (e & 1);
+      if (t < nr && n < ds) {
+        const int64_t at = ((row0 + t) * n_groups + group) * ds + n;
+        db_part[at] = db_acc[nt][e];
+        dc_part[at] = dc_acc[nt][e];
+      }
     }
-  }
 }
 
 // dB and dC [rows, ds] in x's dtype: the head groups' sums in group order
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     ssd_bwd_sum_kernel(const float* __restrict__ db_part,
                        const float* __restrict__ dc_part, T* __restrict__ db,
                        T* __restrict__ dc, int64_t n_out, int n_groups,
                        int ds) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * 256 + threadIdx.x;
   if (e >= n_out) return;
   const int64_t row = e / ds, n = e % ds;
   float sb = 0.f, sc = 0.f;
@@ -399,12 +728,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dD and da_log [h]: the (batch, chunk) partials summed in that order
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     ssd_bwd_head_kernel(const float* __restrict__ dd_part,
                         const float* __restrict__ da_part,
                         float* __restrict__ dd, float* __restrict__ da,
                         int n_part, int h) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const int e = blockIdx.x * 256 + threadIdx.x;
   if (e >= h) return;
   float sd = 0.f, sa = 0.f;
   for (int i = 0; i < n_part; ++i) {
@@ -423,25 +752,27 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
                    void* dd_part, void* da_part, void* dx,
                    void* db, void* dc, void* ddt, void* da_log, void* dd,
                    void* ds0, int b, int s_len, int h, int hd, int ds,
-                   cudaStream_t stream) {
+                   int vec_x, int vec_bc, int vec_s, cudaStream_t stream) {
   const int n_chunks = (s_len + kChunk - 1) / kChunk;
   const int n_groups = (h + kHeads - 1) / kHeads;
-  ssd_bwd_state_kernel<T><<<dim3(b * h, (hd + kRows - 1) / kRows), kThreads,
-                            0, stream>>>(
+  static bool raised_rev[64] = {}, raised_intra[64] = {};
+  cudaError_t err = scan::raise_smem(ssd_bwd_reverse_kernel<T>,
+                                     RevSmem<T>::kBytes, raised_rev);
+  if (err != cudaSuccess) return err;
+  ssd_bwd_reverse_kernel<T><<<dim3(b * h, (hd + kMaxN - 1) / kMaxN),
+                              kRevWarps * 32, RevSmem<T>::kBytes, stream>>>(
       static_cast<const T*>(cm), static_cast<const float*>(dt),
       static_cast<const float*>(a_log), static_cast<const T*>(dy),
       static_cast<const float*>(dst), static_cast<float*>(dstates),
-      static_cast<float*>(ds0), s_len, n_chunks, h, hd, ds);
-  cudaError_t err = cudaGetLastError();
+      static_cast<float*>(ds0), s_len, n_chunks, h, hd, ds, vec_x, vec_bc);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (n_chunks > 0) {
-    const int bytes = smem_floats(hd) * 4;
-    err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+    err = scan::raise_smem(ssd_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
+                           raised_intra);
     if (err != cudaSuccess) return err;
-    ssd_bwd_chunk_kernel<T><<<dim3(b * n_chunks, n_groups), kThreads, bytes,
-                              stream>>>(
+    ssd_bwd_intra_kernel<T><<<dim3(b * n_chunks, n_groups), kThreads,
+                              IntraSmem<T>::kBytes, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(bm),
         static_cast<const T*>(cm), static_cast<const float*>(dt),
         static_cast<const float*>(a_log), static_cast<const float*>(d_skip),
@@ -450,20 +781,18 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
         static_cast<float*>(ddt),
         static_cast<float*>(db_part), static_cast<float*>(dc_part),
         static_cast<float*>(dd_part), static_cast<float*>(da_part), s_len,
-        n_chunks, h, hd, ds);
+        n_chunks, h, hd, ds, vec_x, vec_bc, vec_s);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int64_t n_out = static_cast<int64_t>(b) * s_len * ds;
-    ssd_bwd_sum_kernel<T><<<static_cast<unsigned>(
-                                (n_out + kThreads - 1) / kThreads),
-                            kThreads, 0, stream>>>(
+    ssd_bwd_sum_kernel<T><<<static_cast<unsigned>((n_out + 255) / 256), 256,
+                            0, stream>>>(
         static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
         static_cast<T*>(db), static_cast<T*>(dc), n_out, n_groups, ds);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  ssd_bwd_head_kernel<<<(h + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(
+  ssd_bwd_head_kernel<<<(h + 255) / 256, 256, 0, stream>>>(
       static_cast<const float*>(dd_part), static_cast<const float*>(da_part),
       static_cast<float*>(dd), static_cast<float*>(da_log), b * n_chunks, h);
   return cudaGetLastError();
@@ -481,8 +810,11 @@ extern "C" int ssd_bwd_groups(int h) { return (h + kHeads - 1) / kHeads; }
 // not wanted) [b, h, hd, ds], all float32; scratch dstates [b, h,
 // n_chunks, hd, ds], db_part and dc_part [b, s_len, ssd_bwd_groups(h),
 // ds], dd_part and da_part [b, n_chunks, h] float32: contiguous, on the
-// device; 0 < ds <= 64, 0 < hd <= 256.  Four launches on `stream`;
-// returns the first failing cudaGetLastError().
+// device; 0 < ds <= 64, 0 < hd <= 256.  vec_x / vec_bc: bf16 x and dy (B
+// and C) 16-byte aligned with hd (ds) a multiple of 8; vec_s: states and
+// dstates 16-byte aligned with ds a multiple of 4: their tiles go by
+// cp.async.  Four launches on `stream`; returns the first failing
+// cudaGetLastError().
 extern "C" int ssd_bwd_launch(const void* x, const void* bm, const void* cm,
                               const void* dt, const void* a_log,
                               const void* d_skip, const void* dy,
@@ -492,6 +824,7 @@ extern "C" int ssd_bwd_launch(const void* x, const void* bm, const void* cm,
                               void* dx, void* db, void* dc, void* ddt,
                               void* da_log, void* dd, void* ds0, int b,
                               int s_len, int h, int hd, int ds, int is_bf16,
+                              int vec_x, int vec_bc, int vec_s,
                               void* stream) {
   if (ds <= 0 || ds > kMaxN || hd <= 0 || hd > kMaxHd || s_len < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -501,10 +834,10 @@ extern "C" int ssd_bwd_launch(const void* x, const void* bm, const void* cm,
       is_bf16 ? launch<bf16>(x, bm, cm, dt, a_log, d_skip, dy, states, dst,
                              dstates, db_part, dc_part, dd_part, da_part, dx,
                              db, dc, ddt, da_log, dd, ds0, b, s_len, h, hd,
-                             ds, st)
+                             ds, vec_x, vec_bc, vec_s, st)
               : launch<float>(x, bm, cm, dt, a_log, d_skip, dy, states, dst,
                               dstates, db_part, dc_part, dd_part, da_part, dx,
                               db, dc, ddt, da_log, dd, ds0, b, s_len, h, hd,
-                              ds, st);
+                              ds, 0, 0, vec_s, st);
   return static_cast<int>(err);
 }

@@ -185,7 +185,7 @@ MAX_BWD_HEAD = 256
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("ssd_bwd")
-    lib.ssd_bwd_launch.argtypes = [_P] * 21 + [_I] * 6 + [_P]
+    lib.ssd_bwd_launch.argtypes = [_P] * 21 + [_I] * 9 + [_P]
     lib.ssd_bwd_launch.restype = ctypes.c_int
     lib.ssd_bwd_groups.argtypes = [_I]
     lib.ssd_bwd_groups.restype = ctypes.c_int
@@ -200,11 +200,12 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
     final state's ``dst`` (None: zeros, no buffer filled) -> (dx, dB, dC,
     ddt, da_log, dD, ds0): dx/dB/dC in x's dtype, the rest float32, ds0
     None unless ``want_ds0``.  Launched on the current stream as four
-    kernels, with float32 scratch: one hd x ds matrix per chunk and head
-    (each chunk's outgoing state gradient) and the head groups' partial
-    sums of dB and dC.  Takes hd <= 256.  Raises on any input the forward
-    would refuse, on states, dy or dst of another shape or type, and on a
-    failed launch."""
+    kernels (a reverse pass over the chunks and a chunk-parallel pass, both
+    on the tensor cores, then two fixed-order sums), with float32 scratch:
+    one hd x ds matrix per chunk and head (each chunk's outgoing state
+    gradient) and the head groups' partial sums of dB and dC.  Takes hd <=
+    256.  Raises on any input the forward would refuse, on states, dy or
+    dst of another shape or type, and on a failed launch."""
     _check_inputs("ssd_bwd_cuda", x, bmat, cmat, dt, a_log, d_skip, None)
     b, s, h, hd = x.shape
     ds = bmat.shape[-1]
@@ -233,6 +234,13 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
                         for _ in range(2))
     dd_part, da_part = (torch.empty((b, n, h), **f32) for _ in range(2))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    bf16 = x.dtype == torch.bfloat16
+    vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0 \
+        and dy.data_ptr() % 16 == 0
+    vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
+        and cmat.data_ptr() % 16 == 0
+    vec_s = ds % 4 == 0 and states.data_ptr() % 16 == 0 \
+        and dstates.data_ptr() % 16 == 0
     err = lib.ssd_bwd_launch(
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
         a_log.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
@@ -240,7 +248,7 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
         db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
         da_part.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(),
         ddt.data_ptr(), da_log.data_ptr(), dd.data_ptr(), ptr(ds0), b, s, h,
-        hd, ds, int(x.dtype == torch.bfloat16),
+        hd, ds, int(bf16), int(vec_x), int(vec_bc), int(vec_s),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {err}")

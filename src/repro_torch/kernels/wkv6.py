@@ -181,7 +181,7 @@ def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False):
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("wkv6_bwd")
-    lib.wkv6_bwd_launch.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+    lib.wkv6_bwd_launch.argtypes = [_P] * 16 + [_I] * 7 + [_P]
     lib.wkv6_bwd_launch.restype = ctypes.c_int
     return lib
 
@@ -190,14 +190,17 @@ def wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst=None,
                   want_ds0=False):
     """The gradient of `wkv6_cuda` (``csrc/wkv6_bwd.cu``): its inputs r, k,
     v, log_w, u as it took them, its ``states`` (``return_states=True``)
-    and final state ``s_t``, the output's gradient ``do`` (r's dtype and
-    shape) and the final state's ``dst`` (None: zeros, no buffer filled)
-    -> (dr, dk, dv, dlog_w, du, ds0): dr/dk/dv in r's dtype, the rest
-    float32, ds0 None unless ``want_ds0``.  Launched on the current stream
-    as three kernels, with a float32 scratch of one dk x dk matrix per
-    chunk and head (each chunk's outgoing state gradient).  Raises on any
-    input the forward would refuse, on states, s_t, do or dst of another
-    shape or type, and on a failed launch."""
+    and final state ``s_t`` (checked; the kernel forms Σ S_out∘dS_out from
+    each chunk's incoming state instead of reading the next one), the
+    output's gradient ``do`` (r's dtype and shape) and the final state's
+    ``dst`` (None: zeros, no buffer filled) -> (dr, dk, dv, dlog_w, du,
+    ds0): dr/dk/dv in r's dtype, the rest float32, ds0 None unless
+    ``want_ds0``.  Launched on the current stream as three kernels (a
+    reverse pass over the chunks and a chunk-parallel pass, their products
+    on the tensor cores, then u's fixed-order sum), with a float32 scratch
+    of one dk x dk matrix per chunk and head (each chunk's outgoing state
+    gradient).  Raises on any input the forward would refuse, on states,
+    s_t, do or dst of another shape or type, and on a failed launch."""
     _check_inputs("wkv6_bwd_cuda", r, k, v, log_w, u, None)
     b, s, h, dk = r.shape
     n = -(-s // CHUNK)
@@ -221,12 +224,17 @@ def wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst=None,
     dstates = torch.empty_like(states)
     du_part = torch.empty((b, n, h, dk), dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    bf16 = r.dtype == torch.bfloat16
+    vec = bf16 and dk % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (r, k, v, do, log_w))
+    vec_s = dk % 4 == 0 and states.data_ptr() % 16 == 0 \
+        and dstates.data_ptr() % 16 == 0
     err = _bwd_lib().wkv6_bwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), do.data_ptr(), states.data_ptr(), s_t.data_ptr(),
-        ptr(dst), dstates.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
+        u.data_ptr(), do.data_ptr(), states.data_ptr(), ptr(dst),
+        dstates.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
         dk_.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(),
-        ptr(ds0), b, s, h, dk, int(r.dtype == torch.bfloat16),
+        ptr(ds0), b, s, h, dk, int(bf16), int(vec), int(vec_s),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")

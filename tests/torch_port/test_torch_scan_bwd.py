@@ -9,21 +9,28 @@ JAX package, and the backward kernels' recipe replayed in float32.
   reference magnitude (what held: ~1e-6).
 * The recipe of ``csrc/wkv6_bwd.cu`` and ``csrc/ssd_bwd.cu``: the reverse
   pass over chunks from the last (the state gradient dS, its outgoing value
-  kept per chunk), the chunk-parallel pass from each chunk's saved incoming
-  state and that dS, the log-decay gradient (WKV6: by the chunk-local
-  identity, suffix sums inside the chunk plus Σ S_out∘dS_out; SSD: as the
-  four kinds of term that expand a_τ·Σ S_{τ-1}∘dS_τ, since the identity
-  cancels at strong decays, pinned below), and the reductions in the
-  kernels' fixed orders.  The kernels run every product in float32
-  on the CUDA cores, so the replay has no bf16 split point of its own:
-  bf16 enters as the inputs' values and as the saved states, which come
-  from the forward's recipe (``test_torch_scan_design.py``, its bf16 parts
-  included), and leaves as dr, dk, dv (dx, dB, dC) rounded once.  Held
-  against the plain backward under the card's gates: float32 within 1e-4
-  and bf16 within 3e-2 of each gradient's largest plain magnitude, and each
-  row (a token and head of dr / dk / dv / dlog_w / dx, a token of dB / dC)
-  within 2e-2 of its own largest plain value, counted as at least 1e-3 of
-  the gradient's largest.
+  kept per chunk; its increment exp(p)∘dYᵀ·C or dOᵀ·r_dec a tensor-core
+  product), the chunk-parallel pass from each chunk's saved incoming
+  state and that dS (SSD: every product on the tensor cores; WKV6: every
+  product, its per-channel pair sums in float32 and Σ S_out∘dS_out formed
+  from S_in), the log-decay gradient (WKV6: by the chunk-local identity,
+  suffix sums inside the chunk plus Σ S_out∘dS_out; SSD: as the four kinds
+  of term that expand a_τ·Σ S_{τ-1}∘dS_τ, since the identity cancels at
+  strong decays, pinned below), and the reductions in the kernels' fixed
+  orders.  Replayed in float32 at the kernels' chunk (16) with the bf16
+  splits at their rounding points, as ``test_torch_scan_design.py`` does
+  for the forward: every product sums the part products of its operands
+  (``pmm``), inputs as the instance's input parts (bf16: one, exact;
+  float32: three), computed operands and the float32 states and dS as its
+  computed parts (two; three); bf16 enters as the inputs' values and as
+  the saved states (from the forward's recipe), and leaves as dr, dk, dv
+  (dx, dB, dC) rounded once.  Held against the plain backward under the
+  card's gates, and at strong decays from a state also against
+  ``jax.vjp`` of the reference's chunked form: float32 within 1e-4 and
+  bf16 within 3e-2 of each gradient's largest magnitude, and each row (a
+  token and head of dr / dk / dv / dlog_w / dx, a token of dB / dC)
+  within 2e-2 of its own largest value, counted as at least 1e-3 of the
+  gradient's largest.
 * ``ops.wkv6_op`` / ``ops.ssd_op`` under grad on the CPU: the plain
   versions through PyTorch's autograd, no kernel launch counted.
 """
@@ -39,9 +46,9 @@ from repro.models import ssm as jax_ssm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd_bwd_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_bwd_plain  # noqa: E402
-from test_torch_scan_design import (CHUNK, chunks, rounded,  # noqa: E402
-                                    ssd_inputs, ssd_recipe, wkv6_inputs,
-                                    wkv6_recipe)
+from test_torch_scan_design import (CHUNK, PARTS, chunks, parts,  # noqa: E402
+                                    pmm, rounded, ssd_inputs, ssd_recipe,
+                                    wkv6_inputs, wkv6_recipe)
 
 REF_TOL = 1e-4
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -139,42 +146,46 @@ def as_dtype(x, dtype):
     return x.to(getattr(torch, dtype))
 
 
-def wkv6_bwd_recipe(r, k, v, log_w, u, states, s_t, do, dst, dtype):
-    """(dr, dk, dv, dlog_w, du, ds0) as ``wkv6_bwd_state_kernel``, then
-    ``wkv6_bwd_chunk_kernel`` and ``wkv6_bwd_du_kernel`` compute them, from
-    the forward's per-chunk ``states`` [B, H, n, dk, dk] and final state."""
+def wkv6_bwd_recipe(r, k, v, log_w, u, states, do, dst, dtype):
+    """(dr, dk, dv, dlog_w, du, ds0) as ``wkv6_bwd_reverse_kernel``, then
+    ``wkv6_bwd_intra_kernel`` and ``wkv6_bwd_du_kernel`` compute them,
+    from the forward's per-chunk ``states`` [B, H, n, dk, dk]: the products
+    with their operands in the instance's parts (inputs NI, computed
+    operands and the float32 states NC), the per-channel pair sums in
+    float32, Σ S_out∘dS_out from S_in."""
+    ni, nc = PARTS[dtype]
     b, s, h, dk = r.shape
     rc, kc, vc, lc, oc = (chunks(x, s) for x in (r, k, v, log_w, do))
     n = rc.shape[1]
     p = torch.cumsum(lc, dim=2)                  # serial, per channel
     q = torch.cat([torch.zeros_like(p[:, :, :1]), p[:, :, :-1]], dim=2)
     p_last = p[:, :, -1]                         # [B, n, H, d]
+    op, vp = parts(oc, ni), parts(vc, ni)
 
-    # the reverse pass: dS_out of each chunk, then ds0
+    # the reverse pass: dS_out of each chunk, then ds0; dSᵀ += dOᵀ·r_dec
     dss = torch.zeros(b, h, dk, dk) if dst is None else dst.clone()
     d_out = torch.empty(b, h, n, dk, dk)
     rdec = rc * torch.exp(q)
     for c in reversed(range(n)):
         d_out[:, :, c] = dss
-        dss = torch.exp(p_last[:, c])[..., None] * dss + torch.einsum(
-            "bthd,bthj->bhdj", rdec[:, c], oc[:, c])
+        dss = torch.exp(p_last[:, c])[..., None] * dss + pmm(
+            "bthd,bthj->bhdj", parts(rdec[:, c], nc), [x[:, c] for x in op])
     ds0 = dss
 
     # the chunk-parallel pass, every chunk at once
     s_in = states.permute(0, 2, 1, 3, 4)         # [B, n, H, d, j]
     ds_out = d_out.permute(0, 2, 1, 3, 4)
-    s_out = torch.cat([states[:, :, 1:], s_t[:, :, None]], dim=2) \
-        .permute(0, 2, 1, 3, 4)
+    sinp, dsop = parts(s_in, nc), parts(ds_out, nc)
     strict = torch.tril(torch.ones(CHUNK, CHUNK, dtype=torch.bool), -1)
-    vd = torch.einsum("bcshj,bcthj->bchts", vc, oc)          # v_s·dO_t
+    vd = pmm("bcthj,bcshj->bchts", op, vp)       # v_s·dO_t
     ex = torch.where(strict[None, None, :, :, None, None],
                      torch.exp(torch.clamp(q[:, :, :, None] - p[:, :, None],
                                            max=0.0)), 0.0)  # [B,n,t,s,H,d]
     vdt = vd.permute(0, 1, 3, 4, 2)[..., None]                # [B,n,t,s,H,1]
-    drp = torch.exp(q) * torch.einsum("bchdj,bcthj->bcthd", s_in, oc) \
+    drp = torch.exp(q) * pmm("bcthj,bchdj->bcthd", op, sinp) \
         + (ex * kc[:, :, None] * vdt).sum(3)
     ekl = torch.exp(p_last[:, :, None] - p)
-    dkp = ekl * torch.einsum("bchdj,bcshj->bcshd", ds_out, vc) \
+    dkp = ekl * pmm("bcshj,bchdj->bcshd", vp, dsop) \
         + (ex * rc[:, :, :, None] * vdt).sum(2)
     diag = torch.diagonal(vd, dim1=3, dim2=4).permute(0, 1, 3, 2)[..., None]
     dr = drp + u * kc * diag
@@ -182,15 +193,18 @@ def wkv6_bwd_recipe(r, k, v, log_w, u, states, s_t, do, dst, dtype):
     a = (rc[:, :, :, None] * kc[:, :, None] * ex).sum(-1)     # [B,n,t,s,H]
     a = a + torch.diag_embed((rc * u * kc).sum(-1).transpose(2, 3)) \
         .permute(0, 1, 3, 4, 2)
-    dv = torch.einsum("bcshd,bchdj->bcshj", kc * ekl, ds_out) \
-        + torch.einsum("bctsh,bcthj->bcshj", a, oc)
-    sod = (s_out * ds_out).sum(-1)                            # [B,n,H,d]
+    dv = pmm("bcshd,bchdj->bcshj", parts(kc * ekl, nc), dsop) \
+        + pmm("bctsh,bcthj->bcshj", parts(a, nc), op)
+    vds = pmm("bcshj,bchdj->bcshd", vp, dsop)                 # v·dS_outᵀ
+    # Σ_j S_out∘dS_out with S_out = diag(exp(p_last))·S_in + k_decᵀ·v
+    sod = torch.exp(p_last) * (s_in * ds_out).sum(-1) \
+        + (kc * ekl * vds).sum(2)                             # [B,n,H,d]
     rdr, kdk = rc * drp, kc * dkp
     # Σ_{t>τ} r∘dr' - Σ_{s>=τ} k∘dk' by suffix sums inside the chunk
     sr = torch.flip(torch.cumsum(torch.flip(rdr, [2]), 2), [2]) - rdr
     sk = torch.flip(torch.cumsum(torch.flip(kdk, [2]), 2), [2])
     dlog_w = (sr - sk) + sod[:, :, None]
-    du = (rc * kc * diag).sum(2).permute(0, 1, 2, 3)          # [B,n,H,d]
+    du = (rc * kc * diag).sum(2)                              # [B,n,H,d]
     du = du.reshape(b * n, h, dk).sum(0)          # (batch, chunk) order
 
     def unchunk(x):
@@ -202,11 +216,14 @@ def wkv6_bwd_recipe(r, k, v, log_w, u, states, s_t, do, dst, dtype):
 
 def ssd_bwd_recipe(x, bm, cm, dt, a_log, d_skip, states, dy, dst, dtype,
                    identity_with=None):
-    """(dx, dB, dC, ddt, da_log, dD, ds0) as ``ssd_bwd_state_kernel``, then
-    ``ssd_bwd_chunk_kernel`` (8 heads a block) and the two sums compute
-    them, from the forward's per-chunk ``states`` [B, H, n, hd, ds].
-    ``identity_with`` (the final state) forms dla by the suffix identity
-    instead, the kernel's rejected variant."""
+    """(dx, dB, dC, ddt, da_log, dD, ds0) as ``ssd_bwd_reverse_kernel``,
+    then ``ssd_bwd_intra_kernel`` (8 heads a block) and the two sums
+    compute them, from the forward's per-chunk ``states`` [B, H, n, hd,
+    ds]: every product with its operands in the instance's parts (inputs
+    NI, computed operands and the float32 states NC).  ``identity_with``
+    (the final state) forms dla by the suffix identity instead, the
+    kernel's rejected variant."""
+    ni, nc = PARTS[dtype]
     b, s, h, hd = x.shape
     xc, yc = chunks(x, s), chunks(dy, s)                      # [B,n,16,H,i]
     bc, cc = chunks(bm, s), chunks(cm, s)                     # [B,n,16,N]
@@ -217,36 +234,40 @@ def ssd_bwd_recipe(x, bm, cm, dt, a_log, d_skip, states, dy, dst, dtype,
     p = torch.cumsum(la, dim=2)
     ep = torch.exp(p)
     p_last = p[:, :, -1]                                      # [B, n, H]
+    xp, yp, bp, cp = (parts(z, ni) for z in (xc, yc, bc, cc))
 
-    # the reverse pass
+    # the reverse pass: dS += (exp(p)∘dY)ᵀ·C
     dss = torch.zeros(b, h, hd, bm.shape[-1]) if dst is None else dst.clone()
     d_out = torch.empty(b, h, n, hd, bm.shape[-1])
     for c in reversed(range(n)):
         d_out[:, :, c] = dss
-        dss = torch.exp(p_last[:, c])[..., None, None] * dss + torch.einsum(
-            "bth,bthi,btn->bhin", ep[:, c], yc[:, c], cc[:, c])
+        dss = torch.exp(p_last[:, c])[..., None, None] * dss + pmm(
+            "bthi,btn->bhin", parts(ep[:, c, :, :, None] * sum(yp)[:, c], nc),
+            [z[:, c] for z in cp])
     ds0 = dss
 
     # the chunk-parallel pass
     s_in = states.permute(0, 2, 1, 3, 4)                      # [B,n,H,i,N]
     ds_out = d_out.permute(0, 2, 1, 3, 4)
+    sinp, dsop = parts(s_in, nc), parts(ds_out, nc)
     incl = torch.tril(torch.ones(CHUNK, CHUNK, dtype=torch.bool))
-    cb = torch.einsum("bctn,bcsn->bcts", cc, bc)
+    cb = pmm("bctn,bcsn->bcts", cp, bp)
     e = torch.where(incl[None, None, :, :, None], torch.exp(torch.clamp(
         p[:, :, :, None] - p[:, :, None], max=0.0)), 0.0)  # [B,n,t,s,H]
     g = cb[..., None] * e
-    xd = torch.einsum("bcshi,bcthi->bctsh", xc, yc)           # x_s·dY_t
+    xd = pmm("bcthi,bcshi->bctsh", yp, xp)                    # x_s·dY_t
     wl = torch.exp(torch.clamp(p_last[:, :, None] - p, max=0.0))
-    sb = torch.einsum("bchin,bcsn->bcshi", ds_out, bc)
-    dx = dtc[..., None] * (torch.einsum("bctsh,bcthi->bcshi", g, yc)
-                           + wl[..., None] * sb) + d_skip[:, None] * yc
-    exd = e * xd
-    dch = torch.einsum("bctsh,bcsh,bcsn->bcthn", exd, dtc, bc) \
-        + ep[..., None] * torch.einsum("bchin,bcthi->bcthn", s_in, yc)
-    dbh = dtc[..., None] * (torch.einsum("bctsh,bctn->bcshn", exd, cc)
-                            + wl[..., None] * torch.einsum(
-                                "bchin,bcshi->bcshn", ds_out, xc))
-    xsb = (xc * sb).sum(-1)                                   # [B,n,16,H]
+    sb = pmm("bcsn,bchin->bcshi", bp, dsop)                   # B·dS_outᵀ
+    gd = pmm("bctsh,bcthi->bcshi", parts(g, nc), yp)          # Gᵀ·dY
+    dx = dtc[..., None] * (gd + wl[..., None] * sb) \
+        + d_skip[:, None] * sum(yp)
+    dsi = pmm("bcthi,bchin->bcthn", yp, sinp)                 # dY·S_in
+    xds = pmm("bcshi,bchin->bcshn", xp, dsop)                 # x·dS_out
+    dch = pmm("bctsh,bcsn->bcthn", parts(e * dtc[:, :, None] * xd, nc), bp) \
+        + ep[..., None] * dsi
+    dbh = dtc[..., None] * (pmm("bctsh,bctn->bcshn", parts(e * xd, nc), cp)
+                            + wl[..., None] * xds)
+    xsb = (sum(xp) * sb).sum(-1)                              # [B,n,16,H]
     direct = (g * xd).sum(2) + wl * xsb
     # dla: the four kinds of term of a_τ·Σ S_{τ-1}∘dS_τ, each computed as it
     # stands (no difference of sums): the pairs with s < τ <= t, the S_in
@@ -256,7 +277,7 @@ def ssd_bwd_recipe(x, bm, cm, dt, a_log, d_skip, states, dy, dst, dtype,
     rect = ((tau[None, :, None] >= tau[:, None, None])
             & (tau[None, None, :] < tau[:, None, None])).float()  # [τ, t, s]
     pairs = torch.einsum("uts,bctsh->bcuh", rect, dtc[:, :, None] * g * xd)
-    csd = torch.einsum("bctn,bchin,bcthi->bcth", cc, s_in, yc)
+    csd = (cc[:, :, :, None] * dsi).sum(-1)                   # [B,n,16,H]
     suffix = lambda z: torch.flip(torch.cumsum(torch.flip(z, [2]), 2), [2])  # noqa: E731
     before = wl * dtc * xsb
     inner = torch.exp(p_last) * (s_in * ds_out).sum((-1, -2))  # [B, n, H]
@@ -293,13 +314,28 @@ def check_recipe(got, want, names, dtype):
             rows_within(g, w, name, -1)
 
 
+def reference_vjp(fn, targs, state_shape, do, dst, dtype, n_typed):
+    """``jax.vjp`` of the reference's chunked scan at the same (rounded)
+    input values, s0 and dsT None as zeros; its first ``n_typed``
+    gradients rounded to the instance's type, as the kernels return them."""
+    zeros = np.zeros(state_shape, np.float32)
+    args = [a.numpy() for a in targs[:-1]] + [
+        zeros if targs[-1] is None else targs[-1].numpy()]
+    want = jax_vjp(fn, args, do, zeros if dst is None else dst)
+    want = [torch.from_numpy(np.array(w, np.float32)) for w in want]
+    return [as_dtype(w, dtype) if i < n_typed else w
+            for i, w in enumerate(want)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,dk,state,grad_st,strong", [
     (37, 16, True, True, False), (32, 64, False, False, False),
     (61, 64, True, False, False), (48, 16, True, True, True),
-    (33, 64, False, True, True)])
+    (33, 64, False, True, True), (100, 24, False, True, True)])
 def test_wkv6_bwd_recipe_matches_the_plain_backward(s, dk, state, grad_st,
                                                     strong, dtype):
+    """The replay against the plain backward, and at strong decays from a
+    state also against ``jax.vjp`` of the reference's chunked form."""
     args = wkv6_inputs(2, s, 3, dk, dtype, s + dk, state=state,
                        strong=strong)
     do, dst = cotangents((2, s, 3, dk), (2, 3, dk, dk), s, dtype)
@@ -307,20 +343,26 @@ def test_wkv6_bwd_recipe_matches_the_plain_backward(s, dk, state, grad_st,
     targs = list(map(t, args))
     n = -(-s // CHUNK)
     states = torch.empty(2, 3, n, dk, dk)
-    _, s_t = wkv6_recipe(*targs, dtype, states=states)
-    got = wkv6_bwd_recipe(*targs[:5], states, s_t, t(do), t(dst), dtype)
+    wkv6_recipe(*targs, dtype, states=states)
+    got = wkv6_bwd_recipe(*targs[:5], states, t(do), t(dst), dtype)
     typed = [as_dtype(x, dtype) for x in targs[:3]] + targs[3:]
     want = wkv6_bwd_plain(*typed, as_dtype(t(do), dtype), t(dst))
     check_recipe(got, want, WKV6_NAMES, dtype)
+    if strong and state:    # one case a type: each jax.vjp takes ~2 s here
+        check_recipe(got, reference_vjp(jax_ssm.wkv6_chunked, targs,
+                                        (2, 3, dk, dk), do, dst, dtype, 3),
+                     WKV6_NAMES, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,h,hd,ds,state,grad_st,strong", [
     (37, 3, 24, 16, True, True, False), (32, 10, 64, 64, False, False, False),
     (61, 2, 64, 64, True, False, False), (48, 3, 16, 16, True, True, True),
-    (33, 9, 32, 64, False, True, True)])
+    (33, 9, 32, 64, False, True, True), (40, 9, 80, 40, True, True, False)])
 def test_ssd_bwd_recipe_matches_the_plain_backward(s, h, hd, ds, state,
                                                    grad_st, strong, dtype):
+    """The replay against the plain backward, and at strong decays from a
+    state also against ``jax.vjp`` of the reference's chunked form."""
     args = list(ssd_inputs(2, s, h, hd, ds, dtype, s + hd, state=state,
                            strong=strong))
     if strong:     # as chip_smoke's strong case: dt·x of order one
@@ -335,6 +377,10 @@ def test_ssd_bwd_recipe_matches_the_plain_backward(s, h, hd, ds, state,
     typed = [as_dtype(x, dtype) for x in targs[:3]] + targs[3:]
     want = ssd_bwd_plain(*typed, as_dtype(t(do), dtype), t(dst))
     check_recipe(got, want, SSD_NAMES, dtype)
+    if strong and state:    # one case a type: each jax.vjp takes ~2 s here
+        check_recipe(got, reference_vjp(jax_ssm.ssd_chunked, targs,
+                                        (2, h, hd, ds), do, dst, dtype, 3),
+                     SSD_NAMES, dtype)
 
 
 # ---------------- the ops on the CPU ----------------
