@@ -327,6 +327,19 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     of each output's largest plain magnitude, each row within 2e-2 of its
     own), timed beside the plain version (and SDPA's backward for flash
     attention), with its bound.
+26. Training under the sharding policy: ``remesh`` over the visible
+    cards (a one-rank process group over an in-process HashStore, so no
+    TCP); qwen3-8b at full width and 4 layers (``POLICY_LAYERS``), 4,096
+    tokens, batch 1, bf16, 3 steps through ``train_loop`` under
+    ``ShardingPolicy(mesh, TRAIN_RULES, TRAIN_PARAM_RULES)`` against the
+    same run with no policy: losses and parameters bit for bit, the flash
+    kernels' exact launches in both, the plain attention patched to raise
+    in the policy run.  Then the port's dry run (``launch/dryrun.py``, on
+    the host under fake tensors) of phase 25's qwen3-8b cell and of this
+    run's cell: per-card bytes within 2x of each run's measured peak,
+    FLOPs beside MODEL_FLOPS, the roofline's three terms and fraction
+    beside the measured step; their figures as a JSON line
+    (``dry_run``).
     Then the time of all phases, the card line, the JSON line of the
     thirteen kernels' records (the six TPU kernels' counterparts, the
     router's two redesigned entries, the fused step's two kernels and the
@@ -335,7 +348,8 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     phase 17's scale run and 18b's CUDA inline federation,
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
     phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
-    locksteps and phase 25's runs, ``family_replays`` and
+    locksteps, phase 25's runs and phase 26's policy run,
+    ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
     backward kernel's at phase 25's calls) and the device line last.
@@ -360,7 +374,7 @@ import sys
 import time
 import zlib
 from collections import Counter
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -5432,6 +5446,209 @@ def phase_training_full_width(dev) -> tuple[dict, dict]:
     return counts, replays
 
 
+POLICY_LAYERS = 4                  # phase 26's qwen3-8b depth (of 36)
+POLICY_STEPS = 3                   # phase 26's steps a run
+DRY_RATIO = 2.0                    # the dry run's bytes against a peak
+
+
+@contextmanager
+def plain_flash_refused():
+    """The plain attention forward and backward patched to raise, in
+    ``ops`` and in the kernel module: a run inside reaches only the
+    kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain attention version ran on the card")
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (ops, "flash_attention_plain"), (fa, "flash_attention_plain"),
+        (fa, "flash_attention_bwd_plain"))]
+    for mod, name, _ in saved:
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def dry_run_cell(cfg, mesh, seq: int) -> tuple[dict, dict, float]:
+    """The port's dry run of ``cfg`` at ``seq`` tokens, batch 1, no
+    accumulation, on ``mesh``: (record, roofline row, host seconds)."""
+    from repro_torch import roofline
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("train_4k", "train", seq, 1)
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(cfg.name, shape.name, mesh, cfg=cfg, shape=shape,
+                          accum=1, out_dir=str(ROOT / "build" / "dryrun"),
+                          verbose=False)
+    check(rec.get("ok"), f"the dry run of {cfg.name} at {cfg.n_layers} "
+          f"layers failed: {rec.get('error')}")
+    return rec, roofline.analyze(rec), time.perf_counter() - t0
+
+
+def dry_run_against(cfg, mesh, seq: int, peak_gib: float, step_ms: float,
+                    label: str, dry=None) -> dict:
+    """Phase 26c for one cell: the dry run (``dry``, or `dry_run_cell`'s
+    now) printed beside the measured peak memory and step time; fails if
+    its per-card bytes are off the peak by more than DRY_RATIO either
+    way.  The roofline's memory term is the plain path's unfused traffic
+    (every eager op's operands and result, the attention's scores
+    included), not a bound on the kernels' step, so the step is printed
+    against each term rather than as a fraction of a bound."""
+    from repro_torch.configs import ShapeConfig, model_flops
+
+    rec, row, secs = dry if dry is not None else dry_run_cell(cfg, mesh, seq)
+    mem = rec["full"]["memory"]
+    resident = row["mem_resident_gb"] * 1e9
+    ratio = resident / (peak_gib * 2**30)
+    mf = model_flops(cfg, ShapeConfig("train_4k", "train", seq, 1))
+    print(f"    {label}: dry run in {secs:.1f} s on the "
+          f"host: per card {resident / 2**30:.2f} GiB (parameters "
+          f"{rec['state']['params'] / 2**30:.2f}, AdamW "
+          f"{rec['state']['opt'] / 2**30:.2f}, gradients "
+          f"{rec['state']['grads'] / 2**30:.2f}, activations "
+          f"{mem['activations'] / 2**30:.2f}) against the measured peak "
+          f"{peak_gib:.2f} GiB (x{ratio:.3f}); says "
+          f"{'fits' if row['fits_hbm80'] else 'does not fit'} in 80 GB")
+    print(f"    {label}: FLOPs {rec['full']['flops']:.4g} (forward, backward "
+          f"and remat's second forward) against MODEL_FLOPS {mf:.4g} "
+          f"(x{rec['full']['flops'] / mf:.3f}); roofline terms compute "
+          f"{row['t_compute_s'] * 1e3:.2f} ms (a bound), memory "
+          f"{row['t_memory_s'] * 1e3:.2f} ms (the plain path's unfused "
+          f"traffic, not a bound), collective "
+          f"{row['t_collective_s'] * 1e3:.2f} ms; the roofline's "
+          f"fraction {row['mfu_at_roofline']:.3f} (at its largest term, "
+          f"{row['dominant']}) against the measured step {step_ms:.1f} ms: "
+          f"{mf / (step_ms / 1e3) / BF16_OPS_PER_S:.3f} of the bf16 peak; "
+          f"the step is x{step_ms / (row['t_compute_s'] * 1e3):.3f} the "
+          f"compute bound and x{step_ms / (row['t_memory_s'] * 1e3):.3f} "
+          f"the unfused-traffic term")
+    check(1 / DRY_RATIO <= ratio <= DRY_RATIO,
+          f"{label}: the dry run's {resident / 2**30:.2f} GiB a card is "
+          f"off the measured peak {peak_gib:.2f} GiB by more than "
+          f"{DRY_RATIO}x")
+    return {"resident_gib": resident / 2**30, "peak_gib": peak_gib,
+            "ratio": ratio, "fits": row["fits_hbm80"],
+            "flops": rec["full"]["flops"], "model_flops": mf,
+            "roofline": {k: row[k] for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s", "dominant",
+                "mfu_at_roofline")},
+            "step_ms": step_ms}
+
+
+def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
+    """Phase 26: the training policy on the card.  (a) ``remesh`` over
+    the visible cards (a one-rank process group over a HashStore for
+    one).  (b) qwen3-8b at full width and POLICY_LAYERS layers, train_4k's
+    4,096 tokens, batch 1, bf16, POLICY_STEPS steps through ``train_loop``
+    under ``ShardingPolicy(mesh, TRAIN_RULES, TRAIN_PARAM_RULES)`` against
+    the same run with no policy: losses and every parameter bit for bit
+    (every placement resolves to Replicate on one card), exactly 2 forward
+    and 1 backward flash launch per layer and step in both, the plain
+    attention refused in the policy run.  (c) the port's dry run of phase
+    25's qwen3-8b cell (``phase25``: its measured peak GiB and step ms)
+    and of (b)'s cell on the same mesh against their measured peaks
+    (within DRY_RATIO), FLOPs beside MODEL_FLOPS, the roofline beside the
+    step; (b)'s cell is dry-run before (b) runs, and a dry run that says
+    "fits" for a step that ran out of memory fails.  Returns the policy
+    run's launches and (c)'s figures."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES,
+                                                  TRAIN_RULES,
+                                                  ShardingPolicy,
+                                                  apply_policy, mesh_shape)
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig
+    from repro_torch.training.loop import gathered, train_loop
+    from repro_torch.utils.tree import tree_leaves
+
+    n = torch.cuda.device_count()
+    mesh = remesh(n, device_type=dev.type)
+    print(f"    (a) remesh({n}) = {mesh}: mesh shape {mesh_shape(mesh)}")
+    check(mesh_shape(mesh) == {"data": 1, "model": 1},
+          f"remesh({n}) gave {mesh_shape(mesh)}")
+    policy = ShardingPolicy(mesh, acts=TRAIN_RULES, params=TRAIN_PARAM_RULES)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=POLICY_LAYERS)
+    model = build_model(cfg)
+    opt = OptConfig(lr=TRAIN_LR[ARCH], warmup_steps=2,
+                    total_steps=POLICY_STEPS + 3)
+    want = launches_per_step(cfg, POLICY_STEPS)
+    dry_b = dry_run_cell(cfg, mesh, TRAIN_4K)
+    runs = {}
+    oom = False
+    for name, pol in (("plain", None), ("policy", policy)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        data = FramedData(cfg, TRAIN_4K, 1, seed=26)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with apply_policy(pol), (plain_flash_refused() if pol
+                                     else nullcontext()):
+                out = train_loop(model, data, steps=POLICY_STEPS,
+                                 opt_cfg=opt, log_every=1, device=dev)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+            break
+        t_end = time.perf_counter()
+        counts = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        params = [p.detach().clone() for p in
+                  tree_leaves(gathered(out["params"]))]
+        steps = step_times_ms(data.times, t_end)
+        runs[name] = {"losses": [x for _, x in out["losses"]],
+                      "params": params, "counts": counts, "peak": peak,
+                      "step_ms": statistics.mean(steps[1:])}
+        print(f"    (b) {name}: {POLICY_STEPS} steps in "
+              f"{t_end - t0:.1f} s, {runs[name]['step_ms']:.1f} ms a step "
+              f"after the first; peak {peak:.2f} GiB; losses "
+              f"{', '.join(f'{x:.6f}' for x in runs[name]['losses'])}; "
+              f"launches {launch_text(counts, want)}")
+        check(all(counts[k] == v for k, v in want.items()),
+              f"{name} run: launches {counts}, expected {want}")
+        del out
+    if not oom:
+        plain, placed = runs["plain"], runs["policy"]
+        same = all(torch.equal(a, b) for a, b in zip(plain["params"],
+                                                     placed["params"]))
+        print(f"    (b) policy = plain: losses "
+              f"{plain['losses'] == placed['losses']}, all "
+              f"{len(plain['params'])} parameters bit for bit {same}")
+        check(plain["losses"] == placed["losses"] and same,
+              "the policy run is not the plain run bit for bit")
+        for r in runs.values():
+            del r["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    figures = {"phase25": dry_run_against(
+        full, mesh, TRAIN_4K, phase25["peak_gib"], phase25["step_ms"],
+        f"(c) phase 25's {ARCH} cell, {TRAIN_LAYERS} layers")}
+    check(not (oom and dry_b[1]["fits_hbm80"]),
+          "(b) ran out of memory where the dry run says it fits")
+    check(not oom, "(b) ran out of memory")
+    figures["phase26b"] = dry_run_against(
+        cfg, mesh, TRAIN_4K, runs["policy"]["peak"],
+        runs["policy"]["step_ms"], f"(c) (b)'s cell, {POLICY_LAYERS} layers",
+        dry=dry_b)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return runs["policy"]["counts"], figures
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -5685,6 +5902,13 @@ def main() -> int:
     bwd = train_replays[ARCH]["flash_attention_bwd"]
     wkv6_bwd = train_replays[RWKV]["wkv6_bwd"]
     ssd_bwd = train_replays[ZAMBA]["ssd_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[26] training under the sharding policy on the card: remesh, "
+          f"{ARCH} at {POLICY_LAYERS} layers under the policy and without, "
+          "the dry run and roofline against phase 25's measured step")
+    policy_counts, policy_figures = phase_policy(dev, bwd)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -5785,10 +6009,12 @@ def main() -> int:
         row["encdec_vlm_launches"] = {
             "lockstep": lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
-        # launches in phase 24's locksteps (card side) and phase 25's runs
+        # launches in phase 24's locksteps (card side), phase 25's runs and
+        # phase 26's run under the sharding policy
         row["training_launches"] = {
             "lockstep": train_lock_counts[row["name"]],
-            **{arch: c[row["name"]] for arch, c in train_counts.items()}}
+            **{arch: c[row["name"]] for arch, c in train_counts.items()},
+            "policy": policy_counts[row["name"]]}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (
@@ -5804,6 +6030,8 @@ def main() -> int:
                 **{f"{arch} float32": pick(r)
                    for arch, r in lock_replays.items()},
                 **{arch: pick(r) for arch, r in encdec_replays.items()}}
+    # phase 26c's dry-run figures beside phase 25's and 26b's measurements
+    print(json.dumps({"dry_run": policy_figures}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,9 @@ from repro_torch.configs import (deepseek_coder_33b, deepseek_v2_lite_16b,
                                  llava_next_34b, mixtral_8x22b, qwen2_5_32b,
                                  qwen2_72b, qwen3_8b, rwkv6_3b,
                                  seamless_m4t_medium, zamba2_7b)
-from repro_torch.configs.base import ModelConfig, param_counts
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      cell_supported, model_flops,
+                                      param_counts)
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -35,5 +37,7 @@ def list_archs() -> list[str]:
     return sorted(ARCHS)
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "list_archs",
-           "param_counts"]
+__all__ = [
+    "ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+    "list_archs", "cell_supported", "model_flops", "param_counts",
+]

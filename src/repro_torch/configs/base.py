@@ -1,9 +1,10 @@
 """Model configuration schema of the port.
 
 ``ModelConfig`` is the reference's frozen dataclass (`repro.configs.base`)
-field for field, with the derived ``hd``, the ``scaled()`` reduction the
-CPU tests use, the analytic ``param_counts`` and ``model_flops``, and the
-reference's shape cells (``ShapeConfig``, ``SHAPES``).  The port builds
+field for field, with the derived ``hd``, ``subquadratic`` and
+``has_decode``, the ``scaled()`` reduction the CPU tests use, the analytic
+``param_counts`` and ``model_flops``, and the reference's shape cells
+(``ShapeConfig``, ``SHAPES``, ``cell_supported``: the dry run's skips).  The port builds
 every family of the reference from it (`repro_torch.models`).
 """
 from __future__ import annotations
@@ -77,6 +78,17 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch hold a 500k-token context?  A recurrent state or a
+        sliding attention window keeps its decode state bounded."""
+        return self.ssm_kind != "" or (self.sliding_window > 0
+                                       and self.attn_kind != "none")
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # all ten archs decode (the encoder-decoder included)
+
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced config of the same family for CPU smoke tests."""
         base = dict(
@@ -123,6 +135,15 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+def cell_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell; reason when skipped."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full-attention arch: 500k-token decode context exceeds "
+                       "per-chip HBM for the KV cache and is architecturally "
+                       "out of scope (see DESIGN.md §4)")
+    return True, ""
 
 
 # ---------------- parameter / FLOP accounting (analytic) ----------------

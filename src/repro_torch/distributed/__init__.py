@@ -1,3 +1,5 @@
-"""Distribution layer of the port: serving-side elasticity (agent-set
-versions, `elastic`) and the process-parallel super-hub shard workers of
-the hubs-of-hubs federation (`federation`)."""
+"""Distribution layer of the port: the logical-axis sharding policy
+(`sharding`), elastic re-meshing and re-placement of the train state and
+the serving side's agent-set versions (`elastic`), and the
+process-parallel super-hub shard workers of the hubs-of-hubs federation
+(`federation`)."""

@@ -8,17 +8,33 @@ lines, plus ``--device {cuda,cpu}`` (default ``cuda``): without a card
 64 · ``--scale``).  Every architecture trains on the card: the kernels on
 its path (flash attention, the WKV6 and SSD scans) have backward kernels
 (`kernels/ops.py`).  Fault tolerance: atomic checkpoints and
-resume-from-latest (``--ckpt-dir``).  The reference shards over several
-devices through its mesh and sharding policy, which the port has not yet;
-with several cards visible it trains on one and says so.
+resume-from-latest (``--ckpt-dir``).
+
+Several cards train data-parallel, one process a card, as the reference
+trains under its sharding policy over several devices: launched by
+``torchrun --nproc-per-node N -m repro_torch.launch.train ...`` (or with
+``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR``/``MASTER_PORT`` set), the
+launcher joins the process group (NCCL on cards, gloo with ``--device
+cpu``), builds ``ShardingPolicy(remesh(N, data_model_ratio=N),
+TRAIN_RULES, TRAIN_PARAM_RULES)`` and trains under it (`training.loop`:
+FSDP placements over ``data``, the batch split over the ranks).  The
+ratio asks `remesh` for the (N, 1) mesh: the port's step is
+data-parallel, and a mesh whose ``model`` axis is above 1 raises in
+`training.loop.place_state` (tensor parallelism is not ported).
+Rank 0 prints.  One process that sees several cards trains on one and
+says how to use them all.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES, TRAIN_RULES,
+                                              ShardingPolicy, apply_policy)
 from repro_torch.models import build_model
 from repro_torch.training.compress import CompressionConfig
 from repro_torch.training.data import SyntheticLM
@@ -49,6 +65,11 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
     cfg = get_config(args.arch)
     if args.smoke:
         s = args.scale
@@ -62,14 +83,24 @@ def main(argv=None) -> dict:
     opt = OptConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
                     total_steps=args.steps)
 
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n_dev = dist.get_world_size() if dist.is_initialized() else 1
+    policy = None
     if n_dev > 1:
-        print(f"{n_dev} CUDA devices visible; training on one ({dev}): "
-              "the port has no sharding policy yet")
-    out = train_loop(model, data, steps=args.steps, opt_cfg=opt,
-                     compression=comp, accum_steps=args.accum,
-                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     seed=args.seed, device=dev)
+        from repro_torch.distributed.elastic import remesh
+        policy = ShardingPolicy(remesh(n_dev, data_model_ratio=n_dev,
+                                       device_type=dev.type),
+                                acts=TRAIN_RULES, params=TRAIN_PARAM_RULES)
+    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} CUDA devices visible; training "
+              f"on one ({dev}): launch one process a card (torchrun "
+              "--nproc-per-node) to train data-parallel over them")
+    with apply_policy(policy):
+        out = train_loop(model, data, steps=args.steps, opt_cfg=opt,
+                         compression=comp, accum_steps=args.accum,
+                         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                         seed=args.seed, device=dev)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return out
     for step, loss in out["losses"]:
         print(f"step {step:5d}  loss {loss:.4f}")
     print(f"done: {args.steps} steps in {out['wall_s']:.1f}s "

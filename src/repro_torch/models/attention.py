@@ -257,6 +257,21 @@ def gqa_init(cfg, dtype, *, generator: torch.Generator) -> dict:
     return p
 
 
+def gqa_axes(cfg):
+    ax = {
+        "wq": "embed heads head_dim",
+        "wk": "embed kv_heads head_dim",
+        "wv": "embed kv_heads head_dim",
+        "wo": "heads head_dim embed",
+    }
+    if cfg.qkv_bias:
+        ax.update(bq="heads head_dim", bk="kv_heads head_dim",
+                  bv="kv_heads head_dim")
+    if cfg.qk_norm:
+        ax.update(q_norm="head_dim", k_norm="head_dim")
+    return ax
+
+
 def _qkv(p, x, cfg):
     q = torch.einsum("...d,dhk->...hk", x, p["wq"])
     k = torch.einsum("...d,dhk->...hk", x, p["wk"])
@@ -332,6 +347,17 @@ def mla_init(cfg, dtype, *, generator: torch.Generator) -> dict:
         "wuv": normal_init((lora, h, vd), lora, dtype, generator=generator),
         "wo": normal_init((h, vd, d), h * vd, dtype, generator=generator,
                           scale=1.0 / max(2 * cfg.n_layers, 1) ** 0.5),
+    }
+
+
+def mla_axes(cfg):
+    return {
+        "wq": "embed heads qk_dim",
+        "wdkv": "embed kv_lora",
+        "kv_norm": "kv_lora",
+        "wuk": "kv_lora heads qk_dim",
+        "wuv": "kv_lora heads head_dim",
+        "wo": "heads head_dim embed",
     }
 
 

@@ -10,8 +10,8 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
-from repro_torch.models.layers import (apply_rope, ffn_apply, ffn_init,
-                                       normal_init, rms_norm)
+from repro_torch.models.layers import (FFN_AXES, apply_rope, ffn_apply,
+                                       ffn_init, normal_init, rms_norm)
 
 
 def attn_block_init(cfg, dtype, *, generator: torch.Generator,
@@ -29,6 +29,16 @@ def attn_block_init(cfg, dtype, *, generator: torch.Generator,
     else:
         p["moe"] = moe_mod.moe_init(cfg, dtype, generator=generator)
     return p
+
+
+def attn_block_axes(cfg, *, ffn_kind: str):
+    a = attn.mla_axes(cfg) if cfg.attn_kind == "mla" else attn.gqa_axes(cfg)
+    ax = {"ln1": "embed", "attn": a, "ln2": "embed"}
+    if ffn_kind == "dense":
+        ax["mlp"] = dict(FFN_AXES)
+    else:
+        ax["moe"] = moe_mod.moe_axes(cfg)
+    return ax
 
 
 def ffn(p, h, cfg, ffn_kind: str, moe_mode: str = "sort"):
@@ -78,6 +88,10 @@ def rwkv_block_init(cfg, dtype, *, generator: torch.Generator) -> dict:
             "mix": ssm.rwkv6_init(cfg, dtype, generator=generator)}
 
 
+def rwkv_block_axes(cfg):
+    return {"ln1": "embed", "ln2": "embed", "mix": ssm.rwkv6_axes(cfg)}
+
+
 def rwkv_block_parallel(p, x, cfg, state=None):
     """state: (shift_t [B, D], wkv [B, H, hd, hd], shift_c [B, D]) or None
     (zeros).  Returns (x, new state)."""
@@ -111,6 +125,10 @@ def mamba_block_init(cfg, dtype, *, generator: torch.Generator) -> dict:
     return {"ln": torch.ones((cfg.d_model,), dtype=dtype,
                              device=generator.device),
             "mix": ssm.mamba2_init(cfg, dtype, generator=generator)}
+
+
+def mamba_block_axes(cfg):
+    return {"ln": "embed", "mix": ssm.mamba2_axes(cfg)}
 
 
 def mamba_block_parallel(p, x, cfg, state=None):
@@ -150,6 +168,16 @@ def shared_attn_init(cfg, dtype, *, generator: torch.Generator,
     lora = [{"qa": a(), "qb": zeros(h), "ka": a(), "kb": zeros(kv),
              "va": a(), "vb": zeros(kv)} for _ in range(n_groups)]
     return {"block": base, "lora": lora}
+
+
+def shared_attn_axes(cfg, n_groups: int):
+    """The reference's table with its ``groups`` prefix on the LoRA
+    dropped: one table per invocation, as `shared_attn_init` lays them."""
+    lora = {"qa": "embed lora_rank", "qb": "lora_rank heads head_dim",
+            "ka": "embed lora_rank", "kb": "lora_rank kv_heads head_dim",
+            "va": "embed lora_rank", "vb": "lora_rank kv_heads head_dim"}
+    return {"block": attn_block_axes(cfg, ffn_kind="dense"),
+            "lora": [dict(lora) for _ in range(n_groups)]}
 
 
 def _lora_qkv_delta(lora_g, h):

@@ -31,10 +31,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (ParamTree, apply_rope, ffn_apply,
-                                       ffn_init, next_token_loss, normal_init,
-                                       rms_norm)
-from repro_torch.models.lm import _embed, _last, _lens, _lm_head, _remat
+from repro_torch.models.layers import (FFN_AXES, ParamTree, apply_rope,
+                                       ffn_apply, ffn_init, next_token_loss,
+                                       normal_init, rms_norm)
+from repro_torch.models.lm import (_embed, _last, _lens, _lm_head, _remat,
+                                   _stack_axes)
 
 
 def _ones(cfg, dtype, device) -> torch.Tensor:
@@ -59,6 +60,15 @@ def _dec_block_init(cfg, dtype, *, generator: torch.Generator) -> dict:
             "ln2": _ones(cfg, dtype, dev),
             "mlp": ffn_init(cfg.d_model, cfg.d_ff, dtype,
                             generator=generator)}
+
+
+def _block_axes(cfg, cross: bool):
+    ax = {"ln1": "embed", "attn": attn.gqa_axes(cfg), "ln2": "embed",
+          "mlp": dict(FFN_AXES)}
+    if cross:
+        ax["lnx"] = "embed"
+        ax["xattn"] = attn.gqa_axes(cfg)
+    return ax
 
 
 def _enc_block(p, x, cfg):
@@ -138,6 +148,19 @@ def build_encdec(cfg):
             "lm_head": normal_init((d, cfg.vocab_size), d, dtype,
                                    generator=generator),
         })
+
+    def param_axes():
+        return {
+            "embed": "vocab embed",
+            "frame_proj": "embed embed",
+            "encoder": _stack_axes(_block_axes(cfg, cross=False),
+                                   cfg.enc_layers),
+            "enc_norm": "embed",
+            "decoder": _stack_axes(_block_axes(cfg, cross=True),
+                                   cfg.n_layers),
+            "final_norm": "embed",
+            "lm_head": "embed vocab",
+        }
 
     def encode(params, frames, *, remat: bool = False):
         """frames [B, src_len, D] (any float dtype) -> the normed encoder
@@ -228,4 +251,4 @@ def build_encdec(cfg):
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
             "init_cache": init_cache, "loss": loss, "family": "encdec",
-            "encode": encode}
+            "param_axes": param_axes, "encode": encode}

@@ -98,6 +98,11 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 
 # ---------------- SwiGLU FFN ----------------
 
+# Logical axes of a parameter tree (`repro_torch.distributed.sharding`):
+# each leaf's dims named by space-separated words, the tree's shape kept.
+FFN_AXES = {"wg": "embed ff", "wu": "embed ff", "wd": "ff embed"}
+
+
 def ffn_init(d_model: int, d_ff: int, dtype, *,
              generator: torch.Generator) -> dict:
     return {

@@ -42,12 +42,12 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (ParamTree, next_token_loss,
                                        normal_init, rms_norm)
+from repro_torch.models.scan_config import checkpointed
 
 
 @dataclass(frozen=True)
@@ -80,9 +80,19 @@ def _family(cfg) -> str:
 def _remat(fn, remat: bool):
     """``fn``, or ``fn`` under activation checkpointing (non-reentrant, so
     closures over parameters get their gradients)."""
-    if not remat:
-        return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    return checkpointed(fn) if remat else fn
+
+
+def _stack_axes(ax, n: int) -> list:
+    """The reference's ``_prefix_axes(ax, "layers")`` for a stack of ``n``
+    layers: where the reference names the stacked leading dim, the port
+    keeps one table per layer, as it keeps one tree per layer."""
+    return [ax] * n
+
+
+def _head_axes() -> dict:
+    return {"embed": "vocab embed", "final_norm": "embed",
+            "lm_head": "embed vocab"}
 
 
 def build_lm(cfg):
@@ -110,6 +120,16 @@ def build_lm(cfg):
                                     ffn_kind=spec.ffn_kind)
                 for _ in range(spec.n_layers)]
         return ParamTree(params)
+
+    def param_axes():
+        """Logical axes of every leaf, in `init`'s tree layout."""
+        ax = _head_axes()
+        for i, spec in enumerate(stacks):
+            sub = dataclasses.replace(cfg, d_ff=spec.d_ff)
+            ax[f"stack{i}"] = _stack_axes(
+                blk.attn_block_axes(sub, ffn_kind=spec.ffn_kind),
+                spec.n_layers)
+        return ax
 
     # ---------------- parallel forward (fresh prefill) ----------------
     def forward(params, batch, *, collect: bool, lens=None,
@@ -256,7 +276,8 @@ def build_lm(cfg):
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "loss": loss, "family": "attn"}
+            "init_cache": init_cache, "loss": loss, "family": "attn",
+            "param_axes": param_axes}
 
 
 def _block_ffn(p_l, y, cfg, ffn_kind):
@@ -387,7 +408,9 @@ def _build_rwkv(cfg):
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "loss": loss, "family": "rwkv"}
+            "init_cache": init_cache, "loss": loss, "family": "rwkv",
+            "param_axes": lambda: {**_head_axes(), "layers": _stack_axes(
+                blk.rwkv_block_axes(cfg), cfg.n_layers)}}
 
 
 # ---------------- zamba2 (Mamba-2 + one shared attention block) ---------
@@ -433,6 +456,14 @@ def _build_zamba(cfg):
                                                 generator=generator,
                                                 n_groups=g)
         return ParamTree(params)
+
+    def param_axes():
+        mamba = blk.mamba_block_axes(cfg)
+        ax = {**_head_axes(), "groups": [_stack_axes(mamba, per)] * g}
+        if tail:
+            ax["tail"] = _stack_axes(mamba, tail)
+        ax["shared"] = blk.shared_attn_axes(cfg, g)
+        return ax
 
     def _mamba_run(layers, x, states, step: bool):
         fn = blk.mamba_block_step if step else blk.mamba_block_parallel
@@ -536,4 +567,5 @@ def _build_zamba(cfg):
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
-            "init_cache": init_cache, "loss": loss, "family": "zamba"}
+            "init_cache": init_cache, "loss": loss, "family": "zamba",
+            "param_axes": param_axes}

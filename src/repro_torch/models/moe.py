@@ -48,6 +48,18 @@ def moe_init(cfg, dtype, *, generator: torch.Generator) -> dict:
     return p
 
 
+def moe_axes(cfg):
+    ax = {
+        "router": "embed expert",
+        "wg": "expert embed ff",
+        "wu": "expert embed ff",
+        "wd": "expert ff embed",
+    }
+    if cfg.n_shared_experts:
+        ax["shared"] = {"wg": "embed ff", "wu": "embed ff", "wd": "ff embed"}
+    return ax
+
+
 def _capacity(s: int, k: int, e: int, cf: float) -> int:
     return max(1, int(math.ceil(s * k / e * cf)))
 

@@ -70,6 +70,23 @@ def rwkv6_init(cfg, dtype, *, generator: torch.Generator) -> dict:
     return p
 
 
+def rwkv6_axes(cfg):
+    ax = {
+        "mu_x": "embed", "w0": "embed",
+        "u": "heads head_dim",
+        "wr": "embed inner", "wk": "embed inner", "wv": "embed inner",
+        "wgate": "embed inner", "wo": "inner embed",
+        "gn_w": "embed", "gn_b": "embed",
+        "cm_mu_k": "embed", "cm_mu_r": "embed",
+        "cm_k": "embed ff", "cm_v": "ff embed", "cm_r": "embed inner",
+    }
+    for name in ("r", "k", "v", "g", "w"):
+        ax[f"A_{name}"] = "embed lora_rank"
+        ax[f"B_{name}"] = "lora_rank embed"
+        ax[f"mu_{name}"] = "embed"
+    return ax
+
+
 def _rwkv6_projections(p, x, xx, cfg):
     """Data-dependent token-shift mixes and projections.
 
@@ -180,6 +197,14 @@ def mamba2_init(cfg, dtype, *, generator: torch.Generator) -> dict:
         "gn_w": torch.ones((di,), dtype=dtype, device=dev),
         "out_proj": normal_init((di, d), di, dtype, generator=generator,
                                 scale=1.0 / max(2 * cfg.n_layers, 1) ** 0.5),
+    }
+
+
+def mamba2_axes(cfg):
+    return {
+        "in_proj": "embed inner", "conv_w": "conv_k inner", "conv_b": "inner",
+        "A_log": "heads", "D": "heads", "dt_bias": "heads",
+        "gn_w": "inner", "out_proj": "inner embed",
     }
 
 

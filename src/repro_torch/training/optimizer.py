@@ -61,14 +61,16 @@ def adamw_init(params) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state: dict, cfg: OptConfig):
+def adamw_update(params, grads, opt_state: dict, cfg: OptConfig,
+                 grad_norm: torch.Tensor | None = None):
     """One AdamW step with global-norm clipping.  ``grads`` is a tree (or
     the list of leaves) in the parameters' order.  Writes the moments, the
     master weights and ``params`` (cast to each parameter's dtype) in
-    place; returns (params, the new state, {"grad_norm", "lr"})."""
+    place; returns (params, the new state, {"grad_norm", "lr"}).  A caller
+    holding each leaf's shard passes the whole gradient's ``grad_norm``."""
     step = opt_state["step"]
     lr = lr_schedule(cfg, step)
-    gnorm = tree_global_norm(grads)
+    gnorm = tree_global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.minimum(torch.ones_like(gnorm),
                           cfg.grad_clip / torch.clamp(gnorm, min=1e-9))
     b1, b2 = cfg.b1, cfg.b2

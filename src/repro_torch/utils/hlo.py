@@ -1,0 +1,91 @@
+"""Collective wire bytes of the port's training step, from its placements
+(the reference's `repro.utils.hlo`).
+
+The reference parses XLA's optimized HLO text for its collective ops,
+since ``cost_analysis()`` does not report them.  Nothing here parses HLO:
+PyTorch compiles no SPMD program whose text could be read.  The port's
+collectives are the ones its data-parallel step issues by hand
+(`repro_torch.training.loop`), so they follow from the resolved
+placements (`repro_torch.distributed.sharding`): per parameter leaf, an
+all-gather of the parameter over the mesh axes that shard it, a
+reduce-scatter of its gradient over those axes, and an all-reduce of the
+gradient's shard over the batch's other mesh axes.  Each is costed with
+the reference's ring formulas (per device, a group of k participants):
+
+    all-reduce        2 * S * (k-1)/k     (reduce-scatter + all-gather phases)
+    all-gather        R * (k-1)/k         (R = gathered result bytes)
+    reduce-scatter    S * (k-1)/k         (S = operand bytes)
+    all-to-all        S * (k-1)/k
+    collective-permute  R                 (point-to-point)
+
+The few-byte all-reduces of the loss and of the gradient norm's partial
+sums are left out.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.distributed.sharding import mesh_shape, spec_axes
+
+
+@dataclass
+class CollectiveOp:
+    op: str
+    result_bytes: int
+    operand_bytes: int
+    group_size: int
+    computation: str = ""
+
+    @property
+    def wire_bytes(self) -> float:
+        k = max(self.group_size, 1)
+        ring = (k - 1) / k if k > 1 else 0.0
+        if self.op == "all-reduce":
+            return 2.0 * self.operand_bytes * ring
+        if self.op == "all-gather":
+            return self.result_bytes * ring
+        if self.op == "reduce-scatter":
+            return self.operand_bytes * ring
+        if self.op == "all-to-all":
+            return self.operand_bytes * ring
+        if self.op == "collective-permute":
+            return float(self.result_bytes)
+        return float(self.result_bytes)
+
+
+def step_collectives(mesh, specs: dict, leaf_bytes: dict,
+                     batch_axes) -> list[CollectiveOp]:
+    """The collectives of one data-parallel training step: ``specs`` and
+    ``leaf_bytes`` map each parameter leaf's path to its resolved spec and
+    its full size in the gradient's dtype; ``batch_axes`` are the mesh
+    axes the batch is split over."""
+    sizes = mesh_shape(mesh)
+    ops = []
+    for name, spec in specs.items():
+        full = leaf_bytes[name]
+        sharded = spec_axes(spec)
+        k = 1
+        for axis in sharded:
+            k *= sizes[axis]
+        rest = 1
+        for axis in batch_axes:
+            if axis not in sharded:
+                rest *= sizes.get(axis, 1)
+        if k > 1:
+            ops.append(CollectiveOp("all-gather", full, full // k, k, name))
+            ops.append(CollectiveOp("reduce-scatter", full // k, full, k,
+                                    name))
+        if rest > 1:
+            ops.append(CollectiveOp("all-reduce", full // k, full // k,
+                                    rest, name))
+    return ops
+
+
+def collective_wire_bytes(ops: list[CollectiveOp]) -> dict:
+    """Per-collective-type wire bytes (per device) + total and count."""
+    by_type: dict[str, float] = {}
+    for c in ops:
+        by_type[c.op] = by_type.get(c.op, 0.0) + c.wire_bytes
+    by_type["total"] = sum(by_type.values())
+    by_type["count"] = len(ops)
+    return by_type

@@ -15,6 +15,7 @@ TIER1_MODULES = {
     "test_torch_budget",
     "test_torch_cluster",
     "test_torch_cuda",
+    "test_torch_dryrun",
     "test_torch_encdec_vlm",
     "test_torch_engine",
     "test_torch_federation",
@@ -30,6 +31,7 @@ TIER1_MODULES = {
     "test_torch_scan_bwd",
     "test_torch_scan_design",
     "test_torch_serve",
+    "test_torch_sharding",
     "test_torch_simulator",
     "test_torch_solver",
     "test_torch_ssm",

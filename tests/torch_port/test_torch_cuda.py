@@ -1468,3 +1468,48 @@ def test_scan_ops_under_grad_never_reach_a_plain_version(dev, monkeypatch):
     counts = ops.launch_counts()
     assert [counts[k] for k in ("wkv6", "wkv6_bwd", "ssd", "ssd_bwd")] \
         == [1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "zamba2-7b"])
+def test_policy_training_on_one_card_matches_plain(dev, arch):
+    """``train_loop`` under the training policy on a one-card mesh (a
+    one-rank group over a HashStore) is the plain loop bit for bit: every
+    placement is Replicate.  Both launch the same kernels."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.elastic import remesh
+    from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES,
+                                                  TRAIN_RULES, ShardingPolicy,
+                                                  apply_policy)
+    from repro_torch.models import build_model
+    from repro_torch.training import OptConfig, SyntheticLM, train_loop
+    from repro_torch.training.loop import gathered
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_config(arch).scaled(dtype="float32")
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, 64, 2, seed=0)
+    opt = OptConfig(lr=3e-3, warmup_steps=1, total_steps=3)
+    runs = []
+    try:
+        for placed in (False, True):
+            policy = (ShardingPolicy(remesh(1, device_type="cuda"),
+                                     acts=TRAIN_RULES,
+                                     params=TRAIN_PARAM_RULES)
+                      if placed else None)
+            ops.reset_launch_counts()
+            with apply_policy(policy):
+                out = train_loop(model, data, steps=3, opt_cfg=opt,
+                                 log_every=1, device=dev)
+            torch.cuda.synchronize()
+            runs.append((out["losses"], gathered(out["params"]),
+                         ops.launch_counts()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (l0, p0, c0), (l1, p1, c1) = runs
+    assert l0 == l1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p0),
+                                                 tree_leaves(p1)))
+    assert c0 == c1 and c1["flash_attention_bwd"] > 0

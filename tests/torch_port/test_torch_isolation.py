@@ -1,8 +1,9 @@
 """The port stands alone: importing every `repro_torch` module (the MoE
 module `models/moe.py`, the encoder-decoder `models/encdec.py`, the
 training package `training/*`, the training CLI `launch/train.py` and
-`utils/tree.py` among them) and ``chip_smoke.py`` loads neither JAX nor
-anything of the reference package `repro`."""
+`utils/tree.py`, the sharding, mesh, dry-run and roofline tooling among
+them) and ``chip_smoke.py`` loads neither JAX nor anything of the
+reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -28,7 +29,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 for need in ("models.moe", "models.encdec", "training.checkpoint",
              "training.compress", "training.data", "training.loop",
-             "training.optimizer", "launch.train", "utils.tree"):
+             "training.optimizer", "launch.train", "utils.tree",
+             "distributed.sharding", "launch.mesh", "launch.dryrun",
+             "models.scan_config", "roofline", "utils.hlo"):
     assert "repro_torch." + need in names, (need, names)
 print(len(names), bad)
 """

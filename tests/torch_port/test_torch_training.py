@@ -16,8 +16,8 @@ Checked:
   mixtral-8x22b (window 16), deepseek-v2-lite-16b (MLA + MoE), rwkv6-3b,
   zamba2-7b, llava-next-34b (with patches) and seamless-m4t-medium (with
   frames): the loss within 1e-5 relative, each leaf within 1e-4 of its
-  largest reference magnitude (zamba2-7b at the shared weights: 8e-4,
-  see below; and at weight seed 1, where it is well conditioned, 1e-4);
+  largest reference magnitude (zamba2-7b, at weight seeds 0 and 1,
+  against a float64 oracle instead: see below);
 * the reference's two training faults, pinned in both packages:
   seamless without frames and llava without patches raise;
 * ``lr_schedule``, ``adamw_update`` over 3 clipped steps, compression and
@@ -35,17 +35,34 @@ Checked:
   jnp attention (1e-5), causal, windowed and non-causal with Sq != Sk, at
   GQA groups 1, 4 and 6.
 
-zamba2-7b's tolerance: at weight seed 0 its gradient is ill-conditioned
-in float32 in both packages.  Measured against a run of the port in
-float64 at those weights and batch, the JAX package's float32 gradient
-lies up to 1.1e-3 and the port's up to 1.5e-3 of a leaf's max away, while
-the two float32 gradients lie 4.0e-4 apart (``groups.0.0.mix.A_log``); the
-case is held at 8e-4, twice that gap.  The gap varies with the weights;
-its worst leaves are the per-head ``A_log``, ``dt_bias`` and ``D``, whose
-gradients sum over every position and head dimension.  A second case, at
-weight seed 1 (a gap of 6.5e-5), holds zamba2-7b to the 1e-4 of the other
-families.
+zamba2-7b's gate: its float32 gradient is ill-conditioned at these
+weights in both packages, so its two cases hold the port against an exact
+oracle instead of a flat tolerance.  The oracle is the JAX package's own
+``loss`` differentiated under ``jax.enable_x64(True)`` with the reference's
+float32 islands (``astype(jnp.float32)`` in the loss, the norms, RoPE, the
+softmax and the scans) read as float64: each model module's ``jnp`` is
+swapped, inside the test, for a view whose ``float32`` is ``float64``, and
+the oracle's jaxpr is checked to hold no float32 value.  Nothing under
+``src/repro`` changes.  (A config built with ``scaled(dtype="float64")``
+is no such oracle in either package: both cast to float32 at those
+islands, the port's ``next_token_loss`` by ``.float()``, so its loss
+prints the float32 loss to every digit.)  Let d_jax be the largest
+distance of a leaf of the JAX package's float32 gradient from the oracle
+(each leaf's error over the oracle leaf's largest magnitude); every leaf
+of the port's float32 gradient must lie within
+``max(1e-4, 1.5 * d_jax)`` of the oracle, and within that bound plus
+d_jax of the JAX package's gradient (at weight seed 0 also within the
+earlier flat 8e-4 of it).  Measured on the CPU: at weight seed 0,
+d_jax = 1.31e-3 and the port 1.50e-3 (``embed``); at seed 1,
+d_jax = 1.49e-4 (``shared.lora.0.kb``) and the port 9.95e-5
+(``groups.1.1.mix.A_log``), while the two float32 gradients lie 1.71e-4
+apart (``groups.0.1.mix.conv_w``), past the 1e-4 this case held until the
+float64 oracle showed the excess to be the reference's rounding.  The
+bound is the gradient's worst leaf, not each leaf's own: a leaf the
+reference happens to round well (seed 1's ``groups.1.1.mix.A_log``,
+2.5e-5) says nothing of the problem's conditioning.
 """
+import contextlib
 import dataclasses
 import functools
 import os
@@ -61,6 +78,12 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.launch import train as jax_train_cli  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
+from repro.models import attention as jax_attention  # noqa: E402
+from repro.models import blocks as jax_blocks  # noqa: E402
+from repro.models import layers as jax_layers  # noqa: E402
+from repro.models import lm as jax_lm  # noqa: E402
+from repro.models import moe as jax_moe  # noqa: E402
+from repro.models import ssm as jax_ssm  # noqa: E402
 from repro.models.attention import \
     attend_parallel as jax_attend_parallel  # noqa: E402
 from repro.models.layers import \
@@ -91,7 +114,9 @@ from test_torch_encdec_vlm import numpy_params  # noqa: E402
 from test_torch_ssm import draw_params  # noqa: E402
 
 LOSS_TOL = 1e-5
-GRAD_TOL = {("zamba2-7b", 0): 8e-4}     # the module docstring says why
+GRAD_TOL = 1e-4
+ORACLE_GATED = {"zamba2-7b"}    # the module docstring says why
+FLAT_CAP = {("zamba2-7b", 0): 8e-4}     # the case's earlier flat gate
 FAMILIES = {
     "qwen3-8b": {},
     "mixtral-8x22b": {"sliding_window": 16},
@@ -201,6 +226,48 @@ def reference_loss(name):
     return jcfg, pcfg, jm, jax.jit(jax.value_and_grad(jm.loss))
 
 
+class _Float64Numpy:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+@contextlib.contextmanager
+def float64_reference():
+    """The JAX package's models at float64 throughout: x64 on, and each
+    model module's float32 islands read as float64.  Both are global, so
+    both are undone on the way out."""
+    mods = (jax_layers, jax_attention, jax_moe, jax_ssm, jax_blocks, jax_lm)
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        for mod in mods:
+            mp.setattr(mod, "jnp", _Float64Numpy())
+        yield
+
+
+def float64_oracle(jcfg, jp, batch):
+    """The reference loss's exact gradient at ``jp`` on ``batch``, as a
+    port tree of float64 tensors."""
+    as64 = lambda a: (np.asarray(a, np.float64) if a.dtype.kind == "f"
+                      else a)
+    with float64_reference():
+        jm = jax_build_model(dataclasses.replace(jcfg, dtype="float64"))
+        value_and_grad = jax.value_and_grad(jm.loss)
+        args = (jax.tree.map(as64, jp),
+                to_jax({k: as64(v) for k, v in batch.items()}))
+        assert "f32" not in str(jax.make_jaxpr(value_and_grad)(*args))
+        _, grads = jax.jit(value_and_grad)(*args)
+        return params_from_reference(jax.device_get(grads))
+
+
+def oracle_dist(tree, oracle) -> list:
+    """Each leaf's max abs distance from the oracle over the oracle
+    leaf's largest magnitude."""
+    return [float((p.detach().double() - o).abs().max()
+                  / (o.abs().max() + 1e-30))
+            for p, o in zip(tree_leaves(tree), tree_leaves(oracle))]
+
+
 @pytest.mark.parametrize("name,seed", [
     *((name, 0) for name in FAMILIES), ("zamba2-7b", 1)],
     ids=[*FAMILIES, "zamba2-7b-seed1"])
@@ -217,7 +284,17 @@ def test_loss_and_gradients_match_jax(name, seed):
     ref = params_from_reference(jax.device_get(jg))
     assert [n for n, _ in tree_paths_and_leaves(grads)] == \
         [n for n, _ in tree_paths_and_leaves(ref)]
-    bad = worst_leaves(grads, ref, GRAD_TOL.get((name, seed), 1e-4))
+    tol = GRAD_TOL
+    if name in ORACLE_GATED:
+        oracle = float64_oracle(jcfg, jp, batch)
+        d_jax = max(oracle_dist(ref, oracle))
+        gate = max(GRAD_TOL, 1.5 * d_jax)
+        names = [n for n, _ in tree_paths_and_leaves(grads)]
+        far = [(n, d) for n, d in zip(names, oracle_dist(grads, oracle))
+               if d > gate]
+        assert not far, (gate, d_jax, far)
+        tol = min(gate + d_jax, FLAT_CAP.get((name, seed), np.inf))
+    bad = worst_leaves(grads, ref, tol)
     assert not bad, bad
 
 
