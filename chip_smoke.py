@@ -208,7 +208,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     processes, the device-busy share of an inline run (a profiler lower
     bound), and both router kernels against their plain versions at up
     to 2 of the run's calls per shape.  (c) The scale run: ``SCALE_1K``
-    with 8 process shards on the card over 1,000 dialogues (the
+    with 8 process shards on the card over 500 dialogues (the
     preset's 100,000, cut), under the reference scale benchmark's gates
     (exactly-once, 8 ledgers, nothing lost, migrations balanced,
     completed + unfinished = dialogues, not truncated, consumed
@@ -340,6 +340,26 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     FLOPs beside MODEL_FLOPS, the roofline's three terms and fraction
     beside the measured step; their figures as a JSON line
     (``dry_run``).
+27. Each sequence split over a ``model`` axis of 2, the reference
+    launcher's mesh for two devices.  (a) The flash forward and backward
+    kernels on a block of query rows at an offset (``q_offset``) against
+    their plain versions at qwen3-8b's heads, 2,048 query rows against
+    4,096 keys, offsets 0, 2,048 and 1,000 (off both kernels' tiles),
+    float32 and bf16, under phase 6's and phase 25's gates, timed beside
+    the plain version and SDPA with the mask, with their bounds; an offset
+    of 0 the same bits as the call without one.  (b) ``launch/train.py``
+    in two processes as ``torchrun`` starts it, at (1, 2) (gloo on this
+    card's CUDA tensors where the ranks share one card, NCCL with a card
+    each), against one process: phase 24's reduced float32 qwen3-8b, 3
+    steps, losses within 1e-5 relative, the ranks' first-step gradients
+    summed within 1e-4 of each leaf's largest one-process value.  (c) The
+    same at full width, 4 layers, 4,096 tokens, bf16 (phase 26's cell):
+    losses within 2e-2 relative, each rank's flash launches exact (2
+    forward and 1 backward per layer and step, at 2,048 rows against
+    4,096 keys and the rank's offset) with the plain versions refused,
+    per-rank peak memory and step time, and the dry run's bytes a rank
+    against the measured peak within 2x; the figures as a JSON line
+    (``split``).
     Then the time of all phases, the card line, the JSON line of the
     thirteen kernels' records (the six TPU kernels' counterparts, the
     router's two redesigned entries, the fused step's two kernels and the
@@ -348,8 +368,8 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     phase 17's scale run and 18b's CUDA inline federation,
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
     phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
-    locksteps, phase 25's runs and phase 26's policy run,
-    ``family_replays`` and
+    locksteps, phase 25's runs, phase 26's policy run and phase 27c's rank
+    0, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
     backward kernel's at phase 25's calls) and the device line last.
@@ -1040,7 +1060,7 @@ class ClosedLoop:
         self.ready = back + self.ready
 
 
-MODE_KEYS = ("causal", "window")   # an attention call's mode
+MODE_KEYS = ("causal", "window", "q_offset")   # an attention call's mode
 
 
 def shape_key(args, kw=None) -> tuple:
@@ -1490,15 +1510,17 @@ def ops_rate(dtype) -> float:
     return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
 
 
-def flash_work(q, k, v, *, causal=True, window=0) -> tuple[int, int]:
+def flash_work(q, k, v, *, causal=True, window=0,
+               q_offset=0) -> tuple[int, int]:
     """(bytes, operations) one prefill-attention call needs: q, k and v
     read once and o written once; a multiply-add for QK^T and one for PV
-    on every (query, key) pair the masks leave."""
+    on every (query, key) pair the masks leave (query i at key position
+    i + q_offset)."""
     import torch
 
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    qpos = torch.arange(sq)[:, None]
+    qpos = torch.arange(sq)[:, None] + q_offset
     kpos = torch.arange(sk)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool)
     if causal:
@@ -1522,17 +1544,18 @@ def decode_work(q, k_cache, v_cache, valid) -> tuple[int, int]:
     return nbytes, 4 * h * d * nvalid
 
 
-def sdpa_flash(q, k, v, *, causal=True, window=0):
+def sdpa_flash(q, k, v, *, causal=True, window=0, q_offset=0):
     """PyTorch's one call for the same function (the yardstick)."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if window:
+    if window or q_offset:
         sq, sk = q.shape[1], k.shape[1]
-        qpos = torch.arange(sq, device=q.device)[:, None]
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
         kpos = torch.arange(sk, device=q.device)[None, :]
-        mask = ((kpos <= qpos) | (not causal)) & ((qpos - kpos) < window)
+        mask = ((kpos <= qpos) | (not causal)) & (
+            ((qpos - kpos) < window) | (not window))
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                              enable_gqa=True)
     else:
@@ -3773,8 +3796,8 @@ FED_MIGRATION = 75         # dialogues of 18a (the reference test's 150,
                            # cut to leave phases 23b-25 their room)
 FED_LOCKSTEP = 100         # dialogues of 18b at the SCALE_1K fleet (200,
                            # cut to leave phases 24-25 their room)
-FED_DIALOGUES = 1_000      # the scale run's (SCALE_1K's 100,000, cut to
-                           # leave phases 19-25 their room)
+FED_DIALOGUES = 500        # the scale run's (SCALE_1K's 100,000, cut to
+                           # leave phases 19-27 their room)
 FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
                      "auction_fused")
 
@@ -5198,31 +5221,34 @@ def phase_training_lockstep(dev) -> Counter:
     return launches
 
 
-def bwd_work(q, k, v, o, do, lse=None, *, causal=True,
-             window=0) -> tuple[int, int]:
+def bwd_work(q, k, v, o, do, lse=None, *, causal=True, window=0,
+             q_offset=0) -> tuple[int, int]:
     """(bytes, operations) of one backward call: q, o, dO, dQ and k, v,
     dK, dV moved once, and the forward's float32 LSE read once; 10·H·d
     operations per unmasked pair (Q·Kᵀ again, dO·Vᵀ, P·dO, dS·K, dS·Q)."""
-    _, fwd_ops = flash_work(q, k, v, causal=causal, window=window)
+    _, fwd_ops = flash_work(q, k, v, causal=causal, window=window,
+                            q_offset=q_offset)
     lse_bytes = 0 if lse is None else 4 * lse.numel()
     return (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse_bytes, \
         fwd_ops // 4 * 10
 
 
 def sdpa_bwd_ms(q, k, v, o, do, lse=None, *, causal=True, window=0,
-                iters: int = 10) -> float:
+                q_offset=0, iters: int = 10) -> float:
     """PyTorch's SDPA backward for the same call (the yardstick): its
     forward + backward less its forward, CUDA events."""
     import torch
 
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
 
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+
     def both():
-        out = sdpa_flash(*leaves, causal=causal, window=window)
+        out = sdpa_flash(*leaves, **kw)
         torch.autograd.grad(out, leaves, do)
 
     def fwd():
-        sdpa_flash(*leaves, causal=causal, window=window)
+        sdpa_flash(*leaves, **kw)
 
     return cuda_time_ms(both, iters, 2) - cuda_time_ms(fwd, iters, 2)
 
@@ -5649,6 +5675,311 @@ def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
     return runs["policy"]["counts"], figures
 
 
+SPLIT_STEPS = 3                    # phase 27's steps a run
+SPLIT_OFFSETS = (0, 2048, 1000)    # 27a: the two ranks' and one off the tiles
+SPLIT_WORKER = r"""
+import dataclasses, functools, json, sys, time
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.distributed import seq_parallel
+from repro_torch.kernels import ops
+from repro_torch.launch import train
+from repro_torch.training import SyntheticLM, loop
+from repro_torch.utils.tree import tree_leaves
+
+spec, out = json.loads(sys.argv[1]), sys.argv[2]
+cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
+train.get_config = lambda name: cfg
+train.train_loop = functools.partial(loop.train_loop, log_every=1)
+times, calls, grads = [], [], []
+
+
+class Timed(SyntheticLM):
+    def batch_at(self, step):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        return super().batch_at(step)
+
+
+train.SyntheticLM = Timed
+lag = loop.loss_and_grads
+
+
+def first_grads(model, params, batch, accum_steps=1):
+    loss, g = lag(model, params, batch, accum_steps)
+    if spec["grads"] and not grads:
+        grads.extend(x.detach().float().cpu() for x in tree_leaves(g))
+    return loss, g
+
+
+loop.loss_and_grads = first_grads
+for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
+    def wrap(*a, _fn=getattr(ops, name), _name=name, **kw):
+        calls.append((_name, tuple(a[0].shape), tuple(a[1].shape),
+                      kw.get("q_offset", 0)))
+        return _fn(*a, **kw)
+    setattr(ops, name, wrap)
+ops.reset_launch_counts()
+seq_parallel.reset_collective_counts()
+torch.cuda.reset_peak_memory_stats()
+with cs.plain_flash_refused():
+    res = train.main(spec["args"])
+torch.cuda.synchronize()
+t_end = time.perf_counter()
+rec = {"losses": [x for _, x in res["losses"]],
+       "step_ms": cs.step_times_ms(times, t_end),
+       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+       "launches": ops.launch_counts(), "calls": calls,
+       "collectives": seq_parallel.collective_counts(),
+       "backend": dist.get_backend() if dist.is_initialized() else None,
+       "device": str(torch.cuda.current_device()), "grads": grads}
+torch.save(rec, out)
+if dist.is_initialized():
+    dist.destroy_process_group()
+"""
+
+
+class SplitRun:
+    """``launch/train.py`` in ``ranks`` processes as ``torchrun
+    --nproc-per-node`` starts them (one process without a process group
+    for ranks = 1), through SPLIT_WORKER, started at construction;
+    ``wait`` returns each rank's record, ``kill`` stops what still
+    runs."""
+
+    def __init__(self, spec: dict, ranks: int, tag: str):
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        for key in ("WORLD_SIZE", "LOCAL_WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            env.pop(key, None)
+        if ranks > 1:
+            env.update(WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks))
+        self.tag = tag
+        self.outs = [ROOT / "build" / f"split_{tag}_{r}.pt"
+                     for r in range(ranks)]
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", SPLIT_WORKER, json.dumps(spec), str(out)],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)) if ranks > 1
+            else env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r, out in enumerate(self.outs)]
+
+    def kill(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    def wait(self) -> list[dict]:
+        import torch
+
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in self.procs]
+        finally:
+            self.kill()
+        n = len(self.procs)
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            if p.returncode:
+                print(log[-4000:])
+            check(p.returncode == 0, f"{self.tag}: rank {r} of {n} exited "
+                  f"{p.returncode}")
+        recs = [torch.load(out) for out in self.outs]
+        for out in self.outs:
+            out.unlink()
+        return recs
+
+
+def split_launch_gate(cfg, recs, seq: int, label: str) -> None:
+    """Each rank's flash launches: exactly 2 forward and 1 backward per
+    layer and step, every call at Sq = seq / 2 against Sk = seq, at the
+    rank's own offset; printed with the backend and the collectives."""
+    want = launches_per_step(cfg, SPLIT_STEPS)
+    sl = seq // 2
+    for r, rec in enumerate(recs):
+        counts = rec["launches"]
+        shapes = Counter((n.removesuffix("_cuda"), q[1], k[1], off)
+                         for n, q, k, off in rec["calls"])
+        print(f"    {label} rank {r} ({rec['backend']}, cuda:"
+              f"{rec['device']}): launches {launch_text(counts, want)}; "
+              f"calls {dict(shapes)}; collectives {rec['collectives']}")
+        check(all(counts[k] == v for k, v in want.items()),
+              f"{label} rank {r}: launches {counts}, expected {want}")
+        check(set(shapes) == {("flash_attention", sl, seq, r * sl),
+                              ("flash_attention_bwd", sl, seq, r * sl)},
+              f"{label} rank {r}: calls {dict(shapes)}")
+
+
+def phase_split_kernels(dev) -> dict:
+    """Phase 27a: the flash forward and backward kernels on a block of
+    query rows at an offset, against their plain versions at qwen3-8b's
+    heads (32 / 8 of 128), Sq = 2,048 against Sk = 4,096, offsets
+    SPLIT_OFFSETS, float32 and bf16: the forward within ATTN_TOL (and its
+    rows within ATTN_ROW_TOL), the backward within BWD_TOL of each
+    output's largest plain value and each row within ATTN_ROW_TOL, and an
+    offset of 0 the same bits as the call without one.  Returns the
+    bf16 figures at each offset."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_plain)
+
+    cfg = get_config(ARCH)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sq, sk = TRAIN_4K // 2, TRAIN_4K
+    figures = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(27)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype) for shape in (
+            (1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d), (1, sq, h, d)))
+        name = str(dtype).removeprefix("torch.")
+        for off in SPLIT_OFFSETS:
+            kw = dict(causal=True, window=0, q_offset=off)
+            f = attn_figures(flash_attention_cuda, flash_attention_plain,
+                             sdpa_flash, flash_work, (q, k, v), kw,
+                             iters=20, rows=True)
+            print_figures(f"flash_attention {name}", shape_key((q, k, v),
+                                                               kw), f)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            b = bwd_figures((q, k, v, o, do, lse), kw, iters=5)
+            print_figures(f"flash_attention_bwd {name}",
+                          shape_key((q, k, v), kw), b)
+            if dtype == torch.bfloat16:
+                figures[off] = {"flash_attention": f,
+                                "flash_attention_bwd": b}
+        o0, l0 = flash_attention_cuda(q, k, v, return_lse=True, q_offset=0)
+        o1, l1 = flash_attention_cuda(q, k, v, return_lse=True)
+        g0 = flash_attention_bwd_cuda(q, k, v, o1, do, l1, q_offset=0)
+        g1 = flash_attention_bwd_cuda(q, k, v, o1, do, l1)
+        same = (torch.equal(o0, o1) and torch.equal(l0, l1)
+                and all(torch.equal(x, y) for x, y in zip(g0, g1)))
+        print(f"    {name}: offset 0 the same bits as no offset (output, "
+              f"LSE, dQ, dK, dV): {same}")
+        check(same, f"{name}: an offset of 0 changed the kernels' bits")
+        del q, k, v, do, o, lse, o0, l0, o1, l1, g0, g1
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
+
+
+def phase_split(dev) -> tuple[dict, dict]:
+    """Phase 27: each sequence split over a ``model`` axis of 2, the
+    reference launcher's mesh for two devices.  (a) `phase_split_kernels`.
+    (b) ``launch/train.py`` in two processes at (1, 2) (gloo on this
+    card's CUDA tensors where the ranks share it, NCCL with a card each)
+    against one process, phase 24's reduced float32 qwen3-8b
+    (TRAIN_SEQ x TRAIN_BATCH), SPLIT_STEPS steps: each step's loss within
+    1e-5 relative, the ranks' first-step gradients summed within GRAD_TOL
+    of each leaf's largest one-process value.  (c) qwen3-8b at full width
+    and POLICY_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_STEPS steps
+    (phase 26's cell), the same way: losses within 2e-2 relative, each
+    rank's flash launches exact (2 forward + 1 backward per layer and
+    step, Sq = 2,048 against Sk = 4,096 at its offset) with the plain
+    versions refused, per-rank peak memory and step time, and the dry
+    run's bytes a rank against the measured peak (within DRY_RATIO).
+    Returns (c)'s rank-0 launches and the phase's figures."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+
+    figures = {"kernels": phase_split_kernels(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_b = [c for c in training_configs() if c.name == ARCH][0]
+    over = {f: getattr(cfg_b, f) for f in ("n_layers", "d_model", "d_ff",
+                                           "vocab_size", "dtype")}
+    args = ["--arch", ARCH, "--steps", str(SPLIT_STEPS), "--lr",
+            str(TRAIN_LR[ARCH])]
+    spec = {"arch": ARCH, "over": over, "grads": True,
+            "args": [*args, "--seq-len", str(TRAIN_SEQ), "--batch",
+                     str(TRAIN_BATCH)]}
+    t0 = time.perf_counter()
+    runs = [SplitRun(spec, 1, "b1"), SplitRun(spec, 2, "b2")]  # both small
+    try:
+        one, ranks = runs[0].wait()[0], runs[1].wait()
+    finally:
+        for run in runs:
+            run.kill()
+    split_launch_gate(cfg_b, ranks, TRAIN_SEQ, "(b)")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "(b) the ranks' losses differ")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                  one["losses"]))
+    worst, worst_at = 0.0, 0
+    for i, (g0, g1, w) in enumerate(zip(ranks[0]["grads"], ranks[1]["grads"],
+                                        one["grads"])):
+        e = float((g0 + g1 - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if e > worst:
+            worst, worst_at = e, i
+    print(f"    (b) {ARCH} at {over}: losses {ranks[0]['losses']} against "
+          f"one process's {one['losses']} (largest relative gap {rel:.3g}); "
+          f"the ranks' first-step gradients summed: worst leaf {worst:.3g} "
+          f"of its largest one-process value (leaf {worst_at} of "
+          f"{len(one['grads'])}); {time.perf_counter() - t0:.1f} s")
+    check(rel <= 1e-5, f"(b) losses {rel} apart relative (limit 1e-5)")
+    check(worst <= GRAD_TOL, f"(b) a gradient leaf is {worst} of its "
+          f"largest value off (limit {GRAD_TOL})")
+    figures["b"] = {"losses": ranks[0]["losses"], "one": one["losses"],
+                    "rel": rel, "grad_err": worst}
+    del one, ranks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg_c = dataclasses.replace(get_config(ARCH), n_layers=POLICY_LAYERS)
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    dry = dry_run_cell(cfg_c, mesh, TRAIN_4K)
+    spec = {"arch": ARCH, "over": {"n_layers": POLICY_LAYERS},
+            "grads": False, "args": [*args, "--seq-len", str(TRAIN_4K),
+                                     "--batch", "1"]}
+    t0 = time.perf_counter()
+    one = SplitRun(spec, 1, "c1").wait()[0]      # 38 GiB: alone on the card
+    ranks = SplitRun(spec, 2, "c2").wait()
+    wall = time.perf_counter() - t0
+    split_launch_gate(cfg_c, ranks, TRAIN_4K, "(c)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                  one["losses"]))
+    card = card_line()
+    for label, rec in (("one process", one), ("rank 0", ranks[0]),
+                       ("rank 1", ranks[1])):
+        rec["step_mean_ms"] = statistics.mean(rec["step_ms"][1:])
+        print(f"    (c) {label}: losses "
+              f"{', '.join(f'{x:.6f}' for x in rec['losses'])}; steps "
+              f"{', '.join(f'{x:.1f}' for x in rec['step_ms'])} ms "
+              f"({rec['step_mean_ms']:.1f} after the first); peak "
+              f"{rec['peak_gib']:.2f} GiB; {card}")
+    print(f"    (c) the split's losses within {rel:.3g} relative of one "
+          f"process's; both runs {wall:.1f} s with the processes' start")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "(c) the ranks' losses differ")
+    check(rel <= 2e-2, f"(c) losses {rel} apart relative (limit 2e-2)")
+    peak = max(r["peak_gib"] for r in ranks)
+    step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
+    figures["c"] = {
+        "losses": ranks[0]["losses"], "one": one["losses"], "rel": rel,
+        "peak_gib": [r["peak_gib"] for r in ranks],
+        "step_ms": [r["step_mean_ms"] for r in ranks],
+        "one_peak_gib": one["peak_gib"], "one_step_ms": one["step_mean_ms"],
+        "backend": ranks[0]["backend"],
+        "collectives": ranks[0]["collectives"],
+        "dry_run": dry_run_against(
+            cfg_c, mesh, TRAIN_4K, peak, step_ms,
+            f"(c) a rank of the split, {POLICY_LAYERS} layers", dry=dry)}
+    return ranks[0]["launches"], figures
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -5909,6 +6240,14 @@ def main() -> int:
           f"{ARCH} at {POLICY_LAYERS} layers under the policy and without, "
           "the dry run and roofline against phase 25's measured step")
     policy_counts, policy_figures = phase_policy(dev, bwd)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[27] each sequence split over a model axis of 2: the flash "
+          f"kernels with a query offset, then {ARCH} trained by two ranks "
+          "at (1, 2) against one process, reduced in float32 and at full "
+          "width in bf16")
+    split_counts, split_figures = phase_split(dev)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -6009,12 +6348,14 @@ def main() -> int:
         row["encdec_vlm_launches"] = {
             "lockstep": lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
-        # launches in phase 24's locksteps (card side), phase 25's runs and
-        # phase 26's run under the sharding policy
+        # launches in phase 24's locksteps (card side), phase 25's runs,
+        # phase 26's run under the sharding policy and rank 0 of phase
+        # 27c's sequence split
         row["training_launches"] = {
             "lockstep": train_lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in train_counts.items()},
-            "policy": policy_counts[row["name"]]}
+            "policy": policy_counts[row["name"]],
+            "split": split_counts[row["name"]]}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (
@@ -6032,6 +6373,8 @@ def main() -> int:
                 **{arch: pick(r) for arch, r in encdec_replays.items()}}
     # phase 26c's dry-run figures beside phase 25's and 26b's measurements
     print(json.dumps({"dry_run": policy_figures}))
+    # phase 27: the offset kernels (bf16) and the split runs
+    print(json.dumps({"split": split_figures}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,8 @@ pool changes, and the serving side's agent-set version stamp.
 Checkpoints store full (unsharded) arrays, so elasticity is: rebuild the
 mesh at the new size (`remesh`), re-derive placements from the same
 logical-axis rules (divisibility fallback handles non-power-of-two
-survivors), and place the restored state (`reshard_state`, DTensors by
-``distribute_tensor``).  torch is imported lazily: the membership side of
+survivors), and place the restored state (`reshard_state`: DTensors of
+each rank's block, cut from the full copy every rank holds).  torch is imported lazily: the membership side of
 this module is consumed by the routing core.
 
 Agents joining or leaving the market go through
@@ -77,16 +77,24 @@ def reshard_state(state, param_axes, mesh, rules_acts: dict,
                   rules_params: dict):
     """``state`` (a `ParamTree`, or a tree of its structure such as
     AdamW's moments) placed on ``mesh`` by the logical rules: a tree of
-    the same kind whose leaves are DTensors (``distribute_tensor`` from
-    every rank's full copy)."""
-    from torch.distributed.tensor import distribute_tensor
+    the same kind whose leaves are DTensors, each rank's block cut from
+    the full copy every rank holds (no collective: a checkpoint or a
+    seeded init gives every rank the same copy)."""
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed.sharding import (ShardingPolicy,
+                                                  local_block,
                                                   param_shardings,
                                                   placements)
     from repro_torch.utils.tree import tree_map
 
     policy = ShardingPolicy(mesh, acts=rules_acts, params=rules_params)
     specs = iter(param_shardings(policy, state, param_axes).values())
-    return tree_map(lambda x: distribute_tensor(
-        x.detach(), mesh, placements(mesh, next(specs))), state)
+
+    def place(x):
+        spec = next(specs)
+        return DTensor.from_local(
+            local_block(x.detach(), mesh, spec).clone(), mesh,
+            placements(mesh, spec), shape=x.shape, stride=x.stride())
+
+    return tree_map(place, state)

@@ -22,9 +22,9 @@ shape-only `repro_torch.launch.mesh.AbstractMesh`.
 
 ``shard`` is a no-op without a policy, as in the reference.  With one it
 checks the tensor's rank and returns it as it is: the port runs the model
-on each rank's local block (the batch split over ``data``;
-`repro_torch.training.loop`), and a ``model`` axis above 1, which would
-split the activations themselves, raises in `repro_torch.launch.train`.
+on each rank's local block (the batch split over ``data``, each sequence
+over ``model``; `repro_torch.training.loop`), and the attention gathers
+the K/V it needs itself (`repro_torch.distributed.seq_parallel`).
 """
 from __future__ import annotations
 

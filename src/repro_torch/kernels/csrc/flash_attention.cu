@@ -10,6 +10,13 @@
 // score is -1e30, as in the TPU kernel, so the arithmetic is the same; the
 // denominator is max(l, 1e-30).
 //
+// Query offset: query row i sits at position i + q_offset of the keys'
+// sequence (the reference's `attend_parallel(q_offset=...)`), so the causal
+// test is j <= i + q_offset and the window's is (i + q_offset) - j < window;
+// a rank that holds one block of a sequence's query rows attends to the
+// whole sequence's keys with it.  Causal calls take q_offset + Sq <= Sk.
+// At q_offset = 0 every kernel computes the same bits as without it.
+//
 // The row log-sum-exp, on request (the training path's forward, which the
 // backward kernel reads; the serving path asks for none and its output is
 // the same bits either way): lse [B, H, Sq] float32 in natural-log units,
@@ -105,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int sq, int sk, int h, int hkv,
-                 int d, float scale, int causal, int window) {
+                 int d, float scale, int causal, int window, int q_offset) {
   __shared__ float4 ks[kBK][kMaxD / 4];
   __shared__ float4 vs[kBK][kMaxD / 4];
 
@@ -135,11 +142,13 @@ __global__ void __launch_bounds__(kThreads)
   float l = 0.f;
 
   // keys every row of this tile masks: above the last row's diagonal, and
-  // window or more behind the first row
+  // window or more behind the first row (rows at q_offset + their index)
+  const int g0 = q0 + q_offset;
+  const int gpos = qpos + q_offset;
   int k_end = sk;
-  if (causal) k_end = min(sk, q0 + kBQ);
+  if (causal) k_end = min(sk, g0 + kBQ);
   int k_begin = 0;
-  if (window) k_begin = max(0, q0 - window + 1) / kBK * kBK;
+  if (window) k_begin = max(0, g0 - window + 1) / kBK * kBK;
 
   // k/v [B, Sk, Hkv, d]: key kp of this KV head at ((b·Sk + kp)·Hkv + kvh)·d
   const int64_t kv_stride = static_cast<int64_t>(hkv) * d;
@@ -183,8 +192,8 @@ __global__ void __launch_bounds__(kThreads)
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       const int kp = k0 + j;
       bool ok = kp < sk;
-      if (causal) ok = ok && kp <= qpos;
-      if (window) ok = ok && (qpos - kp) < window;
+      if (causal) ok = ok && kp <= gpos;
+      if (window) ok = ok && (gpos - kp) < window;
       s[j] = ok ? dot * scale : kNegInf;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -239,12 +248,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int sq, int sk, int h, int hkv, int d,
-                   float scale, int causal, int window, cudaStream_t stream) {
+                   float scale, int causal, int window, int q_offset,
+                   cudaStream_t stream) {
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
   flash_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, h, hkv, d,
-      scale, causal, window);
+      scale, causal, window, q_offset);
   return cudaGetLastError();
 }
 
@@ -276,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int sq, int sk, int h, int hkv,
                     int d, float scale_log2, int causal, int window,
-                    int vec16) {
+                    int q_offset, int vec16) {
   using L = Layout<DP>;
   constexpr int S = L::kStride;
   constexpr int KD = DP / 16;  // k-steps of Q·Kᵀ
@@ -303,9 +313,10 @@ __global__ void __launch_bounds__(kThreads)
   const bool vec = vec16 != 0;
 
   // keys every row of this tile masks: above the last row's diagonal, and
-  // window or more behind the first row
-  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
-  const int k_begin = window ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  // window or more behind the first row (rows at q_offset + their index)
+  const int g0 = q0 + q_offset;
+  const int k_end = causal ? min(sk, g0 + kBQ) : sk;
+  const int k_begin = window ? max(0, g0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
 
   load_tile<DP, kThreads>(qs, qg, q_pitch, q0, kBQ, sq, d, vec);
@@ -370,15 +381,15 @@ __global__ void __launch_bounds__(kThreads)
 
     // scale into the log2 domain; masks only where a key of this tile can
     // be masked for a row of this query tile
-    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-                      (window && q0 + kBQ - 1 - k0 >= window);
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > g0) ||
+                      (window && g0 + kBQ - 1 - k0 >= window);
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[t][e] * scale_log2;
         if (edge) {
-          const int row = row_a + (e >> 1) * 8;
+          const int row = row_a + (e >> 1) * 8 + q_offset;
           const int key = k0 + t * 8 + tq * 2 + (e & 1);
           bool ok = key < sk;
           if (causal) ok = ok && key <= row;
@@ -491,8 +502,8 @@ __global__ void __launch_bounds__(kThreads)
 template <int DP>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                    float* lse, int b, int sq, int sk, int h, int hkv, int d,
-                   float scale, int causal, int window, int vec16,
-                   cudaStream_t stream) {
+                   float scale, int causal, int window, int q_offset,
+                   int vec16, cudaStream_t stream) {
   static bool raised[64] = {};
   const cudaError_t err =
       raise_smem(flash_tc_kernel<DP>, Layout<DP>::kBytes, raised);
@@ -500,13 +511,13 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
   flash_tc_kernel<DP><<<grid, kThreads, Layout<DP>::kBytes, stream>>>(
       q, k, v, o, lse, sq, sk, h, hkv, d, scale * 1.4426950408889634f,
-      causal, window, vec16);
+      causal, window, q_offset, vec16);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      float* lse, int b, int sq, int sk, int h, int hkv, int d,
-                     float scale, int causal, int window,
+                     float scale, int causal, int window, int q_offset,
                      cudaStream_t stream) {
   const auto aligned = [](const void* p, uintptr_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
@@ -522,7 +533,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 #define FLASH_TC_CASE(DP)                                                  \
   case DP:                                                                \
     return launch<DP>(qb, kb, vb, ob, lse, b, sq, sk, h, hkv, d, scale,    \
-                      causal, window, vec16, stream);
+                      causal, window, q_offset, vec16, stream);
   switch ((d + 15) / 16 * 16) {
     FLASH_TC_CASE(16)
     FLASH_TC_CASE(32)
@@ -546,22 +557,26 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 // device, all float32 (is_bf16 = 0) or all bf16 (is_bf16 = 1); h % hkv == 0,
 // d % 4 == 0, d <= 128; bf16 pointers 8-byte aligned (16 for 16-byte
 // copies).  lse: null, or float32 [b, h, sq] for the rows' natural-log
-// log-sum-exp.  bf16 runs on the tensor cores, float32 on the CUDA cores.
-// Launches on `stream`; returns cudaGetLastError().
+// log-sum-exp.  q_offset >= 0: query row i at key position i + q_offset
+// (causal calls: q_offset + sq <= sk).  bf16 runs on the tensor cores,
+// float32 on the CUDA cores.  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, void* lse,
                                       int b, int sq, int sk, int h, int hkv,
                                       int d, float scale, int causal,
-                                      int window, int is_bf16, void* stream) {
-  if (d <= 0 || d > kMaxD || d % 4 != 0 || hkv <= 0 || h % hkv != 0)
+                                      int window, int q_offset, int is_bf16,
+                                      void* stream) {
+  if (d <= 0 || d > kMaxD || d % 4 != 0 || hkv <= 0 || h % hkv != 0 ||
+      q_offset < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || sq == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const cudaError_t err =
       is_bf16 ? tc::dispatch(q, k, v, o, l, b, sq, sk, h, hkv, d, scale,
-                             causal, window, s)
+                             causal, window, q_offset, s)
               : launch<float>(q, k, v, o, l, b, sq, sk, h, hkv, d, scale,
-                              causal, window, s);
+                              causal, window, q_offset, s);
   return static_cast<int>(err);
 }

@@ -18,6 +18,11 @@
 //   dP   = dO·Vᵀ,  dS = P ∘ (dP − D)
 //   dV   = Pᵀ·dO,  dQ = scale·dS·K,  dK = scale·dSᵀ·Q
 // dK and dV of a KV head sum over the H / Hkv query heads of its group.
+// Query row i sits at key position i + q_offset (csrc/flash_attention.cu):
+// the masks test j <= i + q_offset and (i + q_offset) - j < window, and the
+// walks' bounds move with them; D does not depend on the masks, so
+// delta_kernel takes no offset.  At q_offset = 0 the kernels compute the
+// same bits as without it.
 //
 // Bound on an H100: 10·H·d operations per unmasked (query, key) pair (five
 // products of the pair with a d-vector: Q·Kᵀ again, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q,
@@ -153,9 +158,10 @@ __device__ __forceinline__ float row_dot(const float4 (&a)[kChunks],
 }
 
 __device__ __forceinline__ bool unmasked(int i, int j, int sq, int sk,
-                                         int causal, int window) {
-  return i < sq && j < sk && (!causal || j <= i) &&
-         (!window || i - j < window);
+                                         int causal, int window,
+                                         int q_offset) {
+  return i < sq && j < sk && (!causal || j <= i + q_offset) &&
+         (!window || i + q_offset - j < window);
 }
 
 // the lane's chunks of row `row` of a [.., d] tensor at element offset off
@@ -232,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dk,
                 T* __restrict__ dv, int sq, int sk, int h, int hkv, int d,
-                float scale, int causal, int window) {
+                float scale, int causal, int window, int q_offset) {
   __shared__ float4 qs[kTile][kMaxD / 4];
   __shared__ float4 gs[kTile][kMaxD / 4];
   __shared__ float ls[kTile];
@@ -256,8 +262,9 @@ __global__ void __launch_bounds__(kThreads)
 
   // queries some key of this tile sees: at or after the first key
   // (causal), less than `window` after the last one (window)
-  const int i_begin = causal ? j0 : 0;
-  const int i_end = window ? min(sq, j0 + kRows - 1 + window) : sq;
+  const int i_begin = causal ? max(0, j0 - q_offset) : 0;
+  const int i_end =
+      window ? min(sq, j0 + kRows - 1 + window - q_offset) : sq;
   for (int gi = 0; gi < group; ++gi) {
     const int head = kvh * group + gi;
     const float* lse_h = lse + (static_cast<int64_t>(b) * h + head) * sq;
@@ -276,7 +283,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int r = 0; r < n; ++r) {
         const float s = row_dot(kr, qs[r], lane, nch) * scale;
         const float dp = row_dot(vr, gs[r], lane, nch);
-        if (!unmasked(q0 + r, j, sq, sk, causal, window)) continue;
+        if (!unmasked(q0 + r, j, sq, sk, causal, window, q_offset)) continue;
         const float p = expf(s - ls[r]);
         const float dsc = p * (dp - ds_[r]);
 #pragma unroll
@@ -303,7 +310,7 @@ __global__ void __launch_bounds__(kThreads)
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int sq, int sk, int h, int hkv, int d,
-              float scale, int causal, int window) {
+              float scale, int causal, int window, int q_offset) {
   __shared__ float4 ks[kTile][kMaxD / 4];
   __shared__ float4 vs[kTile][kMaxD / 4];
   const int row = threadIdx.x / kLanes;
@@ -326,8 +333,8 @@ __global__ void __launch_bounds__(kThreads)
   const float lse_i = i < sq ? lse[at] : INFINITY;
   const float delta_i = i < sq ? delta[at] : 0.f;
 
-  const int k_begin = window ? max(0, i0 - window + 1) : 0;
-  const int k_end = causal ? min(sk, i0 + kRows) : sk;
+  const int k_begin = window ? max(0, i0 + q_offset - window + 1) : 0;
+  const int k_end = causal ? min(sk, i0 + q_offset + kRows) : sk;
   for (int j0 = k_begin; j0 < k_end; j0 += kTile) {
     __syncthreads();
     stage(ks, k, b, j0, sk, hkv, kvh, d);
@@ -337,7 +344,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < n; ++r) {
       const float s = row_dot(qr, ks[r], lane, nch) * scale;
       const float dp = row_dot(gr, vs[r], lane, nch);
-      if (!unmasked(i, j0 + r, sq, sk, causal, window)) continue;
+      if (!unmasked(i, j0 + r, sq, sk, causal, window, q_offset)) continue;
       const float dsc = expf(s - lse_i) * (dp - delta_i);
 #pragma unroll
       for (int t = 0; t < kChunks; ++t) {
@@ -373,9 +380,10 @@ struct Layout {
 // whether the (64-query tile at q0, 64-key tile at k0) pair holds a masked
 // pair: a ragged edge, the diagonal or the window's edge cuts it
 __device__ __forceinline__ bool cut(int q0, int k0, int sq, int sk,
-                                    int causal, int window) {
-  return q0 + kBlk > sq || k0 + kBlk > sk || (causal && k0 + kBlk - 1 > q0) ||
-         (window && q0 + kBlk - 1 - k0 >= window);
+                                    int causal, int window, int q_offset) {
+  const int g0 = q0 + q_offset;
+  return q0 + kBlk > sq || k0 + kBlk > sk || (causal && k0 + kBlk - 1 > g0) ||
+         (window && g0 + kBlk - 1 - k0 >= window);
 }
 
 // (b) on the tensor cores: grid (B·Hkv, ceil(Sk / 64)), the first keys
@@ -389,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                    const float* __restrict__ delta, bf16* __restrict__ dk,
                    bf16* __restrict__ dv, int sq, int sk, int h, int hkv,
                    int d, float scale, float scale_log2, int causal,
-                   int window, int vec16) {
+                   int window, int q_offset, int vec16) {
   constexpr int S = stride<DP>();
   constexpr int T = Layout<DP>::kTile;
   constexpr int KD = DP / 16;    // k-steps over the head dim
@@ -417,9 +425,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // query tiles some key of this tile sees, for each head of the group:
   // from its first key's diagonal (causal) to the last query inside its
-  // last key's window
-  const int i_begin = causal ? k0 : 0;
-  const int i_end = window ? min(sq, k0 + kBlk - 1 + window) : sq;
+  // last key's window (query i at key position i + q_offset)
+  const int i_begin = causal ? max(0, k0 - q_offset) : 0;
+  const int i_end =
+      window ? min(sq, k0 + kBlk - 1 + window - q_offset) : sq;
   const int n_qt = i_end > i_begin ? (i_end - i_begin + kBlk - 1) / kBlk : 0;
   const int n_it = n_qt * group;
 
@@ -471,7 +480,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bf16* gt = gs + st * T;
     const float* lt = ls + st * kBlk;
     const float* dt = ds + st * kBlk;
-    const bool edge = cut(q0, k0, sq, sk, causal, window);
+    const bool edge = cut(q0, k0, sq, sk, causal, window, q_offset);
 
 #pragma unroll 1
     for (int s0 = 0; s0 < kBlk; s0 += kStep) {
@@ -507,7 +516,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int c = s0 + t * 8 + tq * 2 + (e & 1);  // query of the tile
           float p = exp2f(sa[t][e] * scale_log2 - lt[c] * kLog2e);
           if (edge && !unmasked(q0 + c, key_a + (e >> 1) * 8, sq, sk, causal,
-                                window))
+                                window, q_offset))
             p = 0.f;
           sa[t][e] = p;
           pa[t][e] = p * (pa[t][e] - dt[c]);
@@ -566,7 +575,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, bf16* __restrict__ dq,
                  int sq, int sk, int h, int hkv, int d, float scale,
-                 float scale_log2, int causal, int window, int vec16) {
+                 float scale_log2, int causal, int window, int q_offset,
+                 int vec16) {
   constexpr int S = stride<DP>();
   constexpr int T = Layout<DP>::kTile;
   constexpr int KD = DP / 16;    // k-steps over the head dim
@@ -596,8 +606,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // keys every row of this tile masks: above the last row's diagonal, and
   // window or more behind the first row (the forward's walk)
-  const int k_end = causal ? min(sk, q0 + kBlk) : sk;
-  const int k_begin = window ? max(0, q0 - window + 1) / kBlk * kBlk : 0;
+  const int g0 = q0 + q_offset;
+  const int k_end = causal ? min(sk, g0 + kBlk) : sk;
+  const int k_begin = window ? max(0, g0 - window + 1) / kBlk * kBlk : 0;
   const int n_tiles =
       k_end > k_begin ? (k_end - k_begin + kBlk - 1) / kBlk : 0;
 
@@ -653,7 +664,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     const bf16* kt = ks + st * T;
     const bf16* vt = vs + st * T;
-    const bool edge = cut(q0, k0, sq, sk, causal, window);
+    const bool edge = cut(q0, k0, sq, sk, causal, window, q_offset);
 
 #pragma unroll 1
     for (int s0 = 0; s0 < kBlk; s0 += kStep) {
@@ -686,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int key = k0 + s0 + t * 8 + tq * 2 + (e & 1);
           float p = exp2f(sa[t][e] * scale_log2 - lse2[e >> 1]);
           if (edge && !unmasked(row_a + (e >> 1) * 8, key, sq, sk, causal,
-                                window))
+                                window, q_offset))
             p = 0.f;
           pa[t][e] = p * (pa[t][e] - dl[e >> 1]);
         }
@@ -731,7 +742,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const bf16* dout, const float* lse, const float* delta,
                    bf16* dq, bf16* dk, bf16* dv, int b, int sq, int sk, int h,
                    int hkv, int d, float scale, int causal, int window,
-                   int vec16, cudaStream_t stream) {
+                   int q_offset, int vec16, cudaStream_t stream) {
   using L = Layout<DP>;
   static bool raised_kv[64] = {};
   static bool raised_q[64] = {};
@@ -743,13 +754,13 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   dkdv_tc_kernel<DP><<<dim3(b * hkv, (sk + kBlk - 1) / kBlk), kThreads,
                        L::kDkdvBytes, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, sq, sk, h, hkv, d, scale,
-      scale_log2, causal, window, vec16);
+      scale_log2, causal, window, q_offset, vec16);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dq_tc_kernel<DP><<<dim3(b * h, (sq + kBlk - 1) / kBlk), kThreads,
                      L::kDqBytes, stream>>>(
       q, k, v, dout, lse, delta, dq, sq, sk, h, hkv, d, scale, scale_log2,
-      causal, window, vec16);
+      causal, window, q_offset, vec16);
   return cudaGetLastError();
 }
 
@@ -757,7 +768,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      void* dq, void* dk, void* dv, int b, int sq, int sk,
                      int h, int hkv, int d, float scale, int causal,
-                     int window, cudaStream_t stream) {
+                     int window, int q_offset, cudaStream_t stream) {
   const auto aligned = [](const void* p, uintptr_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
@@ -777,7 +788,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 #define FLASH_BWD_TC_CASE(DP)                                              \
   case DP:                                                                \
     return launch<DP>(qb, kb, vb, gb, lse, delta, dqb, dkb, dvb, b, sq, sk, \
-                      h, hkv, d, scale, causal, window, vec16, stream);
+                      h, hkv, d, scale, causal, window, q_offset, vec16,     \
+                      stream);
   switch ((d + 15) / 16 * 16) {
     FLASH_BWD_TC_CASE(16)
     FLASH_BWD_TC_CASE(32)
@@ -802,7 +814,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, void* dq, void* dk,
                    void* dv, const float* lse, float* delta, int b, int sq,
                    int sk, int h, int hkv, int d, float scale, int causal,
-                   int window, cudaStream_t stream) {
+                   int window, int q_offset, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -814,17 +826,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if constexpr (sizeof(T) == 2) {
     return tcb::dispatch(q, k, v, dout, lse, delta, dq, dk, dv, b, sq, sk, h,
-                         hkv, d, scale, causal, window, stream);
+                         hkv, d, scale, causal, window, q_offset, stream);
   } else {
     const dim3 keys_grid((sk + kRows - 1) / kRows, b * hkv);
     dkdv_kernel<T><<<keys_grid, kThreads, 0, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dk),
-        static_cast<T*>(dv), sq, sk, h, hkv, d, scale, causal, window);
+        static_cast<T*>(dv), sq, sk, h, hkv, d, scale, causal, window,
+        q_offset);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     dq_kernel<T><<<rows_grid, kThreads, 0, stream>>>(
         qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), sq, sk, h, hkv, d,
-        scale, causal, window);
+        scale, causal, window, q_offset);
     return cudaGetLastError();
   }
 }
@@ -835,15 +848,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // the device, all float32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), 16-byte
 // aligned; lse float32 [b, h, sq], the forward kernel's (natural log);
 // delta float32 scratch of b·h·sq.  h % hkv == 0, d % 4 == 0,
-// 0 < d <= 128, b·h <= 65535, sq, sk > 0.  Launches the three kernels on
-// `stream` in order; returns the first launch error, else cudaSuccess.
+// 0 < d <= 128, b·h <= 65535, sq, sk > 0, q_offset >= 0 (the forward's).
+// Launches the three kernels on `stream` in order; returns the first
+// launch error, else cudaSuccess.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, const void* lse,
     void* delta, int b, int sq, int sk, int h, int hkv, int d, float scale,
-    int causal, int window, int is_bf16, void* stream) {
+    int causal, int window, int q_offset, int is_bf16, void* stream) {
   if (d <= 0 || d > kMaxD || d % 4 != 0 || hkv <= 0 || h % hkv != 0 ||
-      b <= 0 || sq <= 0 || sk <= 0 || static_cast<int64_t>(b) * h > 65535)
+      b <= 0 || sq <= 0 || sk <= 0 || q_offset < 0 ||
+      static_cast<int64_t>(b) * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -851,8 +866,8 @@ extern "C" int flash_attention_bwd_launch(
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, l, dl, b,
                                        sq, sk, h, hkv, d, scale, causal,
-                                       window, s)
+                                       window, q_offset, s)
               : launch<float>(q, k, v, o, dout, dq, dk, dv, l, dl, b, sq, sk,
-                              h, hkv, d, scale, causal, window, s);
+                              h, hkv, d, scale, causal, window, q_offset, s);
   return static_cast<int>(err);
 }

@@ -18,6 +18,13 @@ returns each row's log-sum-exp, [B, H, Sq] float32 in natural-log units;
 its output is the same bits either way.  ``attention_lse_ref`` is the
 plain LSE, computed independently of the kernel.
 
+A query offset (``q_offset``, the reference's ``attend_parallel(q_offset=
+...)``) puts query row i at key position i + q_offset: the causal mask is
+j <= i + q_offset and the window's i + q_offset - j < window.  A rank of a
+sequence split (`distributed/seq_parallel.py`) attends its block of query
+rows, at offset rank · S_local, to the whole sequence's keys with it.  At
+q_offset = 0 both kernels compute the same bits as without it.
+
 Its gradient (training on the card) is ``csrc/flash_attention_bwd.cu``:
 given q, k, v, the forward's o and LSE and the output's gradient dO, three
 launches compute D = rowsum(dO ∘ O), then dK and dV per block of keys
@@ -52,16 +59,19 @@ MAX_HEAD_DIM = 128
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _I, _P]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(name: str, q, k, v, window: int, *like_q) -> None:
+def _check(name: str, q, k, v, causal: bool, window: int, q_offset: int,
+           *like_q) -> None:
     """The inputs both kernels take: q [B, Sq, H, d], k/v [B, Sk, Hkv, d]
     and ``like_q`` tensors of q's shape, contiguous CUDA tensors on one
     device, all float32 or all bfloat16; H a multiple of Hkv; d a multiple
-    of 4 up to 128; with a window, Sq at most Sk.  Raises otherwise."""
+    of 4 up to 128; with a window, Sq at most Sk; a query offset only with
+    the causal mask and within the keys (q_offset + Sq <= Sk).  Raises
+    otherwise."""
     dev = q.device
     rest = (k, v, *like_q)
     if dev.type != "cuda" or any(t.device != dev for t in rest):
@@ -84,22 +94,27 @@ def _check(name: str, q, k, v, window: int, *like_q) -> None:
                          f"4..{MAX_HEAD_DIM}")
     if window and sq > sk:
         raise ValueError("a sliding window needs Sq <= Sk")
+    if q_offset and not (causal and 0 < q_offset and q_offset + sq <= sk):
+        raise ValueError(f"q_offset {q_offset} needs the causal mask and "
+                         f"q_offset + Sq <= Sk (Sq {sq}, Sk {sk})")
     if not all(t.is_contiguous() for t in (q, *rest)):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         return_lse: bool = False):
+                         q_offset: int = 0, return_lse: bool = False):
     """q [B, Sq, H, d], k/v [B, Sk, Hkv, d] (contiguous CUDA tensors on one
     device, all float32 or all bfloat16; H a multiple of Hkv; d a multiple
     of 4 up to 128) -> [B, Sq, H, d] of q's dtype, launched on the current
     stream; with ``return_lse``, (output, lse) where lse [B, H, Sq] float32
     holds each row's natural-log log-sum-exp of its scaled, unmasked scores
     (the output is the same bits either way).  With a window, Sq may not
-    exceed Sk (a row with no valid key is not defined).  Raises on any
-    other input and on a failed launch."""
-    _check("flash_attention_cuda", q, k, v, window)
+    exceed Sk (a row with no valid key is not defined); ``q_offset`` (query
+    row i at key position i + q_offset) needs the causal mask and
+    q_offset + Sq <= Sk.  Raises on any other input and on a failed
+    launch."""
+    _check("flash_attention_cuda", q, k, v, causal, window, q_offset)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if q.dtype == torch.bfloat16:     # the tensor-core kernel's 16-byte copies
@@ -111,7 +126,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, b, sq, sk, h, hkv, d,
-        1.0 / math.sqrt(d), int(causal), int(window),
+        1.0 / math.sqrt(d), int(causal), int(window), int(q_offset),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -123,21 +138,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
+    fn.argtypes = [_P] * 10 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _I,
+                                          _P]
     fn.restype = ctypes.c_int
     return lib
 
 
 def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, q_offset: int = 0):
     """The gradient of `flash_attention_cuda`: q, o, dO [B, Sq, H, d], k/v
-    [B, Sk, Hkv, d], taken as the forward takes them, and the forward's
-    ``lse`` ([B, H, Sq] float32, from ``return_lse=True``) -> (dQ, dK, dV)
-    in the inputs' dtype, launched on the current stream (three kernels;
-    one float32 scratch value per query row and head).  Raises on any
-    input the forward would refuse, on an lse of another shape or type, and
-    on a failed launch."""
-    _check("flash_attention_bwd_cuda", q, k, v, window, o, do)
+    [B, Sk, Hkv, d], taken as the forward takes them (with its masks and
+    ``q_offset``), and the forward's ``lse`` ([B, H, Sq] float32, from
+    ``return_lse=True``) -> (dQ, dK, dV) in the inputs' dtype, launched on
+    the current stream (three kernels; one float32 scratch value per query
+    row and head).  Raises on any input the forward would refuse, on an lse
+    of another shape or type, and on a failed launch."""
+    _check("flash_attention_bwd_cuda", q, k, v, causal, window, q_offset, o,
+           do)
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if b * h > 65535:
@@ -156,7 +173,7 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), b, sq, sk, h, hkv, d,
-        1.0 / math.sqrt(d), int(causal), int(window),
+        1.0 / math.sqrt(d), int(causal), int(window), int(q_offset),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -166,9 +183,11 @@ def flash_attention_bwd_cuda(q, k, v, o, do, lse, *, causal: bool = True,
 
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse=None, *,
-                              causal: bool = True, window: int = 0):
-    """The gradient of `flash_attention_plain` at (q, k, v) given its output
-    o and the output's gradient dO, in float32, as the kernel computes it:
+                              causal: bool = True, window: int = 0,
+                              q_offset: int = 0):
+    """The gradient of `flash_attention_plain` at (q, k, v) (with its masks
+    and ``q_offset``) given its output o and the output's gradient dO, in
+    float32, as the kernel computes it:
     P from the masked scores (a masked pair is -1e30, so its P is 0),
     D = rowsum(dO ∘ O), dS = P ∘ (dO·Vᵀ − D), dQ = scale·dS·K,
     dK = scale·dSᵀ·Q and dV = Pᵀ·dO, summed over each KV head's group.
@@ -182,7 +201,7 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse=None, *,
     qg, og, dog = (t.reshape(b, sq, hkv, g, d).float() for t in (q, o, do))
     kf, vf = k.float(), v.float()
     mask = attention_mask(sq, sk, causal=causal, window=window,
-                          device=q.device)
+                          q_offset=q_offset, device=q.device)
     s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)

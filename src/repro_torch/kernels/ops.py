@@ -155,46 +155,51 @@ class _FlashAttention(torch.autograd.Function):
     stands in for the op sees the call)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, q_offset):
         o, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
+                                      q_offset=q_offset, return_lse=True)
         _LAUNCHES["flash_attention"] += 1
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.mode = (causal, window)
+        ctx.mode = (causal, window, q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, window = ctx.mode
+        causal, window, q_offset = ctx.mode
         dq, dk, dv = flash_attention_bwd_op(q, k, v, o, do.contiguous(), lse,
-                                            causal=causal, window=window)
-        return dq, dk, dv, None, None
+                                            causal=causal, window=window,
+                                            q_offset=q_offset)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention_op(q, k, v, *, causal=True, window=0):
+def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
     """Causal / sliding-window GQA attention: q [B, Sq, H, d], k/v
-    [B, Sk, Hkv, d] -> [B, Sq, H, d]; see `kernels/flash_attention.py`.
-    On CUDA with an input that requires grad (under grad mode) it runs
-    through `_FlashAttention`, so the backward kernel gives q, k and v
-    their gradients; otherwise the kernel is called directly."""
+    [B, Sk, Hkv, d] -> [B, Sq, H, d], query row i at key position
+    i + ``q_offset``; see `kernels/flash_attention.py`.  On CUDA with an
+    input that requires grad (under grad mode) it runs through
+    `_FlashAttention`, so the backward kernel gives q, k and v their
+    gradients; otherwise the kernel is called directly."""
     if _route(q) == "cuda":
         if _needs_grad(q, k, v):
-            return _FlashAttention.apply(q, k, v, causal, window)
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
         _LAUNCHES["flash_attention"] += 1
         return out
-    return flash_attention_plain(q, k, v, causal=causal, window=window)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
 
 
-def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal=True, window=0):
+def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal=True, window=0,
+                           q_offset=0):
     """The flash attention's gradient on the card: q, o, dO [B, Sq, H, d],
     k/v [B, Sk, Hkv, d] and the forward's lse [B, H, Sq] -> (dQ, dK, dV);
     see `kernels/flash_attention.py`.  Only ``_FlashAttention``'s backward
     calls it, and that Function runs only on CUDA (on the CPU the plain
     forward differentiates itself)."""
     out = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal=causal,
-                                   window=window)
+                                   window=window, q_offset=q_offset)
     _LAUNCHES["flash_attention_bwd"] += 1
     return out
 

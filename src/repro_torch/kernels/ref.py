@@ -103,10 +103,11 @@ def auction_bid_ref(W, ask, ask2, active, eps):
 
 # ---------------- attention ----------------
 
-def attention_mask(sq, sk, *, causal, window, device=None):
-    """[Sq, Sk] bool: True where query i may read key j (j <= i when
-    ``causal``; i - j < ``window`` when ``window`` > 0)."""
-    qpos = torch.arange(sq, device=device)[:, None]
+def attention_mask(sq, sk, *, causal, window, q_offset=0, device=None):
+    """[Sq, Sk] bool: True where query i, at key position i + ``q_offset``,
+    may read key j (j <= i + q_offset when ``causal``; i + q_offset - j <
+    ``window`` when ``window`` > 0)."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
@@ -116,13 +117,15 @@ def attention_mask(sq, sk, *, causal, window, device=None):
     return mask
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+def attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                  q_offset=0):
     """q: [B, Sq, H, d], k/v: [B, Sk, Hkv, d] -> [B, Sq, H, d] in q's dtype.
 
     GQA by head grouping (query head h reads KV head h // (H / Hkv)); the
-    scores, softmax and PV product run in float32.  A key is masked (-1e30)
-    above the diagonal when ``causal`` and ``window`` or more positions
-    behind the query when ``window`` > 0.
+    scores, softmax and PV product run in float32.  Query row i sits at key
+    position i + ``q_offset``; a key is masked (-1e30) above that diagonal
+    when ``causal`` and ``window`` or more positions behind it when
+    ``window`` > 0.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -130,14 +133,15 @@ def attention_ref(q, k, v, *, causal=True, window=0, scale=None):
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
     s = s * (scale or 1.0 / math.sqrt(d))
     mask = attention_mask(sq, sk, causal=causal, window=window,
-                          device=q.device)
+                          q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,btkd->bskgd", p, v.float())
     return o.reshape(b, sq, h, d).to(q.dtype)
 
 
-def attention_lse_ref(q, k, *, causal=True, window=0, scale=None):
+def attention_lse_ref(q, k, *, causal=True, window=0, scale=None,
+                      q_offset=0):
     """q: [B, Sq, H, d], k: [B, Sk, Hkv, d] -> [B, H, Sq] float32.
 
     Each query row's natural-log log-sum-exp of its scaled scores under
@@ -150,7 +154,7 @@ def attention_lse_ref(q, k, *, causal=True, window=0, scale=None):
     s = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
     s = s * (scale or 1.0 / math.sqrt(d))
     mask = attention_mask(sq, sk, causal=causal, window=window,
-                          device=q.device)
+                          q_offset=q_offset, device=q.device)
     lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
     return lse.reshape(b, h, sq)
 

@@ -24,10 +24,15 @@ its kernels, and counts:
   * ``model_flops`` and, for a skipped cell, ``cell_supported``'s reason.
 
 Per card means the block of the batch a card holds (the batch split over
-its mesh axes by the policy); a ``model`` axis above 1, which the port's
-step does not run (tensor parallelism is not ported), is taken as an even
-split of that block's work, and its activation collectives are not
-counted.  A full-depth trace of a long sequence takes minutes on the
+its mesh axes by the policy).  A train cell of a dense GQA decoder whose
+sequence the training rules split over ``model`` is traced as one rank of
+that split runs it (`distributed.seq_parallel`: its block of each
+sequence, the K/V gathered to the whole sequence by an emulated
+all-gather), so its activations are the ones a card holds, and its
+per-layer K/V collectives are counted (`utils.hlo`).  Any other ``model``
+axis above 1, which the port's step does not run (the other families
+cannot split a sequence yet; serving is not tensor-parallel), is taken
+as an even split of the block's work.  A full-depth trace of a long sequence takes minutes on the
 plain path (the scans loop over chunks), so each cell traces the
 reference's L = 1 / L = 2 variants (`variant_plan`) and extrapolates:
 every counted quantity is affine in the layer count, so the extrapolation
@@ -56,6 +61,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import (SHAPES, cell_supported, get_config,
                                  list_archs, model_flops, param_counts)
+from repro_torch.distributed import seq_parallel
 from repro_torch.distributed.sharding import (DECODE_PARAM_RULES,
                                               DECODE_RULES, TRAIN_PARAM_RULES,
                                               TRAIN_RULES, ShardingPolicy,
@@ -197,10 +203,31 @@ def _batch_split(policy, shape, accum: int):
     return max(rows // n, 1), split
 
 
-def _fake_batch(cfg, shape, rows: int) -> dict:
+def _seq_split(cfg, shape, policy, accum: int):
+    """One rank's share of the sequence split a train cell's step makes
+    (its collectives emulated: no group), or None."""
+    if shape.kind != "train" or seq_parallel.unsupported(cfg):
+        return None
+    rows = shape.global_batch // accum
+    spec = policy.act_spec(("batch", "seq"), (rows, shape.seq_len))
+    sizes = mesh_shape(policy.mesh)
+    m = 1
+    for axis, dim in spec_axes(spec).items():
+        if dim == 1:
+            m *= sizes[axis]
+    if m == 1:
+        return None
+    return seq_parallel.SeqSplit(None, 0, m, shape.seq_len // m)
+
+
+def _fake_batch(cfg, shape, rows: int, split=None) -> dict:
     out = {}
     for name, spec in input_specs(cfg, shape).items():
         out[name] = torch.zeros((rows, *spec.shape[1:]), dtype=spec.dtype)
+    if split is not None:          # a rank's block, as `training.loop` cuts
+        tokens = out["tokens"][:, :split.s_local]
+        out = {"tokens": tokens, "targets": torch.zeros_like(tokens),
+               "target_count": torch.zeros((rows,), dtype=torch.int64)}
     return out
 
 
@@ -217,7 +244,8 @@ def trace_cell(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     model = build_model(cfg)
     kind = shape.kind
     accum = accum if kind == "train" else 1
-    split = mesh_shape(policy.mesh).get("model", 1)
+    seq_split = _seq_split(cfg, shape, policy, accum)
+    split = 1 if seq_split else mesh_shape(policy.mesh).get("model", 1)
     with FakeTensorMode(allow_non_fake_inputs=True):
         params, leaves = _fake_params(model)
         rows, _ = _batch_split(policy, shape, accum)
@@ -227,8 +255,9 @@ def trace_cell(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
                 for p in leaves:
                     p.requires_grad_(True)
                 saved = _SavedCounter(leaves, flops)
-                batch = _fake_batch(cfg, shape, rows)
-                with counter, saved.hooks(), remat_probe(saved.probe):
+                batch = _fake_batch(cfg, shape, rows, seq_split)
+                with counter, saved.hooks(), remat_probe(saved.probe), \
+                        seq_parallel.split(seq_split):
                     loss = model.loss(params, batch)
                     torch.autograd.grad(loss, leaves)
                 act, peak = saved.kept_bytes(), saved.layer_peak
@@ -287,8 +316,15 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
            "grads": p_full * (2 if accum > 1 else 1) if kind == "train"
            else 0,
            "gathered": p_full - p_local if kind == "train" else 0}
-    coll = (step_collectives(policy.mesh, specs, full, batch_axes)
-            if kind == "train" else [])
+    coll = []
+    if kind == "train":
+        split = _seq_split(cfg, shape, policy, accum)
+        kv = (rows * shape.seq_len * cfg.n_kv_heads * 2 * cfg.hd
+              * getattr(torch, cfg.dtype).itemsize)
+        coll = step_collectives(
+            policy.mesh, specs, full, batch_axes,
+            seq_axes=("model",) if split else (),
+            attn_layers=cfg.n_layers if split else 0, kv_bytes=kv)
     out["collectives"] = collective_wire_bytes(coll)
     return out
 

@@ -10,17 +10,20 @@ its path (flash attention, the WKV6 and SSD scans) have backward kernels
 (`kernels/ops.py`).  Fault tolerance: atomic checkpoints and
 resume-from-latest (``--ckpt-dir``).
 
-Several cards train data-parallel, one process a card, as the reference
-trains under its sharding policy over several devices: launched by
+Several ranks train under the reference's sharding policy, one process a
+rank, as the reference trains over several devices: launched by
 ``torchrun --nproc-per-node N -m repro_torch.launch.train ...`` (or with
 ``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR``/``MASTER_PORT`` set), the
-launcher joins the process group (NCCL on cards, gloo with ``--device
-cpu``), builds ``ShardingPolicy(remesh(N, data_model_ratio=N),
-TRAIN_RULES, TRAIN_PARAM_RULES)`` and trains under it (`training.loop`:
-FSDP placements over ``data``, the batch split over the ranks).  The
-ratio asks `remesh` for the (N, 1) mesh: the port's step is
-data-parallel, and a mesh whose ``model`` axis is above 1 raises in
-`training.loop.place_state` (tensor parallelism is not ported).
+launcher joins the process group and builds ``ShardingPolicy(mesh,
+TRAIN_RULES, TRAIN_PARAM_RULES)`` (`training.loop`: the rows over
+``data``, each sequence over ``model``, the parameters placed by the
+rules).  The dense GQA decoders get the reference's mesh, ``remesh(N)``
+at its default ratio: (1, 2) on two ranks, (2, 2) on four.  The other
+families cannot split a sequence yet (`distributed.seq_parallel.
+unsupported`): they get (N, 1), data-parallel, and the launcher says that
+this departs from the reference's mesh.  The backend is NCCL with one
+card a rank, gloo with ``--device cpu`` and where the ranks share a card
+(fewer visible cards than local ranks; gloo then runs on CUDA tensors).
 Rank 0 prints.  One process that sees several cards trains on one and
 says how to use them all.
 """
@@ -33,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.seq_parallel import unsupported
 from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES, TRAIN_RULES,
                                               ShardingPolicy, apply_policy)
 from repro_torch.models import build_model
@@ -66,10 +70,16 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        backend = "gloo"
         if dev.type == "cuda":
-            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            cards = torch.cuda.device_count()
+            dev = torch.device("cuda", local % cards)
             torch.cuda.set_device(dev)
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            if int(os.environ.get("LOCAL_WORLD_SIZE",
+                                  os.environ["WORLD_SIZE"])) <= cards:
+                backend = "nccl"
+        dist.init_process_group(backend)
     cfg = get_config(args.arch)
     if args.smoke:
         s = args.scale
@@ -86,14 +96,12 @@ def main(argv=None) -> dict:
     n_dev = dist.get_world_size() if dist.is_initialized() else 1
     policy = None
     if n_dev > 1:
-        from repro_torch.distributed.elastic import remesh
-        policy = ShardingPolicy(remesh(n_dev, data_model_ratio=n_dev,
-                                       device_type=dev.type),
+        policy = ShardingPolicy(train_mesh(cfg, n_dev, dev.type),
                                 acts=TRAIN_RULES, params=TRAIN_PARAM_RULES)
     elif dev.type == "cuda" and torch.cuda.device_count() > 1:
         print(f"{torch.cuda.device_count()} CUDA devices visible; training "
               f"on one ({dev}): launch one process a card (torchrun "
-              "--nproc-per-node) to train data-parallel over them")
+              "--nproc-per-node) to train over them")
     with apply_policy(policy):
         out = train_loop(model, data, steps=args.steps, opt_cfg=opt,
                          compression=comp, accum_steps=args.accum,
@@ -107,6 +115,21 @@ def main(argv=None) -> dict:
           f"({args.steps * args.batch * args.seq_len / out['wall_s']:.0f} "
           "tok/s)")
     return out
+
+
+def train_mesh(cfg, n_dev: int, device_type: str):
+    """The mesh of ``n_dev`` ranks: the reference's ``remesh(n_dev)`` for
+    a model whose sequences can split over ``model``, else (n_dev, 1),
+    said on rank 0."""
+    from repro_torch.distributed.elastic import remesh
+
+    reason = unsupported(cfg)
+    if reason is None:
+        return remesh(n_dev, device_type=device_type)
+    if dist.get_rank() == 0:
+        print(f"training data-parallel on a ({n_dev}, 1) mesh, not the "
+              f"reference's remesh({n_dev}): {reason}")
+    return remesh(n_dev, data_model_ratio=n_dev, device_type=device_type)
 
 
 if __name__ == "__main__":

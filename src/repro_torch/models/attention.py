@@ -12,7 +12,13 @@ Conventions (the reference's, `repro.models.attention`)
   buffers of size W; ``slot_pos`` makes ring masking exact.
 * On a CUDA tensor `attend_parallel` runs the flash-attention kernel and
   `attend_decode` the decode-attention kernel (`kernels/ops.py`); on a CPU
-  tensor their plain versions.  `attend_mixed` (chunked prefill over a
+  tensor their plain versions.
+* Under a sequence split (`distributed/seq_parallel.py`, the training
+  step over a ``model`` axis above 1) `gqa_parallel` holds one block of
+  each sequence: it rotates q and k at the block's global positions,
+  gathers K and V over the axis and attends its rows at
+  ``q_offset = rank · S_local``, as the reference's dense path keeps q
+  sharded by sequence and gathers only the grouped K/V.  `attend_mixed` (chunked prefill over a
   cache) has no kernel in the reference either and is plain PyTorch on
   both devices.
 * MLA (DeepSeek-V2) has no kernel: its prefill attends with q/k of width
@@ -34,6 +40,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import seq_parallel
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, normal_init, rms_norm
 
@@ -46,11 +53,14 @@ def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
     return q.reshape(b, s, n_kv, h // n_kv, d)
 
 
-def attend_parallel(q, k, v, *, causal: bool = True, window: int = 0):
+def attend_parallel(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """Causal (+ sliding-window) or bidirectional attention over a whole
     prompt.
 
-    q: [B, Sq, H, hd]; k, v: [B, Sk, Hkv, hd] (Sq = Sk when causal).  The
+    q: [B, Sq, H, hd]; k, v: [B, Sk, Hkv, hd] (Sq = Sk when causal, but
+    for a block of query rows at ``q_offset``: row i of q sits at key
+    position i + q_offset, q_offset + Sq <= Sk, as in the reference).  The
     reference also masks keys at or past each sequence's valid length
     (``kv_valid_len``).  Under the causal mask that changes only rows at
     or past the valid length, which nothing reads (`prefill_cache_layout`
@@ -63,7 +73,7 @@ def attend_parallel(q, k, v, *, causal: bool = True, window: int = 0):
     """
     return ops.flash_attention_op(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal,
-                                  window=window)
+                                  window=window, q_offset=q_offset)
 
 
 def attend_parallel_plain(q, k, v, *, kv_valid_len=None):
@@ -285,12 +295,18 @@ def _qkv(p, x, cfg):
 
 
 def gqa_parallel(p, x, cfg):
-    """x: [B, S, D] -> (out [B, S, D], (k, v) for the cache layout)."""
+    """x: [B, S, D] -> (out [B, S, D], (k, v) for the cache layout).
+    Under a sequence split x is this rank's block of each sequence, and
+    its rows attend to the whole sequence's keys (the module docstring)."""
     q, k, v = _qkv(p, x, cfg)
-    pos = torch.arange(x.shape[1], device=x.device)
+    split = seq_parallel.current()
+    offset = split.offset if split else 0
+    pos = torch.arange(offset, offset + x.shape[1], device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = attend_parallel(q, k, v, window=cfg.sliding_window)
+    k_all, v_all = seq_parallel.gather_kv(k, v, split) if split else (k, v)
+    o = attend_parallel(q, k_all, v_all, window=cfg.sliding_window,
+                        q_offset=offset)
     out = torch.einsum("...hk,hkd->...d", o, p["wo"])
     return out, (k, v)
 

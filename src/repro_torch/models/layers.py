@@ -123,7 +123,8 @@ def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
 # ---------------- losses ----------------
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
-                    ignore: int = -100) -> torch.Tensor:
+                    ignore: int = -100, *, targets=None,
+                    count=None) -> torch.Tensor:
     """Causal LM loss: logits[:, t] predicts tokens[:, t+1], float32
     log-sum-exp, targets equal to ``ignore`` left out of the mean.
 
@@ -133,9 +134,17 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     that contraction is a logit times 0) without a [B, S, V] one-hot.
     Logits and targets of different lengths raise ValueError, as the
     reference's contraction does.
+
+    A rank of a sequence split (`distributed/seq_parallel.py`) holds one
+    block of each sequence and passes its ``targets`` ([B, S_local], the
+    next block's first token after its last row, ``ignore`` after the
+    sequence's end) and ``count``, the whole sequences' number of valid
+    targets: every logit row is scored and the sum divided by ``count``,
+    so the ranks' losses sum to the whole sequences' loss.
     """
-    logits = logits[:, :-1].float()
-    targets = tokens[:, 1:].long()
+    if targets is None:
+        logits, targets = logits[:, :-1], tokens[:, 1:]
+    logits, targets = logits.float(), targets.long()
     if targets.shape != logits.shape[:2]:
         raise ValueError(f"targets {tuple(targets.shape)} do not match "
                          f"logits {tuple(logits.shape)}")
@@ -144,5 +153,5 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, safe_t[..., None])[..., 0]
     nll = torch.where(valid, lse - picked, 0.0)
-    denom = valid.sum().clamp(min=1)
+    denom = (valid.sum() if count is None else count).clamp(min=1)
     return nll.sum() / denom

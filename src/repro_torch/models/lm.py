@@ -43,6 +43,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed import seq_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (ParamTree, next_token_loss,
@@ -79,8 +80,9 @@ def _family(cfg) -> str:
 
 def _remat(fn, remat: bool):
     """``fn``, or ``fn`` under activation checkpointing (non-reentrant, so
-    closures over parameters get their gradients)."""
-    return checkpointed(fn) if remat else fn
+    closures over parameters get their gradients), its re-run under the
+    sequence split of its forward (`seq_parallel.bound`)."""
+    return checkpointed(seq_parallel.bound(fn)) if remat else fn
 
 
 def _stack_axes(ax, n: int) -> list:
@@ -265,9 +267,16 @@ def build_lm(cfg):
         """The next-token loss over batch["tokens"] [B, S] (+ patches).
         With ``n_patches`` in the config, the reference prepends that many
         -100 targets whether or not the batch holds patches, so a batch
-        without them raises, as the reference's does (ROADMAP §3)."""
+        without them raises, as the reference's does (ROADMAP §3).  Under
+        a sequence split the batch is a rank's block and also holds its
+        ``targets`` [B, S_local] and each row's ``target_count`` over the
+        whole sequence (`training.loop`; `layers.next_token_loss`)."""
         x, _ = forward(params, batch, collect=False, remat=True)
         tokens = batch["tokens"]
+        if "targets" in batch:
+            return next_token_loss(_lm_head(params, x, cfg), tokens,
+                                   targets=batch["targets"],
+                                   count=batch["target_count"].sum())
         if cfg.n_patches:
             tokens = torch.cat([torch.full(
                 (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,

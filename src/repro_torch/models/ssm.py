@@ -236,6 +236,14 @@ def ssd_step(xh, bmat, cmat, dt, a_log, d_skip, state):
     return y + d_skip.float()[None, :, None] * xh, new_state
 
 
+def _softplus(x):
+    """The reference's softplus, ``logaddexp(x, 0)``.  ``F.softplus`` is
+    log1p(exp(x)) (and x past 20), which rounds otherwise; at zamba2-7b's
+    test weights that moved the float32 gradient further from the float64
+    oracle than the reference's (ROADMAP.md §3)."""
+    return torch.logaddexp(x, x.new_zeros(()))
+
+
 def mamba2_block(p, x, cfg, *, conv_state=None, ssm_state=None,
                  parallel=True):
     """The full Mamba-2 mixer.  Parallel: x [B, S, D]; step: x [B, D].
@@ -255,7 +263,7 @@ def mamba2_block(p, x, cfg, *, conv_state=None, ssm_state=None,
                       for i in range(CONV_WIDTH))
         xr_conv = F.silu(xr_conv + p["conv_b"])
         new_conv = xr_pad[:, s:s + CONV_WIDTH - 1]
-        dt = F.softplus(dt_raw.float() + p["dt_bias"])
+        dt = _softplus(dt_raw.float() + p["dt_bias"])
         s0 = (torch.zeros((b, h, hd, ds), dtype=torch.float32,
                           device=x.device)
               if ssm_state is None else ssm_state)
@@ -269,7 +277,7 @@ def mamba2_block(p, x, cfg, *, conv_state=None, ssm_state=None,
         xr_conv = torch.einsum("bki,ki->bi", conv_in, p["conv_w"])
         xr_conv = F.silu(xr_conv + p["conv_b"])
         new_conv = conv_in[:, 1:]
-        dt = F.softplus(dt_raw.float() + p["dt_bias"])
+        dt = _softplus(dt_raw.float() + p["dt_bias"])
         y, s_t = ssd_step(xr_conv.reshape(b, h, hd), bmat, cmat, dt,
                           p["A_log"], p["D"], ssm_state)
         y = y.reshape(b, di).to(x.dtype)

@@ -4,13 +4,18 @@
 The reference parses XLA's optimized HLO text for its collective ops,
 since ``cost_analysis()`` does not report them.  Nothing here parses HLO:
 PyTorch compiles no SPMD program whose text could be read.  The port's
-collectives are the ones its data-parallel step issues by hand
-(`repro_torch.training.loop`), so they follow from the resolved
-placements (`repro_torch.distributed.sharding`): per parameter leaf, an
-all-gather of the parameter over the mesh axes that shard it, a
-reduce-scatter of its gradient over those axes, and an all-reduce of the
-gradient's shard over the batch's other mesh axes.  Each is costed with
-the reference's ring formulas (per device, a group of k participants):
+collectives are the ones its training step issues by hand
+(`repro_torch.training.loop`, `repro_torch.distributed.seq_parallel`), so
+they follow from the resolved placements (`repro_torch.distributed.
+sharding`): per parameter leaf, an all-gather of the parameter over the
+mesh axes that shard it, a reduce-scatter of its gradient over those
+axes, and an all-reduce of the gradient's shard over the other mesh axes
+that split the batch or the sequence; the loss's all-reduce over those
+axes.  Where the sequence is split over ``model``, each attention layer
+also gathers its K/V over that axis twice a step (its forward and its
+checkpointed re-run) and reduce-scatters their gradient once.
+Each is costed with the reference's ring formulas (per device, a group of
+k participants):
 
     all-reduce        2 * S * (k-1)/k     (reduce-scatter + all-gather phases)
     all-gather        R * (k-1)/k         (R = gathered result bytes)
@@ -18,8 +23,10 @@ the reference's ring formulas (per device, a group of k participants):
     all-to-all        S * (k-1)/k
     collective-permute  R                 (point-to-point)
 
-The few-byte all-reduces of the loss and of the gradient norm's partial
-sums are left out.
+The gradient norm's few-byte all-reduce is left out.  The step issues one
+collective per mesh axis where this plan has one over several axes (the
+same bytes on a ring of each axis's size); `tests/torch_port/
+test_torch_seq_parallel.py` counts the step's own.
 """
 from __future__ import annotations
 
@@ -53,14 +60,31 @@ class CollectiveOp:
         return float(self.result_bytes)
 
 
-def step_collectives(mesh, specs: dict, leaf_bytes: dict,
-                     batch_axes) -> list[CollectiveOp]:
-    """The collectives of one data-parallel training step: ``specs`` and
-    ``leaf_bytes`` map each parameter leaf's path to its resolved spec and
-    its full size in the gradient's dtype; ``batch_axes`` are the mesh
-    axes the batch is split over."""
+def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
+                     seq_axes=(), attn_layers: int = 0,
+                     kv_bytes: int = 0) -> list[CollectiveOp]:
+    """The collectives of one training step: ``specs`` and ``leaf_bytes``
+    map each parameter leaf's path to its resolved spec and its full size
+    in the gradient's dtype; ``batch_axes`` are the mesh axes the batch is
+    split over, ``seq_axes`` those each sequence is split over, with
+    ``attn_layers`` attention layers whose gathered K/V take ``kv_bytes``
+    a layer on a card."""
     sizes = mesh_shape(mesh)
+    reducing = [a for a in dict.fromkeys((*batch_axes, *seq_axes))
+                if sizes.get(a, 1) > 1]
+    m = 1
+    for axis in seq_axes:
+        m *= sizes.get(axis, 1)
     ops = []
+    if m > 1:
+        for layer in range(attn_layers):
+            name = f"attn{layer}"
+            ops.append(CollectiveOp("all-gather", kv_bytes, kv_bytes // m, m,
+                                    f"{name}.kv"))
+            ops.append(CollectiveOp("all-gather", kv_bytes, kv_bytes // m, m,
+                                    f"{name}.kv (remat)"))
+            ops.append(CollectiveOp("reduce-scatter", kv_bytes // m,
+                                    kv_bytes, m, f"{name}.dkv"))
     for name, spec in specs.items():
         full = leaf_bytes[name]
         sharded = spec_axes(spec)
@@ -68,9 +92,9 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict,
         for axis in sharded:
             k *= sizes[axis]
         rest = 1
-        for axis in batch_axes:
+        for axis in reducing:
             if axis not in sharded:
-                rest *= sizes.get(axis, 1)
+                rest *= sizes[axis]
         if k > 1:
             ops.append(CollectiveOp("all-gather", full, full // k, k, name))
             ops.append(CollectiveOp("reduce-scatter", full // k, full, k,
@@ -78,6 +102,11 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict,
         if rest > 1:
             ops.append(CollectiveOp("all-reduce", full // k, full // k,
                                     rest, name))
+    n = 1
+    for axis in reducing:
+        n *= sizes[axis]
+    if n > 1:
+        ops.append(CollectiveOp("all-reduce", 4, 4, n, "loss"))
     return ops
 
 

@@ -30,6 +30,7 @@ TIER1_MODULES = {
     "test_torch_router",
     "test_torch_scan_bwd",
     "test_torch_scan_design",
+    "test_torch_seq_parallel",
     "test_torch_serve",
     "test_torch_sharding",
     "test_torch_simulator",

@@ -1232,6 +1232,68 @@ def test_flash_bwd_kernel_matches_plain(dev, b, sq, sk, h, hkv, d, causal,
         assert torch.equal(g, a)               # no atomics: the same bits
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,q_offset,win", [
+    (1, 2048, 4096, 32, 8, 128, 2048, 0),    # phase 27: the second rank
+    (1, 2048, 4096, 32, 8, 128, 1000, 0),    # an offset off the tiles
+    (2, 100, 300, 8, 2, 64, 37, 0), (2, 100, 300, 8, 2, 64, 200, 0),
+    (1, 100, 300, 4, 4, 128, 64, 50), (2, 61, 200, 6, 2, 20, 77, 24),
+    (1, 33, 80, 4, 1, 112, 47, 0)])
+def test_flash_kernels_with_offset_match_plain(dev, b, sq, sk, h, hkv, d,
+                                               q_offset, win, dtype):
+    """A block of query rows at ``q_offset`` (a rank of a sequence split):
+    the forward within the attention gate of its plain version, its LSE
+    within the LSE test's gate, the backward within BWD_TOL of each
+    output's largest plain value and each row within BWD_ROW_TOL; and an
+    offset of 0 gives the same bits as the call without one."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_ref, flash_attention_bwd_cuda,
+        flash_attention_bwd_plain)
+
+    rng = np.random.default_rng(sq + sk + q_offset)
+    q = _normal((b, sq, h, d), dtype, dev, rng)
+    k = _normal((b, sk, hkv, d), dtype, dev, rng)
+    v = _normal((b, sk, hkv, d), dtype, dev, rng)
+    do = _normal((b, sq, h, d), dtype, dev, rng)
+    kw = dict(causal=True, window=win, q_offset=q_offset)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want = flash_attention_plain(q, k, v, **kw)
+    want_lse = attention_lse_ref(q, k, **kw)
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, **kw)
+    want_g = flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert float((o.float() - want.float()).abs().max()) < ATTN_TOL[dtype]
+    err = (lse - want_lse).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 1e-5 * want_lse.abs().clamp_min(1.0)).all())
+    else:
+        assert float(err.max()) <= 1e-4
+    for g, w in zip(got, want_g):
+        g, w = g.float(), w.float()
+        assert float((g - w).abs().max()) <= BWD_TOL[dtype] * float(
+            w.abs().max())
+        least = BWD_ROW_FLOOR * float(w.abs().max())
+        rows = (g - w).abs().amax(-1) / w.abs().amax(-1).clamp_min(least)
+        assert float(rows.max()) <= BWD_ROW_TOL
+    zero = dict(causal=True, window=win)
+    o0, lse0 = flash_attention_cuda(q, k, v, return_lse=True, q_offset=0,
+                                    **zero)
+    o1, lse1 = flash_attention_cuda(q, k, v, return_lse=True, **zero)
+    assert torch.equal(o0, o1) and torch.equal(lse0, lse1)
+    g0 = flash_attention_bwd_cuda(q, k, v, o1, do, lse1, q_offset=0, **zero)
+    g1 = flash_attention_bwd_cuda(q, k, v, o1, do, lse1, **zero)
+    assert all(torch.equal(x, y) for x, y in zip(g0, g1))
+
+
+def test_flash_offset_outside_the_keys_raises(dev):
+    q = torch.zeros((1, 64, 4, 32), device=dev)
+    k = torch.zeros((1, 128, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_cuda(q, k, k, q_offset=65)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_cuda(q, k, k, causal=False, q_offset=8)
+
+
 @pytest.mark.parametrize("arch", ["qwen3-8b", "mixtral-8x22b",
                                   "seamless-m4t-medium", "rwkv6-3b",
                                   "zamba2-7b"])

@@ -22,7 +22,9 @@ Checked:
   ``format_table`` over the CLI's records;
 * the ring formulas (``utils.hlo.CollectiveOp``) against the reference's
   parser on ``tests/test_sharding.py::test_hlo_collective_parser``'s HLO,
-  and ``step_collectives`` against a hand count;
+  and ``step_collectives`` against hand counts, data-parallel and with
+  each sequence split over ``model`` at (1, 2) and (2, 2); a split train
+  cell traced as one rank (half the FLOPs, its activations);
 * the CLIs: ``python -m repro_torch.launch.dryrun`` and
   ``python -m repro_torch.roofline`` write and read the reference's
   record layout; a skipped cell keeps ``cell_supported``'s reason.
@@ -176,8 +178,12 @@ def test_state_bytes_by_hand():
             assert n_local == n_full and coll["total"] == 0
         else:
             assert n_local < n_full and coll["count"] > 0
-            assert coll["all-gather"] == pytest.approx(
-                coll["reduce-scatter"])
+            # each sequence split over model: per layer, the K/V of the
+            # card's row (64 tokens x 2 KV heads x 2·16, bf16) gathered
+            # twice (forward, remat) and its gradient reduce-scattered once
+            attn = 3 * (64 * 2 * 32 * 2) * 15 / 16
+            assert coll["all-gather"] - 2 * attn == pytest.approx(
+                coll["reduce-scatter"] - attn)
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -266,17 +272,67 @@ def test_ring_formulas_match_reference_parser():
     assert CollectiveOp("all-reduce", 8, 8, 1).wire_bytes == 0.0
 
 
+@pytest.mark.parametrize("n_data", [1, 2])
+def test_split_step_collectives_by_hand(n_data):
+    """A (n_data, 2) mesh splitting each sequence over ``model``: ``w``
+    sharded over model (gathered, its gradient reduce-scattered over
+    model, all-reduced over data), ``b`` replicated (its gradient
+    all-reduced over both), two attention layers' K/V gathered twice and
+    reduced once over model, the loss all-reduced over both."""
+    mesh = AbstractMesh((n_data, 2), ("data", "model"))
+    specs = {"w": (None, "model"), "b": ()}
+    batch = ["data"] if n_data > 1 else []
+    ops = step_collectives(mesh, specs, {"w": 4096, "b": 64}, batch,
+                           seq_axes=("model",), attn_layers=2,
+                           kv_bytes=1024)
+    kinds = sorted((c.op, c.computation, c.group_size) for c in ops)
+    want = [("all-gather", "attn0.kv", 2), ("all-gather", "attn0.kv (remat)",
+                                            2),
+            ("all-gather", "attn1.kv", 2), ("all-gather", "attn1.kv (remat)",
+                                            2),
+            ("all-gather", "w", 2), ("all-reduce", "b", 2 * n_data),
+            ("all-reduce", "loss", 2 * n_data),
+            ("reduce-scatter", "attn0.dkv", 2),
+            ("reduce-scatter", "attn1.dkv", 2), ("reduce-scatter", "w", 2)]
+    if n_data > 1:
+        want.append(("all-reduce", "w", 2))
+    assert kinds == sorted(want)
+    totals = collective_wire_bytes(ops)
+    ring = (2 * n_data - 1) / (2 * n_data)
+    assert totals["all-gather"] == (4 * 1024 + 4096) / 2
+    assert totals["reduce-scatter"] == (2 * 1024 + 4096) / 2
+    assert totals["all-reduce"] == 2 * (64 + 4) * ring + (
+        2 * 2048 / 2 if n_data > 1 else 0)
+
+
+def test_split_train_cell_traces_one_rank():
+    """A train cell split over model = 2 traces one rank's block: half the
+    one-card FLOPs (every matmul per token, the plain attention's scores
+    S/2 x S), activations between half and all of the one card's (the
+    gathered K/V are the whole sequence's)."""
+    cfg = get_config("qwen3-8b").scaled(dtype="float32", n_layers=2)
+    shape = ShapeConfig("t", "train", 64, 4)
+    one = dryrun.trace_cell(cfg, shape, dryrun.build_policy(M11, "train",
+                                                            "t"), accum=1)
+    m12 = AbstractMesh((1, 2), ("data", "model"))
+    split = dryrun.trace_cell(cfg, shape, dryrun.build_policy(m12, "train",
+                                                              "t"), accum=1)
+    assert split["flops"] == one["flops"] / 2
+    assert one["act"] / 2 < split["act"] < one["act"]
+    assert one["bytes"] / 2 < split["bytes"] < one["bytes"]
+
+
 def test_step_collectives_by_hand():
     mesh = AbstractMesh((4, 1), ("data", "model"))
     specs = {"w": ("data",), "b": ()}
     ops = step_collectives(mesh, specs, {"w": 4096, "b": 64}, ["data"])
     kinds = sorted((c.op, c.computation) for c in ops)
     assert kinds == [("all-gather", "w"), ("all-reduce", "b"),
-                     ("reduce-scatter", "w")]
+                     ("all-reduce", "loss"), ("reduce-scatter", "w")]
     totals = collective_wire_bytes(ops)
     assert totals["all-gather"] == 4096 * 3 / 4
     assert totals["reduce-scatter"] == 4096 * 3 / 4
-    assert totals["all-reduce"] == 2 * 64 * 3 / 4
+    assert totals["all-reduce"] == 2 * (64 + 4) * 3 / 4
 
 
 # ----------------------------------------------------------------- CLIs --

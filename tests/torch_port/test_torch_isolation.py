@@ -30,7 +30,8 @@ bad = sorted(m for m in sys.modules
 for need in ("models.moe", "models.encdec", "training.checkpoint",
              "training.compress", "training.data", "training.loop",
              "training.optimizer", "launch.train", "utils.tree",
-             "distributed.sharding", "launch.mesh", "launch.dryrun",
+             "distributed.sharding", "distributed.seq_parallel",
+             "launch.mesh", "launch.dryrun",
              "models.scan_config", "roofline", "utils.hlo"):
     assert "repro_torch." + need in names, (need, names)
 print(len(names), bad)

@@ -1,5 +1,5 @@
 """The port's configs, logical-axes tables, sharding policy, meshes,
-elastic re-placement, layer loops and data-parallel launcher against the
+elastic re-placement, layer loops and the launcher's policy path against the
 JAX package's, on the CPU.
 
 Checked:
@@ -24,11 +24,12 @@ Checked:
   (segments, the short and the ragged fallback) against the reference's:
   outputs and gradients on one step function;
 * ``launch/train.py``'s policy path in two gloo processes (reduced
-  qwen3-8b, mesh (2, 1), 3 steps): each step's loss and gradient norm
-  within 1e-6 relative of the one-process run, its parameters sharded,
-  and gathered after the 3 steps within 1e-4 of the one-process run's,
-  at most 1 element in 10,000 past 1e-6; a ``model`` axis above 1
-  raises.
+  qwen3-8b, its mesh built as (2, 1) in place of the launcher's (1, 2),
+  3 steps): each step's loss and gradient norm within 1e-6 relative of
+  the one-process run, its parameters sharded, and gathered after the 3
+  steps within 1e-4 of the one-process run's, at most 1 element in
+  10,000 past 1e-6 (the (1, 2) and (2, 2) meshes the launcher builds are
+  held in ``test_torch_seq_parallel.py``).
 """
 import dataclasses
 import json
@@ -365,18 +366,6 @@ def test_one_rank_mesh_and_reshard_state(one_rank):
         tree_leaves(gathered(placed)), tree_leaves(params)))
 
 
-def test_model_axis_above_one_raises():
-    from repro_torch.training.loop import place_state
-
-    cfg = get_config("qwen3-8b").scaled(dtype="float32")
-    model = build_model(cfg)
-    policy = sharding.ShardingPolicy(AbstractMesh((1, 2), ("data", "model")),
-                                     acts=sharding.TRAIN_RULES,
-                                     params=sharding.TRAIN_PARAM_RULES)
-    with pytest.raises(ValueError, match="Tensor parallelism"):
-        place_state(model, policy, None, None)
-
-
 # -------------------------------------------------------- layer loops --
 
 def _step_fns(w):
@@ -458,10 +447,14 @@ import functools, json, sys
 import torch
 torch.set_num_threads(1)
 from torch.distributed.tensor import DTensor
+from repro_torch.distributed.elastic import remesh
 from repro_torch.launch import train
 from repro_torch.training import loop
 from repro_torch.utils.tree import tree_leaves
 train.train_loop = functools.partial(loop.train_loop, log_every=1)
+# the data-parallel (N, 1) mesh, where the launcher would build (1, N)
+train.train_mesh = lambda cfg, n, device_type: remesh(
+    n, data_model_ratio=n, device_type=device_type)
 out = train.main(sys.argv[3:])
 leaves = tree_leaves(out["params"])
 torch.save([p.detach().clone() for p in tree_leaves(loop.gathered(
@@ -478,7 +471,8 @@ json.dump({"losses": out["losses"], "grad_norms": out["grad_norms"],
 def test_two_process_policy_training_matches_one_process(tmp_path):
     """``launch/train.py`` as ``torchrun --nproc-per-node 2`` starts it
     (WORLD_SIZE, RANK, MASTER_ADDR/PORT on localhost), gloo on the CPU,
-    against one process: each step's loss and gradient norm (which a
+    with its mesh built data-parallel, (2, 1), against one process: each
+    step's loss and gradient norm (which a
     gradient summed over the ranks instead of averaged would double,
     though AdamW's update would not change) and every parameter gathered
     after 3 steps."""
