@@ -190,7 +190,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     launches.
 18. The hubs-of-hubs federation (``repro_torch.serving.federation``), every
     super-hub shard's router on the card.  (a) The reference's overloaded
-    federation: 12 agents in 3 super-hubs, 75 coqa_like dialogues (the
+    federation: 12 agents in 3 super-hubs, 40 coqa_like dialogues (the
     reference test's 150, cut) forced into one domain, Poisson 300/s, ``max_inflight`` 900, faults
     (``fail_prob`` 0.1), epoch 0.25, spill after 0.2 s, solver ``cuda``
     with warm starts and ledgers, inline on the card and on the CPU: equal
@@ -198,7 +198,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     dialogues migrate (in == out > 0) and settle exactly once.  (b) The
     ``SCALE_1K`` fleet (1024 agents, 8 super-hubs recut into inner hubs
     of 16 agents, Poisson 768 dialogues/s, ``max_inflight`` 2048 over the
-    shards, batches of <= 64 every 0.05 s, epoch 0.5) over 100 coqa_like
+    shards, batches of <= 64 every 0.05 s, epoch 0.5) over 60 coqa_like
     dialogues: CUDA inline = CPU inline, and CUDA process shards (one
     spawned process and CUDA context each) = CUDA inline; on the inline
     run ``lcp_gather`` once per route_batch call over all shards,
@@ -353,13 +353,31 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     each), against one process: phase 24's reduced float32 qwen3-8b, 3
     steps, losses within 1e-5 relative, the ranks' first-step gradients
     summed within 1e-4 of each leaf's largest one-process value.  (c) The
-    same at full width, 4 layers, 4,096 tokens, bf16 (phase 26's cell):
+    same at full width, 4 layers, 4,096 tokens, bf16, 2 steps (phase 26's
+    cell):
     losses within 2e-2 relative, each rank's flash launches exact (2
     forward and 1 backward per layer and step, at 2,048 rows against
     4,096 keys and the rank's offset) with the plain versions refused,
     per-rank peak memory and step time, and the dry run's bytes a rank
     against the measured peak within 2x; the figures as a JSON line
     (``split``).
+28. rwkv6-3b and zamba2-7b with each sequence split the same way, the
+    token shifts, the conv rows and the scan states passed from rank to
+    rank.  (a) The scan kernels at a rank's calls (40 heads of 64; 112
+    of 64 with a state of 64; 2,048 tokens; float32 and bf16): the
+    forward from a stored state under phase 10's gates, the backward
+    with both the final state's and the incoming state's gradients under
+    phase 23b's; the flash kernels at zamba2-7b's shared block (32 / 32
+    heads of 112, offsets 0 and 2,048) under phase 27a's.  (b) Both
+    models at phase 24's reduced float32 widths, two ranks against one
+    process under phase 27b's gates, each scan launched twice a layer
+    and pass.  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
+    rwkv6-3b whole and zamba2-7b at 30 layers (the deepest at which two
+    ranks fit the card): losses within 2e-2 of one process, the launches
+    exact with every plain version refused, per-rank peak memory and
+    step time, the collectives, and the dry run a rank within 2x of the
+    measured peak (its dry runs start with the script, in a process of
+    their own); the figures as a JSON line (``split_recurrent``).
     Then the time of all phases, the card line, the JSON line of the
     thirteen kernels' records (the six TPU kernels' counterparts, the
     router's two redesigned entries, the fused step's two kernels and the
@@ -368,8 +386,8 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     phase 17's scale run and 18b's CUDA inline federation,
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
     phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
-    locksteps, phase 25's runs, phase 26's policy run and phase 27c's rank
-    0, ``family_replays`` and
+    locksteps, phase 25's runs, phase 26's policy run and rank 0 of phases
+    27c and 28c, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
     backward kernel's at phase 25's calls) and the device line last.
@@ -379,6 +397,7 @@ printing any result.
 """
 from __future__ import annotations
 
+import atexit
 import copy
 import dataclasses
 import functools
@@ -386,6 +405,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -3792,10 +3812,11 @@ def phase_serving_scale(dev) -> dict:
 
 
 # --------------------------------------------------- the federation, 18 --
-FED_MIGRATION = 75         # dialogues of 18a (the reference test's 150,
-                           # cut to leave phases 23b-25 their room)
-FED_LOCKSTEP = 100         # dialogues of 18b at the SCALE_1K fleet (200,
-                           # cut to leave phases 24-25 their room)
+FED_MIGRATION = 40         # dialogues of 18a (the reference test's 150,
+                           # cut to leave phases 23b-28 their room; 58
+                           # still migrate on the CPU)
+FED_LOCKSTEP = 60          # dialogues of 18b at the SCALE_1K fleet (200,
+                           # cut to leave phases 24-28 their room)
 FED_DIALOGUES = 500        # the scale run's (SCALE_1K's 100,000, cut to
                            # leave phases 19-27 their room)
 FED_LAUNCHES_NONE = ("auction_bid", "lcp_affinity", "fused_phase1",
@@ -5478,19 +5499,25 @@ DRY_RATIO = 2.0                    # the dry run's bytes against a peak
 
 
 @contextmanager
-def plain_flash_refused():
-    """The plain attention forward and backward patched to raise, in
-    ``ops`` and in the kernel module: a run inside reaches only the
-    kernels."""
+def plain_training_refused():
+    """The plain attention and scan forwards and backwards patched to
+    raise, in ``ops`` and in the kernel modules: a training run inside
+    reaches only the kernels."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.kernels import wkv6 as wkv6_mod
 
     def refuse(*args, **kw):
-        raise AssertionError("a plain attention version ran on the card")
+        raise AssertionError("a plain attention or scan version ran on "
+                             "the card")
 
     saved = [(mod, name, getattr(mod, name)) for mod, name in (
         (ops, "flash_attention_plain"), (fa, "flash_attention_plain"),
-        (fa, "flash_attention_bwd_plain"))]
+        (fa, "flash_attention_bwd_plain"), (ops, "wkv6_plain"),
+        (ops, "ssd_plain"), (wkv6_mod, "wkv6_plain"),
+        (wkv6_mod, "wkv6_bwd_plain"), (ssd_mod, "ssd_plain"),
+        (ssd_mod, "ssd_bwd_plain"))]
     for mod, name, _ in saved:
         setattr(mod, name, refuse)
     try:
@@ -5621,7 +5648,7 @@ def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            with apply_policy(pol), (plain_flash_refused() if pol
+            with apply_policy(pol), (plain_training_refused() if pol
                                      else nullcontext()):
                 out = train_loop(model, data, steps=POLICY_STEPS,
                                  opt_cfg=opt, log_every=1, device=dev)
@@ -5675,10 +5702,13 @@ def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
     return runs["policy"]["counts"], figures
 
 
-SPLIT_STEPS = 3                    # phase 27's steps a run
+SPLIT_STEPS = 3                    # phases 27b and 28b's steps a run
+# phases 27c and 28c's steps a run, the second timed: a step of two ranks
+# sharing the card is gloo's traffic through the host (PERF.md §5)
+SPLIT_FULL_STEPS = 2
 SPLIT_OFFSETS = (0, 2048, 1000)    # 27a: the two ranks' and one off the tiles
 SPLIT_WORKER = r"""
-import dataclasses, functools, json, sys, time
+import dataclasses, functools, json, os, sys, time
 import torch
 import torch.distributed as dist
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -5692,6 +5722,8 @@ from repro_torch.training import SyntheticLM, loop
 from repro_torch.utils.tree import tree_leaves
 
 spec, out = json.loads(sys.argv[1]), sys.argv[2]
+while spec.get("hold") and not os.path.exists(spec["hold"]):
+    time.sleep(0.05)       # started ahead, imports done: wait for the card
 cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
 train.get_config = lambda name: cfg
 train.train_loop = functools.partial(loop.train_loop, log_every=1)
@@ -5726,7 +5758,7 @@ for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
 ops.reset_launch_counts()
 seq_parallel.reset_collective_counts()
 torch.cuda.reset_peak_memory_stats()
-with cs.plain_flash_refused():
+with cs.plain_training_refused():
     res = train.main(spec["args"])
 torch.cuda.synchronize()
 t_end = time.perf_counter()
@@ -5748,9 +5780,12 @@ class SplitRun:
     --nproc-per-node`` starts them (one process without a process group
     for ranks = 1), through SPLIT_WORKER, started at construction;
     ``wait`` returns each rank's record, ``kill`` stops what still
-    runs."""
+    runs.  A ``held`` run starts its processes, which import and then
+    wait for ``release`` before they touch the card: it can start while
+    the run before it holds the card."""
 
-    def __init__(self, spec: dict, ranks: int, tag: str):
+    def __init__(self, spec: dict, ranks: int, tag: str,
+                 held: bool = False):
         import socket
 
         with socket.socket() as sock:
@@ -5763,6 +5798,10 @@ class SplitRun:
         if ranks > 1:
             env.update(WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks))
         self.tag = tag
+        self.go = ROOT / "build" / f"split_{tag}.go"
+        self.go.unlink(missing_ok=True)
+        if held:
+            spec = dict(spec, hold=str(self.go))
         self.outs = [ROOT / "build" / f"split_{tag}_{r}.pt"
                      for r in range(ranks)]
         self.procs = [subprocess.Popen(
@@ -5772,11 +5811,15 @@ class SplitRun:
             stderr=subprocess.STDOUT, text=True)
             for r, out in enumerate(self.outs)]
 
+    def release(self) -> None:
+        self.go.touch()
+
     def kill(self) -> None:
         for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        self.go.unlink(missing_ok=True)
 
     def wait(self) -> list[dict]:
         import torch
@@ -5797,11 +5840,43 @@ class SplitRun:
         return recs
 
 
-def split_launch_gate(cfg, recs, seq: int, label: str) -> None:
-    """Each rank's flash launches: exactly 2 forward and 1 backward per
-    layer and step, every call at Sq = seq / 2 against Sk = seq, at the
-    rank's own offset; printed with the backend and the collectives."""
-    want = launches_per_step(cfg, SPLIT_STEPS)
+def split_launches(cfg, steps: int) -> dict:
+    """The exact launches of a rank's ``steps`` split steps: as
+    `launches_per_step`, but each scan twice over (its block from zeros,
+    then from the state the earlier blocks pass on)."""
+    want = launches_per_step(cfg, steps)
+    for op in ("wkv6", "ssd"):
+        want[op] *= 2
+        want[f"{op}_bwd"] *= 2
+    return want
+
+
+def run_in_turn(jobs: list) -> list:
+    """``SplitRun(spec, ranks, tag)`` for each (spec, ranks, tag) of
+    ``jobs``, one after another on the card, each started held while the
+    one before it runs (so its processes' start is off the clock): each
+    run's records and its seconds from its release to its end."""
+    out, runs = [], [SplitRun(*jobs[0], held=True)]
+    try:
+        for i in range(len(jobs)):
+            runs[i].release()
+            t0 = time.perf_counter()
+            if i + 1 < len(jobs):
+                runs.append(SplitRun(*jobs[i + 1], held=True))
+            out.append((runs[i].wait(), time.perf_counter() - t0))
+    finally:
+        for run in runs:
+            run.kill()
+    return out
+
+
+def split_launch_gate(cfg, recs, seq: int, label: str,
+                      steps: int = SPLIT_STEPS) -> None:
+    """Each rank's launches over ``steps`` steps (`split_launches`): per
+    layer and step a flash call 2 forward and 1 backward, a scan 4 and 2,
+    every flash call at Sq = seq / 2 against Sk = seq, at the rank's own
+    offset; printed with the backend and the collectives."""
+    want = split_launches(cfg, steps)
     sl = seq // 2
     for r, rec in enumerate(recs):
         counts = rec["launches"]
@@ -5812,9 +5887,11 @@ def split_launch_gate(cfg, recs, seq: int, label: str) -> None:
               f"calls {dict(shapes)}; collectives {rec['collectives']}")
         check(all(counts[k] == v for k, v in want.items()),
               f"{label} rank {r}: launches {counts}, expected {want}")
-        check(set(shapes) == {("flash_attention", sl, seq, r * sl),
-                              ("flash_attention_bwd", sl, seq, r * sl)},
-              f"{label} rank {r}: calls {dict(shapes)}")
+        calls = ({("flash_attention", sl, seq, r * sl),
+                  ("flash_attention_bwd", sl, seq, r * sl)}
+                 if want["flash_attention"] else set())
+        check(set(shapes) == calls, f"{label} rank {r}: calls "
+              f"{dict(shapes)}")
 
 
 def phase_split_kernels(dev) -> dict:
@@ -5882,7 +5959,7 @@ def phase_split(dev) -> tuple[dict, dict]:
     (TRAIN_SEQ x TRAIN_BATCH), SPLIT_STEPS steps: each step's loss within
     1e-5 relative, the ranks' first-step gradients summed within GRAD_TOL
     of each leaf's largest one-process value.  (c) qwen3-8b at full width
-    and POLICY_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_STEPS steps
+    and POLICY_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_FULL_STEPS steps
     (phase 26's cell), the same way: losses within 2e-2 relative, each
     rank's flash launches exact (2 forward + 1 backward per layer and
     step, Sq = 2,048 against Sk = 4,096 at its offset) with the plain
@@ -5942,13 +6019,15 @@ def phase_split(dev) -> tuple[dict, dict]:
     mesh = AbstractMesh((1, 2), ("data", "model"))
     dry = dry_run_cell(cfg_c, mesh, TRAIN_4K)
     spec = {"arch": ARCH, "over": {"n_layers": POLICY_LAYERS},
-            "grads": False, "args": [*args, "--seq-len", str(TRAIN_4K),
-                                     "--batch", "1"]}
-    t0 = time.perf_counter()
-    one = SplitRun(spec, 1, "c1").wait()[0]      # 38 GiB: alone on the card
-    ranks = SplitRun(spec, 2, "c2").wait()
-    wall = time.perf_counter() - t0
-    split_launch_gate(cfg_c, ranks, TRAIN_4K, "(c)")
+            "grads": False,
+            "args": ["--arch", ARCH, "--steps", str(SPLIT_FULL_STEPS),
+                     "--lr", str(TRAIN_LR[ARCH]), "--seq-len",
+                     str(TRAIN_4K), "--batch", "1"]}
+    # one process (38 GiB: alone on the card), then the two ranks
+    ((one, one_s), (ranks, ranks_s)) = run_in_turn([(spec, 1, "c1"),
+                                                    (spec, 2, "c2")])
+    one, wall = one[0], one_s + ranks_s
+    split_launch_gate(cfg_c, ranks, TRAIN_4K, "(c)", SPLIT_FULL_STEPS)
     rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
                                                   one["losses"]))
     card = card_line()
@@ -5961,7 +6040,7 @@ def phase_split(dev) -> tuple[dict, dict]:
               f"({rec['step_mean_ms']:.1f} after the first); peak "
               f"{rec['peak_gib']:.2f} GiB; {card}")
     print(f"    (c) the split's losses within {rel:.3g} relative of one "
-          f"process's; both runs {wall:.1f} s with the processes' start")
+          f"process's; both runs {wall:.1f} s from their release")
     check(ranks[0]["losses"] == ranks[1]["losses"],
           "(c) the ranks' losses differ")
     check(rel <= 2e-2, f"(c) losses {rel} apart relative (limit 2e-2)")
@@ -5978,6 +6057,327 @@ def phase_split(dev) -> tuple[dict, dict]:
             cfg_c, mesh, TRAIN_4K, peak, step_ms,
             f"(c) a rank of the split, {POLICY_LAYERS} layers", dry=dry)}
     return ranks[0]["launches"], figures
+
+
+# phase 28's full-width depths: the deepest (zamba2-7b: a multiple of its
+# group of 6) at which two ranks, each with its gathered parameters and
+# gradients and half of AdamW's state, stay under 72 GiB of the card
+# together by the dry run's figure a rank (PERF.md §4, §6)
+SPLIT_DEPTH = {RWKV: 32, ZAMBA: 30}
+# phase 28c's dry runs, in a process of their own that `main` starts before
+# phase 1: a full-width zamba2-7b cell takes minutes of the host to trace
+SPLIT_DRY = r"""
+import dataclasses, json, pickle, sys
+import torch
+torch.set_num_threads(1)
+import chip_smoke as cs
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import AbstractMesh
+mesh = AbstractMesh((1, 2), ("data", "model"))
+out = {arch: cs.dry_run_cell(dataclasses.replace(get_config(arch),
+                                                 n_layers=depth),
+                             mesh, cs.TRAIN_4K)
+       for arch, depth in json.loads(sys.argv[1]).items()}
+pickle.dump(out, open(sys.argv[2], "wb"))
+"""
+
+
+def split_scan_inputs(dev, seed: int, dtype):
+    """A split rank's WKV6 and SSD calls at full width (rwkv6-3b's 40
+    heads of 64, zamba2-7b's 112 of 64 with a state of 64), S_local =
+    TRAIN_4K / 2 tokens, batch 1, each with a stored incoming state:
+    ((r, k, v, log_w, u, s0), (x, B, C, dt, A_log, D, s0)), drawn on the
+    card."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(dtype)
+
+    rw, zb = get_config(RWKV), get_config(ZAMBA)
+    s = TRAIN_4K // 2
+    h, dk = rw.ssm_heads, rw.ssm_state
+    zh, ds = zb.ssm_heads, zb.ssm_state
+    hd = 2 * zb.d_model // zh
+    wkv6 = (normal((1, s, h, dk), dtype), normal((1, s, h, dk), dtype),
+            normal((1, s, h, dk), dtype),
+            torch.clamp(-torch.exp(normal((1, s, h, dk))), -4.0, -1e-3),
+            normal((h, dk)), normal((1, h, dk, dk)))
+    ssd = (normal((1, s, zh, hd), dtype), normal((1, s, ds), dtype),
+           normal((1, s, ds), dtype), normal((1, s, zh)).abs() * 0.5,
+           normal((zh,), scale=0.3), normal((zh,)), normal((1, zh, hd, ds)))
+    return wkv6, ssd
+
+
+def phase_split_recurrent_kernels(dev) -> dict:
+    """Phase 28a: the kernels at a split rank's calls, against their plain
+    versions.  The scans at S_local = 2,048 (`split_scan_inputs`), float32
+    and bf16: the forward from a stored state (a rank's second pass, whose
+    s0 requires grad in training) under phase 10's gates, and the
+    backward with both the final state's gradient and the incoming
+    state's (`want_ds0`) under phase 23b's.  The flash kernels at
+    zamba2-7b's shared block (32 / 32 heads of 112), 2,048 query rows
+    against 4,096 keys at offsets 0 and 2,048, under phase 27a's gates.
+    Returns the bf16 figures."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    figures = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        wkv6, ssd = split_scan_inputs(dev, 2828, dtype)
+        gen = torch.Generator(device=dev).manual_seed(2829)
+        for op, fwd, kernel, plain, work in (
+                ("wkv6", wkv6, wkv6_cuda, wkv6_plain, wkv6_work),
+                ("ssd", ssd, ssd_cuda, ssd_plain, ssd_work)):
+            f = scan_figures(kernel, plain, work, fwd, {}, iters=20)
+            print_figures(f"{op} {name} from s0", shape_key(fwd), f)
+            out, s_t, states = kernel(*fwd, return_states=True)
+            grads = (torch.randn(out.shape, generator=gen, device=dev)
+                     .to(dtype),
+                     torch.randn(s_t.shape, generator=gen, device=dev))
+            if op == "wkv6":
+                args = (*fwd[:5], states, s_t, *grads)
+            else:
+                args = (*fwd[:6], states, *grads)
+            b = scan_bwd_figures(f"{op}_bwd", args, {"want_ds0": True},
+                                 iters=5)
+            print_figures(f"{op}_bwd {name} with dsT and ds0",
+                          shape_key(fwd), b)
+            if dtype == torch.bfloat16:
+                figures[op], figures[f"{op}_bwd"] = f, b
+            del out, s_t, states, grads, args
+        del wkv6, ssd
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    cfg = get_config(ZAMBA)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sq, sk = TRAIN_4K // 2, TRAIN_4K
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(28)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype) for shape in (
+            (1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d), (1, sq, h, d)))
+        name = str(dtype).removeprefix("torch.")
+        for off in (0, sk - sq):
+            kw = dict(causal=True, window=0, q_offset=off)
+            f = attn_figures(flash_attention_cuda, flash_attention_plain,
+                             sdpa_flash, flash_work, (q, k, v), kw,
+                             iters=20, rows=True)
+            print_figures(f"flash_attention {name} d=112",
+                          shape_key((q, k, v), kw), f)
+            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            b = bwd_figures((q, k, v, o, do, lse), kw, iters=5)
+            print_figures(f"flash_attention_bwd {name} d=112",
+                          shape_key((q, k, v), kw), b)
+            if dtype == torch.bfloat16:
+                figures[f"flash_attention {off}"] = f
+                figures[f"flash_attention_bwd {off}"] = b
+            del o, lse
+        del q, k, v, do
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
+
+
+def split_grad_err(ranks, one) -> tuple[float, int]:
+    """The ranks' first-step gradients summed against one process's:
+    the worst leaf's largest difference over its largest one-process
+    value, and that leaf's index."""
+    worst, worst_at = 0.0, 0
+    for i, (*parts, w) in enumerate(zip(*(r["grads"] for r in ranks),
+                                        one["grads"])):
+        e = float((sum(parts) - w).abs().max()
+                  / w.abs().max().clamp_min(1e-30))
+        if e > worst:
+            worst, worst_at = e, i
+    return worst, worst_at
+
+
+def phase_split_recurrent(dev, dry=None) -> tuple[dict, dict]:
+    """Phase 28: rwkv6-3b and zamba2-7b with each sequence split over a
+    ``model`` axis of 2, the scan states and token shifts passed from rank
+    to rank.  (a) `phase_split_recurrent_kernels`.  (b) Both at phase
+    24's reduced float32 widths (TRAIN_SEQ x TRAIN_BATCH), two ranks
+    sharing the card over gloo against one process, SPLIT_STEPS steps:
+    each step's loss within 1e-5 relative, the ranks' first-step
+    gradients summed within GRAD_TOL of each leaf's largest one-process
+    value, each rank's launches exact (`split_launch_gate`: every scan
+    twice a layer and pass, the shared block's flash at its offset).
+    (c) Both at full width, bf16, TRAIN_4K tokens, SPLIT_DEPTH layers,
+    SPLIT_FULL_STEPS steps, one process and then two ranks: the losses within
+    2e-2 relative, the launches exact with every plain version refused,
+    each rank's peak memory and step time, the dry run's bytes a rank
+    against the measured peak (within DRY_RATIO), the collectives.
+    ``dry`` is the running `SplitDry` (one is started here without it).
+    Returns (c)'s rank-0 launches of both models summed and the phase's
+    figures."""
+    dry = dry or SplitDry()
+    try:
+        return phase_split_recurrent_runs(dev, dry)
+    finally:
+        dry.kill()
+
+
+class SplitDry:
+    """Phase 28c's dry runs (SPLIT_DRY) in a process started at
+    construction; ``result`` waits for them."""
+
+    def __init__(self):
+        self.out = ROOT / "build" / "split_recurrent_dry.pkl"
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SPLIT_DRY, json.dumps(SPLIT_DEPTH),
+             str(self.out)], cwd=ROOT, env=dict(
+                os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def result(self) -> dict:
+        log = self.proc.communicate(timeout=900)[0]
+        if self.proc.returncode:
+            print(log[-4000:])
+        check(self.proc.returncode == 0, f"phase 28c's dry runs exited "
+              f"{self.proc.returncode}")
+        return pickle.loads(self.out.read_bytes())
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
+    """`phase_split_recurrent` beside the process of its dry runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+
+    reduced = {c.name: c for c in training_configs()}
+    runs = {}
+    for arch in (RWKV, ZAMBA):
+        cfg_b = reduced[arch]
+        over = {f: getattr(cfg_b, f) for f in (
+            "n_layers", "d_model", "d_ff", "vocab_size", "dtype",
+            "ssm_heads", "attn_every")}
+        spec = {"arch": arch, "over": over, "grads": True,
+                "args": ["--arch", arch, "--steps", str(SPLIT_STEPS),
+                         "--lr", str(TRAIN_LR[arch]), "--seq-len",
+                         str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH)]}
+        # (b)'s processes import while (a) runs; they train after it
+        runs[arch] = (cfg_b, [SplitRun(spec, 1, f"rb1_{arch}", held=True),
+                              SplitRun(spec, 2, f"rb2_{arch}", held=True)])
+    try:
+        t0 = time.perf_counter()
+        figures = {"kernels": phase_split_recurrent_kernels(dev)}
+        print(f"    (a) {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        figures["b"] = {}
+        t0 = time.perf_counter()
+        for _, pair in runs.values():
+            for run in pair:
+                run.release()
+        for arch, (cfg_b, (run1, run2)) in runs.items():
+            one, ranks = run1.wait()[0], run2.wait()
+            split_launch_gate(cfg_b, ranks, TRAIN_SEQ, f"(b) {arch}")
+            check(ranks[0]["losses"] == ranks[1]["losses"],
+                  f"(b) {arch}: the ranks' losses differ")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                ranks[0]["losses"], one["losses"]))
+            worst, worst_at = split_grad_err(ranks, one)
+            print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
+                  f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
+                  f"one process's {one['losses']} (largest relative gap "
+                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"worst leaf {worst:.3g} of its largest one-process "
+                  f"value (leaf {worst_at} of {len(one['grads'])})")
+            check(rel <= 1e-5, f"(b) {arch}: losses {rel} apart relative "
+                  "(limit 1e-5)")
+            check(worst <= GRAD_TOL, f"(b) {arch}: a gradient leaf is "
+                  f"{worst} of its largest value off (limit {GRAD_TOL})")
+            figures["b"][arch] = {"losses": ranks[0]["losses"],
+                                  "one": one["losses"], "rel": rel,
+                                  "grad_err": worst}
+            del one, ranks
+    finally:
+        for _, pair in runs.values():
+            for run in pair:
+                run.kill()
+    print(f"    (b) both models {time.perf_counter() - t0:.1f} s from their "
+          "release")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    card = card_line()
+    launches = Counter()
+    figures["c"] = {}
+    jobs = []
+    for arch in (RWKV, ZAMBA):
+        spec = {"arch": arch, "over": {"n_layers": SPLIT_DEPTH[arch]},
+                "grads": False,
+                "args": ["--arch", arch, "--steps", str(SPLIT_FULL_STEPS),
+                         "--lr", str(TRAIN_LR[arch]), "--seq-len",
+                         str(TRAIN_4K), "--batch", "1"]}
+        jobs += [(spec, 1, f"rc1_{arch}"), (spec, 2, f"rc2_{arch}")]
+    done = run_in_turn(jobs)     # each model's one process, then its ranks
+    runs = {arch: (done[2 * i][0][0], done[2 * i + 1][0],
+                   done[2 * i][1] + done[2 * i + 1][1])
+            for i, arch in enumerate((RWKV, ZAMBA))}
+    t0 = time.perf_counter()
+    dry_runs = dry.result()
+    print(f"    (c) waited {time.perf_counter() - t0:.1f} s for the dry runs")
+    for arch, (one, ranks, wall) in runs.items():
+        cfg_c = dataclasses.replace(get_config(arch),
+                                    n_layers=SPLIT_DEPTH[arch])
+        split_launch_gate(cfg_c, ranks, TRAIN_4K, f"(c) {arch}",
+                          SPLIT_FULL_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                      one["losses"]))
+        for label, rec in (("one process", one), ("rank 0", ranks[0]),
+                           ("rank 1", ranks[1])):
+            rec["step_mean_ms"] = statistics.mean(rec["step_ms"][1:])
+            print(f"    (c) {arch} at {SPLIT_DEPTH[arch]} layers, {label}: "
+                  f"losses {', '.join(f'{x:.6f}' for x in rec['losses'])};"
+                  f" steps {', '.join(f'{x:.1f}' for x in rec['step_ms'])}"
+                  f" ms ({rec['step_mean_ms']:.1f} after the first); peak "
+                  f"{rec['peak_gib']:.2f} GiB; {card}")
+        print(f"    (c) {arch}: the split's losses within {rel:.3g} "
+              f"relative of one process's; both runs {wall:.1f} s from "
+              "their release")
+        check(ranks[0]["losses"] == ranks[1]["losses"],
+              f"(c) {arch}: the ranks' losses differ")
+        check(rel <= 2e-2, f"(c) {arch}: losses {rel} apart relative "
+              "(limit 2e-2)")
+        peak = max(r["peak_gib"] for r in ranks)
+        step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
+        launches.update(ranks[0]["launches"])
+        figures["c"][arch] = {
+            "layers": SPLIT_DEPTH[arch], "losses": ranks[0]["losses"],
+            "one": one["losses"], "rel": rel,
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "step_ms": [r["step_mean_ms"] for r in ranks],
+            "one_peak_gib": one["peak_gib"],
+            "one_step_ms": one["step_mean_ms"],
+            "launches": [r["launches"] for r in ranks],
+            "backend": ranks[0]["backend"],
+            "collectives": ranks[0]["collectives"],
+            "dry_run": dry_run_against(
+                cfg_c, mesh, TRAIN_4K, peak, step_ms,
+                f"(c) {arch}, a rank of the split, {SPLIT_DEPTH[arch]} "
+                "layers", dry=dry_runs[arch])}
+    return launches, figures
 
 
 def agent_seed(agent_id: str) -> int:
@@ -6013,6 +6413,10 @@ def main() -> int:
                                                      flash_attention_plain)
 
     t_start = time.perf_counter()
+    # phase 28c's dry runs take minutes of one host core: they run from
+    # here on beside the phases, and stop with the script in any case
+    split_dry = SplitDry()
+    atexit.register(split_dry.kill)
 
     def phase(title: str) -> None:
         """The time since the start, then the next phase's header."""
@@ -6248,6 +6652,15 @@ def main() -> int:
           "at (1, 2) against one process, reduced in float32 and at full "
           "width in bf16")
     split_counts, split_figures = phase_split(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[28] {RWKV} and {ZAMBA} with each sequence split over a model "
+          "axis of 2, the scan states and token shifts passed from rank to "
+          "rank: the kernels at a rank's calls, two ranks against one "
+          "process, reduced in float32 and at full width in bf16")
+    rec_split_counts, rec_split_figures = phase_split_recurrent(dev,
+                                                                split_dry)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -6349,13 +6762,14 @@ def main() -> int:
             "lockstep": lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
         # launches in phase 24's locksteps (card side), phase 25's runs,
-        # phase 26's run under the sharding policy and rank 0 of phase
-        # 27c's sequence split
+        # phase 26's run under the sharding policy, rank 0 of phase 27c's
+        # sequence split and rank 0 of phase 28c's two runs
         row["training_launches"] = {
             "lockstep": train_lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in train_counts.items()},
             "policy": policy_counts[row["name"]],
-            "split": split_counts[row["name"]]}
+            "split": split_counts[row["name"]],
+            "split_recurrent": rec_split_counts[row["name"]]}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (
@@ -6375,6 +6789,8 @@ def main() -> int:
     print(json.dumps({"dry_run": policy_figures}))
     # phase 27: the offset kernels (bf16) and the split runs
     print(json.dumps({"split": split_figures}))
+    # phase 28: the recurrent kernels at a rank's calls (bf16) and the runs
+    print(json.dumps({"split_recurrent": rec_split_figures}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,18 @@ if every rank held this rank's tensors (an all-gather repeats the block,
 a reduce-scatter scales this rank's slice by the axis's size): the dry
 run traces one rank's step that way, with fake tensors.
 
+The recurrent layers (RWKV-6, Mamba-2) carry two things along a
+sequence, and each crosses from rank to rank in one all-gather.  A token
+shift or the causal conv reads the previous rank's last rows
+(`shift_in`).  A scan (WKV6, SSD) runs twice on the rank's block
+(`models.ssm`): once from zeros, for the block's final state L and its
+decay D, then from the state that reaches the block, which every rank
+folds from the gathered (L, D) of the ranks before it (`state_in`,
+`fold_states`).  Each gather's backward is a reduce-scatter.
+
 ``shard`` (`distributed.sharding`) stays a no-op: the step hands the model
-each rank's block, and only the attention needs the whole sequence.
+each rank's block, and only the attention and those two carries cross
+it.
 """
 from __future__ import annotations
 
@@ -122,27 +132,27 @@ def reduce_scatter(x: torch.Tensor, dim: int, group, size: int,
     return out
 
 
-class _GatherSeq(torch.autograd.Function):
-    """All-gather along the sequence (dim 1) on the way forward; the sum
-    of the ranks' gradients, this rank's block of it, on the way back.
-    An emulated split (no group) counts the same collectives and acts as
-    if every rank held this rank's tensors."""
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` on the way forward; the sum of the ranks'
+    gradients, this rank's block of it, on the way back (a
+    reduce-scatter).  An emulated split (no group) counts the same
+    collectives and acts as if every rank held this rank's tensors."""
 
     @staticmethod
-    def forward(ctx, x, s):
-        ctx.split = s
+    def forward(ctx, x, s, dim):
+        ctx.split, ctx.dim = s, dim
         if s.group is None:
             _COUNTS["all_gather"] += 1
-            return torch.cat([x] * s.size, dim=1)
-        return all_gather(x, 1, s.group, s.size)
+            return torch.cat([x] * s.size, dim=dim)
+        return all_gather(x, dim, s.group, s.size)
 
     @staticmethod
     def backward(ctx, g):
-        s = ctx.split
+        s, dim = ctx.split, ctx.dim
         if s.group is None:
             _COUNTS["reduce_scatter"] += 1
-            return g.chunk(s.size, 1)[s.rank] * s.size, None
-        return reduce_scatter(g, 1, s.group, s.size, s.rank), None
+            return g.chunk(s.size, dim)[s.rank] * s.size, None, None
+        return reduce_scatter(g, dim, s.group, s.size, s.rank), None, None
 
 
 def gather_kv(k: torch.Tensor, v: torch.Tensor, s: SeqSplit):
@@ -150,8 +160,107 @@ def gather_kv(k: torch.Tensor, v: torch.Tensor, s: SeqSplit):
     [B, S, Hkv, d] each, in one all-gather (and one reduce-scatter of
     dK / dV in the backward)."""
     d = k.shape[-1]
-    kv = _GatherSeq.apply(torch.cat([k, v], dim=-1), s)
+    kv = _Gather.apply(torch.cat([k, v], dim=-1), s, 1)
     return kv[..., :d], kv[..., d:]
+
+
+class _ShiftIn(torch.autograd.Function):
+    """The previous rank's ``tail`` (zeros on rank 0): slot rank - 1 of
+    one all-gather.  The backward puts the gradient into slot rank - 1 of
+    a zero stack, and one reduce-scatter hands each rank its own tail's.
+    Emulated, every rank holds this rank's tail and gradient."""
+
+    @staticmethod
+    def forward(ctx, tail, s):
+        ctx.split = s
+        if s.group is None:
+            _COUNTS["all_gather"] += 1
+            return tail.clone() if s.rank else torch.zeros_like(tail)
+        stack = all_gather(tail[None], 0, s.group, s.size)
+        return stack[s.rank - 1] if s.rank else torch.zeros_like(tail)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.split
+        if s.group is None:
+            _COUNTS["reduce_scatter"] += 1
+            return (g.clone() if s.rank < s.size - 1
+                    else torch.zeros_like(g)), None
+        stack = g.new_zeros((s.size, *g.shape))
+        if s.rank:
+            stack[s.rank - 1] = g
+        return reduce_scatter(stack, 0, s.group, s.size, s.rank)[0], None
+
+
+def shift_in(tail: torch.Tensor, s: SeqSplit) -> torch.Tensor:
+    """The previous rank's last rows [B, w, ...] in place of this rank's
+    ``tail`` (zeros on rank 0): what a token shift or a causal conv of
+    width w + 1 reads before the block's first row."""
+    return _ShiftIn.apply(tail.contiguous(), s)
+
+
+def _decay_as_state(d: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """A block decay [B, H] or [B, H, p] broadcast over a state
+    [B, H, p, q]."""
+    return d.reshape(*d.shape, *([1] * (state.dim() - d.dim())))
+
+
+class _Fold(torch.autograd.Function):
+    """S_0 = 0, S_{j+1} = D_j ∘ S_j + L_j for j < rank, over stacks of
+    the ranks' block-final states L [m, B, H, p, q] and decays D
+    [m, B, H(, p)], in a fixed order, so every rank that folds the same
+    slots gets the same bits.  The backward runs the recursion in reverse
+    and gives every slot a gradient, zeros from ``rank`` on: rank 0's
+    too, so each rank's gather joins the backward's reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, l_stack, d_stack, rank):
+        ctx.rank = rank
+        states = [torch.zeros_like(l_stack[0])]
+        for j in range(rank):
+            states.append(_decay_as_state(d_stack[j], states[-1])
+                          * states[-1] + l_stack[j])
+        ctx.save_for_backward(d_stack, *states[:-1])
+        return states[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        d_stack, *states = ctx.saved_tensors
+        dl = g.new_zeros((d_stack.shape[0], *g.shape))
+        dd = torch.zeros_like(d_stack)
+        for j in reversed(range(ctx.rank)):
+            dl[j] = g
+            d = d_stack[j]
+            dd[j] = (g * states[j]).sum(
+                dim=tuple(range(d.dim(), g.dim())))
+            g = _decay_as_state(d, g) * g
+        return dl, dd, None
+
+
+def fold_states(l_stack: torch.Tensor, d_stack: torch.Tensor,
+                rank: int) -> torch.Tensor:
+    """The state that reaches block ``rank`` of a sequence from the
+    blocks before it (`_Fold`): l_stack [m, B, H, p, q] each block's
+    final state from zero, d_stack [m, B, H] or [m, B, H, p] its decay
+    over the block (the product of its tokens' decays, on the state's
+    dim 2)."""
+    return _Fold.apply(l_stack, d_stack, rank)
+
+
+def state_in(l_final: torch.Tensor, decay: torch.Tensor,
+             s: SeqSplit) -> torch.Tensor:
+    """The scan state [B, H, p, q] float32 that reaches this rank's
+    block: every rank's block-final state from zero ``l_final`` and
+    block decay ``decay`` gathered in one all-gather, then folded
+    (`fold_states`); the gradient of the stack goes back in one
+    reduce-scatter."""
+    n = l_final[0].numel()
+    packed = torch.cat([l_final.reshape(l_final.shape[0], -1),
+                        decay.float().reshape(decay.shape[0], -1)], dim=1)
+    stack = _Gather.apply(packed[None], s, 0)
+    l_stack = stack[:, :, :n].reshape(s.size, *l_final.shape)
+    d_stack = stack[:, :, n:].reshape(s.size, *decay.shape)
+    return fold_states(l_stack, d_stack, s.rank)
 
 
 def collective_counts() -> dict[str, int]:
@@ -170,12 +279,10 @@ def reset_collective_counts() -> None:
 def unsupported(cfg) -> str | None:
     """Why a model of ``cfg`` cannot train with its sequences split over a
     ``model`` axis above 1 (the ROADMAP item that will let it), or None
-    for the dense GQA decoders."""
+    for the dense GQA decoders and the recurrent families (RWKV-6,
+    zamba2's Mamba-2 with its shared attention)."""
     item = None
-    if cfg.ssm_kind:
-        item = ("its recurrent scan state would pass from rank to rank",
-                "Recurrent state passing")
-    elif cfg.is_encdec:
+    if cfg.is_encdec:
         item = ("its encoder's frames are not split", "Frames")
     elif cfg.n_patches:
         item = ("its patch prefix is not split", "Patches")

@@ -24,15 +24,16 @@ its kernels, and counts:
   * ``model_flops`` and, for a skipped cell, ``cell_supported``'s reason.
 
 Per card means the block of the batch a card holds (the batch split over
-its mesh axes by the policy).  A train cell of a dense GQA decoder whose
-sequence the training rules split over ``model`` is traced as one rank of
-that split runs it (`distributed.seq_parallel`: its block of each
-sequence, the K/V gathered to the whole sequence by an emulated
-all-gather), so its activations are the ones a card holds, and its
-per-layer K/V collectives are counted (`utils.hlo`).  Any other ``model``
-axis above 1, which the port's step does not run (the other families
-cannot split a sequence yet; serving is not tensor-parallel), is taken
-as an even split of the block's work.  A full-depth trace of a long sequence takes minutes on the
+its mesh axes by the policy).  A train cell of a dense GQA decoder or a
+recurrent family whose sequence the training rules split over ``model``
+is traced as one rank of that split runs it (`distributed.seq_parallel`:
+its block of each sequence, the K/V, the token shifts' rows and the scan
+states crossing the ranks by emulated all-gathers), so its activations
+are the ones a card holds, and its per-layer collectives are counted
+(`split_halos`, `utils.hlo`).  Any other ``model`` axis above 1, which
+the port's step does not run (the families `seq_parallel.unsupported`
+names; serving is not tensor-parallel), is taken as an even split of
+the block's work.  A full-depth trace of a long sequence takes minutes on the
 plain path (the scans loop over chunks), so each cell traces the
 reference's L = 1 / L = 2 variants (`variant_plan`) and extrapolates:
 every counted quantity is affine in the layer count, so the extrapolation
@@ -220,6 +221,34 @@ def _seq_split(cfg, shape, policy, accum: int):
     return seq_parallel.SeqSplit(None, 0, m, shape.seq_len // m)
 
 
+def split_halos(cfg, rows: int) -> tuple[int, dict[str, int]]:
+    """What one rank's forward sends over a sequence split, layer by
+    layer (`distributed.seq_parallel`): (the attention layers, each
+    gathering its K/V; {name: one rank's operand bytes} of the recurrent
+    layers' other gathers: an RWKV-6 layer's two token shifts (a row of
+    the residual stream each) and its WKV6 state with its decay; a
+    Mamba-2 layer's conv rows (CONV_WIDTH - 1 of the inner stream) and
+    its SSD state with its decay, in float32)."""
+    from repro_torch.models.ssm import CONV_WIDTH
+
+    item = getattr(torch, cfg.dtype).itemsize
+    d, h, ds = cfg.d_model, cfg.ssm_heads, cfg.ssm_state
+    halos = {}
+    if cfg.ssm_kind == "rwkv6":
+        for i in range(cfg.n_layers):
+            halos[f"rwkv{i}.shift_t"] = rows * d * item
+            halos[f"rwkv{i}.state"] = rows * h * (ds * ds + ds) * 4
+            halos[f"rwkv{i}.shift_c"] = rows * d * item
+        return 0, halos
+    if cfg.ssm_kind == "mamba2":
+        hd = 2 * d // h
+        for i in range(cfg.n_layers):
+            halos[f"mamba{i}.conv"] = rows * (CONV_WIDTH - 1) * 2 * d * item
+            halos[f"mamba{i}.state"] = rows * h * (hd * ds + 1) * 4
+        return cfg.n_layers // cfg.attn_every, halos
+    return cfg.n_layers, halos
+
+
 def _fake_batch(cfg, shape, rows: int, split=None) -> dict:
     out = {}
     for name, spec in input_specs(cfg, shape).items():
@@ -321,10 +350,11 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
         split = _seq_split(cfg, shape, policy, accum)
         kv = (rows * shape.seq_len * cfg.n_kv_heads * 2 * cfg.hd
               * getattr(torch, cfg.dtype).itemsize)
+        attn_layers, halos = split_halos(cfg, rows) if split else (0, {})
         coll = step_collectives(
             policy.mesh, specs, full, batch_axes,
             seq_axes=("model",) if split else (),
-            attn_layers=cfg.n_layers if split else 0, kv_bytes=kv)
+            attn_layers=attn_layers, kv_bytes=kv, halos=halos)
     out["collectives"] = collective_wire_bytes(coll)
     return out
 

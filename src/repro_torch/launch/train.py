@@ -17,11 +17,12 @@ rank, as the reference trains over several devices: launched by
 launcher joins the process group and builds ``ShardingPolicy(mesh,
 TRAIN_RULES, TRAIN_PARAM_RULES)`` (`training.loop`: the rows over
 ``data``, each sequence over ``model``, the parameters placed by the
-rules).  The dense GQA decoders get the reference's mesh, ``remesh(N)``
-at its default ratio: (1, 2) on two ranks, (2, 2) on four.  The other
-families cannot split a sequence yet (`distributed.seq_parallel.
-unsupported`): they get (N, 1), data-parallel, and the launcher says that
-this departs from the reference's mesh.  The backend is NCCL with one
+rules).  The dense GQA decoders and the recurrent families get the
+reference's mesh, ``remesh(N)`` at its default ratio: (1, 2) on two
+ranks, (2, 2) on four.  The other families cannot split a sequence yet
+(`distributed.seq_parallel.unsupported`): they get (N, 1),
+data-parallel, and the launcher says that this departs from the
+reference's mesh.  The backend is NCCL with one
 card a rank, gloo with ``--device cpu`` and where the ranks share a card
 (fewer visible cards than local ranks; gloo then runs on CUDA tensors).
 Rank 0 prints.  One process that sees several cards trains on one and

@@ -14,11 +14,12 @@ Conventions (the reference's, `repro.models.attention`)
   `attend_decode` the decode-attention kernel (`kernels/ops.py`); on a CPU
   tensor their plain versions.
 * Under a sequence split (`distributed/seq_parallel.py`, the training
-  step over a ``model`` axis above 1) `gqa_parallel` holds one block of
-  each sequence: it rotates q and k at the block's global positions,
-  gathers K and V over the axis and attends its rows at
-  ``q_offset = rank · S_local``, as the reference's dense path keeps q
-  sharded by sequence and gathers only the grouped K/V.  `attend_mixed` (chunked prefill over a
+  step over a ``model`` axis above 1) `gqa_parallel` and zamba2's shared
+  block hold one block of each sequence: `rope_attend` rotates q and k
+  at the block's global positions, gathers K and V over the axis and
+  attends its rows at ``q_offset = rank · S_local``, as the reference's
+  dense path keeps q sharded by sequence and gathers only the grouped
+  K/V.  `attend_mixed` (chunked prefill over a
   cache) has no kernel in the reference either and is plain PyTorch on
   both devices.
 * MLA (DeepSeek-V2) has no kernel: its prefill attends with q/k of width
@@ -294,19 +295,28 @@ def _qkv(p, x, cfg):
     return q, k, v
 
 
-def gqa_parallel(p, x, cfg):
-    """x: [B, S, D] -> (out [B, S, D], (k, v) for the cache layout).
-    Under a sequence split x is this rank's block of each sequence, and
-    its rows attend to the whole sequence's keys (the module docstring)."""
-    q, k, v = _qkv(p, x, cfg)
+def rope_attend(q, k, v, cfg, *, window: int = 0):
+    """q, k, v [B, S, H(kv), hd] of a whole prompt, or of this rank's
+    block under a sequence split -> (o [B, S, H, hd], k rotated): RoPE at
+    the rows' global positions and causal attention over the whole
+    sequence's keys (gathered over the split's axis, the module
+    docstring)."""
     split = seq_parallel.current()
     offset = split.offset if split else 0
-    pos = torch.arange(offset, offset + x.shape[1], device=x.device)
+    pos = torch.arange(offset, offset + q.shape[1], device=q.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     k_all, v_all = seq_parallel.gather_kv(k, v, split) if split else (k, v)
-    o = attend_parallel(q, k_all, v_all, window=cfg.sliding_window,
-                        q_offset=offset)
+    return attend_parallel(q, k_all, v_all, window=window,
+                           q_offset=offset), k
+
+
+def gqa_parallel(p, x, cfg):
+    """x: [B, S, D] -> (out [B, S, D], (k, v) for the cache layout).
+    Under a sequence split x is this rank's block of each sequence, and
+    its rows attend to the whole sequence's keys (`rope_attend`)."""
+    q, k, v = _qkv(p, x, cfg)
+    o, k = rope_attend(q, k, v, cfg, window=cfg.sliding_window)
     out = torch.einsum("...hk,hkd->...d", o, p["wo"])
     return out, (k, v)
 

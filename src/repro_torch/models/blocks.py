@@ -187,19 +187,18 @@ def _lora_qkv_delta(lora_g, h):
 
 
 def shared_attn_parallel(p, lora_g, x, cfg):
-    """The shared block over a whole prompt (the flash-attention kernel on
-    the card).  Returns (x, (k, v)) for the cache layout.  The reference
-    also masks keys past each prompt's length; the recurrent engine's
-    prompts are exact-length, so the causal mask alone is the same."""
+    """The shared block over a whole prompt, or this rank's block of it
+    under a sequence split (`attention.rope_attend`; the flash-attention
+    kernel on the card).  Returns (x, (k, v)) for the cache layout.  The
+    reference also masks keys past each prompt's length; the recurrent
+    engine's prompts are exact-length, so the causal mask alone is the
+    same."""
     blk = p["block"]
     h = rms_norm(x, blk["ln1"], cfg.norm_eps)
     q, k, v = attn._qkv(blk["attn"], h, cfg)
     dq, dk, dv = _lora_qkv_delta(lora_g, h)
     q, k, v = q + dq, k + dk, v + dv
-    pos = torch.arange(x.shape[1], device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
-    o = attn.attend_parallel(q, k, v)
+    o, k = attn.rope_attend(q, k, v, cfg)
     x = x + torch.einsum("...hk,hkd->...d", o, blk["attn"]["wo"])
     h = rms_norm(x, blk["ln2"], cfg.norm_eps)
     return x + ffn_apply(blk["mlp"], h), (k, v)

@@ -85,6 +85,18 @@ def _remat(fn, remat: bool):
     return checkpointed(seq_parallel.bound(fn)) if remat else fn
 
 
+def _loss_of(logits, batch: dict):
+    """The next-token loss of ``logits`` over batch["tokens"]; under a
+    sequence split the batch is a rank's block and also holds its
+    ``targets`` [B, S_local] and each row's ``target_count`` over the
+    whole sequence (`training.loop`; `layers.next_token_loss`)."""
+    if "targets" in batch:
+        return next_token_loss(logits, batch["tokens"],
+                               targets=batch["targets"],
+                               count=batch["target_count"].sum())
+    return next_token_loss(logits, batch["tokens"])
+
+
 def _stack_axes(ax, n: int) -> list:
     """The reference's ``_prefix_axes(ax, "layers")`` for a stack of ``n``
     layers: where the reference names the stacked leading dim, the port
@@ -268,19 +280,14 @@ def build_lm(cfg):
         With ``n_patches`` in the config, the reference prepends that many
         -100 targets whether or not the batch holds patches, so a batch
         without them raises, as the reference's does (ROADMAP §3).  Under
-        a sequence split the batch is a rank's block and also holds its
-        ``targets`` [B, S_local] and each row's ``target_count`` over the
-        whole sequence (`training.loop`; `layers.next_token_loss`)."""
+        a sequence split the batch is a rank's block (`_loss_of`)."""
         x, _ = forward(params, batch, collect=False, remat=True)
+        if "targets" in batch or not cfg.n_patches:
+            return _loss_of(_lm_head(params, x, cfg), batch)
         tokens = batch["tokens"]
-        if "targets" in batch:
-            return next_token_loss(_lm_head(params, x, cfg), tokens,
-                                   targets=batch["targets"],
-                                   count=batch["target_count"].sum())
-        if cfg.n_patches:
-            tokens = torch.cat([torch.full(
-                (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,
-                device=tokens.device), tokens], dim=1)
+        tokens = torch.cat([torch.full(
+            (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,
+            device=tokens.device), tokens], dim=1)
         return next_token_loss(_lm_head(params, x, cfg), tokens)
 
     return {"init": init, "forward": forward, "prefill": prefill,
@@ -371,10 +378,12 @@ def _build_rwkv(cfg):
 
     def forward(params, batch, *, collect: bool, init_state=None,
                 remat: bool = False):
-        """Returns (x_final [B, S, D], {"states": [per layer]} or {})."""
+        """Returns (x_final [B, S, D], {"states": [per layer]} or {}).
+        Without ``init_state`` every layer starts from zeros (under a
+        sequence split: from what the earlier blocks pass on)."""
         x = _embed(params, batch["tokens"])
-        states = init_state if init_state is not None else _rwkv_zero_state(
-            cfg, x.shape[0], x.dtype, x.device)
+        states = (init_state if init_state is not None
+                  else [None] * cfg.n_layers)
         layer = _remat(lambda p_l, x, st: blk.rwkv_block_parallel(
             p_l, x, cfg, state=st), remat)
         new = []
@@ -412,8 +421,9 @@ def _build_rwkv(cfg):
                 {"pos": cache["pos"] + lens_new, "states": parts["states"]})
 
     def loss(params, batch):
+        """As the attention decoder's ``loss`` (a split rank's block too)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+        return _loss_of(_lm_head(params, x, cfg), batch)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
@@ -487,10 +497,13 @@ def _build_zamba(cfg):
         """Returns (x_final [B, S, D], {"mamba": states, "kv": [per group
         (k, v)]} or {}).  With ``remat`` each group (its Mamba-2 layers and
         the shared block) and each tail layer is checkpointed, as the
-        reference checkpoints its group and tail bodies."""
+        reference checkpoints its group and tail bodies.  Without
+        ``init_state`` every layer starts from zeros (under a sequence
+        split: from what the earlier blocks pass on)."""
         x = _embed(params, batch["tokens"])
-        st = init_state if init_state is not None else _zamba_zero_state(
-            cfg, x.shape[0], x.dtype, x.device)
+        st = init_state if init_state is not None else {
+            "groups": [[None] * per for _ in range(g)],
+            "tail": [None] * tail}
 
         def group(p_g, lora_g, x, st_g):
             x, ms = _mamba_run(p_g, x, st_g, step=False)
@@ -571,8 +584,9 @@ def _build_zamba(cfg):
             "zamba2 extend: use prefill from scratch (engine falls back)")
 
     def loss(params, batch):
+        """As the attention decoder's ``loss`` (a split rank's block too)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+        return _loss_of(_lm_head(params, x, cfg), batch)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,

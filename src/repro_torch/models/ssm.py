@@ -24,18 +24,60 @@ Mamba-2 / SSD (per head; scalar decay a_t, x_t in R^hd, B_t, C_t in R^ds):
 Precision follows the reference op by op: the recurrences, log_w, dt, the
 softplus and the norms in float32; the projections and mixes in the model
 dtype; ``A_log`` and ``dt_bias`` are float32 parameters in any model.
+
+Under a sequence split (`distributed/seq_parallel.py`, a training step
+over a ``model`` axis above 1; the caller passes no state) each rank holds
+one block of each sequence, as the reference's partitioner gives each
+device one.  The token shifts and the causal conv read the previous
+rank's last rows (`seq_parallel.shift_in`), and each scan runs twice
+(`_from_earlier_blocks`): from zeros for the block's final state L, then
+from the state that the earlier blocks' (L, D) fold into
+(`seq_parallel.state_in`), D the block's decay.  Every rank runs both
+passes, rank 0 too: the ranks meet at each collective, and equal work
+keeps their launches and collectives equal.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import seq_parallel
 from repro_torch.kernels import ops
 from repro_torch.models.layers import group_norm_heads, normal_init, rms_norm
 
 LORA_MIX = 32
 LORA_DECAY = 64
 CONV_WIDTH = 4
+
+
+def _active_split(*states):
+    """The active sequence split where the caller passed no state, else
+    None; a stored state under a split raises (only a sequence's first
+    block could start from it)."""
+    split = seq_parallel.current()
+    if split is not None and any(t is not None for t in states):
+        raise ValueError("a stored state under a sequence split: only "
+                         "training splits a sequence, from zeros")
+    return split
+
+
+def _shifted(x, width: int, state, split):
+    """The ``width`` rows before x's first [B, width, D]: the stored
+    state, the previous rank's last rows under a split, else zeros."""
+    if split is not None:
+        return seq_parallel.shift_in(x[:, -width:], split)
+    if state is not None:
+        return state
+    return x.new_zeros((x.shape[0], width, x.shape[2]))
+
+
+def _from_earlier_blocks(scan, args, zeros, decay, split):
+    """``scan(*args, s0)`` from the state that reaches this rank's block:
+    a first pass from ``zeros`` gives the block's final state L, and
+    `seq_parallel.state_in` folds the ranks' (L, ``decay``) into this
+    rank's s0.  Returns the second pass's (out, final state)."""
+    _, l_final = scan(*args, zeros)
+    return scan(*args, seq_parallel.state_in(l_final, decay, split))
 
 
 # =====================================================================
@@ -137,14 +179,21 @@ def rwkv6_time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
     h, hd = cfg.ssm_heads, cfg.ssm_state
     if parallel:
         b, s, d = x.shape
-        prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-                if shift_state is None else shift_state[:, None])
+        split = _active_split(shift_state, wkv_state)
+        prev = _shifted(x, 1, None if shift_state is None
+                        else shift_state[:, None], split)
         xx = torch.cat([prev, x[:, :-1]], dim=1)
         r, k, v, gate, log_w = _rwkv6_projections(p, x, xx, cfg)
-        s0 = (torch.zeros((b, h, hd, hd), dtype=torch.float32,
-                          device=x.device)
-              if wkv_state is None else wkv_state)
-        o, s_t = wkv6_chunked(r, k, v, log_w, p["u"], s0)
+        zeros = torch.zeros((b, h, hd, hd), dtype=torch.float32,
+                            device=x.device)
+        if split is not None:
+            # the block's decay on the key dim, as diag(w_t) acts
+            o, s_t = _from_earlier_blocks(
+                wkv6_chunked, (r, k, v, log_w, p["u"]), zeros,
+                torch.exp(log_w.float().sum(dim=1)), split)
+        else:
+            o, s_t = wkv6_chunked(r, k, v, log_w, p["u"],
+                                  zeros if wkv_state is None else wkv_state)
         o = o.reshape(b, s, h * hd).to(x.dtype)
         o = group_norm_heads(o, p["gn_w"], p["gn_b"], h)
         return (o * gate) @ p["wo"], (x[:, -1], s_t)
@@ -159,9 +208,9 @@ def rwkv6_time_mix(p, x, cfg, *, shift_state=None, wkv_state=None,
 def rwkv6_channel_mix(p, x, *, shift_state=None, parallel=True):
     """The channel-mix block.  Returns (out, new shift state [B, D])."""
     if parallel:
-        b, s, d = x.shape
-        prev = (torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-                if shift_state is None else shift_state[:, None])
+        prev = _shifted(x, 1, None if shift_state is None
+                        else shift_state[:, None],
+                        _active_split(shift_state))
         xx = torch.cat([prev, x[:, :-1]], dim=1)
         new_shift = x[:, -1]
     else:
@@ -253,22 +302,31 @@ def mamba2_block(p, x, cfg, *, conv_state=None, ssm_state=None,
     hd = di // h
     if parallel:
         b, s, _ = x.shape
+        split = _active_split(conv_state, ssm_state)
         z, xr, bmat, cmat, dt_raw = _mamba2_split(x @ p["in_proj"], cfg)
+        if split is not None and s < CONV_WIDTH - 1:
+            raise ValueError(f"a block of {s} tokens is shorter than the "
+                             f"causal conv's {CONV_WIDTH - 1} earlier rows")
         # causal depthwise conv (width 4) over xr
-        prev = (torch.zeros((b, CONV_WIDTH - 1, di), dtype=xr.dtype,
-                            device=x.device)
-                if conv_state is None else conv_state)
+        prev = _shifted(xr, CONV_WIDTH - 1, conv_state, split)
         xr_pad = torch.cat([prev, xr], dim=1)
         xr_conv = sum(xr_pad[:, i:i + s] * p["conv_w"][i]
                       for i in range(CONV_WIDTH))
         xr_conv = F.silu(xr_conv + p["conv_b"])
         new_conv = xr_pad[:, s:s + CONV_WIDTH - 1]
         dt = _softplus(dt_raw.float() + p["dt_bias"])
-        s0 = (torch.zeros((b, h, hd, ds), dtype=torch.float32,
-                          device=x.device)
-              if ssm_state is None else ssm_state)
-        y, s_t = ssd_chunked(xr_conv.reshape(b, s, h, hd), bmat, cmat, dt,
-                             p["A_log"], p["D"], s0)
+        args = (xr_conv.reshape(b, s, h, hd), bmat, cmat, dt, p["A_log"],
+                p["D"])
+        zeros = torch.zeros((b, h, hd, ds), dtype=torch.float32,
+                            device=x.device)
+        if split is not None:
+            decay = torch.exp(-torch.exp(p["A_log"].float())
+                              * dt.sum(dim=1))                  # [B, H]
+            y, s_t = _from_earlier_blocks(ssd_chunked, args, zeros, decay,
+                                          split)
+        else:
+            y, s_t = ssd_chunked(*args, zeros if ssm_state is None
+                                 else ssm_state)
         y = y.reshape(b, s, di).to(x.dtype)
     else:
         b, _ = x.shape

@@ -33,8 +33,9 @@ card).  The loss is the mean of the batch ranks' losses, which is the
 global batch's when every rank's rows hold as many targets (as synthetic
 batches do).  On a mesh of one card every placement is ``Replicate`` and
 the run is the plain loop's bit for bit.  A ``model`` axis above 1 takes
-the dense GQA decoders only: the other families raise in `place_state`
-with the ROADMAP item that will let them (`seq_parallel.unsupported`).
+the dense GQA decoders and the recurrent families (rwkv6-3b, zamba2-7b):
+the other families raise in `place_state` with the ROADMAP item that
+will let them (`seq_parallel.unsupported`).
 """
 from __future__ import annotations
 

@@ -13,9 +13,10 @@ axes, and an all-reduce of the gradient's shard over the other mesh axes
 that split the batch or the sequence; the loss's all-reduce over those
 axes.  Where the sequence is split over ``model``, each attention layer
 also gathers its K/V over that axis twice a step (its forward and its
-checkpointed re-run) and reduce-scatters their gradient once.
-Each is costed with the reference's ring formulas (per device, a group of
-k participants):
+checkpointed re-run) and reduce-scatters their gradient once, and so does
+each recurrent layer with its token shifts' rows and its scan state
+(``halos``, `launch.dryrun.split_halos`).  Each is costed with the
+reference's ring formulas (per device, a group of k participants):
 
     all-reduce        2 * S * (k-1)/k     (reduce-scatter + all-gather phases)
     all-gather        R * (k-1)/k         (R = gathered result bytes)
@@ -61,14 +62,16 @@ class CollectiveOp:
 
 
 def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
-                     seq_axes=(), attn_layers: int = 0,
-                     kv_bytes: int = 0) -> list[CollectiveOp]:
+                     seq_axes=(), attn_layers: int = 0, kv_bytes: int = 0,
+                     halos: dict | None = None) -> list[CollectiveOp]:
     """The collectives of one training step: ``specs`` and ``leaf_bytes``
     map each parameter leaf's path to its resolved spec and its full size
     in the gradient's dtype; ``batch_axes`` are the mesh axes the batch is
     split over, ``seq_axes`` those each sequence is split over, with
     ``attn_layers`` attention layers whose gathered K/V take ``kv_bytes``
-    a layer on a card."""
+    a layer on a card, and ``halos`` the other gathers of a split step
+    ({name: one rank's operand bytes}: the token shifts' rows, the scan
+    states)."""
     sizes = mesh_shape(mesh)
     reducing = [a for a in dict.fromkeys((*batch_axes, *seq_axes))
                 if sizes.get(a, 1) > 1]
@@ -85,6 +88,12 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                                     f"{name}.kv (remat)"))
             ops.append(CollectiveOp("reduce-scatter", kv_bytes // m,
                                     kv_bytes, m, f"{name}.dkv"))
+        for name, one in (halos or {}).items():
+            ops.append(CollectiveOp("all-gather", one * m, one, m, name))
+            ops.append(CollectiveOp("all-gather", one * m, one, m,
+                                    f"{name} (remat)"))
+            ops.append(CollectiveOp("reduce-scatter", one, one * m, m,
+                                    f"d{name}"))
     for name, spec in specs.items():
         full = leaf_bytes[name]
         sharded = spec_axes(spec)

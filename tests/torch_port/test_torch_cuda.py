@@ -1474,6 +1474,50 @@ def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, hd, ds, state, grad_st,
         assert torch.equal(g, a)               # no atomics: the same bits
 
 
+def _split_calls(op, args, s_in, cot):
+    """A split rank's two calls of a scan ``op`` (`models.ssm`): from
+    zeros for the block's final state L, then from ``s_in`` (which
+    requires grad); the gradients of the inputs and of s_in under the
+    cotangents ``cot`` of (the second call's output, L)."""
+    _, l_final = op(*args, torch.zeros_like(s_in))
+    out, _ = op(*args, s_in)
+    leaves = [*args, s_in]
+    return torch.autograd.grad((out, l_final), leaves, cot,
+                               allow_unused=True, materialize_grads=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scan", ["wkv6", "ssd"])
+def test_split_scan_calls_match_plain(dev, scan, dtype):
+    """A split rank's scans at rwkv6-3b's and zamba2-7b's heads (S_local
+    512): the forward from a state that requires grad and the backward
+    with both the final state's gradient (the first call) and the
+    incoming state's (the second), through ``ops`` (the kernels: two
+    forward and two backward launches) against the plain versions under
+    autograd on the same inputs, under the backward kernels' gates."""
+    from repro_torch.kernels.ssd import ssd_plain
+    from repro_torch.kernels.wkv6 import wkv6_plain
+
+    if scan == "wkv6":
+        *args, s_in = wkv6_inputs(1, 512, 40, 64, dtype, True, dev, 29)
+        plain, rows = wkv6_plain, {0, 1, 2, 3}
+    else:
+        *args, s_in = ssd_inputs(1, 512, 112, 64, 64, dtype, True, dev, 29)
+        plain, rows = ssd_plain, {0, 1, 2}
+    rng = np.random.default_rng(30)
+    cot = (_normal(tuple(args[0].shape), dtype, dev, rng),
+           _normal(tuple(s_in.shape), torch.float32, dev, rng))
+    leaves = [a.requires_grad_(True) for a in (*args, s_in)]
+    ops.reset_launch_counts()
+    got = _split_calls(getattr(ops, f"{scan}_op"), leaves[:-1], leaves[-1],
+                       cot)
+    counts = ops.launch_counts()
+    want = _split_calls(plain, leaves[:-1], leaves[-1], cot)
+    torch.cuda.synchronize()
+    assert counts[scan] == 2 and counts[f"{scan}_bwd"] == 2
+    _scan_bwd_gates(got, want, rows, dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_forwards_keep_their_bits_with_states(dev, dtype):
     """The forward kernels give the same output and final state with and

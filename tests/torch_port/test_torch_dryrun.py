@@ -24,7 +24,9 @@ Checked:
   parser on ``tests/test_sharding.py::test_hlo_collective_parser``'s HLO,
   and ``step_collectives`` against hand counts, data-parallel and with
   each sequence split over ``model`` at (1, 2) and (2, 2); a split train
-  cell traced as one rank (half the FLOPs, its activations);
+  cell traced as one rank (half the FLOPs, its activations); the split's
+  per-layer gathers and reduce-scatters (K/V, the recurrent families'
+  token shifts and scan states) against the ones a traced rank counts;
 * the CLIs: ``python -m repro_torch.launch.dryrun`` and
   ``python -m repro_torch.roofline`` write and read the reference's
   record layout; a skipped cell keeps ``cell_supported``'s reason.
@@ -303,6 +305,45 @@ def test_split_step_collectives_by_hand(n_data):
     assert totals["reduce-scatter"] == (2 * 1024 + 4096) / 2
     assert totals["all-reduce"] == 2 * (64 + 4) * ring + (
         2 * 2048 / 2 if n_data > 1 else 0)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "qwen3-8b"])
+def test_split_collectives_match_the_counted_step(arch):
+    """A train cell split over model = 2: the plan's per-layer gathers
+    (`dryrun.split_halos` and the K/V) are the ones one rank's traced step
+    issues (`seq_parallel.collective_counts`; the trace runs each layer
+    once, so the plan's re-run gathers are not in it), each reduce-scatter
+    of the plan one of the step's, and the state bytes a layer by hand."""
+    from repro_torch.distributed import seq_parallel
+
+    cfg = _reduced(arch)
+    shape = ShapeConfig("t", "train", 64, 4)
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    policy = dryrun.build_policy(mesh, "train", "t")
+    seq_parallel.reset_collective_counts()
+    dryrun.trace_cell(cfg, shape, policy, accum=1)
+    counted = seq_parallel.collective_counts()
+    attn_layers, halos = dryrun.split_halos(cfg, 4)
+    ops = step_collectives(mesh, {}, {}, [], seq_axes=("model",),
+                           attn_layers=attn_layers, kv_bytes=1024,
+                           halos=halos)
+    gathers = [c for c in ops if c.op == "all-gather"]
+    assert counted == {
+        "all_gather": sum("(remat)" not in c.computation for c in gathers),
+        "reduce_scatter": sum(c.op == "reduce-scatter" for c in ops),
+        "all_reduce": 0}
+    assert len(gathers) == 2 * counted["all_gather"] > 0
+    h, ds = cfg.ssm_heads, cfg.ssm_state
+    if arch == "rwkv6-3b":       # [B, H, dk, dk] and [B, H, dk], float32
+        assert halos["rwkv0.state"] == 4 * h * (ds * ds + ds) * 4
+        assert halos["rwkv0.shift_t"] == 4 * cfg.d_model * 4
+    elif arch == "zamba2-7b":    # [B, H, hd, ds] and [B, H], float32
+        hd = 2 * cfg.d_model // h
+        assert halos["mamba0.state"] == 4 * h * (hd * ds + 1) * 4
+        assert halos["mamba0.conv"] == 4 * 3 * 2 * cfg.d_model * 4
+        assert attn_layers == cfg.n_layers // cfg.attn_every
+    else:
+        assert halos == {} and attn_layers == cfg.n_layers
 
 
 def test_split_train_cell_traces_one_rank():
