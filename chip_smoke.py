@@ -353,10 +353,10 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     each), against one process: phase 24's reduced float32 qwen3-8b, 3
     steps, losses within 1e-5 relative, the ranks' first-step gradients
     summed within 1e-4 of each leaf's largest one-process value.  (c) The
-    same at full width, 4 layers, 4,096 tokens, bf16, 2 steps (phase 26's
-    cell):
-    losses within 2e-2 relative, each rank's flash launches exact (2
-    forward and 1 backward per layer and step, at 2,048 rows against
+    same at full width, 2 layers, 4,096 tokens, bf16, 2 steps (phase 26's
+    cell cut to 2 layers for the script's time): losses within 2e-2
+    relative, each rank's flash launches exact (2 forward and 1
+    backward per layer and step, at 2,048 rows against
     4,096 keys and the rank's offset) with the plain versions refused,
     per-rank peak memory and step time, and the dry run's bytes a rank
     against the measured peak within 2x; the figures as a JSON line
@@ -372,12 +372,31 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     models at phase 24's reduced float32 widths, two ranks against one
     process under phase 27b's gates, each scan launched twice a layer
     and pass.  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
-    rwkv6-3b whole and zamba2-7b at 30 layers (the deepest at which two
-    ranks fit the card): losses within 2e-2 of one process, the launches
-    exact with every plain version refused, per-rank peak memory and
+    rwkv6-3b at 4 layers and zamba2-7b at 6 (cut for the script's time
+    from 32 and 30, the deepest at which two ranks fit the card): losses
+    within 2e-2 of one process, the launches exact with every plain
+    version refused, per-rank peak memory and
     step time, the collectives, and the dry run a rank within 2x of the
     measured peak (its dry runs start with the script, in a process of
-    their own); the figures as a JSON line (``split_recurrent``).
+    their own); the figures as a JSON line (``split_recurrent``).  Each
+    (c) run's processes start with its phase's (b), import and warm up
+    (one narrow training step each) beside it, and train in turn.
+29. mixtral-8x22b and deepseek-v2-lite-16b with each sequence split over
+    a model axis of 2, the MoE's pair counts gathered (pairs ranked
+    row-globally) and MLA's latent gathered.  (a) The flash forward and
+    backward kernels where mixtral's window masks at an offset (48 / 8
+    heads of 128, bf16, 4,096 query rows at offset 4,096 against 8,192
+    keys, window 4,096) under phase 27a's gates.  (b) Both at reduced
+    float32 widths (phase 24's mixtral; deepseek at 2 layers, d_model
+    1,024), two ranks against one process under phase 27b's gates, the
+    launches exact (none for MLA), the top-k flips against one process,
+    each rank's dropped pairs (their sum one process's but for the pairs
+    flips move).  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
+    mixtral-8x22b at 1 of 56 layers and deepseek-v2-lite-16b at 5 of 27
+    (the deepest at which two ranks' measured peaks stay under 72 GiB,
+    one layer more checked over it): (b)'s gates at 2e-2, per-rank peak
+    memory against the dry run and step time against one process, the
+    collectives a step; the figures as a JSON line (``split_moe``).
     Then the time of all phases, the card line, the JSON line of the
     thirteen kernels' records (the six TPU kernels' counterparts, the
     router's two redesigned entries, the fused step's two kernels and the
@@ -387,10 +406,11 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
     phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
     locksteps, phase 25's runs, phase 26's policy run and rank 0 of phases
-    27c and 28c, ``family_replays`` and
+    27c, 28c and 29c, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
-    backward kernel's at phase 25's calls) and the device line last.
+    backward kernel's at phase 25's calls, ``split_window`` the flash
+    kernels' at phase 29a's call) and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -4858,8 +4878,10 @@ TRAIN_STEPS = 6                    # phase 25's steps per model
 TRAIN_4K = 4096                    # train_4k's sequence length
 # phase 25's peak learning rates: at qwen3-8b's 1e-3 its loss rose; at
 # seamless-m4t-medium's 4e-4 its loss fell by less than the batches move
-# it; rwkv6-3b's and zamba2-7b's fall past that spread at 1e-4
-TRAIN_LR = {ARCH: 1e-4, SEAMLESS: 2e-3, RWKV: 1e-4, ZAMBA: 1e-4}
+# it; rwkv6-3b's and zamba2-7b's fall past that spread at 1e-4; the MoE
+# models' (phase 29) take qwen3-8b's
+TRAIN_LR = {ARCH: 1e-4, SEAMLESS: 2e-3, RWKV: 1e-4, ZAMBA: 1e-4,
+            MIXTRAL: 1e-4, DEEPSEEK: 1e-4}
 GRAD_TOL = 1e-4                    # a gradient leaf, of its largest CPU value
 # rwkv6-3b's float32 gradient at phase 24's weights is ill-conditioned: a
 # float64 CPU gradient puts the CPU's float32 leaves up to 1.38e-4 of a
@@ -4910,7 +4932,8 @@ def training_configs():
 def kernel_calls(cfg) -> dict:
     """Each training kernel's calls in one forward: flash attention once
     per layer (per encoder layer and twice per decoder layer for an
-    encoder-decoder, once per shared-block application for zamba2), WKV6
+    encoder-decoder, once per shared-block application for zamba2, never
+    for MLA, which runs plain PyTorch on both devices), WKV6
     once per RWKV-6 layer, SSD once per Mamba-2 layer.  Under remat each
     runs twice a step and its backward once."""
     if cfg.ssm_kind == "rwkv6":
@@ -4918,8 +4941,8 @@ def kernel_calls(cfg) -> dict:
     if cfg.ssm_kind == "mamba2":
         return {"flash_attention": cfg.n_layers // cfg.attn_every,
                 "wkv6": 0, "ssd": cfg.n_layers}
-    return {"flash_attention": attention_launches(cfg)[0], "wkv6": 0,
-            "ssd": 0}
+    return {"flash_attention": 0 if cfg.attn_kind == "mla" else
+            attention_launches(cfg)[0], "wkv6": 0, "ssd": 0}
 
 
 def launches_per_step(cfg, steps: int = 1) -> dict:
@@ -5702,11 +5725,14 @@ def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
     return runs["policy"]["counts"], figures
 
 
-SPLIT_STEPS = 3                    # phases 27b and 28b's steps a run
-# phases 27c and 28c's steps a run, the second timed: a step of two ranks
+SPLIT_STEPS = 3                    # phases 27b, 28b and 29b's steps a run
+# phases 27c, 28c and 29c's steps a run, the second timed: a step of two ranks
 # sharing the card is gloo's traffic through the host (PERF.md §5)
 SPLIT_FULL_STEPS = 2
 SPLIT_OFFSETS = (0, 2048, 1000)    # 27a: the two ranks' and one off the tiles
+# phase 27c's qwen3-8b depth: phase 26's POLICY_LAYERS cut to 2 to make
+# room for phase 29 in the script's time (PERF.md §4)
+SPLIT_LAYERS = 2
 SPLIT_WORKER = r"""
 import dataclasses, functools, json, os, sys, time
 import torch
@@ -5722,9 +5748,39 @@ from repro_torch.training import SyntheticLM, loop
 from repro_torch.utils.tree import tree_leaves
 
 spec, out = json.loads(sys.argv[1]), sys.argv[2]
+cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
+
+
+def warm_up():
+    # one training step of the run's family at phase 24's (29b's) narrow
+    # widths in the run's dtype: a fresh process's first training step
+    # otherwise spends ~10 s loading what the path runs (PERF.md §5), in
+    # the first timed step
+    from repro_torch.models import build_model
+    narrow = {c.name: c for c in (*cs.training_configs(),
+                                  *cs.split_moe_configs())}
+    small = dataclasses.replace(narrow[spec["arch"]], dtype=cfg.dtype)
+    model = build_model(small)
+    dev = torch.device("cpu")
+    if torch.cuda.is_available():
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                           % torch.cuda.device_count())
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.randint(0, small.vocab_size, (1, 512), device=dev)
+    torch.autograd.grad(model.loss(params, {"tokens": tokens}), leaves)
+    torch.cuda.synchronize()
+    del model, params, leaves
+    torch.cuda.empty_cache()
+
+
+if spec.get("warm_ahead"):
+    warm_up()              # beside the phase's (b), off this run's clock
+    open(f"{spec['warm_ahead']}.{os.environ.get('RANK', '0')}", "w").close()
 while spec.get("hold") and not os.path.exists(spec["hold"]):
     time.sleep(0.05)       # started ahead, imports done: wait for the card
-cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
 train.get_config = lambda name: cfg
 train.train_loop = functools.partial(loop.train_loop, log_every=1)
 times, calls, grads = [], [], []
@@ -5755,6 +5811,40 @@ for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
                       kw.get("q_offset", 0)))
         return _fn(*a, **kw)
     setattr(ops, name, wrap)
+# each MoE call's experts, its tokens' margins (the k-th router
+# probability less the next) and its dropped pairs
+routes, margins, drops = [], [], []
+if spec.get("moe"):
+    from repro_torch.models import moe
+    route, prefix = moe._route, seq_parallel.count_prefix
+
+    def recorded(p, x, c):
+        gates, idx = route(p, x, c)
+        routes.append(idx.to(torch.int16).cpu())
+        with torch.no_grad():
+            probs = torch.softmax(torch.einsum(
+                "bsd,de->bse", x, p["router"]).float(), dim=-1)
+            top = torch.topk(probs, c.top_k + 1, dim=-1).values
+            margins.append((top[..., -2] - top[..., -1]).cpu())
+        if seq_parallel.current() is None:      # one process: whole rows
+            flat = idx.reshape(idx.shape[0], -1)
+            n = torch.zeros((flat.shape[0], c.n_experts), dtype=torch.int64,
+                            device=idx.device).scatter_add_(
+                1, flat, torch.ones_like(flat))
+            cap = moe._capacity(x.shape[1], c.top_k, c.n_experts,
+                                c.capacity_factor)
+            drops.append(int((n - cap).clamp(min=0).sum()))
+        return gates, idx
+
+    def counted(counts, s):
+        before = prefix(counts, s)          # the gathered prefix itself
+        cap = moe._capacity(s.s_local * s.size, cfg.top_k, cfg.n_experts,
+                            cfg.capacity_factor)
+        kept = torch.minimum((cap - before).clamp(min=0), counts)
+        drops.append(int((counts - kept).sum()))
+        return before
+
+    moe._route, seq_parallel.count_prefix = recorded, counted
 ops.reset_launch_counts()
 seq_parallel.reset_collective_counts()
 torch.cuda.reset_peak_memory_stats()
@@ -5768,7 +5858,8 @@ rec = {"losses": [x for _, x in res["losses"]],
        "launches": ops.launch_counts(), "calls": calls,
        "collectives": seq_parallel.collective_counts(),
        "backend": dist.get_backend() if dist.is_initialized() else None,
-       "device": str(torch.cuda.current_device()), "grads": grads}
+       "device": str(torch.cuda.current_device()), "grads": grads,
+       "routes": routes, "margins": margins, "drops": drops}
 torch.save(rec, out)
 if dist.is_initialized():
     dist.destroy_process_group()
@@ -5780,12 +5871,14 @@ class SplitRun:
     --nproc-per-node`` starts them (one process without a process group
     for ranks = 1), through SPLIT_WORKER, started at construction;
     ``wait`` returns each rank's record, ``kill`` stops what still
-    runs.  A ``held`` run starts its processes, which import and then
-    wait for ``release`` before they touch the card: it can start while
-    the run before it holds the card."""
+    runs.  A ``held`` run starts its processes, which import, warm up
+    if ``warm_ahead`` (one narrow training step on the card, which takes
+    a fresh process's ~10 s of loading off its first step; ``warm``
+    says when every process has) and then wait for ``release`` before
+    they train: it can start while the run before it holds the card."""
 
     def __init__(self, spec: dict, ranks: int, tag: str,
-                 held: bool = False):
+                 held: bool = False, warm_ahead: bool = False):
         import socket
 
         with socket.socket() as sock:
@@ -5800,10 +5893,18 @@ class SplitRun:
         self.tag = tag
         self.go = ROOT / "build" / f"split_{tag}.go"
         self.go.unlink(missing_ok=True)
+        self.warmed = [ROOT / "build" / f"split_{tag}.warm.{r}"
+                       for r in range(ranks)] if warm_ahead else []
+        for path in self.warmed:
+            path.unlink(missing_ok=True)
         if held:
             spec = dict(spec, hold=str(self.go))
+        if warm_ahead:
+            spec = dict(spec, warm_ahead=str(ROOT / "build" /
+                                             f"split_{tag}.warm"))
         self.outs = [ROOT / "build" / f"split_{tag}_{r}.pt"
                      for r in range(ranks)]
+        atexit.register(self.kill)      # a failed phase stops them too
         self.procs = [subprocess.Popen(
             [sys.executable, "-c", SPLIT_WORKER, json.dumps(spec), str(out)],
             env=dict(env, RANK=str(r), LOCAL_RANK=str(r)) if ranks > 1
@@ -5814,12 +5915,19 @@ class SplitRun:
     def release(self) -> None:
         self.go.touch()
 
+    def warm(self) -> bool:
+        """Every process has warmed up, or one has ended (``wait`` says
+        how)."""
+        return (all(path.exists() for path in self.warmed)
+                or any(p.poll() is not None for p in self.procs))
+
     def kill(self) -> None:
         for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        self.go.unlink(missing_ok=True)
+        for path in (self.go, *self.warmed):
+            path.unlink(missing_ok=True)
 
     def wait(self) -> list[dict]:
         import torch
@@ -5851,19 +5959,29 @@ def split_launches(cfg, steps: int) -> dict:
     return want
 
 
-def run_in_turn(jobs: list) -> list:
+def start_in_turn(jobs: list) -> list:
     """``SplitRun(spec, ranks, tag)`` for each (spec, ranks, tag) of
-    ``jobs``, one after another on the card, each started held while the
-    one before it runs (so its processes' start is off the clock): each
-    run's records and its seconds from its release to its end."""
-    out, runs = [], [SplitRun(*jobs[0], held=True)]
+    ``jobs``, all started at once, held and warming up ahead: a phase
+    starts them when its (b) starts, so their imports and warm-ups run
+    beside (b), whose small steps the host's collectives bound."""
+    return [SplitRun(*job, held=True, warm_ahead=True) for job in jobs]
+
+
+def run_in_turn(runs: list) -> list:
+    """`start_in_turn`'s runs one after another on the card, the first
+    once every one has warmed up (so no warm-up runs beside a timed
+    step): each run's records and its seconds from its release to its
+    end."""
+    out, t0 = [], time.perf_counter()
     try:
-        for i in range(len(jobs)):
-            runs[i].release()
+        while not all(run.warm() for run in runs):
+            check(time.perf_counter() - t0 < 600, "the split runs did not "
+                  "warm up in 600 s")
+            time.sleep(0.1)
+        for run in runs:
+            run.release()
             t0 = time.perf_counter()
-            if i + 1 < len(jobs):
-                runs.append(SplitRun(*jobs[i + 1], held=True))
-            out.append((runs[i].wait(), time.perf_counter() - t0))
+            out.append((run.wait(), time.perf_counter() - t0))
     finally:
         for run in runs:
             run.kill()
@@ -5959,10 +6077,11 @@ def phase_split(dev) -> tuple[dict, dict]:
     (TRAIN_SEQ x TRAIN_BATCH), SPLIT_STEPS steps: each step's loss within
     1e-5 relative, the ranks' first-step gradients summed within GRAD_TOL
     of each leaf's largest one-process value.  (c) qwen3-8b at full width
-    and POLICY_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_FULL_STEPS steps
-    (phase 26's cell), the same way: losses within 2e-2 relative, each
-    rank's flash launches exact (2 forward + 1 backward per layer and
-    step, Sq = 2,048 against Sk = 4,096 at its offset) with the plain
+    and SPLIT_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_FULL_STEPS steps
+    (phase 26's cell, cut in depth), the same way: losses within 2e-2
+    relative, each rank's flash launches exact (2 forward + 1 backward
+    per layer and step, Sq = 2,048 against Sk = 4,096 at its offset) with
+    the plain
     versions refused, per-rank peak memory and step time, and the dry
     run's bytes a rank against the measured peak (within DRY_RATIO).
     Returns (c)'s rank-0 launches and the phase's figures."""
@@ -5970,10 +6089,6 @@ def phase_split(dev) -> tuple[dict, dict]:
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import AbstractMesh
-
-    figures = {"kernels": phase_split_kernels(dev)}
-    gc.collect()
-    torch.cuda.empty_cache()
 
     cfg_b = [c for c in training_configs() if c.name == ARCH][0]
     over = {f: getattr(cfg_b, f) for f in ("n_layers", "d_model", "d_ff",
@@ -5983,9 +6098,24 @@ def phase_split(dev) -> tuple[dict, dict]:
     spec = {"arch": ARCH, "over": over, "grads": True,
             "args": [*args, "--seq-len", str(TRAIN_SEQ), "--batch",
                      str(TRAIN_BATCH)]}
-    t0 = time.perf_counter()
-    runs = [SplitRun(spec, 1, "b1"), SplitRun(spec, 2, "b2")]  # both small
+    spec_c = {"arch": ARCH, "over": {"n_layers": SPLIT_LAYERS},
+              "grads": False,
+              "args": ["--arch", ARCH, "--steps", str(SPLIT_FULL_STEPS),
+                       "--lr", str(TRAIN_LR[ARCH]), "--seq-len",
+                       str(TRAIN_4K), "--batch", "1"]}
+    # (b)'s processes import while (a) runs; both are small, so they train
+    # at once after it
+    runs = [SplitRun(spec, 1, "b1", held=True),
+            SplitRun(spec, 2, "b2", held=True)]
     try:
+        figures = {"kernels": phase_split_kernels(dev)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for run in runs:
+            run.release()
+        # (c)'s runs import and warm up while (b) trains
+        chain = start_in_turn([(spec_c, 1, "c1"), (spec_c, 2, "c2")])
         one, ranks = runs[0].wait()[0], runs[1].wait()
     finally:
         for run in runs:
@@ -6015,17 +6145,11 @@ def phase_split(dev) -> tuple[dict, dict]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    cfg_c = dataclasses.replace(get_config(ARCH), n_layers=POLICY_LAYERS)
+    cfg_c = dataclasses.replace(get_config(ARCH), n_layers=SPLIT_LAYERS)
     mesh = AbstractMesh((1, 2), ("data", "model"))
     dry = dry_run_cell(cfg_c, mesh, TRAIN_4K)
-    spec = {"arch": ARCH, "over": {"n_layers": POLICY_LAYERS},
-            "grads": False,
-            "args": ["--arch", ARCH, "--steps", str(SPLIT_FULL_STEPS),
-                     "--lr", str(TRAIN_LR[ARCH]), "--seq-len",
-                     str(TRAIN_4K), "--batch", "1"]}
-    # one process (38 GiB: alone on the card), then the two ranks
-    ((one, one_s), (ranks, ranks_s)) = run_in_turn([(spec, 1, "c1"),
-                                                    (spec, 2, "c2")])
+    # one process (alone on the card), then the two ranks
+    ((one, one_s), (ranks, ranks_s)) = run_in_turn(chain)
     one, wall = one[0], one_s + ranks_s
     split_launch_gate(cfg_c, ranks, TRAIN_4K, "(c)", SPLIT_FULL_STEPS)
     rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
@@ -6055,17 +6179,19 @@ def phase_split(dev) -> tuple[dict, dict]:
         "collectives": ranks[0]["collectives"],
         "dry_run": dry_run_against(
             cfg_c, mesh, TRAIN_4K, peak, step_ms,
-            f"(c) a rank of the split, {POLICY_LAYERS} layers", dry=dry)}
+            f"(c) a rank of the split, {SPLIT_LAYERS} layers", dry=dry)}
     return ranks[0]["launches"], figures
 
 
-# phase 28's full-width depths: the deepest (zamba2-7b: a multiple of its
-# group of 6) at which two ranks, each with its gathered parameters and
-# gradients and half of AdamW's state, stay under 72 GiB of the card
-# together by the dry run's figure a rank (PERF.md §4, §6)
-SPLIT_DEPTH = {RWKV: 32, ZAMBA: 30}
-# phase 28c's dry runs, in a process of their own that `main` starts before
-# phase 1: a full-width zamba2-7b cell takes minutes of the host to trace
+# phase 28's full-width depths: cut (from 32 and 30, the deepest
+# at which two ranks, each with its gathered parameters and gradients and
+# half of AdamW's state, stay under 72 GiB of the card together) to make
+# room for phase 29 in the script's time; zamba2-7b at one group of 6
+# (PERF.md §4)
+SPLIT_DEPTH = {RWKV: 4, ZAMBA: 6}
+# phases 28c's and 29c's dry runs, in a process of their own that `main`
+# starts before phase 1: a full-width zamba2-7b cell takes minutes of the
+# host to trace; each keyed (arch, depth)
 SPLIT_DRY = r"""
 import dataclasses, json, pickle, sys
 import torch
@@ -6074,10 +6200,9 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import AbstractMesh
 mesh = AbstractMesh((1, 2), ("data", "model"))
-out = {arch: cs.dry_run_cell(dataclasses.replace(get_config(arch),
-                                                 n_layers=depth),
-                             mesh, cs.TRAIN_4K)
-       for arch, depth in json.loads(sys.argv[1]).items()}
+out = {(arch, depth): cs.dry_run_cell(dataclasses.replace(
+           get_config(arch), n_layers=depth), mesh, cs.TRAIN_4K)
+       for arch, depth in json.loads(sys.argv[1])}
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -6223,32 +6348,49 @@ def phase_split_recurrent(dev, dry=None) -> tuple[dict, dict]:
     ``dry`` is the running `SplitDry` (one is started here without it).
     Returns (c)'s rank-0 launches of both models summed and the phase's
     figures."""
-    dry = dry or SplitDry()
+    dry = dry or SplitDry(("28",))
     try:
         return phase_split_recurrent_runs(dev, dry)
     finally:
         dry.kill()
 
 
-class SplitDry:
-    """Phase 28c's dry runs (SPLIT_DRY) in a process started at
-    construction; ``result`` waits for them."""
+def split_dry_cells(*phases: str) -> list:
+    """The (arch, depth) cells of phase 28c's and 29c's dry runs: each
+    model at its depth, and the MoE models one layer deeper too (where
+    two ranks would pass 72 GiB)."""
+    cells = []
+    if "28" in phases:
+        cells += list(SPLIT_DEPTH.items())
+    if "29" in phases:
+        cells += [(a, d + i) for a, d in SPLIT_MOE_DEPTH.items()
+                  for i in (0, 1)]
+    return cells
 
-    def __init__(self):
-        self.out = ROOT / "build" / "split_recurrent_dry.pkl"
+
+class SplitDry:
+    """Phases 28c's and 29c's dry runs (SPLIT_DRY; ``phases`` of them) in
+    a process started at construction; ``result`` waits for them."""
+
+    def __init__(self, phases=("28", "29")):
+        self.out = ROOT / "build" / "split_dry.pkl"
+        self.done = None
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", SPLIT_DRY, json.dumps(SPLIT_DEPTH),
-             str(self.out)], cwd=ROOT, env=dict(
-                os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}"),
+            [sys.executable, "-c", SPLIT_DRY,
+             json.dumps(split_dry_cells(*phases)), str(self.out)],
+            cwd=ROOT, env=dict(os.environ,
+                               PYTHONPATH=f"{ROOT / 'src'}:{ROOT}"),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def result(self) -> dict:
-        log = self.proc.communicate(timeout=900)[0]
-        if self.proc.returncode:
-            print(log[-4000:])
-        check(self.proc.returncode == 0, f"phase 28c's dry runs exited "
-              f"{self.proc.returncode}")
-        return pickle.loads(self.out.read_bytes())
+        if self.done is None:
+            log = self.proc.communicate(timeout=900)[0]
+            if self.proc.returncode:
+                print(log[-4000:])
+            check(self.proc.returncode == 0, f"the split phases' dry runs "
+                  f"exited {self.proc.returncode}")
+            self.done = pickle.loads(self.out.read_bytes())
+        return self.done
 
     def kill(self) -> None:
         if self.proc.poll() is None:
@@ -6277,6 +6419,14 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         # (b)'s processes import while (a) runs; they train after it
         runs[arch] = (cfg_b, [SplitRun(spec, 1, f"rb1_{arch}", held=True),
                               SplitRun(spec, 2, f"rb2_{arch}", held=True)])
+    jobs = []
+    for arch in (RWKV, ZAMBA):
+        spec = {"arch": arch, "over": {"n_layers": SPLIT_DEPTH[arch]},
+                "grads": False,
+                "args": ["--arch", arch, "--steps", str(SPLIT_FULL_STEPS),
+                         "--lr", str(TRAIN_LR[arch]), "--seq-len",
+                         str(TRAIN_4K), "--batch", "1"]}
+        jobs += [(spec, 1, f"rc1_{arch}"), (spec, 2, f"rc2_{arch}")]
     try:
         t0 = time.perf_counter()
         figures = {"kernels": phase_split_recurrent_kernels(dev)}
@@ -6288,6 +6438,8 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         for _, pair in runs.values():
             for run in pair:
                 run.release()
+        # (c)'s runs import and warm up while (b) trains
+        chain = start_in_turn(jobs)
         for arch, (cfg_b, (run1, run2)) in runs.items():
             one, ranks = run1.wait()[0], run2.wait()
             split_launch_gate(cfg_b, ranks, TRAIN_SEQ, f"(b) {arch}")
@@ -6323,15 +6475,8 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
     card = card_line()
     launches = Counter()
     figures["c"] = {}
-    jobs = []
-    for arch in (RWKV, ZAMBA):
-        spec = {"arch": arch, "over": {"n_layers": SPLIT_DEPTH[arch]},
-                "grads": False,
-                "args": ["--arch", arch, "--steps", str(SPLIT_FULL_STEPS),
-                         "--lr", str(TRAIN_LR[arch]), "--seq-len",
-                         str(TRAIN_4K), "--batch", "1"]}
-        jobs += [(spec, 1, f"rc1_{arch}"), (spec, 2, f"rc2_{arch}")]
-    done = run_in_turn(jobs)     # each model's one process, then its ranks
+    # each model's one process, then its ranks
+    done = run_in_turn(chain)
     runs = {arch: (done[2 * i][0][0], done[2 * i + 1][0],
                    done[2 * i][1] + done[2 * i + 1][1])
             for i, arch in enumerate((RWKV, ZAMBA))}
@@ -6376,7 +6521,297 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             "dry_run": dry_run_against(
                 cfg_c, mesh, TRAIN_4K, peak, step_ms,
                 f"(c) {arch}, a rank of the split, {SPLIT_DEPTH[arch]} "
-                "layers", dry=dry_runs[arch])}
+                "layers", dry=dry_runs[arch, SPLIT_DEPTH[arch]])}
+    return launches, figures
+
+
+# ------------------------------------------------------------ phase 29 --
+# phase 29c's full-width depths: the deepest at which two ranks, each with
+# its gathered parameters and gradients and half of AdamW's state, stay
+# under 72 GiB of the card together; the phase checks the measured peaks
+# and that one layer more, grown as the dry run grows, would not fit
+# (the dry run counts deepseek's cell ×0.90: by its bytes alone 6 layers
+# would; PERF.md §4, §6)
+SPLIT_MOE_DEPTH = {MIXTRAL: 1, DEEPSEEK: 5}
+SPLIT_TWO_RANKS_GIB = 72.0
+WINDOW_ROWS = 4096        # 29a: a rank's query rows at mixtral's window
+
+
+def split_moe_configs():
+    """Phase 29b's reduced float32 configs: phase 24's mixtral-8x22b (2
+    layers of its 48 / 8 heads of 128, d_model 1,024, window 16, 8
+    experts of 2,048, top 2) and deepseek-v2-lite-16b at 2 layers (its
+    dense layer and one MLA + MoE layer: its 16 heads, its latent 512 +
+    64, its 64 experts top 6 and 2 shared, each expert 352 wide and the
+    dense FFN 2,048, as phase 24 narrows mixtral's), d_model 1,024,
+    TRAIN_VOCAB."""
+    from repro_torch.configs import get_config
+
+    mixtral = [c for c in training_configs() if c.name == MIXTRAL][0]
+    deepseek = dataclasses.replace(get_config(DEEPSEEK), n_layers=2,
+                                   d_model=1024, moe_d_ff=352, d_ff=352,
+                                   dense_d_ff=2048,
+                                   vocab_size=TRAIN_VOCAB, dtype="float32")
+    return [mixtral, deepseek]
+
+
+def phase_split_moe_kernels(dev) -> dict:
+    """Phase 29a (rows 3ow / 3bow): the flash forward and backward kernels
+    at a split rank's call where mixtral-8x22b's window masks: its 48 / 8
+    heads of 128, bf16, WINDOW_ROWS query rows at offset WINDOW_ROWS
+    against twice as many keys, window 4,096 (query i sees keys i + 1 ..
+    i + 4,096), under phase 27a's gates.  Returns the figures."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    cfg = get_config(MIXTRAL)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sq, sk = WINDOW_ROWS, 2 * WINDOW_ROWS
+    rng = np.random.default_rng(29)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev, torch.bfloat16) for shape in (
+        (1, sq, h, d), (1, sk, hkv, d), (1, sk, hkv, d), (1, sq, h, d)))
+    kw = dict(causal=True, window=cfg.sliding_window, q_offset=sk - sq)
+    f = attn_figures(flash_attention_cuda, flash_attention_plain, sdpa_flash,
+                     flash_work, (q, k, v), kw, iters=20, rows=True)
+    print_figures("flash_attention bfloat16 window", shape_key((q, k, v),
+                                                               kw), f)
+    o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    b = bwd_figures((q, k, v, o, do, lse), kw, iters=5)
+    print_figures("flash_attention_bwd bfloat16 window",
+                  shape_key((q, k, v), kw), b)
+    del q, k, v, do, o, lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": f, "flash_attention_bwd": b}
+
+
+def split_route_flips(ranks, one) -> dict:
+    """The ranks' MoE routes, their blocks side by side, against one
+    process's, call by call: the tokens whose top-k expert sets differ
+    (``flips``, and ``by_call`` in the order of the calls: each step's
+    forward layer by layer, then its re-runs in the backward), the
+    (token, slot) pairs those moved to another expert (``moved``), the
+    calls, and one process's margins (its k-th router probability less
+    the next): the largest at a flipped token and the median over all
+    tokens."""
+    import torch
+
+    n = len(one["routes"])
+    check(all(len(r["routes"]) == n for r in ranks),
+          f"the ranks made {[len(r['routes']) for r in ranks]} routing "
+          f"calls, one process {n}")
+    by_call, pairs, at_flips = [], 0, []
+    for i, want in enumerate(one["routes"]):
+        got = torch.cat([r["routes"][i] for r in ranks], dim=1).long()
+        want = want.long()
+        same = (got[..., :, None] == want[..., None, :]).any(-1).sum(-1)
+        flipped = same < want.shape[-1]
+        by_call.append(int(flipped.sum()))
+        pairs += int((want.shape[-1] - same).sum())
+        at_flips.append(one["margins"][i][flipped])
+    at_flips = torch.cat(at_flips)
+    tokens = sum(by_call)
+    return {"flips": tokens, "by_call": by_call, "moved": pairs,
+            "routing_calls": n,
+            "flip_margin_max": float(at_flips.max()) if tokens else None,
+            "margin_median": float(torch.cat(
+                [m.flatten() for m in one["margins"]]).median())}
+
+
+def split_moe_gates(cfg, ranks, one, label: str, steps: int) -> dict:
+    """What phases 29b and 29c hold for a model: the ranks' losses the
+    same, their launches (`split_launch_gate`), the top-k flips against
+    one process, each rank's dropped pairs and the collectives a step;
+    the ranks' drops summed equal one process's but for what the flipped
+    pairs move.  Returns the figures."""
+    f = split_route_flips(ranks, one)
+    drops = [sum(r["drops"]) for r in ranks]
+    one_drops = sum(one["drops"])
+    per_step = {k: v / steps for k, v in ranks[0]["collectives"].items()}
+    at = ("" if f["flip_margin_max"] is None else
+          f" (one process's margin there at most {f['flip_margin_max']:.3g}"
+          ")")
+    print(f"    {label}: top-{cfg.top_k} flips against one process: "
+          f"{f['flips']} tokens{at}, {f['moved']} pairs moved, over "
+          f"{f['routing_calls']} routing calls (by call {f['by_call']}; "
+          f"of {one['routes'][0][..., 0].numel()} tokens a call; a token's "
+          "median margin "
+          f"{f['margin_median']:.3g}); dropped pairs a rank {drops} (sum "
+          f"{sum(drops)}) against one process's {one_drops}; collectives "
+          f"a step a rank {per_step}")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          f"{label}: the ranks' losses differ")
+    check(abs(sum(drops) - one_drops) <= f["moved"],
+          f"{label}: the ranks dropped {sum(drops)} pairs, one process "
+          f"{one_drops}, with {f['moved']} pairs moved by flips")
+    return {**f, "drops": drops, "one_drops": one_drops,
+            "collectives_a_step": per_step}
+
+
+def phase_split_moe(dev, dry=None) -> tuple[dict, dict]:
+    """Phase 29: mixtral-8x22b and deepseek-v2-lite-16b with each
+    sequence split over a ``model`` axis of 2, the MoE's pair counts
+    gathered (each rank's pairs ranked row-globally) and MLA's latent
+    gathered.  (a) `phase_split_moe_kernels`.  (b) Both at
+    `split_moe_configs`' reduced float32 widths (TRAIN_SEQ x TRAIN_BATCH),
+    two ranks sharing the card over gloo against one process, SPLIT_STEPS
+    steps: each step's loss within 1e-5 relative, the ranks' first-step
+    gradients summed within GRAD_TOL of each leaf's largest one-process
+    value, the launches exact (mixtral's flash at its window and offset,
+    none for MLA), the top-k flips and dropped pairs (`split_moe_gates`).
+    (c) Both at full width, bf16, TRAIN_4K tokens, SPLIT_MOE_DEPTH layers,
+    SPLIT_FULL_STEPS steps, one process and then two ranks: losses within
+    2e-2 relative, the launches exact with every plain version refused,
+    each rank's peak memory and step time, the dry run's bytes a rank
+    against the measured peak (within DRY_RATIO), two ranks' peaks under
+    SPLIT_TWO_RANKS_GIB where one layer more (the dry run's growth at the
+    measured scale) is not, (b)'s flips and drops.  ``dry`` is the running
+    `SplitDry` (one is started here without it).  Returns (c)'s rank-0
+    launches of both models summed and the phase's figures."""
+    dry = dry or SplitDry(("29",))
+    try:
+        return phase_split_moe_runs(dev, dry)
+    finally:
+        dry.kill()
+
+
+def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
+    """`phase_split_moe` beside the process of its dry runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+
+    runs = {}
+    for cfg_b in split_moe_configs():
+        base = get_config(cfg_b.name)
+        over = {k: v for k, v in dataclasses.asdict(cfg_b).items()
+                if getattr(base, k) != v}
+        spec = {"arch": cfg_b.name, "over": over, "grads": True,
+                "moe": True,
+                "args": ["--arch", cfg_b.name, "--steps", str(SPLIT_STEPS),
+                         "--lr", str(TRAIN_LR[cfg_b.name]), "--seq-len",
+                         str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH)]}
+        # (b)'s processes import while (a) runs; they train after it
+        runs[cfg_b.name] = (cfg_b, [
+            SplitRun(spec, 1, f"mb1_{cfg_b.name}", held=True),
+            SplitRun(spec, 2, f"mb2_{cfg_b.name}", held=True)])
+    jobs = []
+    for arch, depth in SPLIT_MOE_DEPTH.items():
+        spec = {"arch": arch, "over": {"n_layers": depth}, "grads": False,
+                "moe": True,
+                "args": ["--arch", arch, "--steps", str(SPLIT_FULL_STEPS),
+                         "--lr", str(TRAIN_LR[arch]), "--seq-len",
+                         str(TRAIN_4K), "--batch", "1"]}
+        jobs += [(spec, 1, f"mc1_{arch}"), (spec, 2, f"mc2_{arch}")]
+    try:
+        t0 = time.perf_counter()
+        figures = {"kernels": phase_split_moe_kernels(dev)}
+        print(f"    (a) {time.perf_counter() - t0:.1f} s")
+        figures["b"] = {}
+        t0 = time.perf_counter()
+        for _, pair in runs.values():
+            for run in pair:
+                run.release()
+        # (c)'s runs import and warm up while (b) trains
+        chain = start_in_turn(jobs)
+        for arch, (cfg_b, (run1, run2)) in runs.items():
+            one, ranks = run1.wait()[0], run2.wait()
+            split_launch_gate(cfg_b, ranks, TRAIN_SEQ, f"(b) {arch}")
+            moe_figures = split_moe_gates(cfg_b, ranks, one, f"(b) {arch}",
+                                          SPLIT_STEPS)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                ranks[0]["losses"], one["losses"]))
+            worst, worst_at = split_grad_err(ranks, one)
+            print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
+                  f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
+                  f"one process's {one['losses']} (largest relative gap "
+                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"worst leaf {worst:.3g} of its largest one-process "
+                  f"value (leaf {worst_at} of {len(one['grads'])})")
+            check(rel <= 1e-5, f"(b) {arch}: losses {rel} apart relative "
+                  "(limit 1e-5)")
+            check(worst <= GRAD_TOL, f"(b) {arch}: a gradient leaf is "
+                  f"{worst} of its largest value off (limit {GRAD_TOL})")
+            figures["b"][arch] = {"losses": ranks[0]["losses"],
+                                  "one": one["losses"], "rel": rel,
+                                  "grad_err": worst, **moe_figures}
+            del one, ranks
+    finally:
+        for _, pair in runs.values():
+            for run in pair:
+                run.kill()
+    print(f"    (b) both models {time.perf_counter() - t0:.1f} s from their "
+          "release")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    card = card_line()
+    launches = Counter()
+    figures["c"] = {}
+    # each model's one process, then its ranks
+    done = run_in_turn(chain)
+    runs = {arch: (done[2 * i][0][0], done[2 * i + 1][0],
+                   done[2 * i][1] + done[2 * i + 1][1])
+            for i, arch in enumerate(SPLIT_MOE_DEPTH)}
+    t0 = time.perf_counter()
+    dry_runs = dry.result()
+    print(f"    (c) waited {time.perf_counter() - t0:.1f} s for the dry runs")
+    for arch, (one, ranks, wall) in runs.items():
+        depth = SPLIT_MOE_DEPTH[arch]
+        cfg_c = dataclasses.replace(get_config(arch), n_layers=depth)
+        label = f"(c) {arch} at {depth} layers"
+        split_launch_gate(cfg_c, ranks, TRAIN_4K, label, SPLIT_FULL_STEPS)
+        moe_figures = split_moe_gates(cfg_c, ranks, one, label,
+                                      SPLIT_FULL_STEPS)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                      one["losses"]))
+        for who, rec in (("one process", one), ("rank 0", ranks[0]),
+                         ("rank 1", ranks[1])):
+            rec["step_mean_ms"] = statistics.mean(rec["step_ms"][1:])
+            print(f"    {label}, {who}: losses "
+                  f"{', '.join(f'{x:.6f}' for x in rec['losses'])}; steps "
+                  f"{', '.join(f'{x:.1f}' for x in rec['step_ms'])} ms "
+                  f"({rec['step_mean_ms']:.1f} after the first); peak "
+                  f"{rec['peak_gib']:.2f} GiB; {card}")
+        print(f"    {label}: the split's losses within {rel:.3g} relative "
+              f"of one process's; both runs {wall:.1f} s from their "
+              "release")
+        check(rel <= 2e-2, f"{label}: losses {rel} apart relative (limit "
+              "2e-2)")
+        peak = max(r["peak_gib"] for r in ranks)
+        step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
+        launches.update(ranks[0]["launches"])
+        deeper = dry_runs[arch, depth + 1][1]["mem_resident_gb"] * 1e9 / 2**30
+        figures["c"][arch] = {
+            "layers": depth, "losses": ranks[0]["losses"],
+            "one": one["losses"], "rel": rel,
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "step_ms": [r["step_mean_ms"] for r in ranks],
+            "one_peak_gib": one["peak_gib"],
+            "one_step_ms": one["step_mean_ms"],
+            "launches": [r["launches"] for r in ranks],
+            "backend": ranks[0]["backend"], **moe_figures,
+            "dry_run": dry_run_against(
+                cfg_c, mesh, TRAIN_4K, peak, step_ms,
+                f"{label}, a rank of the split", dry=dry_runs[arch, depth]),
+            "dry_run_one_deeper_gib": deeper}
+        here = figures["c"][arch]["dry_run"]["resident_gib"]
+        grown = peak * deeper / here     # one layer more, measured scale
+        figures["c"][arch]["one_deeper_gib"] = grown
+        print(f"    {label}: two ranks {2 * peak:.2f} GiB measured "
+              f"({2 * here:.2f} by the dry run); at {depth + 1} layers "
+              f"{2 * deeper:.2f} by the dry run, {2 * grown:.2f} at the "
+              f"measured scale (limit {SPLIT_TWO_RANKS_GIB})")
+        check(2 * peak <= SPLIT_TWO_RANKS_GIB < 2 * grown,
+              f"{label}: {depth} layers is not the deepest under "
+              f"{SPLIT_TWO_RANKS_GIB} GiB for two ranks")
     return launches, figures
 
 
@@ -6413,8 +6848,9 @@ def main() -> int:
                                                      flash_attention_plain)
 
     t_start = time.perf_counter()
-    # phase 28c's dry runs take minutes of one host core: they run from
-    # here on beside the phases, and stop with the script in any case
+    # phases 28c's and 29c's dry runs take minutes of one host core: they
+    # run from here on beside the phases, and stop with the script in any
+    # case
     split_dry = SplitDry()
     atexit.register(split_dry.kill)
 
@@ -6661,6 +7097,15 @@ def main() -> int:
           "process, reduced in float32 and at full width in bf16")
     rec_split_counts, rec_split_figures = phase_split_recurrent(dev,
                                                                 split_dry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[29] {MIXTRAL} and {DEEPSEEK} with each sequence split over a "
+          "model axis of 2, the MoE's pair counts and MLA's latent gathered "
+          "from rank to rank: the flash kernels where mixtral's window "
+          "masks at an offset, two ranks against one process, reduced in "
+          "float32 and at full width in bf16")
+    moe_split_counts, moe_split_figures = phase_split_moe(dev, split_dry)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -6763,19 +7208,26 @@ def main() -> int:
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
         # launches in phase 24's locksteps (card side), phase 25's runs,
         # phase 26's run under the sharding policy, rank 0 of phase 27c's
-        # sequence split and rank 0 of phase 28c's two runs
+        # sequence split and rank 0 of phase 28c's and 29c's two runs
         row["training_launches"] = {
             "lockstep": train_lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in train_counts.items()},
             "policy": policy_counts[row["name"]],
             "split": split_counts[row["name"]],
-            "split_recurrent": rec_split_counts[row["name"]]}
+            "split_recurrent": rec_split_counts[row["name"]],
+            "split_moe": moe_split_counts[row["name"]]}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (
                     *MEASURED, *ERROR_FIGURES[1:], "library_ms", "calls",
                     "step_ms", "peak_gib")}
                 for arch, r in train_replays.items() if row["name"] in r}
+        if row["name"] in ("flash_attention", "flash_attention_bwd"):
+            # phase 29a's call (rows 3ow / 3bow): mixtral's window masking
+            # at a rank's offset
+            row["split_window"] = {
+                k: moe_split_figures["kernels"][row["name"]][k]
+                for k in (*MEASURED, "library_ms")}
         if row["name"] in ("flash_attention", "decode_attention"):
             pick = lambda r: {k: r[row["name"]][k] for k in  # noqa: E731
                               (*MEASURED, "library_ms", "calls")}
@@ -6791,6 +7243,8 @@ def main() -> int:
     print(json.dumps({"split": split_figures}))
     # phase 28: the recurrent kernels at a rank's calls (bf16) and the runs
     print(json.dumps({"split_recurrent": rec_split_figures}))
+    # phase 29: the windowed offset kernels (rows 3ow / 3bow) and the runs
+    print(json.dumps({"split_moe": moe_split_figures}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -9,8 +9,8 @@ over the ``model`` ranks (`repro_torch.training.loop`) sets a `SeqSplit`
 for the thread (`split`): the axis's process group, this rank's coordinate
 and its tokens per sequence, S_local.  Every token-wise layer then runs on
 the rank's block as it stands; the GQA attention rotates its q and k at the
-block's global positions, gathers K and V over the axis (`gather_kv`, one
-all-gather a call) and runs the flash kernels on its own query rows at
+block's global positions, gathers K and V over the axis (`gather_seq`,
+one all-gather a call) and runs the flash kernels on its own query rows at
 ``q_offset = rank · S_local``.  The gather's backward sums each rank's dK /
 dV of every block and hands each rank its own block's sum: a
 reduce-scatter.
@@ -38,9 +38,19 @@ decay D, then from the state that reaches the block, which every rank
 folds from the gathered (L, D) of the ranks before it (`state_in`,
 `fold_states`).  Each gather's backward is a reduce-scatter.
 
+The MoE layers route each token on its own rank, but the reference's
+dispatch is row-global: C = ceil(S·k / E · cf) slots an expert over the
+whole sequence, each (token, slot) ranked within its expert in the
+row's order and kept while that rank is below C.  Each MoE call gathers
+every rank's pair counts per (row, expert) in one all-gather
+(`count_prefix`, no gradient) and ranks its pairs from the sum of the
+ranks before it.  MLA gathers its compressed latent (`gather_seq`: the
+normed ckv and the rotated rope key, 576 values a token) and expands
+K/V for every key on every rank.
+
 ``shard`` (`distributed.sharding`) stays a no-op: the step hands the model
-each rank's block, and only the attention and those two carries cross
-it.
+each rank's block, and only the attention, those two carries and the
+MoE's counts cross it.
 """
 from __future__ import annotations
 
@@ -155,13 +165,26 @@ class _Gather(torch.autograd.Function):
         return reduce_scatter(g, dim, s.group, s.size, s.rank), None, None
 
 
-def gather_kv(k: torch.Tensor, v: torch.Tensor, s: SeqSplit):
-    """This rank's k and v [B, S_local, Hkv, d] -> the whole sequence's
-    [B, S, Hkv, d] each, in one all-gather (and one reduce-scatter of
-    dK / dV in the backward)."""
-    d = k.shape[-1]
-    kv = _Gather.apply(torch.cat([k, v], dim=-1), s, 1)
-    return kv[..., :d], kv[..., d:]
+def gather_seq(parts, s: SeqSplit) -> tuple[torch.Tensor, ...]:
+    """This rank's tensors [B, S_local, ...] (alike but for their last
+    dim: K and V, MLA's latent and rope key) -> the whole sequence's
+    [B, S, ...] each, packed into one all-gather (and one reduce-scatter
+    of their gradients in the backward)."""
+    widths = [p.shape[-1] for p in parts]
+    whole = _Gather.apply(torch.cat(list(parts), dim=-1), s, 1)
+    return torch.split(whole, widths, dim=-1)
+
+
+def count_prefix(counts: torch.Tensor, s: SeqSplit) -> torch.Tensor:
+    """The sum of the ``counts`` [B, E] of the ranks before this one
+    (zeros on rank 0, which joins the gather all the same), from one
+    all-gather of every rank's; integers, no gradient.  Emulated, every
+    rank holds this rank's counts: ``rank · counts``."""
+    if s.group is None:
+        _COUNTS["all_gather"] += 1
+        return counts * s.rank
+    stack = all_gather(counts[None], 0, s.group, s.size)
+    return stack[:s.rank].sum(dim=0)
 
 
 class _ShiftIn(torch.autograd.Function):
@@ -279,17 +302,14 @@ def reset_collective_counts() -> None:
 def unsupported(cfg) -> str | None:
     """Why a model of ``cfg`` cannot train with its sequences split over a
     ``model`` axis above 1 (the ROADMAP item that will let it), or None
-    for the dense GQA decoders and the recurrent families (RWKV-6,
-    zamba2's Mamba-2 with its shared attention)."""
+    for the dense GQA decoders, the MoE models (mixtral's GQA,
+    deepseek-v2-lite's MLA) and the recurrent families (RWKV-6, zamba2's
+    Mamba-2 with its shared attention)."""
     item = None
     if cfg.is_encdec:
         item = ("its encoder's frames are not split", "Frames")
     elif cfg.n_patches:
         item = ("its patch prefix is not split", "Patches")
-    elif cfg.is_moe:
-        item = ("its experts would go over `model`", "Expert over model")
-    elif cfg.attn_kind == "mla":
-        item = ("its MLA attention takes no query offset", "MLA")
     if item is None:
         return None
     return (f"{cfg.name}: a mesh whose model axis is above 1 splits each "

@@ -24,10 +24,11 @@ its kernels, and counts:
   * ``model_flops`` and, for a skipped cell, ``cell_supported``'s reason.
 
 Per card means the block of the batch a card holds (the batch split over
-its mesh axes by the policy).  A train cell of a dense GQA decoder or a
-recurrent family whose sequence the training rules split over ``model``
-is traced as one rank of that split runs it (`distributed.seq_parallel`:
-its block of each sequence, the K/V, the token shifts' rows and the scan
+its mesh axes by the policy).  A train cell of a dense GQA decoder, an
+MoE model or a recurrent family whose sequence the training rules split
+over ``model`` is traced as one rank of that split runs it
+(`distributed.seq_parallel`: its block of each sequence, the K/V, MLA's
+latent, the MoE's pair counts, the token shifts' rows and the scan
 states crossing the ranks by emulated all-gathers), so its activations
 are the ones a card holds, and its per-layer collectives are counted
 (`split_halos`, `utils.hlo`).  Any other ``model`` axis above 1, which
@@ -221,14 +222,18 @@ def _seq_split(cfg, shape, policy, accum: int):
     return seq_parallel.SeqSplit(None, 0, m, shape.seq_len // m)
 
 
-def split_halos(cfg, rows: int) -> tuple[int, dict[str, int]]:
+def split_halos(cfg, rows: int) -> tuple[int, dict[str, int],
+                                         dict[str, int]]:
     """What one rank's forward sends over a sequence split, layer by
     layer (`distributed.seq_parallel`): (the attention layers, each
-    gathering its K/V; {name: one rank's operand bytes} of the recurrent
-    layers' other gathers: an RWKV-6 layer's two token shifts (a row of
-    the residual stream each) and its WKV6 state with its decay; a
-    Mamba-2 layer's conv rows (CONV_WIDTH - 1 of the inner stream) and
-    its SSD state with its decay, in float32)."""
+    gathering its K/V, or MLA's latent (`split_kv_bytes`); {name: one
+    rank's operand bytes} of the recurrent layers' other gathers: an
+    RWKV-6 layer's two token shifts (a row of the residual stream each)
+    and its WKV6 state with its decay; a Mamba-2 layer's conv rows
+    (CONV_WIDTH - 1 of the inner stream) and its SSD state with its
+    decay, in float32; {name: one rank's operand bytes} of the gathers
+    without a gradient: an MoE layer's pair counts per (row, expert),
+    int64)."""
     from repro_torch.models.ssm import CONV_WIDTH
 
     item = getattr(torch, cfg.dtype).itemsize
@@ -239,14 +244,26 @@ def split_halos(cfg, rows: int) -> tuple[int, dict[str, int]]:
             halos[f"rwkv{i}.shift_t"] = rows * d * item
             halos[f"rwkv{i}.state"] = rows * h * (ds * ds + ds) * 4
             halos[f"rwkv{i}.shift_c"] = rows * d * item
-        return 0, halos
+        return 0, halos, {}
     if cfg.ssm_kind == "mamba2":
         hd = 2 * d // h
         for i in range(cfg.n_layers):
             halos[f"mamba{i}.conv"] = rows * (CONV_WIDTH - 1) * 2 * d * item
             halos[f"mamba{i}.state"] = rows * h * (hd * ds + 1) * 4
-        return cfg.n_layers // cfg.attn_every, halos
-    return cfg.n_layers, halos
+        return cfg.n_layers // cfg.attn_every, halos, {}
+    moe_layers = range(cfg.first_dense_layers, cfg.n_layers) \
+        if cfg.is_moe else ()
+    counts = {f"moe{i}.counts": rows * cfg.n_experts * 8 for i in moe_layers}
+    return cfg.n_layers, halos, counts
+
+
+def split_kv_bytes(cfg, rows: int, seq: int) -> int:
+    """The bytes an attention layer's gather makes whole on a card over a
+    sequence split: K and V of every key, or MLA's latent (ckv and the
+    rope key)."""
+    width = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn_kind == "mla"
+             else cfg.n_kv_heads * 2 * cfg.hd)
+    return rows * seq * width * getattr(torch, cfg.dtype).itemsize
 
 
 def _fake_batch(cfg, shape, rows: int, split=None) -> dict:
@@ -348,13 +365,13 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     coll = []
     if kind == "train":
         split = _seq_split(cfg, shape, policy, accum)
-        kv = (rows * shape.seq_len * cfg.n_kv_heads * 2 * cfg.hd
-              * getattr(torch, cfg.dtype).itemsize)
-        attn_layers, halos = split_halos(cfg, rows) if split else (0, {})
+        attn_layers, halos, counts = split_halos(cfg, rows) if split \
+            else (0, {}, {})
         coll = step_collectives(
             policy.mesh, specs, full, batch_axes,
-            seq_axes=("model",) if split else (),
-            attn_layers=attn_layers, kv_bytes=kv, halos=halos)
+            seq_axes=("model",) if split else (), attn_layers=attn_layers,
+            kv_bytes=split_kv_bytes(cfg, rows, shape.seq_len), halos=halos,
+            counts=counts)
     out["collectives"] = collective_wire_bytes(coll)
     return out
 

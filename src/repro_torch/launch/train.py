@@ -17,9 +17,10 @@ rank, as the reference trains over several devices: launched by
 launcher joins the process group and builds ``ShardingPolicy(mesh,
 TRAIN_RULES, TRAIN_PARAM_RULES)`` (`training.loop`: the rows over
 ``data``, each sequence over ``model``, the parameters placed by the
-rules).  The dense GQA decoders and the recurrent families get the
-reference's mesh, ``remesh(N)`` at its default ratio: (1, 2) on two
-ranks, (2, 2) on four.  The other families cannot split a sequence yet
+rules).  The dense GQA decoders, the MoE models (their experts over
+``model``) and the recurrent families get the reference's mesh,
+``remesh(N)`` at its default ratio: (1, 2) on two ranks, (2, 2) on four.
+The patch-input and encoder-decoder models cannot split a sequence yet
 (`distributed.seq_parallel.unsupported`): they get (N, 1),
 data-parallel, and the launcher says that this departs from the
 reference's mesh.  The backend is NCCL with one

@@ -28,6 +28,10 @@ Conventions (the reference's, `repro.models.attention`)
   width, at most 128), nor is either a Pallas kernel in the reference.  So
   MLA attention is plain PyTorch on both devices, written as the reference
   writes it (`attend_parallel_plain`, einsums and a float32 softmax).
+  Under a sequence split `mla_parallel` gathers the compressed latent
+  over the axis (ckv normed and krope rotated, lora + rope values a
+  token, where the expanded K/V would be H · (nope + rope + vd)),
+  expands K/V for every key and attends its rows at their offset.
 * Functional caches: `cache_append`, `prefill_cache_layout`,
   `cache_extend` and the MLA forms return new tensors and never write
   their inputs, as the reference's immutable arrays.  The serving engine
@@ -77,18 +81,19 @@ def attend_parallel(q, k, v, *, causal: bool = True, window: int = 0,
                                   window=window, q_offset=q_offset)
 
 
-def attend_parallel_plain(q, k, v, *, kv_valid_len=None):
+def attend_parallel_plain(q, k, v, *, kv_valid_len=None, q_offset: int = 0):
     """The reference's dense causal parallel attention (`repro.models.
     attention.attend_parallel` below its long-context threshold), plain
     PyTorch on both devices: q [B, Sq, H, dk], k [B, Sk, Hkv, dk], v [B, Sk,
     Hkv, dv] with dk and dv free, the scale 1/sqrt(dk), scores and softmax
-    in float32, keys at or past ``kv_valid_len`` [B] masked.  MLA's prefill
+    in float32, keys at or past ``kv_valid_len`` [B] masked; row i of q at
+    key position i + ``q_offset`` (a split rank's block).  MLA's prefill
     runs here (the flash kernel takes one width for k and v)."""
     b, sq, h, hd = q.shape
     sk, n_kv = k.shape[1], k.shape[2]
     dev = q.device
     k_pos = torch.arange(sk, device=dev)
-    q_pos = torch.arange(sq, device=dev)
+    q_pos = torch.arange(q_offset, q_offset + sq, device=dev)
     m = k_pos[None, :] <= q_pos[:, None]
     s = torch.einsum("bskgd,btkd->bkgst", _group(q, n_kv), k).float() \
         * (1.0 / math.sqrt(hd))
@@ -306,7 +311,8 @@ def rope_attend(q, k, v, cfg, *, window: int = 0):
     pos = torch.arange(offset, offset + q.shape[1], device=q.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    k_all, v_all = seq_parallel.gather_kv(k, v, split) if split else (k, v)
+    k_all, v_all = seq_parallel.gather_seq((k, v), split) if split \
+        else (k, v)
     return attend_parallel(q, k_all, v_all, window=window,
                            q_offset=offset), k
 
@@ -415,13 +421,22 @@ def _mla_latent(p, x, pos, cfg):
     return ckv, krope
 
 
-def mla_parallel(p, x, cfg, *, lens=None):
-    """x: [B, S, D] -> (out [B, S, D], (ckv, krope) for the cache)."""
-    pos = torch.arange(x.shape[1], device=x.device)
+def mla_parallel(p, x, cfg, *, lens=None, pos0: int = 0):
+    """x: [B, S, D] at positions pos0 + (0 .. S) -> (out [B, S, D], (ckv,
+    krope) for the cache).  Under a sequence split x is this rank's block
+    at ``offset`` more: its latent is gathered over the axis, expanded
+    for every key, and its rows attend at their offset (the module
+    docstring); the returned latents are the block's."""
+    split = seq_parallel.current()
+    offset = split.offset if split else 0
+    pos = torch.arange(pos0 + offset, pos0 + offset + x.shape[1],
+                       device=x.device)
     q, _, _ = _mla_q(p, x, pos, cfg)
     ckv, krope = _mla_latent(p, x, pos, cfg)
-    k, v = _mla_qkv_from_latent(p, ckv, krope, cfg)
-    o = attend_parallel_plain(q, k, v, kv_valid_len=lens)
+    ckv_all, krope_all = seq_parallel.gather_seq((ckv, krope), split) \
+        if split else (ckv, krope)
+    k, v = _mla_qkv_from_latent(p, ckv_all, krope_all, cfg)
+    o = attend_parallel_plain(q, k, v, kv_valid_len=lens, q_offset=offset)
     return torch.einsum("bshv,hvd->bsd", o, p["wo"]), (ckv, krope)
 
 

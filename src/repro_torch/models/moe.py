@@ -15,6 +15,18 @@ Two dispatch modes, as in the reference:
   * ``sort`` (default): gather-based;
   * ``onehot``: GShard one-hot dispatch and combine products.
 
+Under a sequence split (`distributed/seq_parallel.py`) x is this rank's
+block of each row, and ``sort`` dispatches as the reference does over
+the whole row: C from the whole sequence (S_local · M tokens), each
+(token, slot) ranked within its expert after the pairs the earlier ranks
+routed there (`seq_parallel.count_prefix`, one all-gather a call), kept
+while that rank is below C.  The rank's bucket holds only its own kept
+pairs, in their local order: min(C, S_local) slots an expert (a token
+picks an expert at most once, and a kept pair's local rank is below C).
+The experts' weights are the step's gathered leaves, and their gradients
+are summed over the ranks by the step.  ``onehot``, the reference's
+comparison path, raises under a split.
+
 Plain PyTorch on both devices: the reference has no kernel here.
 """
 from __future__ import annotations
@@ -24,6 +36,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import seq_parallel
 from repro_torch.models.layers import normal_init
 
 
@@ -96,10 +109,15 @@ def _shared(p, x, out):
 
 
 def moe_ffn_sort(p, x, cfg):
-    """Gather-based dispatch, row-local capacity.  x: [B, S, D]."""
+    """Gather-based dispatch, row-local capacity.  x: [B, S, D], or this
+    rank's block of each row under a sequence split (the module
+    docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    c = _capacity(s, k, e, cfg.capacity_factor)
+    split = seq_parallel.current()
+    c = _capacity(s * (split.size if split else 1), k, e,
+                  cfg.capacity_factor)
+    cb = min(c, s) if split else c         # an expert's slots in the bucket
     dev = x.device
     gates, idx = _route(p, x, cfg)                          # [B, S, k]
 
@@ -114,7 +132,11 @@ def moe_ffn_sort(p, x, cfg):
     starts = torch.cumsum(counts, dim=-1) - counts          # exclusive
     rank = torch.arange(s * k, device=dev)[None, :] \
         - torch.gather(starts, -1, sorted_e)
-    dest = torch.where(rank < c, sorted_e * c + rank, e * c)  # overflow
+    held = rank            # the row-global rank: after the earlier ranks'
+    if split:
+        held = rank + torch.gather(seq_parallel.count_prefix(counts, split),
+                                   -1, sorted_e)
+    dest = torch.where(held < c, sorted_e * cb + rank, e * cb)  # overflow
 
     # invert: the bucket slot of each flat (token, slot); order is a
     # permutation, so no index repeats
@@ -122,12 +144,13 @@ def moe_ffn_sort(p, x, cfg):
     token_of_sorted = order // k
     # bucket -> source token (row E*C is the overflow row: the only index
     # written more than once, and cut off below)
-    src = torch.full((b, e * c + 1), s, dtype=torch.int64, device=dev) \
+    src = torch.full((b, e * cb + 1), s, dtype=torch.int64, device=dev) \
         .scatter_(1, dest, token_of_sorted)
     x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    xe = torch.gather(x_pad, 1, src[:, :e * c, None].expand(b, e * c, d))
+    xe = torch.gather(x_pad, 1,
+                      src[:, :e * cb, None].expand(b, e * cb, d))
 
-    ye = _expert_ffn(p, xe.reshape(b, e, c, d)).reshape(b, e * c, d)
+    ye = _expert_ffn(p, xe.reshape(b, e, cb, d)).reshape(b, e * cb, d)
     ye = torch.cat([ye, ye.new_zeros((b, 1, d))], dim=1)
     contrib = torch.gather(ye, 1, dest_of_flat[..., None].expand(b, s * k,
                                                                  d))
@@ -137,7 +160,14 @@ def moe_ffn_sort(p, x, cfg):
 
 
 def moe_ffn_onehot(p, x, cfg):
-    """GShard one-hot dispatch (the reference's comparison path)."""
+    """GShard one-hot dispatch (the reference's comparison path, which no
+    launcher calls); raises under a sequence split, whose block would get
+    a capacity and positions of its own."""
+    if seq_parallel.current():
+        raise NotImplementedError(
+            "the one-hot MoE dispatch on a sequence split is not ported "
+            "(ROADMAP.md, queue 1, 'One-hot dispatch on a split'); the "
+            "sort dispatch ranks each block's pairs row-globally")
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = _capacity(s, k, e, cfg.capacity_factor)

@@ -12,30 +12,34 @@ eagerly and updates the parameters and the optimizer's state in place.
 
 Under a sharding policy (``apply_policy``, as the reference's launcher
 sets one over several devices) the loop runs over the policy's mesh, one
-card a rank (`place_state`, `make_train_step(policy=...)`): the parameters
-and AdamW's moments and master weights are DTensors placed by the
-policy's parameter rules (``TRAIN_PARAM_RULES``: ``embed`` over ``data``,
-``heads``, ``kv_heads``, ``ff`` and ``vocab`` over ``model``).  Each step
-gathers the parameters whole, splits the batch by its resolved
-``("batch", "seq")`` spec (the rows over ``data``; under ``TRAIN_RULES``
-each sequence over ``model``, `distributed/seq_parallel.py`), runs the
-model, its kernels and their backward kernels on plain local tensors, and
-reduces the loss and each gradient: a sum over the mesh axes that split
-``seq`` (each rank's loss is its targets' share of its rows' loss), a
-mean over those that split ``batch``.  Where the divisibility fallback
-leaves ``seq`` whole, the ``model`` ranks compute the same thing and only
-the batch's axes reduce.  Each gradient lands on its parameter's
-placement (a reduce-scatter over an axis that both reduces and shards
-it), each shard is updated in place, and the clipping norm is taken over
-the whole gradient.  The collectives are `seq_parallel`'s, which run on
-NCCL and on gloo (on the CPU, and on CUDA tensors for ranks that share a
-card).  The loss is the mean of the batch ranks' losses, which is the
-global batch's when every rank's rows hold as many targets (as synthetic
-batches do).  On a mesh of one card every placement is ``Replicate`` and
-the run is the plain loop's bit for bit.  A ``model`` axis above 1 takes
-the dense GQA decoders and the recurrent families (rwkv6-3b, zamba2-7b):
-the other families raise in `place_state` with the ROADMAP item that
-will let them (`seq_parallel.unsupported`).
+card a rank (`place_state`, `make_train_step(policy=...)`): the
+parameters and AdamW's moments and master weights are DTensors placed by
+the policy's parameter rules (``TRAIN_PARAM_RULES``: ``embed`` over
+``data``, ``heads``, ``kv_heads``, ``ff``, ``vocab`` and ``expert`` over
+``model``). Each step gathers the parameters whole, splits the batch by
+its resolved ``("batch", "seq")`` spec (the rows over ``data``; under
+``TRAIN_RULES`` each sequence over ``model``,
+`distributed/seq_parallel.py`), runs the model, its kernels and their
+backward kernels on plain local tensors, and reduces the loss and each
+gradient: a sum over the mesh axes that split ``seq`` (each rank's loss
+is its targets' share of its rows' loss), a mean over those that split
+``batch``. Where the divisibility fallback leaves ``seq`` whole, the
+``model`` ranks compute the same thing and only the batch's axes reduce.
+Each gradient lands on its parameter's placement (a reduce-scatter over
+an axis that both reduces and shards it), each shard is updated in
+place, and the clipping norm is taken over the whole gradient. The
+collectives are `seq_parallel`'s, which run on NCCL and on gloo (on the
+CPU, and on CUDA tensors for ranks that share a card). The loss is the
+mean of the batch ranks' losses, which is the global batch's when every
+rank's rows hold as many targets (as synthetic batches do). On a mesh of
+one card every placement is ``Replicate`` and the run is the plain
+loop's bit for bit. A ``model`` axis above 1 takes the dense GQA
+decoders, the MoE models (mixtral-8x22b and deepseek-v2-lite-16b: the
+experts placed over ``model``, gathered by the step, their gradients
+summed over the ranks onto their shards as any leaf's) and the recurrent
+families (rwkv6-3b, zamba2-7b): the patch-input and encoder-decoder
+models raise in `place_state` with the ROADMAP item that will let them
+(`seq_parallel.unsupported`).
 """
 from __future__ import annotations
 

@@ -13,9 +13,11 @@ axes, and an all-reduce of the gradient's shard over the other mesh axes
 that split the batch or the sequence; the loss's all-reduce over those
 axes.  Where the sequence is split over ``model``, each attention layer
 also gathers its K/V over that axis twice a step (its forward and its
-checkpointed re-run) and reduce-scatters their gradient once, and so does
-each recurrent layer with its token shifts' rows and its scan state
-(``halos``, `launch.dryrun.split_halos`).  Each is costed with the
+checkpointed re-run) and reduce-scatters their gradient once (MLA its
+latent), and so does each recurrent layer with its token shifts' rows
+and its scan state (``halos``, `launch.dryrun.split_halos`); each MoE
+layer gathers its pair counts twice and has no gradient to scatter
+(``counts``).  Each is costed with the
 reference's ring formulas (per device, a group of k participants):
 
     all-reduce        2 * S * (k-1)/k     (reduce-scatter + all-gather phases)
@@ -63,7 +65,8 @@ class CollectiveOp:
 
 def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                      seq_axes=(), attn_layers: int = 0, kv_bytes: int = 0,
-                     halos: dict | None = None) -> list[CollectiveOp]:
+                     halos: dict | None = None,
+                     counts: dict | None = None) -> list[CollectiveOp]:
     """The collectives of one training step: ``specs`` and ``leaf_bytes``
     map each parameter leaf's path to its resolved spec and its full size
     in the gradient's dtype; ``batch_axes`` are the mesh axes the batch is
@@ -71,7 +74,8 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
     ``attn_layers`` attention layers whose gathered K/V take ``kv_bytes``
     a layer on a card, and ``halos`` the other gathers of a split step
     ({name: one rank's operand bytes}: the token shifts' rows, the scan
-    states)."""
+    states), ``counts`` those without a gradient (the MoE's pair
+    counts)."""
     sizes = mesh_shape(mesh)
     reducing = [a for a in dict.fromkeys((*batch_axes, *seq_axes))
                 if sizes.get(a, 1) > 1]
@@ -94,6 +98,10 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                                     f"{name} (remat)"))
             ops.append(CollectiveOp("reduce-scatter", one, one * m, m,
                                     f"d{name}"))
+        for name, one in (counts or {}).items():
+            ops.append(CollectiveOp("all-gather", one * m, one, m, name))
+            ops.append(CollectiveOp("all-gather", one * m, one, m,
+                                    f"{name} (remat)"))
     for name, spec in specs.items():
         full = leaf_bytes[name]
         sharded = spec_axes(spec)

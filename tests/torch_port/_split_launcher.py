@@ -188,9 +188,10 @@ def run_ranks(arch: str, n: int, tmp_path, init_pkl,
 
 def split_layers(cfg) -> int:
     """The layers of one forward that each cross the ranks of a sequence
-    split in one all-gather: an attention layer its K/V; an RWKV-6 layer
-    its two token shifts and its WKV6 state; a Mamba-2 layer its conv's
-    rows and its SSD state; zamba2's shared block its K/V once a group."""
+    split in one all-gather with a gradient: an attention layer its K/V
+    (MLA its latent); an RWKV-6 layer its two token shifts and its WKV6
+    state; a Mamba-2 layer its conv's rows and its SSD state; zamba2's
+    shared block its K/V once a group."""
     if cfg.ssm_kind == "rwkv6":
         return 3 * cfg.n_layers
     if cfg.ssm_kind == "mamba2":
@@ -198,10 +199,17 @@ def split_layers(cfg) -> int:
     return cfg.n_layers
 
 
+def count_layers(cfg) -> int:
+    """The layers of one forward that gather without a gradient: each MoE
+    layer its pair counts per (row, expert)."""
+    return cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+
+
 def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
     """The collectives a rank of the reduced ``arch`` step issues in 3
     steps: per step, each of `split_layers`' all-gathers in the forward
     and again in its checkpointed re-run, and its gradient's
+    reduce-scatter, each of `count_layers`' gathers twice and no
     reduce-scatter; per parameter and mesh axis above one card, a gather
     of the parameter over an axis that shards it, a reduce-scatter of its
     gradient over an axis that shards and reduces it, an all-reduce over
@@ -232,7 +240,8 @@ def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
         per_step["reduce_scatter"] += len(split)
         per_step["all_reduce"] += len(axes) - len(split)
     if n_model > 1:
-        per_step["all_gather"] += 2 * split_layers(cfg)
+        per_step["all_gather"] += 2 * (split_layers(cfg)
+                                       + count_layers(cfg))
         per_step["reduce_scatter"] += split_layers(cfg)
     per_step["all_reduce"] += len(axes) + 1
     return {k: STEPS * v for k, v in per_step.items()}

@@ -307,13 +307,16 @@ def test_split_step_collectives_by_hand(n_data):
         2 * 2048 / 2 if n_data > 1 else 0)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "qwen3-8b",
+                                  "mixtral-8x22b", "deepseek-v2-lite-16b"])
 def test_split_collectives_match_the_counted_step(arch):
     """A train cell split over model = 2: the plan's per-layer gathers
-    (`dryrun.split_halos` and the K/V) are the ones one rank's traced step
-    issues (`seq_parallel.collective_counts`; the trace runs each layer
-    once, so the plan's re-run gathers are not in it), each reduce-scatter
-    of the plan one of the step's, and the state bytes a layer by hand."""
+    (`dryrun.split_halos`: the K/V or MLA's latent, the recurrent halos,
+    the MoE's pair counts) are the ones one rank's traced step issues
+    (`seq_parallel.collective_counts`; the trace runs each layer once, so
+    the plan's re-run gathers are not in it), each reduce-scatter of the
+    plan one of the step's (the counts have none), and the bytes a layer
+    by hand."""
     from repro_torch.distributed import seq_parallel
 
     cfg = _reduced(arch)
@@ -323,10 +326,10 @@ def test_split_collectives_match_the_counted_step(arch):
     seq_parallel.reset_collective_counts()
     dryrun.trace_cell(cfg, shape, policy, accum=1)
     counted = seq_parallel.collective_counts()
-    attn_layers, halos = dryrun.split_halos(cfg, 4)
+    attn_layers, halos, counts = dryrun.split_halos(cfg, 4)
     ops = step_collectives(mesh, {}, {}, [], seq_axes=("model",),
                            attn_layers=attn_layers, kv_bytes=1024,
-                           halos=halos)
+                           halos=halos, counts=counts)
     gathers = [c for c in ops if c.op == "all-gather"]
     assert counted == {
         "all_gather": sum("(remat)" not in c.computation for c in gathers),
@@ -344,6 +347,18 @@ def test_split_collectives_match_the_counted_step(arch):
         assert attn_layers == cfg.n_layers // cfg.attn_every
     else:
         assert halos == {} and attn_layers == cfg.n_layers
+    if cfg.is_moe:               # [B, E] int64 a layer past the dense ones
+        assert list(counts) == [f"moe{i}.counts" for i in range(
+            cfg.first_dense_layers, cfg.n_layers)]
+        assert set(counts.values()) == {4 * cfg.n_experts * 8}
+        assert not [c for c in ops if c.op == "reduce-scatter"
+                    and "counts" in c.computation]
+    else:
+        assert counts == {}
+    # the bytes an attention layer's gather makes whole: K/V, or the latent
+    width = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn_kind == "mla"
+             else 2 * cfg.n_kv_heads * cfg.hd)
+    assert dryrun.split_kv_bytes(cfg, 4, 64) == 4 * 64 * width * 4
 
 
 def test_split_train_cell_traces_one_rank():

@@ -23,10 +23,12 @@ Checked:
 * a split step's backward on a thread of its own (as a CUDA backward
   runs on the autograd engine's device thread): the checkpointed layers
   re-run under their forward's split;
-* a family outside the slice: llava-next-34b raises under a ``model``
-  axis above 1 with its ROADMAP item, and the launcher gives it (N, 1);
-  rwkv6-3b and zamba2-7b get ``remesh(N)``
-  (`test_torch_seq_parallel_recurrent.py` trains them so).
+* the families outside the slice: llava-next-34b and
+  seamless-m4t-medium raise under a ``model`` axis above 1 with their
+  ROADMAP items, and the launcher gives them (N, 1); rwkv6-3b,
+  zamba2-7b, mixtral-8x22b and deepseek-v2-lite-16b get ``remesh(N)``
+  (`test_torch_seq_parallel_recurrent.py` and
+  `test_torch_seq_parallel_moe.py` train them so).
 """
 import jax
 import jax.numpy as jnp
@@ -175,32 +177,39 @@ def test_checkpointed_layers_rerun_under_their_split():
 
 # ------------------------------------------------ families outside it --
 
-def test_recurrent_family_raises_and_trains_on_data_only(monkeypatch,
-                                                         capsys):
+@pytest.mark.parametrize("arch,item", [("llava-next-34b", "Patches"),
+                                       ("seamless-m4t-medium", "Frames")])
+def test_unsplit_family_raises_and_trains_on_data_only(monkeypatch, capsys,
+                                                       arch, item):
     """A family still outside the split (llava-next-34b, its patch
-    prefix) raises under a ``model`` axis above 1 with its ROADMAP item,
-    and the launcher gives it (N, 1); the recurrent families, since
-    ROADMAP's "Recurrent state passing", get ``remesh(N)`` as the dense
-    GQA decoders do."""
-    from repro_torch.distributed import elastic
+    prefix; seamless-m4t-medium, its encoder's frames) raises under a
+    ``model`` axis above 1 with its ROADMAP item, and the launcher gives
+    it (N, 1); every other family gets ``remesh(N)``: the dense GQA
+    decoders, the recurrent families (since ROADMAP's "Recurrent state
+    passing") and the MoE models (since "Expert over model" and "MLA")."""
+    from repro_torch.distributed import elastic, seq_parallel
     from repro_torch.launch import train
     from repro_torch.training.loop import place_state
 
-    cfg = get_config("llava-next-34b").scaled(dtype="float32")
+    cfg = get_config(arch).scaled(dtype="float32")
     model = build_model(cfg)
     policy = sharding.ShardingPolicy(AbstractMesh((1, 2), ("data", "model")),
                                      acts=sharding.TRAIN_RULES,
                                      params=sharding.TRAIN_PARAM_RULES)
-    with pytest.raises(ValueError, match="'Patches'"):
+    with pytest.raises(ValueError, match=f"'{item}'"):
         place_state(model, policy, None, None)
     asked = []
     monkeypatch.setattr(elastic, "remesh",
                         lambda n, **kw: asked.append((n, kw)) or n)
     monkeypatch.setattr(train.dist, "get_rank", lambda: 0)
-    for name in ("llava-next-34b", "rwkv6-3b", "zamba2-7b", "qwen3-8b"):
+    split = ("rwkv6-3b", "zamba2-7b", "qwen3-8b", "mixtral-8x22b",
+             "deepseek-v2-lite-16b")
+    for name in (arch, *split):
         train.train_mesh(get_config(name), 4, "cpu")
+        assert (seq_parallel.unsupported(get_config(name)) is None) == (
+            name != arch)
     assert asked == [(4, {"data_model_ratio": 4, "device_type": "cpu"}),
-                     *[(4, {"device_type": "cpu"})] * 3]
+                     *[(4, {"device_type": "cpu"})] * len(split)]
     out = capsys.readouterr().out
     assert "(4, 1) mesh, not the reference's remesh(4)" in out
     assert out.count("not the reference's") == 1
