@@ -397,6 +397,27 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     one layer more checked over it): (b)'s gates at 2e-2, per-rank peak
     memory against the dry run and step time against one process, the
     collectives a step; the figures as a JSON line (``split_moe``).
+30. llava-next-34b with its 2,880 patches and its tokens split together
+    over a model axis of 2 (a rank's block may hold patches only) and
+    seamless-m4t-medium with its encoder's frames split beside its
+    decoder's tokens (each encoder layer's K/V and each decoder layer's
+    cross K/V gathered).  (a) The flash forward and backward kernels at a
+    rank's new calls, bf16, under phase 27a's gates: llava's 56 / 8 heads
+    of 128, 2,048 rows at offsets 0 and 2,048 against 4,096 keys;
+    seamless's 16 / 16 heads of 64, batch 2: its encoder's 512 frame
+    rows and its cross-attention's 256 rows against 1,024 frames,
+    non-causal, and its self-attention's 256 rows at offsets 0 and 256
+    against 512 keys.  (b) Both at reduced float32 widths (llava at 2
+    layers, d_model 1,024, 320 patches and 192 tokens, so rank 0's block
+    is all patches; phase 24's seamless), two ranks against one process
+    under phase 27b's gates, the launches and call shapes exact.  (c)
+    Both at full width in bf16 through ``train_loop`` with the patches or
+    frames of ``FramedData``, 2 steps: llava at 4 of 60 layers over 4,096
+    positions (the deepest at which two ranks' measured peaks stay under
+    72 GiB, one layer more checked over it), seamless whole at phase 25's
+    cell: (b)'s gates at 2e-2, per-rank peak memory against the dry run
+    and step time against one process, the collectives a step; the
+    figures as a JSON line (``split_encdec_vlm``).
     Then the time of all phases, the card line, the JSON line of the
     thirteen kernels' records (the six TPU kernels' counterparts, the
     router's two redesigned entries, the fused step's two kernels and the
@@ -406,11 +427,12 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     ``family_launches`` in phase 21's engines, ``encdec_vlm_launches`` in
     phase 22 and in phase 23's runs, ``training_launches`` in phase 24's
     locksteps, phase 25's runs, phase 26's policy run and rank 0 of phases
-    27c, 28c and 29c, ``family_replays`` and
+    27c, 28c, 29c and 30c, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
     backward kernel's at phase 25's calls, ``split_window`` the flash
-    kernels' at phase 29a's call) and the device line last.
+    kernels' at phase 29a's call, ``split_encdec_vlm`` at phase 30a's)
+    and the device line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -4879,9 +4901,9 @@ TRAIN_4K = 4096                    # train_4k's sequence length
 # phase 25's peak learning rates: at qwen3-8b's 1e-3 its loss rose; at
 # seamless-m4t-medium's 4e-4 its loss fell by less than the batches move
 # it; rwkv6-3b's and zamba2-7b's fall past that spread at 1e-4; the MoE
-# models' (phase 29) take qwen3-8b's
+# models' (phase 29) and llava-next-34b's (phase 30) take qwen3-8b's
 TRAIN_LR = {ARCH: 1e-4, SEAMLESS: 2e-3, RWKV: 1e-4, ZAMBA: 1e-4,
-            MIXTRAL: 1e-4, DEEPSEEK: 1e-4}
+            MIXTRAL: 1e-4, DEEPSEEK: 1e-4, LLAVA: 1e-4}
 GRAD_TOL = 1e-4                    # a gradient leaf, of its largest CPU value
 # rwkv6-3b's float32 gradient at phase 24's weights is ill-conditioned: a
 # float64 CPU gradient puts the CPU's float32 leaves up to 1.38e-4 of a
@@ -4961,16 +4983,20 @@ def launch_text(counts, want) -> str:
 
 class FramedData:
     """``SyntheticLM``'s tokens and, for an encoder-decoder, seeded
-    0.1 · N(0, 1) frames [B, src_len, D] per step (the reference's data
-    has none, and its encoder-decoder loss needs them); records the host
-    time of each ``batch_at`` call, which ``train_loop`` makes at the
-    start of each step, after the previous step's loss was read."""
+    0.1 · N(0, 1) frames [B, src_len, D] per step, for a patch-input
+    model patches [B, n_patches, D] (the reference's data has neither,
+    and those models' losses need them); records the host time of each
+    ``batch_at`` call, which ``train_loop`` makes at the start of each
+    step, after the previous step's loss was read.  ``lm`` stands in for
+    the port's ``SyntheticLM`` (the CPU tests pass the reference's, whose
+    batches are the same, to feed the reference's step)."""
 
-    def __init__(self, cfg, seq: int, batch: int, seed: int):
-        from repro_torch.training import SyntheticLM
+    def __init__(self, cfg, seq: int, batch: int, seed: int, lm=None):
+        if lm is None:
+            from repro_torch.training import SyntheticLM
 
-        self.cfg, self.seed = cfg, seed
-        self.lm = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+            lm = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        self.cfg, self.seed, self.lm = cfg, seed, lm
         self.times = []
 
     def batch_at(self, step: int) -> dict:
@@ -4978,11 +5004,13 @@ class FramedData:
 
         self.times.append(time.perf_counter())
         out = self.lm.batch_at(step)
-        if self.cfg.is_encdec:
+        cfg = self.cfg
+        n, key = ((cfg.src_len, "frames") if cfg.is_encdec else
+                  (cfg.n_patches, "patches"))
+        if n:
             rng = np.random.default_rng(self.seed * 1_000 + step)
-            out["frames"] = (0.1 * rng.standard_normal(
-                (self.lm.batch, self.cfg.src_len, self.cfg.d_model))
-                ).astype(np.float32)
+            out[key] = (0.1 * rng.standard_normal(
+                (self.lm.batch, n, cfg.d_model))).astype(np.float32)
         return out
 
 
@@ -5057,8 +5085,8 @@ def float64_gradient(model, params, batch):
 def training_lockstep(cfg, dev) -> dict:
     """One model of phase 24: the same init weights (drawn on the CPU,
     copied to the card) trained on both devices.  Step 0's loss and every
-    gradient leaf, then 4 ``make_train_step`` steps (plain, accum_steps=2,
-    int8 compression, plain) with the losses compared; exact launches.
+    gradient leaf, then 3 ``make_train_step`` steps (plain, accum_steps=2,
+    int8 compression) with the losses compared; exact launches.
     Every leaf within GRAD_TOL of the CPU's, but for a model of
     ILL_GRAD_TOL (rwkv6-3b, whose float32 gradient is ill-conditioned at
     these weights): its leaves within that bound of the CPU's float32
@@ -5550,14 +5578,16 @@ def plain_training_refused():
             setattr(mod, name, fn)
 
 
-def dry_run_cell(cfg, mesh, seq: int) -> tuple[dict, dict, float]:
-    """The port's dry run of ``cfg`` at ``seq`` tokens, batch 1, no
-    accumulation, on ``mesh``: (record, roofline row, host seconds)."""
+def dry_run_cell(cfg, mesh, seq: int,
+                 batch: int = 1) -> tuple[dict, dict, float]:
+    """The port's dry run of ``cfg`` at ``seq`` positions (a patch-input
+    model's patches and tokens) and ``batch`` rows, no accumulation, on
+    ``mesh``: (record, roofline row, host seconds)."""
     from repro_torch import roofline
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
 
-    shape = ShapeConfig("train_4k", "train", seq, 1)
+    shape = ShapeConfig("train_4k", "train", seq, batch)
     t0 = time.perf_counter()
     rec = dryrun.run_cell(cfg.name, shape.name, mesh, cfg=cfg, shape=shape,
                           accum=1, out_dir=str(ROOT / "build" / "dryrun"),
@@ -5568,7 +5598,7 @@ def dry_run_cell(cfg, mesh, seq: int) -> tuple[dict, dict, float]:
 
 
 def dry_run_against(cfg, mesh, seq: int, peak_gib: float, step_ms: float,
-                    label: str, dry=None) -> dict:
+                    label: str, dry=None, batch: int = 1) -> dict:
     """Phase 26c for one cell: the dry run (``dry``, or `dry_run_cell`'s
     now) printed beside the measured peak memory and step time; fails if
     its per-card bytes are off the peak by more than DRY_RATIO either
@@ -5578,11 +5608,12 @@ def dry_run_against(cfg, mesh, seq: int, peak_gib: float, step_ms: float,
     against each term rather than as a fraction of a bound."""
     from repro_torch.configs import ShapeConfig, model_flops
 
-    rec, row, secs = dry if dry is not None else dry_run_cell(cfg, mesh, seq)
+    rec, row, secs = dry if dry is not None else dry_run_cell(cfg, mesh, seq,
+                                                              batch)
     mem = rec["full"]["memory"]
     resident = row["mem_resident_gb"] * 1e9
     ratio = resident / (peak_gib * 2**30)
-    mf = model_flops(cfg, ShapeConfig("train_4k", "train", seq, 1))
+    mf = model_flops(cfg, ShapeConfig("train_4k", "train", seq, batch))
     print(f"    {label}: dry run in {secs:.1f} s on the "
           f"host: per card {resident / 2**30:.2f} GiB (parameters "
           f"{rec['state']['params'] / 2**30:.2f}, AdamW "
@@ -5725,8 +5756,8 @@ def phase_policy(dev, phase25: dict) -> tuple[Counter, dict]:
     return runs["policy"]["counts"], figures
 
 
-SPLIT_STEPS = 3                    # phases 27b, 28b and 29b's steps a run
-# phases 27c, 28c and 29c's steps a run, the second timed: a step of two ranks
+SPLIT_STEPS = 3                    # phases 27b–30b's steps a run
+# phases 27c–30c's steps a run, the second timed: a step of two ranks
 # sharing the card is gloo's traffic through the host (PERF.md §5)
 SPLIT_FULL_STEPS = 2
 SPLIT_OFFSETS = (0, 2048, 1000)    # 27a: the two ranks' and one off the tiles
@@ -5744,7 +5775,7 @@ from repro_torch.configs import get_config
 from repro_torch.distributed import seq_parallel
 from repro_torch.kernels import ops
 from repro_torch.launch import train
-from repro_torch.training import SyntheticLM, loop
+from repro_torch.training import loop
 from repro_torch.utils.tree import tree_leaves
 
 spec, out = json.loads(sys.argv[1]), sys.argv[2]
@@ -5752,13 +5783,14 @@ cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
 
 
 def warm_up():
-    # one training step of the run's family at phase 24's (29b's) narrow
-    # widths in the run's dtype: a fresh process's first training step
-    # otherwise spends ~10 s loading what the path runs (PERF.md §5), in
-    # the first timed step
+    # one training step of the run's family at phase 24's (29b's, 30b's)
+    # narrow widths in the run's dtype: a fresh process's first training
+    # step otherwise spends ~10 s loading what the path runs (PERF.md §5),
+    # in the first timed step
     from repro_torch.models import build_model
     narrow = {c.name: c for c in (*cs.training_configs(),
-                                  *cs.split_moe_configs())}
+                                  *cs.split_moe_configs(),
+                                  *cs.split_encdec_vlm_configs())}
     small = dataclasses.replace(narrow[spec["arch"]], dtype=cfg.dtype)
     model = build_model(small)
     dev = torch.device("cpu")
@@ -5769,8 +5801,9 @@ def warm_up():
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    tokens = torch.randint(0, small.vocab_size, (1, 512), device=dev)
-    torch.autograd.grad(model.loss(params, {"tokens": tokens}), leaves)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in cs.FramedData(
+        small, 512, 1, 0).batch_at(0).items()}
+    torch.autograd.grad(model.loss(params, batch), leaves)
     torch.cuda.synchronize()
     del model, params, leaves
     torch.cuda.empty_cache()
@@ -5786,14 +5819,16 @@ train.train_loop = functools.partial(loop.train_loop, log_every=1)
 times, calls, grads = [], [], []
 
 
-class Timed(SyntheticLM):
+class Timed(cs.FramedData):
+    # the launcher's tokens, with the patches or frames its model reads
     def batch_at(self, step):
         torch.cuda.synchronize()
         times.append(time.perf_counter())
         return super().batch_at(step)
 
 
-train.SyntheticLM = Timed
+train.SyntheticLM = lambda vocab, seq, batch, seed=0: Timed(cfg, seq, batch,
+                                                            seed)
 lag = loop.loss_and_grads
 
 
@@ -5988,14 +6023,29 @@ def run_in_turn(runs: list) -> list:
     return out
 
 
+def split_calls(cfg, seq: int, rank: int) -> set:
+    """The flash calls (forward and backward, Sq, Sk, q_offset) a rank of
+    a two-rank split makes: an attention layer's at Sq = seq / 2 against
+    Sk = seq at the rank's offset; an encoder-decoder's also its
+    encoder's, src_len / 2 frame rows against src_len, and its
+    cross-attention's, seq / 2 rows against src_len (both non-causal,
+    offset 0)."""
+    sl = seq // 2
+    shapes = {(sl, seq, rank * sl)}
+    if cfg.is_encdec:
+        shapes |= {(cfg.src_len // 2, cfg.src_len, 0), (sl, cfg.src_len, 0)}
+    return {(name, *shape) for shape in shapes
+            for name in ("flash_attention", "flash_attention_bwd")}
+
+
 def split_launch_gate(cfg, recs, seq: int, label: str,
                       steps: int = SPLIT_STEPS) -> None:
     """Each rank's launches over ``steps`` steps (`split_launches`): per
     layer and step a flash call 2 forward and 1 backward, a scan 4 and 2,
-    every flash call at Sq = seq / 2 against Sk = seq, at the rank's own
-    offset; printed with the backend and the collectives."""
+    every flash call at its shapes (`split_calls`; ``seq`` the positions
+    of a row, a patch-input model's patches and tokens); printed with the
+    backend and the collectives."""
     want = split_launches(cfg, steps)
-    sl = seq // 2
     for r, rec in enumerate(recs):
         counts = rec["launches"]
         shapes = Counter((n.removesuffix("_cuda"), q[1], k[1], off)
@@ -6005,9 +6055,8 @@ def split_launch_gate(cfg, recs, seq: int, label: str,
               f"calls {dict(shapes)}; collectives {rec['collectives']}")
         check(all(counts[k] == v for k, v in want.items()),
               f"{label} rank {r}: launches {counts}, expected {want}")
-        calls = ({("flash_attention", sl, seq, r * sl),
-                  ("flash_attention_bwd", sl, seq, r * sl)}
-                 if want["flash_attention"] else set())
+        calls = split_calls(cfg, seq, r) if want["flash_attention"] \
+            else set()
         check(set(shapes) == calls, f"{label} rank {r}: calls "
               f"{dict(shapes)}")
 
@@ -6103,10 +6152,11 @@ def phase_split(dev) -> tuple[dict, dict]:
               "args": ["--arch", ARCH, "--steps", str(SPLIT_FULL_STEPS),
                        "--lr", str(TRAIN_LR[ARCH]), "--seq-len",
                        str(TRAIN_4K), "--batch", "1"]}
-    # (b)'s processes import while (a) runs; both are small, so they train
-    # at once after it
-    runs = [SplitRun(spec, 1, "b1", held=True),
-            SplitRun(spec, 2, "b2", held=True)]
+    # (b)'s processes import and warm up while (a) runs (a fresh process's
+    # first step otherwise took ~12 s, PERF.md §5); both are small, so
+    # they train at once after it
+    runs = [SplitRun(spec, 1, "b1", held=True, warm_ahead=True),
+            SplitRun(spec, 2, "b2", held=True, warm_ahead=True)]
     try:
         figures = {"kernels": phase_split_kernels(dev)}
         gc.collect()
@@ -6189,9 +6239,9 @@ def phase_split(dev) -> tuple[dict, dict]:
 # room for phase 29 in the script's time; zamba2-7b at one group of 6
 # (PERF.md §4)
 SPLIT_DEPTH = {RWKV: 4, ZAMBA: 6}
-# phases 28c's and 29c's dry runs, in a process of their own that `main`
-# starts before phase 1: a full-width zamba2-7b cell takes minutes of the
-# host to trace; each keyed (arch, depth)
+# phases 28c's, 29c's and 30c's dry runs, in a process of their own that
+# `main` starts before phase 1: a full-width zamba2-7b cell takes minutes of
+# the host to trace; each keyed (arch, depth)
 SPLIT_DRY = r"""
 import dataclasses, json, pickle, sys
 import torch
@@ -6201,8 +6251,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import AbstractMesh
 mesh = AbstractMesh((1, 2), ("data", "model"))
 out = {(arch, depth): cs.dry_run_cell(dataclasses.replace(
-           get_config(arch), n_layers=depth), mesh, cs.TRAIN_4K)
-       for arch, depth in json.loads(sys.argv[1])}
+           get_config(arch), n_layers=depth), mesh, seq, batch)
+       for arch, depth, seq, batch in json.loads(sys.argv[1])}
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -6356,23 +6406,29 @@ def phase_split_recurrent(dev, dry=None) -> tuple[dict, dict]:
 
 
 def split_dry_cells(*phases: str) -> list:
-    """The (arch, depth) cells of phase 28c's and 29c's dry runs: each
-    model at its depth, and the MoE models one layer deeper too (where
-    two ranks would pass 72 GiB)."""
+    """The (arch, depth, positions, batch) cells of phase 28c's, 29c's and
+    30c's dry runs: each model at its depth, and the MoE models and
+    llava-next-34b one layer deeper too (where two ranks would pass 72
+    GiB)."""
     cells = []
     if "28" in phases:
-        cells += list(SPLIT_DEPTH.items())
+        cells += [(a, d, TRAIN_4K, 1) for a, d in SPLIT_DEPTH.items()]
     if "29" in phases:
-        cells += [(a, d + i) for a, d in SPLIT_MOE_DEPTH.items()
+        cells += [(a, d + i, TRAIN_4K, 1) for a, d in SPLIT_MOE_DEPTH.items()
                   for i in (0, 1)]
+    if "30" in phases:
+        for cfg, seq, batch in split_full_cells():
+            cells += [(cfg.name, cfg.n_layers + i, seq, batch)
+                      for i in ((0, 1) if cfg.name == LLAVA else (0,))]
     return cells
 
 
 class SplitDry:
-    """Phases 28c's and 29c's dry runs (SPLIT_DRY; ``phases`` of them) in
-    a process started at construction; ``result`` waits for them."""
+    """Phases 28c's, 29c's and 30c's dry runs (SPLIT_DRY; ``phases`` of
+    them) in a process started at construction; ``result`` waits for
+    them."""
 
-    def __init__(self, phases=("28", "29")):
+    def __init__(self, phases=("28", "29", "30")):
         self.out = ROOT / "build" / "split_dry.pkl"
         self.done = None
         self.proc = subprocess.Popen(
@@ -6416,9 +6472,11 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
                 "args": ["--arch", arch, "--steps", str(SPLIT_STEPS),
                          "--lr", str(TRAIN_LR[arch]), "--seq-len",
                          str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH)]}
-        # (b)'s processes import while (a) runs; they train after it
-        runs[arch] = (cfg_b, [SplitRun(spec, 1, f"rb1_{arch}", held=True),
-                              SplitRun(spec, 2, f"rb2_{arch}", held=True)])
+        # (b)'s processes import and warm up while (a) runs; they train
+        # after it
+        runs[arch] = (cfg_b, [
+            SplitRun(spec, 1, f"rb1_{arch}", held=True, warm_ahead=True),
+            SplitRun(spec, 2, f"rb2_{arch}", held=True, warm_ahead=True)])
     jobs = []
     for arch in (RWKV, ZAMBA):
         spec = {"arch": arch, "over": {"n_layers": SPLIT_DEPTH[arch]},
@@ -6697,10 +6755,13 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
                 "args": ["--arch", cfg_b.name, "--steps", str(SPLIT_STEPS),
                          "--lr", str(TRAIN_LR[cfg_b.name]), "--seq-len",
                          str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH)]}
-        # (b)'s processes import while (a) runs; they train after it
+        # (b)'s processes import and warm up while (a) runs; they train
+        # after it
         runs[cfg_b.name] = (cfg_b, [
-            SplitRun(spec, 1, f"mb1_{cfg_b.name}", held=True),
-            SplitRun(spec, 2, f"mb2_{cfg_b.name}", held=True)])
+            SplitRun(spec, 1, f"mb1_{cfg_b.name}", held=True,
+                     warm_ahead=True),
+            SplitRun(spec, 2, f"mb2_{cfg_b.name}", held=True,
+                     warm_ahead=True)])
     jobs = []
     for arch, depth in SPLIT_MOE_DEPTH.items():
         spec = {"arch": arch, "over": {"n_layers": depth}, "grads": False,
@@ -6815,6 +6876,279 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
     return launches, figures
 
 
+# ------------------------------------ phase 30: patches and frames split --
+SPLIT_PATCHES = 320        # 30b's llava patches: 512 positions, 192 tokens
+# phase 30c's llava-next-34b depth (of 60): the deepest at which two ranks'
+# measured peaks stay under SPLIT_TWO_RANKS_GIB (PERF.md §4)
+SPLIT_VLM_DEPTH = 4
+
+
+def split_encdec_vlm_configs():
+    """Phase 30b's reduced float32 configs: llava-next-34b at 2 layers of
+    its 56 / 8 heads of 128, d_model 1,024, d_ff 3,072, SPLIT_PATCHES
+    patches (so rank 0's block of 256 positions is all patches, rank 1's
+    64 patches and 192 tokens), TRAIN_VOCAB; phase 24's
+    seamless-m4t-medium (full width, 2 + 2 layers, src_len 256,
+    TRAIN_VOCAB)."""
+    from repro_torch.configs import get_config
+
+    llava = dataclasses.replace(get_config(LLAVA), n_layers=2, d_model=1024,
+                                d_ff=3072, n_patches=SPLIT_PATCHES,
+                                vocab_size=TRAIN_VOCAB, dtype="float32")
+    seamless = [c for c in training_configs() if c.name == SEAMLESS][0]
+    return [llava, seamless]
+
+
+def phase_split_encdec_vlm_kernels(dev) -> dict:
+    """Phase 30a (rows 3vo / 3bvo, 3eo / 3beo): the flash forward and
+    backward kernels at a split rank's new calls, bf16, under phase 27a's
+    gates: llava-next-34b's 56 / 8 heads of 128, TRAIN_4K / 2 query rows
+    against TRAIN_4K keys at offsets 0 and TRAIN_4K / 2, causal;
+    seamless-m4t-medium's 16 / 16 heads of 64, batch TRAIN_BATCH, its
+    encoder's src_len / 2 frame rows against src_len frames and its
+    cross-attention's TRAIN_SEQ / 2 decoder rows against them,
+    non-causal, and its self-attention's TRAIN_SEQ / 2 rows against
+    TRAIN_SEQ keys at offsets 0 and TRAIN_SEQ / 2.  Returns the figures
+    by call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+
+    llava, seamless = get_config(LLAVA), get_config(SEAMLESS)
+    src, half = seamless.src_len, TRAIN_SEQ // 2
+    causal = lambda off: dict(causal=True, window=0,  # noqa: E731
+                              q_offset=off)
+    whole = dict(causal=False, window=0, q_offset=0)
+    cases = [*((f"llava {off}", llava, 1, TRAIN_4K // 2, TRAIN_4K,
+                causal(off)) for off in (0, TRAIN_4K // 2)),
+             ("seamless encoder", seamless, TRAIN_BATCH, src // 2, src,
+              whole),
+             ("seamless cross", seamless, TRAIN_BATCH, half, src, whole),
+             *((f"seamless self {off}", seamless, TRAIN_BATCH, half,
+                TRAIN_SEQ, causal(off)) for off in (0, half))]
+    figures = {}
+    for label, cfg, b, sq, sk, kw in cases:
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        rng = np.random.default_rng(30)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, torch.bfloat16) for shape in (
+            (b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d), (b, sq, h, d)))
+        f = attn_figures(flash_attention_cuda, flash_attention_plain,
+                         sdpa_flash, flash_work, (q, k, v), kw, iters=20,
+                         rows=True)
+        print_figures(f"flash_attention bfloat16 {label}",
+                      shape_key((q, k, v), kw), f)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        bw = bwd_figures((q, k, v, o, do, lse), kw, iters=5)
+        print_figures(f"flash_attention_bwd bfloat16 {label}",
+                      shape_key((q, k, v), kw), bw)
+        figures[label] = {"flash_attention": f, "flash_attention_bwd": bw}
+        del q, k, v, do, o, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    return figures
+
+
+def phase_split_encdec_vlm(dev, dry=None) -> tuple[dict, dict]:
+    """Phase 30: llava-next-34b with its patches and tokens split together
+    over a ``model`` axis of 2 and seamless-m4t-medium with its encoder's
+    frames split beside its decoder's tokens.  (a)
+    `phase_split_encdec_vlm_kernels`.  (b) Both at
+    `split_encdec_vlm_configs`' reduced float32 widths (TRAIN_SEQ
+    positions x TRAIN_BATCH), two ranks sharing the card over gloo against
+    one process, SPLIT_STEPS steps: each step's loss within 1e-5
+    relative, the ranks' first-step gradients summed within GRAD_TOL of
+    each leaf's largest one-process value, the launches and call shapes
+    exact (`split_launch_gate`).  (c) Both at full width in bf16 through
+    `train_loop` with `FramedData` (its patches or frames), one process
+    and then two ranks, SPLIT_FULL_STEPS steps: llava at SPLIT_VLM_DEPTH
+    layers over TRAIN_4K positions (2,880 patches and 1,216 tokens),
+    batch 1; seamless whole, phase 25's cell (TRAIN_SEQ x TRAIN_BATCH,
+    1,024 frames): losses within 2e-2 relative, the launches exact with
+    every plain version refused, each rank's peak and step time, the dry
+    run's bytes a rank against the measured peak (within DRY_RATIO), two
+    ranks' peaks under SPLIT_TWO_RANKS_GIB, and for llava one layer more
+    (the dry run's growth at the measured scale) not.  ``dry`` is the
+    running `SplitDry` (one is started here without it).  Returns (c)'s
+    rank-0 launches of both models summed and the phase's figures."""
+    dry = dry or SplitDry(("30",))
+    try:
+        return phase_split_encdec_vlm_runs(dev, dry)
+    finally:
+        dry.kill()
+
+
+def split_full_cells():
+    """Phase 30c's (config, positions of a row, batch): a patch-input
+    model's row is its patches, then its text."""
+    from repro_torch.configs import get_config
+
+    return [(dataclasses.replace(get_config(LLAVA),
+                                 n_layers=SPLIT_VLM_DEPTH), TRAIN_4K, 1),
+            (get_config(SEAMLESS), TRAIN_SEQ, TRAIN_BATCH)]
+
+
+def phase_split_encdec_vlm_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
+    """`phase_split_encdec_vlm` beside the process of its dry runs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import AbstractMesh
+
+    runs = {}
+    for cfg_b in split_encdec_vlm_configs():
+        base = get_config(cfg_b.name)
+        over = {k: v for k, v in dataclasses.asdict(cfg_b).items()
+                if getattr(base, k) != v}
+        spec = {"arch": cfg_b.name, "over": over, "grads": True,
+                "args": ["--arch", cfg_b.name, "--steps", str(SPLIT_STEPS),
+                         "--lr", str(TRAIN_LR[cfg_b.name]), "--seq-len",
+                         str(TRAIN_SEQ - cfg_b.n_patches), "--batch",
+                         str(TRAIN_BATCH)]}
+        # (b)'s processes import and warm up while (a) runs; they train
+        # after it
+        runs[cfg_b.name] = (cfg_b, [
+            SplitRun(spec, 1, f"vb1_{cfg_b.name}", held=True,
+                     warm_ahead=True),
+            SplitRun(spec, 2, f"vb2_{cfg_b.name}", held=True,
+                     warm_ahead=True)])
+    jobs = []
+    for cfg_c, seq, batch in split_full_cells():
+        spec = {"arch": cfg_c.name, "over": {"n_layers": cfg_c.n_layers},
+                "grads": False,
+                "args": ["--arch", cfg_c.name, "--steps",
+                         str(SPLIT_FULL_STEPS), "--lr",
+                         str(TRAIN_LR[cfg_c.name]), "--seq-len",
+                         str(seq - cfg_c.n_patches), "--batch", str(batch)]}
+        jobs += [(spec, 1, f"vc1_{cfg_c.name}"),
+                 (spec, 2, f"vc2_{cfg_c.name}")]
+    try:
+        t0 = time.perf_counter()
+        figures = {"kernels": phase_split_encdec_vlm_kernels(dev)}
+        print(f"    (a) {time.perf_counter() - t0:.1f} s")
+        figures["b"] = {}
+        t0 = time.perf_counter()
+        for _, pair in runs.values():
+            for run in pair:
+                run.release()
+        # (c)'s runs import and warm up while (b) trains
+        chain = start_in_turn(jobs)
+        for arch, (cfg_b, (run1, run2)) in runs.items():
+            one, ranks = run1.wait()[0], run2.wait()
+            split_launch_gate(cfg_b, ranks, TRAIN_SEQ, f"(b) {arch}")
+            check(ranks[0]["losses"] == ranks[1]["losses"],
+                  f"(b) {arch}: the ranks' losses differ")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(
+                ranks[0]["losses"], one["losses"]))
+            worst, worst_at = split_grad_err(ranks, one)
+            per_step = {k: v / SPLIT_STEPS
+                        for k, v in ranks[0]["collectives"].items()}
+            print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
+                  f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
+                  f"one process's {one['losses']} (largest relative gap "
+                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"worst leaf {worst:.3g} of its largest one-process "
+                  f"value (leaf {worst_at} of {len(one['grads'])}); "
+                  f"collectives a step a rank {per_step}; steps "
+                  f"{[round(x) for x in one['step_ms']]} ms in one "
+                  f"process, {[round(x) for x in ranks[0]['step_ms']]} a "
+                  "rank")
+            check(rel <= 1e-5, f"(b) {arch}: losses {rel} apart relative "
+                  "(limit 1e-5)")
+            check(worst <= GRAD_TOL, f"(b) {arch}: a gradient leaf is "
+                  f"{worst} of its largest value off (limit {GRAD_TOL})")
+            figures["b"][arch] = {"losses": ranks[0]["losses"],
+                                  "one": one["losses"], "rel": rel,
+                                  "grad_err": worst,
+                                  "collectives": ranks[0]["collectives"]}
+            del one, ranks
+    finally:
+        for _, pair in runs.values():
+            for run in pair:
+                run.kill()
+    print(f"    (b) both models {time.perf_counter() - t0:.1f} s from their "
+          "release")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    card = card_line()
+    launches = Counter()
+    figures["c"] = {}
+    # each model's one process, then its ranks
+    done = run_in_turn(chain)
+    t0 = time.perf_counter()
+    dry_runs = dry.result()
+    print(f"    (c) waited {time.perf_counter() - t0:.1f} s for the dry runs")
+    for i, (cfg_c, seq, batch) in enumerate(split_full_cells()):
+        one, ranks = done[2 * i][0][0], done[2 * i + 1][0]
+        wall = done[2 * i][1] + done[2 * i + 1][1]
+        depth = cfg_c.n_layers
+        label = f"(c) {cfg_c.name} at {depth} layers"
+        split_launch_gate(cfg_c, ranks, seq, label, SPLIT_FULL_STEPS)
+        check(ranks[0]["losses"] == ranks[1]["losses"],
+              f"{label}: the ranks' losses differ")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                                      one["losses"]))
+        for who, rec in (("one process", one), ("rank 0", ranks[0]),
+                         ("rank 1", ranks[1])):
+            rec["step_mean_ms"] = statistics.mean(rec["step_ms"][1:])
+            print(f"    {label}, {who}: losses "
+                  f"{', '.join(f'{x:.6f}' for x in rec['losses'])}; steps "
+                  f"{', '.join(f'{x:.1f}' for x in rec['step_ms'])} ms "
+                  f"({rec['step_mean_ms']:.1f} after the first); peak "
+                  f"{rec['peak_gib']:.2f} GiB; {card}")
+        per_step = {k: v / SPLIT_FULL_STEPS
+                    for k, v in ranks[0]["collectives"].items()}
+        print(f"    {label}: the split's losses within {rel:.3g} relative "
+              f"of one process's; both runs {wall:.1f} s from their "
+              f"release; collectives a step a rank {per_step}")
+        check(rel <= 2e-2, f"{label}: losses {rel} apart relative (limit "
+              "2e-2)")
+        peak = max(r["peak_gib"] for r in ranks)
+        step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
+        launches.update(ranks[0]["launches"])
+        figures["c"][cfg_c.name] = {
+            "layers": depth, "positions": seq, "batch": batch,
+            "losses": ranks[0]["losses"], "one": one["losses"], "rel": rel,
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "step_ms": [r["step_mean_ms"] for r in ranks],
+            "one_peak_gib": one["peak_gib"],
+            "one_step_ms": one["step_mean_ms"],
+            "launches": [r["launches"] for r in ranks],
+            "collectives": ranks[0]["collectives"],
+            "backend": ranks[0]["backend"],
+            "dry_run": dry_run_against(
+                cfg_c, mesh, seq, peak, step_ms,
+                f"{label}, a rank of the split", dry=dry_runs[
+                    cfg_c.name, depth], batch=batch)}
+        here = figures["c"][cfg_c.name]["dry_run"]["resident_gib"]
+        check(2 * peak <= SPLIT_TWO_RANKS_GIB,
+              f"{label}: two ranks' peaks {2 * peak:.2f} GiB pass "
+              f"{SPLIT_TWO_RANKS_GIB}")
+        if cfg_c.name != LLAVA:
+            print(f"    {label}: two ranks {2 * peak:.2f} GiB measured "
+                  f"({2 * here:.2f} by the dry run; limit "
+                  f"{SPLIT_TWO_RANKS_GIB})")
+            continue
+        deeper = dry_runs[cfg_c.name, depth + 1][1]["mem_resident_gb"] \
+            * 1e9 / 2**30
+        grown = peak * deeper / here     # one layer more, measured scale
+        figures["c"][cfg_c.name].update(dry_run_one_deeper_gib=deeper,
+                                        one_deeper_gib=grown)
+        print(f"    {label}: two ranks {2 * peak:.2f} GiB measured "
+              f"({2 * here:.2f} by the dry run); at {depth + 1} layers "
+              f"{2 * deeper:.2f} by the dry run, {2 * grown:.2f} at the "
+              f"measured scale (limit {SPLIT_TWO_RANKS_GIB})")
+        check(SPLIT_TWO_RANKS_GIB < 2 * grown,
+              f"{label}: {depth} layers is not the deepest under "
+              f"{SPLIT_TWO_RANKS_GIB} GiB for two ranks")
+    return launches, figures
+
+
 def agent_seed(agent_id: str) -> int:
     """The engine seed the reference's cluster gives an agent."""
     return zlib.crc32(agent_id.encode()) % (2**31)
@@ -6832,6 +7166,13 @@ def main() -> int:
     # that drops the first records of a trace, often all of a short one
     # (PERF.md §7).
     os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    # Python's bytecode cache under build/ for this process and every one
+    # it starts (set before torch loads): the card's machine writes none,
+    # so each fresh process would compile every module it imports
+    sys.pycache_prefix = str(ROOT / "build" / "pycache")
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     import torch
 
     if not torch.cuda.is_available():
@@ -6848,9 +7189,9 @@ def main() -> int:
                                                      flash_attention_plain)
 
     t_start = time.perf_counter()
-    # phases 28c's and 29c's dry runs take minutes of one host core: they
-    # run from here on beside the phases, and stop with the script in any
-    # case
+    # phases 28c's, 29c's and 30c's dry runs take minutes of one host core:
+    # they run from here on beside the phases, and stop with the script in
+    # any case
     split_dry = SplitDry()
     atexit.register(split_dry.kill)
 
@@ -7106,6 +7447,16 @@ def main() -> int:
           "masks at an offset, two ranks against one process, reduced in "
           "float32 and at full width in bf16")
     moe_split_counts, moe_split_figures = phase_split_moe(dev, split_dry)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[30] {LLAVA} with its patches and tokens split together and "
+          f"{SEAMLESS} with its encoder's frames split beside its tokens "
+          "over a model axis of 2: the flash kernels at a rank's new calls, "
+          "two ranks against one process, reduced in float32 and at full "
+          "width in bf16")
+    vlm_split_counts, vlm_split_figures = phase_split_encdec_vlm(dev,
+                                                                 split_dry)
 
     kernels = [
         {"name": "lcp_gather", "route": "cuda",
@@ -7208,14 +7559,15 @@ def main() -> int:
             **{arch: c[row["name"]] for arch, c in encdec_counts.items()}}
         # launches in phase 24's locksteps (card side), phase 25's runs,
         # phase 26's run under the sharding policy, rank 0 of phase 27c's
-        # sequence split and rank 0 of phase 28c's and 29c's two runs
+        # sequence split and rank 0 of phase 28c's, 29c's and 30c's two runs
         row["training_launches"] = {
             "lockstep": train_lock_counts[row["name"]],
             **{arch: c[row["name"]] for arch, c in train_counts.items()},
             "policy": policy_counts[row["name"]],
             "split": split_counts[row["name"]],
             "split_recurrent": rec_split_counts[row["name"]],
-            "split_moe": moe_split_counts[row["name"]]}
+            "split_moe": moe_split_counts[row["name"]],
+            "split_encdec_vlm": vlm_split_counts[row["name"]]}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (
@@ -7228,6 +7580,12 @@ def main() -> int:
             row["split_window"] = {
                 k: moe_split_figures["kernels"][row["name"]][k]
                 for k in (*MEASURED, "library_ms")}
+            # phase 30a's calls (rows 3vo / 3bvo, 3eo / 3beo): llava's and
+            # seamless's blocks of a rank
+            row["split_encdec_vlm"] = {
+                call: {k: f[row["name"]][k] for k in (*MEASURED,
+                                                      "library_ms")}
+                for call, f in vlm_split_figures["kernels"].items()}
         if row["name"] in ("flash_attention", "decode_attention"):
             pick = lambda r: {k: r[row["name"]][k] for k in  # noqa: E731
                               (*MEASURED, "library_ms", "calls")}
@@ -7245,6 +7603,8 @@ def main() -> int:
     print(json.dumps({"split_recurrent": rec_split_figures}))
     # phase 29: the windowed offset kernels (rows 3ow / 3bow) and the runs
     print(json.dumps({"split_moe": moe_split_figures}))
+    # phase 30: the kernels at llava's and seamless's blocks and the runs
+    print(json.dumps({"split_encdec_vlm": vlm_split_figures}))
     print(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -48,9 +48,19 @@ ranks before it.  MLA gathers its compressed latent (`gather_seq`: the
 normed ckv and the rotated rope key, 576 values a token) and expands
 K/V for every key on every rank.
 
+A patch-input model (llava-next-34b) splits the sequence the reference
+splits: its patch embeddings ahead of its tokens, so a rank's block may
+hold patches only, tokens only or both (`training.loop.split_rows`),
+and its positions count the patches.  The encoder-decoder splits its
+encoder's frames beside its decoder's tokens: the encoder runs under a
+`SeqSplit` of its own (the same ranks, S_local its block of frames,
+`models.encdec.encode`), each encoder layer gathers its K/V, and each
+decoder layer projects the cross K/V of its rank's frames and gathers
+them (`gather_seq`), so every rank's rows attend to every frame.
+
 ``shard`` (`distributed.sharding`) stays a no-op: the step hands the model
-each rank's block, and only the attention, those two carries and the
-MoE's counts cross it.
+each rank's block, and only the attention, those two carries, the MoE's
+counts and the cross K/V cross it.
 """
 from __future__ import annotations
 
@@ -296,22 +306,3 @@ def reset_collective_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
 
-
-# ---------------- the slice of the port that splits sequences ----------------
-
-def unsupported(cfg) -> str | None:
-    """Why a model of ``cfg`` cannot train with its sequences split over a
-    ``model`` axis above 1 (the ROADMAP item that will let it), or None
-    for the dense GQA decoders, the MoE models (mixtral's GQA,
-    deepseek-v2-lite's MLA) and the recurrent families (RWKV-6, zamba2's
-    Mamba-2 with its shared attention)."""
-    item = None
-    if cfg.is_encdec:
-        item = ("its encoder's frames are not split", "Frames")
-    elif cfg.n_patches:
-        item = ("its patch prefix is not split", "Patches")
-    if item is None:
-        return None
-    return (f"{cfg.name}: a mesh whose model axis is above 1 splits each "
-            f"sequence over it, and {item[0]}; not ported yet (ROADMAP.md, "
-            f"queue 1, '{item[1]}')")

@@ -24,21 +24,21 @@ its kernels, and counts:
   * ``model_flops`` and, for a skipped cell, ``cell_supported``'s reason.
 
 Per card means the block of the batch a card holds (the batch split over
-its mesh axes by the policy).  A train cell of a dense GQA decoder, an
-MoE model or a recurrent family whose sequence the training rules split
-over ``model`` is traced as one rank of that split runs it
-(`distributed.seq_parallel`: its block of each sequence, the K/V, MLA's
-latent, the MoE's pair counts, the token shifts' rows and the scan
-states crossing the ranks by emulated all-gathers), so its activations
-are the ones a card holds, and its per-layer collectives are counted
+its mesh axes by the policy).  A train cell whose sequence the training
+rules split over ``model`` is traced as one rank of that split runs it
+(`distributed.seq_parallel`: its block of each sequence, of the patches
+and tokens together for a patch-input model, of the frames beside the
+tokens for the encoder-decoder; the K/V, the cross K/V, MLA's latent,
+the MoE's pair counts, the token shifts' rows and the scan states
+crossing the ranks by emulated all-gathers), so its activations are the
+ones a card holds, and its per-layer collectives are counted
 (`split_halos`, `utils.hlo`).  Any other ``model`` axis above 1, which
-the port's step does not run (the families `seq_parallel.unsupported`
-names; serving is not tensor-parallel), is taken as an even split of
-the block's work.  A full-depth trace of a long sequence takes minutes on the
-plain path (the scans loop over chunks), so each cell traces the
-reference's L = 1 / L = 2 variants (`variant_plan`) and extrapolates:
-every counted quantity is affine in the layer count, so the extrapolation
-is the full-depth trace's figure.
+the port's step does not run (serving is not tensor-parallel), is taken
+as an even split of the block's work.  A full-depth trace of a long
+sequence takes minutes on the plain path (the scans loop over chunks),
+so each cell traces the reference's L = 1 / L = 2 variants
+(`variant_plan`) and extrapolates: every counted quantity is affine in
+the layer count, so the extrapolation is the full-depth trace's figure.
 
 Records go to ``<out>/<arch>__<shape>__<mesh>.json`` in the reference's
 layout, ``full`` holding the extrapolated full-depth figures.
@@ -75,6 +75,7 @@ from repro_torch.models import build_model
 from repro_torch.models.registry import (cache_axes, decode_state_specs,
                                          input_specs)
 from repro_torch.models.scan_config import remat_probe
+from repro_torch.training.loop import split_rows
 from repro_torch.utils.hlo import collective_wire_bytes, step_collectives
 
 TRAIN_ACCUM = 4        # the reference's micro-batches a train step
@@ -207,8 +208,10 @@ def _batch_split(policy, shape, accum: int):
 
 def _seq_split(cfg, shape, policy, accum: int):
     """One rank's share of the sequence split a train cell's step makes
-    (its collectives emulated: no group), or None."""
-    if shape.kind != "train" or seq_parallel.unsupported(cfg):
+    (its collectives emulated: no group), or None.  A patch-input
+    model's ``seq_len`` counts its patches (`input_specs`), the sequence
+    its split cuts."""
+    if shape.kind != "train":
         return None
     rows = shape.global_batch // accum
     spec = policy.act_spec(("batch", "seq"), (rows, shape.seq_len))
@@ -222,18 +225,19 @@ def _seq_split(cfg, shape, policy, accum: int):
     return seq_parallel.SeqSplit(None, 0, m, shape.seq_len // m)
 
 
-def split_halos(cfg, rows: int) -> tuple[int, dict[str, int],
-                                         dict[str, int]]:
-    """What one rank's forward sends over a sequence split, layer by
-    layer (`distributed.seq_parallel`): (the attention layers, each
-    gathering its K/V, or MLA's latent (`split_kv_bytes`); {name: one
-    rank's operand bytes} of the recurrent layers' other gathers: an
-    RWKV-6 layer's two token shifts (a row of the residual stream each)
-    and its WKV6 state with its decay; a Mamba-2 layer's conv rows
-    (CONV_WIDTH - 1 of the inner stream) and its SSD state with its
-    decay, in float32; {name: one rank's operand bytes} of the gathers
-    without a gradient: an MoE layer's pair counts per (row, expert),
-    int64)."""
+def split_halos(cfg, rows: int, size: int) -> tuple[int, dict[str, int],
+                                                    dict[str, int]]:
+    """What one rank's forward sends over a sequence split over ``size``
+    ranks, layer by layer (`distributed.seq_parallel`): (the attention
+    layers, each gathering its K/V over the sequence, or MLA's latent
+    (`split_kv_bytes`); {name: one rank's operand bytes} of the other
+    gathers with a gradient: an RWKV-6 layer's two token shifts (a row of
+    the residual stream each) and its WKV6 state with its decay; a
+    Mamba-2 layer's conv rows (CONV_WIDTH - 1 of the inner stream) and its
+    SSD state with its decay, in float32; an encoder layer's K/V and a
+    decoder layer's cross K/V over its block of the frames; {name: one
+    rank's operand bytes} of the gathers without a gradient: an MoE
+    layer's pair counts per (row, expert), int64)."""
     from repro_torch.models.ssm import CONV_WIDTH
 
     item = getattr(torch, cfg.dtype).itemsize
@@ -251,6 +255,10 @@ def split_halos(cfg, rows: int) -> tuple[int, dict[str, int],
             halos[f"mamba{i}.conv"] = rows * (CONV_WIDTH - 1) * 2 * d * item
             halos[f"mamba{i}.state"] = rows * h * (hd * ds + 1) * 4
         return cfg.n_layers // cfg.attn_every, halos, {}
+    if cfg.is_encdec:
+        frames = split_kv_bytes(cfg, rows, cfg.src_len) // size
+        halos = {**{f"enc{i}.kv": frames for i in range(cfg.enc_layers)},
+                 **{f"cross{i}.kv": frames for i in range(cfg.n_layers)}}
     moe_layers = range(cfg.first_dense_layers, cfg.n_layers) \
         if cfg.is_moe else ()
     counts = {f"moe{i}.counts": rows * cfg.n_experts * 8 for i in moe_layers}
@@ -271,9 +279,7 @@ def _fake_batch(cfg, shape, rows: int, split=None) -> dict:
     for name, spec in input_specs(cfg, shape).items():
         out[name] = torch.zeros((rows, *spec.shape[1:]), dtype=spec.dtype)
     if split is not None:          # a rank's block, as `training.loop` cuts
-        tokens = out["tokens"][:, :split.s_local]
-        out = {"tokens": tokens, "targets": torch.zeros_like(tokens),
-               "target_count": torch.zeros((rows,), dtype=torch.int64)}
+        out = split_rows(out, split.rank, split.size)[0]
     return out
 
 
@@ -365,8 +371,8 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     coll = []
     if kind == "train":
         split = _seq_split(cfg, shape, policy, accum)
-        attn_layers, halos, counts = split_halos(cfg, rows) if split \
-            else (0, {}, {})
+        attn_layers, halos, counts = split_halos(cfg, rows, split.size) \
+            if split else (0, {}, {})
         coll = step_collectives(
             policy.mesh, specs, full, batch_axes,
             seq_axes=("model",) if split else (), attn_layers=attn_layers,

@@ -17,13 +17,9 @@ rank, as the reference trains over several devices: launched by
 launcher joins the process group and builds ``ShardingPolicy(mesh,
 TRAIN_RULES, TRAIN_PARAM_RULES)`` (`training.loop`: the rows over
 ``data``, each sequence over ``model``, the parameters placed by the
-rules).  The dense GQA decoders, the MoE models (their experts over
-``model``) and the recurrent families get the reference's mesh,
-``remesh(N)`` at its default ratio: (1, 2) on two ranks, (2, 2) on four.
-The patch-input and encoder-decoder models cannot split a sequence yet
-(`distributed.seq_parallel.unsupported`): they get (N, 1),
-data-parallel, and the launcher says that this departs from the
-reference's mesh.  The backend is NCCL with one
+rules).  Every architecture gets the reference's mesh, ``remesh(N)`` at
+its default ratio: (1, 2) on two ranks, (2, 2) on four.  The backend is
+NCCL with one
 card a rank, gloo with ``--device cpu`` and where the ranks share a card
 (fewer visible cards than local ranks; gloo then runs on CUDA tensors).
 Rank 0 prints.  One process that sees several cards trains on one and
@@ -38,7 +34,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config
-from repro_torch.distributed.seq_parallel import unsupported
 from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES, TRAIN_RULES,
                                               ShardingPolicy, apply_policy)
 from repro_torch.models import build_model
@@ -98,7 +93,7 @@ def main(argv=None) -> dict:
     n_dev = dist.get_world_size() if dist.is_initialized() else 1
     policy = None
     if n_dev > 1:
-        policy = ShardingPolicy(train_mesh(cfg, n_dev, dev.type),
+        policy = ShardingPolicy(train_mesh(n_dev, dev.type),
                                 acts=TRAIN_RULES, params=TRAIN_PARAM_RULES)
     elif dev.type == "cuda" and torch.cuda.device_count() > 1:
         print(f"{torch.cuda.device_count()} CUDA devices visible; training "
@@ -119,19 +114,12 @@ def main(argv=None) -> dict:
     return out
 
 
-def train_mesh(cfg, n_dev: int, device_type: str):
-    """The mesh of ``n_dev`` ranks: the reference's ``remesh(n_dev)`` for
-    a model whose sequences can split over ``model``, else (n_dev, 1),
-    said on rank 0."""
+def train_mesh(n_dev: int, device_type: str):
+    """The mesh of ``n_dev`` ranks: the reference's ``remesh(n_dev)``,
+    every architecture's sequences split over its ``model`` axis."""
     from repro_torch.distributed.elastic import remesh
 
-    reason = unsupported(cfg)
-    if reason is None:
-        return remesh(n_dev, device_type=device_type)
-    if dist.get_rank() == 0:
-        print(f"training data-parallel on a ({n_dev}, 1) mesh, not the "
-              f"reference's remesh({n_dev}): {reason}")
-    return remesh(n_dev, data_model_ratio=n_dev, device_type=device_type)
+    return remesh(n_dev, device_type=device_type)
 
 
 if __name__ == "__main__":

@@ -25,17 +25,28 @@ are the session-reusable state of the serving engine.
 * ``loss`` checkpoints every encoder and decoder layer (``remat``, as in
   `lm.py`) and reads ``batch["frames"]``: a batch without frames raises
   KeyError, as the reference's does.
+* Under a sequence split (`distributed/seq_parallel.py`) a rank holds its
+  block of the frames (src_len / M) and of the tokens (S / M).  The
+  encoder runs under a split of its own (the same ranks, its block of
+  frames): each layer rotates at the block's global frame positions and
+  gathers K/V over the axis to attend non-causally.  Each decoder layer
+  projects the cross K/V of its rank's encoder output and gathers them
+  (one all-gather a layer, the projections' FLOPs split), and its
+  self-attention attends at its block's offset (`attention.rope_attend`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from repro_torch.distributed import seq_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (FFN_AXES, ParamTree, apply_rope,
-                                       ffn_apply, ffn_init, next_token_loss,
-                                       normal_init, rms_norm)
-from repro_torch.models.lm import (_embed, _last, _lens, _lm_head, _remat,
-                                   _stack_axes)
+                                       ffn_apply, ffn_init, normal_init,
+                                       rms_norm)
+from repro_torch.models.lm import (_embed, _last, _lens, _lm_head, _loss_of,
+                                   _remat, _stack_axes)
 
 
 def _ones(cfg, dtype, device) -> torch.Tensor:
@@ -72,12 +83,18 @@ def _block_axes(cfg, cross: bool):
 
 
 def _enc_block(p, x, cfg):
-    """One bidirectional encoder layer over x [B, src_len, D]."""
+    """One bidirectional encoder layer over x [B, src_len, D], or under a
+    sequence split over this rank's block of the frames, whose rows
+    attend to every rank's K/V (gathered over the axis)."""
+    split = seq_parallel.current()
+    offset = split.offset if split else 0
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v = attn._qkv(p["attn"], h, cfg)
-    pos = torch.arange(x.shape[1], device=x.device)
+    pos = torch.arange(offset, offset + x.shape[1], device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
+    if split:
+        k, v = seq_parallel.gather_seq((k, v), split)
     o = attn.attend_parallel(q, k, v, causal=False)
     x = x + torch.einsum("...hk,hkd->...d", o, p["attn"]["wo"])
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -85,10 +102,13 @@ def _enc_block(p, x, cfg):
 
 
 def _cross_kv(p, enc_out):
-    """A decoder layer's cross K/V of the encoder output [B, src_len, D]."""
+    """A decoder layer's cross K/V of the encoder output [B, src_len, D];
+    under a sequence split ``enc_out`` is this rank's block of frames,
+    whose K/V are gathered over the axis into every frame's."""
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wv"])
-    return k, v
+    split = seq_parallel.current()
+    return seq_parallel.gather_seq((k, v), split) if split else (k, v)
 
 
 def _cross_attend(p, h, xk, xv):
@@ -164,11 +184,16 @@ def build_encdec(cfg):
 
     def encode(params, frames, *, remat: bool = False):
         """frames [B, src_len, D] (any float dtype) -> the normed encoder
-        output [B, src_len, D] in the model's dtype."""
+        output [B, src_len, D] in the model's dtype.  Under a sequence
+        split ``frames`` is this rank's block, and the layers run under a
+        split of the same ranks whose S_local is the block's frames."""
+        split = seq_parallel.current()
         x = frames.to(dtype) @ params["frame_proj"]
-        layer = _remat(lambda p_l, x: _enc_block(p_l, x, cfg), remat)
-        for p_l in params["encoder"]:
-            x = layer(p_l, x)
+        with seq_parallel.split(split and dataclasses.replace(
+                split, s_local=frames.shape[1])):
+            layer = _remat(lambda p_l, x: _enc_block(p_l, x, cfg), remat)
+            for p_l in params["encoder"]:
+                x = layer(p_l, x)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
     def _decoder_layer(p_l, x, enc_out):
@@ -244,9 +269,10 @@ def build_encdec(cfg):
 
     def loss(params, batch):
         """The decoder's next-token loss over batch["tokens"] [B, S] given
-        batch["frames"] [B, src_len, D]."""
+        batch["frames"] [B, src_len, D]; under a sequence split the batch
+        holds this rank's blocks of both (`lm._loss_of`)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return next_token_loss(_lm_head(params, x, cfg), batch["tokens"])
+        return _loss_of(_lm_head(params, x, cfg), batch)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,

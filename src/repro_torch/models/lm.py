@@ -25,7 +25,8 @@ block).
 * Patch inputs (llava-next-34b, the attention decoder): a prefill batch's
   ``patches`` [B, P, D] are prepended to the token embeddings, so the
   prompt's positions, ``lens`` and the cache start with the P patches,
-  and decode and extend go on from ``lens + P``.
+  and decode and extend go on from ``lens + P``.  A sequence split cuts
+  the patches and tokens together, so the positions count the patches.
 * Training: ``loss`` runs ``forward`` with ``remat=True``, each layer (a
   group of layers and its shared block, for zamba) under
   ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``): its
@@ -280,7 +281,15 @@ def build_lm(cfg):
         With ``n_patches`` in the config, the reference prepends that many
         -100 targets whether or not the batch holds patches, so a batch
         without them raises, as the reference's does (ROADMAP §3).  Under
-        a sequence split the batch is a rank's block (`_loss_of`)."""
+        a sequence split the batch is a rank's block of the patches and
+        tokens together, and its ``targets`` hold the -100s of its patches
+        (`_loss_of`): a block of patches alone scores no target, and its
+        loss is 0, but its K/V still reach the later ranks' rows."""
+        if cfg.n_patches and "patches" not in batch:
+            # the reference's logits then miss the n_patches rows its
+            # targets hold; a split block would score the text alone
+            raise ValueError(f"{cfg.name} takes {cfg.n_patches} patches "
+                             "ahead of the tokens; the batch has none")
         x, _ = forward(params, batch, collect=False, remat=True)
         if "targets" in batch or not cfg.n_patches:
             return _loss_of(_lm_head(params, x, cfg), batch)
@@ -324,7 +333,9 @@ def _embed(params, tokens):
 
 def _embed_inputs(params, batch, cfg):
     """The token embeddings [B, S, D], after the batch's patch embeddings
-    [B, P, D] (cast to the model's dtype) where the config takes them."""
+    [B, P, D] (cast to the model's dtype) where the config takes them.
+    Under a sequence split the batch holds this rank's slices of both,
+    either of them possibly empty (`training.loop.split_rows`)."""
     x = _embed(params, batch["tokens"])
     if cfg.n_patches and "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)

@@ -33,13 +33,12 @@ CPU, and on CUDA tensors for ranks that share a card). The loss is the
 mean of the batch ranks' losses, which is the global batch's when every
 rank's rows hold as many targets (as synthetic batches do). On a mesh of
 one card every placement is ``Replicate`` and the run is the plain
-loop's bit for bit. A ``model`` axis above 1 takes the dense GQA
-decoders, the MoE models (mixtral-8x22b and deepseek-v2-lite-16b: the
-experts placed over ``model``, gathered by the step, their gradients
-summed over the ranks onto their shards as any leaf's) and the recurrent
-families (rwkv6-3b, zamba2-7b): the patch-input and encoder-decoder
-models raise in `place_state` with the ROADMAP item that will let them
-(`seq_parallel.unsupported`).
+loop's bit for bit. A ``model`` axis above 1 takes every architecture:
+the MoE models' experts are placed over ``model``, gathered by the step
+and their gradients summed over the ranks onto their shards as any
+leaf's; a patch-input model's split is of its patches and tokens
+together, an encoder-decoder's of its frames beside its tokens
+(`split_rows`).
 """
 from __future__ import annotations
 
@@ -87,25 +86,25 @@ def loss_and_grads(model, params, batch: dict, accum_steps: int = 1):
 
 
 def _batch_specs(policy, batch: dict) -> dict:
-    """{input name: its spec} under the policy's activation rules."""
+    """{input name: its spec} under the policy's activation rules; the
+    tokens' at the length of the sequence the model splits: with patches
+    ahead of them, patches and tokens together (the reference shards the
+    concatenated embeddings, `repro.models.lm._embed_inputs`)."""
     axes = {"tokens": ("batch", "seq"), "patches": ("batch", "patches",
                                                     "embed"),
             "frames": ("batch", "src_seq", "embed")}
-    return {k: policy.act_spec(axes[k], tuple(v.shape))
-            for k, v in batch.items()}
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    if "patches" in batch:
+        b, t = shapes["tokens"]
+        shapes["tokens"] = (b, batch["patches"].shape[1] + t)
+    return {k: policy.act_spec(axes[k], shapes[k]) for k in batch}
 
 
 def _placer(model, policy):
     """The function that places a tree of the parameters' structure on
-    the policy's mesh; raises for a ``model`` axis above 1 where the
-    model's sequences cannot be split yet."""
+    the policy's mesh."""
     from repro_torch.distributed.elastic import reshard_state
-    from repro_torch.distributed.sharding import mesh_shape
 
-    if mesh_shape(policy.mesh).get("model", 1) > 1:
-        reason = seq_parallel.unsupported(model.config)
-        if reason:
-            raise ValueError(reason)
     axes = model.param_axes()
     return lambda tree: reshard_state(tree, axes, policy.mesh, policy.acts,
                                       policy.params)
@@ -114,8 +113,7 @@ def _placer(model, policy):
 def place_state(model, policy, params, opt_state):
     """(params, opt_state) placed on the policy's mesh as DTensors (see
     the module docstring); the step counter and compression's feedback
-    stay plain.  A ``model`` axis above 1 raises for a model whose
-    sequences cannot be split yet."""
+    stay plain."""
     place = _placer(model, policy)
     adam = opt_state["adam"]
     placed = {"adam": {"master": place(adam["master"]), "m": place(adam["m"]),
@@ -171,12 +169,52 @@ def _entry_axes(entry, sizes) -> tuple:
                  if a is not None and sizes[a] > 1)
 
 
+def split_rows(batch: dict, rank: int, size: int) -> tuple[dict, int]:
+    """Block ``rank`` of ``size`` of each sequence of ``batch`` (whole
+    rows), as a split rank's model takes it, and its length S_local.
+
+    The block is of the sequence the model runs: ``tokens`` [B, T], or
+    with ``patches`` [B, P, D] the concatenation [patches; tokens], so the
+    block holds its slice of the patches and its slice of the tokens
+    (either may be empty).  Its ``targets`` [B, S_local] are the next
+    position's target (-100 over the patches, ``IGNORE`` after the
+    sequence's end) and ``target_count`` each row's targets over the
+    whole sequence that are not -100 (the last patch's, the first token,
+    counts, as in the reference's loss).  ``frames`` [B, src_len, D] are
+    cut into their own block beside the tokens'.  A length that does not
+    divide by ``size`` raises ValueError; any other input raises too."""
+    extra = set(batch) - {"tokens"}
+    if len(extra) > 1 or extra - {"patches", "frames"}:
+        raise ValueError(f"a sequence split of a batch of {sorted(batch)} "
+                         "is not ported")
+    tokens = batch["tokens"]
+    b, t = tokens.shape
+    p = batch["patches"].shape[1] if "patches" in batch else 0
+    src = batch["frames"].shape[1] if "frames" in batch else 0
+    if (p + t) % size:
+        raise ValueError(f"a sequence of {f'{p} patches + ' if p else ''}"
+                         f"{t} tokens does not split over {size} ranks")
+    if src % size:
+        raise ValueError(f"{src} frames do not split over {size} ranks")
+    sl = (p + t) // size
+    lo, hi = rank * sl, (rank + 1) * sl
+    whole = torch.cat([tokens.new_full((b, p), IGNORE), tokens], dim=1)
+    after = torch.cat([whole[:, 1:], whole.new_full((b, 1), IGNORE)], dim=1)
+    local = {"tokens": tokens[:, max(lo - p, 0):max(hi - p, 0)],
+             "targets": after[:, lo:hi],
+             "target_count": (whole[:, 1:] != IGNORE).sum(dim=1)}
+    if p:
+        local["patches"] = batch["patches"][:, min(lo, p):min(hi, p)]
+    if "frames" in batch:
+        fl = src // size
+        local["frames"] = batch["frames"][:, rank * fl:(rank + 1) * fl]
+    return local, sl
+
+
 def _split_batch(policy, batch: dict):
     """(this rank's batch, the sequence split or None, the batch's mesh
     axes, the sequence's mesh axes) under the policy's activation rules.
-    A split rank's batch holds its block of each of its rows, the block's
-    ``targets`` and each row's ``target_count`` (`layers.
-    next_token_loss`)."""
+    A split rank's batch is its block of each of its rows (`split_rows`)."""
     from repro_torch.distributed.sharding import local_block, mesh_shape
 
     mesh = policy.mesh
@@ -189,18 +227,11 @@ def _split_batch(policy, batch: dict):
     seq_axes = _entry_axes(tok[1], sizes) if len(tok) > 1 else ()
     if not seq_axes:
         return rows, None, batch_axes, ()
-    if len(seq_axes) > 1 or set(batch) != {"tokens"}:
-        raise ValueError(f"a sequence split over {seq_axes} of a batch of "
-                         f"{sorted(batch)} is not ported")
+    if len(seq_axes) > 1:
+        raise ValueError(f"a sequence split over {seq_axes} is not ported")
     axis = seq_axes[0]
     m, r = sizes[axis], mesh.get_local_rank(axis)
-    tokens = rows["tokens"]
-    sl = tokens.shape[1] // m
-    after = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1], IGNORE)],
-                      dim=1)
-    local = {"tokens": tokens[:, r * sl:(r + 1) * sl],
-             "targets": after[:, r * sl:(r + 1) * sl],
-             "target_count": (tokens[:, 1:] != IGNORE).sum(dim=1)}
+    local, sl = split_rows(rows, r, m)
     split = seq_parallel.SeqSplit(mesh.get_group(axis), r, m, sl)
     return local, split, batch_axes, seq_axes
 

@@ -8,7 +8,11 @@ training rules, its jitted step, ``--smoke --steps 3 --batch 4 --seq-len
 32``.  `run_ranks` runs the port's launcher in ``n`` processes of one
 process group, and in one process without a group, from the same weights
 (`reference_init`, drawn in the test process with the reference's key, so
-all of them start at once).  `expected_counts` reckons by hand the
+all of them start at once).  Both sides feed the launcher's data through
+``chip_smoke.FramedData``, which adds the patches or frames that
+llava-next-34b's and seamless-m4t-medium's losses read (the reference's
+launcher feeds tokens alone, and their losses raise there), as the chip
+smoke's training phases do.  `expected_counts` reckons by hand the
 collectives a rank issues; `split_runs` runs all of them and checks what
 every case shares.
 """
@@ -24,6 +28,11 @@ import jax
 import torch
 
 ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+from chip_smoke import FramedData  # noqa: E402,F401  (the tests' data)
+
+
 STEPS = 3
 SMOKE = ["--smoke", "--steps", str(STEPS), "--batch", "4", "--seq-len",
          "32"]
@@ -39,6 +48,7 @@ from repro.models import build_model
 from repro.training.data import SyntheticLM
 from repro.training.loop import init_opt_state, make_train_step
 from repro.training.optimizer import OptConfig
+from chip_smoke import FramedData
 arch, n, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
 steps, batch, seq = 3, 4, 32
 assert len(jax.devices()) == n
@@ -46,7 +56,8 @@ assert len(jax.devices()) == n
 cfg = get_config(arch).scaled(dtype="float32", d_model=64, d_ff=128,
                               head_dim=16)
 model = build_model(cfg)
-data = SyntheticLM(cfg.vocab_size, seq, batch, seed=0)
+data = FramedData(cfg, seq, batch, seed=0,
+                  lm=SyntheticLM(cfg.vocab_size, seq, batch, seed=0))
 opt = OptConfig(lr=3e-3, warmup_steps=max(steps // 10, 1), total_steps=steps)
 params = model.init(jax.random.PRNGKey(0))
 init = jax.device_get(params)
@@ -78,10 +89,13 @@ from repro_torch.launch import train
 from repro_torch.models.carry import params_from_reference
 from repro_torch.training import loop
 from repro_torch.utils.tree import tree_leaves
+from chip_smoke import FramedData
 init = pickle.load(open(sys.argv[3], "rb"))
-build = train.build_model
-train.build_model = lambda cfg: build(cfg)._replace(
+build, made = train.build_model, []
+train.build_model = lambda cfg: made.append(cfg) or build(cfg)._replace(
     init=lambda gen: params_from_reference(init))
+train.SyntheticLM = lambda vocab, seq, batch, seed: FramedData(
+    made[-1], seq, batch, seed)
 train.train_loop = functools.partial(loop.train_loop, log_every=1)
 grads, lag = [], loop.loss_and_grads
 
@@ -142,7 +156,7 @@ class Reference:
     def __init__(self, arch: str, n: int, tmp_path):
         self.out = tmp_path / f"ref_{arch}_{n}.pkl"
         env = dict(os.environ, JAX_PLATFORMS="cpu",
-                   PYTHONPATH=str(ROOT / "src"),
+                   PYTHONPATH=f"{ROOT / 'src'}:{ROOT}",
                    XLA_FLAGS=f"--xla_force_host_platform_device_count={n}")
         self.proc = subprocess.Popen(
             [sys.executable, "-c", _REFERENCE, arch, str(n), str(self.out)],
@@ -163,7 +177,7 @@ def run_ranks(arch: str, n: int, tmp_path, init_pkl,
     first step's loss, its output), the one process's last; the outputs
     end with what ``beside(initial weights)`` returns, called while the
     processes run."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}",
                MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
                WORLD_SIZE=str(n), OMP_NUM_THREADS="1")
     single = {k: v for k, v in env.items() if k != "WORLD_SIZE"}
@@ -191,11 +205,14 @@ def split_layers(cfg) -> int:
     split in one all-gather with a gradient: an attention layer its K/V
     (MLA its latent); an RWKV-6 layer its two token shifts and its WKV6
     state; a Mamba-2 layer its conv's rows and its SSD state; zamba2's
-    shared block its K/V once a group."""
+    shared block its K/V once a group; an encoder layer its K/V and a
+    decoder layer its self-attention's and its cross K/V."""
     if cfg.ssm_kind == "rwkv6":
         return 3 * cfg.n_layers
     if cfg.ssm_kind == "mamba2":
         return 2 * cfg.n_layers + cfg.n_layers // cfg.attn_every
+    if cfg.is_encdec:
+        return cfg.enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
@@ -262,8 +279,8 @@ def split_runs(arch: str, n_data: int, n_model: int, tmp_path,
     and what ``beside(initial weights)`` returns, run while the processes
     run)."""
     n = n_data * n_model
+    ref_run = Reference(arch, n, tmp_path)      # draws its own weights
     init = reference_init(arch, tmp_path / f"init_{arch}.pkl")
-    ref_run = Reference(arch, n, tmp_path)
     recs, runs, logs = run_ranks(arch, n, tmp_path, init, beside)
     extra = logs.pop()
     ref = ref_run.result()

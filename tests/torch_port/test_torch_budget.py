@@ -31,6 +31,7 @@ TIER1_MODULES = {
     "test_torch_scan_bwd",
     "test_torch_scan_design",
     "test_torch_seq_parallel",
+    "test_torch_seq_parallel_encdec_vlm",
     "test_torch_seq_parallel_moe",
     "test_torch_seq_parallel_recurrent",
     "test_torch_serve",

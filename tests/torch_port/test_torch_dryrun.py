@@ -308,11 +308,13 @@ def test_split_step_collectives_by_hand(n_data):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "qwen3-8b",
-                                  "mixtral-8x22b", "deepseek-v2-lite-16b"])
+                                  "mixtral-8x22b", "deepseek-v2-lite-16b",
+                                  "llava-next-34b", "seamless-m4t-medium"])
 def test_split_collectives_match_the_counted_step(arch):
     """A train cell split over model = 2: the plan's per-layer gathers
     (`dryrun.split_halos`: the K/V or MLA's latent, the recurrent halos,
-    the MoE's pair counts) are the ones one rank's traced step issues
+    the MoE's pair counts, the encoder's K/V and the cross K/V over a
+    block of frames) are the ones one rank's traced step issues
     (`seq_parallel.collective_counts`; the trace runs each layer once, so
     the plan's re-run gathers are not in it), each reduce-scatter of the
     plan one of the step's (the counts have none), and the bytes a layer
@@ -326,7 +328,7 @@ def test_split_collectives_match_the_counted_step(arch):
     seq_parallel.reset_collective_counts()
     dryrun.trace_cell(cfg, shape, policy, accum=1)
     counted = seq_parallel.collective_counts()
-    attn_layers, halos, counts = dryrun.split_halos(cfg, 4)
+    attn_layers, halos, counts = dryrun.split_halos(cfg, 4, 2)
     ops = step_collectives(mesh, {}, {}, [], seq_axes=("model",),
                            attn_layers=attn_layers, kv_bytes=1024,
                            halos=halos, counts=counts)
@@ -345,6 +347,13 @@ def test_split_collectives_match_the_counted_step(arch):
         assert halos["mamba0.state"] == 4 * h * (hd * ds + 1) * 4
         assert halos["mamba0.conv"] == 4 * 3 * 2 * cfg.d_model * 4
         assert attn_layers == cfg.n_layers // cfg.attn_every
+    elif cfg.is_encdec:          # K and V [B, src_len / 2, Hkv, hd]
+        frames = 4 * (cfg.src_len // 2) * 2 * cfg.n_kv_heads * cfg.hd * 4
+        assert halos == {**{f"enc{i}.kv": frames
+                            for i in range(cfg.enc_layers)},
+                         **{f"cross{i}.kv": frames
+                            for i in range(cfg.n_layers)}}
+        assert attn_layers == cfg.n_layers
     else:
         assert halos == {} and attn_layers == cfg.n_layers
     if cfg.is_moe:               # [B, E] int64 a layer past the dense ones
@@ -361,12 +370,14 @@ def test_split_collectives_match_the_counted_step(arch):
     assert dryrun.split_kv_bytes(cfg, 4, 64) == 4 * 64 * width * 4
 
 
-def test_split_train_cell_traces_one_rank():
+@pytest.mark.parametrize("arch", ["qwen3-8b", "seamless-m4t-medium"])
+def test_split_train_cell_traces_one_rank(arch):
     """A train cell split over model = 2 traces one rank's block: half the
     one-card FLOPs (every matmul per token, the plain attention's scores
-    S/2 x S), activations between half and all of the one card's (the
-    gathered K/V are the whole sequence's)."""
-    cfg = get_config("qwen3-8b").scaled(dtype="float32", n_layers=2)
+    S/2 x S; seamless's frames split beside its tokens), activations
+    between half and all of the one card's (the gathered K/V are the
+    whole sequence's)."""
+    cfg = get_config(arch).scaled(dtype="float32", n_layers=2)
     shape = ShapeConfig("t", "train", 64, 4)
     one = dryrun.trace_cell(cfg, shape, dryrun.build_policy(M11, "train",
                                                             "t"), accum=1)

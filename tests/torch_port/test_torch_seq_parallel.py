@@ -23,12 +23,12 @@ Checked:
 * a split step's backward on a thread of its own (as a CUDA backward
   runs on the autograd engine's device thread): the checkpointed layers
   re-run under their forward's split;
-* the families outside the slice: llava-next-34b and
-  seamless-m4t-medium raise under a ``model`` axis above 1 with their
-  ROADMAP items, and the launcher gives them (N, 1); rwkv6-3b,
-  zamba2-7b, mixtral-8x22b and deepseek-v2-lite-16b get ``remesh(N)``
-  (`test_torch_seq_parallel_recurrent.py` and
-  `test_torch_seq_parallel_moe.py` train them so).
+* every one of the ten architectures gets the reference's ``remesh(N)``
+  from the launcher, which says nothing of another mesh, and a rank's
+  block of its batch runs its loss and gradient under a split
+  (`test_torch_seq_parallel_recurrent.py`,
+  `test_torch_seq_parallel_moe.py` and
+  `test_torch_seq_parallel_encdec_vlm.py` train the other families so).
 """
 import jax
 import jax.numpy as jnp
@@ -39,10 +39,8 @@ torch = pytest.importorskip("torch")
 
 from repro.models.attention import attend_parallel as jax_attend  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.distributed import sharding  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_lse_ref, flash_attention_bwd_plain, flash_attention_plain)
-from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.carry import params_from_reference  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
@@ -175,43 +173,28 @@ def test_checkpointed_layers_rerun_under_their_split():
     assert all(bool(torch.isfinite(g).all()) for g in out["grads"])
 
 
-# ------------------------------------------------ families outside it --
+# ------------------------------------------------ every architecture --
 
-@pytest.mark.parametrize("arch,item", [("llava-next-34b", "Patches"),
-                                       ("seamless-m4t-medium", "Frames")])
-def test_unsplit_family_raises_and_trains_on_data_only(monkeypatch, capsys,
-                                                       arch, item):
-    """A family still outside the split (llava-next-34b, its patch
-    prefix; seamless-m4t-medium, its encoder's frames) raises under a
-    ``model`` axis above 1 with its ROADMAP item, and the launcher gives
-    it (N, 1); every other family gets ``remesh(N)``: the dense GQA
-    decoders, the recurrent families (since ROADMAP's "Recurrent state
-    passing") and the MoE models (since "Expert over model" and "MLA")."""
-    from repro_torch.distributed import elastic, seq_parallel
+@pytest.mark.parametrize("n,factors", [(2, (1, 2)), (4, (2, 2))])
+def test_every_architecture_trains_on_the_reference_mesh(monkeypatch,
+                                                         capsys, n,
+                                                         factors):
+    """The launcher gives every architecture ``remesh(N)`` at its default
+    ratio, (1, 2) on two ranks and (2, 2) on four: `train_mesh` takes no
+    config, and prints nothing (no "(N, 1)" departure from the
+    reference's mesh).  That each architecture's split step matches the
+    reference is held in the seq_parallel modules."""
+    import inspect
+
+    from repro_torch.distributed import elastic
     from repro_torch.launch import train
-    from repro_torch.training.loop import place_state
 
-    cfg = get_config(arch).scaled(dtype="float32")
-    model = build_model(cfg)
-    policy = sharding.ShardingPolicy(AbstractMesh((1, 2), ("data", "model")),
-                                     acts=sharding.TRAIN_RULES,
-                                     params=sharding.TRAIN_PARAM_RULES)
-    with pytest.raises(ValueError, match=f"'{item}'"):
-        place_state(model, policy, None, None)
+    assert list(inspect.signature(train.train_mesh).parameters) == [
+        "n_dev", "device_type"]
     asked = []
     monkeypatch.setattr(elastic, "remesh",
                         lambda n, **kw: asked.append((n, kw)) or n)
-    monkeypatch.setattr(train.dist, "get_rank", lambda: 0)
-    split = ("rwkv6-3b", "zamba2-7b", "qwen3-8b", "mixtral-8x22b",
-             "deepseek-v2-lite-16b")
-    for name in (arch, *split):
-        train.train_mesh(get_config(name), 4, "cpu")
-        assert (seq_parallel.unsupported(get_config(name)) is None) == (
-            name != arch)
-    assert asked == [(4, {"data_model_ratio": 4, "device_type": "cpu"}),
-                     *[(4, {"device_type": "cpu"})] * len(split)]
-    out = capsys.readouterr().out
-    assert "(4, 1) mesh, not the reference's remesh(4)" in out
-    assert out.count("not the reference's") == 1
-    assert elastic.mesh_factors(4, data_model_ratio=4) == (4, 1)
-    assert elastic.mesh_factors(4) == (2, 2)
+    assert train.train_mesh(n, "cpu") == n
+    assert asked == [(n, {"device_type": "cpu"})]
+    assert capsys.readouterr().out == ""
+    assert elastic.mesh_factors(n) == factors

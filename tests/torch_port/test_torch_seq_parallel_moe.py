@@ -83,36 +83,41 @@ def flat(tree, pre: str = "") -> dict:
     return out
 
 
-def split_against_whole(m, s_local, x, d_out, jax_fn, jp, port_fn):
-    """``port_fn(params, block)`` on each of m ranks' blocks of x (dim 1)
-    with the block's share of the cotangent, against ``jax_fn(params,
-    x)`` over the whole sequence and its ``jax.vjp``: (the collectives,
-    the blocks' outputs and dx concatenated, the ranks' parameter
-    gradients summed, the reference's output, dx and parameter
-    gradients), the parameter gradients as dicts by path."""
-    def reference(p, x, cot):
-        out, vjp = jax.vjp(jax_fn, p, x)
+def split_against_whole(m, xs, d_out, jax_fn, jp, port_fn):
+    """``port_fn(params, *blocks)`` on each of m ranks' blocks of the
+    inputs ``xs`` (each cut on dim 1 into m blocks) with the block's share
+    of the cotangent, against ``jax_fn(params, *xs)`` over the whole
+    sequences and its ``jax.vjp``: (the collectives, the blocks' outputs
+    concatenated, each input's gradient concatenated, the ranks'
+    parameter gradients summed, the reference's output, input gradients
+    and parameter gradients), the parameter gradients as dicts by
+    path."""
+    def reference(p, xs, cot):
+        out, vjp = jax.vjp(jax_fn, p, *xs)
         return out, vjp(cot)
 
-    want, (want_dp, want_dx) = jax.jit(reference)(jp, x, d_out)
-    blocks_x, blocks_d = np.split(x, m, axis=1), np.split(d_out, m, axis=1)
+    want, (want_dp, *want_dx) = jax.jit(reference)(jp, xs, d_out)
+    blocks = [np.split(x, m, axis=1) for x in xs]
+    d_blocks = np.split(d_out, m, axis=1)
 
     def rank_step(r):
         p = {k: v.requires_grad_(True) for k, v in flat(to_port(jp)).items()}
-        xr = torch.from_numpy(blocks_x[r]).requires_grad_(True)
-        out = port_fn(unflat(p), xr)
+        xr = [torch.from_numpy(b[r]).requires_grad_(True) for b in blocks]
+        out = port_fn(unflat(p), *xr)
         names = sorted(p)
-        grads = torch.autograd.grad(out, [xr, *(p[k] for k in names)],
-                                    torch.from_numpy(blocks_d[r]),
+        grads = torch.autograd.grad(out, [*xr, *(p[k] for k in names)],
+                                    torch.from_numpy(d_blocks[r]),
                                     allow_unused=True,
                                     materialize_grads=True)
-        return out.detach(), grads[0], dict(zip(names, grads[1:]))
+        return (out.detach(), grads[:len(xr)],
+                dict(zip(names, grads[len(xr):])))
 
     seq_parallel.reset_collective_counts()
-    res = over_ranks(m, s_local, rank_step)
+    res = over_ranks(m, d_out.shape[1] // m, rank_step)
     counts = seq_parallel.collective_counts()
     got = torch.cat([o for o, _, _ in res], 1)
-    got_dx = torch.cat([g for _, g, _ in res], 1)
+    got_dx = [torch.cat([dx[i] for _, dx, _ in res], 1)
+              for i in range(len(xs))]
     got_dp = {k: sum(dp[k] for _, _, dp in res) for k in res[0][2]}
     return counts, got, got_dx, got_dp, want, want_dx, flat(want_dp)
 
@@ -131,7 +136,8 @@ def unflat(leaves: dict) -> dict:
 
 def assert_close(got, got_dx, got_dp, want, want_dx, want_dp):
     assert rel(got, want) <= OUT_TOL, rel(got, want)
-    assert rel(got_dx, want_dx) <= GRAD_TOL, rel(got_dx, want_dx)
+    for i, (g, w) in enumerate(zip(got_dx, want_dx)):
+        assert rel(g, w) <= GRAD_TOL, (i, rel(g, w))
     assert sorted(got_dp) == sorted(want_dp)
     for k, w in want_dp.items():
         assert rel(got_dp[k], w) <= GRAD_TOL, (k, rel(got_dp[k], w))
@@ -183,7 +189,7 @@ def test_split_moe_matches_whole_sequence_dispatch(arch, m, s_local):
     assert dropped > 0 and straddle > 0, (dropped, straddle)
 
     counts, *figures = split_against_whole(
-        m, s_local, x, d_out,
+        m, [x], d_out,
         lambda p, x: jax_moe.moe_ffn_sort(p, x, jcfg), jp,
         lambda p, x: moe.moe_ffn_sort(p, x, pcfg))
     # one gather of the counts a rank, and nothing to scatter back
@@ -241,7 +247,7 @@ def test_split_mla_matches_whole_sequence(m, s_local):
         np.float32)
     d_out = rng.standard_normal(x.shape).astype(np.float32)
     counts, *figures = split_against_whole(
-        m, s_local, x, d_out,
+        m, [x], d_out,
         lambda p, x: jax_attn.mla_parallel(p, x, jcfg)[0], jp,
         lambda p, x: attn.mla_parallel(p, x, pcfg)[0])
     # the latent's gather a rank, and its gradient's reduce-scatter
@@ -263,7 +269,7 @@ def test_split_windowed_attention_matches_whole_sequence(m):
     x = rng.standard_normal((2, 64, jcfg.d_model)).astype(np.float32)
     d_out = rng.standard_normal(x.shape).astype(np.float32)
     counts, *figures = split_against_whole(
-        m, 64 // m, x, d_out,
+        m, [x], d_out,
         lambda p, x: jax_attn.gqa_parallel(p, x, jcfg)[0], jp,
         lambda p, x: attn.gqa_parallel(p, x, pcfg)[0])
     assert counts == {"all_gather": m, "reduce_scatter": m,

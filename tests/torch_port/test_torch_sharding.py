@@ -453,7 +453,7 @@ from repro_torch.training import loop
 from repro_torch.utils.tree import tree_leaves
 train.train_loop = functools.partial(loop.train_loop, log_every=1)
 # the data-parallel (N, 1) mesh, where the launcher would build (1, N)
-train.train_mesh = lambda cfg, n, device_type: remesh(
+train.train_mesh = lambda n, device_type: remesh(
     n, data_model_ratio=n, device_type=device_type)
 out = train.main(sys.argv[3:])
 leaves = tree_leaves(out["params"])
