@@ -352,7 +352,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     card's CUDA tensors where the ranks share one card, NCCL with a card
     each), against one process: phase 24's reduced float32 qwen3-8b, 3
     steps, losses within 1e-5 relative, the ranks' first-step gradients
-    summed within 1e-4 of each leaf's largest one-process value.  (c) The
+    gathered within 1e-4 of each leaf's largest one-process value.  (c) The
     same at full width, 2 layers, 4,096 tokens, bf16, 2 steps (phase 26's
     cell cut to 2 layers for the script's time): losses within 2e-2
     relative, each rank's flash launches exact (2 forward and 1
@@ -360,7 +360,13 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     4,096 keys and the rank's offset) with the plain versions refused,
     per-rank peak memory and step time, and the dry run's bytes a rank
     against the measured peak within 2x; the figures as a JSON line
-    (``split``).
+    (``split``).  Each of 27c–30c also prints a rank's peak and step
+    beside the step that gathered every parameter whole at the same depth
+    (``WHOLE_STEP``) and the layers' leaf gathers a step (each rank's
+    parameters stay its shards: each checkpointed layer gathers its
+    leaves in its forward and again in its re-run, the table and the
+    head stay vocab-sharded); the (b) gates read each rank's first-step
+    gradients gathered whole from its reduced shards.
 28. rwkv6-3b and zamba2-7b with each sequence split the same way, the
     token shifts, the conv rows and the scan states passed from rank to
     rank.  (a) The scan kernels at a rank's calls (40 heads of 64; 112
@@ -392,7 +398,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     launches exact (none for MLA), the top-k flips against one process,
     each rank's dropped pairs (their sum one process's but for the pairs
     flips move).  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
-    mixtral-8x22b at 1 of 56 layers and deepseek-v2-lite-16b at 5 of 27
+    mixtral-8x22b at 1 of 56 layers and deepseek-v2-lite-16b at 7 of 27
     (the deepest at which two ranks' measured peaks stay under 72 GiB,
     one layer more checked over it): (b)'s gates at 2e-2, per-rank peak
     memory against the dry run and step time against one process, the
@@ -412,7 +418,7 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     is all patches; phase 24's seamless), two ranks against one process
     under phase 27b's gates, the launches and call shapes exact.  (c)
     Both at full width in bf16 through ``train_loop`` with the patches or
-    frames of ``FramedData``, 2 steps: llava at 4 of 60 layers over 4,096
+    frames of ``FramedData``, 2 steps: llava at 6 of 60 layers over 4,096
     positions (the deepest at which two ranks' measured peaks stay under
     72 GiB, one layer more checked over it), seamless whole at phase 25's
     cell: (b)'s gates at 2e-2, per-rank peak memory against the dry run
@@ -5772,7 +5778,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import chip_smoke as cs
 from repro_torch.configs import get_config
-from repro_torch.distributed import seq_parallel
+from repro_torch.distributed import param_gather, seq_parallel
 from repro_torch.kernels import ops
 from repro_torch.launch import train
 from repro_torch.training import loop
@@ -5834,12 +5840,26 @@ lag = loop.loss_and_grads
 
 def first_grads(model, params, batch, accum_steps=1):
     loss, g = lag(model, params, batch, accum_steps)
-    if spec["grads"] and not grads:
-        grads.extend(x.detach().float().cpu() for x in tree_leaves(g))
+    if spec["grads"] and not grads:     # a rank's reduced shards
+        grads.extend(x.detach().clone() for x in tree_leaves(g))
     return loss, g
 
 
 loop.loss_and_grads = first_grads
+# the layers' leaf gathers: how many made a leaf whole, and its bytes
+gathers = {"count": 0, "bytes": 0}
+gather_leaf = param_gather._GatherLeaf.forward
+
+
+def counted_gather(ctx, shard, *args):
+    whole = gather_leaf(ctx, shard, *args)
+    if whole.numel() > shard.numel():
+        gathers["count"] += 1
+        gathers["bytes"] += whole.numel() * whole.element_size()
+    return whole
+
+
+param_gather._GatherLeaf.forward = staticmethod(counted_gather)
 for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
     def wrap(*a, _fn=getattr(ops, name), _name=name, **kw):
         calls.append((_name, tuple(a[0].shape), tuple(a[1].shape),
@@ -5892,9 +5912,13 @@ rec = {"losses": [x for _, x in res["losses"]],
        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
        "launches": ops.launch_counts(), "calls": calls,
        "collectives": seq_parallel.collective_counts(),
+       "leaf_gathers": gathers,
        "backend": dist.get_backend() if dist.is_initialized() else None,
-       "device": str(torch.cuda.current_device()), "grads": grads,
+       "device": str(torch.cuda.current_device()),
        "routes": routes, "margins": margins, "drops": drops}
+if grads and dist.is_initialized():     # the shards gathered whole
+    grads = loop.gathered(loop._placed_like(grads, res["params"]))
+rec["grads"] = [g.float().cpu() for g in grads]
 torch.save(rec, out)
 if dist.is_initialized():
     dist.destroy_process_group()
@@ -6061,6 +6085,39 @@ def split_launch_gate(cfg, recs, seq: int, label: str,
               f"{dict(shapes)}")
 
 
+# Each full-width split cell (arch, layers) under the step that gathered
+# every parameter whole at its start and took whole gradients: a rank's
+# peak GiB (the larger rank's) and step ms (the ranks' mean, the second
+# step), two ranks sharing an NVIDIA H100 80GB HBM3 at 700 W over gloo
+# (`tools/split_probe.py` on that commit, beside this one's; PERF.md §6);
+# None where two ranks could not fit the card at that depth.
+WHOLE_STEP = {(ARCH, 2): (19.68, 11881.7), (RWKV, 4): (8.38, 4613.9),
+              (ZAMBA, 6): (13.62, 7270.2), (MIXTRAL, 1): (33.30, 13056.9),
+              (DEEPSEEK, 5): (32.03, 12373.0), (DEEPSEEK, 6): None,
+              (DEEPSEEK, 7): None, (LLAVA, 4): (35.62, 21572.7),
+              (LLAVA, 6): None, (SEAMLESS, 12): (11.32, 6751.7)}
+
+
+def against_whole(label: str, cfg, ranks, steps: int) -> dict:
+    """Prints (and returns) a split cell's per-rank peak and step beside
+    WHOLE_STEP's at the same depth, and the layers' leaf gathers a step
+    a rank (how many made a leaf whole, and their GiB)."""
+    peak = max(r["peak_gib"] for r in ranks)
+    step = statistics.mean(r["step_mean_ms"] for r in ranks)
+    gathers = ranks[0]["leaf_gathers"]
+    before = WHOLE_STEP.get((cfg.name, cfg.n_layers), "not measured")
+    then = ("two ranks did not fit the card" if before is None else
+            before if isinstance(before, str) else
+            f"{before[0]:.2f} GiB and {before[1]:.1f} ms")
+    print(f"    {label}: a rank's peak {peak:.2f} GiB and step {step:.1f} "
+          f"ms; the whole-parameter step at this depth: {then}; leaf "
+          f"gathers a step a rank {gathers['count'] / steps:.0f} "
+          f"({gathers['bytes'] / steps / 2**30:.2f} GiB made whole)")
+    return {"peak_gib": peak, "step_ms": step, "whole_step": before,
+            "leaf_gathers_per_step": gathers["count"] / steps,
+            "gathered_gib_per_step": gathers["bytes"] / steps / 2**30}
+
+
 def phase_split_kernels(dev) -> dict:
     """Phase 27a: the flash forward and backward kernels on a block of
     query rows at an offset, against their plain versions at qwen3-8b's
@@ -6124,7 +6181,7 @@ def phase_split(dev) -> tuple[dict, dict]:
     card's CUDA tensors where the ranks share it, NCCL with a card each)
     against one process, phase 24's reduced float32 qwen3-8b
     (TRAIN_SEQ x TRAIN_BATCH), SPLIT_STEPS steps: each step's loss within
-    1e-5 relative, the ranks' first-step gradients summed within GRAD_TOL
+    1e-5 relative, the ranks' first-step gradients gathered within GRAD_TOL
     of each leaf's largest one-process value.  (c) qwen3-8b at full width
     and SPLIT_LAYERS layers, bf16, TRAIN_4K tokens, SPLIT_FULL_STEPS steps
     (phase 26's cell, cut in depth), the same way: losses within 2e-2
@@ -6175,15 +6232,10 @@ def phase_split(dev) -> tuple[dict, dict]:
           "(b) the ranks' losses differ")
     rel = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
                                                   one["losses"]))
-    worst, worst_at = 0.0, 0
-    for i, (g0, g1, w) in enumerate(zip(ranks[0]["grads"], ranks[1]["grads"],
-                                        one["grads"])):
-        e = float((g0 + g1 - w).abs().max() / w.abs().max().clamp_min(1e-30))
-        if e > worst:
-            worst, worst_at = e, i
+    worst, worst_at = split_grad_err(ranks, one)
     print(f"    (b) {ARCH} at {over}: losses {ranks[0]['losses']} against "
           f"one process's {one['losses']} (largest relative gap {rel:.3g}); "
-          f"the ranks' first-step gradients summed: worst leaf {worst:.3g} "
+          f"the ranks' first-step gradients: worst leaf {worst:.3g} "
           f"of its largest one-process value (leaf {worst_at} of "
           f"{len(one['grads'])}); {time.perf_counter() - t0:.1f} s")
     check(rel <= 1e-5, f"(b) losses {rel} apart relative (limit 1e-5)")
@@ -6215,6 +6267,7 @@ def phase_split(dev) -> tuple[dict, dict]:
               f"{rec['peak_gib']:.2f} GiB; {card}")
     print(f"    (c) the split's losses within {rel:.3g} relative of one "
           f"process's; both runs {wall:.1f} s from their release")
+    against = against_whole("(c)", cfg_c, ranks, SPLIT_FULL_STEPS)
     check(ranks[0]["losses"] == ranks[1]["losses"],
           "(c) the ranks' losses differ")
     check(rel <= 2e-2, f"(c) losses {rel} apart relative (limit 2e-2)")
@@ -6226,18 +6279,17 @@ def phase_split(dev) -> tuple[dict, dict]:
         "step_ms": [r["step_mean_ms"] for r in ranks],
         "one_peak_gib": one["peak_gib"], "one_step_ms": one["step_mean_ms"],
         "backend": ranks[0]["backend"],
-        "collectives": ranks[0]["collectives"],
+        "collectives": ranks[0]["collectives"], "against_whole": against,
         "dry_run": dry_run_against(
             cfg_c, mesh, TRAIN_4K, peak, step_ms,
             f"(c) a rank of the split, {SPLIT_LAYERS} layers", dry=dry)}
     return ranks[0]["launches"], figures
 
 
-# phase 28's full-width depths: cut (from 32 and 30, the deepest
-# at which two ranks, each with its gathered parameters and gradients and
-# half of AdamW's state, stay under 72 GiB of the card together) to make
-# room for phase 29 in the script's time; zamba2-7b at one group of 6
-# (PERF.md §4)
+# phase 28's full-width depths: cut (from 32 and 30, the deepest at which
+# two ranks stayed under 72 GiB of the card together while the step
+# gathered every parameter whole) to make room for phase 29 in the
+# script's time; zamba2-7b at one group of 6 (PERF.md §4)
 SPLIT_DEPTH = {RWKV: 4, ZAMBA: 6}
 # phases 28c's, 29c's and 30c's dry runs, in a process of their own that
 # `main` starts before phase 1: a full-width zamba2-7b cell takes minutes of
@@ -6367,14 +6419,19 @@ def phase_split_recurrent_kernels(dev) -> dict:
 
 
 def split_grad_err(ranks, one) -> tuple[float, int]:
-    """The ranks' first-step gradients summed against one process's:
+    """The ranks' first-step gradients (each rank's reduced shards,
+    gathered whole: the same bits on every rank) against one process's:
     the worst leaf's largest difference over its largest one-process
     value, and that leaf's index."""
+    import torch
+
+    for r in ranks[1:]:
+        check(all(torch.equal(a, b) for a, b in zip(r["grads"],
+                                                    ranks[0]["grads"])),
+              "the ranks' gathered first-step gradients differ")
     worst, worst_at = 0.0, 0
-    for i, (*parts, w) in enumerate(zip(*(r["grads"] for r in ranks),
-                                        one["grads"])):
-        e = float((sum(parts) - w).abs().max()
-                  / w.abs().max().clamp_min(1e-30))
+    for i, (g, w) in enumerate(zip(ranks[0]["grads"], one["grads"])):
+        e = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
         if e > worst:
             worst, worst_at = e, i
     return worst, worst_at
@@ -6387,7 +6444,7 @@ def phase_split_recurrent(dev, dry=None) -> tuple[dict, dict]:
     24's reduced float32 widths (TRAIN_SEQ x TRAIN_BATCH), two ranks
     sharing the card over gloo against one process, SPLIT_STEPS steps:
     each step's loss within 1e-5 relative, the ranks' first-step
-    gradients summed within GRAD_TOL of each leaf's largest one-process
+    gradients gathered within GRAD_TOL of each leaf's largest one-process
     value, each rank's launches exact (`split_launch_gate`: every scan
     twice a layer and pass, the shared block's flash at its offset).
     (c) Both at full width, bf16, TRAIN_4K tokens, SPLIT_DEPTH layers,
@@ -6509,7 +6566,7 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
                   f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
                   f"one process's {one['losses']} (largest relative gap "
-                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"{rel:.3g}); the ranks' gathered first-step gradients: "
                   f"worst leaf {worst:.3g} of its largest one-process "
                   f"value (leaf {worst_at} of {len(one['grads'])})")
             check(rel <= 1e-5, f"(b) {arch}: losses {rel} apart relative "
@@ -6559,6 +6616,8 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         print(f"    (c) {arch}: the split's losses within {rel:.3g} "
               f"relative of one process's; both runs {wall:.1f} s from "
               "their release")
+        against = against_whole(f"(c) {arch}", cfg_c, ranks,
+                                SPLIT_FULL_STEPS)
         check(ranks[0]["losses"] == ranks[1]["losses"],
               f"(c) {arch}: the ranks' losses differ")
         check(rel <= 2e-2, f"(c) {arch}: losses {rel} apart relative "
@@ -6576,6 +6635,7 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             "launches": [r["launches"] for r in ranks],
             "backend": ranks[0]["backend"],
             "collectives": ranks[0]["collectives"],
+            "against_whole": against,
             "dry_run": dry_run_against(
                 cfg_c, mesh, TRAIN_4K, peak, step_ms,
                 f"(c) {arch}, a rank of the split, {SPLIT_DEPTH[arch]} "
@@ -6585,12 +6645,11 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------ phase 29 --
 # phase 29c's full-width depths: the deepest at which two ranks, each with
-# its gathered parameters and gradients and half of AdamW's state, stay
+# its shards, one layer whole at a time and half of AdamW's state, stay
 # under 72 GiB of the card together; the phase checks the measured peaks
 # and that one layer more, grown as the dry run grows, would not fit
-# (the dry run counts deepseek's cell ×0.90: by its bytes alone 6 layers
-# would; PERF.md §4, §6)
-SPLIT_MOE_DEPTH = {MIXTRAL: 1, DEEPSEEK: 5}
+# (PERF.md §4, §6); the one-process run at the same depth fits the card
+SPLIT_MOE_DEPTH = {MIXTRAL: 1, DEEPSEEK: 7}
 SPLIT_TWO_RANKS_GIB = 72.0
 WINDOW_ROWS = 4096        # 29a: a rank's query rows at mixtral's window
 
@@ -6719,7 +6778,7 @@ def phase_split_moe(dev, dry=None) -> tuple[dict, dict]:
     `split_moe_configs`' reduced float32 widths (TRAIN_SEQ x TRAIN_BATCH),
     two ranks sharing the card over gloo against one process, SPLIT_STEPS
     steps: each step's loss within 1e-5 relative, the ranks' first-step
-    gradients summed within GRAD_TOL of each leaf's largest one-process
+    gradients gathered within GRAD_TOL of each leaf's largest one-process
     value, the launches exact (mixtral's flash at its window and offset,
     none for MLA), the top-k flips and dropped pairs (`split_moe_gates`).
     (c) Both at full width, bf16, TRAIN_4K tokens, SPLIT_MOE_DEPTH layers,
@@ -6792,7 +6851,7 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
                   f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
                   f"one process's {one['losses']} (largest relative gap "
-                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"{rel:.3g}); the ranks' gathered first-step gradients: "
                   f"worst leaf {worst:.3g} of its largest one-process "
                   f"value (leaf {worst_at} of {len(one['grads'])})")
             check(rel <= 1e-5, f"(b) {arch}: losses {rel} apart relative "
@@ -6849,6 +6908,7 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         peak = max(r["peak_gib"] for r in ranks)
         step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
         launches.update(ranks[0]["launches"])
+        against = against_whole(label, cfg_c, ranks, SPLIT_FULL_STEPS)
         deeper = dry_runs[arch, depth + 1][1]["mem_resident_gb"] * 1e9 / 2**30
         figures["c"][arch] = {
             "layers": depth, "losses": ranks[0]["losses"],
@@ -6859,6 +6919,7 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             "one_step_ms": one["step_mean_ms"],
             "launches": [r["launches"] for r in ranks],
             "backend": ranks[0]["backend"], **moe_figures,
+            "against_whole": against,
             "dry_run": dry_run_against(
                 cfg_c, mesh, TRAIN_4K, peak, step_ms,
                 f"{label}, a rank of the split", dry=dry_runs[arch, depth]),
@@ -6879,8 +6940,9 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
 # ------------------------------------ phase 30: patches and frames split --
 SPLIT_PATCHES = 320        # 30b's llava patches: 512 positions, 192 tokens
 # phase 30c's llava-next-34b depth (of 60): the deepest at which two ranks'
-# measured peaks stay under SPLIT_TWO_RANKS_GIB (PERF.md §4)
-SPLIT_VLM_DEPTH = 4
+# measured peaks stay under SPLIT_TWO_RANKS_GIB (PERF.md §4); the
+# one-process run at the same depth fits the card
+SPLIT_VLM_DEPTH = 6
 
 
 def split_encdec_vlm_configs():
@@ -6960,7 +7022,7 @@ def phase_split_encdec_vlm(dev, dry=None) -> tuple[dict, dict]:
     `split_encdec_vlm_configs`' reduced float32 widths (TRAIN_SEQ
     positions x TRAIN_BATCH), two ranks sharing the card over gloo against
     one process, SPLIT_STEPS steps: each step's loss within 1e-5
-    relative, the ranks' first-step gradients summed within GRAD_TOL of
+    relative, the ranks' first-step gradients gathered within GRAD_TOL of
     each leaf's largest one-process value, the launches and call shapes
     exact (`split_launch_gate`).  (c) Both at full width in bf16 through
     `train_loop` with `FramedData` (its patches or frames), one process
@@ -7049,7 +7111,7 @@ def phase_split_encdec_vlm_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             print(f"    (b) {arch} at {cfg_b.n_layers} layers, d_model "
                   f"{cfg_b.d_model}: losses {ranks[0]['losses']} against "
                   f"one process's {one['losses']} (largest relative gap "
-                  f"{rel:.3g}); the ranks' first-step gradients summed: "
+                  f"{rel:.3g}); the ranks' gathered first-step gradients: "
                   f"worst leaf {worst:.3g} of its largest one-process "
                   f"value (leaf {worst_at} of {len(one['grads'])}); "
                   f"collectives a step a rank {per_step}; steps "
@@ -7111,6 +7173,7 @@ def phase_split_encdec_vlm_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         peak = max(r["peak_gib"] for r in ranks)
         step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
         launches.update(ranks[0]["launches"])
+        against = against_whole(label, cfg_c, ranks, SPLIT_FULL_STEPS)
         figures["c"][cfg_c.name] = {
             "layers": depth, "positions": seq, "batch": batch,
             "losses": ranks[0]["losses"], "one": one["losses"], "rel": rel,
@@ -7120,7 +7183,7 @@ def phase_split_encdec_vlm_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             "one_step_ms": one["step_mean_ms"],
             "launches": [r["launches"] for r in ranks],
             "collectives": ranks[0]["collectives"],
-            "backend": ranks[0]["backend"],
+            "backend": ranks[0]["backend"], "against_whole": against,
             "dry_run": dry_run_against(
                 cfg_c, mesh, seq, peak, step_ms,
                 f"{label}, a rank of the split", dry=dry_runs[

@@ -18,8 +18,9 @@ reduce-scatter.
 The collectives here are ``torch.distributed``'s list forms, which run on
 any process group: NCCL, one card a rank, or gloo (on the CPU, and for
 ranks that share a card, on CUDA tensors, which gloo copies through the
-host).  The training step gathers and reduces its parameters and
-gradients with them too, not with DTensor's redistribution: on gloo with
+host).  The training step's layers gather their parameters and reduce
+their gradients with them too (`distributed.param_gather`), not with
+DTensor's redistribution: on gloo with
 CUDA tensors DTensor's functional collectives crash the process (torch
 2.11 on an H100 machine), while these run.  `collective_counts` counts the
 calls by kind.
@@ -60,7 +61,9 @@ them (`gather_seq`), so every rank's rows attend to every frame.
 
 ``shard`` (`distributed.sharding`) stays a no-op: the step hands the model
 each rank's block, and only the attention, those two carries, the MoE's
-counts and the cross K/V cross it.
+counts and the cross K/V cross it, besides the parameters each layer
+gathers and the vocab-sharded embedding and loss
+(`distributed.param_gather`).
 """
 from __future__ import annotations
 
@@ -112,14 +115,17 @@ def split(s: SeqSplit | None):
 
 
 def bound(fn):
-    """``fn`` run under the split active now, on whatever thread calls it:
-    a checkpointed layer's re-run in the backward runs on the autograd
-    engine's thread (a device thread, for CUDA tensors), where the
-    thread's split is not set."""
-    s = current()
+    """``fn`` run under the split and the parameter binding
+    (`param_gather.bind`) active now, on whatever thread calls it: a
+    checkpointed layer's re-run in the backward runs on the autograd
+    engine's thread (a device thread, for CUDA tensors), where neither is
+    set."""
+    from repro_torch.distributed import param_gather
+
+    s, g = current(), param_gather.current()
 
     def run(*args):
-        with split(s):
+        with split(s), param_gather.bind(g):
             return fn(*args)
     return run
 
@@ -133,11 +139,13 @@ def all_gather(x: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of the ranks' ``x`` (in place where ``x`` is contiguous)."""
+def all_reduce(x: torch.Tensor, group,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of the ranks' ``x`` (in place where ``x`` is
+    contiguous)."""
     _COUNTS["all_reduce"] += 1
     x = x.contiguous()
-    dist.all_reduce(x, group=group)
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 

@@ -8,7 +8,12 @@ storage) on the plain path, as the reference costs its jnp forms and not
 its kernels, and counts:
 
   * parameter and AdamW bytes per card at full depth, from the leaves'
-    shapes and the policy's placements (`distributed.sharding`);
+    shapes and the policy's placements (`distributed.sharding`); on a
+    mesh above one card the split step's whole copies (`state_bytes`:
+    the largest layer's leaves gathered in its forward and in its re-run
+    and its whole gradient, the leaves read outside the layers whole all
+    step, the vocab-sharded table and head never whole,
+    `distributed.param_gather`);
   * FLOPs (``FlopCounterMode``; a checkpointed layer's forward counted
     again, since the backward runs it again) and the bytes each op reads
     and writes (views move nothing), over the per-card block: the plain
@@ -332,9 +337,42 @@ def trace_cell(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
             "act": float(act / split), "peak": float(peak / split)}
 
 
+def layer_unit(path: str):
+    """The checkpointed layer a leaf (its dotted path) is gathered in, or
+    None for a leaf read outside the layers: a stack's list element
+    (``stack0.3``, ``layers.5``, ``encoder.2``; a zamba2 group ``groups.1``
+    with its shared block's LoRA ``shared.lora.1``)."""
+    parts = path.split(".")
+    for i, part in enumerate(parts):
+        if part.isdigit():
+            if parts[:2] == ["shared", "lora"]:
+                return f"groups.{part}"
+            return ".".join(parts[:i + 1])
+    return None
+
+
+def vocab_axis(policy, spec):
+    """The mesh axis above one card that shards the head's ``vocab`` dim
+    (``spec`` its resolved spec), or None."""
+    sizes = mesh_shape(policy.mesh)
+    axes = spec[1] if len(spec) > 1 else None
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    big = [a for a in axes if a is not None and sizes[a] > 1]
+    return big[0] if big else None
+
+
 def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     """Per-card bytes that follow from shapes and placements alone, at
-    the config's full depth, and the step's collectives."""
+    the config's full depth, and the step's collectives.  A train step on
+    more than one card holds its shards and, whole, what its layers gather
+    (`distributed.param_gather`): ``gathered`` is the largest layer's
+    leaves less its shards twice (its forward copy and its re-run's) and
+    the leaves read outside the layers (the norms, the frame projection,
+    zamba2's shared block) less theirs, whole all step; ``grads`` the
+    shards' gradients (twice with the accumulator) and, whole, the
+    largest layer's and the outside leaves'.  The vocab-sharded table and
+    head add no whole term.  On one card the gradients are the leaves'
+    and nothing is gathered."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     model = build_model(cfg)
@@ -363,21 +401,45 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
         batch += rows * _numel(spec.shape[1:]) * spec.dtype.itemsize
     p_local, p_full = sum(local.values()), sum(full.values())
     n_elems = sum(n_local.values())
+    acc = 2 if accum > 1 else 1
+    vaxis = vocab_axis(policy, specs["lm_head"])
+    units: dict = {}
+    outside = [0, 0]
+    for n in named:
+        if vaxis is not None and n in ("embed", "lm_head"):
+            continue
+        unit = layer_unit(n)
+        into = outside if unit is None else units.setdefault(unit, [0, 0])
+        into[0] += full[n]
+        into[1] += local[n]
+    l_full, l_local = max(units.values(), default=[0, 0])
+    many = _numel(mesh_shape(policy.mesh).values()) > 1
     out = {"params": p_local, "batch": batch, "cache": cache,
            "opt": n_elems * OPT_BYTES if kind == "train" else 0,
-           "grads": p_full * (2 if accum > 1 else 1) if kind == "train"
-           else 0,
-           "gathered": p_full - p_local if kind == "train" else 0}
+           "grads": 0, "gathered": 0}
+    if kind == "train":
+        out["grads"] = (p_local * acc + l_full + outside[0] if many
+                        else p_full * acc)
+        out["gathered"] = (2 * (l_full - l_local) + outside[0] - outside[1]
+                           if many else 0)
     coll = []
     if kind == "train":
         split = _seq_split(cfg, shape, policy, accum)
         attn_layers, halos, counts = split_halos(cfg, rows, split.size) \
             if split else (0, {}, {})
+        vocab = None
+        if vaxis is not None:
+            positions = rows * shape.seq_len
+            vocab = {"axis": vaxis, "leaves": ("embed", "lm_head"),
+                     "rows": positions * cfg.d_model
+                     * getattr(torch, cfg.dtype).itemsize,
+                     "tokens": positions * 8, "stats": positions * 4}
         coll = step_collectives(
             policy.mesh, specs, full, batch_axes,
             seq_axes=("model",) if split else (), attn_layers=attn_layers,
             kv_bytes=split_kv_bytes(cfg, rows, shape.seq_len), halos=halos,
-            counts=counts)
+            counts=counts,
+            layer_leaves={n for n in named if layer_unit(n)}, vocab=vocab)
     out["collectives"] = collective_wire_bytes(coll)
     return out
 

@@ -33,6 +33,9 @@ are the session-reusable state of the serving engine.
   projects the cross K/V of its rank's encoder output and gathers them
   (one all-gather a layer, the projections' FLOPs split), and its
   self-attention attends at its block's offset (`attention.rope_attend`).
+  Under the split step's parameter binding each encoder and decoder layer
+  gathers its leaves inside its checkpoint, as `lm.py`'s layers do, and
+  ``frame_proj`` and ``enc_norm`` are gathered where they are read.
 """
 from __future__ import annotations
 
@@ -40,13 +43,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.distributed import seq_parallel
+from repro_torch.distributed import param_gather, seq_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (FFN_AXES, ParamTree, apply_rope,
                                        ffn_apply, ffn_init, normal_init,
                                        rms_norm)
-from repro_torch.models.lm import (_embed, _last, _lens, _lm_head, _loss_of,
-                                   _remat, _stack_axes)
+from repro_torch.models.lm import (_embed, _head_loss, _last, _lens,
+                                   _lm_head, _remat, _stack_axes)
 
 
 def _ones(cfg, dtype, device) -> torch.Tensor:
@@ -188,13 +191,14 @@ def build_encdec(cfg):
         split ``frames`` is this rank's block, and the layers run under a
         split of the same ranks whose S_local is the block's frames."""
         split = seq_parallel.current()
-        x = frames.to(dtype) @ params["frame_proj"]
+        x = frames.to(dtype) @ param_gather.whole(params["frame_proj"])
         with seq_parallel.split(split and dataclasses.replace(
                 split, s_local=frames.shape[1])):
             layer = _remat(lambda p_l, x: _enc_block(p_l, x, cfg), remat)
             for p_l in params["encoder"]:
                 x = layer(p_l, x)
-        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        return rms_norm(x, param_gather.whole(params["enc_norm"]),
+                        cfg.norm_eps)
 
     def _decoder_layer(p_l, x, enc_out):
         xk, xv = _cross_kv(p_l, enc_out)
@@ -270,9 +274,9 @@ def build_encdec(cfg):
     def loss(params, batch):
         """The decoder's next-token loss over batch["tokens"] [B, S] given
         batch["frames"] [B, src_len, D]; under a sequence split the batch
-        holds this rank's blocks of both (`lm._loss_of`)."""
+        holds this rank's blocks of both (`lm._head_loss`)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return _loss_of(_lm_head(params, x, cfg), batch)
+        return _head_loss(params, x, batch, cfg)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,

@@ -36,6 +36,12 @@ block).
   RWKV-6 or Mamba-2 layer its scan kernel twice and the scan's backward
   kernel once (a zamba group's re-run forward keeps the saved states of
   its layers until the group's backward has read them).
+* Under a split step's parameter binding (`distributed.param_gather`)
+  the model is handed each rank's shards: each checkpointed layer (a
+  zamba group with its LoRA) gathers its leaves where it starts, in the
+  forward and again in its re-run, zamba's shared block is gathered once
+  a step outside its groups, and the embedding and the loss keep the
+  table and the head vocab-sharded (`_embed`, `_head_loss`).
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.distributed import seq_parallel
+from repro_torch.distributed import param_gather, seq_parallel
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (ParamTree, next_token_loss,
@@ -82,8 +88,13 @@ def _family(cfg) -> str:
 def _remat(fn, remat: bool):
     """``fn``, or ``fn`` under activation checkpointing (non-reentrant, so
     closures over parameters get their gradients), its re-run under the
-    sequence split of its forward (`seq_parallel.bound`)."""
-    return checkpointed(seq_parallel.bound(fn)) if remat else fn
+    sequence split and the parameter binding of its forward
+    (`seq_parallel.bound`).  The parameters among its arguments are
+    gathered whole inside it (`param_gather.whole`), so the checkpoint
+    keeps the shards and the re-run gathers them again."""
+    def layer(*args):
+        return fn(*param_gather.whole(args))
+    return checkpointed(seq_parallel.bound(layer)) if remat else layer
 
 
 def _loss_of(logits, batch: dict):
@@ -291,13 +302,7 @@ def build_lm(cfg):
             raise ValueError(f"{cfg.name} takes {cfg.n_patches} patches "
                              "ahead of the tokens; the batch has none")
         x, _ = forward(params, batch, collect=False, remat=True)
-        if "targets" in batch or not cfg.n_patches:
-            return _loss_of(_lm_head(params, x, cfg), batch)
-        tokens = batch["tokens"]
-        tokens = torch.cat([torch.full(
-            (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,
-            device=tokens.device), tokens], dim=1)
-        return next_token_loss(_lm_head(params, x, cfg), tokens)
+        return _head_loss(params, x, batch, cfg)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
@@ -323,12 +328,15 @@ def _embed_and_head(cfg, dtype, generator: torch.Generator) -> dict:
     }
 
 
-def _embed(params, tokens):
+def _embed(params, tokens, lead: int = 0):
     """Token embeddings through ``F.embedding``: the same values as
     indexing, but its backward sums each row's gradient in a fixed order
     on both devices, where indexing's accumulates with atomics on the CPU,
-    so a resumed training run repeats an uninterrupted one bit for bit."""
-    return torch.nn.functional.embedding(tokens.long(), params["embed"])
+    so a resumed training run repeats an uninterrupted one bit for bit.
+    Under a split step's binding the table may be vocab-sharded
+    (`param_gather.embedding`; ``lead`` positions of the rank's block come
+    before its tokens)."""
+    return param_gather.embedding(params["embed"], tokens, lead)
 
 
 def _embed_inputs(params, batch, cfg):
@@ -336,14 +344,40 @@ def _embed_inputs(params, batch, cfg):
     [B, P, D] (cast to the model's dtype) where the config takes them.
     Under a sequence split the batch holds this rank's slices of both,
     either of them possibly empty (`training.loop.split_rows`)."""
-    x = _embed(params, batch["tokens"])
-    if cfg.n_patches and "patches" in batch:
-        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
-    return x
+    if not (cfg.n_patches and "patches" in batch):
+        return _embed(params, batch["tokens"])
+    patches = batch["patches"]
+    x = _embed(params, batch["tokens"], lead=patches.shape[1])
+    return torch.cat([patches.to(x.dtype), x], dim=1)
 
 
 def _lm_head(params, x, cfg):
-    return rms_norm(x, params["final_norm"], cfg.norm_eps) @ params["lm_head"]
+    return (rms_norm(x, param_gather.whole(params["final_norm"]),
+                     cfg.norm_eps) @ param_gather.whole(params["lm_head"]))
+
+
+def _head_loss(params, x, batch: dict, cfg):
+    """The training loss of the final rows x [B, S, D] (a rank's block
+    under a split): the head's logits and `_loss_of`, the n_patches -100
+    targets ahead of the tokens where a patch-input model's batch is
+    whole.  Where the split step's binding keeps the head vocab-sharded,
+    the rows are normed here and the loss is `param_gather.vocab_nll`'s,
+    the whole sequence's on every rank of the vocab's axis."""
+    tokens = batch["tokens"]
+    if cfg.n_patches and "targets" not in batch:
+        tokens = torch.cat([torch.full(
+            (tokens.shape[0], cfg.n_patches), -100, dtype=tokens.dtype,
+            device=tokens.device), tokens], dim=1)
+    if not param_gather.vocab_sharded(params["lm_head"], 1):
+        logits = _lm_head(params, x, cfg)
+        if "targets" in batch:
+            return _loss_of(logits, batch)
+        return next_token_loss(logits, tokens)
+    h = rms_norm(x, param_gather.whole(params["final_norm"]), cfg.norm_eps)
+    if "targets" in batch:
+        return param_gather.vocab_nll(h, params["lm_head"], batch["targets"],
+                                      batch["target_count"].sum())
+    return param_gather.vocab_nll(h[:, :-1], params["lm_head"], tokens[:, 1:])
 
 
 def _last(x, lens):
@@ -434,7 +468,7 @@ def _build_rwkv(cfg):
     def loss(params, batch):
         """As the attention decoder's ``loss`` (a split rank's block too)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return _loss_of(_lm_head(params, x, cfg), batch)
+        return _head_loss(params, x, batch, cfg)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,
@@ -515,11 +549,13 @@ def _build_zamba(cfg):
         st = init_state if init_state is not None else {
             "groups": [[None] * per for _ in range(g)],
             "tail": [None] * tail}
+        # every group's block: gathered once a step under a binding, its
+        # uses' gradients summed before the gather's backward reduces them
+        shared = {"block": param_gather.whole(params["shared"]["block"])}
 
         def group(p_g, lora_g, x, st_g):
             x, ms = _mamba_run(p_g, x, st_g, step=False)
-            x, kv = blk.shared_attn_parallel(params["shared"], lora_g, x,
-                                             cfg)
+            x, kv = blk.shared_attn_parallel(shared, lora_g, x, cfg)
             return x, ms, kv
 
         group = _remat(group, remat)
@@ -597,7 +633,7 @@ def _build_zamba(cfg):
     def loss(params, batch):
         """As the attention decoder's ``loss`` (a split rank's block too)."""
         x, _ = forward(params, batch, collect=False, remat=True)
-        return _loss_of(_lm_head(params, x, cfg), batch)
+        return _head_loss(params, x, batch, cfg)
 
     return {"init": init, "forward": forward, "prefill": prefill,
             "decode_step": decode_step, "extend": extend,

@@ -16,29 +16,34 @@ card a rank (`place_state`, `make_train_step(policy=...)`): the
 parameters and AdamW's moments and master weights are DTensors placed by
 the policy's parameter rules (``TRAIN_PARAM_RULES``: ``embed`` over
 ``data``, ``heads``, ``kv_heads``, ``ff``, ``vocab`` and ``expert`` over
-``model``). Each step gathers the parameters whole, splits the batch by
-its resolved ``("batch", "seq")`` spec (the rows over ``data``; under
-``TRAIN_RULES`` each sequence over ``model``,
-`distributed/seq_parallel.py`), runs the model, its kernels and their
-backward kernels on plain local tensors, and reduces the loss and each
-gradient: a sum over the mesh axes that split ``seq`` (each rank's loss
-is its targets' share of its rows' loss), a mean over those that split
-``batch``. Where the divisibility fallback leaves ``seq`` whole, the
-``model`` ranks compute the same thing and only the batch's axes reduce.
-Each gradient lands on its parameter's placement (a reduce-scatter over
-an axis that both reduces and shards it), each shard is updated in
-place, and the clipping norm is taken over the whole gradient. The
-collectives are `seq_parallel`'s, which run on NCCL and on gloo (on the
-CPU, and on CUDA tensors for ranks that share a card). The loss is the
-mean of the batch ranks' losses, which is the global batch's when every
-rank's rows hold as many targets (as synthetic batches do). On a mesh of
-one card every placement is ``Replicate`` and the run is the plain
-loop's bit for bit. A ``model`` axis above 1 takes every architecture:
-the MoE models' experts are placed over ``model``, gathered by the step
-and their gradients summed over the ranks onto their shards as any
-leaf's; a patch-input model's split is of its patches and tokens
-together, an encoder-decoder's of its frames beside its tokens
-(`split_rows`).
+``model``). Each step splits the batch by its resolved ``("batch",
+"seq")`` spec (the rows over ``data``; under ``TRAIN_RULES`` each
+sequence over ``model``, `distributed/seq_parallel.py`) and hands the
+model the rank's local shards under a parameter binding
+(`distributed/param_gather.py`): each checkpointed layer gathers its
+leaves whole where it runs, in the forward and again in its re-run, and
+its gradient is reduced to the rank's shards when autograd reaches the
+gather: a sum over the mesh axes that split ``seq`` (each rank's part of
+the loss is its rows'), a mean over those that split ``batch``, a
+reduce-scatter over an axis that both reduces and shards the leaf. The
+embedding and the head stay vocab-sharded over ``model``, and the loss
+is then the whole sequence's on every ``model`` rank, so only the
+batch's axes reduce it. Where the divisibility fallback leaves ``seq``
+whole, the ``model`` ranks compute the same thing and only the batch's
+axes reduce. The gradients of ``torch.autograd.grad`` with respect to
+the shards come out reduced; each shard is updated in place, and the
+clipping norm is taken over the whole gradient. Under compression the
+gradients are gathered whole for it (its feedback is whole) and cut back
+after. The collectives are `seq_parallel`'s, which run on NCCL and on
+gloo (on the CPU, and on CUDA tensors for ranks that share a card). The
+loss is the mean of the batch ranks' losses, which is the global batch's
+when every rank's rows hold as many targets (as synthetic batches do).
+On a mesh of one card every placement is ``Replicate``, no binding is
+made, and the run is the plain loop's bit for bit. A ``model`` axis
+above 1 takes every architecture: the MoE models' experts are placed
+over ``model`` and gathered with their layer; a patch-input model's
+split is of its patches and tokens together, an encoder-decoder's of its
+frames beside its tokens (`split_rows`).
 """
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed import seq_parallel
+from repro_torch.distributed import param_gather, seq_parallel
 from repro_torch.training.checkpoint import (latest_step, restore_checkpoint,
                                              save_checkpoint)
 from repro_torch.training.compress import (CompressionConfig,
@@ -237,39 +242,12 @@ def _split_batch(policy, batch: dict):
 
 
 def _placed_step(model, opt_cfg, compression, accum_steps, policy):
-    from repro_torch.distributed.sharding import (mesh_shape,
-                                                  param_shardings,
-                                                  spec_axes)
+    from repro_torch.distributed.sharding import param_shardings, spec_axes
 
-    mesh = policy.mesh
-    sizes = mesh_shape(mesh)
-    names = list(sizes)
+    mesh = param_gather.StepMesh.of(policy.mesh)
+    sizes = mesh.sizes
     compress = compression is not None and compression.enabled
     specs = None
-
-    def group(axis):
-        return mesh.get_group(names.index(axis))
-
-    def reduce(t, spec, sums, means):
-        """``t`` (this rank's share, whole) summed over the mesh axes
-        ``sums``, averaged over ``means``, and cut to ``spec``'s block
-        (a reduce-scatter over an axis that also shards it)."""
-        sharding = spec_axes(spec)
-        for a in (*sums, *means):
-            if a not in sharding:
-                t = seq_parallel.all_reduce(t, group(a))
-        for dim, entry in enumerate(spec):
-            for a in _entry_axes(entry, sizes):
-                rank = mesh.get_local_rank(a)
-                if a in sums or a in means:
-                    t = seq_parallel.reduce_scatter(t, dim, group(a),
-                                                    sizes[a], rank)
-                else:
-                    t = t.tensor_split(sizes[a], dim)[rank]
-        n = 1
-        for a in means:
-            n *= sizes[a]
-        return t / n if n > 1 else t
 
     def global_norm(grads, leaf_specs):
         """The whole gradient's norm from the ranks' blocks: each block's
@@ -283,7 +261,7 @@ def _placed_step(model, opt_cfg, compression, accum_steps, policy):
                     held *= n
             sums.append(torch.sum(torch.square(g.float())) / held)
         total = torch.sum(torch.stack(sums))
-        if mesh.size() > 1:
+        if policy.mesh.size() > 1:
             total = seq_parallel.all_reduce(total, None)   # every rank
         return torch.sqrt(total)
 
@@ -293,20 +271,29 @@ def _placed_step(model, opt_cfg, compression, accum_steps, policy):
             specs = list(param_shardings(policy, params,
                                          model.param_axes()).values())
         local, split, means, sums = _split_batch(policy, batch)
-        full = gathered(params)
-        for p in tree_leaves(full):
+        shards = _local(params)
+        leaves = tree_leaves(shards)
+        for p in leaves:
             p.requires_grad_(True)
-        with seq_parallel.split(split):
-            loss, grads = loss_and_grads(model, full, local, accum_steps)
-        loss = reduce(loss, (), sums, means)
+        binding = (param_gather.ParamGather(mesh, leaves, specs, sums, means)
+                   if policy.mesh.size() > 1 else None)
+        with seq_parallel.split(split), param_gather.bind(binding):
+            loss, grads = loss_and_grads(model, shards, local, accum_steps)
+        if binding is not None:
+            missed = binding.missed(leaves)
+            if missed:
+                raise RuntimeError(f"leaves {missed} were never gathered: "
+                                   "their gradients are not reduced")
+            sums = binding.loss_axes(shards["lm_head"])
+        loss = mesh.reduce(loss, (), sums, means)
+        grads = tree_leaves(grads)
         if compress:
-            grads = tree_unflatten(full, [reduce(g, (), sums, means)
-                                          for g in tree_leaves(grads)])
-            grads, fb = compress_with_feedback(grads, opt_state["feedback"],
-                                               compression)
-            sums = means = ()
-        grads = [reduce(g, spec, sums, means)
-                 for g, spec in zip(tree_leaves(grads), specs)]
+            whole = [mesh.whole(g, spec) for g, spec in zip(grads, specs)]
+            whole, fb = compress_with_feedback(
+                tree_unflatten(shards, whole), opt_state["feedback"],
+                compression)
+            grads = [mesh.reduce(g, spec)
+                     for g, spec in zip(tree_leaves(whole), specs)]
         gnorm = global_norm(grads, specs)
         adam = opt_state["adam"]
         local_adam = {"master": _local(adam["master"]), "m": _local(adam["m"]),

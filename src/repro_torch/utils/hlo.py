@@ -8,10 +8,18 @@ collectives are the ones its training step issues by hand
 (`repro_torch.training.loop`, `repro_torch.distributed.seq_parallel`), so
 they follow from the resolved placements (`repro_torch.distributed.
 sharding`): per parameter leaf, an all-gather of the parameter over the
-mesh axes that shard it, a reduce-scatter of its gradient over those
-axes, and an all-reduce of the gradient's shard over the other mesh axes
-that split the batch or the sequence; the loss's all-reduce over those
-axes.  Where the sequence is split over ``model``, each attention layer
+mesh axes that shard it where it is read (`distributed.param_gather`:
+twice a step for a checkpointed layer's leaf, in its forward and in its
+re-run, once for the others), a reduce-scatter of its gradient over
+those axes, and an all-reduce of the gradient's shard over the other
+mesh axes that split the batch or the sequence; the loss's all-reduce
+over those axes.  Where the head and the table are vocab-sharded, their
+vocab axis takes no gather and no reduction of them; the embedding
+gathers the tokens and reduce-scatters its rows (its gradient gathered
+back), and the loss gathers the normed rows (their gradient
+reduce-scattered back) and the targets and all-reduces each row's
+maximum and its two sums, and is not all-reduced over that axis.
+Where the sequence is split over ``model``, each attention layer
 also gathers its K/V over that axis twice a step (its forward and its
 checkpointed re-run) and reduce-scatters their gradient once (MLA its
 latent), and so does each recurrent layer with its token shifts' rows
@@ -66,7 +74,8 @@ class CollectiveOp:
 def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                      seq_axes=(), attn_layers: int = 0, kv_bytes: int = 0,
                      halos: dict | None = None,
-                     counts: dict | None = None) -> list[CollectiveOp]:
+                     counts: dict | None = None, layer_leaves=frozenset(),
+                     vocab: dict | None = None) -> list[CollectiveOp]:
     """The collectives of one training step: ``specs`` and ``leaf_bytes``
     map each parameter leaf's path to its resolved spec and its full size
     in the gradient's dtype; ``batch_axes`` are the mesh axes the batch is
@@ -75,7 +84,12 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
     a layer on a card, and ``halos`` the other gathers of a split step
     ({name: one rank's operand bytes}: the token shifts' rows, the scan
     states), ``counts`` those without a gradient (the MoE's pair
-    counts)."""
+    counts).  ``layer_leaves`` are the leaves a checkpointed layer
+    gathers (twice a step); ``vocab`` ({"axis", "leaves": the table's
+    and the head's names, "rows": the bytes of the sequence's normed
+    rows of a card's batch rows, "tokens": of their int64 token ids,
+    "stats": of a float32 a position}) where the table and the head are
+    vocab-sharded."""
     sizes = mesh_shape(mesh)
     reducing = [a for a in dict.fromkeys((*batch_axes, *seq_axes))
                 if sizes.get(a, 1) > 1]
@@ -83,6 +97,9 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
     for axis in seq_axes:
         m *= sizes.get(axis, 1)
     ops = []
+    if vocab is not None:
+        ops += _vocab_collectives(vocab, sizes[vocab["axis"]],
+                                  vocab["axis"] in seq_axes)
     if m > 1:
         for layer in range(attn_layers):
             name = f"attn{layer}"
@@ -105,15 +122,24 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
     for name, spec in specs.items():
         full = leaf_bytes[name]
         sharded = spec_axes(spec)
+        axes = reducing
+        if vocab is not None and name in vocab["leaves"]:
+            full //= sizes[vocab["axis"]]
+            sharded = {a: d for a, d in sharded.items()
+                       if a != vocab["axis"]}
+            axes = [a for a in reducing if a != vocab["axis"]]
         k = 1
         for axis in sharded:
             k *= sizes[axis]
         rest = 1
-        for axis in reducing:
+        for axis in axes:
             if axis not in sharded:
                 rest *= sizes[axis]
         if k > 1:
             ops.append(CollectiveOp("all-gather", full, full // k, k, name))
+            if name in layer_leaves:
+                ops.append(CollectiveOp("all-gather", full, full // k, k,
+                                        f"{name} (remat)"))
             ops.append(CollectiveOp("reduce-scatter", full // k, full, k,
                                     name))
         if rest > 1:
@@ -121,10 +147,40 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                                     rest, name))
     n = 1
     for axis in reducing:
-        n *= sizes[axis]
+        if vocab is None or axis != vocab["axis"]:
+            n *= sizes[axis]
     if n > 1:
         ops.append(CollectiveOp("all-reduce", 4, 4, n, "loss"))
     return ops
+
+
+def _vocab_collectives(vocab: dict, k: int, split: bool) -> list:
+    """The vocab-sharded embedding's and loss's collectives over the
+    vocab's ``k`` ranks (`distributed.param_gather`): with the sequence
+    ``split`` over them, the tokens and the normed rows gathered, the
+    embedding's rows and the rows' gradient reduce-scattered, the
+    embedding's gradient and the targets gathered; where the sequence is
+    whole on them, the embedding's rows and the rows' gradient
+    all-reduced instead.  Each row's maximum and its sums all-reduced."""
+    rows, tokens, stats = vocab["rows"], vocab["tokens"], vocab["stats"]
+    if split:
+        ops = [CollectiveOp("all-gather", tokens, tokens // k, k,
+                            "embed.tokens"),
+               CollectiveOp("reduce-scatter", rows // k, rows, k,
+                            "embed.rows"),
+               CollectiveOp("all-gather", rows, rows // k, k,
+                            "embed.drows"),
+               CollectiveOp("all-gather", rows, rows // k, k, "head.rows"),
+               CollectiveOp("reduce-scatter", rows // k, rows, k,
+                            "head.drows"),
+               CollectiveOp("all-gather", tokens, tokens // k, k,
+                            "head.targets")]
+    else:
+        ops = [CollectiveOp("all-reduce", rows, rows, k, "embed.rows"),
+               CollectiveOp("all-reduce", rows, rows, k, "head.drows")]
+    return ops + [CollectiveOp("all-reduce", stats, stats, k, "head.max"),
+                  CollectiveOp("all-reduce", 2 * stats, 2 * stats, k,
+                               "head.sums")]
 
 
 def collective_wire_bytes(ops: list[CollectiveOp]) -> dict:

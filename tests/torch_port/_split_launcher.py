@@ -112,6 +112,8 @@ seq_parallel.reset_collective_counts()
 out = train.main(sys.argv[4:])
 counts = seq_parallel.collective_counts()
 leaves = tree_leaves(out["params"])
+if isinstance(leaves[0], DTensor):     # a rank's reduced shards, gathered
+    grads = loop.gathered(loop._placed_like(grads, out["params"]))
 torch.save({"params": [p.detach().clone() for p in tree_leaves(
     loop.gathered(out["params"]))], "grads": grads}, sys.argv[2])
 json.dump({"losses": out["losses"], "grad_norms": out["grad_norms"],
@@ -222,17 +224,34 @@ def count_layers(cfg) -> int:
     return cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
 
 
+def in_layer(path: str) -> bool:
+    """Whether a leaf (its dotted path) belongs to a checkpointed layer,
+    which gathers it in its forward and again in its re-run: one list
+    element of a stack of layers (zamba2's groups and its shared block's
+    per-group LoRA among them); the embedding, the head, the norms
+    outside the layers, the frame projection and zamba2's shared block
+    are read once a step."""
+    return any(part.isdigit() for part in path.split("."))
+
+
 def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
     """The collectives a rank of the reduced ``arch`` step issues in 3
-    steps: per step, each of `split_layers`' all-gathers in the forward
-    and again in its checkpointed re-run, and its gradient's
-    reduce-scatter, each of `count_layers`' gathers twice and no
-    reduce-scatter; per parameter and mesh axis above one card, a gather
-    of the parameter over an axis that shards it, a reduce-scatter of its
-    gradient over an axis that shards and reduces it, an all-reduce over
-    one that only reduces it (every axis reduces here: ``data`` the
-    batch, ``model`` the sequence); the loss's all-reduce per axis and
-    the norm's one."""
+    steps, reckoned by hand: per step, each of `split_layers`'
+    all-gathers in the forward and again in its checkpointed re-run, and
+    its gradient's reduce-scatter, each of `count_layers`' gathers twice
+    and no reduce-scatter; per parameter and mesh axis above one card, a
+    gather of the parameter over an axis that shards it where its layer
+    runs (twice for a layer's leaf, `in_layer`: the forward and the
+    re-run; once for the others), a reduce-scatter of its gradient over
+    an axis that shards and reduces it, an all-reduce over one that only
+    reduces it (every axis reduces here: ``data`` the batch, ``model``
+    the sequence); the embedding and the head, vocab-sharded over
+    ``model``, take no gather or reduction over it, but the embedding
+    gathers the tokens and reduce-scatters its rows (its backward
+    gathers their gradient), and the loss gathers the normed rows (a
+    reduce-scatter back) and the targets and all-reduces the rows'
+    maxima and their sums; the loss's all-reduce over ``data`` (over
+    ``model`` it is whole already) and the norm's one."""
     from repro_torch import configs
     from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES,
                                                   TRAIN_RULES,
@@ -251,16 +270,25 @@ def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
     sizes = {"data": n_data, "model": n_model}
     axes = [a for a in ("data", "model") if sizes[a] > 1]
     per_step = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
-    for spec in specs.values():
+    vocab = spec_axes(specs["lm_head"]).get("model") == 1 and n_model > 1
+    for name, spec in specs.items():
         split = [a for a in spec_axes(spec) if sizes[a] > 1]
-        per_step["all_gather"] += len(split)
+        reducing = axes
+        if vocab and name in ("embed", "lm_head"):
+            split = [a for a in split if a != "model"]
+            reducing = [a for a in axes if a != "model"]
+        per_step["all_gather"] += (2 if in_layer(name) else 1) * len(split)
         per_step["reduce_scatter"] += len(split)
-        per_step["all_reduce"] += len(axes) - len(split)
+        per_step["all_reduce"] += len(reducing) - len(split)
     if n_model > 1:
         per_step["all_gather"] += 2 * (split_layers(cfg)
                                        + count_layers(cfg))
         per_step["reduce_scatter"] += split_layers(cfg)
-    per_step["all_reduce"] += len(axes) + 1
+    if vocab:
+        per_step["all_gather"] += 2 + 2     # tokens, dX; rows, targets
+        per_step["reduce_scatter"] += 1 + 1     # embeddings; d rows
+        per_step["all_reduce"] += 2             # maxima, sums
+    per_step["all_reduce"] += len(axes) - vocab + 1
     return {k: STEPS * v for k, v in per_step.items()}
 
 
@@ -274,8 +302,9 @@ def split_runs(arch: str, n_data: int, n_model: int, tmp_path,
     rank's collectives `expected_counts`, none in the one process, every
     step logged, by rank 0 only.  Returns (the reference's record, rank
     0's record, rank 0's and the one process's gathered parameters and
-    first-step gradients (`run_ranks`), the ranks' first-step gradients
-    summed over ``model`` and averaged over ``data``: the whole batch's,
+    first-step gradients (`run_ranks`; a rank's reduced to its shards by
+    the step, gathered whole after it), rank 0's first-step gradients
+    (every rank's the same bits): the whole batch's,
     and what ``beside(initial weights)`` returns, run while the processes
     run)."""
     n = n_data * n_model
@@ -304,5 +333,7 @@ def split_runs(arch: str, n_data: int, n_model: int, tmp_path,
                for a, b in zip(run["params"], runs[0]["params"]))
     assert "step     1  loss" in logs[0]
     assert all("loss" not in log for log in logs[1:-1])
-    whole = [sum(g) / n_data for g in zip(*(run["grads"] for run in runs))]
+    assert all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(run["grads"], runs[0]["grads"]))
+    whole = runs[0]["grads"]
     return ref, recs[0], runs[0], one, one_run, whole, extra

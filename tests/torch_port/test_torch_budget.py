@@ -26,6 +26,7 @@ TIER1_MODULES = {
     "test_torch_ledger_mirror",
     "test_torch_models",
     "test_torch_moe_mla",
+    "test_torch_param_gather",
     "test_torch_recurrent",
     "test_torch_router",
     "test_torch_scan_bwd",

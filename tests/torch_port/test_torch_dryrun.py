@@ -151,7 +151,10 @@ def test_variant_extrapolation_equals_full_depth_trace(arch):
 
 def test_state_bytes_by_hand():
     """Parameters, AdamW and the collectives from the leaves' shapes and
-    specs, summed by hand."""
+    specs, summed by hand; on (16, 16) the split step's whole copies:
+    each layer's leaves (``stack0.<layer>.*``) gathered in its forward
+    and its re-run with its whole gradient, the final norm whole all
+    step, the vocab-sharded table and head never whole."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.models import build_model
@@ -166,14 +169,31 @@ def test_state_bytes_by_hand():
         policy = dryrun.build_policy(mesh, "train", "t")
         got = dryrun.state_bytes(cfg, shape, policy, accum=4)
         n_full = n_local = 0
+        layers, norm = {}, (0, 0)
         for name, dims in leaves:
             spec = policy.param_spec(axes[name], dims)
             local = sharding.local_shape(mesh, spec, dims)
             n_full += torch.Size(dims).numel()
             n_local += torch.Size(local).numel()
+            if name.startswith("stack0."):
+                layer = layers.setdefault(name.split(".")[1], [0, 0])
+                layer[0] += torch.Size(dims).numel()
+                layer[1] += torch.Size(local).numel()
+            elif name == "final_norm":
+                norm = torch.Size(dims).numel() - torch.Size(local).numel()
+                norm = (torch.Size(dims).numel(), norm)
         assert got["params"] == 2 * n_local and got["opt"] == 12 * n_local
-        assert got["grads"] == 2 * 2 * n_full      # with the accumulator
-        assert got["gathered"] == 2 * (n_full - n_local)
+        if k == 1:                      # the leaves' own gradients
+            assert got["grads"] == 2 * 2 * n_full  # with the accumulator
+            assert got["gathered"] == 0
+        else:
+            assert len(layers) == 3 and policy.param_spec(
+                axes["lm_head"], (64, cfg.vocab_size))[1] == "model"
+            l_full, l_local = max(layers.values())
+            assert got["grads"] == 2 * (2 * n_local + l_full + norm[0])
+            assert got["gathered"] == 2 * (2 * (l_full - l_local) + norm[1])
+            # below the whole model less its shards
+            assert got["gathered"] < 2 * (n_full - n_local)
         assert got["batch"] == 64 // 4 // k * 64 * 4
         coll = got["collectives"]
         if k == 1:
@@ -182,10 +202,19 @@ def test_state_bytes_by_hand():
             assert n_local < n_full and coll["count"] > 0
             # each sequence split over model: per layer, the K/V of the
             # card's row (64 tokens x 2 KV heads x 2·16, bf16) gathered
-            # twice (forward, remat) and its gradient reduce-scattered once
+            # twice (forward, remat) and its gradient reduce-scattered
+            # once; each layer's leaves gathered once more (the re-run)
+            # than their gradients are reduce-scattered; the
+            # vocab-sharded embedding and loss over the card's row (64
+            # int64 ids, 64 rows of 64 bf16): the ids and targets, the
+            # embedding's gradient and the normed rows gathered, the
+            # embedding's rows and the rows' gradient reduce-scattered
             attn = 3 * (64 * 2 * 32 * 2) * 15 / 16
-            assert coll["all-gather"] - 2 * attn == pytest.approx(
-                coll["reduce-scatter"] - attn)
+            again = sum(2 * (f - m) for f, m in layers.values())
+            ids, rows = 64 * 8, 64 * 64 * 2
+            assert coll["all-gather"] - 2 * attn - again - (
+                2 * ids + 2 * rows) * 15 / 16 == pytest.approx(
+                coll["reduce-scatter"] - attn - 2 * rows * 15 / 16)
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -276,35 +305,52 @@ def test_ring_formulas_match_reference_parser():
 
 @pytest.mark.parametrize("n_data", [1, 2])
 def test_split_step_collectives_by_hand(n_data):
-    """A (n_data, 2) mesh splitting each sequence over ``model``: ``w``
-    sharded over model (gathered, its gradient reduce-scattered over
-    model, all-reduced over data), ``b`` replicated (its gradient
-    all-reduced over both), two attention layers' K/V gathered twice and
-    reduced once over model, the loss all-reduced over both."""
+    """A (n_data, 2) mesh splitting each sequence over ``model``: ``w``, a
+    layer's leaf sharded over model (gathered in the layer's forward and
+    again in its re-run, its gradient reduce-scattered over model once,
+    all-reduced over data), ``b`` replicated (its gradient all-reduced
+    over both), ``head`` vocab-sharded over model (no gather or reduction
+    over model; its gradient all-reduced over data), two attention
+    layers' K/V gathered twice and reduced once over model; the
+    vocab-sharded embedding's and loss's collectives over model (the
+    tokens and targets gathered, the embedding's rows reduce-scattered
+    and their gradient gathered, the normed rows gathered and their
+    gradient reduce-scattered, the rows' maxima and sums all-reduced);
+    the loss all-reduced over data alone."""
     mesh = AbstractMesh((n_data, 2), ("data", "model"))
-    specs = {"w": (None, "model"), "b": ()}
+    specs = {"w": (None, "model"), "b": (), "head": (None, "model")}
     batch = ["data"] if n_data > 1 else []
-    ops = step_collectives(mesh, specs, {"w": 4096, "b": 64}, batch,
-                           seq_axes=("model",), attn_layers=2,
-                           kv_bytes=1024)
+    vocab = {"axis": "model", "leaves": ("head",), "rows": 512,
+             "tokens": 64, "stats": 32}
+    ops = step_collectives(mesh, specs, {"w": 4096, "b": 64, "head": 256},
+                           batch, seq_axes=("model",), attn_layers=2,
+                           kv_bytes=1024, layer_leaves={"w"}, vocab=vocab)
     kinds = sorted((c.op, c.computation, c.group_size) for c in ops)
     want = [("all-gather", "attn0.kv", 2), ("all-gather", "attn0.kv (remat)",
                                             2),
             ("all-gather", "attn1.kv", 2), ("all-gather", "attn1.kv (remat)",
                                             2),
-            ("all-gather", "w", 2), ("all-reduce", "b", 2 * n_data),
-            ("all-reduce", "loss", 2 * n_data),
+            ("all-gather", "w", 2), ("all-gather", "w (remat)", 2),
+            ("all-reduce", "b", 2 * n_data),
             ("reduce-scatter", "attn0.dkv", 2),
-            ("reduce-scatter", "attn1.dkv", 2), ("reduce-scatter", "w", 2)]
+            ("reduce-scatter", "attn1.dkv", 2), ("reduce-scatter", "w", 2),
+            ("all-gather", "embed.tokens", 2),
+            ("reduce-scatter", "embed.rows", 2),
+            ("all-gather", "embed.drows", 2), ("all-gather", "head.rows", 2),
+            ("reduce-scatter", "head.drows", 2),
+            ("all-gather", "head.targets", 2), ("all-reduce", "head.max", 2),
+            ("all-reduce", "head.sums", 2)]
     if n_data > 1:
-        want.append(("all-reduce", "w", 2))
+        want += [("all-reduce", "w", 2), ("all-reduce", "head", 2),
+                 ("all-reduce", "loss", 2)]
     assert kinds == sorted(want)
     totals = collective_wire_bytes(ops)
     ring = (2 * n_data - 1) / (2 * n_data)
-    assert totals["all-gather"] == (4 * 1024 + 4096) / 2
-    assert totals["reduce-scatter"] == (2 * 1024 + 4096) / 2
-    assert totals["all-reduce"] == 2 * (64 + 4) * ring + (
-        2 * 2048 / 2 if n_data > 1 else 0)
+    assert totals["all-gather"] == (4 * 1024 + 2 * 4096 + 2 * 64
+                                    + 2 * 512) / 2
+    assert totals["reduce-scatter"] == (2 * 1024 + 4096 + 2 * 512) / 2
+    assert totals["all-reduce"] == 2 * 64 * ring + 32 + 64 + (
+        2 * 2048 / 2 + 128 + 4 if n_data > 1 else 0)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "qwen3-8b",
