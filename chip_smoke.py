@@ -388,8 +388,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     (c) run's processes start with its phase's (b), import and warm up
     (one narrow training step each) beside it, and train in turn.
 29. mixtral-8x22b and deepseek-v2-lite-16b with each sequence split over
-    a model axis of 2, the MoE's pair counts gathered (pairs ranked
-    row-globally) and MLA's latent gathered.  (a) The flash forward and
+    a model axis of 2, each rank keeping its half of the experts (the
+    rows gathered to them, the outputs reduce-scattered back) and MLA's
+    latent gathered.  (a) The flash forward and
     backward kernels where mixtral's window masks at an offset (48 / 8
     heads of 128, bf16, 4,096 query rows at offset 4,096 against 8,192
     keys, window 4,096) under phase 27a's gates.  (b) Both at reduced
@@ -397,7 +398,8 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     1,024), two ranks against one process under phase 27b's gates, the
     launches exact (none for MLA), the top-k flips against one process,
     each rank's dropped pairs (their sum one process's but for the pairs
-    flips move).  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
+    flips move), no expert leaf gathered over model, each rank's leaf and
+    row GiB a step.  (c) Both at full width in bf16, 4,096 tokens, 2 steps,
     mixtral-8x22b at 1 of 56 layers and deepseek-v2-lite-16b at 7 of 27
     (the deepest at which two ranks' measured peaks stay under 72 GiB,
     one layer more checked over it): (b)'s gates at 2e-2, per-rank peak
@@ -5846,8 +5848,9 @@ def first_grads(model, params, batch, accum_steps=1):
 
 
 loop.loss_and_grads = first_grads
-# the layers' leaf gathers: how many made a leaf whole, and its bytes
-gathers = {"count": 0, "bytes": 0}
+# the layers' leaf gathers: how many made a leaf whole, and its bytes; an
+# MoE expert leaf [E, ., .] made whole over its expert dim
+gathers = {"count": 0, "bytes": 0, "experts_over_model": 0}
 gather_leaf = param_gather._GatherLeaf.forward
 
 
@@ -5856,6 +5859,9 @@ def counted_gather(ctx, shard, *args):
     if whole.numel() > shard.numel():
         gathers["count"] += 1
         gathers["bytes"] += whole.numel() * whole.element_size()
+        if cfg.is_moe and whole.dim() == 3 and whole.shape[0] == \
+                cfg.n_experts > shard.shape[0]:
+            gathers["experts_over_model"] += 1
     return whole
 
 
@@ -5867,11 +5873,54 @@ for name in ("flash_attention_cuda", "flash_attention_bwd_cuda"):
         return _fn(*a, **kw)
     setattr(ops, name, wrap)
 # each MoE call's experts, its tokens' margins (the k-th router
-# probability less the next) and its dropped pairs
+# probability less the next) and its dropped pairs; the rows the MoE
+# layers move to the ranks' experts and back (`moe._to_row` /
+# `_to_block`, forward and re-run, and their gradients in the backward)
 routes, margins, drops = [], [], []
+tokens = {"count": 0, "bytes": 0}
 if spec.get("moe"):
     from repro_torch.models import moe
     route, prefix = moe._route, seq_parallel.count_prefix
+    dispatch, to_row, to_block = (moe._sort_dispatch, moe._to_row,
+                                  moe._to_block)
+
+    def moved(t):
+        tokens["count"] += 1
+        tokens["bytes"] += t.numel() * t.element_size()
+
+    class Moved(torch.autograd.Function):
+        # the identity, counting its gradient: a whole row's, moved
+        @staticmethod
+        def forward(ctx, t):
+            return t.view_as(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            moved(g)
+            return g
+
+    def counted_row(x, s):
+        row = to_row(x, s)
+        moved(row)
+        return Moved.apply(row)
+
+    def counted_block(part, s):
+        moved(part)
+        return to_block(Moved.apply(part), s)
+
+    def dispatched(w, x, gates, idx, e, c, cb, lo=0, before=None):
+        if before is None and seq_parallel.current() is not None:
+            # a rank's experts over the whole row: its drops
+            flat = idx.reshape(idx.shape[0], -1)
+            n = torch.zeros((flat.shape[0], e), dtype=torch.int64,
+                            device=idx.device).scatter_add_(
+                1, flat, torch.ones_like(flat))
+            drops.append(int((n[:, lo:lo + w["wg"].shape[0]] - c)
+                             .clamp(min=0).sum()))
+        return dispatch(w, x, gates, idx, e, c, cb, lo, before)
+
+    moe._to_row, moe._to_block = counted_row, counted_block
+    moe._sort_dispatch = dispatched
 
     def recorded(p, x, c):
         gates, idx = route(p, x, c)
@@ -5912,7 +5961,7 @@ rec = {"losses": [x for _, x in res["losses"]],
        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
        "launches": ops.launch_counts(), "calls": calls,
        "collectives": seq_parallel.collective_counts(),
-       "leaf_gathers": gathers,
+       "leaf_gathers": gathers, "token_moves": tokens,
        "backend": dist.get_backend() if dist.is_initialized() else None,
        "device": str(torch.cuda.current_device()),
        "routes": routes, "margins": margins, "drops": drops}
@@ -5996,9 +6045,10 @@ class SplitRun:
         finally:
             self.kill()
         n = len(self.procs)
-        for r, (p, log) in enumerate(zip(self.procs, logs)):
+        for p, log in zip(self.procs, logs):     # every failed rank's log
             if p.returncode:
                 print(log[-4000:])
+        for r, p in enumerate(self.procs):
             check(p.returncode == 0, f"{self.tag}: rank {r} of {n} exited "
                   f"{p.returncode}")
         recs = [torch.load(out) for out in self.outs]
@@ -6645,10 +6695,11 @@ def phase_split_recurrent_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
 
 # ------------------------------------------------------------ phase 29 --
 # phase 29c's full-width depths: the deepest at which two ranks, each with
-# its shards, one layer whole at a time and half of AdamW's state, stay
-# under 72 GiB of the card together; the phase checks the measured peaks
-# and that one layer more, grown as the dry run grows, would not fit
-# (PERF.md §4, §6); the one-process run at the same depth fits the card
+# its shards (an MoE rank its own experts), one layer's other leaves whole
+# at a time and half of AdamW's state, stay under 72 GiB of the card
+# together; the phase checks the measured peaks and that one layer more,
+# grown as the dry run grows, would not fit (PERF.md §4, §6); the
+# one-process run at the same depth fits the card
 SPLIT_MOE_DEPTH = {MIXTRAL: 1, DEEPSEEK: 7}
 SPLIT_TWO_RANKS_GIB = 72.0
 WINDOW_ROWS = 4096        # 29a: a rank's query rows at mixtral's window
@@ -6708,8 +6759,10 @@ def phase_split_moe_kernels(dev) -> dict:
 
 
 def split_route_flips(ranks, one) -> dict:
-    """The ranks' MoE routes, their blocks side by side, against one
-    process's, call by call: the tokens whose top-k expert sets differ
+    """The ranks' MoE routes against one process's, call by call (their
+    blocks side by side, or, where each rank routed the gathered rows for
+    its experts, the rows, the same on every rank): the tokens whose
+    top-k expert sets differ
     (``flips``, and ``by_call`` in the order of the calls: each step's
     forward layer by layer, then its re-runs in the backward), the
     (token, slot) pairs those moved to another expert (``moved``), the
@@ -6724,7 +6777,13 @@ def split_route_flips(ranks, one) -> dict:
           f"calls, one process {n}")
     by_call, pairs, at_flips = [], 0, []
     for i, want in enumerate(one["routes"]):
-        got = torch.cat([r["routes"][i] for r in ranks], dim=1).long()
+        parts = [r["routes"][i] for r in ranks]
+        if parts[0].shape == want.shape:     # each rank routed the row
+            check(all(torch.equal(x, parts[0]) for x in parts[1:]),
+                  f"the ranks routed call {i}'s gathered rows apart")
+            got = parts[0].long()
+        else:                                # each rank its block
+            got = torch.cat(parts, dim=1).long()
         want = want.long()
         same = (got[..., :, None] == want[..., None, :]).any(-1).sum(-1)
         flipped = same < want.shape[-1]
@@ -6766,30 +6825,66 @@ def split_moe_gates(cfg, ranks, one, label: str, steps: int) -> dict:
     check(abs(sum(drops) - one_drops) <= f["moved"],
           f"{label}: the ranks dropped {sum(drops)} pairs, one process "
           f"{one_drops}, with {f['moved']} pairs moved by flips")
+    over = [r["leaf_gathers"]["experts_over_model"] for r in ranks]
+    check(over == [0] * len(ranks), f"{label}: expert leaves gathered "
+          f"over model {over} times a rank (each rank keeps its experts)")
     return {**f, "drops": drops, "one_drops": one_drops,
             "collectives_a_step": per_step}
 
 
+def split_moe_moves(ranks, steps: int, label: str) -> list:
+    """Per rank of a split MoE run: the GiB its layers' leaf gathers made
+    whole a step, the GiB of rows its MoE layers moved to its experts and
+    back a step (`moe._to_row` / `_to_block` and their gradients), its
+    peak, its step (the steps after the first) and its collectives a
+    step; printed and returned."""
+    out = []
+    for r, rec in enumerate(ranks):
+        leaf, rows = rec["leaf_gathers"], rec["token_moves"]
+        row = {"leaf_gib": leaf["bytes"] / steps / 2**30,
+               "leaf_gathers": leaf["count"] / steps,
+               "token_gib": rows["bytes"] / steps / 2**30,
+               "token_moves": rows["count"] / steps,
+               "peak_gib": rec["peak_gib"],
+               "step_ms": rec.get("step_mean_ms"),
+               "collectives": {k: v / steps for k, v in
+                               rec["collectives"].items()}}
+        step = ("" if row["step_ms"] is None else
+                f"; step {row['step_ms']:.1f} ms")
+        print(f"    {label} rank {r}: a step {row['leaf_gib']:.3f} GiB of "
+              f"leaves made whole ({row['leaf_gathers']:.0f} gathers), "
+              f"{row['token_gib']:.3f} GiB of rows moved to the experts "
+              f"and back ({row['token_moves']:.0f} moves); peak "
+              f"{row['peak_gib']:.2f} GiB{step}; collectives a step "
+              f"{row['collectives']}")
+        out.append(row)
+    return out
+
+
 def phase_split_moe(dev, dry=None) -> tuple[dict, dict]:
     """Phase 29: mixtral-8x22b and deepseek-v2-lite-16b with each
-    sequence split over a ``model`` axis of 2, the MoE's pair counts
-    gathered (each rank's pairs ranked row-globally) and MLA's latent
-    gathered.  (a) `phase_split_moe_kernels`.  (b) Both at
-    `split_moe_configs`' reduced float32 widths (TRAIN_SEQ x TRAIN_BATCH),
+    sequence split over a ``model`` axis of 2, each rank keeping its half
+    of the experts and the rows gathered to them (the outputs
+    reduce-scattered back), and MLA's latent gathered.  (a)
+    `phase_split_moe_kernels`.  (b) Both at `split_moe_configs`' reduced
+    float32 widths (TRAIN_SEQ x TRAIN_BATCH),
     two ranks sharing the card over gloo against one process, SPLIT_STEPS
     steps: each step's loss within 1e-5 relative, the ranks' first-step
     gradients gathered within GRAD_TOL of each leaf's largest one-process
     value, the launches exact (mixtral's flash at its window and offset,
-    none for MLA), the top-k flips and dropped pairs (`split_moe_gates`).
+    none for MLA), the top-k flips and dropped pairs and no expert leaf
+    gathered over ``model`` (`split_moe_gates`), each rank's leaf and row
+    GiB a step (`split_moe_moves`).
     (c) Both at full width, bf16, TRAIN_4K tokens, SPLIT_MOE_DEPTH layers,
     SPLIT_FULL_STEPS steps, one process and then two ranks: losses within
     2e-2 relative, the launches exact with every plain version refused,
     each rank's peak memory and step time, the dry run's bytes a rank
     against the measured peak (within DRY_RATIO), two ranks' peaks under
     SPLIT_TWO_RANKS_GIB where one layer more (the dry run's growth at the
-    measured scale) is not, (b)'s flips and drops.  ``dry`` is the running
-    `SplitDry` (one is started here without it).  Returns (c)'s rank-0
-    launches of both models summed and the phase's figures."""
+    measured scale) is not, (b)'s flips, drops, expert gathers and moves.
+    ``dry`` is the running `SplitDry` (one is started here without it).
+    Returns (c)'s rank-0 launches of both models summed and the phase's
+    figures."""
     dry = dry or SplitDry(("29",))
     try:
         return phase_split_moe_runs(dev, dry)
@@ -6860,7 +6955,9 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
                   f"{worst} of its largest value off (limit {GRAD_TOL})")
             figures["b"][arch] = {"losses": ranks[0]["losses"],
                                   "one": one["losses"], "rel": rel,
-                                  "grad_err": worst, **moe_figures}
+                                  "grad_err": worst, **moe_figures,
+                                  "moves": split_moe_moves(
+                                      ranks, SPLIT_STEPS, f"(b) {arch}")}
             del one, ranks
     finally:
         for _, pair in runs.values():
@@ -6909,6 +7006,7 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
         step_ms = statistics.mean(r["step_mean_ms"] for r in ranks)
         launches.update(ranks[0]["launches"])
         against = against_whole(label, cfg_c, ranks, SPLIT_FULL_STEPS)
+        moves = split_moe_moves(ranks, SPLIT_FULL_STEPS, label)
         deeper = dry_runs[arch, depth + 1][1]["mem_resident_gb"] * 1e9 / 2**30
         figures["c"][arch] = {
             "layers": depth, "losses": ranks[0]["losses"],
@@ -6919,7 +7017,7 @@ def phase_split_moe_runs(dev, dry: SplitDry) -> tuple[dict, dict]:
             "one_step_ms": one["step_mean_ms"],
             "launches": [r["launches"] for r in ranks],
             "backend": ranks[0]["backend"], **moe_figures,
-            "against_whole": against,
+            "against_whole": against, "moves": moves,
             "dry_run": dry_run_against(
                 cfg_c, mesh, TRAIN_4K, peak, step_ms,
                 f"{label}, a rank of the split", dry=dry_runs[arch, depth]),
@@ -7505,8 +7603,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase(f"[29] {MIXTRAL} and {DEEPSEEK} with each sequence split over a "
-          "model axis of 2, the MoE's pair counts and MLA's latent gathered "
-          "from rank to rank: the flash kernels where mixtral's window "
+          "model axis of 2, each rank keeping its experts, the rows and "
+          "MLA's latent gathered: the flash kernels where mixtral's window "
           "masks at an offset, two ranks against one process, reduced in "
           "float32 and at full width in bf16")
     moe_split_counts, moe_split_figures = phase_split_moe(dev, split_dry)

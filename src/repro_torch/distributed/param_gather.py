@@ -163,6 +163,17 @@ class ParamGather:
                                       "ported")
         return axes[0] if axes else None
 
+    def expert_axis(self, t: torch.Tensor):
+        """The mesh axis that shards dim 0 of leaf ``t`` (an MoE expert
+        dim) where it is the axis that splits the sequence, as the
+        training rules shard ``expert`` over ``model`` where E divides
+        over its ranks; None elsewhere.  An MoE layer's rank then keeps
+        its experts and brings the row's tokens to them
+        (`models.moe`)."""
+        spec = self.specs[id(t)]
+        axes = self.mesh.axes(spec[0]) if spec else ()
+        return axes[0] if len(axes) == 1 and axes[0] in self.sums else None
+
     def loss_axes(self, head: torch.Tensor) -> tuple:
         """The mesh axes the step sums a rank's loss over: the sequence's,
         less the vocab axis of ``head``, over which `vocab_nll`'s loss is
@@ -195,10 +206,15 @@ def bind(g: ParamGather | None):
         _state.gather = prev
 
 
+EXPERT_LEAVES = ("wg", "wu", "wd")   # an MoE layer's, beside its router
+
+
 def whole(tree):
     """``tree`` (a `ParamTree`, a dict, list or tuple, a tensor, anything
     else) with every bound leaf gathered whole, as plain dicts and lists
-    (a `ParamTree` would detach them); the tree itself without a
+    (a `ParamTree` would detach them), but an MoE layer's expert leaves
+    that `ParamGather.expert_axis` keeps sharded, which stay the rank's
+    shards for `models.moe` to gather; the tree itself without a
     binding."""
     g = current()
     return tree if g is None else _whole(tree, g)
@@ -208,14 +224,24 @@ def _whole(tree, g: ParamGather):
     if isinstance(tree, nn.ModuleList):
         return [_whole(m, g) for m in tree]
     if isinstance(tree, nn.Module):
-        out = {n: _whole(p, g) for n, p in tree._parameters.items()}
-        out.update({n: _whole(m, g) for n, m in tree._modules.items()})
-        return out
+        items = {**tree._parameters, **tree._modules}
+        return {k: _whole_item(k, v, "router" in items, g)
+                for k, v in items.items()}
     if isinstance(tree, dict):
-        return {k: _whole(v, g) for k, v in tree.items()}
+        return {k: _whole_item(k, v, "router" in tree, g)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_whole(v, g) for v in tree)
     return g.gather(tree) if g.bound(tree) else tree
+
+
+def _whole_item(key, v, moe: bool, g: ParamGather):
+    """`_whole` of a dict's item ``key``; ``moe``: the dict is an MoE
+    layer's (it holds a router)."""
+    if moe and key in EXPERT_LEAVES and g.bound(v) \
+            and g.expert_axis(v) is not None:
+        return v
+    return _whole(v, g)
 
 
 def vocab_sharded(t: torch.Tensor, dim: int) -> bool:
@@ -227,16 +253,24 @@ def vocab_sharded(t: torch.Tensor, dim: int) -> bool:
 
 class _ReduceScatter(torch.autograd.Function):
     """The ranks' sum of ``x``, this rank's slice along ``dim``; the
-    gradient all-gathered back (`seq_parallel._Gather`'s mirror)."""
+    gradient all-gathered back (`seq_parallel._Gather`'s mirror).  An
+    emulated split (no group) counts the same collectives and acts as if
+    every rank held this rank's tensors: the slice times the ranks."""
 
     @staticmethod
     def forward(ctx, x, s, dim):
         ctx.split, ctx.dim = s, dim
+        if s.group is None:
+            seq_parallel._COUNTS["reduce_scatter"] += 1
+            return x.chunk(s.size, dim)[s.rank] * s.size
         return seq_parallel.reduce_scatter(x, dim, s.group, s.size, s.rank)
 
     @staticmethod
     def backward(ctx, g):
         s = ctx.split
+        if s.group is None:
+            seq_parallel._COUNTS["all_gather"] += 1
+            return torch.cat([g] * s.size, dim=ctx.dim), None, None
         return seq_parallel.all_gather(g, ctx.dim, s.group, s.size), None, \
             None
 

@@ -12,8 +12,8 @@ its kernels, and counts:
     mesh above one card the split step's whole copies (`state_bytes`:
     the largest layer's leaves gathered in its forward and in its re-run
     and its whole gradient, the leaves read outside the layers whole all
-    step, the vocab-sharded table and head never whole,
-    `distributed.param_gather`);
+    step, the vocab-sharded table and head never whole, a rank's kept
+    experts whole over the other axes only, `distributed.param_gather`);
   * FLOPs (``FlopCounterMode``; a checkpointed layer's forward counted
     again, since the backward runs it again) and the bytes each op reads
     and writes (views move nothing), over the per-card block: the plain
@@ -35,7 +35,9 @@ rules split over ``model`` is traced as one rank of that split runs it
 and tokens together for a patch-input model, of the frames beside the
 tokens for the encoder-decoder; the K/V, the cross K/V, MLA's latent,
 the MoE's pair counts, the token shifts' rows and the scan states
-crossing the ranks by emulated all-gathers), so its activations are the
+crossing the ranks by emulated all-gathers; where the experts divide
+over the split, the rank's experts over the gathered rows, its partial
+outputs reduce-scattered back, `models.moe`), so its activations are the
 ones a card holds, and its per-layer collectives are counted
 (`split_halos`, `utils.hlo`).  Any other ``model`` axis above 1, which
 the port's step does not run (serving is not tensor-parallel), is taken
@@ -230,10 +232,12 @@ def _seq_split(cfg, shape, policy, accum: int):
     return seq_parallel.SeqSplit(None, 0, m, shape.seq_len // m)
 
 
-def split_halos(cfg, rows: int, size: int) -> tuple[int, dict[str, int],
-                                                    dict[str, int]]:
+def split_halos(cfg, rows: int, size: int,
+                experts_kept: bool = False) -> tuple[int, dict[str, int],
+                                                     dict[str, int]]:
     """What one rank's forward sends over a sequence split over ``size``
-    ranks, layer by layer (`distributed.seq_parallel`): (the attention
+    ranks, layer by layer (`distributed.seq_parallel`), the MoE's token
+    rows aside (`split_tokens`): (the attention
     layers, each gathering its K/V over the sequence, or MLA's latent
     (`split_kv_bytes`); {name: one rank's operand bytes} of the other
     gathers with a gradient: an RWKV-6 layer's two token shifts (a row of
@@ -242,7 +246,8 @@ def split_halos(cfg, rows: int, size: int) -> tuple[int, dict[str, int],
     SSD state with its decay, in float32; an encoder layer's K/V and a
     decoder layer's cross K/V over its block of the frames; {name: one
     rank's operand bytes} of the gathers without a gradient: an MoE
-    layer's pair counts per (row, expert), int64)."""
+    layer's pair counts per (row, expert), int64, where every rank holds
+    every expert, none where ``experts_kept``)."""
     from repro_torch.models.ssm import CONV_WIDTH
 
     item = getattr(torch, cfg.dtype).itemsize
@@ -264,10 +269,41 @@ def split_halos(cfg, rows: int, size: int) -> tuple[int, dict[str, int],
         frames = split_kv_bytes(cfg, rows, cfg.src_len) // size
         halos = {**{f"enc{i}.kv": frames for i in range(cfg.enc_layers)},
                  **{f"cross{i}.kv": frames for i in range(cfg.n_layers)}}
-    moe_layers = range(cfg.first_dense_layers, cfg.n_layers) \
-        if cfg.is_moe else ()
-    counts = {f"moe{i}.counts": rows * cfg.n_experts * 8 for i in moe_layers}
+    counts = {} if experts_kept else {
+        f"moe{i}.counts": rows * cfg.n_experts * 8 for i in _moe_layers(cfg)}
     return cfg.n_layers, halos, counts
+
+
+def _moe_layers(cfg):
+    return range(cfg.first_dense_layers, cfg.n_layers) if cfg.is_moe else ()
+
+
+def split_tokens(cfg, rows: int, seq: int) -> dict[str, int]:
+    """{name: a card's whole rows [rows, seq, d_model] in bytes} of each
+    MoE layer, which gathers them to its rank's experts and
+    reduce-scatters its partial outputs back where the ranks keep their
+    experts (`models.moe`)."""
+    whole = rows * seq * cfg.d_model * getattr(torch, cfg.dtype).itemsize
+    return {f"moe{i}.rows": whole for i in _moe_layers(cfg)}
+
+
+def kept_experts(policy, specs: dict, seq_axes) -> set:
+    """The MoE expert leaves whose dim 0 the (one) mesh axis splitting
+    the sequence shards (`ParamGather.expert_axis`): each rank keeps its
+    experts and brings the rows' tokens to them (`models.moe`)."""
+    from repro_torch.distributed.param_gather import EXPERT_LEAVES
+
+    sizes = mesh_shape(policy.mesh)
+    out = set()
+    for name, spec in specs.items():
+        parts = name.split(".")
+        if parts[-2:-1] != ["moe"] or parts[-1] not in EXPERT_LEAVES:
+            continue
+        entry = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+        axes = [a for a in entry if a is not None and sizes[a] > 1]
+        if len(axes) == 1 and axes[0] in seq_axes:
+            out.add(name)
+    return out
 
 
 def split_kv_bytes(cfg, rows: int, seq: int) -> int:
@@ -371,8 +407,9 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     zamba2's shared block) less theirs, whole all step; ``grads`` the
     shards' gradients (twice with the accumulator) and, whole, the
     largest layer's and the outside leaves'.  The vocab-sharded table and
-    head add no whole term.  On one card the gradients are the leaves'
-    and nothing is gathered."""
+    head add no whole term, and an MoE expert leaf a rank keeps
+    (`kept_experts`) only its copy gathered over the other axes.  On one
+    card the gradients are the leaves' and nothing is gathered."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     model = build_model(cfg)
@@ -403,6 +440,10 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     n_elems = sum(n_local.values())
     acc = 2 if accum > 1 else 1
     vaxis = vocab_axis(policy, specs["lm_head"])
+    split = _seq_split(cfg, shape, policy, accum) if kind == "train" \
+        else None
+    seq_axes = ("model",) if split else ()
+    kept = kept_experts(policy, specs, seq_axes)
     units: dict = {}
     outside = [0, 0]
     for n in named:
@@ -410,7 +451,8 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
             continue
         unit = layer_unit(n)
         into = outside if unit is None else units.setdefault(unit, [0, 0])
-        into[0] += full[n]
+        # a kept expert leaf is gathered over the other axes only
+        into[0] += full[n] // (split.size if n in kept else 1)
         into[1] += local[n]
     l_full, l_local = max(units.values(), default=[0, 0])
     many = _numel(mesh_shape(policy.mesh).values()) > 1
@@ -424,9 +466,8 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
                            if many else 0)
     coll = []
     if kind == "train":
-        split = _seq_split(cfg, shape, policy, accum)
-        attn_layers, halos, counts = split_halos(cfg, rows, split.size) \
-            if split else (0, {}, {})
+        attn_layers, halos, counts = split_halos(
+            cfg, rows, split.size, bool(kept)) if split else (0, {}, {})
         vocab = None
         if vaxis is not None:
             positions = rows * shape.seq_len
@@ -435,11 +476,13 @@ def state_bytes(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
                      * getattr(torch, cfg.dtype).itemsize,
                      "tokens": positions * 8, "stats": positions * 4}
         coll = step_collectives(
-            policy.mesh, specs, full, batch_axes,
-            seq_axes=("model",) if split else (), attn_layers=attn_layers,
+            policy.mesh, specs, full, batch_axes, seq_axes=seq_axes,
+            attn_layers=attn_layers,
             kv_bytes=split_kv_bytes(cfg, rows, shape.seq_len), halos=halos,
             counts=counts,
-            layer_leaves={n for n in named if layer_unit(n)}, vocab=vocab)
+            layer_leaves={n for n in named if layer_unit(n)}, vocab=vocab,
+            experts={"axis": "model", "leaves": kept} if kept else None,
+            tokens=split_tokens(cfg, rows, shape.seq_len) if kept else None)
     out["collectives"] = collective_wire_bytes(coll)
     return out
 

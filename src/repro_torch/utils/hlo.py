@@ -23,9 +23,14 @@ Where the sequence is split over ``model``, each attention layer
 also gathers its K/V over that axis twice a step (its forward and its
 checkpointed re-run) and reduce-scatters their gradient once (MLA its
 latent), and so does each recurrent layer with its token shifts' rows
-and its scan state (``halos``, `launch.dryrun.split_halos`); each MoE
-layer gathers its pair counts twice and has no gradient to scatter
-(``counts``).  Each is costed with the
+and its scan state (``halos``, `launch.dryrun.split_halos`).  Where the
+experts are sharded over that axis (``experts``: each rank keeps its
+own), they take no gather or reduction over it, and each MoE layer
+gathers its rows (``tokens``) twice, in its forward and its re-run, and
+reduce-scatters its partial outputs once (the re-run stops before it),
+each mirrored once in the backward; elsewhere each MoE layer gathers
+its pair counts twice and has no gradient to scatter (``counts``).
+Each is costed with the
 reference's ring formulas (per device, a group of k participants):
 
     all-reduce        2 * S * (k-1)/k     (reduce-scatter + all-gather phases)
@@ -75,7 +80,8 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
                      seq_axes=(), attn_layers: int = 0, kv_bytes: int = 0,
                      halos: dict | None = None,
                      counts: dict | None = None, layer_leaves=frozenset(),
-                     vocab: dict | None = None) -> list[CollectiveOp]:
+                     vocab: dict | None = None, experts: dict | None = None,
+                     tokens: dict | None = None) -> list[CollectiveOp]:
     """The collectives of one training step: ``specs`` and ``leaf_bytes``
     map each parameter leaf's path to its resolved spec and its full size
     in the gradient's dtype; ``batch_axes`` are the mesh axes the batch is
@@ -89,7 +95,10 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
     and the head's names, "rows": the bytes of the sequence's normed
     rows of a card's batch rows, "tokens": of their int64 token ids,
     "stats": of a float32 a position}) where the table and the head are
-    vocab-sharded."""
+    vocab-sharded; ``experts`` ({"axis", "leaves": their names}) the MoE
+    expert leaves a rank keeps sharded over the sequence's axis, and
+    ``tokens`` ({name: the bytes of a card's whole rows}) the MoE layers
+    that then bring the rows to them."""
     sizes = mesh_shape(mesh)
     reducing = [a for a in dict.fromkeys((*batch_axes, *seq_axes))
                 if sizes.get(a, 1) > 1]
@@ -119,15 +128,28 @@ def step_collectives(mesh, specs: dict, leaf_bytes: dict, batch_axes,
             ops.append(CollectiveOp("all-gather", one * m, one, m, name))
             ops.append(CollectiveOp("all-gather", one * m, one, m,
                                     f"{name} (remat)"))
+        for name, whole in (tokens or {}).items():
+            ops.append(CollectiveOp("all-gather", whole, whole // m, m,
+                                    name))
+            ops.append(CollectiveOp("all-gather", whole, whole // m, m,
+                                    f"{name} (remat)"))
+            ops.append(CollectiveOp("reduce-scatter", whole // m, whole, m,
+                                    f"d{name}"))
+            ops.append(CollectiveOp("reduce-scatter", whole // m, whole, m,
+                                    f"{name}.out"))
+            ops.append(CollectiveOp("all-gather", whole, whole // m, m,
+                                    f"d{name}.out"))
     for name, spec in specs.items():
         full = leaf_bytes[name]
         sharded = spec_axes(spec)
         axes = reducing
-        if vocab is not None and name in vocab["leaves"]:
-            full //= sizes[vocab["axis"]]
-            sharded = {a: d for a, d in sharded.items()
-                       if a != vocab["axis"]}
-            axes = [a for a in reducing if a != vocab["axis"]]
+        keep = (vocab["axis"] if vocab is not None and name in vocab["leaves"]
+                else experts["axis"] if experts is not None
+                and name in experts["leaves"] else None)
+        if keep is not None:
+            full //= sizes[keep]
+            sharded = {a: d for a, d in sharded.items() if a != keep}
+            axes = [a for a in reducing if a != keep]
         k = 1
         for axis in sharded:
             k *= sizes[axis]

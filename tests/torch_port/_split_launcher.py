@@ -218,10 +218,30 @@ def split_layers(cfg) -> int:
     return cfg.n_layers
 
 
-def count_layers(cfg) -> int:
-    """The layers of one forward that gather without a gradient: each MoE
-    layer its pair counts per (row, expert)."""
+def moe_layers(cfg) -> int:
+    """The MoE layers of one forward."""
     return cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+
+
+def experts_kept(cfg, n_model: int) -> bool:
+    """Whether the training rules shard the experts over a ``model`` axis
+    of ``n_model`` ranks, each MoE rank then keeping its experts and
+    bringing the row's tokens to them (`models.moe`)."""
+    return cfg.is_moe and n_model > 1 and cfg.n_experts % n_model == 0
+
+
+def count_layers(cfg, n_model: int) -> int:
+    """The layers of one forward that gather without a gradient: each MoE
+    layer its pair counts per (row, expert), where every rank holds every
+    expert."""
+    return 0 if experts_kept(cfg, n_model) else moe_layers(cfg)
+
+
+def token_layers(cfg, n_model: int) -> int:
+    """The layers of one forward that gather the row's tokens and
+    reduce-scatter the outputs back: each MoE layer, where the ranks keep
+    their experts."""
+    return moe_layers(cfg) if experts_kept(cfg, n_model) else 0
 
 
 def in_layer(path: str) -> bool:
@@ -239,14 +259,19 @@ def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
     steps, reckoned by hand: per step, each of `split_layers`'
     all-gathers in the forward and again in its checkpointed re-run, and
     its gradient's reduce-scatter, each of `count_layers`' gathers twice
-    and no reduce-scatter; per parameter and mesh axis above one card, a
+    and no reduce-scatter, each of `token_layers`' gather twice and its
+    reduce-scatter once (the re-run stops at the layer's last saved
+    tensor, before the reduce-scatter: non-reentrant checkpointing's early
+    stop), each mirrored once in the backward; per parameter and mesh
+    axis above one card, a
     gather of the parameter over an axis that shards it where its layer
     runs (twice for a layer's leaf, `in_layer`: the forward and the
     re-run; once for the others), a reduce-scatter of its gradient over
     an axis that shards and reduces it, an all-reduce over one that only
     reduces it (every axis reduces here: ``data`` the batch, ``model``
     the sequence); the embedding and the head, vocab-sharded over
-    ``model``, take no gather or reduction over it, but the embedding
+    ``model``, take no gather or reduction over it, nor do the experts
+    where `experts_kept` (each rank's are its own); the embedding
     gathers the tokens and reduce-scatters its rows (its backward
     gathers their gradient), and the loss gathers the normed rows (a
     reduce-scatter back) and the targets and all-reduces the rows'
@@ -271,10 +296,13 @@ def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
     axes = [a for a in ("data", "model") if sizes[a] > 1]
     per_step = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
     vocab = spec_axes(specs["lm_head"]).get("model") == 1 and n_model > 1
+    kept = experts_kept(cfg, n_model)
     for name, spec in specs.items():
         split = [a for a in spec_axes(spec) if sizes[a] > 1]
         reducing = axes
-        if vocab and name in ("embed", "lm_head"):
+        expert = kept and name.rsplit(".", 2)[-2:] in (
+            ["moe", "wg"], ["moe", "wu"], ["moe", "wd"])
+        if (vocab and name in ("embed", "lm_head")) or expert:
             split = [a for a in split if a != "model"]
             reducing = [a for a in axes if a != "model"]
         per_step["all_gather"] += (2 if in_layer(name) else 1) * len(split)
@@ -282,8 +310,10 @@ def expected_counts(arch: str, n_model: int, n_data: int) -> dict:
         per_step["all_reduce"] += len(reducing) - len(split)
     if n_model > 1:
         per_step["all_gather"] += 2 * (split_layers(cfg)
-                                       + count_layers(cfg))
-        per_step["reduce_scatter"] += split_layers(cfg)
+                                       + count_layers(cfg, n_model)) \
+            + 3 * token_layers(cfg, n_model)
+        per_step["reduce_scatter"] += split_layers(cfg) \
+            + 2 * token_layers(cfg, n_model)
     if vocab:
         per_step["all_gather"] += 2 + 2     # tokens, dX; rows, targets
         per_step["reduce_scatter"] += 1 + 1     # embeddings; d rows

@@ -217,6 +217,78 @@ def test_state_bytes_by_hand():
                 coll["reduce-scatter"] - attn - 2 * rows * 15 / 16)
 
 
+@pytest.mark.parametrize("arch,layers", [("mixtral-8x22b", 1),
+                                         ("deepseek-v2-lite-16b", 3)])
+def test_split_moe_state_bytes_keep_the_experts(arch, layers):
+    """Full width, cut depth, ``train_4k``'s 4,096 tokens, batch 1, on
+    (1, 2), as phase 29c's dry run: the experts' dim 0 is sharded over
+    ``model``, which splits the sequence, so each rank keeps its experts
+    and ``gathered`` holds the largest layer's other leaves less their
+    shards (twice) and the final norm less its shard, by hand; the
+    collectives gather no expert leaf, and each MoE layer's rows
+    [1, 4,096, d_model] bf16 are gathered three times (the forward, the
+    re-run, the outputs' gradient) and reduce-scattered twice (their
+    gradient, the outputs)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    shape = ShapeConfig("train_4k", "train", 4096, 1)
+    mesh = AbstractMesh((1, 2), ("data", "model"))
+    policy = dryrun.build_policy(mesh, "train", "train_4k")
+    got = dryrun.state_bytes(cfg, shape, policy, accum=1)
+    model = build_model(cfg)
+    with FakeTensorMode():
+        leaves = [(n, tuple(p.shape)) for n, p in model.init(
+            torch.Generator().manual_seed(0)).named_parameters()]
+    axes = sharding.axes_by_path(model.param_axes())
+    units, norm, experts, shards, ops = {}, (0, 0), 0, 0, 0
+    for name, dims in leaves:
+        spec = policy.param_spec(axes[name], dims)
+        full = 2 * torch.Size(dims).numel()
+        local = 2 * torch.Size(sharding.local_shape(mesh, spec,
+                                                     dims)).numel()
+        shards += local
+        if name in ("embed", "lm_head"):         # vocab-sharded: no ops
+            continue
+        if name.split(".")[-2:-1] == ["moe"] and name.endswith(
+                (".wg", ".wu", ".wd")):
+            assert spec[0] == "model"             # E divides over 2
+            experts += full
+            full = local                # kept: no ops, no whole copy
+        else:
+            # over model: gathered (twice in a layer) and reduce-scattered;
+            # else all-reduced
+            ops += (2 if name.startswith("stack") else 1) + 1 \
+                if "model" in sharding.spec_axes(spec) else 1
+        if name.startswith("stack"):
+            unit = units.setdefault(".".join(name.split(".")[:2]), [0, 0])
+            unit[0] += full
+            unit[1] += local
+        else:
+            assert name == "final_norm"
+            norm = (full, local)
+    l_full, l_local = max(units.values())
+    assert got["params"] == shards
+    assert got["gathered"] == 2 * (l_full - l_local) + norm[0] - norm[1]
+    assert got["grads"] == shards + l_full + norm[0]
+    # the experts are most of a MoE layer's bytes (96 % of mixtral's
+    # layer, 93 % of deepseek's at 7 layers), now never made whole
+    assert 0 < got["gathered"] < 0.1 * experts
+    # per layer the attention's K/V (3 ops), per MoE layer its rows (5:
+    # gathered in the forward and the re-run, the outputs reduce-scattered
+    # once, each mirrored in the backward), the vocab ops (8)
+    moe = cfg.n_layers - cfg.first_dense_layers
+    coll = got["collectives"]
+    assert coll["count"] == ops + 3 * cfg.n_layers + 5 * moe + 8
+    rows = 4096 * cfg.d_model * 2            # [1, 4,096, d_model] bf16
+    plain = dryrun.state_bytes(dataclasses.replace(cfg, n_experts=3),
+                               shape, policy, accum=1)["collectives"]
+    assert coll["reduce-scatter"] >= 2 * moe * rows / 2 and plain[
+        "reduce-scatter"] > coll["reduce-scatter"] - 2 * moe * rows / 2
+
+
 @pytest.mark.parametrize("arch", list_archs())
 def test_decode_cell_cache_bytes_by_hand(arch):
     """A decode cell's per-card cache: every ``init_cache`` leaf under the
@@ -359,31 +431,63 @@ def test_split_step_collectives_by_hand(n_data):
 def test_split_collectives_match_the_counted_step(arch):
     """A train cell split over model = 2: the plan's per-layer gathers
     (`dryrun.split_halos`: the K/V or MLA's latent, the recurrent halos,
-    the MoE's pair counts, the encoder's K/V and the cross K/V over a
-    block of frames) are the ones one rank's traced step issues
-    (`seq_parallel.collective_counts`; the trace runs each layer once, so
-    the plan's re-run gathers are not in it), each reduce-scatter of the
-    plan one of the step's (the counts have none), and the bytes a layer
-    by hand."""
+    the MoE's pair counts where the experts do not divide over the ranks,
+    the encoder's K/V and the cross K/V over a block of frames;
+    `dryrun.split_tokens`: the MoE's rows gathered to each rank's experts
+    and the outputs reduce-scattered back where they do) are the ones
+    one rank's traced step issues (`seq_parallel.collective_counts`; the
+    trace runs each layer once, so the plan's re-run gathers are not in
+    it), each reduce-scatter of the plan one of the step's (the counts
+    have none), and the bytes a layer by hand."""
     from repro_torch.distributed import seq_parallel
 
-    cfg = _reduced(arch)
+    base = _reduced(arch)
     shape = ShapeConfig("t", "train", 64, 4)
     mesh = AbstractMesh((1, 2), ("data", "model"))
     policy = dryrun.build_policy(mesh, "train", "t")
-    seq_parallel.reset_collective_counts()
-    dryrun.trace_cell(cfg, shape, policy, accum=1)
-    counted = seq_parallel.collective_counts()
-    attn_layers, halos, counts = dryrun.split_halos(cfg, 4, 2)
-    ops = step_collectives(mesh, {}, {}, [], seq_axes=("model",),
-                           attn_layers=attn_layers, kv_bytes=1024,
-                           halos=halos, counts=counts)
-    gathers = [c for c in ops if c.op == "all-gather"]
-    assert counted == {
-        "all_gather": sum("(remat)" not in c.computation for c in gathers),
-        "reduce_scatter": sum(c.op == "reduce-scatter" for c in ops),
-        "all_reduce": 0}
-    assert len(gathers) == 2 * counted["all_gather"] > 0
+    # an MoE model's 4 experts divide over 2 ranks (each keeps its own and
+    # the rows come to them); 3 do not (the counts path)
+    for cfg in [base] + ([dataclasses.replace(base, n_experts=3)]
+                         if base.is_moe else []):
+        kept = cfg.is_moe and cfg.n_experts % 2 == 0
+        seq_parallel.reset_collective_counts()
+        dryrun.trace_cell(cfg, shape, policy, accum=1)
+        counted = seq_parallel.collective_counts()
+        attn_layers, halos, counts = dryrun.split_halos(cfg, 4, 2, kept)
+        tokens = dryrun.split_tokens(cfg, 4, 64) if kept else {}
+        ops = step_collectives(mesh, {}, {}, [], seq_axes=("model",),
+                               attn_layers=attn_layers, kv_bytes=1024,
+                               halos=halos, counts=counts, tokens=tokens)
+        gathers = [c for c in ops if c.op == "all-gather"]
+        assert counted == {
+            "all_gather": sum("(remat)" not in c.computation
+                              for c in gathers),
+            "reduce_scatter": sum(c.op == "reduce-scatter" for c in ops),
+            "all_reduce": 0}
+        # the re-run repeats every forward gather; the backward's gather of
+        # the MoE outputs' gradient has no twin
+        remat = [c for c in gathers if "(remat)" in c.computation]
+        assert len(remat) == counted["all_gather"] - len(tokens) > 0
+        moe_layers = [f"moe{i}" for i in range(cfg.first_dense_layers,
+                                                 cfg.n_layers)] \
+            if cfg.is_moe else []
+        if kept:          # the card's rows [B, S, D] a layer, float32
+            assert counts == {} and list(tokens) == [
+                f"{n}.rows" for n in moe_layers]
+            assert set(tokens.values()) == {4 * 64 * cfg.d_model * 4}
+            assert sorted(c.computation for c in ops
+                          if c.op == "reduce-scatter" and "rows" in
+                          c.computation) == sorted(
+                x for n in moe_layers for x in (f"d{n}.rows",
+                                                f"{n}.rows.out"))
+        elif cfg.is_moe:  # [B, E] int64 a layer past the dense ones
+            assert list(counts) == [f"{n}.counts" for n in moe_layers]
+            assert set(counts.values()) == {4 * cfg.n_experts * 8}
+            assert not [c for c in ops if c.op == "reduce-scatter"
+                        and "counts" in c.computation]
+        else:
+            assert counts == {} and tokens == {}
+    cfg = base
     h, ds = cfg.ssm_heads, cfg.ssm_state
     if arch == "rwkv6-3b":       # [B, H, dk, dk] and [B, H, dk], float32
         assert halos["rwkv0.state"] == 4 * h * (ds * ds + ds) * 4
@@ -402,14 +506,6 @@ def test_split_collectives_match_the_counted_step(arch):
         assert attn_layers == cfg.n_layers
     else:
         assert halos == {} and attn_layers == cfg.n_layers
-    if cfg.is_moe:               # [B, E] int64 a layer past the dense ones
-        assert list(counts) == [f"moe{i}.counts" for i in range(
-            cfg.first_dense_layers, cfg.n_layers)]
-        assert set(counts.values()) == {4 * cfg.n_experts * 8}
-        assert not [c for c in ops if c.op == "reduce-scatter"
-                    and "counts" in c.computation]
-    else:
-        assert counts == {}
     # the bytes an attention layer's gather makes whole: K/V, or the latent
     width = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn_kind == "mla"
              else 2 * cfg.n_kv_heads * cfg.hd)

@@ -6,16 +6,25 @@ Checked:
 
 * (a) the MoE mixer: ``moe_ffn_sort`` split over 2 ranks of 37 tokens
   and 4 of 16 (gloo groups over a ``HashStore``, one thread a rank, so
-  the counts' gathers run for real), at mixtral's 8 experts top-2 and
+  the collectives run for real), at mixtral's 8 experts top-2 and
   deepseek's 64 top-6 with 2 shared experts, the capacity factor cut to
   0.75 and one expert made popular, so that pairs that a rank's own
   counts would keep are dropped for the pairs of the ranks before it
   (asserted from the reference's routes: the test cannot pass without
-  such a drop); each rank's output against the reference's
-  ``moe_ffn_sort`` over the whole sequence within 1e-6 of its largest
-  magnitude, dx and the ranks' summed parameter gradients against
-  ``jax.vjp`` within 1e-5 of each one's largest; one counts gather a
-  rank and no reduce-scatter;
+  such a drop), each against the reference's ``moe_ffn_sort`` over the
+  whole sequence: outputs within 1e-6 of the largest magnitude, dx and
+  gradients within 1e-5 of each one's largest.  With whole weights on
+  every rank (no binding), the ranks' summed parameter gradients; one
+  counts gather a rank and no reduce-scatter.  Under a ``ParamGather``
+  binding with the training rules' specs (the experts sharded over
+  ``model``), each rank's shard gradients against the matching slices
+  of ``jax.vjp``'s; each owner's bucket the reference's bucket cut to
+  its experts, bit for bit; a token gather and a reduce-scatter a call,
+  mirrored in the backward, beside the leaf gathers, and no expert leaf
+  gathered over ``model``.  With 6 experts on 4 ranks (the training
+  rules leave the expert dim whole) the binding takes the counts path.
+  ``moe_ffn_onehot`` under the expert layout against the reference's,
+  and its raise where the layout does not apply;
 * (b) MLA: ``attend_parallel_plain`` with a query offset at MLA's widths
   (dk != dv) against the reference's ``attend_parallel(q_offset=...)``,
   offset 0 the same bits as the call without one; ``mla_parallel`` on
@@ -37,6 +46,8 @@ Checked:
   every step's loss within 2e-6 relative of the one process's and every
   parameter after 3 steps within 1e-4 of it; the collectives reckoned
   by hand (`expected_counts`: two counts gathers a MoE layer and step,
+  each MoE layer's token gather and reduce-scatter in its forward, its
+  re-run and its backward, its experts gathered over ``data`` alone,
   MLA's latent as an attention layer's K/V).
 """
 import jax
@@ -50,7 +61,13 @@ from repro import configs as jax_configs  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import moe as jax_moe  # noqa: E402
 from repro_torch import configs  # noqa: E402
-from repro_torch.distributed import seq_parallel  # noqa: E402
+from repro_torch.distributed import param_gather, seq_parallel  # noqa: E402
+from repro_torch.distributed.param_gather import (ParamGather,  # noqa: E402
+                                                  StepMesh)
+from repro_torch.distributed.sharding import (TRAIN_PARAM_RULES,  # noqa: E402
+                                              TRAIN_RULES, ShardingPolicy,
+                                              axes_by_path)
+from repro_torch.launch.mesh import AbstractMesh  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
@@ -167,10 +184,12 @@ def straddling_drops(idx, m: int, c: int, e: int) -> tuple[int, int]:
     return dropped, straddle
 
 
-@pytest.mark.parametrize("m,s_local", SPLITS)
-@pytest.mark.parametrize("arch", list(MIXERS))
-def test_split_moe_matches_whole_sequence_dispatch(arch, m, s_local):
-    jcfg, pcfg = both(arch, capacity_factor=CF, **MIXERS[arch])
+def mixer_inputs(arch, m, s_local, **over):
+    """(reference config, port config, reference parameters, x, the
+    output's cotangent) of (a)'s mixer at ``arch`` over m ranks of
+    ``s_local`` tokens, one expert made popular, with drops that straddle
+    a rank boundary (asserted)."""
+    jcfg, pcfg = both(arch, capacity_factor=CF, **{**MIXERS[arch], **over})
     shapes = jax.eval_shape(lambda key: jax_moe.moe_init(key, jcfg,
                                                          jnp.float32),
                             jax.random.PRNGKey(0))
@@ -187,7 +206,13 @@ def test_split_moe_matches_whole_sequence_dispatch(arch, m, s_local):
     dropped, straddle = straddling_drops(np.asarray(idx), m, c,
                                          jcfg.n_experts)
     assert dropped > 0 and straddle > 0, (dropped, straddle)
+    return jcfg, pcfg, jp, x, d_out
 
+
+@pytest.mark.parametrize("m,s_local", SPLITS)
+@pytest.mark.parametrize("arch", list(MIXERS))
+def test_split_moe_matches_whole_sequence_dispatch(arch, m, s_local):
+    jcfg, pcfg, jp, x, d_out = mixer_inputs(arch, m, s_local)
     counts, *figures = split_against_whole(
         m, [x], d_out,
         lambda p, x: jax_moe.moe_ffn_sort(p, x, jcfg), jp,
@@ -198,10 +223,223 @@ def test_split_moe_matches_whole_sequence_dispatch(arch, m, s_local):
     assert_close(*figures)
 
 
-def test_onehot_dispatch_raises_on_a_split():
-    """The reference's comparison path has no split form: it raises with
-    its ROADMAP item rather than give a block a capacity of its own."""
-    jcfg, pcfg = both(MIXTRAL)
+def expert_specs(pcfg, m: int) -> dict:
+    """{dotted path: spec} of the MoE leaves under the training rules on a
+    (1, m) mesh, as the step resolves them."""
+    policy = ShardingPolicy(AbstractMesh((1, m), ("data", "model")),
+                            acts=TRAIN_RULES, params=TRAIN_PARAM_RULES)
+    axes = axes_by_path({"moe": moe.moe_axes(pcfg)})
+    leaves = flat(moe.moe_init(pcfg, torch.float32,
+                               generator=torch.Generator().manual_seed(0)))
+    return {k: policy.param_spec(axes[f"moe.{k}"], tuple(v.shape))
+            for k, v in leaves.items()}
+
+
+def rank_block(t, spec, m: int, r: int):
+    """Rank r's block of ``t`` under ``spec`` on a (1, m) mesh."""
+    for dim, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+            t = t.tensor_split(m, dim)[r]
+    return t
+
+
+def bound_split_against_whole(m, x, d_out, jax_fn, jp, port_fn, specs,
+                              monkeypatch):
+    """``port_fn(p, block)`` on each of m ranks' blocks of ``x`` with the
+    block's share of the cotangent, the rank handed its shards of ``jp``
+    under ``specs`` in a `ParamGather` binding (the sequence split over
+    ``model``) and the layer's leaves made whole by `param_gather.whole`,
+    against ``jax_fn(params, x)`` over the whole sequence and its
+    ``jax.vjp``: (the collectives, the ranks' keep axes of each leaf's
+    gathers, the blocks' outputs concatenated, dx concatenated, each
+    rank's shard gradients, the reference's output, dx and parameter
+    gradients by path)."""
+    def reference(p, x, cot):
+        out, vjp = jax.vjp(jax_fn, p, x)
+        return out, vjp(cot)
+
+    want, (want_dp, want_dx) = jax.jit(reference)(jp, x, d_out)
+    blocks, d_blocks = np.split(x, m, axis=1), np.split(d_out, m, axis=1)
+    keeps: dict = {}
+    gather = ParamGather.gather
+
+    def recorded(self, t, keep=None):
+        name = [k for k, v in self.names.items() if v is t][0]
+        keeps.setdefault(seq_parallel.current().rank, []).append(
+            (name, keep))
+        return gather(self, t, keep)
+
+    monkeypatch.setattr(ParamGather, "gather", recorded)
+
+    def rank_step(r):
+        group = seq_parallel.current().group
+        mesh = StepMesh({"data": 1, "model": m}, {"model": group},
+                        {"model": r})
+        shards = {k: rank_block(v, specs[k], m, r).clone()
+                  .requires_grad_(True)
+                  for k, v in flat(to_port(jp)).items()}
+        names = sorted(shards)
+        g = ParamGather(mesh, [shards[k] for k in names],
+                        [specs[k] for k in names], ("model",), ())
+        g.names = shards
+        xr = torch.from_numpy(blocks[r]).requires_grad_(True)
+        with param_gather.bind(g):
+            out = port_fn(param_gather.whole(unflat(shards)), xr)
+        grads = torch.autograd.grad(out, [xr, *(shards[k] for k in names)],
+                                    torch.from_numpy(d_blocks[r]))
+        assert g.missed([shards[k] for k in names]) == []
+        return out.detach(), grads[0], dict(zip(names, grads[1:]))
+
+    seq_parallel.reset_collective_counts()
+    res = over_ranks(m, x.shape[1] // m, rank_step)
+    counts = seq_parallel.collective_counts()
+    return (counts, keeps, torch.cat([o for o, _, _ in res], 1),
+            torch.cat([dx for _, dx, _ in res], 1), [dp for _, _, dp in res],
+            want, want_dx, flat(want_dp))
+
+
+def reference_bucket(jp, x, jcfg, monkeypatch) -> np.ndarray:
+    """The reference's ``moe_ffn_sort`` bucket xe [B, E, C, D] over the
+    whole sequence."""
+    seen = []
+    with monkeypatch.context() as mp:
+        ffn = jax_moe._expert_ffn
+        mp.setattr(jax_moe, "_expert_ffn",
+                   lambda p, xe: seen.append(np.asarray(xe)) or ffn(p, xe))
+        jax_moe.moe_ffn_sort(jp, jnp.asarray(x), jcfg)
+    return seen[0]
+
+
+def expert_buckets(monkeypatch) -> dict:
+    """{rank: (the bucket xe its experts ran over, its experts' wg)},
+    filled by the port's ``moe._expert_ffn`` as the ranks call it."""
+    seen = {}
+    ffn = moe._expert_ffn
+
+    def recorded(w, xe):
+        seen[seq_parallel.current().rank] = (xe.detach().clone(),
+                                             w["wg"].detach())
+        return ffn(w, xe)
+
+    monkeypatch.setattr(moe, "_expert_ffn", recorded)
+    return seen
+
+
+def leaf_collectives(specs, keep: bool) -> tuple[int, int]:
+    """The leaf collectives over ``model`` a rank's call makes, the experts
+    left out where ``keep``: (the leaves ``model`` shards, each gathered
+    and its gradient reduce-scattered, the others, each gradient
+    all-reduced)."""
+    split = [k for k in specs
+             if not (keep and k in param_gather.EXPERT_LEAVES)]
+    n = sum(1 for k in split if "model" in sharding_axes(specs[k]))
+    return n, len(split) - n
+
+
+def sharding_axes(spec) -> set:
+    return {a for e in spec for a in (e if isinstance(e, tuple) else (e,))
+            if a is not None}
+
+
+@pytest.mark.parametrize("m,s_local", SPLITS)
+@pytest.mark.parametrize("arch", list(MIXERS))
+def test_expert_layout_brings_the_row_to_each_ranks_experts(
+        arch, m, s_local, monkeypatch):
+    """The training rules shard the experts over ``model``: each rank runs
+    its E / M experts over the whole row's bucket, the reference's cut to
+    them bit for bit, and reduce-scatters the outputs back."""
+    jcfg, pcfg, jp, x, d_out = mixer_inputs(arch, m, s_local)
+    e = jcfg.n_experts
+    specs = expert_specs(pcfg, m)
+    assert all(specs[k][0] == "model" for k in param_gather.EXPERT_LEAVES)
+    bucket = reference_bucket(jp, x, jcfg, monkeypatch)
+    seen = expert_buckets(monkeypatch)
+    (counts, keeps, got, got_dx, got_dp, want, want_dx,
+     want_dp) = bound_split_against_whole(
+        m, x, d_out, lambda p, x: jax_moe.moe_ffn_sort(p, x, jcfg), jp,
+        lambda p, x: moe.moe_ffn_sort(p, x, pcfg), specs, monkeypatch)
+    assert rel(got, want) <= OUT_TOL, rel(got, want)
+    assert rel(got_dx, want_dx) <= GRAD_TOL, rel(got_dx, want_dx)
+    for r, dp in enumerate(got_dp):
+        for k, g in dp.items():
+            w = rank_block(torch.from_numpy(np.array(want_dp[k])),
+                           specs[k], m, r)
+            assert g.shape == w.shape and rel(g, w) <= GRAD_TOL, (
+                r, k, rel(g, w))
+        xe, wg = seen[r]
+        assert wg.shape[0] == e // m
+        assert torch.equal(xe, torch.from_numpy(np.array(
+            bucket[:, r * e // m:(r + 1) * e // m])))
+        # the experts gathered over data alone (none here), never model
+        assert sorted(k for k, keep in keeps[r] if keep == "model") == \
+            sorted(param_gather.EXPERT_LEAVES)
+    # a token gather and a reduce-scatter a call, each mirrored in the
+    # backward, beside each other leaf's gather and reduce-scatter
+    n, whole = leaf_collectives(specs, keep=True)
+    assert counts == {"all_gather": m * (2 + n),
+                      "reduce_scatter": m * (2 + n), "all_reduce": m * whole}
+
+
+def test_expert_layout_needs_the_experts_to_divide(monkeypatch):
+    """6 experts on 4 ranks: the training rules leave the expert dim
+    whole, every rank gathers the experts whole and runs all of them on
+    its own kept pairs, ranked after the earlier ranks' counts."""
+    m, s_local = 4, 16
+    jcfg, pcfg, jp, x, d_out = mixer_inputs(MIXTRAL, m, s_local,
+                                            n_experts=6)
+    specs = expert_specs(pcfg, m)
+    assert all(specs[k][0] is None for k in param_gather.EXPERT_LEAVES)
+    seen = expert_buckets(monkeypatch)
+    (counts, keeps, got, got_dx, got_dp, want, want_dx,
+     want_dp) = bound_split_against_whole(
+        m, x, d_out, lambda p, x: jax_moe.moe_ffn_sort(p, x, jcfg), jp,
+        lambda p, x: moe.moe_ffn_sort(p, x, pcfg), specs, monkeypatch)
+    assert rel(got, want) <= OUT_TOL, rel(got, want)
+    assert rel(got_dx, want_dx) <= GRAD_TOL, rel(got_dx, want_dx)
+    for r, dp in enumerate(got_dp):
+        for k, g in dp.items():
+            w = rank_block(torch.from_numpy(np.array(want_dp[k])),
+                           specs[k], m, r)
+            assert rel(g, w) <= GRAD_TOL, (r, k, rel(g, w))
+        assert seen[r][1].shape[0] == 6
+        assert all(keep is None for _, keep in keeps[r])
+    # each leaf model shards gathered whole (the router's gradient, whole,
+    # all-reduced), and the counts gathered once
+    n, whole = leaf_collectives(specs, keep=False)
+    assert whole == 1 and counts == {"all_gather": m * (1 + n),
+                                     "reduce_scatter": m * n,
+                                     "all_reduce": m * whole}
+
+
+@pytest.mark.parametrize("arch", list(MIXERS))
+def test_onehot_dispatch_on_a_split_matches_reference(arch, monkeypatch):
+    """The reference's comparison path under the expert layout: the
+    one-hot positions over the gathered row for the rank's experts."""
+    m, s_local = 2, 37
+    jcfg, pcfg, jp, x, d_out = mixer_inputs(arch, m, s_local)
+    (counts, keeps, got, got_dx, got_dp, want, want_dx,
+     want_dp) = bound_split_against_whole(
+        m, x, d_out, lambda p, x: jax_moe.moe_ffn_onehot(p, x, jcfg), jp,
+        lambda p, x: moe.moe_ffn(p, x, pcfg, mode="onehot"),
+        expert_specs(pcfg, m), monkeypatch)
+    assert rel(got, want) <= OUT_TOL, rel(got, want)
+    assert rel(got_dx, want_dx) <= GRAD_TOL, rel(got_dx, want_dx)
+    specs = expert_specs(pcfg, m)
+    for r, dp in enumerate(got_dp):
+        for k, g in dp.items():
+            w = rank_block(torch.from_numpy(np.array(want_dp[k])),
+                           specs[k], m, r)
+            assert rel(g, w) <= GRAD_TOL, (r, k, rel(g, w))
+    n, whole = leaf_collectives(specs, keep=True)
+    assert counts == {"all_gather": m * (2 + n),
+                      "reduce_scatter": m * (2 + n), "all_reduce": m * whole}
+
+
+def test_onehot_dispatch_raises_without_the_expert_layout():
+    """Where every rank holds every expert (no binding, E not divisible
+    by the split), a block would get a capacity and positions of its
+    own: the one-hot path raises, and names that case."""
+    jcfg, pcfg = both(MIXTRAL, n_experts=6)
     shapes = jax.eval_shape(lambda key: jax_moe.moe_init(key, jcfg,
                                                          jnp.float32),
                             jax.random.PRNGKey(0))
@@ -209,9 +447,10 @@ def test_onehot_dispatch_raises_on_a_split():
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (1, 8, pcfg.d_model)).astype(np.float32))
     moe.moe_ffn(p, x, pcfg, mode="onehot")            # whole: runs
-    with seq_parallel.split(seq_parallel.SeqSplit(None, 1, 2, 8)):
+    with seq_parallel.split(seq_parallel.SeqSplit(None, 1, 4, 8)):
         with pytest.raises(NotImplementedError,
-                           match="'One-hot dispatch on a split'"):
+                           match="runs only where the step's binding "
+                                 "shards the experts"):
             moe.moe_ffn(p, x, pcfg, mode="onehot")
 
 
