@@ -274,9 +274,14 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     largest plain output.
 23b. Both scans' backward kernels (``wkv6_bwd``, ``ssd_bwd``) against
     their plain versions (autograd through the plain forwards) at the
-    same head layouts, batch 2, float32 and bf16, at S = 61 and 512
-    without s0 and dsT and with both, at 4,096 without them (the training
-    shape), and at S = 512 under the strong decays: each gradient within
+    same head layouts, batch 2, float32 and bf16, at S = 61 (every state
+    kept), 512 and 4,096 (the training shape; 2 and 16 segments of 16
+    chunks) without s0 and dsT and with both, and at S = 512 under the
+    strong decays; where the forward keeps every 16th state (the
+    reference's checkpoints: the whole-state run's states at every 16th
+    chunk, the output the same bits), the backward from them equal to the
+    backward from every state bit for bit, the saved state bytes and each
+    backward's scratch printed for both: each gradient within
     1e-4 (float32) / 3e-2 (bf16) of its largest plain magnitude, each
     row (a token and head of dr / dk / dv / dlog_w / dx, a token of dB /
     dC) within 2e-2 of its own largest plain value, counted as at least
@@ -373,7 +378,8 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     of 64 with a state of 64; 2,048 tokens; float32 and bf16): the
     forward from a stored state under phase 10's gates, the backward
     with both the final state's and the incoming state's gradients under
-    phase 23b's; the flash kernels at zamba2-7b's shared block (32 / 32
+    phase 23b's, from the checkpoints (8 segments, as training runs it)
+    bit for bit against from every state; the flash kernels at zamba2-7b's shared block (32 / 32
     heads of 112, offsets 0 and 2,048) under phase 27a's.  (b) Both
     models at phase 24's reduced float32 widths, two ranks against one
     process under phase 27b's gates, each scan launched twice a layer
@@ -438,9 +444,14 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     27c, 28c, 29c and 30c, ``family_replays`` and
     ``encdec_vlm_replays`` the attention kernels' figures at phase 21's
     and phases 22–23's model-level calls, ``training_replays`` each
-    backward kernel's at phase 25's calls, ``split_window`` the flash
-    kernels' at phase 29a's call, ``split_encdec_vlm`` at phase 30a's)
-    and the device line last.
+    backward kernel's at phase 25's calls (the scans' from the
+    checkpoints: rows 5c / 6c), ``checkpointed`` the scan backwards' at
+    phase 23b's 4,096-token calls with the whole-state call's device ms,
+    the saved state bytes and the scratch of both, ``split_checkpointed``
+    theirs at phase 28a's calls from the checkpoints and from every state
+    (rows 5co / 6co, 5bo / 6bo), ``split_window`` the flash kernels' at
+    phase 29a's call, ``split_encdec_vlm`` at phase 30a's) and the device
+    line last.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -545,6 +556,11 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
                            "wkv6_bwd_du_kernel"),
               "ssd_bwd": ("ssd_bwd_reverse_kernel", "ssd_bwd_intra_kernel",
                           "ssd_bwd_sum_kernel", "ssd_bwd_head_kernel")}
+# a backward from the checkpoints also runs its forward's two passes, once
+# a segment, to recompute the segment's states
+OP_KERNELS.update({f"{op}_bwd_checkpointed": (*OP_KERNELS[f"{op}_bwd"],
+                                              *OP_KERNELS[op])
+                   for op in ("wkv6", "ssd")})
 
 
 PROFILE_TRIES = 3                  # traces of one op before events
@@ -623,24 +639,26 @@ def queued_event_ms(calls) -> float:
     return total
 
 
-def device_ms(calls, op: str) -> tuple[float, str]:
+def device_ms(calls, op: str, launches=None) -> tuple[float, str]:
     """Device milliseconds per call of ``op`` (a key of OP_KERNELS) over
     ``calls`` (zero-argument callables, each one call of the op): the mean
     CUDA time of each of the op's kernels in a ``torch.profiler`` trace,
+    times its launches per call (``launches``, by stem; 1 where absent),
     summed over the kernels one call launches.  A trace counts only if it
-    holds a record of each of the op's kernels for every call traced (each
-    stem of OP_KERNELS launches once per call); the profiler sometimes
-    drops records after long traces of other work, and a mean over the
-    records it kept is not the mean over the calls.  After
-    ``PROFILE_TRIES`` short traces the time comes from CUDA events with
-    the host run ahead (``queued_event_ms``).  Returns the time and its
-    source, "profiler" or "events", which every figure keeps beside it."""
+    holds every launch of each of the op's kernels for every call traced;
+    the profiler sometimes drops records after long traces of other work,
+    and a mean over the records it kept is not the mean over the calls.
+    After ``PROFILE_TRIES`` short traces the time comes from CUDA events
+    with the host run ahead (``queued_event_ms``).  Returns the time and
+    its source, "profiler" or "events", which every figure keeps beside
+    it."""
     check(bool(calls), f"no {op} call to time")
+    per = {k: (launches or {}).get(k, 1) for k in OP_KERNELS[op]}
     count: Counter = Counter()
     for _ in range(PROFILE_TRIES):
         seen, count = profiled_kernel_means(lambda: [c() for c in calls], op)
-        if all(count[k] >= len(calls) for k in OP_KERNELS[op]):
-            return sum(seen.values()) / 1e3, "profiler"
+        if all(count[k] >= per[k] * len(calls) for k in OP_KERNELS[op]):
+            return sum(seen[k] * per[k] for k in seen) / 1e3, "profiler"
     print(f"    {op}: {PROFILE_TRIES} profiler traces of {len(calls)} calls "
           f"held fewer records of a kernel (last {dict(count)}); its device "
           "time comes from CUDA events")
@@ -2286,39 +2304,46 @@ SCAN_BWD_ROWS = {"wkv6_bwd": {"dr", "dk", "dv", "dlog_w"},
                  "ssd_bwd": {"dx", "dB", "dC"}}
 
 
-def wkv6_bwd_work(r, k, v, log_w, u, states, s_t, do, dst=None,
+def wkv6_bwd_work(r, k, v, log_w, u, states, do, dst=None,
                   want_ds0=False) -> tuple[int, int]:
     """(bytes, operations) one WKV6 backward call needs: r, k, v, dO,
-    log_w, u, the saved states, the final state and dsT (when given) read
-    once, dr, dk, dv, dlog_w, du and ds0 (when asked) written once (seven
-    tensors of r's size: four read, three written); per
-    (batch·head, chunk of 16): four 16·dk·dk products (the reverse pass's
-    r_decᵀ·dO, S_in·dO, dS_out·v, k_decᵀ·dS_out), v·dO over the chunk's
-    pairs, three pair sums over s < t (an exp and three operations per
-    channel: A, dr's and dk's intra terms), A·dO over s <= t, and the
-    log-decay and u sums, counting an exp as one operation."""
+    log_w, u, the kept states (every chunk's, or every 16th's) and dsT
+    (when given) read once, dr, dk, dv, dlog_w, du and ds0 (when asked)
+    written once (seven tensors of r's size: four read, three written);
+    per (batch·head, chunk of 16): four 16·dk·dk products (the reverse
+    pass's r_decᵀ·dO, S_in·dO, dS_out·v, k_decᵀ·dS_out), v·dO over the
+    chunk's pairs, three pair sums over s < t (an exp and three operations
+    per channel: A, dr's and dk's intra terms), A·dO over s <= t, and the
+    log-decay and u sums, counting an exp as one operation; from the
+    checkpoints also the states' recompute (the state update's 16·dk·dk
+    product, its decay and the k decays)."""
     b, s, h, dk = r.shape
     n = -(-s // CHUNK)
     es = r.element_size()
     mat = 4 * b * h * dk * dk
     nbytes = (7 * r.numel() * es + 2 * 4 * log_w.numel() + 2 * 4 * u.numel()
-              + 4 * states.numel() + mat + (0 if dst is None else mat)
+              + 4 * states.numel() + (0 if dst is None else mat)
               + (mat if want_ds0 else 0))
     c = CHUNK
     per = 4 * 2 * c * dk * dk + 2 * c * c * dk + 3 * 4 * c * (c - 1) // 2 \
         * dk + c * (c + 1) * dk + 6 * c * dk
+    if states.shape[2] != n:
+        per += 2 * c * dk * dk + dk * dk + 3 * c * dk
     return nbytes, b * h * n * per
 
 
 def ssd_bwd_work(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
                  want_ds0=False) -> tuple[int, int]:
     """(bytes, operations) one SSD backward call needs: x, dY, B, C, dt,
-    a_log, D, the saved states and dsT (when given) read once, dx, dB, dC,
-    ddt, da_log, dD and ds0 (when asked) written once (three tensors of x's
-    size: x and dY read, dx written); per chunk of 16:
-    C·Bᵀ once for all heads, and per head four 16·hd·ds products (the
-    reverse pass's, dS_out·B, S_inᵀ·dY, dS_outᵀ·x), x·dY over the pairs,
-    the decay-weighted sums of dx, dC and dB over s <= t, the exps."""
+    a_log, D, the kept states (every chunk's, or every 16th's) and dsT
+    (when given) read once, dx, dB, dC, ddt, da_log, dD and ds0 (when
+    asked) written once (three tensors of x's size: x and dY read, dx
+    written); per chunk of 16: C·Bᵀ once for all heads, and per head four
+    16·hd·ds products (the reverse pass's, dS_out·B, S_inᵀ·dY,
+    dS_outᵀ·x), x·dY over the pairs, the decay-weighted sums of dx, dC and
+    dB over s <= t, the exps; from the checkpoints also the states'
+    recompute (per head the state update's 16·hd·ds product and its
+    decay)."""
     b, s, h, hd = x.shape
     ds = bmat.shape[-1]
     n = -(-s // CHUNK)
@@ -2331,18 +2356,20 @@ def ssd_bwd_work(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
     pairs = c * (c + 1) // 2
     per_head = 4 * 2 * c * hd * ds + 2 * c * c * hd + pairs * 2 * hd \
         + pairs * 4 * ds * 2 + 3 * pairs + 8 * c * hd
+    if states.shape[2] != n:
+        per_head += 2 * c * hd * ds + hd * ds
     return nbytes, b * n * (2 * c * c * ds + h * per_head)
 
 
 def scan_bwd_parts(op: str):
     """(kernel, plain version, work) of a scan's backward; the plain
-    version takes the forward's inputs with s0, as the saved states' first
-    chunk holds it."""
+    version takes the forward's inputs with s0, as the kept states' first
+    (every chunk's or the checkpoints') holds it."""
     from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_bwd_plain
     from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
 
     if op == "wkv6_bwd":
-        def plain(r, k, v, log_w, u, states, s_t, do, dst=None, **_):
+        def plain(r, k, v, log_w, u, states, do, dst=None, **_):
             return wkv6_bwd_plain(r, k, v, log_w, u, states[:, :, 0], do,
                                   dst)
         return wkv6_bwd_cuda, plain, wkv6_bwd_work
@@ -2351,6 +2378,19 @@ def scan_bwd_parts(op: str):
         return ssd_bwd_plain(x, bmat, cmat, dt, a_log, d_skip,
                              states[:, :, 0], dy, dst)
     return ssd_bwd_cuda, plain, ssd_bwd_work
+
+
+def scan_bwd_launches(op: str, args) -> tuple[str, dict]:
+    """The OP_KERNELS key of one backward call of a scan (``op`` from
+    every chunk's state, ``op``_checkpointed from the checkpoints) and its
+    launches per call by stem (1 where absent): from the checkpoints the
+    reverse and chunk passes and the forward's two passes once a segment,
+    the fixed-order sums once."""
+    states = args[6 if op == "ssd_bwd" else 5]
+    if states.shape[2] == -(-args[0].shape[1] // CHUNK):
+        return op, {}
+    passes = (*OP_KERNELS[op][:2], *OP_KERNELS[op.removesuffix("_bwd")])
+    return f"{op}_checkpointed", {k: states.shape[2] for k in passes}
 
 
 def scan_bwd_figures(op: str, args, kw, iters: int = 10,
@@ -2397,7 +2437,8 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
     del got, want, again
     bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
     calls = [lambda: kernel(*args, **kw)] * iters
-    dev_ms, dev_from = (device_ms(calls, op) if profile else
+    dev_ms, dev_from = (device_ms(calls, *scan_bwd_launches(op, args))
+                        if profile else
                         (queued_event_ms(calls) / iters, "events"))
     return {"max_abs_err": err, "max_rel_err": rel, "max_row_rel_err": row,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 2),
@@ -2408,30 +2449,57 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
 
 def scan_bwd_pass_ms(op: str, args, kw, calls: int = 5) -> dict[str, float]:
     """Device ms per call of each kernel of a scan backward (``op``), by
-    its OP_KERNELS stem: the profiler's mean over ``calls`` calls in one
-    trace (a stem whose records the trace lost is absent)."""
+    its OP_KERNELS stem: the profiler's mean launch over ``calls`` calls in
+    one trace times its launches a call (a stem whose records the trace
+    lost is absent)."""
     kernel, _, _ = scan_bwd_parts(op)
+    key, launches = scan_bwd_launches(op, args)
     means, _ = profiled_kernel_means(
-        lambda: [kernel(*args, **kw) for _ in range(calls)], op)
-    return {k: v / 1e3 for k, v in means.items()}
+        lambda: [kernel(*args, **kw) for _ in range(calls)], key)
+    return {k: v * launches.get(k, 1) / 1e3 for k, v in means.items()}
 
 
-def phase_scan_bwd(dev) -> None:
+def bwd_scratch(fn) -> tuple[tuple, int]:
+    """``fn()``'s outputs and the device bytes it held beyond them at its
+    peak (``max_memory_allocated`` above the bytes allocated before it,
+    less its outputs'): a backward's scratch."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    held = sum(t.numel() * t.element_size() for t in out if t is not None)
+    return out, torch.cuda.max_memory_allocated() - base - held
+
+
+def phase_scan_bwd(dev) -> dict:
     """Phase 23b: both backward kernels against their plain versions
     (autograd through the plain forwards) on the card: WKV6 at rwkv6-3b's
     40 heads of 64, SSD at zamba2-7b's 112 heads of 64 with a state of 64;
-    S = 61 (ragged) and 512 without s0 and dsT and with both, 4,096 (the
-    training shape) without them, batch 2; float32 and bf16; then strong
-    decays (log_w down to -50, dt up to 20) at 512.  Each call's forward
-    gives the same bits with and without its saved states.  Device times
-    from CUDA events (phase 25 profiles the training calls); at 4,096
-    tokens each pass's device time from the profiler, bf16 beside float32,
-    and the bf16 call no slower than the float32 one."""
+    S = 61 (ragged: every state kept), 512 (2 segments of 16 chunks) and
+    4,096 (the training shape, 16 segments), without s0 and dsT and with
+    both, batch 2; float32 and bf16; then strong decays (log_w down to
+    -50, dt up to 20) at 512.  Each call's forward gives the same bits
+    with every state kept, with every 16th (the checkpoints: the
+    whole-state run's states at every 16th chunk) and with none; where
+    the checkpoints apply, the backward from them (one segment at a time,
+    its states recomputed) is the backward from every state bit for bit,
+    and it is the one held against the plain version; the saved state
+    bytes and each backward's scratch (device bytes beyond its outputs at
+    its peak) printed for both.  Device times from CUDA events (phase 25
+    profiles the training calls); at 4,096 tokens each pass's device time
+    from the profiler, bf16 beside float32, and the bf16 call no slower
+    than the float32 one.  Returns, per backward, the bf16 figures at
+    4,096 tokens without s0 (rows 5c / 6c at batch 2) with the
+    whole-state call's device ms, saved bytes and scratch beside them."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd import ssd_cuda
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_cuda
+    from repro_torch.kernels.wkv6 import (kept_stride, wkv6_bwd_cuda,
+                                          wkv6_cuda)
 
     gen = torch.Generator(device=dev).manual_seed(1010)
 
@@ -2447,11 +2515,56 @@ def phase_scan_bwd(dev) -> None:
     b = SCAN_BWD_BATCH
     cases = [(dtype, s, stored, False) for dtype in (torch.float32,
                                                       torch.bfloat16)
-             for s in SCAN_BWD_LENGTHS for stored in (False, True)
-             if s < 4096 or not stored]
+             for s in SCAN_BWD_LENGTHS for stored in (False, True)]
     cases += [(dtype, 512, True, True) for dtype in (torch.float32,
                                                       torch.bfloat16)]
     passes = {}   # (op, dtype) -> (ms per pass, the call's device ms)
+    rows = {}
+
+    def one(op, label, fwd, kernel, bwd, dout, dst, stored, shape):
+        """A forward's three runs, the backward from every state and from
+        the checkpoints, the figures of the one a training step runs."""
+        out, s_t, every = kernel(*fwd, return_states=True)
+        out0, s_t0 = kernel(*fwd)
+        check(torch.equal(out, out0) and torch.equal(s_t, s_t0),
+              f"{op} {label}: the output changed with return_states")
+        stride = kept_stride(every.shape[2])
+        n_in = len(fwd) - 1
+        kw = {"want_ds0": stored}
+        whole_args = (*fwd[:n_in], every, dout, dst)
+        if stride == 1:
+            f = scan_bwd_figures(f"{op}_bwd", whole_args, kw, profile=False)
+            print_figures(f"{op}_bwd {label}", shape, f)
+            return f, whole_args, None
+        out1, s_t1, ckpt = kernel(*fwd, return_states=True,
+                                  keep_every=stride)
+        check(torch.equal(out, out1) and torch.equal(s_t, s_t1)
+              and torch.equal(ckpt, every[:, :, ::stride]),
+              f"{op} {label}: the checkpoints are not the whole run's "
+              "states at every 16th chunk, or the output changed")
+        del out, out0, out1, s_t, s_t0, s_t1
+        args = (*fwd[:n_in], ckpt, dout, dst)
+        whole, whole_scr = bwd_scratch(lambda: bwd(*whole_args, **kw))
+        got, scr = bwd_scratch(lambda: bwd(*args, **kw))
+        check(all((g is None and w is None) or torch.equal(g, w)
+                  for g, w in zip(got, whole)),
+              f"{op}_bwd {label}: the checkpointed backward is not the "
+              "whole-state one bit for bit")
+        del got, whole
+        f = scan_bwd_figures(f"{op}_bwd", args, kw, profile=False)
+        f["whole_device_ms"] = queued_event_ms(
+            [lambda: bwd(*whole_args, **kw)] * 10) / 10
+        f["saved_state_bytes"] = 4 * ckpt.numel()
+        f["whole_saved_state_bytes"] = 4 * every.numel()
+        f["scratch_bytes"], f["whole_scratch_bytes"] = scr, whole_scr
+        print_figures(f"{op}_bwd {label}, from the checkpoints", shape, f)
+        print(f"      saved state bytes a call {f['saved_state_bytes']} "
+              f"(every state: {f['whole_saved_state_bytes']}); the "
+              f"backward's scratch {scr} B (from every state: {whole_scr} "
+              f"B); the whole-state call {f['whole_device_ms']:.4f} ms "
+              f"(events); {card_line()}")
+        return f, args, whole_args
+
     for dtype, s, stored, strong in cases:
         label = (f"{str(dtype).removeprefix('torch.')} S={s} "
                  f"{'s0, dsT' if stored else 'no s0 / dsT'}"
@@ -2462,19 +2575,17 @@ def phase_scan_bwd(dev) -> None:
         fwd = (normal((b, s, h, dk), dtype), normal((b, s, h, dk), dtype),
                normal((b, s, h, dk), dtype), lw,
                normal((h, dk)), normal((b, h, dk, dk)) if stored else None)
-        o, s_t, states = wkv6_cuda(*fwd, return_states=True)
-        o0, s_t0 = wkv6_cuda(*fwd)
-        check(torch.equal(o, o0) and torch.equal(s_t, s_t0),
-              f"wkv6 {label}: the output changed with return_states")
-        args = (*fwd[:5], states, s_t, normal((b, s, h, dk), dtype),
-                normal((b, h, dk, dk)) if stored else None)
-        f = scan_bwd_figures("wkv6_bwd", args, {"want_ds0": stored},
-                             profile=False)
-        print_figures(f"wkv6_bwd {label}", (b, s, h, dk), f)
+        f, args, _ = one("wkv6", label, fwd, wkv6_cuda, wkv6_bwd_cuda,
+                         normal((b, s, h, dk), dtype),
+                         normal((b, h, dk, dk)) if stored else None, stored,
+                         (b, s, h, dk))
         if s == 4096:
             passes["wkv6_bwd", dtype] = (scan_bwd_pass_ms(
                 "wkv6_bwd", args, {"want_ds0": stored}), f["device_ms"])
-        del o, o0, s_t, s_t0, states, args, fwd, raw, lw
+            if dtype == torch.bfloat16 and not stored:
+                rows["wkv6_bwd"] = f
+        del args, fwd, raw, lw
+        torch.cuda.empty_cache()
 
         dt = (torch.clamp(normal((b, s, zh)).abs() * 10.0, max=20.0)
               if strong else normal((b, s, zh)).abs() * 0.5)
@@ -2482,19 +2593,16 @@ def phase_scan_bwd(dev) -> None:
                normal((b, s, ds), dtype), normal((b, s, ds), dtype),
                dt, normal((zh,), scale=0.3), normal((zh,)),
                normal((b, zh, hd, ds)) if stored else None)
-        y, s_t, states = ssd_cuda(*fwd, return_states=True)
-        y0, s_t0 = ssd_cuda(*fwd)
-        check(torch.equal(y, y0) and torch.equal(s_t, s_t0),
-              f"ssd {label}: the output changed with return_states")
-        args = (*fwd[:6], states, normal((b, s, zh, hd), dtype),
-                normal((b, zh, hd, ds)) if stored else None)
-        f = scan_bwd_figures("ssd_bwd", args, {"want_ds0": stored},
-                             profile=False)
-        print_figures(f"ssd_bwd {label}", (b, s, zh, hd, ds), f)
+        f, args, _ = one("ssd", label, fwd, ssd_cuda, ssd_bwd_cuda,
+                         normal((b, s, zh, hd), dtype),
+                         normal((b, zh, hd, ds)) if stored else None, stored,
+                         (b, s, zh, hd, ds))
         if s == 4096:
             passes["ssd_bwd", dtype] = (scan_bwd_pass_ms(
                 "ssd_bwd", args, {"want_ds0": stored}), f["device_ms"])
-        del y, y0, s_t, s_t0, states, args, fwd, dt
+            if dtype == torch.bfloat16 and not stored:
+                rows["ssd_bwd"] = f
+        del args, fwd, dt
         torch.cuda.empty_cache()
     for op in ("wkv6_bwd", "ssd_bwd"):
         if len([k for k in passes if k[0] == op]) < 2:
@@ -2503,12 +2611,13 @@ def phase_scan_bwd(dev) -> None:
                                       passes[op, torch.bfloat16])
         shown = ", ".join(
             f"{k} {f32.get(k, float('nan')):.4f} / {bf.get(k, float('nan')):.4f}"
-            for k in OP_KERNELS[op])
-        print(f"    {op} at S=4096, batch {b}, device ms per pass (profiler), "
-              f"float32 / bf16: {shown}; the call (events) {f32_ms:.4f} / "
-              f"{bf_ms:.4f}")
+            for k in OP_KERNELS[f"{op}_checkpointed"])
+        print(f"    {op} at S=4096, batch {b}, from the checkpoints, device "
+              f"ms per call of each pass (profiler), float32 / bf16: "
+              f"{shown}; the call (events) {f32_ms:.4f} / {bf_ms:.4f}")
         check(bf_ms <= f32_ms, f"{op}: the bf16 call ({bf_ms:.4f} ms) is "
               f"slower than the float32 one ({f32_ms:.4f} ms) at 4,096 tokens")
+    return rows
 
 
 # -------------------------------------------- recurrent engines, 11-14 --
@@ -6396,7 +6505,9 @@ def phase_split_recurrent_kernels(dev) -> dict:
     and bf16: the forward from a stored state (a rank's second pass, whose
     s0 requires grad in training) under phase 10's gates, and the
     backward with both the final state's gradient and the incoming
-    state's (`want_ds0`) under phase 23b's.  The flash kernels at
+    state's (`want_ds0`) under phase 23b's, from the checkpoints (8
+    segments, as training runs it) and from every state, the two the same
+    bits.  The flash kernels at
     zamba2-7b's shared block (32 / 32 heads of 112), 2,048 query rows
     against 4,096 keys at offsets 0 and 2,048, under phase 27a's gates.
     Returns the bf16 figures."""
@@ -6407,7 +6518,7 @@ def phase_split_recurrent_kernels(dev) -> dict:
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd import ssd_cuda, ssd_plain
-    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.wkv6 import kept_stride, wkv6_cuda, wkv6_plain
 
     figures = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -6420,20 +6531,31 @@ def phase_split_recurrent_kernels(dev) -> dict:
             f = scan_figures(kernel, plain, work, fwd, {}, iters=20)
             print_figures(f"{op} {name} from s0", shape_key(fwd), f)
             out, s_t, states = kernel(*fwd, return_states=True)
+            stride = kept_stride(states.shape[2])
+            _, _, ckpt = kernel(*fwd, return_states=True, keep_every=stride)
             grads = (torch.randn(out.shape, generator=gen, device=dev)
                      .to(dtype),
                      torch.randn(s_t.shape, generator=gen, device=dev))
-            if op == "wkv6":
-                args = (*fwd[:5], states, s_t, *grads)
-            else:
-                args = (*fwd[:6], states, *grads)
+            whole_args = (*fwd[:-1], states, *grads)
+            args = (*fwd[:-1], ckpt, *grads)
+            bwd = scan_bwd_parts(f"{op}_bwd")[0]
+            same = [torch.equal(g, w) for g, w in zip(
+                bwd(*args, want_ds0=True), bwd(*whole_args, want_ds0=True))]
+            check(all(same), f"{op}_bwd {name}: from the checkpoints not the "
+                  f"whole-state backward bit for bit ({same})")
             b = scan_bwd_figures(f"{op}_bwd", args, {"want_ds0": True},
                                  iters=5)
-            print_figures(f"{op}_bwd {name} with dsT and ds0",
+            print_figures(f"{op}_bwd {name} with dsT and ds0, from the "
+                          f"checkpoints (every {stride}th state)",
                           shape_key(fwd), b)
+            bw = scan_bwd_figures(f"{op}_bwd", whole_args,
+                                  {"want_ds0": True}, iters=5)
+            print_figures(f"{op}_bwd {name} with dsT and ds0, from every "
+                          "state", shape_key(fwd), bw)
             if dtype == torch.bfloat16:
                 figures[op], figures[f"{op}_bwd"] = f, b
-            del out, s_t, states, grads, args
+                figures[f"{op}_bwd whole"] = bw
+            del out, s_t, states, ckpt, grads, args, whole_args
         del wkv6, ssd
         gc.collect()
         torch.cuda.empty_cache()
@@ -7555,7 +7677,7 @@ def main() -> int:
 
     phase("[23b] scan backward kernels against their plain versions, "
           f"synthetic full-width {RWKV} / {ZAMBA} shapes")
-    phase_scan_bwd(dev)
+    scan_bwd_rows = phase_scan_bwd(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -7729,6 +7851,22 @@ def main() -> int:
             "split_recurrent": rec_split_counts[row["name"]],
             "split_moe": moe_split_counts[row["name"]],
             "split_encdec_vlm": vlm_split_counts[row["name"]]}
+        if row["name"] in scan_bwd_rows:
+            # phase 23b at 4,096 tokens, batch 2, bf16 (rows 5c / 6c beside
+            # 5b / 6b): from the checkpoints, the whole-state call's device
+            # ms, the saved state bytes and the scratch of both; phase
+            # 28a's rank calls from the checkpoints and from every state
+            # (rows 5co / 6co beside 5bo / 6bo)
+            row["checkpointed"] = {
+                k: scan_bwd_rows[row["name"]].get(k) for k in (
+                    *MEASURED, "library_ms", "whole_device_ms",
+                    "saved_state_bytes", "whole_saved_state_bytes",
+                    "scratch_bytes", "whole_scratch_bytes")}
+            row["split_checkpointed"] = {
+                call: {k: rec_split_figures["kernels"][key][k]
+                       for k in (*MEASURED, "library_ms")}
+                for call, key in (("checkpoints", row["name"]),
+                                  ("every_state", f"{row['name']} whole"))}
         if row["name"].endswith("_bwd"):
             row["training_replays"] = {
                 arch: {k: r[row["name"]].get(k) for k in (

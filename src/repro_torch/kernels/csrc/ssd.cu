@@ -62,11 +62,16 @@
 // ahead of the one computed, each thread with fixed copy slots (at most
 // two 16-byte copies a chunk, their sources advancing by a fixed stride):
 // staging through a general tile loop spent most of a chunk's
-// instructions on address arithmetic.  The incoming state of each chunk
-// (16 KiB per head and chunk, 58.7 MB for zamba2 at 512 tokens) is stored
-// only when the caller gives a `states` buffer (training: the backward
-// reads it); without one the output's bits are those of a run that keeps
-// nothing.
+// instructions on address arithmetic.  The incoming state of every
+// `every`-th chunk (16 KiB per head and chunk) is stored when the caller
+// gives a `states` buffer: training keeps every 16th, the backward's
+// checkpoints (29.4 MB for zamba2-7b at 4,096 tokens, against 469.8 MB for
+// every chunk's), as the reference's `chunk_scan_checkpointed` keeps every
+// 16th state; what is kept never changes the output's bits.  A launch
+// runs a range of chunks from a given state, s0 read with a stride (a
+// checkpoint inside `states` serves as one): the backward recomputes one
+// segment's 16 states this way, with no y, whose products it then skips
+// (ssd_bwd.cu).
 //
 // Precision (scan_mma.cuh): in the bf16 instance x, B and C enter the
 // `mma`s exactly; M, w∘x and the state are split into two bf16 parts
@@ -128,8 +133,8 @@ __global__ void __launch_bounds__(kWarps * 32)
                      const T* __restrict__ cm, const float* __restrict__ dt,
                      const float* __restrict__ a_log,
                      const float* __restrict__ d_skip,
-                     float* __restrict__ scr, int s_len, int n_chunks, int h,
-                     int hd, int ds, int vec_x, int vec_bc) {
+                     float* __restrict__ scr, int s_len, int c0, int n_run,
+                     int h, int hd, int ds, int vec_x, int vec_bc) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   constexpr int kPlane = kChunk * kNS;
   __shared__ __align__(16) uint16_t cs_raw[NI * kPlane];
@@ -141,11 +146,11 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
+  const int b = blockIdx.x / n_run, ir = blockIdx.x % n_run, c = c0 + ir;
   const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
   const int dsp = round16(ds), hdq = round64(hd);
   const int64_t brow = static_cast<int64_t>(b) * s_len + t0;
-  const Scratch sc(gridDim.x / n_chunks, n_chunks, h, hd);
+  const Scratch sc(gridDim.x / n_run, n_run, h, hd);
 
   scan::stage<T, NI, kChunk, kMaxN, kWarps * 32>(
       cs, kNS, kPlane, cm + brow * ds, ds, nr, ds, vec_bc, tid);
@@ -191,7 +196,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   {
     const int head = blockIdx.y * kHeads + warp;
     if (head >= h) return;  // uniform over the warp; no barrier follows
-    const int64_t bch = (static_cast<int64_t>(b) * n_chunks + c) * h + head;
+    const int64_t bch = (static_cast<int64_t>(b) * n_run + ir) * h + head;
     const float dtl = lane < nr ? dt[(brow + lane) * h + head] : 0.f;
     float p = -expf(a_log[head]) * dtl;  // la; lanes past nr add 0
 #pragma unroll
@@ -294,10 +299,11 @@ template <typename T>
 __global__ void __launch_bounds__(kStateWarps * 32)
     ssd_state_kernel(const T* __restrict__ x, const T* __restrict__ bm,
                      const T* __restrict__ cm, const float* __restrict__ scr,
-                     const float* __restrict__ s0, T* __restrict__ y,
-                     float* __restrict__ s_out, float* __restrict__ states,
-                     int s_len, int n_chunks, int h, int hd, int ds,
-                     int vec_x, int vec_bc) {
+                     const float* __restrict__ s0, int s0_stride,
+                     T* __restrict__ y, float* __restrict__ s_out,
+                     float* __restrict__ states, int s_len, int c0,
+                     int n_run, int every, int h, int hd, int ds, int vec_x,
+                     int vec_bc) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = StateSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -322,7 +328,7 @@ __global__ void __launch_bounds__(kStateWarps * 32)
   const int i0 = i0b + iw, nri = min(16, hd - i0);
   const int hdq = round64(hd);
   const int64_t xp = static_cast<int64_t>(h) * hd;
-  const Scratch sc(gridDim.x / h, n_chunks, h, hd);
+  const Scratch sc(gridDim.x / h, n_run, h, hd);
 
   // this warp's piece S[i0 + i][n0 + n] as accumulators: acc[nt] holds rows
   // g and g + 8, columns 8·nt + 2q and + 1
@@ -333,7 +339,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     for (int e = 0; e < 4; ++e) {
       const int i = g + (e >> 1) * 8, n = n0 + nt * 8 + 2 * q + (e & 1);
       acc[nt][e] = (s0 && i < nri && n < ds)
-                       ? s0[(static_cast<int64_t>(bh) * hd + i0 + i) * ds + n]
+                       ? s0[static_cast<int64_t>(bh) * s0_stride +
+                            static_cast<int64_t>(i0 + i) * ds + n]
                        : 0.f;
     }
 
@@ -348,13 +355,14 @@ __global__ void __launch_bounds__(kStateWarps * 32)
   const T* src_b = bm + row0 * ds + scol;
   const T* src_x = x + row0 * xp + static_cast<int64_t>(head) * hd + i0b +
                    scol;                                     // 128 <= tid < 256
-  const int64_t bch0 = static_cast<int64_t>(b) * n_chunks * h + head;
+  const int64_t bch0 = static_cast<int64_t>(b) * n_run * h + head;
   const float* src_y = scr + sc.y(bch0) + i0b + sr * hdq + scol;  // >= 256
   const float* src_co = scr + sc.coef(bch0) + 4 * slot;     // slot < 9
-  auto load = [&](int c, int st) {
+  auto load = [&](int ir, int st) {   // the run's chunk ir
+    const int c = c0 + ir;
     const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
     const int64_t brow = static_cast<int64_t>(b) * s_len + t0;
-    const int64_t bch = (static_cast<int64_t>(b) * n_chunks + c) * h + head;
+    const int64_t bch = (static_cast<int64_t>(b) * n_run + ir) * h + head;
     if (NI == 1 && vec_x && vec_bc) {
       if (tid < 128) {  // C and B: row sr, 8 columns from scol
         const bool ok = sr < nr && scol < ds;
@@ -371,10 +379,10 @@ __global__ void __launch_bounds__(kStateWarps * 32)
                          ok ? 16 : 0);
         if (slot < kCoef / 4)
           scan::cp_async16(cof(st) + 4 * slot,
-                           src_co + static_cast<int64_t>(c) * h * kCoef, 16);
+                           src_co + static_cast<int64_t>(ir) * h * kCoef, 16);
       } else {  // y_intra: row sr, 4 of the block's 64 columns
         scan::cp_async16(yis(st) + sr * kYS + scol,
-                         src_y + static_cast<int64_t>(c) * h * sc.y_per, 16);
+                         src_y + static_cast<int64_t>(ir) * h * sc.y_per, 16);
       }
       return;
     }
@@ -392,23 +400,26 @@ __global__ void __launch_bounds__(kStateWarps * 32)
                                           tid);
   };
 
-  for (int c = 0; c < kAhead; ++c) {  // the first chunks in flight
-    if (c < n_chunks) load(c, c % kStages);
+  for (int ir = 0; ir < kAhead; ++ir) {  // the first chunks in flight
+    if (ir < n_run) load(ir, ir % kStages);
     scan::cp_async_commit();
   }
   // the two outputs this thread writes per chunk: row qu·4 + lane / 8 of
   // the chunk, columns i0 + 2·(lane % 8) and + 1, at chunk 0
   T* const y_out = y + ((static_cast<int64_t>(b) * s_len + qu * 4 +
                          (lane >> 3)) * h + head) * hd + i0 + 2 * (lane & 7);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int st = c % kStages;
+  for (int ir = 0; ir < n_run; ++ir) {
+    const int c = c0 + ir, st = ir % kStages;
     scan::cp_async_wait<kAhead - 1>();  // chunk c has landed (elementwise
                                         // copies were stored already)
     __syncthreads();  // ... for every warp; chunk c - 1 is consumed
-    if (c + kAhead < n_chunks) load(c + kAhead, (c + kAhead) % kStages);
+    if (ir + kAhead < n_run) load(ir + kAhead, (ir + kAhead) % kStages);
     scan::cp_async_commit();
-    if (states) {  // the chunk's incoming state, for the backward
-      float* sc = states + (static_cast<int64_t>(bh) * n_chunks + c) * hd * ds;
+    if (states && ir % every == 0) {  // the chunk's incoming state, for
+                                      // the backward: every `every`-th
+      float* sc = states +
+                  (static_cast<int64_t>(bh) * ((n_run + every - 1) / every) +
+                   ir / every) * hd * ds;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -425,8 +436,9 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     const float* co = cof(st);
 
     // this warp's part of C·Sᵀ (its 16 state columns), with the state
-    // before this chunk, to the slice's reduction tiles
-    {
+    // before this chunk, to the slice's reduction tiles (none without y: a
+    // recompute of the states)
+    if (y) {
       uint32_t af[NI][4];
 #pragma unroll
       for (int pp = 0; pp < NI; ++pp)
@@ -507,8 +519,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 
     // y = y_intra + exp(p)·(C·Sᵀ) on 4 rows t of the slice, C·Sᵀ the sum
     // of the slice's 4 parts
-    scan::group_sync(1 + sl, 4 * 32);
-    {
+    if (y) {
+      scan::group_sync(1 + sl, 4 * 32);
       const int t = qu * 4 + (lane >> 3), i = 2 * (lane & 7);
       const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
       const float* part = red + sl * 4 * 256 + t * 16 + i;
@@ -530,6 +542,7 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     }
   }
 
+  if (!s_out) return;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -543,17 +556,17 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 template <typename T>
 cudaError_t launch(const void* x, const void* bm, const void* cm,
                    const void* dt, const void* a_log, const void* d_skip,
-                   const void* s0, void* scratch, void* y, void* s_out,
-                   void* states, int b, int s_len, int h, int hd, int ds,
-                   int vec_x, int vec_bc, cudaStream_t stream) {
-  const int n_chunks = (s_len + kChunk - 1) / kChunk;
-  if (n_chunks > 0) {
-    const dim3 grid(b * n_chunks, (h + kHeads - 1) / kHeads);
+                   const void* s0, int s0_stride, void* scratch, void* y,
+                   void* s_out, void* states, int b, int s_len, int h,
+                   int hd, int ds, int vec_x, int vec_bc, int c0, int n_run,
+                   int every, cudaStream_t stream) {
+  if (n_run > 0) {
+    const dim3 grid(b * n_run, (h + kHeads - 1) / kHeads);
     ssd_intra_kernel<T><<<grid, kWarps * 32, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(bm),
         static_cast<const T*>(cm), static_cast<const float*>(dt),
         static_cast<const float*>(a_log), static_cast<const float*>(d_skip),
-        static_cast<float*>(scratch), s_len, n_chunks, h, hd, ds, vec_x,
+        static_cast<float*>(scratch), s_len, c0, n_run, h, hd, ds, vec_x,
         vec_bc);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -567,44 +580,57 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
                         stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(scratch),
-      static_cast<const float*>(s0), static_cast<T*>(y),
-      static_cast<float*>(s_out), static_cast<float*>(states), s_len,
-      n_chunks, h, hd, ds, vec_x, vec_bc);
+      static_cast<const float*>(s0), s0_stride, static_cast<T*>(y),
+      static_cast<float*>(s_out), static_cast<float*>(states), s_len, c0,
+      n_run, every, h, hd, ds, vec_x, vec_bc);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of scratch one call needs (the wrapper allocates them).
-extern "C" long long ssd_scratch_floats(int b, int s_len, int h, int hd) {
-  const int n = (s_len + kChunk - 1) / kChunk;
-  return static_cast<long long>(b) * n * h * (kChunk * round64(hd) + kCoef);
+// Floats of scratch a run over n_run chunks needs (the wrapper allocates
+// them).
+extern "C" long long ssd_scratch_floats(int b, int n_run, int h, int hd) {
+  return static_cast<long long>(b) * n_run * h *
+         (kChunk * round64(hd) + kCoef);
 }
 
-// x, y [b, s_len, h, hd] and bm, cm [b, s_len, ds] (all float32: is_bf16 =
-// 0, or all bf16: is_bf16 = 1), dt [b, s_len, h], a_log and d_skip [h],
-// s0 (or null: a zero state) and s_out [b, h, hd, ds] float32, scratch of
-// ssd_scratch_floats(...) floats: contiguous, on the device; 0 < ds <= 64.
-// states (or null: none kept) [b, h, n_chunks, hd, ds] float32 receives
-// each chunk's incoming state, for the backward (ssd_bwd.cu).
-// vec_x / vec_bc: bf16 x (B and C) 16-byte aligned with hd (ds) a multiple
-// of 8, so their tiles go by cp.async.  Two launches on `stream`; returns
-// the first failing cudaGetLastError().
+// x [b, s_len, h, hd] and bm, cm [b, s_len, ds] (all float32: is_bf16 =
+// 0, or all bf16: is_bf16 = 1), dt [b, s_len, h], a_log and d_skip [h]
+// float32: contiguous, on the device; 0 < ds <= 64.  Runs the chunks c0
+// .. c0 + n_run - 1 of the sequence, from s0 (or null: a zero state), the
+// state of batch·head bh at s0 + bh·s0_stride floats, each a contiguous
+// [hd, ds] float32 matrix (s0_stride = hd·ds for a [b, h, hd, ds] s0; a
+// checkpoint of `states` has a longer stride).  y (or null: not written,
+// and its products skipped) [b, s_len, h, hd] in x's type receives those
+// chunks' rows; s_out (or null) [b, h, hd, ds] float32 the state after
+// them; states (or null: none kept) [b, h, ceil(n_run / every), hd, ds]
+// float32 the incoming state of every `every`-th chunk of the run, from
+// its first (the backward's checkpoints: ssd_bwd.cu).  y, s_out and the
+// kept states are the same bits whatever is kept.  scratch holds
+// ssd_scratch_floats(b, n_run, ...) floats.  vec_x / vec_bc: bf16 x (B
+// and C) 16-byte aligned with hd (ds) a multiple of 8, so their tiles go
+// by cp.async.  Two launches on `stream`; returns the first failing
+// cudaGetLastError().
 extern "C" int ssd_launch(const void* x, const void* bm, const void* cm,
                           const void* dt, const void* a_log,
-                          const void* d_skip, const void* s0, void* scratch,
-                          void* y, void* s_out, void* states, int b,
-                          int s_len, int h, int hd, int ds, int is_bf16,
-                          int vec_x, int vec_bc, void* stream) {
-  if (ds <= 0 || ds > kMaxN || hd <= 0 || s_len < 0)
+                          const void* d_skip, const void* s0,
+                          int s0_stride, void* scratch, void* y,
+                          void* s_out, void* states, int b, int s_len, int h,
+                          int hd, int ds, int is_bf16, int vec_x, int vec_bc,
+                          int c0, int n_run, int every, void* stream) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (ds <= 0 || ds > kMaxN || hd <= 0 || s_len < 0 || c0 < 0 ||
+      n_run < 0 || c0 + n_run > n_chunks || every < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<bf16>(x, bm, cm, dt, a_log, d_skip, s0, scratch, y,
-                             s_out, states, b, s_len, h, hd, ds, vec_x,
-                             vec_bc, st)
-              : launch<float>(x, bm, cm, dt, a_log, d_skip, s0, scratch, y,
-                              s_out, states, b, s_len, h, hd, ds, 0, 0, st);
+      is_bf16 ? launch<bf16>(x, bm, cm, dt, a_log, d_skip, s0, s0_stride,
+                             scratch, y, s_out, states, b, s_len, h, hd, ds,
+                             vec_x, vec_bc, c0, n_run, every, st)
+              : launch<float>(x, bm, cm, dt, a_log, d_skip, s0, s0_stride,
+                              scratch, y, s_out, states, b, s_len, h, hd, ds,
+                              0, 0, c0, n_run, every, st);
   return static_cast<int>(err);
 }

@@ -8,8 +8,9 @@
 // a_t = exp(la_t), la_t = -exp(a_log)·dt_t, B and C shared by the heads.
 // Given dY and the final state's gradient dsT (a null pointer: zeros), it
 // returns dx, dB, dC (x's dtype), ddt, da_log, dD and, when asked, ds0
-// (float32), from the forward's saved incoming state of every chunk
-// (`ssd.cu`, `states`).
+// (float32), from the forward's kept incoming states (`ssd.cu`,
+// `states`): every chunk's, or every 16th chunk's, the checkpoints of the
+// reference's `chunk_scan_checkpointed`.
 //
 // Per chunk of 16 tokens and head, with p the inclusive running sum of la
 // (every exponent p_t - p_s, s <= t, clamped at 0 as in the forward),
@@ -48,17 +49,27 @@
 // 215 registers two blocks an SM (at three, ptxas spilled); the first
 // version took 4.4419 and 2.9240 (PERF.md, row 6b).
 //
-// Design: four launches per call, every sum in one fixed order (two runs
-// give the same bits), every product on the tensor cores (`mma.sync`
-// through `scan_mma.cuh`), no atomics.
+// Design: two launches per run of chunks and two for the sums, every sum
+// in one fixed order (two runs give the same bits), every product on the
+// tensor cores (`mma.sync` through `scan_mma.cuh`), no atomics.  From
+// every state the run is the whole sequence.  From the checkpoints the
+// host walks the segments of 16 chunks from the last, as in wkv6_bwd.cu:
+// the forward's state pass (`ssd.cu`, no output) recomputes the segment's
+// states from its checkpoint, the reverse pass carries dS in from the
+// later segment and out to the earlier one, the chunk pass runs on the
+// segment, and the partials of dB, dC, dD and da_log are summed once at
+// the end in their fixed orders: the whole-state backward's bits, with
+// one segment's float32 state and dS scratch (59 MB for zamba2-7b at
+// 4,096 tokens, against 940 MB).
 //
 // `ssd_bwd_reverse_kernel` (the reverse pass), shaped as the forward's pass
 // B (`ssd.cu::ssd_state_kernel`) walking the chunks from the last: one
 // block of 16 warps per (batch·head, 64 rows of dS), each warp a 16 x 16
 // piece of dS in `mma` accumulator fragments.  Per chunk it stores dS_out
-// to a float32 scratch [B, H, n, hd, ds] (470 MB for zamba2-7b at 4,096
-// tokens), forms p by a warp scan of la and updates
-// dS = exp(p_last)·dS + (exp(p)∘dY)ᵀ·C on `mma`; dY, C and dt are staged by
+// to a float32 scratch [B, H, n_run, hd, ds] (470 MB for zamba2-7b at
+// 4,096 tokens from every state, 29.4 MB for a segment), forms p by a
+// warp scan of la and updates dS = exp(p_last)·dS + (exp(p)∘dY)ᵀ·C on
+// `mma`; dY, C and dt are staged by
 // `cp.async` into a ring of shared stages three chunks ahead of the one
 // computed, each thread with fixed copy slots.  dS of the first chunk goes
 // out as ds0.
@@ -142,8 +153,9 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
                            const T* __restrict__ dy,
                            const float* __restrict__ dst,
                            float* __restrict__ dstates,
-                           float* __restrict__ ds0, int s_len, int n_chunks,
-                           int h, int hd, int ds, int vec_x, int vec_bc) {
+                           float* __restrict__ ds0, int s_len, int c0,
+                           int n_run, int h, int hd, int ds, int vec_x,
+                           int vec_bc) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = RevSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -165,7 +177,7 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
   const int i0 = i0b + iw, nri = min(16, hd - i0);
   const int64_t xp = static_cast<int64_t>(h) * hd;   // dY between tokens
   const float a = expf(a_log[head]);
-  float* const dsb = dstates + static_cast<int64_t>(bh) * n_chunks * hd * ds;
+  float* const dsb = dstates + static_cast<int64_t>(bh) * n_run * hd * ds;
 
   // this warp's piece dS[i0 + i][n0 + n]: acc[nt] holds rows g and g + 8,
   // columns 8·nt + 2q and + 1
@@ -219,19 +231,20 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
                                             vec_bc, tid);
   };
 
+  const int c_end = c0 + n_run;       // the run's chunks c0 .. c_end - 1
   for (int k = 0; k < kAhead; ++k) {  // the last chunks in flight
-    if (k < n_chunks) load(n_chunks - 1 - k, k % kStages);
+    if (k < n_run) load(c_end - 1 - k, k % kStages);
     scan::cp_async_commit();
   }
-  for (int k = 0; k < n_chunks; ++k) {
-    const int c = n_chunks - 1 - k, st = k % kStages;
+  for (int k = 0; k < n_run; ++k) {
+    const int c = c_end - 1 - k, st = k % kStages;
     scan::cp_async_wait<kAhead - 1>();  // chunk c has landed (elementwise
                                         // copies were stored already)
     __syncthreads();  // ... for every warp; the chunk after c is consumed
-    if (k + kAhead < n_chunks) load(c - kAhead, (k + kAhead) % kStages);
+    if (k + kAhead < n_run) load(c - kAhead, (k + kAhead) % kStages);
     scan::cp_async_commit();
     {  // dS_out of chunk c, for the chunk pass
-      float* out = dsb + static_cast<int64_t>(c) * hd * ds;
+      float* out = dsb + static_cast<int64_t>(c - c0) * hd * ds;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -330,8 +343,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                          float* __restrict__ db_part,
                          float* __restrict__ dc_part,
                          float* __restrict__ dd_part,
-                         float* __restrict__ da_part, int s_len,
-                         int n_chunks, int h, int hd, int ds, int vec_x,
+                         float* __restrict__ da_part, int s_len, int c0,
+                         int n_run, int h, int hd, int ds, int vec_x,
                          int vec_bc, int vec_s) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = IntraSmem<T>;
@@ -358,7 +371,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
+  const int b = blockIdx.x / n_run, ir = blockIdx.x % n_run, c = c0 + ir;
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
   const int group = blockIdx.y, n_groups = gridDim.y;
   const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
   const int64_t row0 = static_cast<int64_t>(b) * s_len + t0;
@@ -399,8 +413,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int head = group * kHeads + hh;
     const int ncb = min(kMaxN, hd - i0);
     const int64_t bh = static_cast<int64_t>(b) * h + head;
-    const float* s_in_g = states + (bh * n_chunks + c) * mat;
-    const float* ds_out_g = dstates + (bh * n_chunks + c) * mat;
+    const float* s_in_g = states + (bh * n_run + ir) * mat;
+    const float* ds_out_g = dstates + (bh * n_run + ir) * mat;
     const int64_t xbase = row0 * xp + static_cast<int64_t>(head) * hd;
     scan::stage<T, NI, kChunk, kMaxN, kThreads>(
         xs, kNS, kPlane, x + xbase + i0, xp, nr, ncb, vec_x, tid);
@@ -749,11 +763,10 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
                    const void* dt, const void* a_log, const void* d_skip,
                    const void* dy, const void* states, const void* dst,
                    void* dstates, void* db_part, void* dc_part,
-                   void* dd_part, void* da_part, void* dx,
-                   void* db, void* dc, void* ddt, void* da_log, void* dd,
+                   void* dd_part, void* da_part, void* dx, void* ddt,
                    void* ds0, int b, int s_len, int h, int hd, int ds,
-                   int vec_x, int vec_bc, int vec_s, cudaStream_t stream) {
-  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+                   int c0, int n_run, int vec_x, int vec_bc, int vec_s,
+                   cudaStream_t stream) {
   const int n_groups = (h + kHeads - 1) / kHeads;
   static bool raised_rev[64] = {}, raised_intra[64] = {};
   cudaError_t err = scan::raise_smem(ssd_bwd_reverse_kernel<T>,
@@ -764,32 +777,40 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
       static_cast<const T*>(cm), static_cast<const float*>(dt),
       static_cast<const float*>(a_log), static_cast<const T*>(dy),
       static_cast<const float*>(dst), static_cast<float*>(dstates),
-      static_cast<float*>(ds0), s_len, n_chunks, h, hd, ds, vec_x, vec_bc);
+      static_cast<float*>(ds0), s_len, c0, n_run, h, hd, ds, vec_x, vec_bc);
   err = cudaGetLastError();
+  if (err != cudaSuccess || n_run == 0) return err;
+  err = scan::raise_smem(ssd_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
+                         raised_intra);
   if (err != cudaSuccess) return err;
-  if (n_chunks > 0) {
-    err = scan::raise_smem(ssd_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
-                           raised_intra);
-    if (err != cudaSuccess) return err;
-    ssd_bwd_intra_kernel<T><<<dim3(b * n_chunks, n_groups), kThreads,
-                              IntraSmem<T>::kBytes, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(bm),
-        static_cast<const T*>(cm), static_cast<const float*>(dt),
-        static_cast<const float*>(a_log), static_cast<const float*>(d_skip),
-        static_cast<const T*>(dy), static_cast<const float*>(states),
-        static_cast<const float*>(dstates), static_cast<T*>(dx),
-        static_cast<float*>(ddt),
-        static_cast<float*>(db_part), static_cast<float*>(dc_part),
-        static_cast<float*>(dd_part), static_cast<float*>(da_part), s_len,
-        n_chunks, h, hd, ds, vec_x, vec_bc, vec_s);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const int64_t n_out = static_cast<int64_t>(b) * s_len * ds;
+  ssd_bwd_intra_kernel<T><<<dim3(b * n_run, n_groups), kThreads,
+                            IntraSmem<T>::kBytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(bm),
+      static_cast<const T*>(cm), static_cast<const float*>(dt),
+      static_cast<const float*>(a_log), static_cast<const float*>(d_skip),
+      static_cast<const T*>(dy), static_cast<const float*>(states),
+      static_cast<const float*>(dstates), static_cast<T*>(dx),
+      static_cast<float*>(ddt),
+      static_cast<float*>(db_part), static_cast<float*>(dc_part),
+      static_cast<float*>(dd_part), static_cast<float*>(da_part), s_len, c0,
+      n_run, h, hd, ds, vec_x, vec_bc, vec_s);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sums(const void* db_part, const void* dc_part,
+                        const void* dd_part, const void* da_part, void* db,
+                        void* dc, void* dd, void* da_log, int b, int s_len,
+                        int h, int ds, cudaStream_t stream) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  const int n_groups = (h + kHeads - 1) / kHeads;
+  const int64_t n_out = static_cast<int64_t>(b) * s_len * ds;
+  if (n_out > 0) {
     ssd_bwd_sum_kernel<T><<<static_cast<unsigned>((n_out + 255) / 256), 256,
                             0, stream>>>(
         static_cast<const float*>(db_part), static_cast<const float*>(dc_part),
         static_cast<T*>(db), static_cast<T*>(dc), n_out, n_groups, ds);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   ssd_bwd_head_kernel<<<(h + 255) / 256, 256, 0, stream>>>(
@@ -803,41 +824,68 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
 // Head groups of the chunk pass: the partials of dB / dC per row.
 extern "C" int ssd_bwd_groups(int h) { return (h + kHeads - 1) / kHeads; }
 
-// x, dy, dx [b, s_len, h, hd] and bm, cm, db, dc [b, s_len, ds] (all
+// The gradient over the chunks c0 .. c0 + n_run - 1 of the sequence: the
+// reverse pass from dst, the gradient of the state after chunk
+// c0 + n_run - 1 (or null: zeros), down to ds0 (or null: not wanted), the
+// gradient of the state before chunk c0; then the chunk pass over the
+// run.  x, dy, dx [b, s_len, h, hd] and bm, cm [b, s_len, ds] (all
 // float32: is_bf16 = 0, or all bf16: is_bf16 = 1), dt and ddt [b, s_len,
-// h], a_log, d_skip, da_log, dd [h], states [b, h, n_chunks, hd, ds] (the
-// forward's, `ssd_launch`), dst (or null: zeros) and ds0 (or null:
-// not wanted) [b, h, hd, ds], all float32; scratch dstates [b, h,
-// n_chunks, hd, ds], db_part and dc_part [b, s_len, ssd_bwd_groups(h),
-// ds], dd_part and da_part [b, n_chunks, h] float32: contiguous, on the
-// device; 0 < ds <= 64, 0 < hd <= 256.  vec_x / vec_bc: bf16 x and dy (B
-// and C) 16-byte aligned with hd (ds) a multiple of 8; vec_s: states and
-// dstates 16-byte aligned with ds a multiple of 4: their tiles go by
-// cp.async.  Four launches on `stream`; returns the first failing
-// cudaGetLastError().
+// h], a_log, d_skip [h], states [b, h, n_run, hd, ds] (the run's incoming
+// states: the forward's, `ssd_launch`, or a segment's recomputed from its
+// checkpoint), dst and ds0 [b, h, hd, ds], all float32; scratch dstates
+// [b, h, n_run, hd, ds], db_part and dc_part [b, s_len,
+// ssd_bwd_groups(h), ds], dd_part and da_part [b, n_chunks, h] float32
+// (the run fills its chunks' rows): contiguous, on the device; 0 < ds <=
+// 64, 0 < hd <= 256.  dx and ddt receive the run's rows.  vec_x / vec_bc:
+// bf16 x and dy (B and C) 16-byte aligned with hd (ds) a multiple of 8;
+// vec_s: states and dstates 16-byte aligned with ds a multiple of 4: their
+// tiles go by cp.async.  Two launches on `stream`; returns the first
+// failing cudaGetLastError().
 extern "C" int ssd_bwd_launch(const void* x, const void* bm, const void* cm,
                               const void* dt, const void* a_log,
                               const void* d_skip, const void* dy,
                               const void* states, const void* dst,
                               void* dstates, void* db_part, void* dc_part,
-                              void* dd_part, void* da_part,
-                              void* dx, void* db, void* dc, void* ddt,
-                              void* da_log, void* dd, void* ds0, int b,
-                              int s_len, int h, int hd, int ds, int is_bf16,
+                              void* dd_part, void* da_part, void* dx,
+                              void* ddt, void* ds0, int b, int s_len, int h,
+                              int hd, int ds, int c0, int n_run, int is_bf16,
                               int vec_x, int vec_bc, int vec_s,
                               void* stream) {
-  if (ds <= 0 || ds > kMaxN || hd <= 0 || hd > kMaxHd || s_len < 0)
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (ds <= 0 || ds > kMaxN || hd <= 0 || hd > kMaxHd || s_len < 0 ||
+      c0 < 0 || n_run < 0 || c0 + n_run > n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<bf16>(x, bm, cm, dt, a_log, d_skip, dy, states, dst,
                              dstates, db_part, dc_part, dd_part, da_part, dx,
-                             db, dc, ddt, da_log, dd, ds0, b, s_len, h, hd,
-                             ds, vec_x, vec_bc, vec_s, st)
+                             ddt, ds0, b, s_len, h, hd, ds, c0, n_run, vec_x,
+                             vec_bc, vec_s, st)
               : launch<float>(x, bm, cm, dt, a_log, d_skip, dy, states, dst,
                               dstates, db_part, dc_part, dd_part, da_part, dx,
-                              db, dc, ddt, da_log, dd, ds0, b, s_len, h, hd,
-                              ds, 0, 0, vec_s, st);
+                              ddt, ds0, b, s_len, h, hd, ds, c0, n_run, 0, 0,
+                              vec_s, st);
+  return static_cast<int>(err);
+}
+
+// dB, dC [b, s_len, ds] (x's type) and dD, da_log [h] float32: the
+// partials of every chunk (`ssd_bwd_launch`) summed in fixed orders, the
+// head groups' per row and the (batch, chunk) ones per head.  Two
+// launches on `stream`; returns the first failing cudaGetLastError().
+extern "C" int ssd_bwd_sums_launch(const void* db_part, const void* dc_part,
+                                   const void* dd_part, const void* da_part,
+                                   void* db, void* dc, void* dd,
+                                   void* da_log, int b, int s_len, int h,
+                                   int ds, int is_bf16, void* stream) {
+  if (ds <= 0 || ds > kMaxN || s_len < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_sums<bf16>(db_part, dc_part, dd_part, da_part, db, dc,
+                                  dd, da_log, b, s_len, h, ds, st)
+              : launch_sums<float>(db_part, dc_part, dd_part, da_part, db,
+                                   dc, dd, da_log, b, s_len, h, ds, st);
   return static_cast<int>(err);
 }

@@ -69,10 +69,16 @@
 // into a ring of shared stages (one block barrier per chunk), three chunks
 // ahead of the one computed, each thread with fixed copy slots (at most
 // two 16-byte copies a chunk): staging through a general tile loop spent
-// most of a chunk's instructions on address arithmetic.  Each chunk's
-// incoming state is stored only when the caller gives a `states` buffer
-// (training: the backward reads it); without one the output's bits are
-// those of a run that keeps nothing.
+// most of a chunk's instructions on address arithmetic.  The incoming
+// state of every `every`-th chunk is stored when the caller gives a
+// `states` buffer: training keeps every 16th, the backward's checkpoints
+// (10.5 MB for rwkv6-3b at 4,096 tokens, against 167.8 MB for every
+// chunk's), as the reference's `chunk_scan_checkpointed` keeps every 16th
+// state; what is kept never changes the output's bits.  A launch runs a
+// range of chunks from a given state, s0 read with a stride (a checkpoint
+// inside `states` serves as one): the backward recomputes one segment's
+// 16 states this way, with no o, whose products it then skips
+// (wkv6_bwd.cu).
 //
 // Precision (scan_mma.cuh): in the bf16 instance v enters the `mma`s
 // exactly; A, r_dec, k_dec and the state are split into two bf16 parts
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32)
                       const T* __restrict__ v,
                       const float* __restrict__ log_w,
                       const float* __restrict__ u, float* __restrict__ scr,
-                      int s_len, int n_chunks, int h, int dk, int vec) {
+                      int s_len, int c0, int n_run, int h, int dk, int vec) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   constexpr int kPlane = kChunk * kNS, kThreads = kWarps * 32;
   constexpr int kHalf = kMaxK / 2;    // channel pairs
@@ -147,13 +153,13 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
+  const int b = blockIdx.x / n_run, ir = blockIdx.x % n_run, c = c0 + ir;
   const int head = blockIdx.y;
   const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
   const int64_t step = static_cast<int64_t>(h) * dk;  // between tokens
   const int64_t base = (static_cast<int64_t>(b) * s_len + t0) * step +
                        static_cast<int64_t>(head) * dk;
-  float* out = scr + ((static_cast<int64_t>(b) * n_chunks + c) * h + head) *
+  float* out = scr + ((static_cast<int64_t>(b) * n_run + ir) * h + head) *
                          Sc::kPer;
 
   // the chunk's r, k, log_w, u and v, every load in flight at once
@@ -284,9 +290,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 template <typename T>
 __global__ void __launch_bounds__(kStateWarps * 32)
     wkv6_state_kernel(const T* __restrict__ v, const float* __restrict__ scr,
-                      const float* __restrict__ s0, T* __restrict__ o,
-                      float* __restrict__ s_out, float* __restrict__ states,
-                      int s_len, int n_chunks, int h, int dk, int vec) {
+                      const float* __restrict__ s0, int s0_stride,
+                      T* __restrict__ o, float* __restrict__ s_out,
+                      float* __restrict__ states, int s_len, int c0,
+                      int n_run, int every, int h, int dk, int vec) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = StateSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -322,7 +329,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     for (int e = 0; e < 4; ++e) {
       const int j = g + (e >> 1) * 8, d = d0 + nt * 8 + 2 * q + (e & 1);
       acc[nt][e] = (s0 && j < ncol && d < dk)
-                       ? s0[(static_cast<int64_t>(bh) * dk + d) * dk + j0 + j]
+                       ? s0[static_cast<int64_t>(bh) * s0_stride +
+                            static_cast<int64_t>(d) * dk + j0 + j]
                        : 0.f;
     }
 
@@ -335,9 +343,9 @@ __global__ void __launch_bounds__(kStateWarps * 32)
   const int vr = (e2 >> 3) & 15, vc = (e2 & 7) * 8;  // v row, 8 columns
   const T* src_v = v + (static_cast<int64_t>(b) * s_len + vr) * step +
                    static_cast<int64_t>(head) * dk + vc;
-  auto load = [&](int c, int st) {
-    const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
-    const float* in = scr + ((static_cast<int64_t>(b) * n_chunks + c) * h +
+  auto load = [&](int ir, int st) {   // the run's chunk ir
+    const int t0 = (c0 + ir) * kChunk, nr = min(kChunk, s_len - t0);
+    const float* in = scr + ((static_cast<int64_t>(b) * n_run + ir) * h +
                              head) * Sc::kPer;
     const bf16* planes = reinterpret_cast<const bf16*>(in);
     if constexpr (NI == 1) {
@@ -381,8 +389,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
         step, nr, dk, vec, tid);
   };
 
-  for (int c = 0; c < kAhead; ++c) {  // the first chunks in flight
-    if (c < n_chunks) load(c, c % kStages);
+  for (int ir = 0; ir < kAhead; ++ir) {  // the first chunks in flight
+    if (ir < n_run) load(ir, ir % kStages);
     scan::cp_async_commit();
   }
   // the two outputs this thread writes per chunk: row qu·4 + lane / 8 of
@@ -390,15 +398,18 @@ __global__ void __launch_bounds__(kStateWarps * 32)
   T* const o_out = o + (static_cast<int64_t>(b) * s_len + qu * 4 +
                         (lane >> 3)) * step + static_cast<int64_t>(head) * dk +
                    j0 + 2 * (lane & 7);
-  for (int c = 0; c < n_chunks; ++c) {
-    const int st = c % kStages;
+  for (int ir = 0; ir < n_run; ++ir) {
+    const int c = c0 + ir, st = ir % kStages;
     scan::cp_async_wait<kAhead - 1>();  // chunk c has landed (elementwise
                                         // copies were stored already)
     __syncthreads();  // ... for every warp; chunk c - 1 is consumed
-    if (c + kAhead < n_chunks) load(c + kAhead, (c + kAhead) % kStages);
+    if (ir + kAhead < n_run) load(ir + kAhead, (ir + kAhead) % kStages);
     scan::cp_async_commit();
-    if (states) {  // the chunk's incoming state, for the backward
-      float* sc = states + (static_cast<int64_t>(bh) * n_chunks + c) * dk * dk;
+    if (states && ir % every == 0) {  // the chunk's incoming state, for the
+                                     // backward: every `every`-th chunk's
+      float* sc = states +
+                  (static_cast<int64_t>(bh) * ((n_run + every - 1) / every) +
+                   ir / every) * dk * dk;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -415,8 +426,9 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     const float* elc = els(st);
 
     // this warp's part of r_dec·S (its 16 channels), with the state before
-    // this chunk, to the slice's reduction tiles
-    {
+    // this chunk, to the slice's reduction tiles (none without o: a
+    // recompute of the states)
+    if (o) {
       uint32_t af[NC][4];
 #pragma unroll
       for (int pp = 0; pp < NC; ++pp)
@@ -483,8 +495,8 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 
     // o = o_intra + r_dec·S on 4 rows t of the slice, r_dec·S the sum of
     // the slice's 4 parts
-    scan::group_sync(1 + sl, 4 * 32);
-    {
+    if (o) {
+      scan::group_sync(1 + sl, 4 * 32);
       const int t = qu * 4 + (lane >> 3), j = 2 * (lane & 7);
       const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
       const float* part = red + sl * 4 * 256 + t * 16 + j;
@@ -503,6 +515,7 @@ __global__ void __launch_bounds__(kStateWarps * 32)
     }
   }
 
+  if (!s_out) return;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -516,15 +529,15 @@ __global__ void __launch_bounds__(kStateWarps * 32)
 template <typename T>
 cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* log_w, const void* u, const void* s0,
-                   void* scratch, void* o, void* s_out, void* states, int b,
-                   int s_len, int h, int dk, int vec, cudaStream_t stream) {
-  const int n_chunks = (s_len + kChunk - 1) / kChunk;
-  if (n_chunks > 0) {
-    wkv6_intra_kernel<T><<<dim3(b * n_chunks, h), kWarps * 32, 0, stream>>>(
+                   int s0_stride, void* scratch, void* o, void* s_out,
+                   void* states, int b, int s_len, int h, int dk, int vec,
+                   int c0, int n_run, int every, cudaStream_t stream) {
+  if (n_run > 0) {
+    wkv6_intra_kernel<T><<<dim3(b * n_run, h), kWarps * 32, 0, stream>>>(
         static_cast<const T*>(r), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const float*>(log_w),
         static_cast<const float*>(u), static_cast<float*>(scratch), s_len,
-        n_chunks, h, dk, vec);
+        c0, n_run, h, dk, vec);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -535,44 +548,56 @@ cudaError_t launch(const void* r, const void* k, const void* v,
   wkv6_state_kernel<T><<<b * h, kStateWarps * 32, StateSmem<T>::kBytes,
                          stream>>>(
       static_cast<const T*>(v), static_cast<const float*>(scratch),
-      static_cast<const float*>(s0), static_cast<T*>(o),
-      static_cast<float*>(s_out), static_cast<float*>(states), s_len,
-      n_chunks, h, dk, vec);
+      static_cast<const float*>(s0), s0_stride, static_cast<T*>(o),
+      static_cast<float*>(s_out), static_cast<float*>(states), s_len, c0,
+      n_run, every, h, dk, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of scratch one call needs (the wrapper allocates them).
-extern "C" long long wkv6_scratch_floats(int b, int s_len, int h, int dk,
+// Floats of scratch a run over n_run chunks needs (the wrapper allocates
+// them).
+extern "C" long long wkv6_scratch_floats(int b, int n_run, int h, int dk,
                                          int is_bf16) {
-  const int n = (s_len + kChunk - 1) / kChunk;
   const int per = is_bf16 ? Scratch<Parts<bf16>::kCalc>::kPer
                           : Scratch<Parts<float>::kCalc>::kPer;
-  return static_cast<long long>(b) * n * h * per;
+  return static_cast<long long>(b) * n_run * h * per;
 }
-// r, k, v, o [b, s_len, h, dk] (all float32: is_bf16 = 0, or all bf16:
-// is_bf16 = 1), log_w [b, s_len, h, dk] float32, u [h, dk] float32, s0 (or
-// null: a zero state) and s_out [b, h, dk, dk] float32, scratch of
-// wkv6_scratch_floats(..., is_bf16) floats: contiguous, on the device;
-// 0 < dk <= 64.  states (or null: none kept) [b, h, n_chunks, dk, dk]
-// float32 receives each chunk's incoming state, for the backward
-// (wkv6_bwd.cu).  vec: bf16 v 16-byte aligned with dk a multiple of 8, so
-// its tiles go by cp.async.  Two launches on `stream`; returns the first
-// failing cudaGetLastError().
+// r, k, v [b, s_len, h, dk] (all float32: is_bf16 = 0, or all bf16:
+// is_bf16 = 1), log_w [b, s_len, h, dk] float32, u [h, dk] float32:
+// contiguous, on the device; 0 < dk <= 64.  Runs the chunks c0 ..
+// c0 + n_run - 1 of the sequence, from s0 (or null: a zero state), the
+// state of batch·head bh at s0 + bh·s0_stride floats, each a contiguous
+// [dk, dk] float32 matrix (s0_stride = dk·dk for a [b, h, dk, dk] s0; a
+// checkpoint of `states` has a longer stride).  o (or null: not written,
+// and its products skipped) [b, s_len, h, dk] in r's type receives those
+// chunks' rows; s_out (or null) [b, h, dk, dk] float32 the state after
+// them; states (or null: none kept) [b, h, ceil(n_run / every), dk, dk]
+// float32 the incoming state of every `every`-th chunk of the run, from
+// its first (the backward's checkpoints: wkv6_bwd.cu).  o, s_out and the
+// kept states are the same bits whatever is kept.  scratch holds
+// wkv6_scratch_floats(b, n_run, ...) floats.  vec: bf16 v 16-byte aligned
+// with dk a multiple of 8, so its tiles go by cp.async.  Two launches on
+// `stream`; returns the first failing cudaGetLastError().
 extern "C" int wkv6_launch(const void* r, const void* k, const void* v,
                            const void* log_w, const void* u, const void* s0,
-                           void* scratch, void* o, void* s_out, void* states,
-                           int b, int s_len, int h, int dk, int is_bf16,
-                           int vec, void* stream) {
-  if (dk <= 0 || dk > kMaxK || s_len < 0)
+                           int s0_stride, void* scratch, void* o,
+                           void* s_out, void* states, int b, int s_len,
+                           int h, int dk, int is_bf16, int vec, int c0,
+                           int n_run, int every, void* stream) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (dk <= 0 || dk > kMaxK || s_len < 0 || c0 < 0 || n_run < 0 ||
+      c0 + n_run > n_chunks || every < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch<bf16>(r, k, v, log_w, u, s0, scratch, o, s_out,
-                             states, b, s_len, h, dk, vec, st)
-              : launch<float>(r, k, v, log_w, u, s0, scratch, o, s_out,
-                              states, b, s_len, h, dk, 0, st);
+      is_bf16 ? launch<bf16>(r, k, v, log_w, u, s0, s0_stride, scratch, o,
+                             s_out, states, b, s_len, h, dk, vec, c0, n_run,
+                             every, st)
+              : launch<float>(r, k, v, log_w, u, s0, s0_stride, scratch, o,
+                              s_out, states, b, s_len, h, dk, 0, c0, n_run,
+                              every, st);
   return static_cast<int>(err);
 }

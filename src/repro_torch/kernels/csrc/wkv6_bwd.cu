@@ -7,8 +7,9 @@
 //   o_t = r_t @ (S_{t-1} + (u*k_t)^T v_t),  S_t = diag(w_t) S_{t-1} + k_t^T v_t
 // with w_t = exp(log_w_t).  Given dO and the final state's gradient dsT
 // (a null pointer: zeros), it returns dr, dk, dv (r's dtype), dlog_w,
-// du and, when asked, ds0 (float32), from the forward's saved incoming
-// state of every chunk (`wkv6.cu`, `states`).
+// du and, when asked, ds0 (float32), from the forward's kept incoming
+// states (`wkv6.cu`, `states`): every chunk's, or every 16th chunk's, the
+// checkpoints of the reference's `chunk_scan_checkpointed`.
 //
 // Per chunk of 16 tokens, with p the inclusive and q the exclusive running
 // sum of log_w per channel (summed serially, so q_t - p_s <= 0 for s < t
@@ -44,9 +45,21 @@
 // and A ~0.05 (timed by leaving each out); the first version took 2.6509
 // and 0.9431 (PERF.md, row 5b).
 //
-// Design: three launches per call, every sum in one fixed order (two runs
-// give the same bits), every product on the tensor cores (`mma.sync`
-// through `scan_mma.cuh`), no atomics.  The intra-chunk sums whose decay
+// Design: two launches per run of chunks and one for u's sum, every sum in
+// one fixed order (two runs give the same bits), every product on the
+// tensor cores (`mma.sync` through `scan_mma.cuh`), no atomics.  From
+// every state the run is the whole sequence.  From the checkpoints the
+// host walks the segments of 16 chunks from the last: the forward's own
+// state pass (`wkv6.cu`, from the segment's checkpoint, no output)
+// recomputes the segment's 16 incoming states, the reverse pass walks the
+// segment from the dS the later segment handed down (dst for the last)
+// and hands its own down (ds0 for the first), and the chunk pass runs on
+// the segment.  The float32 state and dS scratch is one segment's of each
+// (21 MB for rwkv6-3b at 4,096 tokens, against 336 MB from every state);
+// the recompute repeats the forward's arithmetic on the same values, the
+// reverse pass carries dS through memory exactly, and u's partials are
+// summed once in (batch, chunk) order, so the result is the whole-state
+// backward's bit for bit.  The intra-chunk sums whose decay
 // is per channel (A and the pair terms of dr and dk: an exp per token
 // pair and channel) are not products; they run on the CUDA cores, as in
 // the forward's pass A.
@@ -55,8 +68,9 @@
 // pass B (`wkv6.cu::wkv6_state_kernel`) walking the chunks from the last:
 // one block of 16 warps per batch·head, each warp a 16 x 16 piece of dSᵀ
 // (16 columns by 16 channels) in `mma` accumulator fragments.  Per chunk
-// it stores dS_out to a float32 scratch [B, H, n, dk, dk] (168 MB for
-// rwkv6-3b at 4,096 tokens) and updates dSᵀ = dSᵀ·diag(exp(p_last)) +
+// it stores dS_out to a float32 scratch [B, H, n_run, dk, dk] (168 MB for
+// rwkv6-3b at 4,096 tokens from every state, 10.5 MB for a segment) and
+// updates dSᵀ = dSᵀ·diag(exp(p_last)) +
 // dOᵀ·r_dec on `mma`, r_dec = r∘exp(q) built by each lane for its fragment
 // from its channels' running sums; r, log_w and dO are staged by
 // `cp.async` into a ring of shared stages three chunks ahead, each thread
@@ -124,8 +138,8 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
                             const T* __restrict__ dout,
                             const float* __restrict__ dst,
                             float* __restrict__ dstates,
-                            float* __restrict__ ds0, int s_len, int n_chunks,
-                            int h, int dk, int vec) {
+                            float* __restrict__ ds0, int s_len, int c0,
+                            int n_run, int h, int dk, int vec) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = RevSmem<T>;
   constexpr int kStages = L::kStages, kAhead = L::kAhead;
@@ -148,7 +162,7 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
   const int j0 = sl * 16, d0 = qu * 16, ncol = min(16, dk - j0);
   const int64_t step = static_cast<int64_t>(h) * dk;   // between tokens
   const int64_t hbase = static_cast<int64_t>(head) * dk;
-  float* const dsb = dstates + static_cast<int64_t>(bh) * n_chunks * dk * dk;
+  float* const dsb = dstates + static_cast<int64_t>(bh) * n_run * dk * dk;
 
   // this warp's piece dSᵀ[j0 + j][d0 + d]: acc[nt] holds rows j = g and
   // g + 8, columns d = 8·nt + 2q and + 1
@@ -198,19 +212,20 @@ __global__ void __launch_bounds__(kRevWarps * 32, 1)
     }
   };
 
+  const int c_end = c0 + n_run;       // the run's chunks c0 .. c_end - 1
   for (int k = 0; k < kAhead; ++k) {  // the last chunks in flight
-    if (k < n_chunks) load(n_chunks - 1 - k, k % kStages);
+    if (k < n_run) load(c_end - 1 - k, k % kStages);
     scan::cp_async_commit();
   }
-  for (int k = 0; k < n_chunks; ++k) {
-    const int c = n_chunks - 1 - k, st = k % kStages;
+  for (int k = 0; k < n_run; ++k) {
+    const int c = c_end - 1 - k, st = k % kStages;
     scan::cp_async_wait<kAhead - 1>();  // chunk c has landed (elementwise
                                         // copies were stored already)
     __syncthreads();  // ... for every warp; the chunk after c is consumed
-    if (k + kAhead < n_chunks) load(c - kAhead, (k + kAhead) % kStages);
+    if (k + kAhead < n_run) load(c - kAhead, (k + kAhead) % kStages);
     scan::cp_async_commit();
     {  // dS_out of chunk c, for the chunk pass
-      float* out = dsb + static_cast<int64_t>(c) * dk * dk;
+      float* out = dsb + static_cast<int64_t>(c - c0) * dk * dk;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -318,8 +333,8 @@ __global__ void __launch_bounds__(kThreads)
                           const float* __restrict__ dstates,
                           T* __restrict__ dr, T* __restrict__ dkk,
                           T* __restrict__ dv, float* __restrict__ dlog_w,
-                          float* __restrict__ du_part, int s_len,
-                          int n_chunks, int h, int dk, int vec, int vec_s) {
+                          float* __restrict__ du_part, int s_len, int c0,
+                          int n_run, int h, int dk, int vec, int vec_s) {
   constexpr int NI = Parts<T>::kIn, NC = Parts<T>::kCalc;
   using L = IntraSmem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -343,7 +358,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
-  const int b = blockIdx.x / n_chunks, c = blockIdx.x % n_chunks;
+  const int b = blockIdx.x / n_run, ir = blockIdx.x % n_run, c = c0 + ir;
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
   const int head = blockIdx.y;
   const int t0 = c * kChunk, nr = min(kChunk, s_len - t0);
   const int64_t step = static_cast<int64_t>(h) * dk;
@@ -351,8 +367,8 @@ __global__ void __launch_bounds__(kThreads)
                        static_cast<int64_t>(head) * dk;
   const int64_t bh = static_cast<int64_t>(b) * h + head;
   const int64_t mat = static_cast<int64_t>(dk) * dk;
-  const float* s_in_g = states + (bh * n_chunks + c) * mat;
-  const float* ds_out_g = dstates + (bh * n_chunks + c) * mat;
+  const float* s_in_g = states + (bh * n_run + ir) * mat;
+  const float* ds_out_g = dstates + (bh * n_run + ir) * mat;
   const int w16 = warp * 16;   // this warp's 16 channels (or columns)
 
   scan::stage<T, NI, kChunk, kMaxK, kThreads>(vs, kNS, kPlane, v + base, step,
@@ -616,10 +632,9 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                    const void* log_w, const void* u, const void* dout,
                    const void* states, const void* dst,
                    void* dstates, void* du_part, void* dr, void* dkk,
-                   void* dv, void* dlog_w, void* du, void* ds0, int b,
-                   int s_len, int h, int dk, int vec, int vec_s,
-                   cudaStream_t stream) {
-  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+                   void* dv, void* dlog_w, void* ds0, int b,
+                   int s_len, int h, int dk, int c0, int n_run, int vec,
+                   int vec_s, cudaStream_t stream) {
   static bool raised_rev[64] = {}, raised_intra[64] = {};
   cudaError_t err = scan::raise_smem(wkv6_bwd_reverse_kernel<T>,
                                      RevSmem<T>::kBytes, raised_rev);
@@ -628,65 +643,78 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                                stream>>>(
       static_cast<const T*>(r), static_cast<const float*>(log_w),
       static_cast<const T*>(dout), static_cast<const float*>(dst),
-      static_cast<float*>(dstates), static_cast<float*>(ds0), s_len,
-      n_chunks, h, dk, vec);
+      static_cast<float*>(dstates), static_cast<float*>(ds0), s_len, c0,
+      n_run, h, dk, vec);
   err = cudaGetLastError();
+  if (err != cudaSuccess || n_run == 0) return err;
+  err = scan::raise_smem(wkv6_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
+                         raised_intra);
   if (err != cudaSuccess) return err;
-  if (n_chunks > 0) {
-    err = scan::raise_smem(wkv6_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
-                           raised_intra);
-    if (err != cudaSuccess) return err;
-    wkv6_bwd_intra_kernel<T><<<dim3(b * n_chunks, h), kThreads,
-                               IntraSmem<T>::kBytes, stream>>>(
-        static_cast<const T*>(r), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const float*>(log_w),
-        static_cast<const float*>(u), static_cast<const T*>(dout),
-        static_cast<const float*>(states),
-        static_cast<const float*>(dstates), static_cast<T*>(dr),
-        static_cast<T*>(dkk), static_cast<T*>(dv),
-        static_cast<float*>(dlog_w), static_cast<float*>(du_part), s_len,
-        n_chunks, h, dk, vec, vec_s);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const int hdk = h * dk;
-  wkv6_bwd_du_kernel<<<(hdk + 255) / 256, 256, 0, stream>>>(
-      static_cast<const float*>(du_part), static_cast<float*>(du),
-      b * n_chunks, hdk);
+  wkv6_bwd_intra_kernel<T><<<dim3(b * n_run, h), kThreads,
+                             IntraSmem<T>::kBytes, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(log_w),
+      static_cast<const float*>(u), static_cast<const T*>(dout),
+      static_cast<const float*>(states),
+      static_cast<const float*>(dstates), static_cast<T*>(dr),
+      static_cast<T*>(dkk), static_cast<T*>(dv),
+      static_cast<float*>(dlog_w), static_cast<float*>(du_part), s_len, c0,
+      n_run, h, dk, vec, vec_s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// r, k, v, dout, dr, dk, dv [b, s_len, h, dk] (all float32: is_bf16 = 0,
-// or all bf16: is_bf16 = 1), log_w and dlog_w [b, s_len, h, dk], u and du
-// [h, dk], states [b, h, n_chunks, dk, dk] (the forward's, `wkv6_launch`),
-// dst (or null: zeros) and ds0 (or null: not wanted) [b, h, dk, dk],
-// all float32; scratch dstates [b, h, n_chunks, dk, dk] and du_part
-// [b, n_chunks, h, dk] float32: contiguous, on the device; 0 < dk <= 64.
-// vec: bf16 r, k, v, dout and log_w 16-byte aligned with dk a multiple of
-// 8; vec_s: states and dstates 16-byte aligned with dk a multiple of 4:
-// their tiles go by cp.async.  Three launches on `stream`; returns the
-// first failing cudaGetLastError().
+// The gradient over the chunks c0 .. c0 + n_run - 1 of the sequence: the
+// reverse pass from dst, the gradient of the state after chunk
+// c0 + n_run - 1 (or null: zeros), down to ds0 (or null: not wanted), the
+// gradient of the state before chunk c0; then the chunk pass over the
+// run.  r, k, v, dout, dr, dk, dv [b, s_len, h, dk] (all float32:
+// is_bf16 = 0, or all bf16: is_bf16 = 1), log_w and dlog_w [b, s_len, h,
+// dk], u [h, dk], states [b, h, n_run, dk, dk] (the run's incoming states:
+// the forward's, `wkv6_launch`, or a segment's recomputed from its
+// checkpoint), dst and ds0 [b, h, dk, dk], all float32; scratch dstates
+// [b, h, n_run, dk, dk] and du_part [b, n_chunks, h, dk] float32 (the run
+// fills its chunks' rows): contiguous, on the device; 0 < dk <= 64.  dr,
+// dk, dv and dlog_w receive the run's rows.  vec: bf16 r, k, v, dout and
+// log_w 16-byte aligned with dk a multiple of 8; vec_s: states and dstates
+// 16-byte aligned with dk a multiple of 4: their tiles go by cp.async.
+// Two launches on `stream`; returns the first failing cudaGetLastError().
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
                                const void* log_w, const void* u,
                                const void* dout, const void* states,
                                const void* dst,
                                void* dstates, void* du_part, void* dr,
-                               void* dkk, void* dv, void* dlog_w, void* du,
-                               void* ds0, int b, int s_len, int h, int dk,
-                               int is_bf16, int vec, int vec_s,
+                               void* dkk, void* dv, void* dlog_w, void* ds0,
+                               int b, int s_len, int h, int dk, int c0,
+                               int n_run, int is_bf16, int vec, int vec_s,
                                void* stream) {
-  if (dk <= 0 || dk > kMaxK || s_len < 0)
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (dk <= 0 || dk > kMaxK || s_len < 0 || c0 < 0 || n_run < 0 ||
+      c0 + n_run > n_chunks)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<bf16>(r, k, v, log_w, u, dout, states, dst,
-                             dstates, du_part, dr, dkk, dv, dlog_w, du, ds0,
-                             b, s_len, h, dk, vec, vec_s, st)
+                             dstates, du_part, dr, dkk, dv, dlog_w, ds0, b,
+                             s_len, h, dk, c0, n_run, vec, vec_s, st)
               : launch<float>(r, k, v, log_w, u, dout, states, dst,
-                              dstates, du_part, dr, dkk, dv, dlog_w, du, ds0,
-                              b, s_len, h, dk, 0, vec_s, st);
+                              dstates, du_part, dr, dkk, dv, dlog_w, ds0, b,
+                              s_len, h, dk, c0, n_run, 0, vec_s, st);
   return static_cast<int>(err);
+}
+
+// du [h, dk] float32: du_part [b, n_chunks, h, dk] summed over (batch,
+// chunk) in that order, once every chunk's partial is in.  One launch on
+// `stream`.
+extern "C" int wkv6_bwd_du_launch(const void* du_part, void* du,
+                                  int n_part, int hdk, void* stream) {
+  if (n_part < 0 || hdk < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (hdk == 0) return static_cast<int>(cudaSuccess);
+  wkv6_bwd_du_kernel<<<(hdk + 255) / 256, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(du_part), static_cast<float*>(du), n_part,
+      hdk);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,9 @@ backward kernel or raises.  The ops that training runs have one:
 attention and the router's ops raise: training never calls them, so they
 have no backward kernel.  Without grad (the serving path) the kernels are
 called directly.  On the CPU the plain versions differentiate through
-PyTorch's own autograd.
+PyTorch's own autograd; the scans' under the reference's checkpointing
+(every 16th chunk state kept, each segment run again in the backward), as
+their kernels on the card keep only those states too.
 """
 from __future__ import annotations
 
@@ -38,8 +40,11 @@ from repro_torch.kernels.lcp_affinity import (lcp_affinity_cuda,
                                               lcp_gather_cuda, lcp_gather_plain)
 from repro_torch.kernels.routing_fused import (fused_phase1_cuda,
                                                fused_phase1_plain)
-from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_cuda, ssd_plain
-from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_cuda, wkv6_plain
+from repro_torch.kernels.ssd import (ssd_bwd_cuda, ssd_checkpointed,
+                                    ssd_cuda, ssd_plain)
+from repro_torch.kernels.wkv6 import (CHUNK, kept_stride, wkv6_bwd_cuda,
+                                     wkv6_checkpointed, wkv6_cuda,
+                                     wkv6_plain)
 
 __all__ = ["auction_bid_op", "auction_fused_op", "auction_solve_op",
            "decode_attention_op", "flash_attention_bwd_op",
@@ -221,29 +226,38 @@ def _state_grad(dst):
     return None if dst is None else dst.contiguous()
 
 
+def _kept(seq_len: int) -> int:
+    """The stride of the states a training forward keeps (`wkv6.
+    kept_stride`): every 16th chunk's where the reference's
+    ``chunk_scan_checkpointed`` checkpoints, else every chunk's."""
+    return kept_stride(-(-seq_len // CHUNK))
+
+
 class _WKV6(torch.autograd.Function):
     """The WKV6 kernel with its gradient: the forward asks the kernel for
-    each chunk's incoming state and saves r, k, v, log_w, u, those states
-    and the final state (a re-run forward under remat saves its own); the
-    backward runs ``wkv6_bwd_op`` (looked up when it runs, so a recorder
-    that stands in for the op sees the call).  In training the final state
-    is discarded, so its gradient arrives as None and reaches the kernel
-    as a null pointer."""
+    the incoming state of every 16th chunk (every chunk's where the
+    sequence has fewer than two whole segments of 16) and saves r, k, v,
+    log_w, u and those states (a re-run forward under remat saves its
+    own); the backward runs ``wkv6_bwd_op`` (looked up when it runs, so a
+    recorder that stands in for the op sees the call), which recomputes
+    each segment's states.  In training the final state is discarded, so
+    its gradient arrives as None and reaches the kernel as a null
+    pointer."""
 
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, s0):
-        o, s_t, states = wkv6_cuda(r, k, v, log_w, u, s0, return_states=True)
+        o, s_t, states = wkv6_cuda(r, k, v, log_w, u, s0, return_states=True,
+                                   keep_every=_kept(r.shape[1]))
         _LAUNCHES["wkv6"] += 1
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(r, k, v, log_w, u, states, s_t)
+        ctx.save_for_backward(r, k, v, log_w, u, states)
         return o, s_t
 
     @staticmethod
     def backward(ctx, do, dst):
-        r, k, v, log_w, u, states, s_t = ctx.saved_tensors
+        r, k, v, log_w, u, states = ctx.saved_tensors
         do = torch.zeros_like(r) if do is None else do.contiguous()
-        grads = wkv6_bwd_op(r, k, v, log_w, u, states, s_t, do,
-                            _state_grad(dst),
+        grads = wkv6_bwd_op(r, k, v, log_w, u, states, do, _state_grad(dst),
                             want_ds0=ctx.needs_input_grad[5])
         return tuple(g if need else None
                      for g, need in zip(grads, ctx.needs_input_grad))
@@ -254,24 +268,30 @@ def wkv6_op(r, k, v, log_w, u, s0=None):
     [B, S, H, dk], u [H, dk] -> (o [B, S, H, dk], sT [B, H, dk, dk]); see
     `kernels/wkv6.py`.  On CUDA with an input that requires grad (under
     grad mode) it runs through `_WKV6`, so the backward kernel gives the
-    inputs their gradients; otherwise the kernel is called directly."""
+    inputs their gradients; otherwise the kernel is called directly.  On
+    the CPU under grad it runs `wkv6.wkv6_checkpointed` (the plain chunk
+    step, every 16th state kept, as the reference's scan), else the plain
+    version."""
     if _route(r) == "cuda":
         if _needs_grad(r, k, v, log_w, u, s0):
             return _WKV6.apply(r, k, v, log_w, u, s0)
         out = wkv6_cuda(r, k, v, log_w, u, s0)
         _LAUNCHES["wkv6"] += 1
         return out
+    if _needs_grad(r, k, v, log_w, u, s0):
+        return wkv6_checkpointed(r, k, v, log_w, u, s0)
     return wkv6_plain(r, k, v, log_w, u, s0)
 
 
-def wkv6_bwd_op(r, k, v, log_w, u, states, s_t, do, dst=None, *,
+def wkv6_bwd_op(r, k, v, log_w, u, states, do, dst=None, *,
                 want_ds0=False):
-    """WKV6's gradient on the card: the forward's inputs, its per-chunk
-    ``states`` and final state, the output's gradient and the final
-    state's (None: zeros) -> (dr, dk, dv, dlog_w, du, ds0); see
-    `kernels/wkv6.py`.  Only ``_WKV6``'s backward calls it, and that
+    """WKV6's gradient on the card: the forward's inputs, its kept
+    ``states`` (each chunk's, or every 16th's), the output's gradient and
+    the final state's (None: zeros) -> (dr, dk, dv, dlog_w, du, ds0); see
+    `kernels/wkv6.py`.  One count a call, the segments' recompute of the
+    states included.  Only ``_WKV6``'s backward calls it, and that
     Function runs only on CUDA."""
-    out = wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst,
+    out = wkv6_bwd_cuda(r, k, v, log_w, u, states, do, dst,
                         want_ds0=want_ds0)
     _LAUNCHES["wkv6_bwd"] += 1
     return out
@@ -279,13 +299,14 @@ def wkv6_bwd_op(r, k, v, log_w, u, states, s_t, do, dst=None, *,
 
 class _SSD(torch.autograd.Function):
     """The SSD kernel with its gradient, as `_WKV6`: the forward saves the
-    inputs and each chunk's incoming state; the backward runs
-    ``ssd_bwd_op``."""
+    inputs and every 16th chunk's incoming state (or every chunk's); the
+    backward runs ``ssd_bwd_op``."""
 
     @staticmethod
     def forward(ctx, x, bmat, cmat, dt, a_log, d_skip, s0):
         y, s_t, states = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0,
-                                  return_states=True)
+                                  return_states=True,
+                                  keep_every=_kept(x.shape[1]))
         _LAUNCHES["ssd"] += 1
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, bmat, cmat, dt, a_log, d_skip, states)
@@ -305,22 +326,26 @@ class _SSD(torch.autograd.Function):
 def ssd_op(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     """The Mamba-2 SSD scan from state s0 (None: zeros): x [B, S, H, hd],
     bmat/cmat [B, S, ds], dt [B, S, H], a_log/d_skip [H] -> (y [B, S, H,
-    hd], sT [B, H, hd, ds]); see `kernels/ssd.py`.  On CUDA under grad it
-    runs through `_SSD`, as `wkv6_op` through `_WKV6`."""
+    hd], sT [B, H, hd, ds]); see `kernels/ssd.py`.  Under grad it runs
+    through `_SSD` on CUDA and `ssd.ssd_checkpointed` on the CPU, as
+    `wkv6_op`."""
     if _route(x) == "cuda":
         if _needs_grad(x, bmat, cmat, dt, a_log, d_skip, s0):
             return _SSD.apply(x, bmat, cmat, dt, a_log, d_skip, s0)
         out = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0)
         _LAUNCHES["ssd"] += 1
         return out
+    if _needs_grad(x, bmat, cmat, dt, a_log, d_skip, s0):
+        return ssd_checkpointed(x, bmat, cmat, dt, a_log, d_skip, s0)
     return ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0)
 
 
 def ssd_bwd_op(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None, *,
                want_ds0=False):
-    """SSD's gradient on the card: the forward's inputs, its per-chunk
-    ``states``, the output's gradient and the final state's (None: zeros)
-    -> (dx, dB, dC, ddt, da_log, dD, ds0); see `kernels/ssd.py`.  Only
+    """SSD's gradient on the card: the forward's inputs, its kept
+    ``states`` (each chunk's, or every 16th's), the output's gradient and
+    the final state's (None: zeros) -> (dx, dB, dC, ddt, da_log, dD, ds0);
+    see `kernels/ssd.py`.  One count a call, as `wkv6_bwd_op`.  Only
     ``_SSD``'s backward calls it, and that Function runs only on CUDA."""
     out = ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst,
                        want_ds0=want_ds0)

@@ -21,13 +21,62 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import scan_vjp
-from repro_torch.kernels.wkv6 import CHUNK, _pad_chunks
+from repro_torch.kernels.wkv6 import (CHUNK, SEGMENT, _pad_chunks,
+                                     _stride_of, _walk_segments,
+                                     kept_stride)
 
-__all__ = ["ssd_bwd_cuda", "ssd_bwd_plain", "ssd_cuda", "ssd_plain"]
+__all__ = ["ssd_bwd_cuda", "ssd_bwd_plain", "ssd_checkpointed", "ssd_cuda",
+           "ssd_plain"]
 
 MAX_STATE = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _ssd_scan(x, bmat, cmat, dt, a_log, d_skip, s0):
+    """`ssd_plain`'s recurrence as a scan: (step, the float32 initial
+    state, the per-chunk operands xs [n, ...] (x, dt, the log decays, B,
+    C), n, finish), ``step(state, xs_c) -> (state, y)`` one chunk and
+    ``finish`` the stacked chunk outputs [n, B, H, C, hd] to y [B, S, H,
+    hd] in x's dtype, the skip D·x added."""
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
+    c = CHUNK
+    pad = (-s) % c
+    n = (s + pad) // c
+    xf = _pad_chunks(x.float(), pad)
+    dtf = _pad_chunks(dt.float(), pad)
+    la = -torch.exp(a_log.float())[None, None, :] * dtf          # [B, S', H]
+    xs = (xf.reshape(b, n, c, h, hd).permute(1, 0, 3, 2, 4),     # [n,B,H,C,hd]
+          dtf.reshape(b, n, c, h).permute(1, 0, 3, 2),           # [n,B,H,C]
+          la.reshape(b, n, c, h).permute(1, 0, 3, 2),
+          _pad_chunks(bmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1),
+          _pad_chunks(cmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1))
+    state = (torch.zeros((b, h, hd, ds), dtype=torch.float32,
+                         device=x.device) if s0 is None else s0.float())
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+
+    def step(state, chunk):
+        xx, dtt, lat, bb, cm = chunk
+        p = torch.cumsum(lat, dim=-1)                            # [B, H, C]
+        cb = torch.einsum("btn,bsn->bts", cm, bb)                # [B, C, C]
+        dec = torch.exp(torch.where(
+            tri, p[:, :, :, None] - p[:, :, None, :], -torch.inf))
+        m = cb[:, None] * dec * dtt[:, :, None, :]
+        y = torch.einsum("bhts,bhsd->bhtd", m, xx)
+        y = y + torch.einsum("bhdn,btn->bhtd", state, cm) \
+            * torch.exp(p)[..., None]
+        w = torch.exp(p[:, :, -1:] - p) * dtt                    # [B, H, C]
+        state = state * torch.exp(p[:, :, -1])[..., None, None] \
+            + torch.einsum("bhsd,bsn->bhdn", xx * w[..., None], bb)
+        return state, y
+
+    def finish(y):
+        y = y.permute(1, 0, 3, 2, 4).reshape(b, n * c, h, hd)
+        y = y + d_skip.float()[None, None, :, None] * xf
+        return y[:, :s].to(x.dtype)
+
+    return step, state, xs, n, finish
 
 
 def ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0=None):
@@ -43,40 +92,26 @@ def ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0=None):
     head: la = -exp(a_log)·dt.  A ragged last chunk is padded with dt = 0
     and zero x, B, C: the identity.
     """
-    b, s, h, hd = x.shape
-    ds = bmat.shape[-1]
-    c = CHUNK
-    pad = (-s) % c
-    n = (s + pad) // c
-    xf = _pad_chunks(x.float(), pad)
-    dtf = _pad_chunks(dt.float(), pad)
-    la = -torch.exp(a_log.float())[None, None, :] * dtf          # [B, S', H]
-    xc = xf.reshape(b, n, c, h, hd).permute(1, 0, 3, 2, 4)       # [n,B,H,C,hd]
-    dtc = dtf.reshape(b, n, c, h).permute(1, 0, 3, 2)            # [n,B,H,C]
-    lac = la.reshape(b, n, c, h).permute(1, 0, 3, 2)
-    bc = _pad_chunks(bmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1)
-    cc = _pad_chunks(cmat.float(), pad).reshape(b, n, c, ds).transpose(0, 1)
-    state = (torch.zeros((b, h, hd, ds), dtype=torch.float32,
-                         device=x.device) if s0 is None else s0.float())
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    step, state, xs, n, finish = _ssd_scan(x, bmat, cmat, dt, a_log, d_skip,
+                                           s0)
     outs = []
     for i in range(n):
-        xx, dtt, lat, bb, cm = xc[i], dtc[i], lac[i], bc[i], cc[i]
-        p = torch.cumsum(lat, dim=-1)                            # [B, H, C]
-        cb = torch.einsum("btn,bsn->bts", cm, bb)                # [B, C, C]
-        dec = torch.exp(torch.where(
-            tri, p[:, :, :, None] - p[:, :, None, :], -torch.inf))
-        m = cb[:, None] * dec * dtt[:, :, None, :]
-        y = torch.einsum("bhts,bhsd->bhtd", m, xx)
-        y = y + torch.einsum("bhdn,btn->bhtd", state, cm) \
-            * torch.exp(p)[..., None]
-        w = torch.exp(p[:, :, -1:] - p) * dtt                    # [B, H, C]
-        state = state * torch.exp(p[:, :, -1])[..., None, None] \
-            + torch.einsum("bhsd,bsn->bhdn", xx * w[..., None], bb)
+        state, y = step(state, [t[i] for t in xs])
         outs.append(y)
-    y = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n * c, h, hd)
-    y = y + d_skip.float()[None, None, :, None] * xf
-    return y[:, :s].to(x.dtype), state
+    return finish(torch.stack(outs)), state
+
+
+def ssd_checkpointed(x, bmat, cmat, dt, a_log, d_skip, s0=None):
+    """`ssd_plain`'s function, its own chunk step run under
+    `models/scan_config.chunk_scan_checkpointed` as the reference's
+    ``ssd_chunked`` runs it (see `wkv6.wkv6_checkpointed`): the same bits
+    as `ssd_plain`, gradients too; the CPU route of the op under grad."""
+    from repro_torch.models.scan_config import chunk_scan_checkpointed
+
+    step, state, xs, n, finish = _ssd_scan(x, bmat, cmat, dt, a_log, d_skip,
+                                           s0)
+    s_t, y = chunk_scan_checkpointed(step, state, xs, n, SEGMENT)
+    return finish(y), s_t
 
 
 def ssd_bwd_plain(x, bmat, cmat, dt, a_log, d_skip, s0, dy, dst=None):
@@ -95,7 +130,7 @@ def ssd_bwd_plain(x, bmat, cmat, dt, a_log, d_skip, s0, dy, dst=None):
 def _lib() -> ctypes.CDLL:
     lib = build.load("ssd")
     fn = lib.ssd_launch
-    fn.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 7 + [_I] + [_P] * 4 + [_I] * 11 + [_P]
     fn.restype = ctypes.c_int
     lib.ssd_scratch_floats.argtypes = [_I] * 4
     lib.ssd_scratch_floats.restype = ctypes.c_longlong
@@ -104,7 +139,8 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=64)
 def _scratch_floats(*shape) -> int:
-    """Floats of float32 scratch the two passes share, per call shape."""
+    """Floats of float32 scratch the two passes share, per (b, chunks of
+    the run, h, hd)."""
     return _lib().ssd_scratch_floats(*shape)
 
 
@@ -141,41 +177,58 @@ def _check_inputs(name, x, bmat, cmat, dt, a_log, d_skip, s0):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None, *,
-             return_states=False):
-    """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
-    one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
-    d_skip and s0 float32; ds <= 64), launched on the current stream as
-    two kernels (no zero state is filled when s0 is None).  With
-    ``return_states`` it also returns each chunk's incoming state, float32
-    [B, H, n_chunks, hd, ds] (what `ssd_bwd_cuda` reads), with y and sT
-    the same bits as without.  Raises on any other input and on a failed
-    launch."""
-    _check_inputs("ssd_cuda", x, bmat, cmat, dt, a_log, d_skip, s0)
-    dev = x.device
+def _forward(x, bmat, cmat, dt, a_log, d_skip, s0, y, s_t, states, c0,
+             n_run, every):
+    """``csrc/ssd.cu`` over the chunks c0 .. c0 + n_run - 1 from s0 [B, H,
+    hd, ds], as `wkv6._forward` (y, s_t and states None are not
+    written)."""
     b, s, h, hd = x.shape
     ds = bmat.shape[-1]
-    lib = _lib()
-    y = torch.empty_like(x)
-    s_t = torch.empty((b, h, hd, ds), dtype=torch.float32, device=dev)
-    states = (torch.empty((b, h, -(-s // CHUNK), hd, ds), dtype=torch.float32,
-                          device=dev) if return_states else None)
-    scratch = torch.empty(_scratch_floats(b, s, h, hd),
+    dev = x.device
+    scratch = torch.empty(_scratch_floats(b, n_run, h, hd),
                           dtype=torch.float32, device=dev)
     bf16 = x.dtype == torch.bfloat16
     vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0
     vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
         and cmat.data_ptr() % 16 == 0
-    err = lib.ssd_launch(
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _lib().ssd_launch(
         x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
         a_log.data_ptr(), d_skip.data_ptr(),
-        None if s0 is None else s0.data_ptr(), scratch.data_ptr(),
-        y.data_ptr(), s_t.data_ptr(),
-        None if states is None else states.data_ptr(), b, s, h, hd, ds,
-        int(bf16), int(vec_x), int(vec_bc),
+        ptr(s0), 0 if s0 is None else s0.stride(1),
+        scratch.data_ptr(), ptr(y), ptr(s_t), ptr(states), b, s, h, hd, ds,
+        int(bf16), int(vec_x), int(vec_bc), c0, n_run, every,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
+
+
+def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None, *,
+             return_states=False, keep_every=1):
+    """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
+    one device (x, bmat, cmat all float32 or all bfloat16; dt, a_log,
+    d_skip and s0 float32; ds <= 64), launched on the current stream as
+    two kernels (no zero state is filled when s0 is None).  With
+    ``return_states`` it also returns the incoming state of every
+    ``keep_every``-th chunk from the first, float32 [B, H, n_chunks /
+    keep_every, hd, ds] (what `ssd_bwd_cuda` reads): every chunk's (1) or,
+    where `wkv6.kept_stride` checkpoints, every SEGMENT-th; y and sT are
+    the same bits whatever is kept.  Raises on any other input and on a
+    failed launch."""
+    _check_inputs("ssd_cuda", x, bmat, cmat, dt, a_log, d_skip, s0)
+    b, s, h, hd = x.shape
+    ds = bmat.shape[-1]
+    n = -(-s // CHUNK)
+    if keep_every not in (1, kept_stride(n)):
+        raise ValueError(f"ssd_cuda: keep_every {keep_every} for {n} "
+                         f"chunks: 1, or {SEGMENT} where kept_stride is")
+    y = torch.empty_like(x)
+    s_t = torch.empty((b, h, hd, ds), dtype=torch.float32, device=x.device)
+    states = (torch.empty((b, h, n // keep_every, hd, ds),
+                          dtype=torch.float32, device=x.device)
+              if return_states else None)
+    _forward(x, bmat, cmat, dt, a_log, d_skip, s0, y, s_t, states, 0, n,
+             keep_every)
     return (y, s_t, states) if return_states else (y, s_t)
 
 
@@ -185,8 +238,10 @@ MAX_BWD_HEAD = 256
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("ssd_bwd")
-    lib.ssd_bwd_launch.argtypes = [_P] * 21 + [_I] * 9 + [_P]
+    lib.ssd_bwd_launch.argtypes = [_P] * 17 + [_I] * 11 + [_P]
     lib.ssd_bwd_launch.restype = ctypes.c_int
+    lib.ssd_bwd_sums_launch.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.ssd_bwd_sums_launch.restype = ctypes.c_int
     lib.ssd_bwd_groups.argtypes = [_I]
     lib.ssd_bwd_groups.restype = ctypes.c_int
     return lib
@@ -195,17 +250,24 @@ def _bwd_lib() -> ctypes.CDLL:
 def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
                  want_ds0=False):
     """The gradient of `ssd_cuda` (``csrc/ssd_bwd.cu``): its inputs as it
-    took them, its ``states`` (``return_states=True``), the output's
-    gradient ``dy`` (x's dtype and shape) and the
-    final state's ``dst`` (None: zeros, no buffer filled) -> (dx, dB, dC,
-    ddt, da_log, dD, ds0): dx/dB/dC in x's dtype, the rest float32, ds0
-    None unless ``want_ds0``.  Launched on the current stream as four
-    kernels (a reverse pass over the chunks and a chunk-parallel pass, both
-    on the tensor cores, then two fixed-order sums), with float32 scratch:
-    one hd x ds matrix per chunk and head (each chunk's outgoing state
-    gradient) and the head groups' partial sums of dB and dC.  Takes hd <=
-    256.  Raises on any input the forward would refuse, on states, dy or
-    dst of another shape or type, and on a failed launch."""
+    took them, its kept ``states`` (``return_states``: every chunk's
+    incoming state, or the checkpoints of ``keep_every`` SEGMENT), the
+    output's gradient ``dy`` (x's dtype and shape) and the final state's
+    ``dst`` (None: zeros, no buffer filled) -> (dx, dB, dC, ddt, da_log,
+    dD, ds0): dx/dB/dC in x's dtype, the rest float32, ds0 None unless
+    ``want_ds0``.
+
+    From every state: a reverse pass over the chunks and a chunk-parallel
+    pass, both on the tensor cores, then two fixed-order sums, with
+    float32 scratch: one hd x ds matrix per chunk and head (each chunk's
+    outgoing state gradient) and the head groups' partial sums of dB and
+    dC.  From the checkpoints, one segment of SEGMENT chunks at a time
+    from the last, as `wkv6.wkv6_bwd_cuda` does: the forward's state pass
+    (``csrc/ssd.cu``, no output) recomputes the segment's states, then
+    the two passes run on it; the same bits as from every state.  Takes
+    hd <= 256.  Launched on the current stream.  Raises on any input the
+    forward would refuse, on states, dy or dst of another shape or type,
+    and on a failed launch; nothing falls back to a plain version."""
     _check_inputs("ssd_bwd_cuda", x, bmat, cmat, dt, a_log, d_skip, None)
     b, s, h, hd = x.shape
     ds = bmat.shape[-1]
@@ -213,7 +275,8 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
         raise ValueError(f"head size {hd} is not in 1..{MAX_BWD_HEAD}")
     n = -(-s // CHUNK)
     dev = x.device
-    shapes = {"states": (states, (b, h, n, hd, ds), torch.float32),
+    every = _stride_of("ssd_bwd_cuda", states, n)
+    shapes = {"states": (states, (b, h, n // every, hd, ds), torch.float32),
               "dy": (dy, tuple(x.shape), x.dtype)}
     if dst is not None:
         shapes["dst"] = (dst, (b, h, hd, ds), torch.float32)
@@ -229,7 +292,6 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
     dx, db, dc = (torch.empty_like(t) for t in (x, bmat, cmat))
     ddt, da_log, dd = (torch.empty_like(t) for t in (dt, a_log, d_skip))
     ds0 = torch.empty((b, h, hd, ds), **f32) if want_ds0 else None
-    dstates = torch.empty_like(states)
     db_part, dc_part = (torch.empty((b, s, groups, ds), **f32)
                         for _ in range(2))
     dd_part, da_part = (torch.empty((b, n, h), **f32) for _ in range(2))
@@ -239,17 +301,34 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
         and dy.data_ptr() % 16 == 0
     vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
         and cmat.data_ptr() % 16 == 0
-    vec_s = ds % 4 == 0 and states.data_ptr() % 16 == 0 \
-        and dstates.data_ptr() % 16 == 0
-    err = lib.ssd_bwd_launch(
-        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
-        states.data_ptr(), ptr(dst), dstates.data_ptr(),
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(c0, n_run, run_states, carry_in, carry_out):
+        dstates = torch.empty_like(run_states)
+        vec_s = ds % 4 == 0 and run_states.data_ptr() % 16 == 0 \
+            and dstates.data_ptr() % 16 == 0
+        err = lib.ssd_bwd_launch(
+            x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+            a_log.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
+            run_states.data_ptr(), ptr(carry_in), dstates.data_ptr(),
+            db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
+            da_part.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+            ptr(carry_out), b, s, h, hd, ds, c0, n_run, int(bf16),
+            int(vec_x), int(vec_bc), int(vec_s), stream)
+        if err != 0:
+            raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error "
+                               f"{err}")
+
+    def recompute(g, seg_states):
+        # the forward's state pass from checkpoint g, keeping every state
+        _forward(x, bmat, cmat, dt, a_log, d_skip, states[:, :, g], None,
+                 None, seg_states, g * every, every, 1)
+
+    _walk_segments(states, n, every, dst, ds0, recompute, run)
+    err = lib.ssd_bwd_sums_launch(
         db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
-        da_part.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        ddt.data_ptr(), da_log.data_ptr(), dd.data_ptr(), ptr(ds0), b, s, h,
-        hd, ds, int(bf16), int(vec_x), int(vec_bc), int(vec_s),
-        torch.cuda.current_stream(dev).cuda_stream)
+        da_part.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
+        da_log.data_ptr(), b, s, h, ds, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {err}")
     return dx, db, dc, ddt, da_log, dd, ds0

@@ -24,13 +24,26 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import scan_vjp
 
-__all__ = ["CHUNK", "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_cuda",
-           "wkv6_plain"]
+__all__ = ["CHUNK", "SEGMENT", "kept_stride", "wkv6_bwd_cuda",
+           "wkv6_bwd_plain", "wkv6_checkpointed", "wkv6_cuda", "wkv6_plain"]
 
 CHUNK = 16
+# chunks between two states a training forward keeps for its backward (the
+# reference's `models/scan_config.chunk_scan_checkpointed`, super_size 16)
+SEGMENT = 16
 MAX_HEAD_DIM = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def kept_stride(n_chunks: int) -> int:
+    """The stride of the incoming states a training forward of
+    ``n_chunks`` chunks keeps for its backward: every SEGMENT-th where the
+    reference's ``chunk_scan_checkpointed`` checkpoints (n >= 2 segments
+    and a whole number of them), else every state."""
+    if n_chunks >= 2 * SEGMENT and n_chunks % SEGMENT == 0:
+        return SEGMENT
+    return 1
 
 
 def _pad_chunks(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -40,18 +53,12 @@ def _pad_chunks(x: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
 
 
-def wkv6_plain(r, k, v, log_w, u, s0=None):
-    """r, k, v: [B, S, H, dk] (float32 or bfloat16, dv == dk); log_w: [B, S,
-    H, dk] float32 (log of the decay, <= 0); u: [H, dk]; s0: [B, H, dk, dk]
-    float32 or None (zeros) -> (o [B, S, H, dk] in r's dtype, sT [B, H, dk,
-    dk] float32).
-
-    Per chunk of 16 tokens, in float32 and in the reference's op order: the
-    inter-chunk term (r·exp(p_shift)) @ S, the intra-chunk decay matrix per
-    channel (strict lower triangle, every exponent <= 0, masked pairs
-    exactly 0), the bonus diagonal r·(u∘k), and the state update.  A ragged
-    last chunk is padded with log_w = 0 and zero r, k, v: the identity.
-    """
+def _wkv6_scan(r, k, v, log_w, u, s0):
+    """`wkv6_plain`'s recurrence as a scan: (step, the float32 initial
+    state, the per-chunk operands xs [n, ...] (r, k, v, log_w and u, each
+    chunk's own view of u), n, finish), ``step(state, x) -> (state, o)``
+    one chunk and ``finish`` the stacked chunk outputs [n, B, H, C, dk] to
+    o [B, S, H, dk] in r's dtype."""
     b, s, h, dk = r.shape
     c = CHUNK
     pad = (-s) % c
@@ -61,16 +68,16 @@ def wkv6_plain(r, k, v, log_w, u, s0=None):
         t = _pad_chunks(t.float(), pad)
         return t.reshape(b, n, c, h, dk).permute(1, 0, 3, 2, 4)
 
-    rc, kc, vc, lwc = chunks(r), chunks(k), chunks(v), chunks(log_w)
-    uf = u.float()
+    xs = (chunks(r), chunks(k), chunks(v), chunks(log_w),
+          u.float().expand(n, h, dk))
     state = (torch.zeros((b, h, dk, dk), dtype=torch.float32,
                          device=r.device) if s0 is None else s0.float())
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)[:, :, None]       # s < t
     eye = torch.eye(c, dtype=torch.float32, device=r.device)
-    outs = []
-    for i in range(n):
-        rr, kk, vv, lw = rc[i], kc[i], vc[i], lwc[i]
+
+    def step(state, x):
+        rr, kk, vv, lw, uf = x
         p = torch.cumsum(lw, dim=2)                  # inclusive
         p_shift = p - lw                             # exclusive
         o = torch.einsum("bhtd,bhdv->bhtv", rr * torch.exp(p_shift), state)
@@ -85,9 +92,47 @@ def wkv6_plain(r, k, v, log_w, u, s0=None):
         k_dec = kk * torch.exp(p_last - p)
         state = state * torch.exp(p_last[:, :, 0, :])[..., None] \
             + torch.einsum("bhsd,bhsv->bhdv", k_dec, vv)
+        return state, o
+
+    def finish(o):
+        o = o.permute(1, 0, 3, 2, 4).reshape(b, n * c, h, dk)
+        return o[:, :s].to(r.dtype)
+
+    return step, state, xs, n, finish
+
+
+def wkv6_plain(r, k, v, log_w, u, s0=None):
+    """r, k, v: [B, S, H, dk] (float32 or bfloat16, dv == dk); log_w: [B, S,
+    H, dk] float32 (log of the decay, <= 0); u: [H, dk]; s0: [B, H, dk, dk]
+    float32 or None (zeros) -> (o [B, S, H, dk] in r's dtype, sT [B, H, dk,
+    dk] float32).
+
+    Per chunk of 16 tokens, in float32 and in the reference's op order: the
+    inter-chunk term (r·exp(p_shift)) @ S, the intra-chunk decay matrix per
+    channel (strict lower triangle, every exponent <= 0, masked pairs
+    exactly 0), the bonus diagonal r·(u∘k), and the state update.  A ragged
+    last chunk is padded with log_w = 0 and zero r, k, v: the identity.
+    """
+    step, state, xs, n, finish = _wkv6_scan(r, k, v, log_w, u, s0)
+    outs = []
+    for i in range(n):
+        state, o = step(state, [x[i] for x in xs])
         outs.append(o)
-    o = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, n * c, h, dk)
-    return o[:, :s].to(r.dtype), state
+    return finish(torch.stack(outs)), state
+
+
+def wkv6_checkpointed(r, k, v, log_w, u, s0=None):
+    """`wkv6_plain`'s function, its own chunk step run under
+    `models/scan_config.chunk_scan_checkpointed` as the reference's
+    ``wkv6_chunked`` runs it: under grad only every SEGMENT-th incoming
+    state is kept for the backward (where `kept_stride` says so), each
+    segment recomputed in it.  The same bits as `wkv6_plain`, gradients
+    too; the CPU route of the op under grad."""
+    from repro_torch.models.scan_config import chunk_scan_checkpointed
+
+    step, state, xs, n, finish = _wkv6_scan(r, k, v, log_w, u, s0)
+    s_t, o = chunk_scan_checkpointed(step, state, xs, n, SEGMENT)
+    return finish(o), s_t
 
 
 def wkv6_bwd_plain(r, k, v, log_w, u, s0, do, dst=None):
@@ -106,7 +151,7 @@ def wkv6_bwd_plain(r, k, v, log_w, u, s0, do, dst=None):
 def _lib() -> ctypes.CDLL:
     lib = build.load("wkv6")
     fn = lib.wkv6_launch
-    fn.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 6 + [_I] + [_P] * 4 + [_I] * 9 + [_P]
     fn.restype = ctypes.c_int
     lib.wkv6_scratch_floats.argtypes = [_I] * 5
     lib.wkv6_scratch_floats.restype = ctypes.c_longlong
@@ -115,7 +160,8 @@ def _lib() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=64)
 def _scratch_floats(*shape) -> int:
-    """Floats of float32 scratch the two passes share, per call shape."""
+    """Floats of float32 scratch the two passes share, per (b, chunks of
+    the run, h, dk, bf16)."""
     return _lib().wkv6_scratch_floats(*shape)
 
 
@@ -147,66 +193,133 @@ def _check_inputs(name, r, k, v, log_w, u, s0):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False):
+def _stride_of(name: str, states, n: int) -> int:
+    """The stride of the kept ``states`` [B, H, n_kept, ...] of an n-chunk
+    call: 1 for every state, SEGMENT for the checkpoints where
+    `kept_stride` keeps them; raises on any other count."""
+    kept = states.shape[2] if states.dim() == 5 else -1
+    if kept == n:
+        return 1
+    every = kept_stride(n)
+    if every > 1 and kept == n // every:
+        return every
+    raise ValueError(f"{name}: {kept} kept states of {n} chunks: every "
+                     f"state ({n}) or, where the sequence has a whole number "
+                     f"of at least two segments of {SEGMENT}, every "
+                     f"{SEGMENT}-th ({n // SEGMENT})")
+
+
+def _walk_segments(states, n: int, every: int, dst, ds0, recompute, run):
+    """The backward's runs over an n-chunk sequence from its kept
+    ``states`` [B, H, n / every, ...]: ``run(c0, n_run, run_states,
+    carry_in, carry_out)`` runs the reverse and chunk passes over chunks c0
+    .. c0 + n_run - 1, from the state gradient ``carry_in`` after them
+    (None: zeros) down to ``carry_out`` before them (None: not kept).  From
+    every state one run, dst to ds0; from the checkpoints one segment of
+    ``every`` chunks at a time from the last, ``recompute(g, seg_states)``
+    first filling the segment's incoming states from checkpoint g, the
+    state gradient handed down through two float32 buffers: one segment's
+    states and (inside ``run``) one segment's dS alive at a time."""
+    if every == 1:
+        run(0, n, states, dst, ds0)
+        return
+    bh, mat = states.shape[:2], states.shape[3:]
+    seg_states = states.new_empty((*bh, every, *mat))
+    carries = [states.new_empty((*bh, *mat)) for _ in range(2)]
+    carry = dst
+    for g in reversed(range(n // every)):
+        recompute(g, seg_states)
+        out = ds0 if g == 0 else carries[g % 2]
+        run(g * every, every, seg_states, carry, out)
+        carry = out
+
+
+def _forward(r, k, v, log_w, u, s0, o, s_t, states, c0, n_run, every):
+    """``csrc/wkv6.cu`` over the chunks c0 .. c0 + n_run - 1 from s0 [B, H,
+    dk, dk] (None: zeros), read with its own stride between batch·heads, so
+    that a checkpoint (a view of the kept states) serves as one; o, s_t and
+    states None are not written.  The caller checks the inputs."""
+    b, s, h, dk = r.shape
+    dev = r.device
+    bf16 = r.dtype == torch.bfloat16
+    scratch = torch.empty(_scratch_floats(b, n_run, h, dk, int(bf16)),
+                          dtype=torch.float32, device=dev)
+    vec = bf16 and dk % 8 == 0 and v.data_ptr() % 16 == 0
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _lib().wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), ptr(s0), 0 if s0 is None else s0.stride(1),
+        scratch.data_ptr(), ptr(o), ptr(s_t), ptr(states), b, s, h, dk,
+        int(bf16), int(vec), c0, n_run, every,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+
+
+def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False,
+              keep_every=1):
     """The kernel: ``wkv6_plain``'s function on contiguous CUDA tensors of
     one device (r, k, v all float32 or all bfloat16; log_w, u and s0
     float32; dk <= 64), launched on the current stream as two kernels (no
     zero state is filled when s0 is None).  With ``return_states`` it also
-    returns each chunk's incoming state, float32 [B, H, n_chunks, dk, dk]
-    (what `wkv6_bwd_cuda` reads), with o and sT the same bits as without.
-    Raises on any other input and on a failed launch."""
+    returns the incoming state of every ``keep_every``-th chunk from the
+    first, float32 [B, H, n_chunks / keep_every, dk, dk] (what
+    `wkv6_bwd_cuda` reads): every chunk's (1) or, where `kept_stride`
+    checkpoints, every SEGMENT-th; o and sT are the same bits whatever is
+    kept.  Raises on any other input and on a failed launch."""
     _check_inputs("wkv6_cuda", r, k, v, log_w, u, s0)
-    dev = r.device
     b, s, h, dk = r.shape
-    lib = _lib()
+    n = -(-s // CHUNK)
+    if keep_every not in (1, kept_stride(n)):
+        raise ValueError(f"wkv6_cuda: keep_every {keep_every} for {n} "
+                         f"chunks: 1, or {SEGMENT} where kept_stride is")
     o = torch.empty_like(r)
-    s_t = torch.empty((b, h, dk, dk), dtype=torch.float32, device=dev)
-    states = (torch.empty((b, h, -(-s // CHUNK), dk, dk), dtype=torch.float32,
-                          device=dev) if return_states else None)
-    bf16 = r.dtype == torch.bfloat16
-    scratch = torch.empty(_scratch_floats(b, s, h, dk, int(bf16)),
-                          dtype=torch.float32, device=dev)
-    vec = bf16 and dk % 8 == 0 and v.data_ptr() % 16 == 0
-    err = lib.wkv6_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), None if s0 is None else s0.data_ptr(),
-        scratch.data_ptr(), o.data_ptr(), s_t.data_ptr(),
-        None if states is None else states.data_ptr(), b, s, h, dk,
-        int(bf16), int(vec), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+    s_t = torch.empty((b, h, dk, dk), dtype=torch.float32, device=r.device)
+    states = (torch.empty((b, h, n // keep_every, dk, dk),
+                          dtype=torch.float32, device=r.device)
+              if return_states else None)
+    _forward(r, k, v, log_w, u, s0, o, s_t, states, 0, n, keep_every)
     return (o, s_t, states) if return_states else (o, s_t)
 
 
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("wkv6_bwd")
-    lib.wkv6_bwd_launch.argtypes = [_P] * 16 + [_I] * 7 + [_P]
+    lib.wkv6_bwd_launch.argtypes = [_P] * 15 + [_I] * 9 + [_P]
     lib.wkv6_bwd_launch.restype = ctypes.c_int
+    lib.wkv6_bwd_du_launch.argtypes = [_P] * 2 + [_I] * 2 + [_P]
+    lib.wkv6_bwd_du_launch.restype = ctypes.c_int
     return lib
 
 
-def wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst=None,
-                  want_ds0=False):
+def wkv6_bwd_cuda(r, k, v, log_w, u, states, do, dst=None, want_ds0=False):
     """The gradient of `wkv6_cuda` (``csrc/wkv6_bwd.cu``): its inputs r, k,
-    v, log_w, u as it took them, its ``states`` (``return_states=True``)
-    and final state ``s_t`` (checked; the kernel forms Σ S_out∘dS_out from
-    each chunk's incoming state instead of reading the next one), the
-    output's gradient ``do`` (r's dtype and shape) and the final state's
-    ``dst`` (None: zeros, no buffer filled) -> (dr, dk, dv, dlog_w, du,
-    ds0): dr/dk/dv in r's dtype, the rest float32, ds0 None unless
-    ``want_ds0``.  Launched on the current stream as three kernels (a
-    reverse pass over the chunks and a chunk-parallel pass, their products
-    on the tensor cores, then u's fixed-order sum), with a float32 scratch
-    of one dk x dk matrix per chunk and head (each chunk's outgoing state
-    gradient).  Raises on any input the forward would refuse, on states,
-    s_t, do or dst of another shape or type, and on a failed launch."""
+    v, log_w, u as it took them, its kept ``states`` (``return_states``:
+    every chunk's incoming state, or the checkpoints of ``keep_every``
+    SEGMENT), the output's gradient ``do`` (r's dtype and shape) and the
+    final state's ``dst`` (None: zeros, no buffer filled) -> (dr, dk, dv,
+    dlog_w, du, ds0): dr/dk/dv in r's dtype, the rest float32, ds0 None
+    unless ``want_ds0``.
+
+    From every state: a reverse pass over the chunks and a chunk-parallel
+    pass, their products on the tensor cores, then u's fixed-order sum,
+    with a float32 scratch of one dk x dk matrix per chunk and head (each
+    chunk's outgoing state gradient).  From the checkpoints, one segment
+    of SEGMENT chunks at a time from the last: the forward's own state
+    pass (``csrc/wkv6.cu``, no output) recomputes the segment's incoming
+    states from its checkpoint, the reverse pass walks the segment from
+    the gradient the later segment handed down, and the chunk pass runs
+    on it; the float32 state and dS scratch is one segment's of each, and
+    the result the same bits as from every state.  Launched on the
+    current stream.  Raises on any input the forward would refuse, on
+    states, do or dst of another shape or type, and on a failed launch;
+    nothing falls back to a plain version."""
     _check_inputs("wkv6_bwd_cuda", r, k, v, log_w, u, None)
     b, s, h, dk = r.shape
     n = -(-s // CHUNK)
     dev = r.device
-    shapes = {"states": (states, (b, h, n, dk, dk), torch.float32),
-              "s_t": (s_t, (b, h, dk, dk), torch.float32),
+    every = _stride_of("wkv6_bwd_cuda", states, n)
+    shapes = {"states": (states, (b, h, n // every, dk, dk), torch.float32),
               "do": (do, tuple(r.shape), r.dtype)}
     if dst is not None:
         shapes["dst"] = (dst, (b, h, dk, dk), torch.float32)
@@ -219,23 +332,39 @@ def wkv6_bwd_cuda(r, k, v, log_w, u, states, s_t, do, dst=None,
     dr, dk_, dv = (torch.empty_like(t) for t in (r, k, v))
     dlog_w = torch.empty_like(log_w)
     du = torch.empty_like(u)
-    ds0 = (torch.empty((b, h, dk, dk), dtype=torch.float32, device=dev)
-           if want_ds0 else None)
-    dstates = torch.empty_like(states)
-    du_part = torch.empty((b, n, h, dk), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    ds0 = torch.empty((b, h, dk, dk), **f32) if want_ds0 else None
+    du_part = torch.empty((b, n, h, dk), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     bf16 = r.dtype == torch.bfloat16
     vec = bf16 and dk % 8 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (r, k, v, do, log_w))
-    vec_s = dk % 4 == 0 and states.data_ptr() % 16 == 0 \
-        and dstates.data_ptr() % 16 == 0
-    err = _bwd_lib().wkv6_bwd_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), do.data_ptr(), states.data_ptr(), ptr(dst),
-        dstates.data_ptr(), du_part.data_ptr(), dr.data_ptr(),
-        dk_.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(), du.data_ptr(),
-        ptr(ds0), b, s, h, dk, int(bf16), int(vec), int(vec_s),
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _bwd_lib()
+
+    def run(c0, n_run, run_states, carry_in, carry_out):
+        dstates = torch.empty_like(run_states)
+        vec_s = dk % 4 == 0 and run_states.data_ptr() % 16 == 0 \
+            and dstates.data_ptr() % 16 == 0
+        err = lib.wkv6_bwd_launch(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u.data_ptr(), do.data_ptr(), run_states.data_ptr(),
+            ptr(carry_in), dstates.data_ptr(), du_part.data_ptr(),
+            dr.data_ptr(), dk_.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(),
+            ptr(carry_out), b, s, h, dk, c0, n_run, int(bf16), int(vec),
+            int(vec_s), stream)
+        if err != 0:
+            raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
+                               f"{err}")
+
+    def recompute(g, seg_states):
+        # the forward's state pass from checkpoint g, keeping every state
+        _forward(r, k, v, log_w, u, states[:, :, g], None, None,
+                 seg_states, g * every, every, 1)
+
+    _walk_segments(states, n, every, dst, ds0, recompute, run)
+    err = lib.wkv6_bwd_du_launch(du_part.data_ptr(), du.data_ptr(), b * n,
+                                 h * dk, stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")
     return dr, dk_, dv, dlog_w, du, ds0

@@ -30,6 +30,7 @@ TIER1_MODULES = {
     "test_torch_recurrent",
     "test_torch_router",
     "test_torch_scan_bwd",
+    "test_torch_scan_checkpoint",
     "test_torch_scan_design",
     "test_torch_seq_parallel",
     "test_torch_seq_parallel_encdec_vlm",

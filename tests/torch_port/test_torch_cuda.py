@@ -1435,12 +1435,12 @@ def test_wkv6_bwd_kernel_matches_plain(dev, b, s, h, dk, state, grad_st,
     do = _normal((b, s, h, dk), dtype, dev, rng)
     dst = _normal((b, h, dk, dk), torch.float32, dev, rng) if grad_st \
         else None
-    _, s_t, states = wkv6_cuda(*args, return_states=True)
-    got = wkv6_bwd_cuda(*args[:5], states, s_t, do, dst, want_ds0=True)
+    _, _, states = wkv6_cuda(*args, return_states=True)
+    got = wkv6_bwd_cuda(*args[:5], states, do, dst, want_ds0=True)
     want = wkv6_bwd_plain(*args, do, dst)
     torch.cuda.synchronize()
     _scan_bwd_gates(got, want, {0, 1, 2, 3}, dtype)
-    again = wkv6_bwd_cuda(*args[:5], states, s_t, do, dst, want_ds0=True)
+    again = wkv6_bwd_cuda(*args[:5], states, do, dst, want_ds0=True)
     for g, a in zip(got, again):
         assert torch.equal(g, a)               # no atomics: the same bits
 
@@ -1472,6 +1472,49 @@ def test_ssd_bwd_kernel_matches_plain(dev, b, s, h, hd, ds, state, grad_st,
     again = ssd_bwd_cuda(*args[:6], states, dy, dst, want_ds0=True)
     for g, a in zip(got, again):
         assert torch.equal(g, a)               # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scan,s,h,state", [
+    ("wkv6", 512, 40, True), ("wkv6", 4096, 40, False),
+    ("wkv6", 768, 3, True), ("ssd", 512, 112, True),
+    ("ssd", 4096, 112, False), ("ssd", 768, 9, True)])
+def test_checkpointed_scan_bwd_matches_the_whole_state_one(dev, scan, s, h,
+                                                           state, dtype):
+    """The forwards' checkpoints (``keep_every`` 16) are their whole-state
+    runs' states at every 16th chunk, with the same output bits; the
+    backward kernels from the checkpoints, one segment at a time, are the
+    same bits as from every state, and within the plain backward's gates
+    (2, 16 and 3 segments)."""
+    from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_bwd_plain
+    from repro_torch.kernels.wkv6 import (SEGMENT, wkv6_bwd_cuda,
+                                          wkv6_bwd_plain)
+
+    if scan == "wkv6":
+        args = wkv6_inputs(1, s, h, 64, dtype, state, dev, s)
+        fwd, bwd, plain, rows = wkv6_cuda, wkv6_bwd_cuda, wkv6_bwd_plain, \
+            {0, 1, 2, 3}
+        n_in = 5
+    else:
+        args = ssd_inputs(1, s, h, 64, 64, dtype, state, dev, s)
+        fwd, bwd, plain, rows = ssd_cuda, ssd_bwd_cuda, ssd_bwd_plain, \
+            {0, 1, 2}
+        n_in = 6
+    rng = np.random.default_rng(s + 1)
+    do = _normal(tuple(args[0].shape), dtype, dev, rng)
+    dst = _normal(tuple(args[-1].shape), torch.float32, dev, rng) \
+        if state else None
+    out, s_t, every = fwd(*args, return_states=True)
+    out2, s_t2, ckpt = fwd(*args, return_states=True, keep_every=SEGMENT)
+    assert torch.equal(out, out2) and torch.equal(s_t, s_t2)
+    assert torch.equal(ckpt, every[:, :, ::SEGMENT])
+    whole = bwd(*args[:n_in], every, do, dst, want_ds0=True)
+    got = bwd(*args[:n_in], ckpt, do, dst, want_ds0=True)
+    want = plain(*args, do, dst)
+    torch.cuda.synchronize()
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
+    _scan_bwd_gates(got, want, rows, dtype)
 
 
 def _split_calls(op, args, s_in, cot):

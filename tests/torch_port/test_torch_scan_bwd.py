@@ -146,13 +146,16 @@ def as_dtype(x, dtype):
     return x.to(getattr(torch, dtype))
 
 
-def wkv6_bwd_recipe(r, k, v, log_w, u, states, do, dst, dtype):
+def wkv6_bwd_recipe(r, k, v, log_w, u, states, do, dst, dtype,
+                    partials=False):
     """(dr, dk, dv, dlog_w, du, ds0) as ``wkv6_bwd_reverse_kernel``, then
     ``wkv6_bwd_intra_kernel`` and ``wkv6_bwd_du_kernel`` compute them,
     from the forward's per-chunk ``states`` [B, H, n, dk, dk]: the products
     with their operands in the instance's parts (inputs NI, computed
     operands and the float32 states NC), the per-channel pair sums in
-    float32, Σ S_out∘dS_out from S_in."""
+    float32, Σ S_out∘dS_out from S_in.  With ``partials`` du is left as
+    its per-(batch, chunk) partials [B, n, H, dk], before the fixed-order
+    sum."""
     ni, nc = PARTS[dtype]
     b, s, h, dk = r.shape
     rc, kc, vc, lc, oc = (chunks(x, s) for x in (r, k, v, log_w, do))
@@ -205,7 +208,8 @@ def wkv6_bwd_recipe(r, k, v, log_w, u, states, do, dst, dtype):
     sk = torch.flip(torch.cumsum(torch.flip(kdk, [2]), 2), [2])
     dlog_w = (sr - sk) + sod[:, :, None]
     du = (rc * kc * diag).sum(2)                              # [B,n,H,d]
-    du = du.reshape(b * n, h, dk).sum(0)          # (batch, chunk) order
+    if not partials:
+        du = du.reshape(b * n, h, dk).sum(0)      # (batch, chunk) order
 
     def unchunk(x):
         return x.reshape(b, n * CHUNK, h, dk)[:, :s]
@@ -215,14 +219,16 @@ def wkv6_bwd_recipe(r, k, v, log_w, u, states, do, dst, dtype):
 
 
 def ssd_bwd_recipe(x, bm, cm, dt, a_log, d_skip, states, dy, dst, dtype,
-                   identity_with=None):
+                   identity_with=None, partials=False):
     """(dx, dB, dC, ddt, da_log, dD, ds0) as ``ssd_bwd_reverse_kernel``,
     then ``ssd_bwd_intra_kernel`` (8 heads a block) and the two sums
     compute them, from the forward's per-chunk ``states`` [B, H, n, hd,
     ds]: every product with its operands in the instance's parts (inputs
     NI, computed operands and the float32 states NC).  ``identity_with``
     (the final state) forms dla by the suffix identity instead, the
-    kernel's rejected variant."""
+    kernel's rejected variant.  With ``partials`` da_log and dD are left
+    as their per-(batch, chunk) partials [B, n, H], before the
+    fixed-order sum."""
     ni, nc = PARTS[dtype]
     b, s, h, hd = x.shape
     xc, yc = chunks(x, s), chunks(dy, s)                      # [B,n,16,H,i]
@@ -289,8 +295,12 @@ def ssd_bwd_recipe(x, bm, cm, dt, a_log, d_skip, states, dy, dst, dtype,
         dla = (suffix((cc[:, :, :, None] * dch).sum(-1))
                - suffix((bc[:, :, :, None] * dbh).sum(-1))) + sod[:, :, None]
     ddt = direct - a * dla
-    da_log = (dla * la).sum(2).reshape(b * n, h).sum(0)
-    dd = torch.diagonal(xd, dim1=2, dim2=3).sum(-1).reshape(b * n, h).sum(0)
+    # [B, n, H], in token order whatever the number of chunks
+    da_log = sum(dla[:, :, i] * la[:, :, i] for i in range(CHUNK))
+    dd = torch.diagonal(xd, dim1=2, dim2=3).sum(-1)
+    if not partials:                              # (batch, chunk) order
+        da_log = da_log.reshape(b * n, h).sum(0)
+        dd = dd.reshape(b * n, h).sum(0)
     # dB and dC: each block's heads in order, then the groups in order
     groups = [slice(g0, g0 + 8) for g0 in range(0, h, 8)]
     db = sum(dbh[:, :, :, gr].sum(3) for gr in groups)

@@ -4,9 +4,11 @@
 Builds ``csrc/wkv6_bwd.cu`` and ``csrc/ssd_bwd.cu`` of the checkout it is
 run from, prints each kernel instance's registers and spills (``-Xptxas
 -v``) and an opcode count of its SASS (``cuobjdump -sass``), then times
-each kernel of one backward call with ``torch.profiler`` at the training
-shapes (rwkv6-3b: 40 heads of 64; zamba2-7b: 112 heads of 64, state 64;
-4,096 tokens), batch 1 and 2, in float32 and bf16.  Needs one CUDA card:
+each kernel of one backward call from every chunk's state (the
+checkpointed call adds the forward's passes a segment: `chip_smoke.py`
+phase 23b) with ``torch.profiler`` at the training shapes (rwkv6-3b: 40
+heads of 64; zamba2-7b: 112 heads of 64, state 64; 4,096 tokens), batch 1
+and 2, in float32 and bf16.  Needs one CUDA card:
 
     PYTHONPATH=src python3 tools/scan_bwd_probe.py [--out DIR] [--label L]
 
@@ -101,14 +103,14 @@ def main() -> None:
             lw = torch.clamp(-torch.exp(normal((b, s, h, dk))), -4.0, -1e-3)
             fwd = (normal((b, s, h, dk), dtype), normal((b, s, h, dk), dtype),
                    normal((b, s, h, dk), dtype), lw, normal((h, dk)))
-            _, s_t, states = wkv6_cuda(*fwd, return_states=True)
+            _, _, states = wkv6_cuda(*fwd, return_states=True)
             do = normal((b, s, h, dk), dtype)
-            means = kernel_means(lambda: wkv6_bwd_cuda(*fwd, states, s_t, do),
+            means = kernel_means(lambda: wkv6_bwd_cuda(*fwd, states, do),
                                  "wkv6_bwd")
             print(f"[{args.label}] wkv6_bwd b={b} {dtype}: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in means.items())
                   + f"; total {sum(means.values()):.4f} ms")
-            del fwd, states, s_t, do, lw
+            del fwd, states, do, lw
             h, hd, ds = 112, 64, 64
             fwd = (normal((b, s, h, hd), dtype), normal((b, s, ds), dtype),
                    normal((b, s, ds), dtype), normal((b, s, h)).abs() * 0.5,
