@@ -279,9 +279,13 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     chunks) without s0 and dsT and with both, and at S = 512 under the
     strong decays; where the forward keeps every 16th state (the
     reference's checkpoints: the whole-state run's states at every 16th
-    chunk, the output the same bits), the backward from them equal to the
-    backward from every state bit for bit, the saved state bytes and each
-    backward's scratch printed for both: each gradient within
+    chunk, the output the same bits), the backward from them (one C call:
+    each segment's state-only recompute beside its reverse pass, under the
+    later segment's chunk pass, on their own streams) equal to the
+    backward from every state bit for bit, on the current stream and on
+    another, the saved state bytes and each backward's scratch printed for
+    both, with each pass's device time and the share of the recompute's
+    kernel time inside a chunk or reverse pass (profiler): each gradient within
     1e-4 (float32) / 3e-2 (bf16) of its largest plain magnitude, each
     row (a token and head of dr / dk / dv / dlog_w / dx, a token of dB /
     dC) within 2e-2 of its own largest plain value, counted as at least
@@ -379,7 +383,9 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     forward from a stored state under phase 10's gates, the backward
     with both the final state's and the incoming state's gradients under
     phase 23b's, from the checkpoints (8 segments, as training runs it)
-    bit for bit against from every state; the flash kernels at zamba2-7b's shared block (32 / 32
+    bit for bit against from every state, on the current stream and on
+    another, with its passes' device ms, their overlap and its scratch;
+    the flash kernels at zamba2-7b's shared block (32 / 32
     heads of 112, offsets 0 and 2,048) under phase 27a's.  (b) Both
     models at phase 24's reduced float32 widths, two ranks against one
     process under phase 27b's gates, each scan launched twice a layer
@@ -556,11 +562,12 @@ OP_KERNELS = {"lcp_affinity": ("lcp_kernel",),
                            "wkv6_bwd_du_kernel"),
               "ssd_bwd": ("ssd_bwd_reverse_kernel", "ssd_bwd_intra_kernel",
                           "ssd_bwd_sum_kernel", "ssd_bwd_head_kernel")}
-# a backward from the checkpoints also runs its forward's two passes, once
-# a segment, to recompute the segment's states
-OP_KERNELS.update({f"{op}_bwd_checkpointed": (*OP_KERNELS[f"{op}_bwd"],
-                                              *OP_KERNELS[op])
-                   for op in ("wkv6", "ssd")})
+# a backward from the checkpoints also runs the state-only instances of
+# its forward's two passes, once a segment, to recompute the segment's
+# states beside its reverse pass
+OP_KERNELS.update({f"{op}_bwd_checkpointed": (
+    *OP_KERNELS[f"{op}_bwd"], f"{op}_recompute_intra_kernel",
+    f"{op}_recompute_state_kernel") for op in ("wkv6", "ssd")})
 
 
 PROFILE_TRIES = 3                  # traces of one op before events
@@ -607,6 +614,64 @@ def profiled_kernel_means(fn, op: str) -> tuple[dict[str, float], Counter]:
             total[stem] += e.device_time_total
             count[stem] += e.count
     return {k: total[k] / count[k] for k in count}, count
+
+
+# a scan backward's kernels by role: the recompute of a segment's states
+# (the state-only passes, or a parent checkout's forward passes) and the
+# passes it may run beside (the chunk and reverse passes)
+RECOMPUTE_KERNEL = r"(?<!bwd)_(?:intra|state)_kernel"
+BWD_PASS_KERNEL = r"_bwd_(?:intra|reverse)_kernel"
+
+
+def traced_kernels(fn) -> list[tuple[str, float, float]]:
+    """(name, start, end) in microseconds of every kernel of one
+    ``torch.profiler`` trace of ``fn()`` but the primers, in start
+    order."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prime_trace()
+        fn()
+        torch.cuda.synchronize()
+    return sorted(((e.name, e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and "_kernel" in e.name and "spin_kernel" not in e.name),
+                  key=lambda k: k[1])
+
+
+def kernel_totals(kernels) -> dict[str, float]:
+    """Device ms of each kernel name stem (``*_kernel``) in ``kernels``
+    (`traced_kernels`), summed over its launches."""
+    total: Counter = Counter()
+    for name, start, end in kernels:
+        m = re.search(r"(\w+_kernel)", name)
+        total[m.group(1) if m else name] += (end - start) / 1e3
+    return dict(total)
+
+
+def overlap_share(kernels, inner: str, outer: str) -> float:
+    """The share of the device time of the kernels whose name matches
+    ``inner`` (a regex) that falls inside the union of the intervals of
+    those matching ``outer``: how much of one kind of pass ran beside
+    another."""
+    merged: list[list[float]] = []
+    for s, e in sorted((s, e) for n, s, e in kernels if re.search(outer, n)):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    total = inside = 0.0
+    for name, s, e in kernels:
+        if re.search(inner, name):
+            total += e - s
+            inside += sum(max(0.0, min(e, b) - max(s, a)) for a, b in merged)
+    return inside / total if total else float("nan")
 
 
 def queued_event_ms(calls) -> float:
@@ -755,7 +820,9 @@ def scan_bwd_tensor_core_spills(reports: dict[str, str]) -> None:
     (``*_bwd_reverse_kernel`` and ``*_bwd_intra_kernel`` of ``wkv6_bwd``
     and ``ssd_bwd``, bf16 and float32): the ``HMMA`` count in each
     instance's SASS (0 fails) and its ptxas spill bytes (any spill
-    fails)."""
+    fails); and the ``HMMA`` count of the recompute's state pass in each
+    library (``*_recompute_state_kernel``, bf16 and float32: 0 fails), its
+    spills shown."""
     from repro_torch.kernels import build
 
     shown = []
@@ -779,6 +846,17 @@ def scan_bwd_tensor_core_spills(reports: dict[str, str]) -> None:
                   f"{r['spill_loads']} B")
         check(len(hmma) == 4, f"{name}: {len(hmma)} tensor-core pass "
               "instances, not 4 (two passes x two types)")
+        stem = f"{name.removesuffix('_bwd')}_recompute_state_kernel"
+        rec = tensor_core_counts(build.library_path(name), stem)
+        for fn, count in sorted(rec.items()):
+            r = entries.get(fn)
+            check(r is not None, f"no ptxas report for {fn}")
+            shown.append(f"{stem}<{'bf16' if 'bfloat16' in fn else 'f'}> "
+                         f"{count} HMMA, {r['registers']} registers, "
+                         f"{r['spill_stores'] + r['spill_loads']} B spilled")
+        check(len(rec) == 2 and min(rec.values()) > 0,
+              f"{name}: the recompute's state pass instances {rec} (two "
+              "types, each with tensor-core instructions)")
     print("    the scan backwards' tensor-core passes: " + "; ".join(shown))
 
 
@@ -2384,13 +2462,18 @@ def scan_bwd_launches(op: str, args) -> tuple[str, dict]:
     """The OP_KERNELS key of one backward call of a scan (``op`` from
     every chunk's state, ``op``_checkpointed from the checkpoints) and its
     launches per call by stem (1 where absent): from the checkpoints the
-    reverse and chunk passes and the forward's two passes once a segment,
-    the fixed-order sums once."""
+    reverse and chunk passes and the recompute's state pass once a
+    segment, its pass A once a segment (WKV6) or once for every segment's
+    coefficients (SSD), the fixed-order sums once."""
     states = args[6 if op == "ssd_bwd" else 5]
     if states.shape[2] == -(-args[0].shape[1] // CHUNK):
         return op, {}
-    passes = (*OP_KERNELS[op][:2], *OP_KERNELS[op.removesuffix("_bwd")])
-    return f"{op}_checkpointed", {k: states.shape[2] for k in passes}
+    key = f"{op}_checkpointed"
+    launches = {k: states.shape[2]
+                for k in (*OP_KERNELS[op][:2], *OP_KERNELS[key][-2:])}
+    if op == "ssd_bwd":
+        launches["ssd_recompute_intra_kernel"] = 1
+    return key, launches
 
 
 def scan_bwd_figures(op: str, args, kw, iters: int = 10,
@@ -2400,9 +2483,11 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
     magnitude, each row of the SCAN_BWD_ROWS outputs within ATTN_ROW_TOL
     of its own largest, floored at BWD_ROW_FLOOR; a second call the same
     bits; timed beside the plain version (its one call, CUDA events), with
-    its bound (operations at the peak rate of the inputs' type).  Without ``profile`` the
-    device time comes from CUDA events alone (``queued_event_ms``).  No
-    one PyTorch call computes either: ``library_ms`` is None."""
+    its bound (operations at the peak rate of the inputs' type).  Without
+    ``profile``, and from the checkpoints, whose passes run side by side on
+    several streams (a sum of kernel times would count the overlap twice),
+    the device time comes from CUDA events alone (``queued_event_ms``).
+    No one PyTorch call computes either: ``library_ms`` is None."""
     import torch
 
     kernel, plain, work = scan_bwd_parts(op)
@@ -2437,8 +2522,9 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
     del got, want, again
     bound, by = roofline(*work(*args, **kw), ops_rate(args[0].dtype))
     calls = [lambda: kernel(*args, **kw)] * iters
-    dev_ms, dev_from = (device_ms(calls, *scan_bwd_launches(op, args))
-                        if profile else
+    key, launches = scan_bwd_launches(op, args)
+    dev_ms, dev_from = (device_ms(calls, key, launches)
+                        if profile and key == op else
                         (queued_event_ms(calls) / iters, "events"))
     return {"max_abs_err": err, "max_rel_err": rel, "max_row_rel_err": row,
             "ms": cuda_time_ms(lambda: kernel(*args, **kw), iters, 2),
@@ -2450,13 +2536,67 @@ def scan_bwd_figures(op: str, args, kw, iters: int = 10,
 def scan_bwd_pass_ms(op: str, args, kw, calls: int = 5) -> dict[str, float]:
     """Device ms per call of each kernel of a scan backward (``op``), by
     its OP_KERNELS stem: the profiler's mean launch over ``calls`` calls in
-    one trace times its launches a call (a stem whose records the trace
-    lost is absent)."""
+    one trace times its launches a call.  The trace must hold each stem's
+    launches a call (`scan_bwd_launches`) times the calls, exactly: fewer
+    (a record the profiler lost) traces again, up to PROFILE_TRIES times
+    (a stem still short is absent from the result), and more fails."""
     kernel, _, _ = scan_bwd_parts(op)
     key, launches = scan_bwd_launches(op, args)
-    means, _ = profiled_kernel_means(
-        lambda: [kernel(*args, **kw) for _ in range(calls)], key)
-    return {k: v * launches.get(k, 1) / 1e3 for k, v in means.items()}
+    want = {k: launches.get(k, 1) * calls for k in OP_KERNELS[key]}
+    for _ in range(PROFILE_TRIES):
+        means, count = profiled_kernel_means(
+            lambda: [kernel(*args, **kw) for _ in range(calls)], key)
+        if all(count[k] >= n for k, n in want.items()):
+            break
+    check(all(count[k] <= n for k, n in want.items()),
+          f"{op}: {dict(count)} launches in {calls} calls, beyond the "
+          f"design's {want}")
+    return {k: v * launches.get(k, 1) / 1e3 for k, v in means.items()
+            if count[k] == want[k]}
+
+
+def scan_bwd_schedule(op: str, args, kw) -> dict:
+    """One traced backward call of a scan from the checkpoints: each
+    pass's device ms (kernel time, summed over its launches) and the share
+    of the recompute's kernel time that falls inside a chunk or reverse
+    pass (``recompute_inside``), and of the reverse passes' inside a chunk
+    pass (``reverse_inside``)."""
+    kernel, _, _ = scan_bwd_parts(op)
+    kernels = traced_kernels(lambda: kernel(*args, **kw))
+    return {"passes_ms": kernel_totals(kernels),
+            "recompute_inside": overlap_share(kernels, RECOMPUTE_KERNEL,
+                                              BWD_PASS_KERNEL),
+            "reverse_inside": overlap_share(kernels, r"_bwd_reverse_kernel",
+                                            r"_bwd_intra_kernel")}
+
+
+def print_schedule(f: dict, seg_bytes: int, whole_ds_bytes: int) -> None:
+    """The figures of `scan_bwd_schedule` and the scratch of a backward
+    from the checkpoints (``f``), beside its state and dS buffers (two
+    segments' of each, ``seg_bytes`` a segment's) and the whole-state
+    backward's dS."""
+    print("      passes (profiler, device ms a call): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in f["passes_ms"].items())
+        + f"; the recompute's kernel time inside a chunk or reverse pass "
+        f"{f['recompute_inside']:.3f}, the reverse passes' inside a chunk "
+        f"pass {f['reverse_inside']:.3f}; scratch {f['scratch_bytes']} B, "
+        f"of it the states and dS {4 * seg_bytes} B (two segments' each: "
+        f"{4 * seg_bytes / whole_ds_bytes:.3f} of the whole-state dS, "
+        f"{whole_ds_bytes} B)")
+
+
+def on_side_stream(fn):
+    """``fn()`` issued under a new, non-default stream that first waits for
+    the current stream's work; the current stream then waits for it."""
+    import torch
+
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn()
+    cur.wait_stream(side)
+    return out
 
 
 def bwd_scratch(fn) -> tuple[tuple, int]:
@@ -2484,13 +2624,15 @@ def phase_scan_bwd(dev) -> dict:
     -50, dt up to 20) at 512.  Each call's forward gives the same bits
     with every state kept, with every 16th (the checkpoints: the
     whole-state run's states at every 16th chunk) and with none; where
-    the checkpoints apply, the backward from them (one segment at a time,
-    its states recomputed) is the backward from every state bit for bit,
-    and it is the one held against the plain version; the saved state
-    bytes and each backward's scratch (device bytes beyond its outputs at
-    its peak) printed for both.  Device times from CUDA events (phase 25
-    profiles the training calls); at 4,096 tokens each pass's device time
-    from the profiler, bf16 beside float32, and the bf16 call no slower
+    the checkpoints apply, the backward from them (each segment's states
+    recomputed beside its reverse pass) is the backward from every state
+    bit for bit, on the current stream and under another, and it is the
+    one held against the plain version; the saved state bytes and each
+    backward's scratch (device bytes beyond its outputs at its peak)
+    printed for both, with its passes' device ms and their overlap
+    (`scan_bwd_schedule`).  Device times from CUDA events; at 4,096 tokens
+    each pass's device time from the profiler, its launches a call exact
+    (`scan_bwd_pass_ms`), bf16 beside float32, and the bf16 call no slower
     than the float32 one.  Returns, per backward, the bf16 figures at
     4,096 tokens without s0 (rows 5c / 6c at batch 2) with the
     whole-state call's device ms, saved bytes and scratch beside them."""
@@ -2546,23 +2688,28 @@ def phase_scan_bwd(dev) -> dict:
         args = (*fwd[:n_in], ckpt, dout, dst)
         whole, whole_scr = bwd_scratch(lambda: bwd(*whole_args, **kw))
         got, scr = bwd_scratch(lambda: bwd(*args, **kw))
-        check(all((g is None and w is None) or torch.equal(g, w)
-                  for g, w in zip(got, whole)),
-              f"{op}_bwd {label}: the checkpointed backward is not the "
-              "whole-state one bit for bit")
-        del got, whole
+        side = on_side_stream(lambda: bwd(*args, **kw))
+        check(all((g is None and w is None) or
+                  (torch.equal(g, w) and torch.equal(o, w))
+                  for g, o, w in zip(got, side, whole)),
+              f"{op}_bwd {label}: the checkpointed backward (on the current "
+              "stream or another) is not the whole-state one bit for bit")
+        del got, side, whole
         f = scan_bwd_figures(f"{op}_bwd", args, kw, profile=False)
         f["whole_device_ms"] = queued_event_ms(
             [lambda: bwd(*whole_args, **kw)] * 10) / 10
         f["saved_state_bytes"] = 4 * ckpt.numel()
         f["whole_saved_state_bytes"] = 4 * every.numel()
         f["scratch_bytes"], f["whole_scratch_bytes"] = scr, whole_scr
+        f.update(scan_bwd_schedule(f"{op}_bwd", args, kw))
         print_figures(f"{op}_bwd {label}, from the checkpoints", shape, f)
         print(f"      saved state bytes a call {f['saved_state_bytes']} "
               f"(every state: {f['whole_saved_state_bytes']}); the "
               f"backward's scratch {scr} B (from every state: {whole_scr} "
               f"B); the whole-state call {f['whole_device_ms']:.4f} ms "
               f"(events); {card_line()}")
+        print_schedule(f, f["saved_state_bytes"] // ckpt.shape[2] * stride,
+                       f["whole_saved_state_bytes"])
         return f, args, whole_args
 
     for dtype, s, stored, strong in cases:
@@ -6539,15 +6686,26 @@ def phase_split_recurrent_kernels(dev) -> dict:
             whole_args = (*fwd[:-1], states, *grads)
             args = (*fwd[:-1], ckpt, *grads)
             bwd = scan_bwd_parts(f"{op}_bwd")[0]
-            same = [torch.equal(g, w) for g, w in zip(
-                bwd(*args, want_ds0=True), bwd(*whole_args, want_ds0=True))]
-            check(all(same), f"{op}_bwd {name}: from the checkpoints not the "
-                  f"whole-state backward bit for bit ({same})")
+            whole = bwd(*whole_args, want_ds0=True)
+            same = [torch.equal(g, w) and torch.equal(o, w)
+                    for g, o, w in zip(
+                        bwd(*args, want_ds0=True),
+                        on_side_stream(lambda: bwd(*args, want_ds0=True)),
+                        whole)]
+            check(all(same), f"{op}_bwd {name}: from the checkpoints (on the "
+                  "current stream or another) not the whole-state backward "
+                  f"bit for bit ({same})")
+            del whole
             b = scan_bwd_figures(f"{op}_bwd", args, {"want_ds0": True},
                                  iters=5)
+            b.update(scan_bwd_schedule(f"{op}_bwd", args, {"want_ds0": True}))
+            _, b["scratch_bytes"] = bwd_scratch(
+                lambda: bwd(*args, want_ds0=True))
             print_figures(f"{op}_bwd {name} with dsT and ds0, from the "
                           f"checkpoints (every {stride}th state)",
                           shape_key(fwd), b)
+            print_schedule(b, 4 * ckpt.numel() // ckpt.shape[2] * stride,
+                           4 * states.numel())
             bw = scan_bwd_figures(f"{op}_bwd", whole_args,
                                   {"want_ds0": True}, iters=5)
             print_figures(f"{op}_bwd {name} with dsT and ds0, from every "

@@ -52,18 +52,20 @@
 // Design: two launches per run of chunks and two for the sums, every sum
 // in one fixed order (two runs give the same bits), every product on the
 // tensor cores (`mma.sync` through `scan_mma.cuh`), no atomics.  From
-// every state the run is the whole sequence.  From the checkpoints the
-// host walks the segments of 16 chunks from the last, as in wkv6_bwd.cu:
-// the forward's state pass (`ssd.cu`, no output) recomputes the segment's
-// states from its checkpoint, the reverse pass carries dS in from the
-// later segment and out to the earlier one, the chunk pass runs on the
-// segment, and the partials of dB, dC, dD and da_log are summed once at
-// the end in their fixed orders: the whole-state backward's bits, with
-// one segment's float32 state and dS scratch (59 MB for zamba2-7b at
-// 4,096 tokens, against 940 MB).
+// every state the run is the whole sequence.  From the checkpoints one C
+// call (`ssd_bwd_ckpt_launch`) issues the plan of `kernels/wkv6.py::
+// checkpoint_plan` as wkv6_bwd.cu does: per segment of 16 chunks from
+// the last, the state-only recompute of its states (`ssd_fwd.cuh`: pass A
+// writes only w and exp(p_last), pass B stages only B, x and those) on
+// one side stream beside the reverse pass on another, then the chunk pass
+// under the earlier segment's two walks, states and dS in two buffers of
+// each used in turn, and the partials of dB, dC, dD and da_log summed
+// once at the end in their fixed orders: the whole-state backward's bits,
+// with two segments' float32 state and dS scratch (117 MB for zamba2-7b
+// at 4,096 tokens, batch 1, against 470 MB of dS from every state).
 //
 // `ssd_bwd_reverse_kernel` (the reverse pass), shaped as the forward's pass
-// B (`ssd.cu::ssd_state_kernel`) walking the chunks from the last: one
+// B (`ssd_fwd.cuh::ssd_state_kernel`) walking the chunks from the last: one
 // block of 16 warps per (batch·head, 64 rows of dS), each warp a 16 x 16
 // piece of dS in `mma` accumulator fragments.  Per chunk it stores dS_out
 // to a float32 scratch [B, H, n_run, hd, ds] (470 MB for zamba2-7b at
@@ -97,7 +99,9 @@
 // multiple of 16 that covers it), hd is walked in pieces of 64; a width
 // that is not a multiple of 8 (x, B, C) or of 4 (the states), or float32
 // inputs, is staged element by element.
+#include "scan_ckpt.cuh"
 #include "scan_mma.cuh"
+#include "ssd_fwd.cuh"
 
 namespace {
 
@@ -105,6 +109,7 @@ using scan::bf16;
 using scan::Parts;
 
 constexpr int kChunk = 16;            // tokens per chunk
+constexpr int kSegment = 16;          // chunks between two checkpoints
 constexpr int kMaxN = 64;             // largest state size ds taken
 constexpr int kMaxHd = 256;           // largest head size hd taken
 constexpr int kNS = kMaxN + 8;        // bf16 row stride of plane tiles
@@ -759,18 +764,14 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* bm, const void* cm,
-                   const void* dt, const void* a_log, const void* d_skip,
-                   const void* dy, const void* states, const void* dst,
-                   void* dstates, void* db_part, void* dc_part,
-                   void* dd_part, void* da_part, void* dx, void* ddt,
-                   void* ds0, int b, int s_len, int h, int hd, int ds,
-                   int c0, int n_run, int vec_x, int vec_bc, int vec_s,
-                   cudaStream_t stream) {
-  const int n_groups = (h + kHeads - 1) / kHeads;
-  static bool raised_rev[64] = {}, raised_intra[64] = {};
-  cudaError_t err = scan::raise_smem(ssd_bwd_reverse_kernel<T>,
-                                     RevSmem<T>::kBytes, raised_rev);
+cudaError_t launch_reverse(const void* cm, const void* dt, const void* a_log,
+                           const void* dy, const void* dst, void* dstates,
+                           void* ds0, int b, int s_len, int h, int hd, int ds,
+                           int c0, int n_run, int vec_x, int vec_bc,
+                           cudaStream_t stream) {
+  static bool raised[64] = {};
+  const cudaError_t err = scan::raise_smem(ssd_bwd_reverse_kernel<T>,
+                                           RevSmem<T>::kBytes, raised);
   if (err != cudaSuccess) return err;
   ssd_bwd_reverse_kernel<T><<<dim3(b * h, (hd + kMaxN - 1) / kMaxN),
                               kRevWarps * 32, RevSmem<T>::kBytes, stream>>>(
@@ -778,10 +779,24 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
       static_cast<const float*>(a_log), static_cast<const T*>(dy),
       static_cast<const float*>(dst), static_cast<float*>(dstates),
       static_cast<float*>(ds0), s_len, c0, n_run, h, hd, ds, vec_x, vec_bc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_run == 0) return err;
-  err = scan::raise_smem(ssd_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
-                         raised_intra);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chunk(const void* x, const void* bm, const void* cm,
+                         const void* dt, const void* a_log,
+                         const void* d_skip, const void* dy,
+                         const void* states, const void* dstates,
+                         void* db_part, void* dc_part, void* dd_part,
+                         void* da_part, void* dx, void* ddt, int b,
+                         int s_len, int h, int hd, int ds, int c0, int n_run,
+                         int vec_x, int vec_bc, int vec_s,
+                         cudaStream_t stream) {
+  if (n_run == 0) return cudaSuccess;
+  const int n_groups = (h + kHeads - 1) / kHeads;
+  static bool raised[64] = {};
+  const cudaError_t err = scan::raise_smem(ssd_bwd_intra_kernel<T>,
+                                           IntraSmem<T>::kBytes, raised);
   if (err != cudaSuccess) return err;
   ssd_bwd_intra_kernel<T><<<dim3(b * n_run, n_groups), kThreads,
                             IntraSmem<T>::kBytes, stream>>>(
@@ -795,6 +810,25 @@ cudaError_t launch(const void* x, const void* bm, const void* cm,
       static_cast<float*>(dd_part), static_cast<float*>(da_part), s_len, c0,
       n_run, h, hd, ds, vec_x, vec_bc, vec_s);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* bm, const void* cm,
+                   const void* dt, const void* a_log, const void* d_skip,
+                   const void* dy, const void* states, const void* dst,
+                   void* dstates, void* db_part, void* dc_part,
+                   void* dd_part, void* da_part, void* dx, void* ddt,
+                   void* ds0, int b, int s_len, int h, int hd, int ds,
+                   int c0, int n_run, int vec_x, int vec_bc, int vec_s,
+                   cudaStream_t stream) {
+  const cudaError_t err =
+      launch_reverse<T>(cm, dt, a_log, dy, dst, dstates, ds0, b, s_len, h,
+                        hd, ds, c0, n_run, vec_x, vec_bc, stream);
+  if (err != cudaSuccess) return err;
+  return launch_chunk<T>(x, bm, cm, dt, a_log, d_skip, dy, states, dstates,
+                         db_part, dc_part, dd_part, da_part, dx, ddt, b,
+                         s_len, h, hd, ds, c0, n_run, vec_x, vec_bc, vec_s,
+                         stream);
 }
 
 template <typename T>
@@ -817,6 +851,98 @@ cudaError_t launch_sums(const void* db_part, const void* dc_part,
       static_cast<const float*>(dd_part), static_cast<const float*>(da_part),
       static_cast<float*>(dd), static_cast<float*>(da_log), b * n_chunks, h);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The workspace of a backward from the checkpoints, in floats from its
+// start (each piece 16-byte aligned): two segments' incoming states and
+// two segments' dS_out (used in turn, segment g in buffer g % 2), the two
+// carries of dS between segments, the state update's coefficients of
+// every chunk (36 floats a chunk and head, one launch at the first
+// recompute) and the partials of dB, dC (per row and head group), dD and
+// da_log (per batch, chunk and head).
+struct CkptSpace {
+  int64_t states[2], dstates[2], carry[2], rc, db_part, dc_part, dd_part,
+      da_part, total;
+  CkptSpace(int b, int s_len, int h, int hd, int ds) {
+    auto up4 = [](int64_t n) { return (n + 3) & ~int64_t{3}; };
+    const int n_chunks = (s_len + kChunk - 1) / kChunk;
+    const int n_groups = (h + kHeads - 1) / kHeads;
+    const int64_t mat = static_cast<int64_t>(b) * h * hd * ds;
+    const int64_t seg = up4(mat * kSegment);
+    const int64_t rows = up4(static_cast<int64_t>(b) * s_len * n_groups * ds);
+    const int64_t heads = up4(static_cast<int64_t>(b) * n_chunks * h);
+    int64_t at = 0;
+    for (int i = 0; i < 2; ++i) states[i] = at, at += seg;
+    for (int i = 0; i < 2; ++i) dstates[i] = at, at += seg;
+    for (int i = 0; i < 2; ++i) carry[i] = at, at += up4(mat);
+    rc = at;
+    at += up4(ssd_fwd::scratch_floats(b, n_chunks, h, hd, false));
+    db_part = at, at += rows;
+    dc_part = at, at += rows;
+    dd_part = at, at += heads;
+    da_part = at, at += heads;
+    total = at;
+  }
+};
+
+template <typename T>
+cudaError_t launch_ckpt(const void* x, const void* bm, const void* cm,
+                        const void* dt, const void* a_log, const void* d_skip,
+                        const void* dy, const float* ckpt, const void* dst,
+                        void* dx, void* db, void* dc, void* ddt,
+                        void* da_log, void* dd, void* ds0, float* work,
+                        const int* plan, int n_steps, int b, int s_len, int h,
+                        int hd, int ds, int device, cudaStream_t caller) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  const int n_seg = n_chunks / kSegment;
+  const CkptSpace sp(b, s_len, h, hd, ds);
+  const int64_t mat = static_cast<int64_t>(hd) * ds;
+  const bool bf = sizeof(T) == 2;
+  const int vec_x = bf && hd % 8 == 0 && aligned16(x) && aligned16(dy);
+  const int vec_bc = bf && ds % 8 == 0 && aligned16(bm) && aligned16(cm);
+  const int vec_s = ds % 4 == 0 && aligned16(work);
+  bool coefficients = false;   // every chunk's, at the first recompute
+  auto issue = [&](int op, int g, cudaStream_t st) -> cudaError_t {
+    if (op != ckpt::kSums && (g < 0 || g >= n_seg))
+      return cudaErrorInvalidValue;
+    const int c0 = g * kSegment, buf = g % 2;
+    switch (op) {
+      case ckpt::kRecompute:
+        if (!coefficients) {
+          const cudaError_t err = ssd_fwd::launch_coefficients<T>(
+              dt, a_log, work + sp.rc, b, s_len, h, hd, st);
+          if (err != cudaSuccess) return err;
+          coefficients = true;
+        }
+        return ssd_fwd::launch_recompute<T>(
+            x, bm, ckpt + g * mat, static_cast<int>(n_seg * mat),
+            work + sp.rc, work + sp.states[buf], b, s_len, h, hd, ds,
+            bf && hd % 8 == 0 && aligned16(x), vec_bc, c0, kSegment, st);
+      case ckpt::kReverse:
+        return launch_reverse<T>(
+            cm, dt, a_log, dy,
+            g == n_seg - 1 ? dst : work + sp.carry[(g + 1) % 2],
+            work + sp.dstates[buf], g == 0 ? ds0 : work + sp.carry[buf], b,
+            s_len, h, hd, ds, c0, kSegment, vec_x, vec_bc, st);
+      case ckpt::kChunkPass:
+        return launch_chunk<T>(
+            x, bm, cm, dt, a_log, d_skip, dy, work + sp.states[buf],
+            work + sp.dstates[buf], work + sp.db_part, work + sp.dc_part,
+            work + sp.dd_part, work + sp.da_part, dx, ddt, b, s_len, h, hd,
+            ds, c0, kSegment, vec_x, vec_bc, vec_s, st);
+      case ckpt::kSums:
+        return launch_sums<T>(work + sp.db_part, work + sp.dc_part,
+                              work + sp.dd_part, work + sp.da_part, db, dc,
+                              dd, da_log, b, s_len, h, ds, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  };
+  return ckpt::run(plan, n_steps, device, caller, issue);
 }
 
 }  // namespace
@@ -887,5 +1013,49 @@ extern "C" int ssd_bwd_sums_launch(const void* db_part, const void* dc_part,
                                   dd, da_log, b, s_len, h, ds, st)
               : launch_sums<float>(db_part, dc_part, dd_part, da_part, db,
                                    dc, dd, da_log, b, s_len, h, ds, st);
+  return static_cast<int>(err);
+}
+
+// Floats of the workspace of `ssd_bwd_ckpt_launch`.
+extern "C" long long ssd_bwd_ckpt_floats(int b, int s_len, int h, int hd,
+                                         int ds) {
+  return CkptSpace(b, s_len, h, hd, ds).total;
+}
+
+// The whole gradient from the checkpoints, in one call: the inputs and
+// outputs of `ssd_bwd_launch` and `ssd_bwd_sums_launch` over the whole
+// sequence (n_chunks = 16·n_seg, n_seg >= 2), ckpt [b, h, n_seg, hd, ds]
+// float32 the forward's incoming state of every 16th chunk (`ssd_launch`
+// with every = 16), ds0 (or null: not wanted); `work` holds
+// ssd_bwd_ckpt_floats(b, s_len, h, hd, ds) floats, 16-byte aligned.
+// Issues the n_steps rows (op, segment, stream, event) of `plan`
+// (kernels/wkv6.py::checkpoint_plan) from the caller's `stream` on
+// `device`: per segment the state-only recompute (ssd_fwd.cuh) from its
+// checkpoint, the reverse pass and the chunk pass, then the sums; every
+// launch ordered after the caller's earlier work and before its later.
+// Returns the first failing CUDA error.
+extern "C" int ssd_bwd_ckpt_launch(
+    const void* x, const void* bm, const void* cm, const void* dt,
+    const void* a_log, const void* d_skip, const void* dy, const void* ckpt,
+    const void* dst, void* dx, void* db, void* dc, void* ddt, void* da_log,
+    void* dd, void* ds0, void* work, const int* plan, int n_steps, int b,
+    int s_len, int h, int hd, int ds, int is_bf16, int device,
+    void* stream) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (ds <= 0 || ds > kMaxN || hd <= 0 || hd > kMaxHd || s_len < 0 ||
+      n_chunks % kSegment != 0 || n_chunks < 2 * kSegment)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* kept = static_cast<const float*>(ckpt);
+  float* ws = static_cast<float*>(work);
+  const cudaError_t err =
+      is_bf16
+          ? launch_ckpt<bf16>(x, bm, cm, dt, a_log, d_skip, dy, kept, dst, dx,
+                              db, dc, ddt, da_log, dd, ds0, ws, plan, n_steps,
+                              b, s_len, h, hd, ds, device, st)
+          : launch_ckpt<float>(x, bm, cm, dt, a_log, d_skip, dy, kept, dst,
+                               dx, db, dc, ddt, da_log, dd, ds0, ws, plan,
+                               n_steps, b, s_len, h, hd, ds, device, st);
   return static_cast<int>(err);
 }

@@ -48,24 +48,36 @@
 // Design: two launches per run of chunks and one for u's sum, every sum in
 // one fixed order (two runs give the same bits), every product on the
 // tensor cores (`mma.sync` through `scan_mma.cuh`), no atomics.  From
-// every state the run is the whole sequence.  From the checkpoints the
-// host walks the segments of 16 chunks from the last: the forward's own
-// state pass (`wkv6.cu`, from the segment's checkpoint, no output)
-// recomputes the segment's 16 incoming states, the reverse pass walks the
-// segment from the dS the later segment handed down (dst for the last)
-// and hands its own down (ds0 for the first), and the chunk pass runs on
-// the segment.  The float32 state and dS scratch is one segment's of each
-// (21 MB for rwkv6-3b at 4,096 tokens, against 336 MB from every state);
-// the recompute repeats the forward's arithmetic on the same values, the
+// every state the run is the whole sequence.  From the checkpoints one C
+// call (`wkv6_bwd_ckpt_launch`) issues the plan of `kernels/wkv6.py::
+// checkpoint_plan` (`scan_ckpt.cuh`), per segment of 16 chunks from the
+// last: the state-only recompute of its 16 incoming states from its
+// checkpoint (`wkv6_fwd.cuh`: pass A writes only k_dec and exp(p_last),
+// pass B only updates the state) on one side stream, beside its reverse
+// pass on another (the reverse pass reads no state: it walks the segment
+// from the dS the later segment handed down, dst for the last, and hands
+// its own down, ds0 for the first); then its chunk pass, on the caller's
+// stream or a third (even / odd segments), under which the earlier
+// segment's recompute and reverse pass run.  The states and dS go to two
+// buffers each, segment g's in g % 2, which segment g - 2 rewrites only
+// once segment g's chunk pass is done (an event).  The float32 state and
+// dS scratch is two segments' of each (42 MB for rwkv6-3b at 4,096
+// tokens, batch 1, against 168 MB of dS from every state), in one
+// workspace a call with the recompute's scratch and u's partials; the
+// recompute repeats the forward's arithmetic on the same values, the
 // reverse pass carries dS through memory exactly, and u's partials are
 // summed once in (batch, chunk) order, so the result is the whole-state
-// backward's bit for bit.  The intra-chunk sums whose decay
-// is per channel (A and the pair terms of dr and dk: an exp per token
-// pair and channel) are not products; they run on the CUDA cores, as in
-// the forward's pass A.
+// backward's bits whatever the streams' timing.  Of the two ways to run
+// the walks beside the chunk passes, side streams ordered by events and
+// one persistent launch whose blocks take roles ordered by flags, the
+// streams were chosen: the kernels stay as they are, the block scheduler
+// fills the SMs the walks leave, and nothing spins.  The intra-chunk sums
+// whose decay is per channel (A and the pair terms of dr and dk: an exp
+// per token pair and channel) are not products; they run on the CUDA
+// cores, as in the forward's pass A.
 //
 // `wkv6_bwd_reverse_kernel` (the reverse pass), shaped as the forward's
-// pass B (`wkv6.cu::wkv6_state_kernel`) walking the chunks from the last:
+// pass B (`wkv6_fwd.cuh::wkv6_state_kernel`) walking the chunks from the last:
 // one block of 16 warps per batch·head, each warp a 16 x 16 piece of dSᵀ
 // (16 columns by 16 channels) in `mma` accumulator fragments.  Per chunk
 // it stores dS_out to a float32 scratch [B, H, n_run, dk, dk] (168 MB for
@@ -94,7 +106,9 @@
 // split into two bf16 parts.  The float32 instance splits every operand
 // into three.  A head size that is not a multiple of 8, or float32 inputs,
 // is staged element by element.
+#include "scan_ckpt.cuh"
 #include "scan_mma.cuh"
+#include "wkv6_fwd.cuh"
 
 namespace {
 
@@ -102,6 +116,7 @@ using scan::bf16;
 using scan::Parts;
 
 constexpr int kChunk = 16;            // tokens per chunk
+constexpr int kSegment = 16;          // chunks between two checkpoints
 constexpr int kMaxK = 64;             // largest head size taken
 constexpr int kNS = kMaxK + 8;        // bf16 row stride of plane tiles
 constexpr int kFS = kMaxK + 4;        // float row stride of float tiles
@@ -628,16 +643,13 @@ __global__ void __launch_bounds__(256)
 }
 
 template <typename T>
-cudaError_t launch(const void* r, const void* k, const void* v,
-                   const void* log_w, const void* u, const void* dout,
-                   const void* states, const void* dst,
-                   void* dstates, void* du_part, void* dr, void* dkk,
-                   void* dv, void* dlog_w, void* ds0, int b,
-                   int s_len, int h, int dk, int c0, int n_run, int vec,
-                   int vec_s, cudaStream_t stream) {
-  static bool raised_rev[64] = {}, raised_intra[64] = {};
-  cudaError_t err = scan::raise_smem(wkv6_bwd_reverse_kernel<T>,
-                                     RevSmem<T>::kBytes, raised_rev);
+cudaError_t launch_reverse(const void* r, const void* log_w, const void* dout,
+                           const void* dst, void* dstates, void* ds0, int b,
+                           int s_len, int h, int dk, int c0, int n_run,
+                           int vec, cudaStream_t stream) {
+  static bool raised[64] = {};
+  const cudaError_t err = scan::raise_smem(wkv6_bwd_reverse_kernel<T>,
+                                           RevSmem<T>::kBytes, raised);
   if (err != cudaSuccess) return err;
   wkv6_bwd_reverse_kernel<T><<<b * h, kRevWarps * 32, RevSmem<T>::kBytes,
                                stream>>>(
@@ -645,10 +657,21 @@ cudaError_t launch(const void* r, const void* k, const void* v,
       static_cast<const T*>(dout), static_cast<const float*>(dst),
       static_cast<float*>(dstates), static_cast<float*>(ds0), s_len, c0,
       n_run, h, dk, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_run == 0) return err;
-  err = scan::raise_smem(wkv6_bwd_intra_kernel<T>, IntraSmem<T>::kBytes,
-                         raised_intra);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chunk(const void* r, const void* k, const void* v,
+                         const void* log_w, const void* u, const void* dout,
+                         const void* states, const void* dstates,
+                         void* du_part, void* dr, void* dkk, void* dv,
+                         void* dlog_w, int b, int s_len, int h, int dk,
+                         int c0, int n_run, int vec, int vec_s,
+                         cudaStream_t stream) {
+  if (n_run == 0) return cudaSuccess;
+  static bool raised[64] = {};
+  const cudaError_t err = scan::raise_smem(wkv6_bwd_intra_kernel<T>,
+                                           IntraSmem<T>::kBytes, raised);
   if (err != cudaSuccess) return err;
   wkv6_bwd_intra_kernel<T><<<dim3(b * n_run, h), kThreads,
                              IntraSmem<T>::kBytes, stream>>>(
@@ -663,6 +686,106 @@ cudaError_t launch(const void* r, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch(const void* r, const void* k, const void* v,
+                   const void* log_w, const void* u, const void* dout,
+                   const void* states, const void* dst,
+                   void* dstates, void* du_part, void* dr, void* dkk,
+                   void* dv, void* dlog_w, void* ds0, int b,
+                   int s_len, int h, int dk, int c0, int n_run, int vec,
+                   int vec_s, cudaStream_t stream) {
+  const cudaError_t err =
+      launch_reverse<T>(r, log_w, dout, dst, dstates, ds0, b, s_len, h, dk,
+                        c0, n_run, vec, stream);
+  if (err != cudaSuccess) return err;
+  return launch_chunk<T>(r, k, v, log_w, u, dout, states, dstates, du_part,
+                         dr, dkk, dv, dlog_w, b, s_len, h, dk, c0, n_run, vec,
+                         vec_s, stream);
+}
+
+cudaError_t launch_du(const void* du_part, void* du, int n_part, int hdk,
+                      cudaStream_t stream) {
+  if (hdk == 0) return cudaSuccess;
+  wkv6_bwd_du_kernel<<<(hdk + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(du_part), static_cast<float*>(du), n_part,
+      hdk);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The workspace of a backward from the checkpoints, in floats from its
+// start (each piece 16-byte aligned): two segments' incoming states and
+// two segments' dS_out (used in turn, segment g in buffer g % 2), the two
+// carries of dS between segments, the recompute's state-only scratch (one
+// segment's: the recompute stream runs one segment at a time) and u's
+// per-(batch, chunk) partials.
+struct CkptSpace {
+  int64_t states[2], dstates[2], carry[2], rc, du_part, total;
+  CkptSpace(int b, int h, int dk, int n_chunks, int is_bf16) {
+    auto up4 = [](int64_t n) { return (n + 3) & ~int64_t{3}; };
+    const int64_t seg = up4(static_cast<int64_t>(b) * h * kSegment * dk * dk);
+    const int64_t mat = up4(static_cast<int64_t>(b) * h * dk * dk);
+    int64_t at = 0;
+    for (int i = 0; i < 2; ++i) states[i] = at, at += seg;
+    for (int i = 0; i < 2; ++i) dstates[i] = at, at += seg;
+    for (int i = 0; i < 2; ++i) carry[i] = at, at += mat;
+    rc = at;
+    at += up4(wkv6_fwd::scratch_floats(b, kSegment, h, is_bf16, false));
+    du_part = at;
+    at += up4(static_cast<int64_t>(b) * n_chunks * h * dk);
+    total = at;
+  }
+};
+
+template <typename T>
+cudaError_t launch_ckpt(const void* r, const void* k, const void* v,
+                        const void* log_w, const void* u, const void* dout,
+                        const float* ckpt, const void* dst, void* dr,
+                        void* dkk, void* dv, void* dlog_w, void* du,
+                        void* ds0, float* work, const int* plan, int n_steps,
+                        int b, int s_len, int h, int dk, int device,
+                        cudaStream_t caller) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  const int n_seg = n_chunks / kSegment;
+  const CkptSpace sp(b, h, dk, n_chunks, sizeof(T) == 2);
+  const int64_t mat = static_cast<int64_t>(dk) * dk;
+  const bool bf = sizeof(T) == 2;
+  const int vec = bf && dk % 8 == 0 && aligned16(r) && aligned16(k) &&
+                  aligned16(v) && aligned16(dout) && aligned16(log_w);
+  const int vec_v = bf && dk % 8 == 0 && aligned16(v);
+  const int vec_s = dk % 4 == 0 && aligned16(work);
+  auto issue = [&](int op, int g, cudaStream_t st) -> cudaError_t {
+    if (op != ckpt::kSums && (g < 0 || g >= n_seg))
+      return cudaErrorInvalidValue;
+    const int c0 = g * kSegment, buf = g % 2;
+    switch (op) {
+      case ckpt::kRecompute:
+        return wkv6_fwd::launch_recompute<T>(
+            k, v, log_w, ckpt + g * mat, static_cast<int>(n_seg * mat),
+            work + sp.rc, work + sp.states[buf], b, s_len, h, dk, vec_v, c0,
+            kSegment, st);
+      case ckpt::kReverse:
+        return launch_reverse<T>(
+            r, log_w, dout, g == n_seg - 1 ? dst : work + sp.carry[(g + 1) % 2],
+            work + sp.dstates[buf], g == 0 ? ds0 : work + sp.carry[buf], b,
+            s_len, h, dk, c0, kSegment, vec, st);
+      case ckpt::kChunkPass:
+        return launch_chunk<T>(r, k, v, log_w, u, dout, work + sp.states[buf],
+                               work + sp.dstates[buf], work + sp.du_part, dr,
+                               dkk, dv, dlog_w, b, s_len, h, dk, c0, kSegment,
+                               vec, vec_s, st);
+      case ckpt::kSums:
+        return launch_du(work + sp.du_part, du, b * n_chunks, h * dk, st);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  };
+  return ckpt::run(plan, n_steps, device, caller, issue);
+}
+
 }  // namespace
 
 // The gradient over the chunks c0 .. c0 + n_run - 1 of the sequence: the
@@ -672,14 +795,14 @@ cudaError_t launch(const void* r, const void* k, const void* v,
 // run.  r, k, v, dout, dr, dk, dv [b, s_len, h, dk] (all float32:
 // is_bf16 = 0, or all bf16: is_bf16 = 1), log_w and dlog_w [b, s_len, h,
 // dk], u [h, dk], states [b, h, n_run, dk, dk] (the run's incoming states:
-// the forward's, `wkv6_launch`, or a segment's recomputed from its
-// checkpoint), dst and ds0 [b, h, dk, dk], all float32; scratch dstates
-// [b, h, n_run, dk, dk] and du_part [b, n_chunks, h, dk] float32 (the run
-// fills its chunks' rows): contiguous, on the device; 0 < dk <= 64.  dr,
-// dk, dv and dlog_w receive the run's rows.  vec: bf16 r, k, v, dout and
-// log_w 16-byte aligned with dk a multiple of 8; vec_s: states and dstates
-// 16-byte aligned with dk a multiple of 4: their tiles go by cp.async.
-// Two launches on `stream`; returns the first failing cudaGetLastError().
+// the forward's, `wkv6_launch`), dst and ds0 [b, h, dk, dk], all float32;
+// scratch dstates [b, h, n_run, dk, dk] and du_part [b, n_chunks, h, dk]
+// float32 (the run fills its chunks' rows): contiguous, on the device;
+// 0 < dk <= 64.  dr, dk, dv and dlog_w receive the run's rows.  vec: bf16
+// r, k, v, dout and log_w 16-byte aligned with dk a multiple of 8; vec_s:
+// states and dstates 16-byte aligned with dk a multiple of 4: their tiles
+// go by cp.async.  Two launches on `stream`; returns the first failing
+// cudaGetLastError().
 extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
                                const void* log_w, const void* u,
                                const void* dout, const void* states,
@@ -711,10 +834,49 @@ extern "C" int wkv6_bwd_launch(const void* r, const void* k, const void* v,
 extern "C" int wkv6_bwd_du_launch(const void* du_part, void* du,
                                   int n_part, int hdk, void* stream) {
   if (n_part < 0 || hdk < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (hdk == 0) return static_cast<int>(cudaSuccess);
-  wkv6_bwd_du_kernel<<<(hdk + 255) / 256, 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(du_part), static_cast<float*>(du), n_part,
-      hdk);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_du(du_part, du, n_part, hdk, static_cast<cudaStream_t>(stream)));
+}
+
+// Floats of the workspace of `wkv6_bwd_ckpt_launch`.
+extern "C" long long wkv6_bwd_ckpt_floats(int b, int h, int dk,
+                                          int n_chunks, int is_bf16) {
+  return CkptSpace(b, h, dk, n_chunks, is_bf16).total;
+}
+
+// The whole gradient from the checkpoints, in one call: the inputs and
+// outputs of `wkv6_bwd_launch` over the whole sequence (n_chunks = 16·n_seg,
+// n_seg >= 2), ckpt [b, h, n_seg, dk, dk] float32 the forward's incoming
+// state of every 16th chunk (`wkv6_launch` with every = 16), du [h, dk]
+// float32, ds0 (or null: not wanted); `work` holds wkv6_bwd_ckpt_floats(
+// b, h, dk, n_chunks, is_bf16) floats, 16-byte aligned.  Issues the n_steps
+// rows (op, segment, stream, event) of `plan` (kernels/wkv6.py::
+// checkpoint_plan) from the caller's `stream` on `device`: per segment the
+// state-only recompute (wkv6_fwd.cuh) from its checkpoint, the reverse
+// pass and the chunk pass, then u's sum; every launch ordered after the
+// caller's earlier work and before its later.  Returns the first failing
+// CUDA error.
+extern "C" int wkv6_bwd_ckpt_launch(
+    const void* r, const void* k, const void* v, const void* log_w,
+    const void* u, const void* dout, const void* ckpt, const void* dst,
+    void* dr, void* dkk, void* dv, void* dlog_w, void* du, void* ds0,
+    void* work, const int* plan, int n_steps, int b, int s_len, int h,
+    int dk, int is_bf16, int device, void* stream) {
+  const int n_chunks = (s_len + kChunk - 1) / kChunk;
+  if (dk <= 0 || dk > kMaxK || s_len < 0 || n_chunks % kSegment != 0 ||
+      n_chunks < 2 * kSegment)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* kept = static_cast<const float*>(ckpt);
+  float* ws = static_cast<float*>(work);
+  const cudaError_t err =
+      is_bf16
+          ? launch_ckpt<bf16>(r, k, v, log_w, u, dout, kept, dst, dr, dkk, dv,
+                              dlog_w, du, ds0, ws, plan, n_steps, b, s_len, h,
+                              dk, device, st)
+          : launch_ckpt<float>(r, k, v, log_w, u, dout, kept, dst, dr, dkk,
+                               dv, dlog_w, du, ds0, ws, plan, n_steps, b,
+                               s_len, h, dk, device, st);
+  return static_cast<int>(err);
 }

@@ -22,8 +22,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import scan_vjp
 from repro_torch.kernels.wkv6 import (CHUNK, SEGMENT, _pad_chunks,
-                                     _stride_of, _walk_segments,
-                                     kept_stride)
+                                     _stride_of, kept_stride, plan_rows)
 
 __all__ = ["ssd_bwd_cuda", "ssd_bwd_plain", "ssd_checkpointed", "ssd_cuda",
            "ssd_plain"]
@@ -177,32 +176,6 @@ def _check_inputs(name, x, bmat, cmat, dt, a_log, d_skip, s0):
         raise ValueError(f"{name} takes contiguous tensors")
 
 
-def _forward(x, bmat, cmat, dt, a_log, d_skip, s0, y, s_t, states, c0,
-             n_run, every):
-    """``csrc/ssd.cu`` over the chunks c0 .. c0 + n_run - 1 from s0 [B, H,
-    hd, ds], as `wkv6._forward` (y, s_t and states None are not
-    written)."""
-    b, s, h, hd = x.shape
-    ds = bmat.shape[-1]
-    dev = x.device
-    scratch = torch.empty(_scratch_floats(b, n_run, h, hd),
-                          dtype=torch.float32, device=dev)
-    bf16 = x.dtype == torch.bfloat16
-    vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0
-    vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
-        and cmat.data_ptr() % 16 == 0
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _lib().ssd_launch(
-        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
-        a_log.data_ptr(), d_skip.data_ptr(),
-        ptr(s0), 0 if s0 is None else s0.stride(1),
-        scratch.data_ptr(), ptr(y), ptr(s_t), ptr(states), b, s, h, hd, ds,
-        int(bf16), int(vec_x), int(vec_bc), c0, n_run, every,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
-
-
 def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None, *,
              return_states=False, keep_every=1):
     """The kernel: ``ssd_plain``'s function on contiguous CUDA tensors of
@@ -222,13 +195,27 @@ def ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0=None, *,
     if keep_every not in (1, kept_stride(n)):
         raise ValueError(f"ssd_cuda: keep_every {keep_every} for {n} "
                          f"chunks: 1, or {SEGMENT} where kept_stride is")
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty_like(x)
-    s_t = torch.empty((b, h, hd, ds), dtype=torch.float32, device=x.device)
-    states = (torch.empty((b, h, n // keep_every, hd, ds),
-                          dtype=torch.float32, device=x.device)
+    s_t = torch.empty((b, h, hd, ds), **f32)
+    states = (torch.empty((b, h, n // keep_every, hd, ds), **f32)
               if return_states else None)
-    _forward(x, bmat, cmat, dt, a_log, d_skip, s0, y, s_t, states, 0, n,
-             keep_every)
+    scratch = torch.empty(_scratch_floats(b, n, h, hd), **f32)
+    vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0
+    vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
+        and cmat.data_ptr() % 16 == 0
+    err = _lib().ssd_launch(
+        x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
+        a_log.data_ptr(), d_skip.data_ptr(),
+        None if s0 is None else s0.data_ptr(), hd * ds, scratch.data_ptr(),
+        y.data_ptr(), s_t.data_ptr(),
+        None if states is None else states.data_ptr(), b, s, h, hd, ds,
+        int(bf16), int(vec_x), int(vec_bc), 0, n, keep_every,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd kernel launch failed: CUDA error {err}")
     return (y, s_t, states) if return_states else (y, s_t)
 
 
@@ -244,6 +231,10 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.ssd_bwd_sums_launch.restype = ctypes.c_int
     lib.ssd_bwd_groups.argtypes = [_I]
     lib.ssd_bwd_groups.restype = ctypes.c_int
+    lib.ssd_bwd_ckpt_floats.argtypes = [_I] * 5
+    lib.ssd_bwd_ckpt_floats.restype = ctypes.c_longlong
+    lib.ssd_bwd_ckpt_launch.argtypes = [_P] * 18 + [_I] * 8 + [_P]
+    lib.ssd_bwd_ckpt_launch.restype = ctypes.c_int
     return lib
 
 
@@ -261,13 +252,15 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
     pass, both on the tensor cores, then two fixed-order sums, with
     float32 scratch: one hd x ds matrix per chunk and head (each chunk's
     outgoing state gradient) and the head groups' partial sums of dB and
-    dC.  From the checkpoints, one segment of SEGMENT chunks at a time
-    from the last, as `wkv6.wkv6_bwd_cuda` does: the forward's state pass
-    (``csrc/ssd.cu``, no output) recomputes the segment's states, then
-    the two passes run on it; the same bits as from every state.  Takes
-    hd <= 256.  Launched on the current stream.  Raises on any input the
-    forward would refuse, on states, dy or dst of another shape or type,
-    and on a failed launch; nothing falls back to a plain version."""
+    dC.  From the checkpoints, one C call (``ssd_bwd_ckpt_launch``)
+    issues `wkv6.checkpoint_plan` as `wkv6.wkv6_bwd_cuda` does: per
+    segment the state-only recompute beside the reverse pass, then the
+    chunk pass, the sums once at the end, two segments' states and dS in
+    one workspace; the same bits as from every state.  Takes hd <= 256.
+    Launched from the current stream, which every launch follows and
+    precedes its later work.  Raises on any input the forward would
+    refuse, on states, dy or dst of another shape or type, and on a
+    failed launch; nothing falls back to a plain version."""
     _check_inputs("ssd_bwd_cuda", x, bmat, cmat, dt, a_log, d_skip, None)
     b, s, h, hd = x.shape
     ds = bmat.shape[-1]
@@ -287,48 +280,43 @@ def ssd_bwd_cuda(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
                              f"{t.dtype} is not a contiguous {dtype} {shape} "
                              f"on {dev}")
     lib = _bwd_lib()
-    groups = lib.ssd_bwd_groups(h)
     f32 = dict(dtype=torch.float32, device=dev)
     dx, db, dc = (torch.empty_like(t) for t in (x, bmat, cmat))
     ddt, da_log, dd = (torch.empty_like(t) for t in (dt, a_log, d_skip))
     ds0 = torch.empty((b, h, hd, ds), **f32) if want_ds0 else None
-    db_part, dc_part = (torch.empty((b, s, groups, ds), **f32)
-                        for _ in range(2))
-    dd_part, da_part = (torch.empty((b, n, h), **f32) for _ in range(2))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     bf16 = x.dtype == torch.bfloat16
-    vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0 \
-        and dy.data_ptr() % 16 == 0
-    vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
-        and cmat.data_ptr() % 16 == 0
     stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run(c0, n_run, run_states, carry_in, carry_out):
-        dstates = torch.empty_like(run_states)
-        vec_s = ds % 4 == 0 and run_states.data_ptr() % 16 == 0 \
+    ins = [t.data_ptr() for t in (x, bmat, cmat, dt, a_log, d_skip, dy,
+                                  states)]
+    if every > 1:
+        work = torch.empty(lib.ssd_bwd_ckpt_floats(b, s, h, hd, ds), **f32)
+        plan, steps = plan_rows(n // every)
+        err = lib.ssd_bwd_ckpt_launch(
+            *ins, ptr(dst), *(t.data_ptr() for t in (dx, db, dc, ddt, da_log,
+                                                     dd)),
+            ptr(ds0), work.data_ptr(), plan, steps, b, s, h, hd, ds,
+            int(bf16), dev.index, stream)
+    else:
+        groups = lib.ssd_bwd_groups(h)
+        db_part, dc_part = (torch.empty((b, s, groups, ds), **f32)
+                            for _ in range(2))
+        dd_part, da_part = (torch.empty((b, n, h), **f32) for _ in range(2))
+        dstates = torch.empty_like(states)
+        vec_x = bf16 and hd % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and dy.data_ptr() % 16 == 0
+        vec_bc = bf16 and ds % 8 == 0 and bmat.data_ptr() % 16 == 0 \
+            and cmat.data_ptr() % 16 == 0
+        vec_s = ds % 4 == 0 and states.data_ptr() % 16 == 0 \
             and dstates.data_ptr() % 16 == 0
+        parts = [t.data_ptr() for t in (db_part, dc_part, dd_part, da_part)]
         err = lib.ssd_bwd_launch(
-            x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), dt.data_ptr(),
-            a_log.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
-            run_states.data_ptr(), ptr(carry_in), dstates.data_ptr(),
-            db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
-            da_part.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-            ptr(carry_out), b, s, h, hd, ds, c0, n_run, int(bf16),
-            int(vec_x), int(vec_bc), int(vec_s), stream)
-        if err != 0:
-            raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error "
-                               f"{err}")
-
-    def recompute(g, seg_states):
-        # the forward's state pass from checkpoint g, keeping every state
-        _forward(x, bmat, cmat, dt, a_log, d_skip, states[:, :, g], None,
-                 None, seg_states, g * every, every, 1)
-
-    _walk_segments(states, n, every, dst, ds0, recompute, run)
-    err = lib.ssd_bwd_sums_launch(
-        db_part.data_ptr(), dc_part.data_ptr(), dd_part.data_ptr(),
-        da_part.data_ptr(), db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
-        da_log.data_ptr(), b, s, h, ds, int(bf16), stream)
+            *ins, ptr(dst), dstates.data_ptr(), *parts, dx.data_ptr(),
+            ddt.data_ptr(), ptr(ds0), b, s, h, hd, ds, 0, n, int(bf16),
+            int(vec_x), int(vec_bc), int(vec_s), stream) \
+            or lib.ssd_bwd_sums_launch(
+                *parts, db.data_ptr(), dc.data_ptr(), dd.data_ptr(),
+                da_log.data_ptr(), b, s, h, ds, int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"ssd_bwd kernel launch failed: CUDA error {err}")
     return dx, db, dc, ddt, da_log, dd, ds0

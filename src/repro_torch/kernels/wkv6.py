@@ -24,8 +24,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import scan_vjp
 
-__all__ = ["CHUNK", "SEGMENT", "kept_stride", "wkv6_bwd_cuda",
-           "wkv6_bwd_plain", "wkv6_checkpointed", "wkv6_cuda", "wkv6_plain"]
+__all__ = ["CHUNK", "SEGMENT", "checkpoint_plan", "kept_stride",
+           "wkv6_bwd_cuda", "wkv6_bwd_plain", "wkv6_checkpointed",
+           "wkv6_cuda", "wkv6_plain"]
 
 CHUNK = 16
 # chunks between two states a training forward keeps for its backward (the
@@ -209,51 +210,58 @@ def _stride_of(name: str, states, n: int) -> int:
                      f"{SEGMENT}-th ({n // SEGMENT})")
 
 
-def _walk_segments(states, n: int, every: int, dst, ds0, recompute, run):
-    """The backward's runs over an n-chunk sequence from its kept
-    ``states`` [B, H, n / every, ...]: ``run(c0, n_run, run_states,
-    carry_in, carry_out)`` runs the reverse and chunk passes over chunks c0
-    .. c0 + n_run - 1, from the state gradient ``carry_in`` after them
-    (None: zeros) down to ``carry_out`` before them (None: not kept).  From
-    every state one run, dst to ds0; from the checkpoints one segment of
-    ``every`` chunks at a time from the last, ``recompute(g, seg_states)``
-    first filling the segment's incoming states from checkpoint g, the
-    state gradient handed down through two float32 buffers: one segment's
-    states and (inside ``run``) one segment's dS alive at a time."""
-    if every == 1:
-        run(0, n, states, dst, ds0)
-        return
-    bh, mat = states.shape[:2], states.shape[3:]
-    seg_states = states.new_empty((*bh, every, *mat))
-    carries = [states.new_empty((*bh, *mat)) for _ in range(2)]
-    carry = dst
-    for g in reversed(range(n // every)):
-        recompute(g, seg_states)
-        out = ds0 if g == 0 else carries[g % 2]
-        run(g * every, every, seg_states, carry, out)
-        carry = out
+# The backward from the checkpoints as a plan: rows (op, segment, stream,
+# event) that `csrc/scan_ckpt.cuh` issues in one C call
+# (`wkv6_bwd_ckpt_launch`, `ssd.ssd_bwd_ckpt_launch`), records and waits
+# of events between four streams, each pass of a segment on its stream.
+RECORD, WAIT, RECOMPUTE, REVERSE, CHUNK_PASS, SUMS = range(6)
+CALLER, RECOMPUTE_STREAM, REVERSE_STREAM, CHUNK_STREAM = range(4)
+# events: the fork, each op's two buffers' "done" (segment g's is g % 2),
+# the three joins
+FORK, RECOMPUTED, REVERSED, CHUNKED, JOINED = 0, 1, 3, 5, 7
 
 
-def _forward(r, k, v, log_w, u, s0, o, s_t, states, c0, n_run, every):
-    """``csrc/wkv6.cu`` over the chunks c0 .. c0 + n_run - 1 from s0 [B, H,
-    dk, dk] (None: zeros), read with its own stride between batch·heads, so
-    that a checkpoint (a view of the kept states) serves as one; o, s_t and
-    states None are not written.  The caller checks the inputs."""
-    b, s, h, dk = r.shape
-    dev = r.device
-    bf16 = r.dtype == torch.bfloat16
-    scratch = torch.empty(_scratch_floats(b, n_run, h, dk, int(bf16)),
-                          dtype=torch.float32, device=dev)
-    vec = bf16 and dk % 8 == 0 and v.data_ptr() % 16 == 0
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _lib().wkv6_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-        u.data_ptr(), ptr(s0), 0 if s0 is None else s0.stride(1),
-        scratch.data_ptr(), ptr(o), ptr(s_t), ptr(states), b, s, h, dk,
-        int(bf16), int(vec), c0, n_run, every,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+@functools.cache
+def checkpoint_plan(n_seg: int) -> tuple[tuple[int, int, int, int], ...]:
+    """The launches of a backward from the checkpoints of ``n_seg``
+    segments, in issue order, as rows (op, segment, stream, event; -1
+    where the row has none).  Each side stream first waits for the
+    caller's stream.  Then per segment g from the last: its states'
+    recompute (RECOMPUTE_STREAM) and its reverse pass (REVERSE_STREAM,
+    carrying dS down from segment g + 1) run side by side into buffer g %
+    2 of the states and of dS, once segment g + 2's chunk pass, which read
+    that buffer, is done; its chunk pass waits for both, on the caller's
+    stream for even g and CHUNK_STREAM for odd, so that segment g - 1's
+    recompute and reverse pass run under it and two chunk passes may
+    overlap.  Last the caller's stream waits for every side stream and
+    runs the sums."""
+    side = (RECOMPUTE_STREAM, REVERSE_STREAM, CHUNK_STREAM)
+    rows = [(RECORD, 0, CALLER, FORK)]
+    rows += [(WAIT, 0, s, FORK) for s in side]
+    for g in reversed(range(n_seg)):
+        buf = g % 2
+        for op, stream, done in ((RECOMPUTE, RECOMPUTE_STREAM, RECOMPUTED),
+                                 (REVERSE, REVERSE_STREAM, REVERSED)):
+            if g + 2 < n_seg:
+                rows.append((WAIT, g, stream, CHUNKED + buf))
+            rows += [(op, g, stream, -1), (RECORD, g, stream, done + buf)]
+        stream = CHUNK_STREAM if buf else CALLER
+        rows += [(WAIT, g, stream, RECOMPUTED + buf),
+                 (WAIT, g, stream, REVERSED + buf),
+                 (CHUNK_PASS, g, stream, -1),
+                 (RECORD, g, stream, CHUNKED + buf)]
+    for i, s in enumerate(side):
+        rows += [(RECORD, 0, s, JOINED + i), (WAIT, 0, CALLER, JOINED + i)]
+    rows.append((SUMS, 0, CALLER, -1))
+    return tuple(rows)
+
+
+@functools.cache
+def plan_rows(n_seg: int) -> tuple[ctypes.Array, int]:
+    """`checkpoint_plan` as the C call takes it: int32 rows, their count."""
+    rows = checkpoint_plan(n_seg)
+    return (_I * (4 * len(rows)))(*(x for row in rows for x in row)), \
+        len(rows)
 
 
 def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False,
@@ -273,12 +281,24 @@ def wkv6_cuda(r, k, v, log_w, u, s0=None, *, return_states=False,
     if keep_every not in (1, kept_stride(n)):
         raise ValueError(f"wkv6_cuda: keep_every {keep_every} for {n} "
                          f"chunks: 1, or {SEGMENT} where kept_stride is")
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = r.dtype == torch.bfloat16
     o = torch.empty_like(r)
-    s_t = torch.empty((b, h, dk, dk), dtype=torch.float32, device=r.device)
-    states = (torch.empty((b, h, n // keep_every, dk, dk),
-                          dtype=torch.float32, device=r.device)
+    s_t = torch.empty((b, h, dk, dk), **f32)
+    states = (torch.empty((b, h, n // keep_every, dk, dk), **f32)
               if return_states else None)
-    _forward(r, k, v, log_w, u, s0, o, s_t, states, 0, n, keep_every)
+    scratch = torch.empty(_scratch_floats(b, n, h, dk, int(bf16)), **f32)
+    vec = bf16 and dk % 8 == 0 and v.data_ptr() % 16 == 0
+    err = _lib().wkv6_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+        u.data_ptr(), None if s0 is None else s0.data_ptr(), dk * dk,
+        scratch.data_ptr(), o.data_ptr(), s_t.data_ptr(),
+        None if states is None else states.data_ptr(), b, s, h, dk,
+        int(bf16), int(vec), 0, n, keep_every,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     return (o, s_t, states) if return_states else (o, s_t)
 
 
@@ -289,6 +309,10 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.wkv6_bwd_launch.restype = ctypes.c_int
     lib.wkv6_bwd_du_launch.argtypes = [_P] * 2 + [_I] * 2 + [_P]
     lib.wkv6_bwd_du_launch.restype = ctypes.c_int
+    lib.wkv6_bwd_ckpt_floats.argtypes = [_I] * 5
+    lib.wkv6_bwd_ckpt_floats.restype = ctypes.c_longlong
+    lib.wkv6_bwd_ckpt_launch.argtypes = [_P] * 16 + [_I] * 7 + [_P]
+    lib.wkv6_bwd_ckpt_launch.restype = ctypes.c_int
     return lib
 
 
@@ -304,16 +328,17 @@ def wkv6_bwd_cuda(r, k, v, log_w, u, states, do, dst=None, want_ds0=False):
     From every state: a reverse pass over the chunks and a chunk-parallel
     pass, their products on the tensor cores, then u's fixed-order sum,
     with a float32 scratch of one dk x dk matrix per chunk and head (each
-    chunk's outgoing state gradient).  From the checkpoints, one segment
-    of SEGMENT chunks at a time from the last: the forward's own state
-    pass (``csrc/wkv6.cu``, no output) recomputes the segment's incoming
-    states from its checkpoint, the reverse pass walks the segment from
-    the gradient the later segment handed down, and the chunk pass runs
-    on it; the float32 state and dS scratch is one segment's of each, and
-    the result the same bits as from every state.  Launched on the
-    current stream.  Raises on any input the forward would refuse, on
-    states, do or dst of another shape or type, and on a failed launch;
-    nothing falls back to a plain version."""
+    chunk's outgoing state gradient).  From the checkpoints, one C call
+    (``wkv6_bwd_ckpt_launch``) issues `checkpoint_plan`: per segment of
+    SEGMENT chunks from the last, the state-only recompute of its
+    incoming states from its checkpoint beside its reverse pass, then its
+    chunk pass, under which the earlier segment's recompute and reverse
+    pass run; the float32 state and dS scratch is two segments' of each,
+    in one workspace, and the result the same bits as from every state.
+    Launched from the current stream, which every launch follows and
+    precedes its later work.  Raises on any input the forward would
+    refuse, on states, do or dst of another shape or type, and on a
+    failed launch; nothing falls back to a plain version."""
     _check_inputs("wkv6_bwd_cuda", r, k, v, log_w, u, None)
     b, s, h, dk = r.shape
     n = -(-s // CHUNK)
@@ -334,37 +359,31 @@ def wkv6_bwd_cuda(r, k, v, log_w, u, states, do, dst=None, want_ds0=False):
     du = torch.empty_like(u)
     f32 = dict(dtype=torch.float32, device=dev)
     ds0 = torch.empty((b, h, dk, dk), **f32) if want_ds0 else None
-    du_part = torch.empty((b, n, h, dk), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     bf16 = r.dtype == torch.bfloat16
-    vec = bf16 and dk % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (r, k, v, do, log_w))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _bwd_lib()
-
-    def run(c0, n_run, run_states, carry_in, carry_out):
-        dstates = torch.empty_like(run_states)
-        vec_s = dk % 4 == 0 and run_states.data_ptr() % 16 == 0 \
+    ins = [t.data_ptr() for t in (r, k, v, log_w, u, do, states)]
+    outs = [t.data_ptr() for t in (dr, dk_, dv, dlog_w)]
+    if every > 1:
+        work = torch.empty(lib.wkv6_bwd_ckpt_floats(b, h, dk, n, int(bf16)),
+                           **f32)
+        plan, steps = plan_rows(n // every)
+        err = lib.wkv6_bwd_ckpt_launch(
+            *ins, ptr(dst), *outs, du.data_ptr(), ptr(ds0), work.data_ptr(),
+            plan, steps, b, s, h, dk, int(bf16), dev.index, stream)
+    else:
+        dstates = torch.empty_like(states)
+        du_part = torch.empty((b, n, h, dk), **f32)
+        vec = bf16 and dk % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (r, k, v, do, log_w))
+        vec_s = dk % 4 == 0 and states.data_ptr() % 16 == 0 \
             and dstates.data_ptr() % 16 == 0
         err = lib.wkv6_bwd_launch(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
-            u.data_ptr(), do.data_ptr(), run_states.data_ptr(),
-            ptr(carry_in), dstates.data_ptr(), du_part.data_ptr(),
-            dr.data_ptr(), dk_.data_ptr(), dv.data_ptr(), dlog_w.data_ptr(),
-            ptr(carry_out), b, s, h, dk, c0, n_run, int(bf16), int(vec),
-            int(vec_s), stream)
-        if err != 0:
-            raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
-                               f"{err}")
-
-    def recompute(g, seg_states):
-        # the forward's state pass from checkpoint g, keeping every state
-        _forward(r, k, v, log_w, u, states[:, :, g], None, None,
-                 seg_states, g * every, every, 1)
-
-    _walk_segments(states, n, every, dst, ds0, recompute, run)
-    err = lib.wkv6_bwd_du_launch(du_part.data_ptr(), du.data_ptr(), b * n,
-                                 h * dk, stream)
+            *ins, ptr(dst), dstates.data_ptr(), du_part.data_ptr(), *outs,
+            ptr(ds0), b, s, h, dk, 0, n, int(bf16), int(vec), int(vec_s),
+            stream) or lib.wkv6_bwd_du_launch(
+                du_part.data_ptr(), du.data_ptr(), b * n, h * dk, stream)
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error {err}")
     return dr, dk_, dv, dlog_w, du, ds0

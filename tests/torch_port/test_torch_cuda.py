@@ -1483,9 +1483,10 @@ def test_checkpointed_scan_bwd_matches_the_whole_state_one(dev, scan, s, h,
                                                            state, dtype):
     """The forwards' checkpoints (``keep_every`` 16) are their whole-state
     runs' states at every 16th chunk, with the same output bits; the
-    backward kernels from the checkpoints, one segment at a time, are the
-    same bits as from every state, and within the plain backward's gates
-    (2, 16 and 3 segments)."""
+    backward kernels from the checkpoints (the plan's streams, segments
+    overlapped) are the same bits as from every state, again in a second
+    call and in a call under a non-default stream, and within the plain
+    backward's gates (2, 16 and 3 segments)."""
     from repro_torch.kernels.ssd import ssd_bwd_cuda, ssd_bwd_plain
     from repro_torch.kernels.wkv6 import (SEGMENT, wkv6_bwd_cuda,
                                           wkv6_bwd_plain)
@@ -1510,10 +1511,16 @@ def test_checkpointed_scan_bwd_matches_the_whole_state_one(dev, scan, s, h,
     assert torch.equal(ckpt, every[:, :, ::SEGMENT])
     whole = bwd(*args[:n_in], every, do, dst, want_ds0=True)
     got = bwd(*args[:n_in], ckpt, do, dst, want_ds0=True)
+    again = bwd(*args[:n_in], ckpt, do, dst, want_ds0=True)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        on_side = bwd(*args[:n_in], ckpt, do, dst, want_ds0=True)
+    torch.cuda.current_stream(dev).wait_stream(side)
     want = plain(*args, do, dst)
     torch.cuda.synchronize()
-    for g, w in zip(got, whole):
-        assert torch.equal(g, w)
+    for g, w, a, o in zip(got, whole, again, on_side):
+        assert torch.equal(g, w) and torch.equal(a, w) and torch.equal(o, w)
     _scan_bwd_gates(got, want, rows, dtype)
 
 
