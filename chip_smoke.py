@@ -347,8 +347,10 @@ Phases, in order (any failure raises and ends the run with a non-zero exit):
     the host under fake tensors) of phase 25's qwen3-8b cell and of this
     run's cell: per-card bytes within 2x of each run's measured peak,
     FLOPs beside MODEL_FLOPS, the roofline's three terms and fraction
-    beside the measured step; their figures as a JSON line
-    (``dry_run``).
+    beside the measured step, which must be no shorter than the memory
+    term (the step's bytes per fused region, `launch/traffic.py`, at the
+    card's memory rate: a bound, held in each dry run of 26c–30c); their
+    figures as a JSON line (``dry_run``).
 27. Each sequence split over a ``model`` axis of 2, the reference
     launcher's mesh for two devices.  (a) The flash forward and backward
     kernels on a block of query rows at an offset (``q_offset``) against
@@ -1676,38 +1678,25 @@ def ops_rate(dtype) -> float:
     return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
 
 
-def flash_work(q, k, v, *, causal=True, window=0,
-               q_offset=0) -> tuple[int, int]:
-    """(bytes, operations) one prefill-attention call needs: q, k and v
-    read once and o written once; a multiply-add for QK^T and one for PV
-    on every (query, key) pair the masks leave (query i at key position
-    i + q_offset)."""
-    import torch
+def kernel_work(name: str):
+    """``repro_torch.kernels.work``'s ``name``, imported at its first
+    call (torch loads after ``main`` has set its environment): the bytes
+    and operations of one kernel call, the ones the dry run counts."""
+    def work(*args, **kw):
+        from repro_torch.kernels import work as counts
 
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    qpos = torch.arange(sq)[:, None] + q_offset
-    kpos = torch.arange(sk)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= (qpos - kpos) < window
-    pairs = b * int(mask.sum())
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return nbytes, 4 * h * d * pairs
+        return getattr(counts, name)(*args, **kw)
+    work.__name__ = name
+    return work
 
 
-def decode_work(q, k_cache, v_cache, valid) -> tuple[int, int]:
-    """(bytes, operations) one decode-attention call needs: q, the mask,
-    the K and V rows of the valid slots only (nothing else decides the
-    output), o written once; QK^T and PV multiply-adds per valid slot."""
-    b, h, d = q.shape
-    hkv = k_cache.shape[2]
-    nvalid = int(valid.sum())
-    es = q.element_size()
-    nbytes = 2 * q.numel() * es + 2 * nvalid * hkv * d * es + valid.numel()
-    return nbytes, 4 * h * d * nvalid
+flash_work = kernel_work("flash_work")
+bwd_work = kernel_work("bwd_work")
+decode_work = kernel_work("decode_work")
+wkv6_work = kernel_work("wkv6_work")
+ssd_work = kernel_work("ssd_work")
+wkv6_bwd_work = kernel_work("wkv6_bwd_work")
+ssd_bwd_work = kernel_work("ssd_bwd_work")
 
 
 def sdpa_flash(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -2236,47 +2225,6 @@ def scan_err(got, want, what: str) -> float:
     return max(float(diff.max()), serr)
 
 
-def wkv6_work(r, k, v, log_w, u, s0=None) -> tuple[int, int]:
-    """(bytes, operations) one WKV6 call needs: r, k, v, log_w, u and the
-    initial state (when one is given) read once, o and the final state
-    written once; per (batch·head, chunk of 16 tokens): the inter-chunk
-    and state-update products (2·16·dk·dv each), the intra-chunk matrix
-    over its s < t pairs (a multiply-add and an exp per channel: 4
-    operations), its product with v over s <= t, and the decays of r and k
-    (an exp and a multiply each), counting an exp as one operation."""
-    b, s, h, dk = r.shape
-    n = -(-s // CHUNK)
-    es = r.element_size()
-    state = 4 * b * h * dk * dk
-    nbytes = (4 * r.numel() * es + 4 * log_w.numel() + 4 * u.numel()
-              + (0 if s0 is None else state) + state)
-    c = CHUNK
-    per = 4 * c * dk * dk + c * (c + 1) * dk + 2 * c * (c - 1) * dk \
-        + 4 * c * dk
-    return nbytes, b * h * n * per
-
-
-def ssd_work(x, bmat, cmat, dt, a_log, d_skip, s0=None) -> tuple[int, int]:
-    """(bytes, operations) one SSD call needs: x, B, C (once: the heads
-    share them), dt, a_log, D and the initial state (when one is given)
-    read once, y and the final state written once; per chunk of 16: C·Bᵀ
-    over s <= t once for all heads, and per head the decay-weighted mix
-    with x, the inter-chunk C·Sᵀ and the state update (2·16·hd·ds each),
-    the exps, the skip."""
-    b, s, h, hd = x.shape
-    ds = bmat.shape[-1]
-    n = -(-s // CHUNK)
-    es = x.element_size()
-    state = 4 * b * h * hd * ds
-    nbytes = (2 * x.numel() * es + 2 * bmat.numel() * es + 4 * dt.numel()
-              + 8 * h + (0 if s0 is None else state) + state)
-    c = CHUNK
-    shared = c * (c + 1) * ds
-    per_head = 4 * c * hd * ds + c * (c + 1) * hd + 3 * c * (c + 1) // 2 \
-        + 4 * c * hd + 3 * c
-    return nbytes, b * n * (shared + h * per_head)
-
-
 def scan_figures(kernel, plain, work, args, kw, iters=50) -> dict:
     """One call's kernel and plain times (CUDA events) and bound, after
     checking the kernel against the plain version.  No one PyTorch call
@@ -2380,63 +2328,6 @@ SCAN_BWD_NAMES = {"wkv6_bwd": ("dr", "dk", "dv", "dlog_w", "du", "ds0"),
                               "ds0")}
 SCAN_BWD_ROWS = {"wkv6_bwd": {"dr", "dk", "dv", "dlog_w"},
                  "ssd_bwd": {"dx", "dB", "dC"}}
-
-
-def wkv6_bwd_work(r, k, v, log_w, u, states, do, dst=None,
-                  want_ds0=False) -> tuple[int, int]:
-    """(bytes, operations) one WKV6 backward call needs: r, k, v, dO,
-    log_w, u, the kept states (every chunk's, or every 16th's) and dsT
-    (when given) read once, dr, dk, dv, dlog_w, du and ds0 (when asked)
-    written once (seven tensors of r's size: four read, three written);
-    per (batch·head, chunk of 16): four 16·dk·dk products (the reverse
-    pass's r_decᵀ·dO, S_in·dO, dS_out·v, k_decᵀ·dS_out), v·dO over the
-    chunk's pairs, three pair sums over s < t (an exp and three operations
-    per channel: A, dr's and dk's intra terms), A·dO over s <= t, and the
-    log-decay and u sums, counting an exp as one operation; from the
-    checkpoints also the states' recompute (the state update's 16·dk·dk
-    product, its decay and the k decays)."""
-    b, s, h, dk = r.shape
-    n = -(-s // CHUNK)
-    es = r.element_size()
-    mat = 4 * b * h * dk * dk
-    nbytes = (7 * r.numel() * es + 2 * 4 * log_w.numel() + 2 * 4 * u.numel()
-              + 4 * states.numel() + (0 if dst is None else mat)
-              + (mat if want_ds0 else 0))
-    c = CHUNK
-    per = 4 * 2 * c * dk * dk + 2 * c * c * dk + 3 * 4 * c * (c - 1) // 2 \
-        * dk + c * (c + 1) * dk + 6 * c * dk
-    if states.shape[2] != n:
-        per += 2 * c * dk * dk + dk * dk + 3 * c * dk
-    return nbytes, b * h * n * per
-
-
-def ssd_bwd_work(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None,
-                 want_ds0=False) -> tuple[int, int]:
-    """(bytes, operations) one SSD backward call needs: x, dY, B, C, dt,
-    a_log, D, the kept states (every chunk's, or every 16th's) and dsT
-    (when given) read once, dx, dB, dC, ddt, da_log, dD and ds0 (when
-    asked) written once (three tensors of x's size: x and dY read, dx
-    written); per chunk of 16: C·Bᵀ once for all heads, and per head four
-    16·hd·ds products (the reverse pass's, dS_out·B, S_inᵀ·dY,
-    dS_outᵀ·x), x·dY over the pairs, the decay-weighted sums of dx, dC and
-    dB over s <= t, the exps; from the checkpoints also the states'
-    recompute (per head the state update's 16·hd·ds product and its
-    decay)."""
-    b, s, h, hd = x.shape
-    ds = bmat.shape[-1]
-    n = -(-s // CHUNK)
-    es = x.element_size()
-    mat = 4 * b * h * hd * ds
-    nbytes = (3 * x.numel() * es + 4 * bmat.numel() * es + 2 * 4 * dt.numel()
-              + 4 * 4 * h + 4 * states.numel()
-              + (0 if dst is None else mat) + (mat if want_ds0 else 0))
-    c = CHUNK
-    pairs = c * (c + 1) // 2
-    per_head = 4 * 2 * c * hd * ds + 2 * c * c * hd + pairs * 2 * hd \
-        + pairs * 4 * ds * 2 + 3 * pairs + 8 * c * hd
-    if states.shape[2] != n:
-        per_head += 2 * c * hd * ds + hd * ds
-    return nbytes, b * n * (2 * c * c * ds + h * per_head)
 
 
 def scan_bwd_parts(op: str):
@@ -5557,18 +5448,6 @@ def phase_training_lockstep(dev) -> Counter:
     return launches
 
 
-def bwd_work(q, k, v, o, do, lse=None, *, causal=True, window=0,
-             q_offset=0) -> tuple[int, int]:
-    """(bytes, operations) of one backward call: q, o, dO, dQ and k, v,
-    dK, dV moved once, and the forward's float32 LSE read once; 10·H·d
-    operations per unmasked pair (Q·Kᵀ again, dO·Vᵀ, P·dO, dS·K, dS·Q)."""
-    _, fwd_ops = flash_work(q, k, v, causal=causal, window=window,
-                            q_offset=q_offset)
-    lse_bytes = 0 if lse is None else 4 * lse.numel()
-    return (4 * q.numel() + 4 * k.numel()) * q.element_size() + lse_bytes, \
-        fwd_ops // 4 * 10
-
-
 def sdpa_bwd_ms(q, k, v, o, do, lse=None, *, causal=True, window=0,
                 q_offset=0, iters: int = 10) -> float:
     """PyTorch's SDPA backward for the same call (the yardstick): its
@@ -5866,10 +5745,10 @@ def dry_run_against(cfg, mesh, seq: int, peak_gib: float, step_ms: float,
     """Phase 26c for one cell: the dry run (``dry``, or `dry_run_cell`'s
     now) printed beside the measured peak memory and step time; fails if
     its per-card bytes are off the peak by more than DRY_RATIO either
-    way.  The roofline's memory term is the plain path's unfused traffic
-    (every eager op's operands and result, the attention's scores
-    included), not a bound on the kernels' step, so the step is printed
-    against each term rather than as a fraction of a bound."""
+    way, or if the step is shorter than the roofline's memory term, the
+    step's traffic per fused region (`launch/traffic.py`: each kernel's
+    own bytes, each elementwise chain once, AdamW) at the card's memory
+    rate, a bound as the compute term is."""
     from repro_torch.configs import ShapeConfig, model_flops
 
     rec, row, secs = dry if dry is not None else dry_run_cell(cfg, mesh, seq,
@@ -5890,15 +5769,20 @@ def dry_run_against(cfg, mesh, seq: int, peak_gib: float, step_ms: float,
           f"and remat's second forward) against MODEL_FLOPS {mf:.4g} "
           f"(x{rec['full']['flops'] / mf:.3f}); roofline terms compute "
           f"{row['t_compute_s'] * 1e3:.2f} ms (a bound), memory "
-          f"{row['t_memory_s'] * 1e3:.2f} ms (the plain path's unfused "
-          f"traffic, not a bound), collective "
+          f"{row['t_memory_s'] * 1e3:.2f} ms (a bound: "
+          f"{rec['full']['bytes'] / 1e9:.2f} GB per fused region), "
+          f"collective "
           f"{row['t_collective_s'] * 1e3:.2f} ms; the roofline's "
           f"fraction {row['mfu_at_roofline']:.3f} (at its largest term, "
           f"{row['dominant']}) against the measured step {step_ms:.1f} ms: "
           f"{mf / (step_ms / 1e3) / BF16_OPS_PER_S:.3f} of the bf16 peak; "
           f"the step is x{step_ms / (row['t_compute_s'] * 1e3):.3f} the "
           f"compute bound and x{step_ms / (row['t_memory_s'] * 1e3):.3f} "
-          f"the unfused-traffic term")
+          f"the memory bound")
+    check(step_ms >= row["t_memory_s"] * 1e3,
+          f"{label}: the step {step_ms:.1f} ms is shorter than the "
+          f"roofline's memory term {row['t_memory_s'] * 1e3:.2f} ms, a "
+          "bound")
     check(1 / DRY_RATIO <= ratio <= DRY_RATIO,
           f"{label}: the dry run's {resident / 2**30:.2f} GiB a card is "
           f"off the measured peak {peak_gib:.2f} GiB by more than "

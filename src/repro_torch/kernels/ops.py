@@ -19,8 +19,15 @@ called directly.  On the CPU the plain versions differentiate through
 PyTorch's own autograd; the scans' under the reference's checkpointing
 (every 16th chunk state kept, each segment run again in the backward), as
 their kernels on the card keep only those states too.
+
+Under ``kernel_probe`` (the dry run, `launch/traffic.py`) each CPU call of
+an op that has a kernel on the card (attention, decode attention, the two
+scans) goes to the probe with the plain version it would run, so the
+trace can count the kernel's own bytes in its place.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -48,9 +55,10 @@ from repro_torch.kernels.wkv6 import (CHUNK, kept_stride, wkv6_bwd_cuda,
 
 __all__ = ["auction_bid_op", "auction_fused_op", "auction_solve_op",
            "decode_attention_op", "flash_attention_bwd_op",
-           "flash_attention_op", "fused_phase1_op", "lcp_affinity_op",
-           "lcp_gather_op", "launch_counts", "reset_launch_counts",
-           "ssd_bwd_op", "ssd_op", "wkv6_bwd_op", "wkv6_op"]
+           "flash_attention_op", "fused_phase1_op", "kernel_probe",
+           "lcp_affinity_op", "lcp_gather_op", "launch_counts",
+           "reset_launch_counts", "ssd_bwd_op", "ssd_op", "wkv6_bwd_op",
+           "wkv6_op"]
 
 
 _LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "auction_fused": 0,
@@ -58,6 +66,31 @@ _LAUNCHES = {"auction_bid": 0, "auction_solve": 0, "auction_fused": 0,
              "flash_attention": 0, "flash_attention_bwd": 0,
              "decode_attention": 0, "wkv6": 0, "wkv6_bwd": 0, "ssd": 0,
              "ssd_bwd": 0}
+
+
+_KERNEL_PROBE = None
+
+
+@contextlib.contextmanager
+def kernel_probe(probe):
+    """Route each CPU call of ``flash_attention_op``,
+    ``decode_attention_op``, ``wkv6_op`` and ``ssd_op`` to ``probe(name,
+    plain, args, kwargs)``, which returns ``plain(*args, **kwargs)``."""
+    global _KERNEL_PROBE
+    prev = _KERNEL_PROBE
+    _KERNEL_PROBE = probe
+    try:
+        yield
+    finally:
+        _KERNEL_PROBE = prev
+
+
+def _plain(name: str, fn, args: tuple, kwargs: dict | None = None):
+    """``fn(*args, **kwargs)``, the plain version of op ``name``, through
+    the kernel probe when one is set."""
+    if _KERNEL_PROBE is None:
+        return fn(*args, **(kwargs or {}))
+    return _KERNEL_PROBE(name, fn, args, kwargs or {})
 
 
 def _route(t: torch.Tensor) -> str:
@@ -192,8 +225,8 @@ def flash_attention_op(q, k, v, *, causal=True, window=0, q_offset=0):
                                    q_offset=q_offset)
         _LAUNCHES["flash_attention"] += 1
         return out
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+    return _plain("flash_attention", flash_attention_plain, (q, k, v),
+                  {"causal": causal, "window": window, "q_offset": q_offset})
 
 
 def flash_attention_bwd_op(q, k, v, o, do, lse, *, causal=True, window=0,
@@ -217,7 +250,8 @@ def decode_attention_op(q, k_cache, v_cache, valid):
         out = decode_attention_cuda(q, k_cache, v_cache, valid)
         _LAUNCHES["decode_attention"] += 1
         return out
-    return decode_attention_plain(q, k_cache, v_cache, valid)
+    return _plain("decode_attention", decode_attention_plain,
+                  (q, k_cache, v_cache, valid))
 
 
 def _state_grad(dst):
@@ -278,9 +312,9 @@ def wkv6_op(r, k, v, log_w, u, s0=None):
         out = wkv6_cuda(r, k, v, log_w, u, s0)
         _LAUNCHES["wkv6"] += 1
         return out
-    if _needs_grad(r, k, v, log_w, u, s0):
-        return wkv6_checkpointed(r, k, v, log_w, u, s0)
-    return wkv6_plain(r, k, v, log_w, u, s0)
+    plain = (wkv6_checkpointed if _needs_grad(r, k, v, log_w, u, s0)
+             else wkv6_plain)
+    return _plain("wkv6", plain, (r, k, v, log_w, u, s0))
 
 
 def wkv6_bwd_op(r, k, v, log_w, u, states, do, dst=None, *,
@@ -335,9 +369,9 @@ def ssd_op(x, bmat, cmat, dt, a_log, d_skip, s0=None):
         out = ssd_cuda(x, bmat, cmat, dt, a_log, d_skip, s0)
         _LAUNCHES["ssd"] += 1
         return out
-    if _needs_grad(x, bmat, cmat, dt, a_log, d_skip, s0):
-        return ssd_checkpointed(x, bmat, cmat, dt, a_log, d_skip, s0)
-    return ssd_plain(x, bmat, cmat, dt, a_log, d_skip, s0)
+    plain = (ssd_checkpointed if _needs_grad(x, bmat, cmat, dt, a_log,
+                                             d_skip, s0) else ssd_plain)
+    return _plain("ssd", plain, (x, bmat, cmat, dt, a_log, d_skip, s0))
 
 
 def ssd_bwd_op(x, bmat, cmat, dt, a_log, d_skip, states, dy, dst=None, *,

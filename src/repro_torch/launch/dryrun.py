@@ -4,8 +4,9 @@ with nothing allocated (the reference's `repro.launch.dryrun`).
 The reference lowers and compiles each cell on 256 (512) forced host
 devices and reads XLA's memory and cost analyses.  The port traces each
 cell under ``FakeTensorMode`` (tensors with shapes and dtypes, no
-storage) on the plain path, as the reference costs its jnp forms and not
-its kernels, and counts:
+storage) on the plain path (its FLOPs, as the reference costs its jnp
+forms and not its kernels; its bytes, the card's kernels' where it has
+one), and counts:
 
   * parameter and AdamW bytes per card at full depth, from the leaves'
     shapes and the policy's placements (`distributed.sharding`); on a
@@ -15,10 +16,16 @@ its kernels, and counts:
     step, the vocab-sharded table and head never whole, a rank's kept
     experts whole over the other axes only, `distributed.param_gather`);
   * FLOPs (``FlopCounterMode``; a checkpointed layer's forward counted
-    again, since the backward runs it again) and the bytes each op reads
-    and writes (views move nothing), over the per-card block: the plain
-    path's unfused traffic, which the card's fused kernels undercut, so
-    ``roofline``'s memory term is no bound;
+    again, since the backward runs it again) over the per-card block;
+  * the bytes the step moves per fused region (`launch/traffic.py`), as
+    the reference reads XLA's ``bytes accessed`` of its fused step: each
+    kernel op (attention, decode attention, the scans, their backwards)
+    its kernel's own reads and writes (`kernels/work.py`), each
+    elementwise chain once, a reduction reading the chain that feeds it,
+    views and metadata queries nothing; a checkpointed layer's forward
+    twice; for a train cell also the micro-batches' gradient sums and
+    AdamW's update over the card's shards (`update_bytes`).  So
+    ``roofline``'s memory term bounds the step as its compute term does;
   * for a train cell, the activation bytes the step keeps for the
     backward (``saved_tensors_hooks``): what the graph saves outside the
     checkpointed layers, each checkpoint's inputs, and the largest saved
@@ -66,7 +73,6 @@ import traceback
 
 import torch
 from torch.utils import _pytree as pytree
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import (SHAPES, cell_supported, get_config,
                                  list_archs, model_flops, param_counts)
@@ -78,11 +84,14 @@ from repro_torch.distributed.sharding import (DECODE_PARAM_RULES,
                                               mesh_shape, param_shardings,
                                               spec_axes)
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.traffic import ByteCounter, kernel_regions
 from repro_torch.models import build_model
 from repro_torch.models.registry import (cache_axes, decode_state_specs,
                                          input_specs)
 from repro_torch.models.scan_config import remat_probe
 from repro_torch.training.loop import split_rows
+from repro_torch.training.optimizer import (OptConfig, adamw_init,
+                                            adamw_update)
 from repro_torch.utils.hlo import collective_wire_bytes, step_collectives
 
 TRAIN_ACCUM = 4        # the reference's micro-batches a train step
@@ -127,39 +136,16 @@ def _storage(t):
     return t.untyped_storage()._cdata
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Bytes every op reads and writes (its tensor arguments and
-    results; views and metadata ops move nothing), and the largest
-    tensor an op makes."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = 0
-        self.largest = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not (func.is_view or func.overloadpacket in _FREE):
-            ins = [t for t in pytree.tree_leaves((args, kwargs))
-                   if isinstance(t, torch.Tensor)]
-            outs = [t for t in pytree.tree_leaves(out)
-                    if isinstance(t, torch.Tensor)]
-            self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
-            if outs:
-                self.largest = max(self.largest, *map(_nbytes, outs))
-        return out
-
-
-_FREE = {torch.ops.aten.detach, torch.ops.aten.alias}
-
-
 class _SavedCounter:
     """Activation bytes a training trace keeps for the backward (see the
-    module docstring), parameters left out."""
+    module docstring), parameters left out; every saved tensor and each
+    checkpoint's inputs also escape their region in ``counter``, and each
+    checkpointed layer's forward is one the card runs again."""
 
-    def __init__(self, params, flops):
+    def __init__(self, params, flops, counter: ByteCounter):
         self.params = {_storage(p) for p in params}
         self.flops = flops
+        self.counter = counter
         self.outer: dict = {}
         self.kept: dict = {}
         self.layer_peak = 0
@@ -170,6 +156,7 @@ class _SavedCounter:
             key = _storage(t)
             if key not in self.params:
                 into[key] = t.untyped_storage().nbytes()
+            self.counter.keep(t)
             return t
         return pack
 
@@ -181,10 +168,11 @@ class _SavedCounter:
         for t in pytree.tree_leaves(args):
             if isinstance(t, torch.Tensor) and _storage(t) not in self.params:
                 self.kept[_storage(t)] = t.untyped_storage().nbytes()
+        self.counter.keep(args)
         layer: dict = {}
         before = self.flops.get_total_flops()
         with torch.autograd.graph.saved_tensors_hooks(
-                self._pack_into(layer), lambda t: t):
+                self._pack_into(layer), lambda t: t), self.counter.rerun():
             out = fn(*args)
         self.recompute_flops += self.flops.get_total_flops() - before
         self.layer_peak = max(self.layer_peak, sum(layer.values()))
@@ -328,9 +316,11 @@ def trace_cell(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     """One trace of ``cfg`` (any depth) at ``shape``'s per-card block
     under ``policy``, per card: {"flops", "bytes", "act", "peak"}.  For a
     train cell ``act`` is the bytes kept through the backward and
-    ``peak`` the largest layer's saved set; for prefill and decode
-    ``act`` is 0 and ``peak`` the largest tensor made.  All but ``peak``
-    are affine in the layer count; ``peak`` is a max over layers."""
+    ``peak`` the largest layer's saved set, and ``bytes`` holds the
+    micro-batches' gradient sums and AdamW's update over the card's
+    shards (`update_bytes`); for prefill and decode ``act`` is 0 and
+    ``peak`` the largest tensor made.  All but ``peak`` are affine in the
+    layer count; ``peak`` is a max over layers."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -342,35 +332,68 @@ def trace_cell(cfg, shape, policy, *, accum: int = TRAIN_ACCUM) -> dict:
     with FakeTensorMode(allow_non_fake_inputs=True):
         params, leaves = _fake_params(model)
         rows, _ = _batch_split(policy, shape, accum)
-        counter = _ByteCounter()
+        counter = ByteCounter()
+        update = 0
         with FlopCounterMode(display=False) as flops:
             if kind == "train":
                 for p in leaves:
                     p.requires_grad_(True)
-                saved = _SavedCounter(leaves, flops)
+                saved = _SavedCounter(leaves, flops, counter)
                 batch = _fake_batch(cfg, shape, rows, seq_split)
-                with counter, saved.hooks(), remat_probe(saved.probe), \
+                with counter, kernel_regions(counter), saved.hooks(), \
+                        remat_probe(saved.probe), \
                         seq_parallel.split(seq_split):
                     loss = model.loss(params, batch)
-                    torch.autograd.grad(loss, leaves)
+                    counter.next_pass()
+                    grads = torch.autograd.grad(loss, leaves)
+                    counter.keep(loss, grads)
                 act, peak = saved.kept_bytes(), saved.layer_peak
                 extra = saved.recompute_flops
             elif kind == "prefill":
                 batch = _fake_batch(cfg, shape, rows)
-                with counter, torch.no_grad():
-                    model.prefill(params, batch)
+                with counter, kernel_regions(counter), torch.no_grad():
+                    counter.keep(model.prefill(params, batch))
                 act, peak, extra = 0, counter.largest, 0
             else:
                 cache = model.init_cache(rows, shape.seq_len,
                                          torch.device("cpu"))
                 tok = torch.zeros((rows,), dtype=torch.int32)
-                with counter, torch.no_grad():
-                    model.decode_step(params, cache, tok)
+                with counter, kernel_regions(counter), torch.no_grad():
+                    counter.keep(model.decode_step(params, cache, tok))
                 act, peak, extra = 0, counter.largest, 0
             total = flops.get_total_flops() + extra
+        if kind == "train":
+            update = update_bytes(model, params, policy, accum)
     return {"flops": float(total * accum / split),
-            "bytes": float(counter.bytes * accum / split),
+            "bytes": float(counter.bytes * accum / split + update),
             "act": float(act / split), "peak": float(peak / split)}
+
+
+def update_bytes(model, params, policy, accum: int) -> int:
+    """Bytes a train step moves after its micro-batches' backwards, over
+    the card's shards of ``params`` (fake tensors): the gradient sums
+    ``training.loop.loss_and_grads`` forms over ``accum`` micro-batches
+    (each micro-batch's sum a pass of its own, as its forward and backward
+    lie between) and ``training.optimizer.adamw_update`` (each leaf's
+    in-place passes one region, the global norm one reduction)."""
+    specs = param_shardings(policy, params, model.param_axes())
+    leaves = [torch.empty(local_shape(policy.mesh, specs[n], tuple(p.shape)),
+                          dtype=p.dtype)
+              for n, p in params.named_parameters()]
+    grads = [torch.empty_like(p) for p in leaves]
+    state = adamw_init(leaves)
+    counter = ByteCounter()
+    with counter:
+        if accum > 1:
+            acc = [torch.zeros_like(p) for p in leaves]
+            for i in range(accum):
+                if i:
+                    counter.next_pass()
+                acc = [a + g for a, g in zip(acc, grads)]
+            grads = [a * (1.0 / accum) for a in acc]
+        _, new, stats = adamw_update(leaves, grads, state, OptConfig())
+        counter.keep(new["step"], stats)
+    return counter.bytes
 
 
 def layer_unit(path: str):

@@ -8,17 +8,14 @@ variant-extrapolated costs (all numbers per card):
     t_memory     = bytes_dev / HBM_BW              (3.35 TB/s)
     t_collective = wire_bytes_dev / NVLINK_BW      (450 GB/s a direction)
 
-``t_compute`` and ``t_collective`` are lower bounds on the step.
-``t_memory`` is not: the dry run's bytes are the plain path's unfused
-traffic, every eager op reading its operands and writing its result (the
-attention's score matrices included), where the reference's are XLA's
-after fusion.  The card's kernels fuse, so a measured step can be faster
-than ``t_memory`` (phase 25's qwen3-8b cell: 1,182 ms against a 680 ms
-step, PERF.md §6).  The largest term is reported as ``dominant`` and
-"roofline fraction" = useful model flops / (cards * PEAK * t_dominant),
-as in the reference; where ``dominant`` is memory both carry that
-caveat.  ``fits_hbm80`` holds the resident bytes against one card's
-80 GB.
+All three are lower bounds on the step.  The dry run's bytes are the
+step's traffic per fused region (`launch/traffic.py`), as the reference
+reads XLA's ``bytes accessed`` of its fused step: each hand-written
+kernel's own reads and writes, each elementwise chain once, the
+micro-batches' gradient sums and AdamW's update.  The largest term is
+reported as ``dominant`` and "roofline fraction" = useful model flops /
+(cards * PEAK * t_dominant), as in the reference.  ``fits_hbm80`` holds
+the resident bytes against one card's 80 GB.
 
 Usage: ``python -m repro_torch.roofline [artifacts/dryrun_torch]
 [--mesh mesh16x16] [--json rows.json]``.
@@ -51,7 +48,7 @@ def analyze(rec: dict) -> dict | None:
     hbytes = max(src["bytes"], full["bytes"], 0.0)
     coll = max(src["coll"], full["coll"], 0.0)
     t_c = flops / PEAK_FLOPS
-    t_m = hbytes / HBM_BW      # unfused traffic, not a bound (docstring)
+    t_m = hbytes / HBM_BW
     t_x = coll / NVLINK_BW
     terms = {"compute": t_c, "memory": t_m, "collective": t_x}
     dominant = max(terms, key=terms.get)
@@ -95,11 +92,10 @@ def load_all(art_dir: str, mesh: str = "mesh16x16") -> list[dict]:
 
 
 def format_table(rows: list[dict]) -> str:
-    hdr = (f"{'arch':22s} {'shape':12s} {'t_comp':>9s} {'t_mem*':>9s} "
+    hdr = (f"{'arch':22s} {'shape':12s} {'t_comp':>9s} {'t_mem':>9s} "
            f"{'t_coll':>9s} {'dom':>5s} {'useful':>7s} {'MFU@roof':>8s} "
            f"{'mem GB':>7s} fit")
-    lines = ["t_mem*: the plain path's unfused traffic, not a bound",
-             hdr, "-" * len(hdr)]
+    lines = [hdr, "-" * len(hdr)]
     for r in rows:
         if "skip" in r:
             lines.append(f"{r['arch']:22s} {r['shape']:12s} SKIP: {r['skip'][:70]}")

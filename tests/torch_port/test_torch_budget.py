@@ -16,6 +16,7 @@ TIER1_MODULES = {
     "test_torch_cluster",
     "test_torch_cuda",
     "test_torch_dryrun",
+    "test_torch_dryrun_fused",
     "test_torch_encdec_vlm",
     "test_torch_engine",
     "test_torch_federation",

@@ -12,7 +12,9 @@ Checked:
   cell's depth, for every arch at a reduced width and a train, a
   prefill and a decode shape: FLOPs, bytes and kept activations by the
   coefficients, the largest layer's saved set (or tensor) as the
-  variants' max;
+  variants' max; the direct trace's FLOPs, kept activations and largest
+  saved set (or tensor) the values the unfused byte counter's trace gave
+  (the fused count, `launch/traffic.py`, changes the bytes only);
 * ``state_bytes`` against a hand count from the leaves' shapes and the
   policy's specs, at meshes (1, 1) and (16, 16), and every arch's
   decode-cell cache by hand; a full-width qwen3-8b train cell's FLOPs
@@ -128,6 +130,41 @@ def _reduced(arch):
 CELLS = [ShapeConfig("t", "train", 48, 4), ShapeConfig("p", "prefill", 40, 2),
          ShapeConfig("d", "decode", 48, 2)]
 
+# the direct trace of each arch's CELLS above, counted by the unfused
+# rule: (FLOPs, act, peak) per kind
+PINNED = {
+    "deepseek-coder-33b": {"train": (283115520, 272718, 574464),
+                           "prefill": (26935296, 0, 51200),
+                           "decode": (753664, 0, 12288)},
+    "deepseek-v2-lite-16b": {"train": (3596746752, 272718, 17200512),
+                             "prefill": (371941376, 0, 3502080),
+                             "decode": (9702400, 0, 131072)},
+    "llava-next-34b": {"train": (283115520, 272590, 574464),
+                       "prefill": (26935296, 0, 51200),
+                       "decode": (753664, 0, 12288)},
+    "mixtral-8x22b": {"train": (322437120, 272718, 1224848),
+                      "prefill": (31031296, 0, 131072),
+                      "decode": (1118208, 0, 131072)},
+    "qwen2-72b": {"train": (283115520, 272718, 574464),
+                  "prefill": (26935296, 0, 51200),
+                  "decode": (753664, 0, 12288)},
+    "qwen2.5-32b": {"train": (283115520, 272718, 574464),
+                    "prefill": (26935296, 0, 51200),
+                    "decode": (753664, 0, 12288)},
+    "qwen3-8b": {"train": (283115520, 272718, 650496),
+                 "prefill": (26935296, 0, 51200),
+                 "decode": (753664, 0, 12288)},
+    "rwkv6-3b": {"train": (489160704, 272718, 1963008),
+                 "prefill": (49610752, 0, 131072),
+                 "decode": (1261568, 0, 8192)},
+    "seamless-m4t-medium": {"train": (557842432, 387662, 748416),
+                            "prefill": (59441152, 0, 51200),
+                            "decode": (1015808, 0, 24576)},
+    "zamba2-7b": {"train": (651165696, 248142, 2358536),
+                  "prefill": (67158016, 0, 93440),
+                  "decode": (1632256, 0, 24576)},
+}
+
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_variant_extrapolation_equals_full_depth_trace(arch):
@@ -137,6 +174,8 @@ def test_variant_extrapolation_equals_full_depth_trace(arch):
     for shape in CELLS:
         policy = dryrun.build_policy(M11, shape.kind, shape.name)
         direct = dryrun.trace_cell(cfg, shape, policy, accum=2)
+        assert (direct["flops"], direct["act"], direct["peak"]) == \
+            PINNED[arch][shape.kind], (arch, shape.kind)
         plan = dryrun.variant_plan(cfg)
         parts = [(c, dryrun.trace_cell(dataclasses.replace(cfg, **o), shape,
                                        policy, accum=2)) for o, c in plan]

@@ -212,11 +212,12 @@ def test_the_dry_runs_probe_counts_each_segments_inputs_once():
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.dryrun import _SavedCounter
+    from repro_torch.launch.traffic import ByteCounter
 
     args, do, _ = _wkv6_case(512, True)
     leaves = [t(a).requires_grad_(True) for a in args]
     with FlopCounterMode(display=False) as flops:
-        saved = _SavedCounter([], flops)
+        saved = _SavedCounter([], flops, ByteCounter())
         with saved.hooks():
             out, _ = saved.probe(ops.wkv6_op, leaves)
             torch.autograd.grad(out, leaves, t(do))
